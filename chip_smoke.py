@@ -9,10 +9,11 @@ Run from the root of a checkout on a machine with a CUDA GPU and ``nvcc``:
 Phases (any failure raises and exits non-zero):
  1. the card's name and power limit, the torch version, and the build of
     the decode-attention kernels from ``deepspeed_tpu_torch/ops/csrc``;
- 2. each kernel against its plain PyTorch version on the card at the main
-    path's shapes (plus a GQA shape and fp32 inputs), with its time beside
-    the plain version's, a ``scaled_dot_product_attention`` yardstick's,
-    and its memory-bandwidth bound;
+ 2. each kernel against its plain PyTorch version on the card at the shape
+    the main path gives it (plus B=8 ragged, GQA and fp32 cases), with its
+    time at that shape (per eager call, and replayed from a CUDA graph)
+    beside the plain version's, a
+    ``scaled_dot_product_attention`` yardstick's, and its bound;
  3. ``init_inference(...).generate`` on GPT-2 125M (bf16, random weights
     from a seeded generator): 4 x 128-token prompts, 64 new tokens;
  4. ``init_serving(...).serve`` on the same weights: 16 requests, half of
@@ -49,9 +50,11 @@ def log(msg: str) -> None:
 
 # --------------------------------------------------------------- phase 2
 def timed_ms(fn, flush, iters: int = 100) -> float:
-    """Median device time of ``fn()`` over ``iters`` calls, each after
-    overwriting a 128 MB buffer so the 50 MB L2 starts cold, as it does for
-    each layer's slice of the KV cache on the serving path."""
+    """Median CUDA-event time of one ``fn()`` call over ``iters`` calls,
+    each after overwriting a 128 MB buffer so the 50 MB L2 starts cold, as
+    it does for each layer's slice of the KV cache on the serving path.
+    The events bracket the eager call, so host dispatch that outlasts the
+    flush is counted too."""
     import statistics
 
     import torch
@@ -72,19 +75,61 @@ def timed_ms(fn, flush, iters: int = 100) -> float:
     return statistics.median(times)
 
 
-def make_case(kind, b, h, hkv, t, d, dtype, seed, bs=32, nbper=32):
-    """Inputs of one kernel call at ragged positions (incl. 0 and the last
-    position); paged cases get shuffled tables whose entries past each
-    row's last block are -1, plus one -1 inside row 1's span (it reads
-    scratch block 0, in both the kernel and the plain version)."""
+def graph_ms(fn, flush, iters: int = 100) -> float:
+    """As :func:`timed_ms`, but ``fn`` is captured once in a CUDA graph and
+    replayed, so the time is the card's alone, without the host's dispatch
+    of the call."""
+    import statistics
+
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    del graph
+    return statistics.median(times)
+
+
+def make_case(kind, b, h, hkv, t, d, dtype, seed, bs=32, nbper=32,
+              pos="ragged"):
+    """Inputs of one kernel call.  ``pos``: "ragged" (per-row positions incl.
+    0 and the last position), "chunks" (per-row window bases on multiples of
+    ``t``, incl. 0 and the last, as chunked prefill gives them), or an int
+    shared by every row (as ``generate`` gives it).  Paged cases get
+    shuffled tables whose entries past each row's last block are -1, plus
+    one -1 inside row 1's span (it reads scratch block 0, in both the kernel
+    and the plain version)."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
     s = nbper * bs
     last = s - t                                   # largest window base
-    pos = np.concatenate([[0, last], rng.integers(1, last, b - 2)])
-    pos = pos.astype(np.int32)
+    if pos == "ragged":
+        rows = np.concatenate([[0, last], rng.integers(1, last, b - 2)])
+    elif pos == "chunks":
+        rows = t * np.concatenate([[0, last // t],
+                                   rng.integers(1, last // t, b - 2)])
+    else:
+        rows = np.full(b, int(pos))
+    rows = rows.astype(np.int32)
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(seed)
 
@@ -92,18 +137,27 @@ def make_case(kind, b, h, hkv, t, d, dtype, seed, bs=32, nbper=32):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
     case = {"kind": kind, "q": rand(b, h, t, d), "t": t, "hkv": hkv,
-            "pos": torch.as_tensor(pos, device=dev)}
+            "pos": int(pos) if isinstance(pos, int)
+            else torch.as_tensor(rows, device=dev)}
     if kind == "contiguous":
         case["k"], case["v"] = rand(b, hkv, s, d), rand(b, hkv, s, d)
         return case
     nb = 1 + b * nbper
     tables = rng.permutation(np.arange(1, nb)).reshape(b, nbper)
     for row in range(b):
-        tables[row, (int(pos[row]) + t - 1) // bs + 1:] = -1
+        tables[row, (int(rows[row]) + t - 1) // bs + 1:] = -1
     tables[1, 0] = -1
     case["k"], case["v"] = rand(nb, hkv, bs, d), rand(nb, hkv, bs, d)
     case["bt"] = torch.as_tensor(tables.astype(np.int32), device=dev)
     return case
+
+
+def row_pos(case):
+    """The case's positions as an int64 [B] tensor on the card."""
+    import torch
+
+    b = case["q"].shape[0]
+    return torch.as_tensor(case["pos"], device="cuda").long().expand(b)
 
 
 def run_kernel(case):
@@ -141,7 +195,7 @@ def library_call(case):
         k, v = paged_gather(case["k"], case["bt"]), \
             paged_gather(case["v"], case["bt"])
     s, t = k.shape[2], case["t"]
-    qpos = case["pos"].long()[:, None] + torch.arange(t, device="cuda")
+    qpos = row_pos(case)[:, None] + torch.arange(t, device="cuda")
     mask = torch.arange(s, device="cuda")[None, None, :] <= qpos[:, :, None]
     mask = mask[:, None]
     q = case["q"]
@@ -156,7 +210,7 @@ def bound(case):
     q = case["q"]
     b, h, t, d = q.shape
     hkv, item = case["hkv"], q.element_size()
-    keys = (case["pos"].long() + t).tolist()
+    keys = (row_pos(case) + t).tolist()
     nbytes = 2 * q.numel() * item + 4 * b
     nbytes += sum(keys) * hkv * d * 2 * item
     if case["kind"] != "contiguous":
@@ -179,22 +233,34 @@ def check_kernels():
     names = {"contiguous": "decode_attention_cuda",
              1: "paged_decode_attention_cuda",
              "verify": "paged_verify_attention_cuda"}
-    cases = [  # (label, kind, B, H, HKV, T, dtype, timed as the main shape)
-        ("B2 main", "contiguous", 8, 12, 12, 1, bf16, True),
-        ("B3 main", "paged", 8, 12, 12, 1, bf16, True),
-        ("B4 main T=16", "paged", 8, 12, 12, 16, bf16, True),
-        ("B4 T=2", "paged", 8, 12, 12, 2, bf16, False),
-        ("B2 GQA", "contiguous", 8, 8, 2, 1, bf16, False),
-        ("B3 GQA", "paged", 8, 8, 2, 1, bf16, False),
-        ("B4 GQA T=16", "paged", 8, 8, 2, 16, bf16, False),
-        ("B2 fp32", "contiguous", 8, 12, 12, 1, f32, False),
-        ("B3 fp32", "paged", 8, 12, 12, 1, f32, False),
-        ("B4 fp32 T=16", "paged", 8, 12, 12, 16, f32, False),
+    # (label, kind, B, H, HKV, T, dtype, NBPER, positions, timed): the
+    # timed cases are the shapes the main path gives each kernel — B2 in
+    # phase 3's generate (4 rows, 256-key cache, one shared int position),
+    # B3 in phase 4's decode steps (8 slots, ragged lengths), B4 in phase
+    # 5's prefill windows (prefill_batch 4, bases on multiples of 16)
+    cases = [
+        ("B2 main", "contiguous", 4, 12, 12, 1, bf16, 8, 160, True),
+        ("B3 main", "paged", 8, 12, 12, 1, bf16, 32, "ragged", True),
+        ("B4 main T=16", "paged", 4, 12, 12, 16, bf16, 32, "chunks", True),
+        ("B2 B=8 ragged", "contiguous", 8, 12, 12, 1, bf16, 32, "ragged",
+         False),
+        ("B4 B=8 T=16 ragged", "paged", 8, 12, 12, 16, bf16, 32, "ragged",
+         False),
+        ("B4 T=2", "paged", 8, 12, 12, 2, bf16, 32, "ragged", False),
+        ("B2 GQA", "contiguous", 8, 8, 2, 1, bf16, 32, "ragged", False),
+        ("B3 GQA", "paged", 8, 8, 2, 1, bf16, 32, "ragged", False),
+        ("B4 GQA T=16", "paged", 8, 8, 2, 16, bf16, 32, "ragged", False),
+        ("B2 fp32", "contiguous", 8, 12, 12, 1, f32, 32, "ragged", False),
+        ("B2 fp32 int pos", "contiguous", 4, 12, 12, 1, f32, 8, 160, False),
+        ("B3 fp32", "paged", 8, 12, 12, 1, f32, 32, "ragged", False),
+        ("B4 fp32 T=16", "paged", 8, 12, 12, 16, f32, 32, "ragged", False),
     ]
     flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
     out = {}
-    for seed, (label, kind, b, h, hkv, t, dtype, main) in enumerate(cases):
-        case = make_case(kind, b, h, hkv, t, 64, dtype, seed)
+    for seed, (label, kind, b, h, hkv, t, dtype, nbper, pos, main) in \
+            enumerate(cases):
+        case = make_case(kind, b, h, hkv, t, 64, dtype, seed, nbper=nbper,
+                         pos=pos)
         got = run_kernel(case)
         want = run_plain(case)
         torch.cuda.synchronize()
@@ -211,13 +277,16 @@ def check_kernels():
         name = names["contiguous" if kind == "contiguous"
                      else (1 if t == 1 else "verify")]
         ms = timed_ms(lambda: run_kernel(case), flush)
+        ms_graph = graph_ms(lambda: run_kernel(case), flush)
         plain_ms = timed_ms(lambda: run_plain(case), flush)
         library_ms = timed_ms(library_call(case), flush)
         bound_ms, bound_by = bound(case)
-        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        out[name] = {"max_abs_err": err, "ms": ms, "graph_ms": ms_graph,
+                     "plain_ms": plain_ms,
                      "library_ms": library_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by}
-        log(f"[kernels] {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+        log(f"[kernels] {label}: kernel {ms:.4f} ms ({ms_graph:.4f} ms "
+            f"replayed from a CUDA graph), plain {plain_ms:.4f} ms,"
             f" sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     del flush
     return out
@@ -297,7 +366,8 @@ def main_path():
         raise AssertionError("generate never launched decode_attention_cuda")
     log(f"[generate] 4 x (128 + 64) tokens in {dt_gen:.3f} s: "
         f"{4 * 64 / dt_gen:.1f} generated tok/s (incl. prefill); "
-        f"decode_attention_cuda launches {c3['decode_attention_cuda']}")
+        f"decode_attention_cuda launches {c3['decode_attention_cuda']} "
+        f"({c3['decode_attention_cuda'] / (4 * 64):.3f} per generated token)")
 
     # phase 4: serve
     srv = dt.init_serving(model, config={"dtype": "bf16"},
@@ -345,8 +415,13 @@ def main_path():
     torch.cuda.synchronize()
     c5 = {k: v - c3[k] - c4[k] for k, v in counts().items()}
     agree16 = [agreement(res16[r.uid], res[r.uid]) for r in sub]
-    log(f"[serve chunk=16] {len(sub)} requests; paged_verify_attention_cuda "
-        f"launches {c5['paged_verify_attention_cuda']}; prefix_hit_tokens "
+    n_gen16 = srv16.stats()["generated_tokens"]
+    log(f"[serve chunk=16] {len(sub)} requests, {n_gen16} generated tokens; "
+        f"paged_verify_attention_cuda launches "
+        f"{c5['paged_verify_attention_cuda']} "
+        f"({c5['paged_verify_attention_cuda'] / n_gen16:.3f} per generated "
+        f"token); paged_decode_attention_cuda launches "
+        f"{c5['paged_decode_attention_cuda']}; prefix_hit_tokens "
         f"{srv16.stats()['prefix_hit_tokens']}; agreement with phase 4 "
         f"{agree16}, first divergence "
         f"{[first_divergence(res16[r.uid], res[r.uid]) for r in sub]}")
@@ -463,6 +538,7 @@ def main() -> int:
             "replaces": replaces[fn.__name__],
             "launches": launches[fn.__name__],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "graph_ms": m["graph_ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

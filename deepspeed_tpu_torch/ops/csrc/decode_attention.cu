@@ -237,8 +237,10 @@ int launch(const void* q, const void* k, const void* v, const void* bt,
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 float32, 1 float16, 2 bfloat16.  Unsupported (dtype, D) pairs
-// return cudaErrorInvalidValue; the Python wrapper checks them first.
+// dtype: 0 float32, 1 float16, 2 bfloat16.  D: 64 (GPT-2); another head
+// dim is instantiated with the model family that needs it.  Unsupported
+// (dtype, D) pairs return cudaErrorInvalidValue; the Python wrapper checks
+// them first.
 template <bool PAGED>
 int dispatch(int dtype, int D, const void* q, const void* k, const void* v,
              const void* bt, const void* pos, void* out, int B, int H,
@@ -247,11 +249,9 @@ int dispatch(int dtype, int D, const void* q, const void* k, const void* v,
 #define DS_CASE(TYPE, DIM)                                                    \
   return launch<TYPE, DIM, PAGED>(q, k, v, bt, pos, out, B, H, HKV, win, S, \
                                   bs, nbper, scale, stream)
-#define DS_DIMS(TYPE)          \
-  switch (D) {                 \
-    case 32: DS_CASE(TYPE, 32); \
-    case 64: DS_CASE(TYPE, 64); \
-    case 128: DS_CASE(TYPE, 128); \
+#define DS_DIMS(TYPE)                           \
+  switch (D) {                                  \
+    case 64: DS_CASE(TYPE, 64);                 \
     default: return (int)cudaErrorInvalidValue; \
   }
   switch (dtype) {

@@ -36,7 +36,9 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 #: use the gather-based plain path
 VERIFY_T_MAX = 16
 
-_HEAD_DIMS = (32, 64, 128)
+#: head dims the library is built for (GPT-2's 64; others come with the
+#: model families that need them)
+_HEAD_DIMS = (64,)
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _SMEM_LIMIT = 227 * 1024
 
@@ -198,9 +200,11 @@ def decode_attention_cuda(q, k_cache, v_cache, q_pos, *,
 decode_attention_cuda.launches = 0
 
 
-def _paged_cuda(name, entry, q, k_pool, v_pool, block_tables, q_pos,
+def _paged_cuda(wrapper, entry, q, k_pool, v_pool, block_tables, q_pos,
                 sm_scale):
-    """Shared checks + launch of the two paged kernels."""
+    """Shared checks + launch of the two paged kernels; counts the launch
+    on ``wrapper``."""
+    name = wrapper.__name__
     b, h, t, d = q.shape
     nb, hkv, bs, _ = k_pool.shape
     if k_pool.shape != (nb, hkv, bs, d) or v_pool.shape != k_pool.shape:
@@ -225,6 +229,7 @@ def _paged_cuda(name, entry, q, k_pool, v_pool, block_tables, q_pos,
     args += [bs, block_tables.shape[1], d, _DTYPE_CODES[q.dtype], scale,
              _stream(q.device)]
     _raise_on_error(name, getattr(_lib(), entry)(*args))
+    wrapper.launches += 1
     return out
 
 
@@ -239,11 +244,9 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, block_tables, q_pos, *,
     if q.shape[2] != 1:
         raise ValueError(f"paged_decode_attention_cuda is single-token, got "
                          f"T={q.shape[2]}")
-    out = _paged_cuda("paged_decode_attention_cuda",
-                      "ds_paged_decode_attention", q, k_pool, v_pool,
-                      block_tables, q_pos, sm_scale)
-    paged_decode_attention_cuda.launches += 1
-    return out
+    return _paged_cuda(paged_decode_attention_cuda,
+                       "ds_paged_decode_attention", q, k_pool, v_pool,
+                       block_tables, q_pos, sm_scale)
 
 
 paged_decode_attention_cuda.launches = 0
@@ -261,11 +264,9 @@ def paged_verify_attention_cuda(q, k_pool, v_pool, block_tables, q_pos, *,
     if not 1 <= t <= VERIFY_T_MAX:
         raise ValueError(f"paged_verify_attention_cuda takes windows up to "
                          f"{VERIFY_T_MAX}, got T={t}")
-    out = _paged_cuda("paged_verify_attention_cuda",
-                      "ds_paged_verify_attention", q, k_pool, v_pool,
-                      block_tables, q_pos, sm_scale)
-    paged_verify_attention_cuda.launches += 1
-    return out
+    return _paged_cuda(paged_verify_attention_cuda,
+                       "ds_paged_verify_attention", q, k_pool, v_pool,
+                       block_tables, q_pos, sm_scale)
 
 
 paged_verify_attention_cuda.launches = 0

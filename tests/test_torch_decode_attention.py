@@ -97,3 +97,21 @@ def test_wide_window_takes_the_plain_path_and_cpu_never_counts():
     assert [fn.launches for fn in tda.KERNELS] == [0, 0, 0]
     assert tda.VERIFY_T_MAX == jda.VERIFY_T_MAX
     assert tda.NEG_INF == jda.NEG_INF
+
+
+def test_row_pos_takes_an_int_or_a_row_tensor():
+    """The wrappers' positions: an int (``generate`` decodes every row at one
+    position) broadcasts to int32 [B]; a 0-d or [B] tensor is cast; a tensor
+    of another size or on another device than the queries raises."""
+    cpu = torch.device("cpu")
+    for q_pos in (160, torch.tensor(160), torch.tensor([160] * 4)):
+        got = tda._row_pos(q_pos, 4, cpu)
+        assert got.dtype == torch.int32 and got.tolist() == [160] * 4
+        assert got.is_contiguous()
+    got = tda._row_pos(torch.tensor([0, 7, 1023, 5], dtype=torch.int64), 4,
+                       cpu)
+    assert got.dtype == torch.int32 and got.tolist() == [0, 7, 1023, 5]
+    with pytest.raises(ValueError):
+        tda._row_pos(torch.tensor([1, 2]), 4, cpu)
+    with pytest.raises(ValueError):
+        tda._row_pos(torch.tensor([1, 2, 3, 4], device="meta"), 4, cpu)

@@ -1,7 +1,6 @@
 """The PyTorch port's paged-KV host structures and device ops against the
 JAX package: chain keys and checksums byte-identical, allocator and prefix
-trie behaviour, the paged scatter/gather in fp32, and the copied config and
-LRU helpers."""
+trie behaviour, the paged scatter/gather in fp32, and the copied config."""
 
 import numpy as np
 import pytest
@@ -15,7 +14,6 @@ from deepspeed_tpu.ops import paged_kv as jkv
 from deepspeed_tpu_torch.inference import paged as tpaged
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
 from deepspeed_tpu_torch.ops import paged_kv as tkv
-from deepspeed_tpu_torch.utils.lru import LRUCache
 
 
 @pytest.mark.parametrize("block_size", [1, 4, 16])
@@ -156,17 +154,3 @@ def test_inference_config_keys_and_aliases():
         DeepSpeedInferenceConfig(strict=True, no_such_key=1)
     assert DeepSpeedInferenceConfig(no_such_key=1).no_such_key == 1
 
-
-def test_lru_cache_hit_refreshes_and_capacity_bounds():
-    c = LRUCache(capacity=2)
-    c.put("a", 1)
-    c.put("b", 2)
-    assert c.get("a") == 1
-    c.put("c", 3)                              # evicts LRU = "b"
-    assert "b" not in c and "a" in c and "c" in c
-    built = []
-    assert c.get_or_build("a", lambda: 99, on_build=built.append) == 1
-    assert c.get_or_build("d", lambda: 4, on_build=built.append) == 4
-    assert built == [4] and list(c) == ["a", "d"]
-    with pytest.raises(ValueError):
-        LRUCache(0)
