@@ -19,6 +19,13 @@ Phases (any failure raises and exits non-zero):
     train phase's shape (bf16, causal, B=8, H=12, S=1024, D=64) and at
     phase 9's (B=2, S=2048), plus S=1000 (unaligned), GQA, non-causal,
     fp32 and the lse/delta taking dq and dkv calls;
+ 2c. the same for the int8 kernels of the quantized lane: the kv8 variants
+    of the paged decode and verify kernels (int8 pools with per-token bf16
+    scales; bf16, fp32 and GQA cases), and the w8a8 (B5), stacked w8a8 (B6)
+    and weight-only (B7) matmuls at GPT-2 125M's four (K, N) shapes, 8, 4
+    and 1 rows, bf16 and fp32 activations; each of B5-B7 must give every
+    row the same bits in a 1-, 4- or 8-row call, and B6 the bits of B5 on
+    the same layer;
  3. ``init_inference(...).generate`` on GPT-2 125M (bf16, random weights
     from a seeded generator): 4 x 128-token prompts, 64 new tokens;
  4. ``init_serving(...).serve`` on the same weights: 16 requests, half of
@@ -39,12 +46,25 @@ Phases (any failure raises and exits non-zero):
  8. fp32 on a small config: the flash kernels' loss and grads equal einsum
     attention's within 1e-4, and a 3-step loss trajectory within 2e-4;
  9. 2 ``train_batch`` steps at ``max_seq_len=2048`` (2 layers, full width,
-    micro-batch 2): the long-sequence regime on a path.
+    micro-batch 2): the long-sequence regime on a path;
+ 10. the quantized lane on phase 3's weights and phases 3-5's traffic:
+    w8a8 ``generate`` (B6), ``serve`` with ``quantize="w8a8+kv8"`` (B6, kv8
+    B3), a ``quantize="w8a8"`` server (float pool), a ``prefill_chunk=16``
+    kv8 server (kv8 B4), w8a8 ``generate`` with ``DS_INDEXED_DECODE=0`` (B5;
+    its tokens must equal the first run's) and weight-only ``generate``
+    with ``DS_QMM=1`` (B7).  The w8a8 server's tokens must agree with w8a8
+    ``generate`` on >= 0.95 of each request's positions (the same
+    arithmetic); the kv8 pool is another arithmetic than ``generate``'s
+    float cache, so the kv8 lanes are held, as the w8a8 one is, by the
+    teacher-forced logit RMSE against the bf16 float lane, within
+    W8A8_MAX_LOGIT_RMSE; their token agreement is reported.  Then one
+    profiled window of decode iterations, float lane against w8a8+kv8.
 
 Each main path is read alone: the decode kernels' counts are set to 0
 before phase 3 and read after phase 5, the flash kernels' before phase 7
-and after it.  The last two lines of output are the ``{"kernels": [...]}``
-JSON object and the ``{"ok": true, "device": ...}`` JSON object.
+and after it, the int8 kernels' before phase 10 and after its five runs.
+The last two lines of output are the ``{"kernels": [...]}`` JSON object
+and the ``{"ok": true, "device": ...}`` JSON object.
 """
 
 from __future__ import annotations
@@ -56,6 +76,10 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
+INT8_OPS_PER_S = 1979e12           # H100 SXM dense int8 tensor-core peak
+#: the JAX package's bound on the teacher-forced logit RMSE of a quantized
+#: lane against the full-precision one (tests/unit/test_quant_serving.py)
+W8A8_MAX_LOGIT_RMSE = 0.15
 BF16_TOL = 2e-2                    # bf16 inputs: one bf16 ulp of the output
 FP32_TOL = 2e-5                    # fp32: summation order only
 # flash attention in bf16, element by element: |got - want| <= RTOL |want|
@@ -216,39 +240,45 @@ def run_plain(case):
 
 
 def library_call(case):
-    """``scaled_dot_product_attention`` over the (pre-gathered) KV with the
-    same causal-by-position mask — a yardstick timed here only."""
+    """``scaled_dot_product_attention`` over the (pre-gathered, for an int8
+    pool dequantized) KV with the same causal-by-position mask — a
+    yardstick timed here only."""
     import torch
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.ops.paged_kv import paged_gather
 
+    q = case["q"]
     if case["kind"] == "contiguous":
         k, v = case["k"], case["v"]
     else:
-        k, v = paged_gather(case["k"], case["bt"]), \
-            paged_gather(case["v"], case["bt"])
+        k, v = paged_gather(case["k"], case["bt"], out_dtype=q.dtype), \
+            paged_gather(case["v"], case["bt"], out_dtype=q.dtype)
     s, t = k.shape[2], case["t"]
     qpos = row_pos(case)[:, None] + torch.arange(t, device="cuda")
     mask = torch.arange(s, device="cuda")[None, None, :] <= qpos[:, :, None]
     mask = mask[:, None]
-    q = case["q"]
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
 
 def bound(case):
     """(bound_ms, bound_by): the least time for the bytes each call must
     move (q, out, positions, the table entries it walks, and the K and V of
-    every key some query row may see) at 3.35 TB/s, against its flops
-    (QK and PV, 4 per key, row and dim) at the bf16 peak."""
+    every key some query row may see — codes and scales for an int8 pool)
+    at 3.35 TB/s, against its flops (QK and PV, 4 per key, row and dim) at
+    the bf16 peak."""
+    from deepspeed_tpu_torch.ops.paged_kv import is_quantized_pool, pool_payload
+
     q = case["q"]
     b, h, t, d = q.shape
     hkv, item = case["hkv"], q.element_size()
     keys = (row_pos(case) + t).tolist()
     nbytes = 2 * q.numel() * item + 4 * b
-    nbytes += sum(keys) * hkv * d * 2 * item
+    # a float key or value vector, or int8 codes plus one bf16 scale
+    per_vec = d + 2 if is_quantized_pool(case["k"]) else d * item
+    nbytes += sum(keys) * hkv * per_vec * 2
     if case["kind"] != "contiguous":
-        bs = case["k"].shape[2]
+        bs = pool_payload(case["k"]).shape[2]
         nbytes += 4 * sum(math.ceil(n / bs) for n in keys)
     flops = sum(keys) * hkv * (h // hkv) * t * d * 4
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
@@ -525,6 +555,214 @@ def check_flash_kernels():
     return out
 
 
+# -------------------------------------------------------------- phase 2c
+#: GPT-2 125M's (K, N) matmul shapes: qkv, out projection, fc, proj
+GPT2_MATMULS = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
+
+
+def kv8_case(case):
+    """The float case with its pools stored as kv8 serving stores them:
+    int8 codes plus one bf16 scale per token vector (``quantize_kv``)."""
+    from deepspeed_tpu_torch.ops.quantization import quantize_kv
+
+    out = dict(case)
+    for key in ("k", "v"):
+        codes, scale = quantize_kv(case[key])
+        out[key] = {"qp": codes, "ps": scale}
+    return out
+
+
+def check_kv8_kernels(flush):
+    """Phase 2c, first half: the kv8 paged decode and verify kernels
+    against their plain versions (which dequantize to the query dtype);
+    times at the shapes phase 10 gives them."""
+    import torch
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (label, B, H, HKV, T, dtype, positions, timed): kv8 B3 at the 8-slot
+    # decode, kv8 B4 at the prefill_chunk=16 windows (prefill_batch 4)
+    cases = [
+        ("kv8 B3 main", 8, 12, 12, 1, bf16, "ragged", True),
+        ("kv8 B4 main T=16", 4, 12, 12, 16, bf16, "chunks", True),
+        ("kv8 B4 B=8 T=16 ragged", 8, 12, 12, 16, bf16, "ragged", False),
+        ("kv8 B4 T=2", 8, 12, 12, 2, bf16, "ragged", False),
+        ("kv8 B3 GQA", 8, 8, 2, 1, bf16, "ragged", False),
+        ("kv8 B4 GQA T=16", 8, 8, 2, 16, bf16, "ragged", False),
+        ("kv8 B3 fp32", 8, 12, 12, 1, f32, "ragged", False),
+        ("kv8 B4 fp32 T=16", 8, 12, 12, 16, f32, "ragged", False),
+    ]
+    out = {}
+    for seed, (label, b, h, hkv, t, dtype, pos, main) in enumerate(cases):
+        case = kv8_case(make_case("paged", b, h, hkv, t, 64, dtype,
+                                  200 + seed, pos=pos))
+        got, want = run_kernel(case), run_plain(case)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{label}: non-finite kernel output")
+        err = (got.float() - want.float()).abs().max().item()
+        tol = BF16_TOL if dtype == bf16 else FP32_TOL
+        rtol = BF16_TOL if dtype == bf16 else 0.0
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=rtol, msg=lambda m: f"{label}: {m}")
+        log(f"[kv8] {label}: max_abs_err={err:.3e} (atol {tol})")
+        if not main:
+            continue
+        name = ("paged_decode_attention_kv8_cuda" if t == 1
+                else "paged_verify_attention_kv8_cuda")
+        ms = timed_ms(lambda: run_kernel(case), flush)
+        ms_graph = graph_ms(lambda: run_kernel(case), flush)
+        plain_ms = timed_ms(lambda: run_plain(case), flush)
+        library_ms = timed_ms(library_call(case), flush)
+        bound_ms, bound_by = bound(case)
+        out[name] = {"max_abs_err": err, "ms": ms, "graph_ms": ms_graph,
+                     "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+        log(f"[kv8] {label}: kernel {ms:.4f} ms ({ms_graph:.4f} ms replayed "
+            f"from a CUDA graph), plain {plain_ms:.4f} ms, sdpa over "
+            f"dequantized KV {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by})")
+    return out
+
+
+def qmm_bound(name, rows, k, n, x_item, out_item):
+    """(bound_ms, bound_by) of one int8 matmul: x, the int8 weight, its f32
+    scales (K/128 x N k-group scales for w8a8, K x N/128 for weight-only)
+    and out once at 3.35 TB/s, against 2 x rows x K x N operations at the
+    int8 peak (w8a8) or the bf16 peak (weight-only: bf16 products)."""
+    nbytes = rows * k * x_item + k * n + rows * n * out_item
+    if name == "quantized_matmul_cuda":
+        nbytes += k * (n // 128) * 4
+        t_ops = 2 * rows * k * n / BF16_FLOPS_PER_S
+    else:
+        nbytes += (k // 128) * n * 4 + (4 if "stacked" in name else 0)
+        t_ops = 2 * rows * k * n / INT8_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_qmm_kernels(flush):
+    """Phase 2c, second half: B5, B6 and B7 against their plain versions at
+    GPT-2 125M's four (K, N) shapes, with bf16 and fp32 activations at 8, 4
+    and 1 rows, and their row invariance; times at 8 rows for B6 (the
+    8-slot server) and 4 for B5 and B7 (``generate``'s batch), all four
+    shapes logged, (768, 2304) kept for the kernels line.  The yardstick is
+    the bf16 ``x @ W`` of the same shape: same shape, not the same
+    function (no single PyTorch call computes w8a8)."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+    from deepspeed_tpu_torch.ops.quantization import (quantize,
+                                                      quantize_k_grouped)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    main_rows = {"w8a8_matmul_cuda": 4, "w8a8_matmul_stacked_cuda": 8,
+                 "quantized_matmul_cuda": 4}
+    layers = 12
+    ids = torch.arange(layers, dtype=torch.int32, device="cuda")
+    out, max_err = {}, {}
+    for si, (k, n) in enumerate(GPT2_MATMULS):
+        g = torch.Generator(device="cuda").manual_seed(300 + si)
+        w = (torch.randn((layers, k, n), generator=g, device="cuda")
+             * 0.02).to(bf16)
+        rec = quantize_k_grouped(w, 128)
+        l = 5
+        wrec = quantize(w[l], group_size=128)
+        x_all = torch.randn((8, k), generator=g, device="cuda")
+        w_bf16 = w[l].contiguous()
+        for dtype in (bf16, f32):
+            x8 = x_all.to(dtype)
+            calls = {
+                "w8a8_matmul_cuda": (
+                    lambda x: qm.w8a8_matmul_cuda(x, rec["qk"][l],
+                                                  rec["kscale"][l]),
+                    lambda x: qm.w8a8_matmul_plain(x, rec["qk"][l],
+                                                   rec["kscale"][l])),
+                "w8a8_matmul_stacked_cuda": (
+                    lambda x: qm.w8a8_matmul_stacked_cuda(
+                        ids[l:l + 1], x, rec["qk"], rec["kscale"]),
+                    lambda x: qm.w8a8_matmul_plain(x, rec["qk"][l],
+                                                   rec["kscale"][l])),
+                "quantized_matmul_cuda": (
+                    lambda x: qm.quantized_matmul_cuda(x, wrec["q"],
+                                                       wrec["scale"]),
+                    lambda x: qm.quantized_matmul_plain(x, wrec["q"],
+                                                        wrec["scale"])),
+            }
+            errs = {}
+            for name, (kernel, plain) in calls.items():
+                full = kernel(x8)
+                err = 0.0
+                for rows in (8, 4, 1):
+                    got, want = kernel(x8[:rows]), plain(x8[:rows])
+                    torch.cuda.synchronize()
+                    if not torch.isfinite(got).all():
+                        raise AssertionError(f"{name} ({k}, {n}) rows {rows}:"
+                                             " non-finite output")
+                    tol = BF16_TOL if dtype == bf16 else FP32_TOL
+                    torch.testing.assert_close(
+                        got.float(), want.float(), atol=tol, rtol=tol,
+                        msg=lambda m: f"{name} ({k}, {n}) {dtype} rows "
+                        f"{rows}: {m}")
+                    err = max(err, (got.float() - want.float()).abs().max()
+                              .item())
+                    if not torch.equal(got, full[:rows]):
+                        raise AssertionError(
+                            f"{name} ({k}, {n}) {dtype}: rows of a {rows}-row"
+                            " call differ from the same rows of the 8-row "
+                            "call")
+                for r in range(1, 8):
+                    if not torch.equal(kernel(x8[r:r + 1]), full[r:r + 1]):
+                        raise AssertionError(f"{name} ({k}, {n}) {dtype}: row"
+                                             f" {r} alone differs")
+                errs[name] = err
+                max_err[name] = max(max_err.get(name, 0.0), err)
+            if not torch.equal(calls["w8a8_matmul_cuda"][0](x8),
+                               calls["w8a8_matmul_stacked_cuda"][0](x8)):
+                raise AssertionError(f"({k}, {n}) {dtype}: stacked != "
+                                     "per-layer w8a8")
+            log(f"[qmm] ({k}, {n}) {dtype}: max_abs_err " + ", ".join(
+                f"{nm} {e:.3e}" for nm, e in errs.items()) + " (atol = rtol "
+                f"{BF16_TOL if dtype == bf16 else FP32_TOL}); rows 1/4/8 "
+                "bit-identical; stacked == per-layer")
+            if dtype != bf16:
+                continue
+            for name, (kernel, plain) in calls.items():
+                rows = main_rows[name]
+                x = x8[:rows]
+                ms = timed_ms(lambda: kernel(x), flush)
+                ms_graph = graph_ms(lambda: kernel(x), flush)
+                plain_ms = timed_ms(lambda: plain(x), flush, iters=20)
+                library_ms = timed_ms(lambda: x @ w_bf16, flush)
+                bound_ms, bound_by = qmm_bound(name, rows, k, n, 2, 2)
+                log(f"[qmm] ({k}, {n}) {name} at {rows} rows: kernel "
+                    f"{ms:.4f} ms ({ms_graph:.4f} ms replayed from a CUDA "
+                    f"graph), plain {plain_ms:.4f} ms, bf16 x @ W (same "
+                    f"shape, not the same function) {library_ms:.4f} ms, "
+                    f"bound {bound_ms:.5f} ms ({bound_by})")
+                if (k, n) == GPT2_MATMULS[0]:
+                    out[name] = {"ms": ms, "graph_ms": ms_graph,
+                                 "plain_ms": plain_ms,
+                                 "library_ms": library_ms,
+                                 "bound_ms": bound_ms, "bound_by": bound_by}
+        del w, rec, wrec
+    for name, m in out.items():
+        m["max_abs_err"] = max_err[name]          # over every shape and dtype
+    return out
+
+
+def check_quant_kernels():
+    """Phase 2c: the kv8 B3/B4 and the B5-B7 kernels.  Returns {kernel
+    name: measurements}."""
+    import torch
+
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    out = check_kv8_kernels(flush)
+    out.update(check_qmm_kernels(flush))
+    del flush
+    return out
+
+
 # ------------------------------------------------------------- phases 3-5
 def agreement(a, b) -> float:
     """Positionwise token agreement of two [prompt + completion] arrays."""
@@ -562,7 +800,8 @@ def traffic(rng, vocab):
 
 def main_path():
     """Phases 3-5 on GPT-2 125M; returns the launch counts of the run, the
-    engine, and phase 3's prompts and tokens."""
+    engine, phase 3's prompts and tokens, and phase 4's traffic, results
+    and rates (for phase 10)."""
     import numpy as np
     import torch
 
@@ -663,7 +902,10 @@ def main_path():
                              "paged_verify_attention_cuda")
     if min(agree16) < 0.95:
         raise AssertionError(f"chunk=16 vs chunk=128 agreement {agree16}")
-    return counts(), engine, prompts, gen
+    return counts(), engine, prompts, gen, {
+        "reqs": reqs, "res": res, "tok_s": n_gen / dt_srv,
+        "gen_tok_s": 4 * 64 / dt_gen, "ttft": st["ttft_p50_s"],
+        "kv_pool_bytes": st["kv_pool_bytes"]}
 
 
 def batch_invariance_check(engine, prompts, gen):
@@ -725,6 +967,282 @@ def fp32_reference_check():
         if not (res[i] == want[i]).all():
             raise AssertionError(f"fp32 serve row {i} != recompute")
     log("[fp32 check] generate and serve equal full-forward greedy decoding")
+
+
+# ------------------------------------------------------------- phase 10
+def int8_counts():
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+
+    return {fn.__name__: fn.launches
+            for fn in (da.paged_decode_attention_kv8_cuda,
+                       da.paged_verify_attention_kv8_cuda) + qm.KERNELS}
+
+
+def teacher_forced_logits(engine, prompts, tokens, kv8: bool):
+    """The logits of every decode step when ``engine`` is fed ``tokens``
+    (the float lane's): the prompts in one prefill, then one token a step,
+    through ``forward_cached`` on a contiguous float cache or, with
+    ``kv8``, on an int8 paged pool (32-token blocks), so the kv8 lane's
+    scores read int8 KV.  Returns float32 [steps, B, V]."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.paged_kv import quantize_pool
+
+    hooks = engine.module.decode_hooks
+    fwd = hooks["forward_cached"]
+    b, plen = prompts.shape
+    total = tokens.shape[1]
+    ids = torch.as_tensor(tokens, device="cuda")
+    outs = []
+    if kv8:
+        bs = 32
+        nbper = -(-total // bs)
+        cache = quantize_pool(hooks["init_cache"](1 + b * nbper, bs,
+                                                  engine.dtype, "meta"),
+                              device="cuda")
+        bt = torch.arange(1, 1 + b * nbper, dtype=torch.int32,
+                          device="cuda").reshape(b, nbper)
+        lengths = torch.full((b,), plen, dtype=torch.int32, device="cuda")
+        logits, _ = fwd(engine.params, ids[:, :plen], cache,
+                        torch.zeros(b, dtype=torch.int32, device="cuda"),
+                        lengths=lengths, block_tables=bt)
+        outs.append(logits.float())
+        for p in range(plen, total - 1):
+            lengths = torch.full((b,), p, dtype=torch.int32, device="cuda")
+            logits, _ = fwd(engine.params, ids[:, p:p + 1], cache, 0,
+                            lengths=lengths, block_tables=bt)
+            outs.append(logits.float())
+    else:
+        cache = hooks["init_cache"](b, -(-total // 128) * 128, engine.dtype,
+                                    "cuda")
+        logits, _ = fwd(engine.params, ids[:, :plen], cache, 0)
+        outs.append(logits.float())
+        for p in range(plen, total - 1):
+            logits, _ = fwd(engine.params, ids[:, p:p + 1], cache, p)
+            outs.append(logits.float())
+    return torch.stack(outs)
+
+
+def profile_serving(label, srv, reqs, warm: int = 24, steps: int = 16):
+    """``steps`` scheduler iterations of ``srv`` serving ``reqs`` under
+    ``torch.profiler``, after ``warm`` iterations (prefills done, every
+    slot decoding): wall time, device busy time and idle share of the
+    window, the top device kernels and the top host operators by self CPU
+    time.  The requests are served to the end afterwards."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for r in reqs:
+        srv.submit(r)
+    for _ in range(warm):
+        srv.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            srv.step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    while srv.step():
+        pass
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"[profile {label}] {steps} iterations: wall {wall_ms:.1f} ms "
+        f"({wall_ms / steps:.2f} ms each), device busy {busy:.1f} ms, idle "
+        f"share {1 - busy / wall_ms:.4f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[profile {label}]   device {e.self_device_time_total / 1e3 / steps:7.3f}"
+            f" ms x{e.count // steps:<4} an iteration: {e.key[:70]}")
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
+        log(f"[profile {label}]   host {e.self_cpu_time_total / 1e3 / steps:7.3f}"
+            f" ms x{e.count // steps:<4} an iteration: {e.key[:70]}")
+
+
+def quant_phase(engine, prompts, gen, float_lane):
+    """Phase 10: the quantized lane on GPT-2 125M bf16 with phase 3's
+    weights and phases 3-5's traffic.  Returns the int8 kernels' launch
+    counts of its five runs."""
+    import os
+
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+
+    model = engine.module
+    vocab = model.model_config.vocab_size
+    reqs = float_lane["reqs"]
+    w8a8_cfg = {"dtype": "bf16", "quant": {"enabled": True, "type": "w8a8"}}
+    t0 = time.perf_counter()
+    weng = dt.init_inference(model, config=w8a8_cfg, params=engine.params)
+    torch.cuda.synchronize()
+    log(f"[quant] w8a8 engine built in {time.perf_counter() - t0:.2f} s "
+        "(blocks quantized on the host)")
+    da.reset_launch_counts()
+    qm.reset_launch_counts()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def lane_report(label, toks, ref):
+        agree = [agreement(toks[i], ref[i]) for i in range(len(ref))]
+        div = [first_divergence(toks[i], ref[i]) for i in range(len(ref))]
+        return f"{label}: match {[round(a, 4) for a in agree]}, first " \
+            f"divergence {div}"
+
+    # 1. w8a8 generate (decode: B6)
+    c0 = int8_counts()
+    wgen, t_wgen = timed(lambda: weng.generate(prompts, max_new_tokens=64))
+    c1 = {k: v - c0[k] for k, v in int8_counts().items()}
+    log(f"[quant 1: w8a8 generate] {4 * 64 / t_wgen:.1f} generated tok/s "
+        f"(float lane {float_lane['gen_tok_s']:.1f}); launches {c1} "
+        f"({c1['w8a8_matmul_stacked_cuda'] / (4 * 64):.3f} B6 per generated "
+        f"token); " + lane_report("vs the float lane", wgen, gen))
+    # 2. serve, w8a8 + kv8 (decode: B6 + kv8 B3; prefill: dequant matmul)
+    srv = dt.init_serving(model, config={"dtype": "bf16"},
+                          params=weng.params, quantize="w8a8+kv8", slots=8,
+                          max_seq_len=1024, block_size=32, prefill_chunk=128,
+                          sampling=False)
+    qres, t_srv = timed(lambda: srv.serve(reqs))
+    st = srv.stats()
+    c2 = {k: v - c0[k] - c1[k] for k, v in int8_counts().items()}
+    n_gen = st["generated_tokens"]
+    for r in reqs:
+        out = qres[r.uid]
+        if out.shape != (r.prompt.size + 64,) or \
+                not ((out >= 0) & (out < vocab)).all():
+            raise AssertionError(f"quantized serve {r.uid}: shape "
+                                 f"{out.shape} / bad ids")
+    agree = [agreement(qres[f"gen{i}"], wgen[i]) for i in range(4)]
+    log(f"[quant 2: serve w8a8+kv8] {len(reqs)} requests, {n_gen} generated "
+        f"tokens in {t_srv:.3f} s: {n_gen / t_srv:.1f} generated tok/s "
+        f"(float lane {float_lane['tok_s']:.1f}); TTFT p50 "
+        f"{st['ttft_p50_s']:.4f} s (float lane {float_lane['ttft']:.4f}); "
+        f"kv_pool_bytes {st['kv_pool_bytes']} (scales "
+        f"{st['kv_scale_bytes']}) against the float pool's "
+        f"{float_lane['kv_pool_bytes']}; launches {c2} "
+        f"({c2['paged_decode_attention_kv8_cuda'] / n_gen:.3f} kv8 B3 and "
+        f"{c2['w8a8_matmul_stacked_cuda'] / n_gen:.3f} B6 per generated "
+        f"token); " + lane_report(
+            "gen requests vs w8a8 generate (float KV)",
+            [qres[f"gen{i}"] for i in range(4)], wgen) + "; " + lane_report(
+            "all requests vs the float lane", [qres[r.uid] for r in reqs],
+            [float_lane["res"][r.uid] for r in reqs]))
+    # 2b. the same weights served with a float pool: generate's arithmetic
+    # (B6 is row-invariant), so served and generated tokens must agree; the
+    # kv8 pool is a different arithmetic, held by the logit RMSE below
+    srv_w = dt.init_serving(model, config={"dtype": "bf16"},
+                            params=weng.params, quantize="w8a8", slots=8,
+                            max_seq_len=1024, block_size=32,
+                            prefill_chunk=128, sampling=False)
+    gen_reqs = reqs[-4:]
+    wres = srv_w.serve(gen_reqs)
+    torch.cuda.synchronize()
+    c2b = {k: v - c0[k] - c1[k] - c2[k] for k, v in int8_counts().items()}
+    agree = [agreement(wres[f"gen{i}"], wgen[i]) for i in range(4)]
+    log(f"[quant 2b: serve w8a8] the 4 generate prompts; launches {c2b}; "
+        f"agreement with w8a8 generate {agree}, first divergence "
+        f"{[first_divergence(wres[f'gen{i}'], wgen[i]) for i in range(4)]}")
+    if min(agree) < 0.95:
+        raise AssertionError(f"quantized serve vs quantized generate "
+                             f"agreement {agree} < 0.95")
+    c2 = {k: c2[k] + c2b[k] for k in c2}
+    # 3. 16-token prefill windows on the kv8 pool (kv8 B4)
+    srv16 = dt.init_serving(model, config={"dtype": "bf16"},
+                            params=weng.params, quantize="w8a8+kv8", slots=8,
+                            max_seq_len=1024, block_size=32,
+                            prefill_chunk=16, sampling=False)
+    sub = reqs[:4]
+    res16 = srv16.serve(sub)
+    torch.cuda.synchronize()
+    c3 = {k: v - c0[k] - c1[k] - c2[k] for k, v in int8_counts().items()}
+    log(f"[quant 3: serve chunk=16 w8a8+kv8] launches {c3}; " + lane_report(
+        "vs quant 2", [res16[r.uid] for r in sub], [qres[r.uid] for r in sub]))
+    # 4. per-layer decode (B5) must equal the indexed run token for token
+    before = int8_counts()
+    old = os.environ.get("DS_INDEXED_DECODE")
+    os.environ["DS_INDEXED_DECODE"] = "0"
+    try:
+        gen0 = weng.generate(prompts, max_new_tokens=64)
+    finally:
+        if old is None:
+            del os.environ["DS_INDEXED_DECODE"]
+        else:
+            os.environ["DS_INDEXED_DECODE"] = old
+    c4 = {k: v - before[k] for k, v in int8_counts().items()}
+    log(f"[quant 4: w8a8 generate, DS_INDEXED_DECODE=0] launches {c4}; "
+        f"equal to quant 1: {bool((gen0 == wgen).all())}")
+    if not (gen0 == wgen).all():
+        raise AssertionError("DS_INDEXED_DECODE=0 tokens differ from the "
+                             "indexed run's")
+    # 5. weight-only int8 with the opt-in fused kernel (B7)
+    before = int8_counts()
+    old = os.environ.get("DS_QMM")
+    os.environ["DS_QMM"] = "1"
+    try:
+        t0 = time.perf_counter()
+        qeng = dt.init_inference(model, config={
+            "dtype": "bf16", "quant": {"enabled": True}},
+            params=engine.params)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        qgen, t_qgen = timed(lambda: qeng.generate(prompts,
+                                                   max_new_tokens=64))
+    finally:
+        if old is None:
+            del os.environ["DS_QMM"]
+        else:
+            os.environ["DS_QMM"] = old
+    c5 = {k: v - before[k] for k, v in int8_counts().items()}
+    log(f"[quant 5: weight-only generate, DS_QMM=1] engine built in "
+        f"{t_build:.2f} s; {4 * 64 / t_qgen:.1f} generated tok/s; launches {c5} "
+        f"({c5['quantized_matmul_cuda'] / (4 * 64):.3f} B7 per generated "
+        f"token); " + lane_report("vs the float lane", qgen, gen))
+    counts = int8_counts()
+    if any(n == 0 for n in counts.values()):
+        raise AssertionError(f"phase 10 left an int8 kernel unlaunched: "
+                             f"{counts}")
+    del qeng, srv, srv16, srv_w
+
+    # where a decode iteration's time goes, float lane against w8a8+kv8
+    window = reqs[-4:] + reqs[:4]
+    for label, quantize, params in (("float", None, engine.params),
+                                    ("w8a8+kv8", "w8a8+kv8", weng.params)):
+        psrv = dt.init_serving(model, config={"dtype": "bf16"},
+                               params=params, quantize=quantize, slots=8,
+                               max_seq_len=1024, block_size=32,
+                               prefill_chunk=128, sampling=False)
+        profile_serving(label, psrv, window)
+        del psrv
+
+    # teacher-forced logit error against the float lane, fed its tokens
+    ref = teacher_forced_logits(engine, prompts, gen, kv8=False)
+    rmse = {}
+    for label, eng, kv8 in (("w8a8", weng, False), ("kv8", engine, True),
+                            ("w8a8+kv8", weng, True)):
+        got = teacher_forced_logits(eng, prompts, gen, kv8=kv8)
+        per_row = (got - ref).pow(2).mean(dim=(0, 2)).sqrt()
+        rmse[label] = per_row.max().item()
+    log(f"[quant rmse] teacher-forced logit RMSE against the float lane "
+        f"(max over the 4 prompts, {ref.shape[0]} steps each; logit RMS "
+        f"{ref.pow(2).mean().sqrt().item():.4f}): {rmse} (limit "
+        f"{W8A8_MAX_LOGIT_RMSE})")
+    if max(rmse.values()) > W8A8_MAX_LOGIT_RMSE or \
+            not all(np.isfinite(list(rmse.values()))):
+        raise AssertionError(f"quantized logit RMSE {rmse} > "
+                             f"{W8A8_MAX_LOGIT_RMSE}")
+    return counts
 
 
 # ------------------------------------------------------------- phases 7-9
@@ -936,7 +1454,8 @@ def build_all():
     from deepspeed_tpu_torch.ops.op_builder import builder
 
     builders = [builder("decode_attention", ["decode_attention.cu"]),
-                builder("flash_attention", ["flash_attention.cu"])]
+                builder("flash_attention", ["flash_attention.cu"]),
+                builder("quantized_matmul", ["quantized_matmul.cu"])]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builders)) as pool:
         paths = list(pool.map(lambda b: b.build(), builders))
@@ -958,6 +1477,7 @@ def main() -> int:
         from deepspeed_tpu_torch.accelerator import gpu_name_and_power_limit
         from deepspeed_tpu_torch.ops import decode_attention as da
         from deepspeed_tpu_torch.ops import flash_attention as fa
+        from deepspeed_tpu_torch.ops import quantized_matmul as qm
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})",
               file=sys.stderr)
@@ -971,13 +1491,15 @@ def main() -> int:
 
     measured = check_kernels()
     measured.update(check_flash_kernels())
-    launches, engine, prompts, gen = main_path()
+    measured.update(check_quant_kernels())
+    launches, engine, prompts, gen, float_lane = main_path()
     batch_invariance_check(engine, prompts, gen)
-    del engine
     fp32_reference_check()
     launches.update(train_phase(card))
     fp32_train_check()
     long_sequence_phase()
+    launches.update(quant_phase(engine, prompts, gen, float_lane))
+    del engine, float_lane
 
     # one line per kernel; a flash kernel replaces three TPU regimes (v1,
     # v2, v3: PERF.md) and names the v1 site, whose lse format it keeps
@@ -992,9 +1514,19 @@ def main() -> int:
             "deepspeed_tpu/ops/flash_attention.py:317",
         "flash_attention_bwd_dkv_cuda":
             "deepspeed_tpu/ops/flash_attention.py:365",
+        # the int8-pool operands of the same two pallas_calls
+        "paged_decode_attention_kv8_cuda":
+            "deepspeed_tpu/ops/decode_attention.py:410",
+        "paged_verify_attention_kv8_cuda":
+            "deepspeed_tpu/ops/decode_attention.py:547",
+        "w8a8_matmul_cuda": "deepspeed_tpu/ops/quantized_matmul.py:292",
+        "w8a8_matmul_stacked_cuda":
+            "deepspeed_tpu/ops/quantized_matmul.py:542",
+        "quantized_matmul_cuda": "deepspeed_tpu/ops/quantized_matmul.py:140",
     }
     sources = {da: "deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
-               fa: "deepspeed_tpu_torch/ops/csrc/flash_attention.cu"}
+               fa: "deepspeed_tpu_torch/ops/csrc/flash_attention.cu",
+               qm: "deepspeed_tpu_torch/ops/csrc/quantized_matmul.cu"}
     kernels = []
     for module, source in sources.items():
         for fn in module.KERNELS:

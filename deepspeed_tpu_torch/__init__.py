@@ -99,13 +99,18 @@ def init_serving(model=None, config=None, params=None, *, device=None,
                  num_blocks=None, prefill_chunk=128, prefix_caching=True,
                  decode_steps=1, engine_mode="replicas", sp=1,
                  resident_window_blocks=0, spec_tokens=0, quantize=None,
-                 host_blocks=0, sampling=True, topology=None, **kwargs):
+                 host_blocks=0, sampling=True, topology=None,
+                 debug_checks=False, **kwargs):
     """Continuous-batching serving entry: an ``init_inference`` engine
     wrapped in the block-paged chunked-prefill scheduler
     (``inference/serving.py``).  Greedy only so far: pass
     ``sampling=False`` (the JAX default, on-device sampling, is a later
-    slice).  Remaining keyword arguments are inference-config keys."""
-    from .inference.serving import ServingEngine
+    slice).  ``quantize``: ``None``, ``"kv8"`` (int8 KV pool),
+    ``"w8a8"`` or ``"w8a8+kv8"``; a ``w8a8`` value builds the engine with
+    K-grouped int8 blocks, merging ``{"quant": {"enabled": True, "type":
+    "w8a8"}}`` into the config as ``deepspeed_tpu/__init__.py:384-411``
+    does.  Remaining keyword arguments are inference-config keys."""
+    from .inference.serving import ServingEngine, _parse_quantize
 
     if sampling:
         _unsupported("sampling=True", "sampling and fused-decode slice; "
@@ -115,8 +120,9 @@ def init_serving(model=None, config=None, params=None, *, device=None,
                      "sampling and fused-decode slice")
     if int(spec_tokens):
         _unsupported(f"spec_tokens={spec_tokens}", "speculative-verify slice")
-    if quantize:
-        _unsupported(f"quantize={quantize!r}", "kv8 and w8a8 slice")
+    if debug_checks:
+        _unsupported("debug_checks=True", "telemetry and tooling slice (the "
+                     "paged-state audit, scale-lockstep included)")
     if int(host_blocks):
         _unsupported(f"host_blocks={host_blocks}", "KV-tier (fleet) slice")
     if int(resident_window_blocks):
@@ -131,8 +137,48 @@ def init_serving(model=None, config=None, params=None, *, device=None,
             int(topology.get("tp", topology.get("tp_size", 1)))
         if tp > 1:
             _unsupported(f"topology={topology!r}", "multi-GPU slice")
+    _, _, want_w8a8 = _parse_quantize(quantize)
+    if want_w8a8:
+        config = _with_w8a8(config, kwargs)
     engine = init_inference(model, config, params, device=device, **kwargs)
     return ServingEngine(engine, slots=slots, max_seq_len=max_seq_len,
                          prefill_batch=prefill_batch, block_size=block_size,
                          num_blocks=num_blocks, prefill_chunk=prefill_chunk,
-                         prefix_caching=prefix_caching)
+                         prefix_caching=prefix_caching, quantize=quantize)
+
+
+def _with_w8a8(config, kwargs):
+    """Route the engine's weights through K-grouped int8 records
+    (``deepspeed_tpu/__init__.py:384-411``): an explicit enabled ``quant``
+    block wins (the caller may pin ``group_size`` / ``shard_multiple``; the
+    server checks the type); an explicit block with ``enabled=False``
+    contradicts the knob and raises, for dict and config objects alike.
+    Returns the config to use; ``kwargs`` may gain a ``quant`` key."""
+    import copy
+
+    w8a8 = {"enabled": True, "type": "w8a8"}
+
+    def _conflict():
+        raise ValueError(
+            "quantize includes 'w8a8' but config carries an explicit "
+            "quant block with enabled=False — drop one of the two")
+
+    if isinstance(config, dict):
+        if "quant" not in config:
+            return {**config, "quant": w8a8}
+        quant = config["quant"]
+        enabled = quant.get("enabled", False) if isinstance(quant, dict) \
+            else quant.enabled
+        if not enabled:
+            _conflict()
+        return config
+    if config is None:
+        kwargs.setdefault("quant", w8a8)
+        return None
+    if not config.quant.enabled:
+        if "quant" in config.model_fields_set:
+            _conflict()
+        config = copy.deepcopy(config)
+        config.quant.enabled = True
+        config.quant.type = "w8a8"
+    return config

@@ -34,6 +34,10 @@ class DeepSpeedMoEConfig(DeepSpeedConfigModel):
 
 @dataclasses.dataclass(init=False)
 class QuantizationConfig(DeepSpeedConfigModel):
+    """Reference ``inference/config.py:34-52``: ``type`` is ``"weight"``
+    (weight-only int8, groups of ``group_size`` along N) or ``"w8a8"``
+    (K-grouped int8 weights, k-groups of ``max(128, group_size)`` refined
+    by ``shard_multiple``, with int8 activations in the decode kernels)."""
     enabled: bool = False
     group_size: int = 128
     num_bits: int = 8

@@ -1,6 +1,6 @@
 """Inference engine — the PyTorch port of
 ``deepspeed_tpu/inference/engine.py`` (``InferenceEngine``), limited to one
-device and full-precision weights.
+device.
 
 The engine casts the parameters to the config dtype, holds them on its
 device, and runs ``forward`` and greedy ``generate``: a prefill over the
@@ -8,6 +8,14 @@ prompt, then single-token steps over a static KV cache through the model's
 ``decode_hooks`` (the decode attention is the hand-written CUDA kernel of
 ``ops/decode_attention.py`` on a GPU).  With an ``eos_token_id`` the token
 loop stops once every row has emitted it.
+
+``quant.enabled`` stores a quant-aware model's stacked blocks as int8
+records, quantized on the host at construction (``engine.py:128-273``):
+``quant.type="w8a8"`` gives K-grouped records for the w8a8 kernels,
+``"weight"`` (the default) weight-only records for ``quantized_matmul``.
+Records arriving in ``params`` pass through when their kind matches the
+configured type.  Records are never cast: int8 stays int8 and scales stay
+f32.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ import numpy as np
 import torch
 
 from ..accelerator import resolve_device
+from ..ops import quantization as quant
 from ..utils.logging import log_dist
 from .config import DeepSpeedInferenceConfig
 
@@ -46,9 +55,6 @@ def _check_supported(config: DeepSpeedInferenceConfig) -> None:
         raise NotImplementedError(
             f"tensor_parallel.tp_size={tp}: multi-GPU serving is a later "
             "slice of the PyTorch port (multi-GPU)")
-    if config.quant.enabled:
-        raise NotImplementedError(
-            "quant: quantized weights come with the port's kv8/w8a8 slice")
     if config.zero_inference.enabled:
         raise NotImplementedError(
             "zero_inference: layer streaming is not ported yet")
@@ -65,11 +71,60 @@ def _check_supported(config: DeepSpeedInferenceConfig) -> None:
 
 
 def _to_device(tree, device, dtype):
-    """Floating tensors cast to ``dtype``, everything moved to ``device``."""
+    """Floating tensors cast to ``dtype``, everything moved to ``device``;
+    quantization records move with their own dtypes (``engine.py:66``: a
+    cast would round the f32 scales the kernels read)."""
+    if quant.is_record(tree):
+        return {k: torch.as_tensor(v).to(device) for k, v in tree.items()}
     if isinstance(tree, dict):
         return {k: _to_device(v, device, dtype) for k, v in tree.items()}
     t = torch.as_tensor(tree)
     return t.to(device=device, dtype=dtype if t.is_floating_point() else None)
+
+
+def _quantize_blocks(model, params, qcfg):
+    """The host-side quantization of ``engine.py:166-234`` (one device):
+    the stacked blocks of a quant-aware model, already in the serving
+    dtype, become w8a8 records (k-groups of ``max(128, group_size)``) or
+    weight-only records (``min_ndim=3`` keeps the per-layer biases dense);
+    pre-quantized params pass through when their record kind matches."""
+    bkey = getattr(model, "blocks_key", None) \
+        if getattr(model, "quant_aware", False) else None
+    w8a8 = qcfg.type == "w8a8"
+    if qcfg.type not in ("w8a8", "weight"):
+        raise ValueError(f"quant.type {qcfg.type!r}: expected 'weight' or "
+                         "'w8a8'")
+    if w8a8 and bkey is None:
+        raise ValueError(
+            f"quant.type 'w8a8' needs a quant-aware model with stacked "
+            f"blocks; {model.name} is not — use the default weight-only type")
+    if bkey is None:
+        raise NotImplementedError(
+            f"quant: {model.name} is not quant-aware; whole-tree "
+            "quantization comes with the port's other model families")
+    kinds = {"w8a8" if quant.is_k_quantized(leaf) else "weight"
+             for leaf in quant.tree_leaves(params) if quant.is_record(leaf)}
+    if kinds:
+        if kinds != {qcfg.type}:
+            raise ValueError(
+                f"pre-quantized params carry {sorted(kinds)} records but "
+                f"quant.type is {qcfg.type!r}")
+        log_dist("quant: params arrived pre-quantized — skipping host-side "
+                 "quantization", ranks=[0])
+        return params
+    node = params
+    for k in bkey[:-1]:
+        node = node[k]
+    cpu = {k: v.cpu() for k, v in node[bkey[-1]].items()}
+    if w8a8:
+        node[bkey[-1]] = quant.quantize_pytree_k_grouped(
+            cpu, k_group=max(128, int(qcfg.group_size)), min_ndim=3,
+            shard_multiple=qcfg.shard_multiple or 1)
+    else:
+        node[bkey[-1]] = quant.quantize_pytree(
+            cpu, num_bits=qcfg.num_bits, group_size=qcfg.group_size,
+            min_ndim=3)
+    return params
 
 
 class InferenceEngine:
@@ -87,8 +142,20 @@ class InferenceEngine:
         self.dtype = config.torch_dtype
         if params is None:
             params = model.init_fn(torch.Generator().manual_seed(0))
+        if config.quant.enabled:
+            from ..ops import quantized_matmul as qmm
+
+            qmm.configure(kernel_ok=True)
+            # cast first, as the JAX engine does: records are quantized from
+            # the serving-dtype weights; the tree is rebuilt, never the
+            # caller's dicts mutated
+            params = _quantize_blocks(model, _to_device(params, "cpu",
+                                                        self.dtype),
+                                      config.quant)
         self.params = _to_device(params, self.device, self.dtype)
-        log_dist(f"InferenceEngine: device={self.device}, dtype={config.dtype}",
+        log_dist(f"InferenceEngine: device={self.device}, dtype={config.dtype}"
+                 + (f", quant={config.quant.type}" if config.quant.enabled
+                    else ""),
                  ranks=[0])
 
     # ------------------------------------------------------------------ forward

@@ -23,6 +23,11 @@ and chunked prefill — the PyTorch port of
    of ``prefill_chunk`` tokens, ``prefill_batch`` sequences per call,
    interleaved with decode steps.  Windows of up to 16 tokens run the paged
    verify kernel; wider ones the gather-based plain path.
+ - **Quantized serving** (``quantize=``): ``"kv8"`` stores the pool as int8
+   records (codes plus a per-token bf16 scale table, ``ops/paged_kv.py``)
+   read by the kv8 variants of the paged kernels; ``"w8a8"`` requires an
+   engine whose blocks are w8a8 records (``init_serving`` builds one), so
+   decode matmuls run the w8a8 kernels; ``"w8a8+kv8"`` both.
 
 Scheduling is iteration-level: every :meth:`ServingEngine.step` admits
 waiting requests into free slots (gated on block availability — the queue
@@ -43,8 +48,9 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..ops import decode_attention
-from ..ops.paged_kv import blocks_for
+from ..ops import decode_attention, quantized_matmul
+from ..ops.paged_kv import blocks_for, is_quantized_pool, quantize_pool
+from ..ops.quantization import tree_leaves
 from ..utils.logging import log_dist
 from .paged import BlockAllocator, PrefixCache
 
@@ -208,6 +214,25 @@ class _SlotState:
         return len(self.prior) + len(self.out)
 
 
+#: legal ``quantize=`` values (order-normalized; ``None`` = full precision)
+_QUANT_MODES = ("kv8", "w8a8", "w8a8+kv8")
+
+
+def _parse_quantize(quantize):
+    """Normalize the ``quantize=`` knob -> ``(normalized str | None,
+    kv_quant, want_w8a8)``; raises naming the legal values
+    (``serving.py:249``)."""
+    if quantize is None or quantize == "":
+        return None, False, False
+    parts = sorted(str(quantize).split("+"))
+    if not set(parts) <= {"kv8", "w8a8"} or len(set(parts)) != len(parts):
+        raise ValueError(
+            f"quantize={quantize!r} — expected one of {_QUANT_MODES} "
+            "(or None for full precision)")
+    norm = "+".join(p for p in ("w8a8", "kv8") if p in parts)
+    return norm, "kv8" in parts, "w8a8" in parts
+
+
 def _percentile(samples, q: float) -> Optional[float]:
     return float(np.percentile(np.asarray(samples), q)) if samples else None
 
@@ -233,6 +258,8 @@ class ServingEngine:
     prefill_batch:  sequences per prefill call; short groups pad with
                     scratch-routed rows.
     prefix_caching: enable the block trie.
+    quantize:       ``None``, ``"kv8"``, ``"w8a8"`` or ``"w8a8+kv8"``
+                    (module docstring).
     """
 
     def __init__(self, engine, *, slots: int = 8,
@@ -241,12 +268,29 @@ class ServingEngine:
                  block_size: int = 32,
                  num_blocks: Optional[int] = None,
                  prefill_chunk: int = 128,
-                 prefix_caching: bool = True):
+                 prefix_caching: bool = True,
+                 quantize: Optional[str] = None):
+        self.quantize, self.kv_quant, want_w8a8 = _parse_quantize(quantize)
+        qcfg = engine._config.quant
+        self.weight_quant = qcfg.type if qcfg.enabled else None
+        if want_w8a8 and self.weight_quant != "w8a8":
+            raise ValueError(
+                "quantize includes 'w8a8' but the wrapped engine carries "
+                f"{self.weight_quant or 'full-precision'} weights — build "
+                "it with config={'quant': {'enabled': True, 'type': "
+                "'w8a8'}} (init_serving(quantize=...) does this for you)")
         hooks = getattr(engine.module, "decode_hooks", None) or {}
         if not (hooks.get("supports_lengths") and hooks.get("supports_paged")):
             raise ValueError(
                 f"continuous batching needs decode_hooks with per-sequence "
                 f"lengths and the paged cache; {engine.module.name} lacks them")
+        if self.kv_quant and not hooks.get("supports_kv_quant"):
+            raise ValueError(
+                f"model {engine.module.name}'s decode hooks do not declare "
+                "int8-KV support (supports_kv_quant) — a family qualifies "
+                "when every pool read/write goes through ops/paged_kv "
+                "(record-aware); set the flag after verifying that, or drop "
+                "quantize='kv8'")
         self.engine = engine
         self.device = engine.device
         self._fwd = hooks["forward_cached"]
@@ -281,8 +325,17 @@ class ServingEngine:
                 f"({self._nbper} blocks + 1 scratch)")
         self._alloc = BlockAllocator(num_blocks)
         self._prefix = PrefixCache(self.block_size) if prefix_caching else None
-        self._cache = hooks["init_cache"](num_blocks, self.block_size,
-                                          engine.dtype, self.device)
+        if self.kv_quant:
+            # int8 records built from the float pool's shapes alone (a
+            # meta-device pool): no transient float + int8 double footprint
+            self._cache = quantize_pool(
+                hooks["init_cache"](num_blocks, self.block_size, engine.dtype,
+                                    "meta"), device=self.device)
+            self._kv_dtype = "int8"
+        else:
+            self._cache = hooks["init_cache"](num_blocks, self.block_size,
+                                              engine.dtype, self.device)
+            self._kv_dtype = str(engine.dtype).replace("torch.", "")
         # host-side block tables; entry 0 = scratch doubles as "unset"
         self._tables = np.zeros((self.slots, self._nbper), np.int32)
         self._held: List[List[int]] = [[] for _ in range(self.slots)]
@@ -305,8 +358,8 @@ class ServingEngine:
             f"ServingEngine: slots={self.slots}, cache_len={self._cache_len}, "
             f"block_size={self.block_size}, num_blocks={num_blocks}, chunked "
             f"prefill (chunk={self.prefill_chunk}, prefix_cache="
-            f"{self._prefix is not None}), prefill_batch={self.prefill_batch}",
-            ranks=[0])
+            f"{self._prefix is not None}), prefill_batch={self.prefill_batch}"
+            f", quantize={self.quantize}", ranks=[0])
 
     @property
     def prefix_hit_tokens(self) -> int:
@@ -641,9 +694,16 @@ class ServingEngine:
     def stats(self) -> Dict[str, Any]:
         """Serving-loop counters: admissions, preemptions (``evicted``),
         decode steps and prefill calls, prefix-cache hit rate, block
-        occupancy, TTFT/TPOT percentiles over recent finished requests, and
-        the launches of each decode-attention kernel (process-wide)."""
+        occupancy, TTFT/TPOT percentiles over recent finished requests, the
+        KV pool's footprint (``kv_pool_bytes``: codes plus the scale table
+        under ``kv8``) and quantization, and the launches of each
+        decode-attention and int8-matmul kernel (process-wide)."""
         c = self.counters
+        pool_bytes = sum(t.numel() * t.element_size()
+                         for t in tree_leaves(self._cache))
+        scale_bytes = sum(leaf["ps"].numel() * leaf["ps"].element_size()
+                          for leaf in self._cache.values()
+                          if is_quantized_pool(leaf))
         st = {
             "iterations": c["iterations"],
             "decode_steps": c["decode_steps"],
@@ -668,7 +728,12 @@ class ServingEngine:
             "ttft_p95_s": _percentile(self._ttft, 95),
             "tpot_p50_s": _percentile(self._tpot, 50),
             "tpot_p95_s": _percentile(self._tpot, 95),
+            "quantize": self.quantize,
+            "kv_dtype": self._kv_dtype,
+            "weight_quant": self.weight_quant,
+            "kv_scale_bytes": scale_bytes,
+            "kv_pool_bytes": pool_bytes,
         }
-        for fn in decode_attention.KERNELS:
+        for fn in decode_attention.KERNELS + quantized_matmul.KERNELS:
             st[f"{fn.__name__}_launches"] = fn.launches
         return st

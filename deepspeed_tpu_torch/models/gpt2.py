@@ -19,18 +19,30 @@ raises.
 
 The JAX ``forward_cached`` returns a new cache; this one writes the cache
 tensors in place and returns the same dict.
+
+Quantized serving (``quant_aware``): the engine may store the stacked
+``blocks`` matmul weights as int8 records (``ops/quantization.py``).  Every
+block matmul goes through :func:`_qmm` — K-grouped (w8a8) records to the
+w8a8 kernel, weight-only records to ``quantized_matmul``, dense leaves to
+the plain ``x @ w`` they always took — and ``forward_cached`` runs its
+layer loop through :func:`_qmm_indexed` (the stacked w8a8 kernel, the
+layer index a device scalar) when :func:`use_indexed_decode` holds.  Cache
+leaves may be int8 pool records (``ops/paged_kv.py``); they are indexed
+leaf by leaf.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import quantization as quant
 from ..ops.decode_attention import decode_attention, paged_decode_attention
 from ..ops.flash_attention import flash_attention
 from ..ops.paged_kv import paged_cache_update
@@ -146,12 +158,17 @@ def params_from_jax(tree) -> Params:
     ``blocks/*`` stacked ``[L, ...]`` with matmul weights ``[in, out]``
     (``qkv_w [L, D, 3D]``, ``o_w [L, D, D]``, ``fc_w [L, D, 4D]``,
     ``proj_w [L, 4D, D]``) — both packages compute ``x @ W``.  Arrays are
-    copied into CPU tensors of their own dtype."""
+    copied into CPU tensors of their own dtype, so int8 records keep their
+    int8 payloads and f32 scales; bfloat16 arrays (``ml_dtypes``) arrive
+    as ``torch.bfloat16``."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v) for k, v in tree.items()}
     import numpy as np
 
-    return torch.from_numpy(np.array(tree, copy=True))
+    a = np.array(tree, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _layer_norm(x, scale, bias, eps: float = 1e-5):
@@ -169,30 +186,103 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
+def _index(leaf, i):
+    """``leaf[i]`` for a tensor, leaf by leaf for a record (a view)."""
+    if isinstance(leaf, dict):
+        return {k: v[i] for k, v in leaf.items()}
+    return leaf[i]
+
+
 def _layer(blocks: Params, i: int) -> Params:
-    return {name: w[i] for name, w in blocks.items()}
+    return {name: _index(w, i) for name, w in blocks.items()}
 
 
-def _qkv(cfg: GPT2Config, layer, y):
+def _qmm(x, leaf, dtype=None):
+    """``x @ leaf`` where ``leaf`` may be an int8 record (``gpt2.py:192``):
+    K-grouped (w8a8) records take ``w8a8_matmul``, weight-only records
+    ``quantized_matmul``; a dense leaf takes the plain ``x @ w`` in
+    ``dtype`` (default x's)."""
+    dtype = dtype or x.dtype
+    if quant.is_k_quantized(leaf):
+        from ..ops.quantized_matmul import w8a8_matmul
+
+        return w8a8_matmul(x, leaf, out_dtype=dtype)
+    if quant.is_quantized(leaf):
+        from ..ops.quantized_matmul import quantized_matmul
+
+        return quantized_matmul(x, leaf, out_dtype=dtype)
+    return x @ leaf.to(dtype)
+
+
+def _qmm_indexed(x, leaf, layer_idx, dtype=None):
+    """``x @ leaf[layer_idx]`` on a STACKED leaf with the layer chosen by
+    a one-element int32 device tensor (``gpt2.py:211``): K-grouped records
+    run the stacked w8a8 kernel, which reads the index itself; other leaf
+    kinds slice the layer and take :func:`_qmm`'s path."""
+    dtype = dtype or x.dtype
+    if quant.is_k_quantized(leaf):
+        from ..ops.quantized_matmul import w8a8_matmul_stacked
+
+        return w8a8_matmul_stacked(x, leaf, layer_idx, out_dtype=dtype)
+    return _qmm(x, _index(leaf, layer_idx.reshape(())), dtype)
+
+
+def use_indexed_decode(blocks, probe: str = "qkv_w", rows: int = 1) -> bool:
+    """Quantized serving's dispatch (``gpt2.py:247``): run the layer loop
+    with the stacked w8a8 kernel selecting each layer in-kernel when the
+    blocks are K-grouped records, the stacked kernel is on, the call has at
+    most ``W8A8_MAX_ROWS`` rows, and ``DS_INDEXED_DECODE`` is not ``0``."""
+    from ..ops.quantized_matmul import W8A8_MAX_ROWS, stacked_kernel_enabled
+
+    return (quant.is_k_quantized(blocks[probe])
+            and stacked_kernel_enabled()
+            and rows <= W8A8_MAX_ROWS
+            and os.environ.get("DS_INDEXED_DECODE", "1") != "0")
+
+
+def _dequant_resident(params, dtype=None):
+    """Expand weight-only records outside ``blocks`` (embeddings, final LN)
+    up front; the stacked blocks stay int8 (``gpt2.py:265``).  ``dtype``
+    defaults to that of the first dense float leaf."""
+    leaves = list(quant.tree_leaves(params))
+    if not any(quant.is_quantized(v) for v in leaves):
+        return params
+    if dtype is None:
+        dtype = next((v.dtype for v in leaves
+                      if isinstance(v, torch.Tensor) and v.is_floating_point()),
+                     torch.bfloat16)
+    return {k: (quant.dequantize_pytree(v, dtype) if k != "blocks" else v)
+            for k, v in params.items()}
+
+
+def _accessors(layer):
+    """``(get, mm)`` over a pre-sliced layer: ``get(name)`` a small leaf,
+    ``mm(y, name, dtype)`` the matmul through :func:`_qmm`."""
+    return layer.__getitem__, lambda y, name, dtype: _qmm(y, layer[name],
+                                                          dtype)
+
+
+def _qkv(cfg: GPT2Config, get, mm, y):
     """q, k, v as contiguous [B, H, T, hd] tensors."""
     b, t, _ = y.shape
-    qkv = y @ layer["qkv_w"].to(y.dtype) + layer["qkv_b"].to(y.dtype)
+    qkv = mm(y, "qkv_w", None) + get("qkv_b").to(y.dtype)
     return [z.reshape(b, t, cfg.num_heads, cfg.head_dim).transpose(1, 2)
             .contiguous() for z in qkv.chunk(3, dim=-1)]
 
 
-def _mlp_residual(layer, x):
-    y = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"])
-    hid = _gelu(y @ layer["fc_w"].to(y.dtype) + layer["fc_b"].to(y.dtype))
-    return x + hid @ layer["proj_w"].to(x.dtype) + layer["proj_b"].to(x.dtype)
+def _mlp_residual(get, mm, x):
+    y = _layer_norm(x, get("ln2_scale"), get("ln2_bias"))
+    hid = _gelu(mm(y, "fc_w", None) + get("fc_b").to(y.dtype))
+    return x + mm(hid, "proj_w", x.dtype) + get("proj_b").to(x.dtype)
 
 
 def _block(cfg: GPT2Config, x, layer):
     """One transformer block (``gpt2.py:285``): flash attention or einsum
     attention by ``cfg.use_flash`` (module docstring)."""
     b, s, d = x.shape
-    y = _layer_norm(x, layer["ln1_scale"], layer["ln1_bias"])
-    q, k, v = _qkv(cfg, layer, y)
+    get, mm = _accessors(layer)
+    y = _layer_norm(x, get("ln1_scale"), get("ln1_bias"))
+    q, k, v = _qkv(cfg, get, mm, y)
     use_flash = cfg.use_flash
     if use_flash is None:
         use_flash = x.is_cuda
@@ -208,8 +298,8 @@ def _block(cfg: GPT2Config, x, layer):
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
         attn = torch.einsum("bhqk,bhkd->bhqd", probs, v)
     attn = attn.transpose(1, 2).reshape(b, s, d)
-    x = x + attn @ layer["o_w"].to(x.dtype) + layer["o_b"].to(x.dtype)
-    return _mlp_residual(layer, x)
+    x = x + mm(attn, "o_w", x.dtype) + get("o_b").to(x.dtype)
+    return _mlp_residual(get, mm, x)
 
 
 def _trunk(cfg: GPT2Config, params: Params, input_ids):
@@ -224,6 +314,7 @@ def _trunk(cfg: GPT2Config, params: Params, input_ids):
 
 def forward(cfg: GPT2Config, params: Params, input_ids):
     """Token logits [B, S, V] (``gpt2.py:354``). input_ids: [B, S] ints."""
+    params = _dequant_resident(params)
     x = _trunk(cfg, params, input_ids)
     x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
     return x @ params["wte"].T.to(x.dtype)
@@ -311,18 +402,21 @@ def _cached_attention(q, k, v, ck, cv, pos, block_tables=None,
     return paged_decode_attention(q, ck, cv, block_tables, pos)
 
 
-def _block_cached_body(cfg: GPT2Config, x, layer, ck, cv, pos,
+def _block_cached_body(cfg: GPT2Config, x, get, mm, ck, cv, pos,
                        block_tables=None, chunk_valid=None):
-    """One block with KV-cache read/write (``gpt2.py:413``).  x: [B, T, D];
-    ck/cv: one layer's cache or pool slice, written in place; pos: the
-    global position of x[:, 0] — int, or int32 [B] per-row positions."""
+    """One block with KV-cache read/write (``gpt2.py:413``), with weight
+    access through ``get(name)`` / ``mm(y, name, dtype)`` so the per-layer
+    and layer-indexed loops share the math.  x: [B, T, D]; ck/cv: one
+    layer's cache or pool slice (or int8 pool record), written in place;
+    pos: the global position of x[:, 0] — int, or int32 [B] per-row
+    positions."""
     b, t, d = x.shape
-    y = _layer_norm(x, layer["ln1_scale"], layer["ln1_bias"])
-    q, k, v = _qkv(cfg, layer, y)
+    y = _layer_norm(x, get("ln1_scale"), get("ln1_bias"))
+    q, k, v = _qkv(cfg, get, mm, y)
     attn = _cached_attention(q, k, v, ck, cv, pos, block_tables, chunk_valid)
     attn = attn.transpose(1, 2).reshape(b, t, d)
-    x = x + attn @ layer["o_w"].to(x.dtype) + layer["o_b"].to(x.dtype)
-    return _mlp_residual(layer, x)
+    x = x + mm(attn, "o_w", x.dtype) + get("o_b").to(x.dtype)
+    return _mlp_residual(get, mm, x)
 
 
 def forward_cached(cfg: GPT2Config, params: Params, input_ids, cache, pos,
@@ -341,8 +435,13 @@ def forward_cached(cfg: GPT2Config, params: Params, input_ids, cache, pos,
        vector with T > 1 picks each row's logits at ``lengths[b] - 1``.
 
     ``cache`` is ``{"k", "v"}`` of ``[L, B, H, S, hd]`` (contiguous) or
-    ``[L, NB, H, bs, hd]`` (paged, with ``block_tables`` int32 [B, NBPER]).
+    ``[L, NB, H, bs, hd]`` (paged, with ``block_tables`` int32 [B, NBPER]),
+    each leaf possibly an int8 pool record.  With K-grouped blocks and at
+    most ``W8A8_MAX_ROWS`` rows the layer loop takes the stacked w8a8
+    kernel, each layer's index a slice of one ``arange(L)`` on the device
+    (:func:`use_indexed_decode`).
     """
+    params = _dequant_resident(params)
     b, t = input_ids.shape
     wpe = params["wpe"]
     smax = cfg.max_seq_len
@@ -362,9 +461,22 @@ def forward_cached(cfg: GPT2Config, params: Params, input_ids, cache, pos,
     x = (params["wte"][input_ids] + pe).to(params["wte"].dtype)
     chunk_valid = lengths if (block_tables is not None
                               and lengths is not None and t > 1) else None
+    blocks = params["blocks"]
+    indexed = use_indexed_decode(blocks, rows=b * t)
+    if indexed:
+        layer_ids = torch.arange(cfg.num_layers, dtype=torch.int32,
+                                 device=x.device)
     for i in range(cfg.num_layers):
-        x = _block_cached_body(cfg, x, _layer(params["blocks"], i),
-                               cache["k"][i], cache["v"][i], step_pos,
+        layer = _layer(blocks, i)
+        if indexed:
+            def mm(y, name, dtype, l_idx=layer_ids[i:i + 1]):
+                return _qmm_indexed(y, blocks[name], l_idx, dtype)
+
+            get = layer.__getitem__
+        else:
+            get, mm = _accessors(layer)
+        x = _block_cached_body(cfg, x, get, mm, _index(cache["k"], i),
+                               _index(cache["v"], i), step_pos,
                                block_tables=block_tables,
                                chunk_valid=chunk_valid)
     if not all_positions:
@@ -390,6 +502,11 @@ class GPT2Model(nn.Module):
     (``gpt2.py:810-867``).  Parameters live with the engine, as a nested
     dict of tensors, so one model object can back several engines."""
 
+    #: the engines may store ``blocks`` as int8 records (module docstring)
+    quant_aware = True
+    #: where the stacked per-layer weights live in the parameter tree
+    blocks_key = ("blocks",)
+
     def __init__(self, cfg: GPT2Config):
         super().__init__()
         self.model_config = cfg
@@ -406,6 +523,9 @@ class GPT2Model(nn.Module):
             "max_seq_len": cfg.max_seq_len,
             "supports_lengths": True,
             "supports_paged": True,
+            # every pool read and write goes through ops/paged_kv and the
+            # record-aware attention, so the server may quantize the pool
+            "supports_kv_quant": True,
         }
 
     def init_fn(self, generator: torch.Generator) -> Params:

@@ -12,9 +12,13 @@ Two kinds of function, one API:
    token) and ``paged_verify_attention_cuda`` (paged, a window of up to 16
    tokens): hand-written CUDA kernels for Hopper
    (``ops/csrc/decode_attention.cu``, loaded through ``ops/op_builder.py``).
-   A wrapper given CUDA tensors launches its kernel and adds one to its
-   ``launches`` count, or raises; it takes its plain version only for
-   tensors that lie on the CPU.
+   Given an int8 pool record (``{"qp", "ps"}``, ``ops/paged_kv.py``) the two
+   paged wrappers hand it to their kv8 variants,
+   ``paged_decode_attention_kv8_cuda`` and
+   ``paged_verify_attention_kv8_cuda``, which fold the per-token scales
+   in-kernel.  A wrapper given CUDA tensors launches its kernel and adds one
+   to its ``launches`` count, or raises; it takes its plain version only
+   for tensors that lie on the CPU.
 
 The dispatchers ``decode_attention`` and ``paged_decode_attention`` pick
 between them by window length, as the JAX dispatchers do on the TPU.
@@ -28,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from .paged_kv import paged_gather
+from .paged_kv import is_quantized_pool, paged_gather, pool_payload
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -78,15 +82,17 @@ def paged_decode_attention_reference(q, k_pool, v_pool, block_tables, q_pos,
                                      *, sm_scale: Optional[float] = None):
     """Gather-based paged attention (plain PyTorch): materialize each row's
     logical cache view through its block table, then run the contiguous
-    plain path.
+    plain path.  An int8 pool record dequantizes to the query dtype, so the
+    residual stream keeps the model's compute dtype
+    (``decode_attention.py:323-329``).
 
     q:            [B, H, T, D]
-    k/v_pool:     [NB, HKV, block_size, D] shared pool
+    k/v_pool:     [NB, HKV, block_size, D] shared pool, or its int8 record
     block_tables: int32 [B, NBPER]
     q_pos:        int or int32 [B] — global position of q[:, :, 0]
     """
-    k = paged_gather(k_pool, block_tables)
-    v = paged_gather(v_pool, block_tables)
+    k = paged_gather(k_pool, block_tables, out_dtype=q.dtype)
+    v = paged_gather(v_pool, block_tables, out_dtype=q.dtype)
     return decode_attention_reference(q, k, v, q_pos, sm_scale=sm_scale)
 
 
@@ -106,8 +112,16 @@ def _lib():
                                                   i, i, i, i, f, p]
         lib.ds_paged_verify_attention.argtypes = [p, p, p, p, p, p, i, i, i,
                                                   i, i, i, i, i, f, p]
+        lib.ds_paged_decode_attention_q8.argtypes = [p, p, p, p, p, p, p, p,
+                                                     i, i, i, i, i, i, i, f,
+                                                     p]
+        lib.ds_paged_verify_attention_q8.argtypes = [p, p, p, p, p, p, p, p,
+                                                     i, i, i, i, i, i, i, i,
+                                                     f, p]
         for fn in (lib.ds_decode_attention, lib.ds_paged_decode_attention,
-                   lib.ds_paged_verify_attention):
+                   lib.ds_paged_verify_attention,
+                   lib.ds_paged_decode_attention_q8,
+                   lib.ds_paged_verify_attention_q8):
             fn.restype = ctypes.c_int
         lib.ds_attention_smem_bytes.argtypes = [i, i]
         lib.ds_attention_smem_bytes.restype = ctypes.c_size_t
@@ -129,8 +143,11 @@ def _row_pos(q_pos, b: int, device) -> torch.Tensor:
     return torch.full((b,), int(q_pos), dtype=torch.int32, device=device)
 
 
-def _check_cuda(name, q, kv, h, hkv, t, extra=()):
-    """Validate what the kernel takes; raises on anything else."""
+def _check_cuda(name, q, kv, h, hkv, t, extra=(), kv_dtype=None):
+    """Validate what the kernel takes; raises on anything else.  ``kv`` is
+    the (k, v) pair of caches or pools, or of int8 codes when ``kv_dtype``
+    is ``torch.int8``; ``extra`` names more tensors for the device and
+    layout checks."""
     for tname, x in (("q", q), ("k", kv[0]), ("v", kv[1])) + tuple(extra):
         if not x.is_cuda or x.device != q.device:
             raise ValueError(f"{name}: {tname} must be a CUDA tensor on "
@@ -140,8 +157,10 @@ def _check_cuda(name, q, kv, h, hkv, t, extra=()):
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: dtype {q.dtype} not supported "
                          "(float32, float16, bfloat16)")
-    if kv[0].dtype != q.dtype or kv[1].dtype != q.dtype:
-        raise ValueError(f"{name}: q, k and v must share one dtype")
+    kv_dtype = q.dtype if kv_dtype is None else kv_dtype
+    if kv[0].dtype != kv_dtype or kv[1].dtype != kv_dtype:
+        raise ValueError(f"{name}: k and v must be {kv_dtype}, got "
+                         f"{kv[0].dtype} and {kv[1].dtype}")
     d = q.shape[-1]
     if d not in _HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} not in {_HEAD_DIMS}")
@@ -202,29 +221,45 @@ decode_attention_cuda.launches = 0
 
 def _paged_cuda(wrapper, entry, q, k_pool, v_pool, block_tables, q_pos,
                 sm_scale):
-    """Shared checks + launch of the two paged kernels; counts the launch
-    on ``wrapper``."""
+    """Shared checks + launch of the paged kernels; counts the launch on
+    ``wrapper``.  The ``_q8`` entries take int8 pool records."""
     name = wrapper.__name__
+    quant = entry.endswith("_q8")
     b, h, t, d = q.shape
-    nb, hkv, bs, _ = k_pool.shape
-    if k_pool.shape != (nb, hkv, bs, d) or v_pool.shape != k_pool.shape:
-        raise ValueError(f"{name}: pool shapes {tuple(k_pool.shape)}, "
-                         f"{tuple(v_pool.shape)} do not match q "
+    kc, vc = pool_payload(k_pool), pool_payload(v_pool)
+    nb, hkv, bs, _ = kc.shape
+    if kc.shape != (nb, hkv, bs, d) or vc.shape != kc.shape:
+        raise ValueError(f"{name}: pool shapes {tuple(kc.shape)}, "
+                         f"{tuple(vc.shape)} do not match q "
                          f"{tuple(q.shape)}")
     if block_tables.dtype != torch.int32 or block_tables.ndim != 2 \
             or block_tables.shape[0] != b:
         raise ValueError(f"{name}: block_tables must be int32 [{b}, NBPER], "
                          f"got {block_tables.dtype} {tuple(block_tables.shape)}")
-    _check_cuda(name, q, (k_pool, v_pool), h, hkv, t,
-                extra=(("block_tables", block_tables),))
+    extra = [("block_tables", block_tables)]
+    if quant:
+        for tname, sc in (("k scales", k_pool["ps"]), ("v scales",
+                                                        v_pool["ps"])):
+            if sc.dtype != torch.bfloat16 or sc.shape != (nb, hkv, bs):
+                raise ValueError(f"{name}: {tname} must be bfloat16 "
+                                 f"{(nb, hkv, bs)}, got {sc.dtype} "
+                                 f"{tuple(sc.shape)}")
+            extra.append((tname, sc))
+    _check_cuda(name, q, (kc, vc), h, hkv, t, extra=extra,
+                kv_dtype=torch.int8 if quant else None)
     pos = _row_pos(q_pos, b, q.device)
     out = torch.empty_like(q)
     if b == 0:
         return out
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    args = [q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(), b, h, hkv]
-    if entry == "ds_paged_verify_attention":
+    if quant:
+        args = [q.data_ptr(), kc.data_ptr(), k_pool["ps"].data_ptr(),
+                vc.data_ptr(), v_pool["ps"].data_ptr()]
+    else:
+        args = [q.data_ptr(), kc.data_ptr(), vc.data_ptr()]
+    args += [block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(), b, h,
+             hkv]
+    if "verify" in entry:
         args.append(t)
     args += [bs, block_tables.shape[1], d, _DTYPE_CODES[q.dtype], scale,
              _stream(q.device)]
@@ -237,7 +272,12 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, block_tables, q_pos, *,
                                 sm_scale: Optional[float] = None):
     """Single-token paged decode: q [B, H, 1, D] against the pool
     [NB, HKV, bs, D], walking each row's int32 [B, NBPER] block table
-    in-kernel.  Replaces ``paged_decode_attention_pallas``."""
+    in-kernel.  Replaces ``paged_decode_attention_pallas``; int8 pool
+    records go to :func:`paged_decode_attention_kv8_cuda`."""
+    if is_quantized_pool(k_pool):
+        return paged_decode_attention_kv8_cuda(q, k_pool, v_pool,
+                                               block_tables, q_pos,
+                                               sm_scale=sm_scale)
     if not q.is_cuda:
         return paged_decode_attention_reference(
             q, k_pool, v_pool, block_tables, q_pos, sm_scale=sm_scale)
@@ -256,14 +296,16 @@ def paged_verify_attention_cuda(q, k_pool, v_pool, block_tables, q_pos, *,
                                 sm_scale: Optional[float] = None):
     """Paged attention of a T <= :data:`VERIFY_T_MAX` query window per row:
     q [B, H, T, D], row ``i`` of the window at position ``q_pos[b] + i``
-    sees keys up to itself.  Replaces ``paged_verify_attention_pallas``."""
+    sees keys up to itself.  Replaces ``paged_verify_attention_pallas``;
+    int8 pool records go to :func:`paged_verify_attention_kv8_cuda`."""
+    if is_quantized_pool(k_pool):
+        return paged_verify_attention_kv8_cuda(q, k_pool, v_pool,
+                                               block_tables, q_pos,
+                                               sm_scale=sm_scale)
     if not q.is_cuda:
         return paged_decode_attention_reference(
             q, k_pool, v_pool, block_tables, q_pos, sm_scale=sm_scale)
-    t = q.shape[2]
-    if not 1 <= t <= VERIFY_T_MAX:
-        raise ValueError(f"paged_verify_attention_cuda takes windows up to "
-                         f"{VERIFY_T_MAX}, got T={t}")
+    _check_window(q.shape[2])
     return _paged_cuda(paged_verify_attention_cuda,
                        "ds_paged_verify_attention", q, k_pool, v_pool,
                        block_tables, q_pos, sm_scale)
@@ -271,9 +313,54 @@ def paged_verify_attention_cuda(q, k_pool, v_pool, block_tables, q_pos, *,
 
 paged_verify_attention_cuda.launches = 0
 
+
+def _check_window(t: int) -> None:
+    if not 1 <= t <= VERIFY_T_MAX:
+        raise ValueError(f"the paged verify kernels take windows up to "
+                         f"{VERIFY_T_MAX}, got T={t}")
+
+
+def paged_decode_attention_kv8_cuda(q, k_pool, v_pool, block_tables, q_pos,
+                                    *, sm_scale: Optional[float] = None):
+    """:func:`paged_decode_attention_cuda` on int8 pool records ``{"qp":
+    int8 [NB, HKV, bs, D], "ps": bf16 [NB, HKV, bs]}``: the kernel reads
+    codes and per-token scales and folds the scales into the score and
+    probability columns.  Replaces the ``quant=True`` operands of
+    ``_paged_decode_pallas`` (``_paged_pool_operands``)."""
+    if not q.is_cuda:
+        return paged_decode_attention_reference(
+            q, k_pool, v_pool, block_tables, q_pos, sm_scale=sm_scale)
+    if q.shape[2] != 1:
+        raise ValueError(f"paged_decode_attention_kv8_cuda is single-token, "
+                         f"got T={q.shape[2]}")
+    return _paged_cuda(paged_decode_attention_kv8_cuda,
+                       "ds_paged_decode_attention_q8", q, k_pool, v_pool,
+                       block_tables, q_pos, sm_scale)
+
+
+paged_decode_attention_kv8_cuda.launches = 0
+
+
+def paged_verify_attention_kv8_cuda(q, k_pool, v_pool, block_tables, q_pos,
+                                    *, sm_scale: Optional[float] = None):
+    """:func:`paged_verify_attention_cuda` on int8 pool records (as
+    :func:`paged_decode_attention_kv8_cuda`).  Replaces the ``quant=True``
+    operands of ``_paged_verify_pallas``."""
+    if not q.is_cuda:
+        return paged_decode_attention_reference(
+            q, k_pool, v_pool, block_tables, q_pos, sm_scale=sm_scale)
+    _check_window(q.shape[2])
+    return _paged_cuda(paged_verify_attention_kv8_cuda,
+                       "ds_paged_verify_attention_q8", q, k_pool, v_pool,
+                       block_tables, q_pos, sm_scale)
+
+
+paged_verify_attention_kv8_cuda.launches = 0
+
 #: every kernel wrapper of this module, for launch-count bookkeeping
 KERNELS = (decode_attention_cuda, paged_decode_attention_cuda,
-           paged_verify_attention_cuda)
+           paged_verify_attention_cuda, paged_decode_attention_kv8_cuda,
+           paged_verify_attention_kv8_cuda)
 
 
 def reset_launch_counts() -> None:
@@ -299,7 +386,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, q_pos, *,
                            sm_scale: Optional[float] = None):
     """Dispatch: the block-table-walking CUDA kernels for single-token
     decode (T == 1) and windows up to :data:`VERIFY_T_MAX`; the gather +
-    plain path otherwise (``decode_attention.py:580-603``)."""
+    plain path otherwise (``decode_attention.py:580-603``).  Float pools
+    and int8 pool records alike."""
     if q.shape[2] == 1:
         return paged_decode_attention_cuda(q, k_pool, v_pool, block_tables,
                                            q_pos, sm_scale=sm_scale)

@@ -5,9 +5,9 @@ The port's copy of ``deepspeed_tpu/runtime/config_utils.py``
 machines the port runs on need not have pydantic, so this copy keeps the
 same contract on the standard library alone: fields are class annotations
 with defaults, :func:`Field` adds a default factory and a key alias, unknown
-keys warn (or raise with ``strict=True``) and are kept as attributes, and a
+keys warn (or raise with ``strict=True``) and are kept as attributes, a
 dict given for a field whose annotation is itself a config model builds
-that model.
+that model, and ``model_fields_set`` names the fields the caller gave.
 """
 
 from __future__ import annotations
@@ -52,6 +52,7 @@ class DeepSpeedConfigModel:
             else:
                 value = None
             setattr(self, name, value)
+        self.model_fields_set = {by_key[k] for k in data if k in by_key}
         for key, value in data.items():
             name = by_key.get(key)
             if name is None:

@@ -174,7 +174,7 @@ def test_engine_refuses_what_is_not_ported(tiny):
     with pytest.raises(ValueError, match="context length"):
         eng.generate(np.zeros((1, 120), np.int64), max_new_tokens=10)
     for cfgd in ({"tensor_parallel": {"tp_size": 2}},
-                 {"quant": {"enabled": True}}, {"dtype": "int8"},
+                 {"sequence_parallel": 2}, {"dtype": "int8"},
                  {"zero_inference": {"enabled": True}}):
         with pytest.raises(NotImplementedError):
             deepspeed_tpu_torch.init_inference(model, config=cfgd,

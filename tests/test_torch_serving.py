@@ -168,7 +168,7 @@ def test_init_serving_refuses_unported_options(engines):
     for kw, word in (({"sampling": True}, "sampling"),
                      ({"decode_steps": 4}, "fused"),
                      ({"spec_tokens": 3}, "speculative"),
-                     ({"quantize": "kv8"}, "kv8"),
+                     ({"debug_checks": True}, "audit"),
                      ({"host_blocks": 8}, "tier"),
                      ({"resident_window_blocks": 4}, "tier"),
                      ({"sp": 2}, "multi-GPU"),
@@ -205,6 +205,8 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         "import deepspeed_tpu_torch as p\n"
         "import deepspeed_tpu_torch.runtime.engine\n"
         "import deepspeed_tpu_torch.ops.flash_attention\n"
+        "import deepspeed_tpu_torch.ops.quantization\n"
+        "import deepspeed_tpu_torch.ops.quantized_matmul\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
@@ -215,4 +217,4 @@ def test_package_imports_neither_jax_nor_the_jax_package():
                          text=True, timeout=300,
                          cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 27          # every module imported
+    assert int(out.stdout.strip()) >= 30          # every module imported
