@@ -11,14 +11,18 @@ Phases (any failure raises and exits non-zero):
     the decode-attention and flash-attention kernels from
     ``deepspeed_tpu_torch/ops/csrc`` (one nvcc each, started together);
  2. each decode kernel against its plain PyTorch version on the card at the
-    shape the main path gives it (plus B=8 ragged, GQA and fp32 cases), with
+    shape the main path gives it (plus B=8 ragged, GQA and fp32 cases, and
+    for the split-K verify kernel block sizes 16 and 1, rows all at base 0,
+    a 160-key table and fp16, also held against the plain model of its
+    split-K algorithm), with
     its time at that shape (per eager call, and replayed from a CUDA graph)
     beside the plain version's, a ``scaled_dot_product_attention``
     yardstick's, and its bound;
  2b. the same for the flash-attention forward, dq and dkv kernels at the
     train phase's shape (bf16, causal, B=8, H=12, S=1024, D=64) and at
-    phase 9's (B=2, S=2048), plus S=1000 (unaligned), GQA, non-causal,
-    fp32 and the lse/delta taking dq and dkv calls;
+    phase 9's (B=2, S=2048), plus one-tile cases (B*H = 1, S = 64 and 128,
+    full and causal), S=130, S=1000 (unaligned), GQA, non-causal, fp32 and
+    the lse/delta taking dq and dkv calls;
  2c. the same for the int8 kernels of the quantized lane: the kv8 variants
     of the paged decode and verify kernels (int8 pools with per-token bf16
     scales; bf16, fp32 and GQA cases), and the w8a8 (B5), stacked w8a8 (B6)
@@ -291,51 +295,82 @@ def check_kernels():
     path's shapes.  Returns {kernel name: measurements}."""
     import torch
 
+    from deepspeed_tpu_torch.ops import decode_attention as da
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     bf16, f32 = torch.bfloat16, torch.float32
     names = {"contiguous": "decode_attention_cuda",
              1: "paged_decode_attention_cuda",
              "verify": "paged_verify_attention_cuda"}
-    # (label, kind, B, H, HKV, T, dtype, NBPER, positions, timed): the
+    # (label, kind, B, H, HKV, T, dtype, NBPER, bs, positions, timed): the
     # timed cases are the shapes the main path gives each kernel — B2 in
     # phase 3's generate (4 rows, 256-key cache, one shared int position),
     # B3 in phase 4's decode steps (8 slots, ragged lengths), B4 in phase
-    # 5's prefill windows (prefill_batch 4, bases on multiples of 16)
+    # 5's prefill windows (prefill_batch 4, bases on multiples of 16).  The
+    # 16-bit B4 cases run the split-K kernel (128 keys a split): block sizes
+    # 16 and 1 (a table entry per key), every row at base 0 (every split
+    # but the first empty), a table of 160 keys (not a whole number of
+    # splits) and fp16; f32 takes the f32 template
+    fp16 = torch.float16
     cases = [
-        ("B2 main", "contiguous", 4, 12, 12, 1, bf16, 8, 160, True),
-        ("B3 main", "paged", 8, 12, 12, 1, bf16, 32, "ragged", True),
-        ("B4 main T=16", "paged", 4, 12, 12, 16, bf16, 32, "chunks", True),
-        ("B2 B=8 ragged", "contiguous", 8, 12, 12, 1, bf16, 32, "ragged",
+        ("B2 main", "contiguous", 4, 12, 12, 1, bf16, 8, 32, 160, True),
+        ("B3 main", "paged", 8, 12, 12, 1, bf16, 32, 32, "ragged", True),
+        ("B4 main T=16", "paged", 4, 12, 12, 16, bf16, 32, 32, "chunks",
+         True),
+        ("B2 B=8 ragged", "contiguous", 8, 12, 12, 1, bf16, 32, 32,
+         "ragged", False),
+        ("B4 B=8 T=16 ragged", "paged", 8, 12, 12, 16, bf16, 32, 32,
+         "ragged", False),
+        ("B4 T=2", "paged", 8, 12, 12, 2, bf16, 32, 32, "ragged", False),
+        ("B4 bs=16 T=16", "paged", 4, 12, 12, 16, bf16, 64, 16, "chunks",
          False),
-        ("B4 B=8 T=16 ragged", "paged", 8, 12, 12, 16, bf16, 32, "ragged",
+        ("B4 bs=1 T=16", "paged", 4, 12, 12, 16, bf16, 1024, 1, "ragged",
          False),
-        ("B4 T=2", "paged", 8, 12, 12, 2, bf16, 32, "ragged", False),
-        ("B2 GQA", "contiguous", 8, 8, 2, 1, bf16, 32, "ragged", False),
-        ("B3 GQA", "paged", 8, 8, 2, 1, bf16, 32, "ragged", False),
-        ("B4 GQA T=16", "paged", 8, 8, 2, 16, bf16, 32, "ragged", False),
-        ("B2 fp32", "contiguous", 8, 12, 12, 1, f32, 32, "ragged", False),
-        ("B2 fp32 int pos", "contiguous", 4, 12, 12, 1, f32, 8, 160, False),
-        ("B3 fp32", "paged", 8, 12, 12, 1, f32, 32, "ragged", False),
-        ("B4 fp32 T=16", "paged", 8, 12, 12, 16, f32, 32, "ragged", False),
+        ("B4 base 0 T=16", "paged", 4, 12, 12, 16, bf16, 32, 32, 0, False),
+        ("B4 160-key table T=16", "paged", 8, 12, 12, 16, bf16, 5, 32,
+         "ragged", False),
+        ("B4 fp16 T=16", "paged", 4, 12, 12, 16, fp16, 32, 32, "chunks",
+         False),
+        ("B2 GQA", "contiguous", 8, 8, 2, 1, bf16, 32, 32, "ragged", False),
+        ("B3 GQA", "paged", 8, 8, 2, 1, bf16, 32, 32, "ragged", False),
+        ("B4 GQA T=16", "paged", 8, 8, 2, 16, bf16, 32, 32, "ragged", False),
+        ("B2 fp32", "contiguous", 8, 12, 12, 1, f32, 32, 32, "ragged",
+         False),
+        ("B2 fp32 int pos", "contiguous", 4, 12, 12, 1, f32, 8, 32, 160,
+         False),
+        ("B3 fp32", "paged", 8, 12, 12, 1, f32, 32, 32, "ragged", False),
+        ("B4 fp32 T=16", "paged", 8, 12, 12, 16, f32, 32, 32, "ragged",
+         False),
     ]
     flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
     out = {}
-    for seed, (label, kind, b, h, hkv, t, dtype, nbper, pos, main) in \
+    for seed, (label, kind, b, h, hkv, t, dtype, nbper, bs, pos, main) in \
             enumerate(cases):
-        case = make_case(kind, b, h, hkv, t, 64, dtype, seed, nbper=nbper,
-                         pos=pos)
+        case = make_case(kind, b, h, hkv, t, 64, dtype, seed, bs=bs,
+                         nbper=nbper, pos=pos)
         got = run_kernel(case)
         want = run_plain(case)
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
             raise AssertionError(f"{label}: non-finite kernel output")
         err = (got.float() - want.float()).abs().max().item()
-        tol = BF16_TOL if dtype == bf16 else FP32_TOL
-        rtol = BF16_TOL if dtype == bf16 else 0.0
+        tol = BF16_TOL if dtype != f32 else FP32_TOL
+        rtol = BF16_TOL if dtype != f32 else 0.0
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=rtol, msg=lambda m: f"{label}: {m}")
-        log(f"[kernels] {label}: max_abs_err={err:.3e} (atol {tol})")
+        split = ""
+        if kind == "paged" and t > 1 and dtype != f32:
+            # the split-K kernel against the plain model of its algorithm
+            model = da.paged_verify_split_plain(case["q"], case["k"],
+                                                case["v"], case["bt"],
+                                                case["pos"])
+            torch.testing.assert_close(
+                got.float(), model.float(), atol=tol, rtol=rtol,
+                msg=lambda m: f"{label} (split model): {m}")
+            split = (f", vs the split-K model "
+                     f"{(got.float() - model.float()).abs().max().item():.3e}")
+        log(f"[kernels] {label}: max_abs_err={err:.3e} (atol {tol}){split}")
         if not main:
             continue
         name = names["contiguous" if kind == "contiguous"
@@ -447,11 +482,21 @@ def check_flash_kernels():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     bf16, f32 = torch.bfloat16, torch.float32
-    # (label, B, H, Hkv, Sq, Sk, dtype, causal, timed): the first is the
-    # shape phase 7 gives every call (12 layers x 20 micro-steps), whose
-    # times go into the kernels line; the S=2048 times (phase 9, the JAX
-    # package's v3 regime) are logged only
+    # (label, B, H, Hkv, Sq, Sk, dtype, causal, timed): the first timed
+    # case is the shape phase 7 gives every call (12 layers x 20
+    # micro-steps), whose times go into the kernels line; the S=2048 times
+    # (phase 9, the JAX package's v3 regime) are logged only.  The bf16
+    # forward is the wgmma kernel (128-row query tiles, 128-key tiles): its
+    # one-tile cases come first, since a wrong shared-memory descriptor
+    # gives finite but wrong o there already
     cases = [
+        ("one tile S=64", 1, 1, 1, 64, 64, bf16, False, False),
+        ("one tile S=64 causal", 1, 1, 1, 64, 64, bf16, True, False),
+        ("one tile S=128", 1, 1, 1, 128, 128, bf16, False, False),
+        ("one tile S=128 causal", 1, 1, 1, 128, 128, bf16, True, False),
+        ("S=130 (a tile and a ragged one)", 2, 12, 12, 130, 130, bf16, True,
+         False),
+        ("GQA H=12 Hkv=4", 8, 12, 4, 1024, 1024, bf16, True, False),
         ("train S=1024", 8, 12, 12, 1024, 1024, bf16, True, True),
         ("S=1000 unaligned", 8, 12, 12, 1000, 1000, bf16, True, False),
         ("S=2048 (phase 9)", 2, 12, 12, 2048, 2048, bf16, True, True),
@@ -1463,7 +1508,8 @@ def build_all():
         f"{time.perf_counter() - t0:.1f} s")
     for b in builders:
         for line in b.build_log.splitlines():
-            if "Used" in line or "spill" in line:
+            # registers, spills, and ptxas' notes of serialised wgmma
+            if "Used" in line or "spill" in line or "Performance Loss" in line:
                 log(f"[build] {b.name}: {line.strip()}")
 
 

@@ -5,33 +5,69 @@
 //
 // Entry points and the TPU kernels they replace
 // (deepspeed_tpu/ops/decode_attention.py):
+//   ds_paged_verify_attention_split <- paged_verify_attention_pallas
+//                                   (_paged_verify_kernel) on a bf16 or fp16
+//                                   pool: q [B,H,T,D], T <= 16, row i of the
+//                                   window at position pos[b] + i, against the
+//                                   pool [NB,HKV,bs,D] through int32 [B,NBPER]
+//                                   tables (verify_split_kernel)
+//   ds_paged_verify_attention    <- the same on an f32 pool (attn_kernel)
 //   ds_paged_decode_attention    <- paged_decode_attention_pallas
-//                                   (_paged_decode_kernel): q [B,H,1,D] vs pool
-//                                   [NB,HKV,bs,D] through int32 [B,NBPER] tables
-//   ds_paged_verify_attention    <- paged_verify_attention_pallas
-//                                   (_paged_verify_kernel): q [B,H,T,D], T <= 16,
-//                                   row i of the window at position pos[b] + i
-//   ds_paged_decode_attention_q8 <- the same two kernels on an int8 pool
-//   ds_paged_verify_attention_q8    (_paged_pool_operands, quant=True): codes
-//                                   int8 [NB,HKV,bs,D] plus scales bf16
-//                                   [NB,HKV,bs] for K and for V
+//                                   (_paged_decode_kernel): q [B,H,1,D] vs
+//                                   the pool (attn_kernel)
+//   ds_paged_decode_attention_q8 <- the decode and verify kernels on an int8
+//   ds_paged_verify_attention_q8    pool (_paged_pool_operands, quant=True):
+//                                   codes int8 [NB,HKV,bs,D] plus scales bf16
+//                                   [NB,HKV,bs] for K and for V (attn_kernel)
 //   ds_decode_attention          <- decode_attention_pallas (_decode_kernel):
 //                                   q [B,H,1,D] vs cache [B,HKV,S,D]
+//                                   (attn_kernel)
 // Every one returns cudaGetLastError() after its launch.
 //
-// Design.  One thread block per (row b, KV head g); grid (HKV, B).  The
-// R = rep*T query rows that share the KV head (row r: head g*rep + r/T,
-// window offset r%T) sit in shared memory as f32.  The TPU kernel's
-// sequential grid axis over KV chunks becomes a loop inside the block over
-// 32-key tiles from key 0 up to the last key any row may see
-// (pos[b] + T - 1, capped at the cache length), so tiles past a row's valid
-// prefix are never read.  A paged key's address is looked up in the row's
-// block table; negative entries clamp to scratch block 0, as in the TPU
-// kernel.  Per tile: the threads load K and V with 16-byte vector loads
-// into shared memory (f32), threads split the R x 32 scores, one warp per
-// query row runs the online-softmax update of the TPU kernel (masking with
-// NEG_INF past key pos[b] + r%T), and threads split the R x D accumulator.
-// The finish divides by l, with l == 0 read as 1.
+// Bound.  Per call a kernel must read the valid keys and values once:
+// sum_b (pos_b + T) * HKV * (D * sizeof(kv) [+ 2 scale bytes]) * 2 bytes,
+// plus q and out; the arithmetic is 4*R*D flops per key, far below the
+// card's 295 flops/byte balance point, so the H100's 3.35 TB/s bounds them
+// all.  At the serving path's shapes the whole call moves a few MB, so what
+// decides its time is how many SMs stream keys at once and how long each
+// waits on its loads.
+//
+// verify_split_kernel (split-K, flash-decoding; 16-bit pools).  Grid
+// (nsplit, HKV, B): each block takes a fixed span of 128 keys of one row's
+// KV head, so no block walks more than 128 keys whatever the row's length,
+// and nsplit = ceil(NBPER * bs / 128) comes from the table's width on the
+// host (no sync to learn the lengths); a block whose span starts past its
+// row's last visible key exits at once.  Each of the 4 warps loads its 32
+// keys of K and then V in their own 16-bit type with cp.async (16-byte
+// copies into XOR-swizzled 128-byte rows, each key's block looked up in the
+// table, so any bs works; -1 entries clamp to scratch block 0), and
+// computes Q K^T on the tensor cores while V is still in flight:
+// mma.sync.m16n8k16 (f32 accumulate) with ldmatrix for Q and K and
+// ldmatrix.trans for V, the R = rep*T query rows in m16 tiles.  mma.sync,
+// not wgmma: R <= 64 in 16-row granules is the shape mma.sync serves, and a
+// 64-row wgmma would idle 3/4 of its rows at R = 16.  Each warp's softmax
+// runs on its score fragments (exp2 domain, the per-row mask key <= pos[b]
+// + r%T), P becomes the A operand in registers, and the warps merge their
+// (m, l, O) through shared memory.  A row's partials (unnormalised O, m, l
+// per split) go to scratch the wrapper allocates; the last block of each
+// (b, g) to finish, by an atomic ticket that it resets for the next call
+// (and a CUDA-graph replay), merges them by the log-sum-exp rule in split
+// order, so results do not depend on which block finished last.  A row
+// whose keys fit one split writes its output directly.
+//
+// attn_kernel (f32 pools, B2, B3 and the int8 pools).  One thread block per
+// (row b, KV head g); grid (HKV, B).  The R query rows that share the KV
+// head (row r: head g*rep + r/T, window offset r%T) sit in shared memory as
+// f32.  The TPU kernel's sequential grid axis over KV chunks becomes a loop
+// inside the block over 32-key tiles up to the last key any row may see
+// (pos[b] + T - 1, capped at the cache length).  Per tile: the threads load
+// K and V with 16-byte vector loads into shared memory (f32), threads split
+// the R x 32 scores, one warp per query row runs the online-softmax update
+// of the TPU kernel (masking with NEG_INF past key pos[b] + r%T), and
+// threads split the R x D accumulator.  The finish divides by l, with l ==
+// 0 read as 1.  It still serves f32 pools (the tensor cores would round f32
+// to tf32 and miss the fp32 path's exactness), B2 and B3 (T = 1), and the
+// int8 pools; their redesign is later work (ROADMAP Queue B).
 //
 // int8 pools.  The tile holds the integer codes (as f32) and each key's K
 // and V scale; the scales fold into the columns as in the TPU kernel
@@ -39,17 +75,6 @@
 // the probability multiplies vs[j] before the P V product, while the online
 // softmax's m and l stay over the unscaled probabilities.  No dequantized
 // tile is ever written to device memory.
-//
-// Bound.  Per call the kernel must read the valid keys and values once:
-// sum_b (pos_b + T) * HKV * (D * sizeof(kv) [+ 2 scale bytes]) * 2 bytes,
-// plus q and out; the arithmetic is 4*R*D flops per key, far below the
-// card's 295 flops/byte balance point, so the H100's 3.35 TB/s is the bound.
-//
-// Known limit.  The grid is B*HKV blocks with no split over the KV length:
-// at the serving path's 8 slots x 12 KV heads that is 96 blocks for 132
-// SMs, each block streaming its whole prefix alone, with four barriers
-// per 32-key tile and no copy/compute overlap.  A split-K (flash-decoding)
-// grid with cp.async or TMA double buffering is later work.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -316,6 +341,351 @@ int dispatch(int dtype, int D, const void* q, const void* k, const void* v,
 #undef DS_CASE
 }
 
+
+// ----------------------------------------- paged verify, 16-bit, split-K
+namespace splitk {
+
+constexpr int KS = 128;          // keys a block (one split)
+constexpr int WK = 32;           // keys a warp
+constexpr int THREADS = 128;     // 4 warps
+constexpr int MAX_R = 256;       // query rows a KV head (rep * T)
+constexpr int LDO = 68;          // row stride of the warps' f32 merge tiles
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk c of row r of a [rows][64] 16-bit tile whose
+// chunks are XOR-swizzled by the row, so that ldmatrix's 8 row reads hit 8
+// different bank groups.
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
+}
+
+// 16 bytes from global to shared memory, asynchronously; bytes = 0 writes
+// zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// c[16 x 8] (f32) += a[16 x 16] * b[16 x 8] in T; fragments as mma.sync
+// lays them out: c[i] is row lane/4 + 8*(i >> 1), column 2*(lane%4) + (i & 1).
+template <typename T> struct Mma;
+
+template <> struct Mma<__nv_bfloat16> {
+  __device__ static void run(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  __device__ static uint32_t pack(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+};
+
+template <> struct Mma<__half> {
+  __device__ static void run(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  __device__ static uint32_t pack(float lo, float hi) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+};
+
+// 8 f32 values x[i] * inv as 8 T at dst (16-byte aligned).
+template <typename T>
+__device__ __forceinline__ void store8(T* dst, const float (&x)[8], float inv) {
+  uint4 u;
+  u.x = Mma<T>::pack(x[0] * inv, x[1] * inv);
+  u.y = Mma<T>::pack(x[2] * inv, x[3] * inv);
+  u.z = Mma<T>::pack(x[4] * inv, x[5] * inv);
+  u.w = Mma<T>::pack(x[6] * inv, x[7] * inv);
+  *reinterpret_cast<uint4*>(dst) = u;
+}
+
+size_t smem_bytes(int R) {
+  const int rows = (R + 15) / 16 * 16;
+  return (size_t)rows * 128 + 2 * (size_t)KS * 128 +
+         (4 * 16 * LDO + 2 * 4 * 16) * sizeof(float) + 16;
+}
+
+// q/out [B, H, T, D] (the (b, g) slice is the contiguous [R, D] run at
+// (b*HKV + g) * R * D), pools [NB, HKV, bs, D] in T, D = 64.  part_o
+// [B*HKV, nsplit, R, 64] and part_ml [B*HKV, nsplit, R, 2] f32 hold the
+// splits' partials (m in the exp2 domain); tickets [B*HKV] int32 are zero
+// between calls.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+verify_split_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
+                    const int* __restrict__ bt, const int* __restrict__ pos, T* __restrict__ out,
+                    float* __restrict__ part_o, float* __restrict__ part_ml,
+                    int* __restrict__ tickets, int HKV, int R, int win, int bs, int nbper,
+                    int nsplit, float scale2) {
+  const int split = blockIdx.x, g = blockIdx.y, b = blockIdx.z, bg = b * HKV + g;
+  const int base = pos[b];
+  const int nkeys = max(0, min(base + win, nbper * bs));   // keys 0 .. nkeys-1
+  const int nlive = max(1, (nkeys + KS - 1) / KS);
+  if (split >= nlive) return;                              // past every row's keys
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g4 = lane >> 2, t4 = lane & 3, mi = lane >> 3;
+  const int MT = (R + 15) / 16;
+
+  extern __shared__ __align__(128) unsigned char split_smem[];
+  unsigned char* smem = split_smem;
+  const uint32_t qs = smem_u32(smem);                      // [MT*16][64] T
+  const uint32_t ks = qs + MT * 16 * 128;                  // [KS][64] T
+  const uint32_t vs = ks + KS * 128;                       // [KS][64] T
+  float* mo = reinterpret_cast<float*>(smem + MT * 16 * 128 + 2 * KS * 128);  // [4][16][LDO]
+  float* mm = mo + 4 * 16 * LDO;                           // [4][16] warp maxima
+  float* ml = mm + 4 * 16;                                 // [4][16] warp sums
+  int* last = reinterpret_cast<int*>(ml + 4 * 16);
+
+  const size_t qoff = (size_t)bg * R * 64;
+  for (int i = tid; i < MT * 16 * 8; i += THREADS) {
+    const int r = i >> 3, c = i & 7;
+    cp_async16(qs + swz(r, c), q + qoff + (size_t)min(r, R - 1) * 64 + c * 8, r < R ? 16 : 0);
+  }
+  cp_async_commit();
+  // this warp's 32 keys: lane -> chunk lane%8 of keys lane/8 + 4e
+  const int kw = split * KS + warp * WK;
+  size_t off[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int key = kw + (lane >> 3) + 4 * e;
+    off[e] = 0;
+    if (key < nkeys) {
+      const int blk = max(bt[(size_t)b * nbper + key / bs], 0);
+      off[e] = (((size_t)blk * HKV + g) * bs + key % bs) * 64 + (lane & 7) * 8;
+    }
+    cp_async16(ks + swz(warp * WK + (lane >> 3) + 4 * e, lane & 7), kp + off[e],
+               key < nkeys ? 16 : 0);
+  }
+  cp_async_commit();
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int key = kw + (lane >> 3) + 4 * e;
+    cp_async16(vs + swz(warp * WK + (lane >> 3) + 4 * e, lane & 7), vp + off[e],
+               key < nkeys ? 16 : 0);
+  }
+  cp_async_commit();
+  cp_async_wait<2>();
+  __syncthreads();                                         // Q, from every thread
+  cp_async_wait<1>();
+  __syncwarp();                                            // this warp's K
+  const bool warp_live = kw < nkeys;
+  if (!warp_live) cp_async_wait<0>();
+
+  for (int mt = 0; mt < MT; ++mt) {
+    float o[8][4];
+#pragma unroll
+    for (int d = 0; d < 8; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
+    float m2[2] = {NEG_INF, NEG_INF}, l2[2] = {0.f, 0.f};
+    if (warp_live) {
+      uint32_t qa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        ldsm_x4(qa[kk], qs + swz(mt * 16 + (lane & 7) + (mi & 1) * 8, 2 * kk + (mi >> 1)));
+      float sc[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t kb[4];
+          ldsm_x4(kb, ks + swz(warp * WK + np * 16 + (lane & 7) + (mi >> 1) * 8, 2 * kk + (mi & 1)));
+          Mma<T>::run(sc[2 * np], qa[kk], kb[0], kb[1]);
+          Mma<T>::run(sc[2 * np + 1], qa[kk], kb[2], kb[3]);
+        }
+      // mask per query row, softmax over the warp's 32 keys (exp2 domain)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = kw + n * 8 + 2 * t4 + (e & 1);
+          const int r = mt * 16 + g4 + 8 * (e >> 1);
+          const bool vis = key < nkeys && r < R && key <= base + r % win;
+          const float x = vis ? sc[n][e] * scale2 : NEG_INF;
+          sc[n][e] = x;
+          m2[e >> 1] = fmaxf(m2[e >> 1], x);
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        m2[h] = fmaxf(m2[h], __shfl_xor_sync(0xffffffffu, m2[h], 1));
+        m2[h] = fmaxf(m2[h], __shfl_xor_sync(0xffffffffu, m2[h], 2));
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = sc[n][e];
+          const float p = x > 0.5f * NEG_INF ? exp2f(x - m2[e >> 1]) : 0.f;
+          sc[n][e] = p;
+          l2[e >> 1] += p;
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l2[h] += __shfl_xor_sync(0xffffffffu, l2[h], 1);
+        l2[h] += __shfl_xor_sync(0xffffffffu, l2[h], 2);
+      }
+      // P as the A operand: keys 16j..16j+15 are score tiles 2j and 2j+1
+      uint32_t pa[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        pa[j][0] = Mma<T>::pack(sc[2 * j][0], sc[2 * j][1]);
+        pa[j][1] = Mma<T>::pack(sc[2 * j][2], sc[2 * j][3]);
+        pa[j][2] = Mma<T>::pack(sc[2 * j + 1][0], sc[2 * j + 1][1]);
+        pa[j][3] = Mma<T>::pack(sc[2 * j + 1][2], sc[2 * j + 1][3]);
+      }
+      if (mt == 0) {
+        cp_async_wait<0>();
+        __syncwarp();                                      // this warp's V
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int dp = 0; dp < 4; ++dp) {
+          uint32_t vb[4];
+          ldsm_x4_trans(vb, vs + swz(warp * WK + 16 * j + (lane & 7) + (mi & 1) * 8, 2 * dp + (mi >> 1)));
+          Mma<T>::run(o[2 * dp], pa[j], vb[0], vb[1]);
+          Mma<T>::run(o[2 * dp + 1], pa[j], vb[2], vb[3]);
+        }
+    }
+    // the block's partial for rows mt*16 ..: merge the four warps
+#pragma unroll
+    for (int d = 0; d < 8; ++d)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(&mo[(warp * 16 + g4 + 8 * h) * LDO + d * 8 + 2 * t4]) =
+            make_float2(o[d][2 * h], o[d][2 * h + 1]);
+    if (t4 == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mm[warp * 16 + g4 + 8 * h] = m2[h];
+        ml[warp * 16 + g4 + 8 * h] = l2[h];
+      }
+    }
+    __syncthreads();
+    {
+      const int row = tid >> 3, c0 = (tid & 7) * 8, grow = mt * 16 + row;
+      float mstar = NEG_INF;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) mstar = fmaxf(mstar, mm[w * 16 + row]);
+      float lsum = 0.f, acc[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[c] = 0.f;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const float wt = exp2f(mm[w * 16 + row] - mstar);
+        lsum += wt * ml[w * 16 + row];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[c] += wt * mo[(w * 16 + row) * LDO + c0 + c];
+      }
+      if (grow < R) {
+        if (nlive == 1) {
+          store8(out + qoff + (size_t)grow * 64 + c0, acc, 1.f / (lsum == 0.f ? 1.f : lsum));
+        } else {
+          const size_t pr = ((size_t)bg * nsplit + split) * R + grow;
+          float4* po = reinterpret_cast<float4*>(part_o + pr * 64 + c0);
+          po[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+          po[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+          if ((tid & 7) == 0) *reinterpret_cast<float2*>(part_ml + pr * 2) = make_float2(mstar, lsum);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (nlive == 1) return;
+
+  // the last block of (b, g) to finish merges the splits, in split order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int ticket = atomicAdd(&tickets[bg], 1);
+    *last = ticket == nlive - 1;
+    if (*last) tickets[bg] = 0;                            // clean for the next call
+  }
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();
+  const float* po = part_o + (size_t)bg * nsplit * R * 64;
+  const float* pml = part_ml + (size_t)bg * nsplit * R * 2;
+  for (int i = tid; i < R * 8; i += THREADS) {
+    const int row = i >> 3, c0 = (i & 7) * 8;
+    float mstar = NEG_INF;
+    for (int sp = 0; sp < nlive; ++sp) mstar = fmaxf(mstar, __ldcg(pml + ((size_t)sp * R + row) * 2));
+    float lsum = 0.f, acc[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[c] = 0.f;
+    for (int sp = 0; sp < nlive; ++sp) {
+      const size_t pr = (size_t)sp * R + row;
+      const float2 ml_s = __ldcg(reinterpret_cast<const float2*>(pml + pr * 2));
+      const float wt = exp2f(ml_s.x - mstar);
+      lsum += wt * ml_s.y;
+      const float4 a = __ldcg(reinterpret_cast<const float4*>(po + pr * 64 + c0));
+      const float4 c = __ldcg(reinterpret_cast<const float4*>(po + pr * 64 + c0 + 4));
+      acc[0] += wt * a.x; acc[1] += wt * a.y; acc[2] += wt * a.z; acc[3] += wt * a.w;
+      acc[4] += wt * c.x; acc[5] += wt * c.y; acc[6] += wt * c.z; acc[7] += wt * c.w;
+    }
+    store8(out + qoff + (size_t)row * 64 + c0, acc, 1.f / (lsum == 0.f ? 1.f : lsum));
+  }
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const void* bt, const void* pos,
+           void* out, void* scratch, void* tickets, int B, int H, int HKV, int win, int bs,
+           int nbper, int nsplit, float scale, void* stream) {
+  const int R = (H / HKV) * win;
+  if (R > MAX_R || nsplit != (nbper * bs + KS - 1) / KS) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(R);
+  const cudaError_t e = cudaFuncSetAttribute(
+      verify_split_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  float* part_o = (float*)scratch;
+  float* part_ml = part_o + (size_t)B * HKV * nsplit * R * 64;
+  verify_split_kernel<T><<<dim3(nsplit, HKV, B), THREADS, smem, (cudaStream_t)stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const int*)bt, (const int*)pos, (T*)out, part_o,
+      part_ml, (int*)tickets, HKV, R, win, bs, nbper, nsplit, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace splitk
+
 }  // namespace
 
 extern "C" {
@@ -340,14 +710,39 @@ int ds_paged_decode_attention(const void* q, const void* k_pool,
                                nbper, scale, stream);
 }
 
+// f32 pools only: 16-bit pools take ds_paged_verify_attention_split.
 int ds_paged_verify_attention(const void* q, const void* k_pool,
                               const void* v_pool, const void* block_tables,
                               const void* pos, void* out, int B, int H,
                               int HKV, int T, int bs, int nbper, int D,
                               int dtype, float scale, void* stream) {
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   return dispatch<true, false>(dtype, D, q, k_pool, v_pool, nullptr, nullptr,
                                block_tables, pos, out, B, H, HKV, T, 0, bs,
                                nbper, scale, stream);
+}
+
+// bf16 (dtype 2) or fp16 (1) q, pools and out; D = 64.  scratch: f32
+// [B*HKV*nsplit*R*66] for the splits' partials, R = (H/HKV)*T; tickets:
+// int32 [B*HKV], zero on entry and on return; nsplit = ceil(nbper*bs/128).
+int ds_paged_verify_attention_split(const void* q, const void* k_pool,
+                                    const void* v_pool, const void* block_tables,
+                                    const void* pos, void* out, void* scratch,
+                                    void* tickets, int B, int H, int HKV, int T,
+                                    int bs, int nbper, int nsplit, int D,
+                                    int dtype, float scale, void* stream) {
+  if (D != 64) return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case 1:
+      return splitk::launch<__half>(q, k_pool, v_pool, block_tables, pos, out, scratch,
+                                    tickets, B, H, HKV, T, bs, nbper, nsplit, scale, stream);
+    case 2:
+      return splitk::launch<__nv_bfloat16>(q, k_pool, v_pool, block_tables, pos, out,
+                                           scratch, tickets, B, H, HKV, T, bs, nbper,
+                                           nsplit, scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 int ds_paged_decode_attention_q8(const void* q, const void* k_codes,

@@ -20,33 +20,50 @@
 //                                 head
 // Every one returns cudaGetLastError() after its launch.
 //
-// Design.  The TPU kernels walk a sequential grid axis and carry m/l/acc in
-// VMEM scratch from one grid step to the next; here one thread block owns
-// an output tile and loops over the other axis itself.  Forward and dq: one
-// block per (query tile of 64 rows, bh); the loop runs over 64-key tiles up
-// to the last key any of its rows may see (the diagonal under causal, as the
-// TPU kernels' pl.when skip).  dkv: one block per (key tile of 64, KV head);
-// the loop runs over the query tiles of all rep query heads from the
-// diagonal on, and dk/dv are written once at the end, so the gradients come
-// out the same from run to run (no atomics).  Tiles sit in shared memory;
-// the five matrix products of a tile step (Q K^T, P V, dO V^T, dS K, P^T dO,
-// dS^T Q) go through one routine: for bf16, warp-level tensor-core products
-// (nvcuda::wmma, 16x16x16 bf16 fragments with f32 accumulators), for f32, a
-// plain f32 loop (the tensor cores would round f32 to tf32).  Scores,
-// probabilities and accumulators are f32; P and dS are rounded to the input
-// type before their products, as the TPU kernels do.  The softmax runs in
-// the exp2 domain with sm_scale * log2(e) applied to the f32 scores.
-// Masked entries: keys >= Sk, keys above the diagonal (key > query row,
-// top-left aligned, as tril(ones(Sq, Sk))) and query rows >= Sq.
+// The TPU kernels walk a sequential grid axis and carry m/l/acc in VMEM
+// scratch from one grid step to the next; here one thread block owns an
+// output tile and loops over the other axis itself, up to the last key any
+// of its rows may see (the diagonal under causal, as the TPU kernels'
+// pl.when skip).  Scores, probabilities and accumulators are f32; P and dS
+// are rounded to the input type before their products, as the TPU kernels
+// do.  The softmax runs in the exp2 domain with sm_scale * log2(e) applied
+// to the f32 scores.  Masked: keys >= Sk, keys above the diagonal (key >
+// query row, top-left aligned, as tril(ones(Sq, Sk))) and query rows >= Sq.
 //
-// Bound.  At the GPT-2 train shape (bf16, B=8, H=12, S=1024, D=64, causal)
-// the forward does 2*B*H*S^2*D = 12.9 GFLOP on 51 MB of q, k, v, o and lse:
-// about 13 us of bf16 tensor-core work against 15 us of HBM traffic, so
-// HBM bytes bound it, barely; the backward's 5*B*H*S^2*D makes it
-// operation-bound.  This first design keeps every tile in shared memory
-// and round-trips the accumulators through it between products, with no
-// copy/compute overlap; wgmma, TMA and register-resident accumulators are
-// later work.
+// Forward, bf16 (wgmma_fwd_kernel).  Bound: at the GPT-2 train shape (B=8,
+// H=12, S=1024, D=64, causal) it does 2*B*H*S^2*D = 12.9 GFLOP on 51 MB of
+// q, k, v, o and lse: about 13 us of bf16 tensor-core work against 15 us of
+// HBM traffic, so it is bound by both at once, and only the card's full
+// tensor-core rate (wgmma) with loads kept in flight (TMA) gets near it.
+// One block per (128-row query tile, bh), the heaviest causal tiles
+// launched first; two consumer warpgroups own 64 query rows each and one
+// producer warp keeps a 3-stage ring of 128-key K and V tiles in flight
+// with TMA (3-D tensor maps (D, S, BH), so a head's ragged last tile
+// zero-fills instead of reading the next head; 128-byte swizzle), full and
+// empty mbarriers per stage in place of __syncthreads.  S = Q K^T is
+// wgmma.m64n128k16 from shared memory (Q and K K-major) into registers; the
+// online softmax runs on the accumulator's fragments (row max and sum over
+// the quad of threads sharing a row, ex2 on one FMA of score and max); P is
+// converted to bf16 in registers and is the register A operand of
+// wgmma.m64n64k16 against V read MN-major, so neither S nor P nor O ever
+// touches shared memory.  The products overlap the softmax: S_{t+1} is
+// issued before P_t V_t, and the softmax of tile t runs while P_{t-1}
+// V_{t-1} is still on the tensor cores.  The tensor maps are encoded per
+// call with cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint
+// (no link against libcuda), and passed as __grid_constant__ parameters,
+// so a CUDA graph captures them by value.
+//
+// Forward, f32 (fwd_kernel), and the backward (both types): 64x64 tiles in
+// shared memory; for bf16, warp-level tensor-core products (nvcuda::wmma,
+// 16x16x16 bf16 fragments, f32 accumulators), for f32 a plain f32 loop (the
+// tensor cores would round f32 to tf32 and miss fp32's 1e-5).  The
+// backward's 5*B*H*S^2*D makes it operation-bound; it round-trips its
+// accumulators through shared memory with no copy/compute overlap, which
+// later work replaces as the forward's was.  dkv: one block per (key tile
+// of 64, KV head) over the query tiles of all rep query heads from the
+// diagonal on; dk/dv are written once at the end, so the gradients come out
+// the same from run to run (no atomics).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -154,7 +171,8 @@ __device__ __forceinline__ bool visible(int row, int col, int Sq, int Sk, int ca
   return row < Sq && col < Sk && (!causal || col <= row);
 }
 
-// ------------------------------------------------------------------ forward
+// ------------------------------------------------------------ forward, f32
+// (bf16 takes wgmma_fwd_kernel below)
 template <typename T>
 constexpr size_t fwd_smem() {
   return 4 * 64 * Ld<T>::v * sizeof(T) + 2 * 64 * LDF * sizeof(float) + 3 * 64 * sizeof(float);
@@ -165,6 +183,7 @@ __global__ void __launch_bounds__(NTHREADS)
 fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
            T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int rep,
            int causal, float scale2) {
+  static_assert(std::is_same<T, float>::value, "the bf16 forward is wgmma_fwd_kernel");
   constexpr int LDT = Ld<T>::v;
   const int q0 = blockIdx.x * BQ, bh = blockIdx.y, kvh = bh / rep;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -416,6 +435,410 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   }
 }
 
+// ----------------------------------------------------- forward, bf16, wgmma
+namespace hopper {
+
+constexpr int BM = 128;                    // query rows a block: 2 warpgroups x 64
+constexpr int BN = 128;                    // keys a tile
+constexpr int STAGES = 3;                  // K/V ring depth
+constexpr int CONSUMERS = 256;             // two consumer warpgroups
+constexpr int THREADS = CONSUMERS + 32;    // and one producer warp
+constexpr uint32_t TILE = 128 * 64 * 2;    // one [128][64] bf16 tile, 16 KB
+// Q, the ring of K and V tiles, 2 * STAGES + 1 mbarriers, and slack to
+// align to 1024
+constexpr size_t SMEM = 1024 + TILE * (1 + 2 * STAGES) + 64;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Spin until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 3-D tensor map into shared memory; completion is counted in
+// bytes on `bar`.  Rows past the tensor's extent arrive as zeros.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start address,
+// leading and stride byte offsets (16-byte units), layout type 1 (128B).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving reads of accumulator registers above the
+// wgmma.wait_group that completes them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// -inf: a score the mask removed, and the row maximum before any key
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// D[64 x 128] (f32, 64 registers a thread) (+)= A[64 x 16] * B[16 x 128],
+// A and B K-major in shared memory (descriptors da, db)
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] (f32) += A[64 x 16] * B[16 x 64], A in registers (four bf16x2 a
+// thread, the accumulator's fragment layout), B MN-major in shared memory
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// sc = Q K^T for this warpgroup's 64 rows against the [128][64] K tile at
+// ks: four k-steps of 16 over D = 64, 32 bytes apart in the swizzled
+// 128-byte rows (committed by the caller).
+__device__ __forceinline__ void issue_scores(float (&sc)[64], uint32_t qa, uint32_t ks) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n128k16_ss(sc, desc_sw128(qa + 32 * kk, 16, 1024), desc_sw128(ks + 32 * kk, 16, 1024),
+                        kk);
+}
+
+// The online-softmax step on the S fragments of the tile at key k0 (exp2
+// domain): masks keys >= Sk and, under causal, above the diagonal; updates
+// the running max m_r and sum l_r of the thread's two rows, leaves P in sc
+// and the factor O must be rescaled by in alpha.
+__device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m_r)[2], float (&l_r)[2],
+                                             float (&alpha)[2], int k0, int row0, int quad,
+                                             int wg_first, int Sk, int causal, float scale2) {
+  const float kNegInf = neg_inf();
+  const bool edge = k0 + BN > Sk || (causal && k0 + BN - 1 > wg_first);
+  // row max and row sum in four independent chains a row (column chunk j
+  // goes to chain j % 4), so that two warps a scheduler keep it busy
+  float mx[2][4], sum[2][4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    mx[0][c] = mx[1][c] = kNegInf;
+    sum[0][c] = sum[1][c] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    if (edge) {
+      const int col = k0 + 8 * (i >> 2) + 2 * quad + (i & 1);
+      const int row = row0 + 8 * ((i >> 1) & 1);
+      if (col >= Sk || (causal && col > row)) sc[i] = kNegInf;
+    }
+    mx[(i >> 1) & 1][(i >> 2) & 3] = fmaxf(mx[(i >> 1) & 1][(i >> 2) & 3], sc[i]);
+  }
+  float base[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float m = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    const float m_new = fmaxf(m_r[r], m * scale2);
+    base[r] = m_new == kNegInf ? 0.f : m_new;            // a row with no key yet
+    alpha[r] = ex2(m_r[r] - base[r]);
+    m_r[r] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int r = (i >> 1) & 1;
+    const float p = ex2(fmaf(sc[i], scale2, -base[r]));
+    sc[i] = p;
+    sum[r][(i >> 2) & 3] += p;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = (sum[r][0] + sum[r][1]) + (sum[r][2] + sum[r][3]);
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l_r[r] = l_r[r] * alpha[r] + l;
+  }
+}
+
+// P as the register A operand: k-step kk (keys 16kk..16kk+15) is the
+// accumulator's column chunks 2kk and 2kk+1.
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[8][4], const float (&sc)[64]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+  }
+}
+
+// O = alpha O + P V, issued (committed by the caller): V's [128 keys][64]
+// tile at vs read MN-major; a k-step is 16 key rows, two 1024-byte groups
+// of 8 rows.
+__device__ __forceinline__ void rescale_and_issue_pv(float (&acc)[32], const uint32_t (&pa)[8][4],
+                                                     const float (&alpha)[2], uint32_t vs) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] *= alpha[(i >> 1) & 1];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_m64n64k16_rs(acc, pa[kk], desc_sw128(vs + 2048 * kk, 1024, 1024));
+}
+
+// Accumulator fragments of m64nN (f32): register i of a thread of warp w
+// holds row 16*w + lane/4 + 8*((i >> 1) & 1), column 8*(i >> 2) + 2*(lane%4)
+// + (i & 1) of its warpgroup's 64-row tile.
+__global__ void __launch_bounds__(THREADS, 1)
+wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                 float* __restrict__ lse, int Sq, int Sk, int rep, int causal, float scale2) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t sbase = smem_u32(smem);            // 1024-aligned: the swizzle's period
+  const uint32_t q_s = sbase;                       // [128][64] bf16
+  const uint32_t bars = sbase + TILE * (1 + 2 * STAGES);
+  const uint32_t full0 = bars, empty0 = bars + 8 * STAGES, qbar = bars + 16 * STAGES;
+
+  const int bh = blockIdx.x, kvh = bh / rep;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // the longest causal rows first
+  const int k_end = causal ? min(Sk, min(q0 + BM, Sq)) : Sk;
+  const int ntiles = (k_end + BN - 1) / BN;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);                  // the producer's expect_tx
+      mbar_init(empty0 + 8 * s, CONSUMERS / 32);    // one arrival per consumer warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {                           // producer warp: one thread issues
+    if (tid == CONSUMERS) {
+      mbar_expect_tx(qbar, TILE);
+      tma_load_3d(q_s, &tq, qbar, 0, q0, bh);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(empty0 + 8 * s, ((t / STAGES) & 1) ^ 1);   // first pass: free
+        const uint32_t ks = sbase + TILE * (1 + 2 * s);
+        mbar_expect_tx(full0 + 8 * s, 2 * TILE);
+        tma_load_3d(ks, &tk, full0 + 8 * s, 0, t * BN, kvh);
+        tma_load_3d(ks + TILE, &tv, full0 + 8 * s, 0, t * BN, kvh);
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128, lane = tid % 32, warp = (tid % 128) / 32;
+  const int quad = lane % 4;
+  const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;   // rows row0 and row0 + 8
+  const int wg_first = q0 + wg * 64;
+  const uint32_t qa = q_s + wg * 64 * 128;                // this warpgroup's 64 Q rows
+
+  const float kNegInf = neg_inf();
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  // running row max (scaled, exp2 domain; -inf until a key is seen) and sum
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+  float sc[64];                                           // S of the tile in hand
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+
+  mbar_wait(qbar, 0);
+  mbar_wait(full0, 0);
+  issue_scores(sc, qa, sbase + TILE);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sc);
+  // Per tile t: the softmax of S_t runs while P_{t-1} V_{t-1} is still on
+  // the tensor cores; then P_{t-1} V_{t-1} is retired (its stage released
+  // to the producer), P_t packed, S_{t+1} issued, O rescaled, P_t V_t
+  // issued, and S_{t+1} awaited.  The last tile is peeled off so that no
+  // wgmma or wait in the loop is conditional (ptxas serializes every wgmma
+  // of a kernel when it cannot prove a pipeline stage closed on every path).
+  float alpha[2];
+  uint32_t pa[8][4];
+  for (int t = 0; t + 1 < ntiles; ++t) {
+    softmax_tile(sc, m_r, l_r, alpha, t * BN, row0, quad, wg_first, Sk, causal, scale2);
+    wgmma_wait<0>();                                      // P_{t-1} V_{t-1}
+    fence_regs(acc);
+    if (t > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * ((t - 1) % STAGES));
+    }
+    pack_p(pa, sc);
+    const int s1 = (t + 1) % STAGES;
+    mbar_wait(full0 + 8 * s1, ((t + 1) / STAGES) & 1);
+    issue_scores(sc, qa, sbase + TILE * (1 + 2 * s1));   // S_{t+1}
+    wgmma_commit();
+    rescale_and_issue_pv(acc, pa, alpha, sbase + TILE * (2 + 2 * (t % STAGES)));
+    wgmma_commit();
+    wgmma_wait<1>();                                      // S_{t+1}
+    fence_regs(sc);
+  }
+  {
+    const int t = ntiles - 1;
+    softmax_tile(sc, m_r, l_r, alpha, t * BN, row0, quad, wg_first, Sk, causal, scale2);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    pack_p(pa, sc);
+    rescale_and_issue_pv(acc, pa, alpha, sbase + TILE * (2 + 2 * (t % STAGES)));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= Sq) continue;
+    const float lr = l_r[r] == 0.f ? 1.f : l_r[r];
+    __nv_bfloat162* orow = reinterpret_cast<__nv_bfloat162*>(o + ((size_t)bh * Sq + row) * 64);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      orow[4 * j + quad] = __floats2bfloat162_rn(acc[4 * j + 2 * r] / lr, acc[4 * j + 2 * r + 1] / lr);
+    if (quad == 0) lse[(size_t)bh * Sq + row] = m_r[r] * LN2 + logf(lr);
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up once through the CUDA runtime.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                  cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// The 3-D map (D = 64, S, BH) of a [BH, S, 64] bf16 array, in boxes of
+// 128 rows of one head, swizzled for wgmma.
+bool encode_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int S, int BH) {
+  const cuuint64_t dims[3] = {64, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {64 * 2, (cuuint64_t)S * 64 * 2};
+  const cuuint32_t box[3] = {64, 128, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+             box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int Sq,
+               int Sk, int rep, int causal, float sm_scale, void* stream) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap mq, mk, mv;
+  if (!encode_map(enc, &mq, q, Sq, BH) || !encode_map(enc, &mk, k, Sk, BH / rep) ||
+      !encode_map(enc, &mv, v, Sk, BH / rep))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      wgmma_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  if (e != cudaSuccess) return (int)e;
+  wgmma_fwd_kernel<<<dim3(BH, (Sq + BM - 1) / BM), THREADS, SMEM, (cudaStream_t)stream>>>(
+      mq, mk, mv, (bf16*)o, (float*)lse, Sq, Sk, rep, causal, sm_scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace hopper
+
 // ------------------------------------------------------------------ launches
 template <typename K>
 int set_smem(K kernel, size_t bytes) {
@@ -474,10 +897,16 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" {
 
+// bf16 runs the wgmma + TMA kernel, float32 the plain-f32 tile kernel.
 int ds_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                            int BH, int Sq, int Sk, int rep, int D, int dtype, int causal,
                            float sm_scale, void* stream) {
-  DS_DISPATCH((launch_fwd<T, 64>(q, k, v, o, lse, BH, Sq, Sk, rep, causal, sm_scale, stream)))
+  if (D != 64) return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: return launch_fwd<float, 64>(q, k, v, o, lse, BH, Sq, Sk, rep, causal, sm_scale, stream);
+    case 2: return hopper::launch_fwd(q, k, v, o, lse, BH, Sq, Sk, rep, causal, sm_scale, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // o may be null: delta is then read; otherwise delta is computed and written.

@@ -18,7 +18,12 @@ Two kinds of function, one API:
    ``paged_verify_attention_kv8_cuda``, which fold the per-token scales
    in-kernel.  A wrapper given CUDA tensors launches its kernel and adds one
    to its ``launches`` count, or raises; it takes its plain version only
-   for tensors that lie on the CPU.
+   for tensors that lie on the CPU.  ``paged_verify_attention_cuda`` picks
+   its kernel by the pool's dtype (:func:`verify_route`): bf16 and fp16
+   pools run the split-K tensor-core kernel, f32 pools the f32 template.
+ - ``paged_verify_split_plain``: a plain model of the split-K kernel's
+   algorithm (per-split partials, then the log-sum-exp merge), for the
+   tests and ``chip_smoke.py``; no serving path calls it.
 
 The dispatchers ``decode_attention`` and ``paged_decode_attention`` pick
 between them by window length, as the JAX dispatchers do on the TPU.
@@ -39,6 +44,13 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 #: widest window the verify kernel takes; wider windows (long prefill chunks)
 #: use the gather-based plain path
 VERIFY_T_MAX = 16
+#: keys each block of the split-K verify kernel takes (one split)
+VERIFY_KEYS_PER_SPLIT = 128
+#: query rows per KV head (``rep * T``) the split-K verify kernel takes
+VERIFY_SPLIT_MAX_ROWS = 256
+#: (b, KV head) pairs one verify call may have: the per-device ticket
+#: counters the split-K kernel's merge uses
+_TICKET_SLOTS = 1 << 16
 
 #: head dims the library is built for (GPT-2's 64; others come with the
 #: model families that need them)
@@ -96,6 +108,72 @@ def paged_decode_attention_reference(q, k_pool, v_pool, block_tables, q_pos,
     return decode_attention_reference(q, k, v, q_pos, sm_scale=sm_scale)
 
 
+def verify_splits(nbper: int, block_size: int,
+                  keys_per_split: int = VERIFY_KEYS_PER_SPLIT) -> int:
+    """Splits of the split-K verify kernel's grid: the table's width in
+    keys over the keys a block takes, rounded up.  From shapes alone, so
+    the host never waits on the device to learn the rows' lengths."""
+    return -(-(nbper * block_size) // keys_per_split)
+
+
+def verify_route(dtype) -> str:
+    """The verify kernel a float pool of ``dtype`` runs: ``"split"`` (the
+    split-K tensor-core kernel) for bfloat16 and float16, ``"template"``
+    (the f32 template) for float32, whose tensor-core products would round
+    to tf32; raises for any other dtype."""
+    if dtype in (torch.bfloat16, torch.float16):
+        return "split"
+    if dtype == torch.float32:
+        return "template"
+    raise ValueError(f"paged verify: dtype {dtype} not supported (float32, "
+                     "float16, bfloat16)")
+
+
+def paged_verify_split_plain(q, k_pool, v_pool, block_tables, q_pos, *,
+                             sm_scale: Optional[float] = None,
+                             keys_per_split: int = VERIFY_KEYS_PER_SPLIT):
+    """The split-K verify kernel's algorithm in plain PyTorch (float32;
+    float64 stays float64): each row's keys cut into spans of
+    ``keys_per_split`` from key 0; per span the masked scores' max ``m_s``,
+    ``l_s = sum exp(s - m_s)`` and ``o_s = sum exp(s - m_s) v`` (an empty
+    span: m_s = NEG_INF, l_s = 0, o_s = 0); then ``m* = max m_s`` and ``o =
+    sum e^(m_s - m*) o_s / sum e^(m_s - m*) l_s``, a zero denominator read as
+    1.  Same arguments and result as :func:`paged_decode_attention_reference`
+    (float pools)."""
+    b, h, t, d = q.shape
+    cd = torch.promote_types(q.dtype, torch.float32)
+    k = paged_gather(k_pool, block_tables).to(cd)
+    v = paged_gather(v_pool, block_tables).to(cd)
+    hkv, s = k.shape[1], k.shape[2]
+    if h != hkv:
+        k = k.repeat_interleave(h // hkv, dim=1)
+        v = v.repeat_interleave(h // hkv, dim=1)
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    scores = torch.einsum("bhtd,bhsd->bhts", q.to(cd), k) * scale
+    nsplit = verify_splits(1, s, keys_per_split)
+    n = nsplit * keys_per_split
+    base = _row_pos(q_pos, b, q.device).to(torch.int64)
+    limit = base[:, None] + torch.arange(t, device=q.device)        # [B, T]
+    key = torch.arange(n, device=q.device)
+    vis = (key <= limit[:, :, None]) & (key < s)                    # [B, T, n]
+    vis = vis[:, None].expand(b, h, t, n)
+    scores = torch.nn.functional.pad(scores, (0, n - s))
+    v = torch.nn.functional.pad(v, (0, 0, 0, n - s))
+    scores = torch.where(vis, scores, NEG_INF).reshape(
+        b, h, t, nsplit, keys_per_split)
+    vis = vis.reshape(b, h, t, nsplit, keys_per_split)
+    m_s = scores.amax(-1)                                          # [B,H,T,n]
+    p = torch.where(vis, torch.exp(scores - m_s[..., None]), 0.0)
+    l_s = p.sum(-1)
+    o_s = torch.einsum("bhtnk,bhnkd->bhtnd", p,
+                       v.reshape(b, h, nsplit, keys_per_split, d))
+    m_star = m_s.amax(-1, keepdim=True)
+    w = torch.exp(m_s - m_star)
+    den = (w * l_s).sum(-1)
+    o = (w[..., None] * o_s).sum(-2) / torch.where(den == 0, 1.0, den)[..., None]
+    return o.to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
@@ -112,6 +190,8 @@ def _lib():
                                                   i, i, i, i, f, p]
         lib.ds_paged_verify_attention.argtypes = [p, p, p, p, p, p, i, i, i,
                                                   i, i, i, i, i, f, p]
+        lib.ds_paged_verify_attention_split.argtypes = [p] * 8 + [i] * 9 + [
+            f, p]
         lib.ds_paged_decode_attention_q8.argtypes = [p, p, p, p, p, p, p, p,
                                                      i, i, i, i, i, i, i, f,
                                                      p]
@@ -120,6 +200,7 @@ def _lib():
                                                      f, p]
         for fn in (lib.ds_decode_attention, lib.ds_paged_decode_attention,
                    lib.ds_paged_verify_attention,
+                   lib.ds_paged_verify_attention_split,
                    lib.ds_paged_decode_attention_q8,
                    lib.ds_paged_verify_attention_q8):
             fn.restype = ctypes.c_int
@@ -143,11 +224,13 @@ def _row_pos(q_pos, b: int, device) -> torch.Tensor:
     return torch.full((b,), int(q_pos), dtype=torch.int32, device=device)
 
 
-def _check_cuda(name, q, kv, h, hkv, t, extra=(), kv_dtype=None):
+def _check_cuda(name, q, kv, h, hkv, t, extra=(), kv_dtype=None,
+                split=False):
     """Validate what the kernel takes; raises on anything else.  ``kv`` is
     the (k, v) pair of caches or pools, or of int8 codes when ``kv_dtype``
     is ``torch.int8``; ``extra`` names more tensors for the device and
-    layout checks."""
+    layout checks; ``split``: the split-K verify kernel, whose limit is
+    :data:`VERIFY_SPLIT_MAX_ROWS` query rows per KV head."""
     for tname, x in (("q", q), ("k", kv[0]), ("v", kv[1])) + tuple(extra):
         if not x.is_cuda or x.device != q.device:
             raise ValueError(f"{name}: {tname} must be a CUDA tensor on "
@@ -170,6 +253,11 @@ def _check_cuda(name, q, kv, h, hkv, t, extra=(), kv_dtype=None):
     for tname, x in (("q", q), ("k", kv[0]), ("v", kv[1])):
         if x.data_ptr() % 16:
             raise ValueError(f"{name}: {tname} is not 16-byte aligned")
+    if split:
+        if (h // hkv) * t > VERIFY_SPLIT_MAX_ROWS:
+            raise ValueError(f"{name}: {h // hkv} heads x {t} tokens per KV "
+                             f"head > {VERIFY_SPLIT_MAX_ROWS} query rows")
+        return
     smem = _lib().ds_attention_smem_bytes((h // hkv) * t, d)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"{name}: {h // hkv} heads x {t} tokens per KV head "
@@ -219,6 +307,19 @@ def decode_attention_cuda(q, k_cache, v_cache, q_pos, *,
 decode_attention_cuda.launches = 0
 
 
+_TICKETS = {}
+
+
+def _tickets(device) -> torch.Tensor:
+    """The split-K verify kernel's int32 ticket counters on ``device``:
+    zeroed once, and left at zero by every call (the merging block resets
+    its own), so calls and CUDA-graph replays on one stream reuse them."""
+    if device not in _TICKETS:
+        _TICKETS[device] = torch.zeros(_TICKET_SLOTS, dtype=torch.int32,
+                                       device=device)
+    return _TICKETS[device]
+
+
 def _paged_cuda(wrapper, entry, q, k_pool, v_pool, block_tables, q_pos,
                 sm_scale):
     """Shared checks + launch of the paged kernels; counts the launch on
@@ -245,8 +346,9 @@ def _paged_cuda(wrapper, entry, q, k_pool, v_pool, block_tables, q_pos,
                                  f"{(nb, hkv, bs)}, got {sc.dtype} "
                                  f"{tuple(sc.shape)}")
             extra.append((tname, sc))
+    split = entry.endswith("_split")
     _check_cuda(name, q, (kc, vc), h, hkv, t, extra=extra,
-                kv_dtype=torch.int8 if quant else None)
+                kv_dtype=torch.int8 if quant else None, split=split)
     pos = _row_pos(q_pos, b, q.device)
     out = torch.empty_like(q)
     if b == 0:
@@ -257,12 +359,24 @@ def _paged_cuda(wrapper, entry, q, k_pool, v_pool, block_tables, q_pos,
                 vc.data_ptr(), v_pool["ps"].data_ptr()]
     else:
         args = [q.data_ptr(), kc.data_ptr(), vc.data_ptr()]
-    args += [block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(), b, h,
-             hkv]
+    args += [block_tables.data_ptr(), pos.data_ptr(), out.data_ptr()]
+    nbper = block_tables.shape[1]
+    if split:
+        if b * hkv > _TICKET_SLOTS:
+            raise ValueError(f"{name}: {b} rows x {hkv} KV heads > "
+                             f"{_TICKET_SLOTS} ticket counters")
+        nsplit = verify_splits(nbper, bs)
+        rows = b * hkv * (h // hkv) * t
+        scratch = torch.empty(rows * nsplit * 66 if nsplit > 1 else 1,
+                              dtype=torch.float32, device=q.device)
+        args += [scratch.data_ptr(), _tickets(q.device).data_ptr()]
+    args += [b, h, hkv]
     if "verify" in entry:
         args.append(t)
-    args += [bs, block_tables.shape[1], d, _DTYPE_CODES[q.dtype], scale,
-             _stream(q.device)]
+    args += [bs, nbper]
+    if split:
+        args.append(nsplit)
+    args += [d, _DTYPE_CODES[q.dtype], scale, _stream(q.device)]
     _raise_on_error(name, getattr(_lib(), entry)(*args))
     wrapper.launches += 1
     return out
@@ -297,7 +411,10 @@ def paged_verify_attention_cuda(q, k_pool, v_pool, block_tables, q_pos, *,
     """Paged attention of a T <= :data:`VERIFY_T_MAX` query window per row:
     q [B, H, T, D], row ``i`` of the window at position ``q_pos[b] + i``
     sees keys up to itself.  Replaces ``paged_verify_attention_pallas``;
-    int8 pool records go to :func:`paged_verify_attention_kv8_cuda`."""
+    int8 pool records go to :func:`paged_verify_attention_kv8_cuda`.  On
+    CUDA the dtype picks the kernel (:func:`verify_route`): bf16 and fp16
+    run the split-K tensor-core kernel, f32 the f32 template, which keeps
+    the fp32 path exact."""
     if is_quantized_pool(k_pool):
         return paged_verify_attention_kv8_cuda(q, k_pool, v_pool,
                                                block_tables, q_pos,
@@ -306,8 +423,9 @@ def paged_verify_attention_cuda(q, k_pool, v_pool, block_tables, q_pos, *,
         return paged_decode_attention_reference(
             q, k_pool, v_pool, block_tables, q_pos, sm_scale=sm_scale)
     _check_window(q.shape[2])
-    return _paged_cuda(paged_verify_attention_cuda,
-                       "ds_paged_verify_attention", q, k_pool, v_pool,
+    entry = {"split": "ds_paged_verify_attention_split",
+             "template": "ds_paged_verify_attention"}[verify_route(q.dtype)]
+    return _paged_cuda(paged_verify_attention_cuda, entry, q, k_pool, v_pool,
                        block_tables, q_pos, sm_scale)
 
 

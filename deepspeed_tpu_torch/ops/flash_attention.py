@@ -20,8 +20,11 @@ Three kinds of function:
    hand-written CUDA kernels for Hopper (``ops/csrc/flash_attention.cu``,
    built by ``ops/op_builder.py``).  Given CUDA tensors a wrapper launches
    its kernel and adds one to its ``launches`` count, or raises; it takes
-   its plain version only for tensors that lie on the CPU.  One forward
-   kernel and the dq/dkv pair compute what the JAX package's seven
+   its plain version only for tensors that lie on the CPU.  The forward
+   picks its kernel by dtype: bf16 runs the Hopper kernel (wgmma products,
+   TMA loads, 128-row query tiles), float32 a plain-f32 tile kernel (the
+   tensor cores would round f32 to tf32).  The forward kernels and the
+   dq/dkv pair compute what the JAX package's seven
    ``pallas_call`` sites compute (v1, v2 and v3 differ only in how they fit
    the TPU's VMEM).  The three wrappers are also the ring-attention
    building blocks (``parallel/sequence.py`` calls ``_fwd``,
@@ -235,8 +238,11 @@ def flash_attention_fwd_cuda(q, k, v, causal: bool = True,
                              layout=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward: ``(o, lse)``, o ``[B, H, Sq, D]`` and the natural-log lse
     ``[B, H, Sq]`` float32.  Replaces ``_fwd`` (v1), ``_fwd_v2`` and
-    ``_fwd_v3``.  ``layout`` is v1's block-sparse gate, which is not
-    ported."""
+    ``_fwd_v3``.  On CUDA the dtype picks the kernel, by an explicit rule
+    in the library's entry point: bfloat16 runs the wgmma + TMA kernel,
+    float32 the plain-f32 tile kernel, whose products stay exact enough for
+    the fp32 path; a failure to build or launch either raises.  ``layout``
+    is v1's block-sparse gate, which is not ported."""
     if layout is not None:
         raise NotImplementedError(
             "flash attention with a block-sparse layout: not ported yet — it "
@@ -369,8 +375,9 @@ def flash_attention(q, k, v, causal: bool = True,
     in q's dtype, differentiable in q, k and v.
 
     ``block_q`` / ``block_k`` are the JAX tiling hints; the CUDA kernels use
-    their own 64 x 64 tiles and mask ragged edges themselves, and the plain
-    path does not tile, so both are accepted and ignored."""
+    their own tiles (128 x 128 in the bf16 forward, 64 x 64 elsewhere) and
+    mask ragged edges themselves, and the plain path does not tile, so both
+    are accepted and ignored."""
     del block_q, block_k
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),
                                  v.contiguous(), causal, sm_scale)
