@@ -25,11 +25,15 @@ Phases (any failure raises and exits non-zero):
     the lse/delta taking dq and dkv calls;
  2c. the same for the int8 kernels of the quantized lane: the kv8 variants
     of the paged decode and verify kernels (int8 pools with per-token bf16
-    scales; bf16, fp32 and GQA cases), and the w8a8 (B5), stacked w8a8 (B6)
-    and weight-only (B7) matmuls at GPT-2 125M's four (K, N) shapes, 8, 4
-    and 1 rows, bf16 and fp32 activations; each of B5-B7 must give every
-    row the same bits in a 1-, 4- or 8-row call, and B6 the bits of B5 on
-    the same layer;
+    scales; bf16 and fp16 queries run the split-K kernel over int8 codes
+    and are also held against the plain model of its algorithm, at block
+    sizes 32, 16 and 1, rows all at base 0, tables of 160 and 128 keys and
+    GQA, with a second call and a CUDA-graph replay bit-identical to the
+    first; fp32 queries run the f32 template), and the w8a8 (B5), stacked
+    w8a8 (B6) and weight-only (B7) matmuls at GPT-2 125M's four (K, N)
+    shapes, 8, 4 and 1 rows, bf16 and fp32 activations; each of B5-B7 must
+    give every row the same bits in a 1-, 4- or 8-row call, and B6 the bits
+    of B5 on the same layer;
  3. ``init_inference(...).generate`` on GPT-2 125M (bf16, random weights
     from a seeded generator): 4 x 128-token prompts, 64 new tokens;
  4. ``init_serving(...).serve`` on the same weights: 16 requests, half of
@@ -62,7 +66,8 @@ Phases (any failure raises and exits non-zero):
     float cache, so the kv8 lanes are held, as the w8a8 one is, by the
     teacher-forced logit RMSE against the bf16 float lane, within
     W8A8_MAX_LOGIT_RMSE; their token agreement is reported.  Then one
-    profiled window of decode iterations, float lane against w8a8+kv8.
+    profiled window of decode iterations, float lane against w8a8+kv8,
+    with B3's and kv8 B3's device time an iteration.
 
 Each main path is read alone: the decode kernels' counts are set to 0
 before phase 3 and read after phase 5, the flash kernels' before phase 7
@@ -137,12 +142,25 @@ def timed_ms(fn, flush, iters: int = 100) -> float:
     return statistics.median(times)
 
 
-def graph_ms(fn, flush, iters: int = 100) -> float:
-    """As :func:`timed_ms`, but ``fn`` is captured once in a CUDA graph and
-    replayed, so the time is the card's alone, without the host's dispatch
-    of the call."""
-    import statistics
+def host_ms(fn, iters: int = 200) -> float:
+    """Mean host time of one ``fn()`` call, without waiting for the card:
+    what an eager call costs before its last launch is queued."""
+    import torch
 
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e3 * (t1 - t0) / iters
+
+
+def capture(fn):
+    """``fn`` captured once in a CUDA graph, after three warm-up calls on a
+    side stream: (the graph, the output tensor its replays write)."""
     import torch
 
     side = torch.cuda.Stream()
@@ -153,8 +171,20 @@ def graph_ms(fn, flush, iters: int = 100) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
+        out = fn()
     torch.cuda.synchronize()
+    return graph, out
+
+
+def graph_ms(fn, flush, iters: int = 100) -> float:
+    """As :func:`timed_ms`, but ``fn`` is captured once in a CUDA graph and
+    replayed, so the time is the card's alone, without the host's dispatch
+    of the call."""
+    import statistics
+
+    import torch
+
+    graph, _ = capture(fn)
     times = []
     for _ in range(iters):
         flush.zero_()
@@ -167,6 +197,19 @@ def graph_ms(fn, flush, iters: int = 100) -> float:
         times.append(start.elapsed_time(end))
     del graph
     return statistics.median(times)
+
+
+def graph_replay(fn):
+    """A copy of what one replay of ``fn`` captured in a CUDA graph
+    writes."""
+    import torch
+
+    graph, out = capture(fn)
+    graph.replay()
+    torch.cuda.synchronize()
+    out = out.clone()
+    del graph
+    return out
 
 
 def make_case(kind, b, h, hkv, t, d, dtype, seed, bs=32, nbper=32,
@@ -620,36 +663,79 @@ def kv8_case(case):
 def check_kv8_kernels(flush):
     """Phase 2c, first half: the kv8 paged decode and verify kernels
     against their plain versions (which dequantize to the query dtype);
-    times at the shapes phase 10 gives them."""
+    bf16 and fp16 queries, which run the split-K kernel over int8 codes,
+    also against the plain model of its algorithm, with two calls in a row
+    and a CUDA-graph replay bit-identical to the first call; times at the
+    shapes phase 10 gives them."""
     import torch
 
-    bf16, f32 = torch.bfloat16, torch.float32
-    # (label, B, H, HKV, T, dtype, positions, timed): kv8 B3 at the 8-slot
-    # decode, kv8 B4 at the prefill_chunk=16 windows (prefill_batch 4)
+    from deepspeed_tpu_torch.ops import decode_attention as da
+
+    bf16, fp16, f32 = torch.bfloat16, torch.float16, torch.float32
+    # (label, B, H, HKV, T, dtype, NBPER, bs, positions, timed): kv8 B3 at
+    # the 8-slot decode, kv8 B4 at the prefill_chunk=16 windows
+    # (prefill_batch 4).  The 16-bit cases run the split-K kernel (128 keys
+    # a split): block sizes 16 and 1 (a table entry per key), every row at
+    # base 0 (every split but the first empty), a table of 160 keys (not a
+    # whole number of splits), one of 128 keys (one split: every row writes
+    # its output directly), fp16 and GQA; f32 takes the f32 template
     cases = [
-        ("kv8 B3 main", 8, 12, 12, 1, bf16, "ragged", True),
-        ("kv8 B4 main T=16", 4, 12, 12, 16, bf16, "chunks", True),
-        ("kv8 B4 B=8 T=16 ragged", 8, 12, 12, 16, bf16, "ragged", False),
-        ("kv8 B4 T=2", 8, 12, 12, 2, bf16, "ragged", False),
-        ("kv8 B3 GQA", 8, 8, 2, 1, bf16, "ragged", False),
-        ("kv8 B4 GQA T=16", 8, 8, 2, 16, bf16, "ragged", False),
-        ("kv8 B3 fp32", 8, 12, 12, 1, f32, "ragged", False),
-        ("kv8 B4 fp32 T=16", 8, 12, 12, 16, f32, "ragged", False),
+        ("kv8 B3 main", 8, 12, 12, 1, bf16, 32, 32, "ragged", True),
+        ("kv8 B4 main T=16", 4, 12, 12, 16, bf16, 32, 32, "chunks", True),
+        ("kv8 B4 B=8 T=16 ragged", 8, 12, 12, 16, bf16, 32, 32, "ragged",
+         False),
+        ("kv8 B4 T=2", 8, 12, 12, 2, bf16, 32, 32, "ragged", False),
+        ("kv8 B3 GQA", 8, 8, 2, 1, bf16, 32, 32, "ragged", False),
+        ("kv8 B4 GQA T=16", 8, 8, 2, 16, bf16, 32, 32, "ragged", False),
+        ("kv8 B3 fp32", 8, 12, 12, 1, f32, 32, 32, "ragged", False),
+        ("kv8 B4 fp32 T=16", 8, 12, 12, 16, f32, 32, 32, "ragged", False),
+        ("kv8 B3 bs=16", 8, 12, 12, 1, bf16, 64, 16, "ragged", False),
+        ("kv8 B4 bs=16 T=16", 4, 12, 12, 16, bf16, 64, 16, "chunks", False),
+        ("kv8 B3 bs=1", 8, 12, 12, 1, bf16, 1024, 1, "ragged", False),
+        ("kv8 B4 bs=1 T=16", 4, 12, 12, 16, bf16, 1024, 1, "ragged", False),
+        ("kv8 B3 base 0", 8, 12, 12, 1, bf16, 32, 32, 0, False),
+        ("kv8 B4 base 0 T=16", 4, 12, 12, 16, bf16, 32, 32, 0, False),
+        ("kv8 B3 160-key table", 8, 12, 12, 1, bf16, 5, 32, "ragged",
+         False),
+        ("kv8 B4 160-key table T=16", 8, 12, 12, 16, bf16, 5, 32, "ragged",
+         False),
+        ("kv8 B3 one split", 8, 12, 12, 1, bf16, 4, 32, "ragged", False),
+        ("kv8 B4 one split T=16", 8, 12, 12, 16, bf16, 4, 32, "ragged",
+         False),
+        ("kv8 B3 fp16", 8, 12, 12, 1, fp16, 32, 32, "ragged", False),
+        ("kv8 B4 fp16 T=16", 4, 12, 12, 16, fp16, 32, 32, "chunks", False),
+        ("kv8 B4 GQA T=16 fp16", 8, 8, 2, 16, fp16, 32, 32, "ragged", False),
     ]
     out = {}
-    for seed, (label, b, h, hkv, t, dtype, pos, main) in enumerate(cases):
+    for seed, (label, b, h, hkv, t, dtype, nbper, bs, pos, main) in \
+            enumerate(cases):
         case = kv8_case(make_case("paged", b, h, hkv, t, 64, dtype,
-                                  200 + seed, pos=pos))
+                                  200 + seed, bs=bs, nbper=nbper, pos=pos))
         got, want = run_kernel(case), run_plain(case)
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
             raise AssertionError(f"{label}: non-finite kernel output")
         err = (got.float() - want.float()).abs().max().item()
-        tol = BF16_TOL if dtype == bf16 else FP32_TOL
-        rtol = BF16_TOL if dtype == bf16 else 0.0
+        tol = BF16_TOL if dtype != f32 else FP32_TOL
+        rtol = BF16_TOL if dtype != f32 else 0.0
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=rtol, msg=lambda m: f"{label}: {m}")
-        log(f"[kv8] {label}: max_abs_err={err:.3e} (atol {tol})")
+        split = ""
+        if da.kv8_route(dtype) == "split":
+            model = da.paged_verify_split_plain(case["q"], case["k"],
+                                                case["v"], case["bt"],
+                                                case["pos"])
+            torch.testing.assert_close(
+                got.float(), model.float(), atol=tol, rtol=rtol,
+                msg=lambda m: f"{label} (split model): {m}")
+            if not torch.equal(run_kernel(case), got):
+                raise AssertionError(f"{label}: a second call differs")
+            if not torch.equal(graph_replay(lambda: run_kernel(case)), got):
+                raise AssertionError(f"{label}: a CUDA-graph replay differs")
+            split = (f", vs the split-K model "
+                     f"{(got.float() - model.float()).abs().max().item():.3e}"
+                     "; repeat and graph replay bit-identical")
+        log(f"[kv8] {label}: max_abs_err={err:.3e} (atol {tol}){split}")
         if not main:
             continue
         name = ("paged_decode_attention_kv8_cuda" if t == 1
@@ -664,8 +750,10 @@ def check_kv8_kernels(flush):
                      "bound_ms": bound_ms, "bound_by": bound_by}
         log(f"[kv8] {label}: kernel {ms:.4f} ms ({ms_graph:.4f} ms replayed "
             f"from a CUDA graph), plain {plain_ms:.4f} ms, sdpa over "
-            f"dequantized KV {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by})")
+            f"dequantized KV {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
+            f"({bound_by}); host time a call: wrapper "
+            f"{host_ms(lambda: run_kernel(case)):.4f} ms, sdpa "
+            f"{host_ms(library_call(case)):.4f} ms")
     return out
 
 
@@ -1069,12 +1157,15 @@ def teacher_forced_logits(engine, prompts, tokens, kv8: bool):
     return torch.stack(outs)
 
 
-def profile_serving(label, srv, reqs, warm: int = 24, steps: int = 16):
+def profile_serving(label, srv, reqs, watch, warm: int = 24,
+                    steps: int = 16):
     """``steps`` scheduler iterations of ``srv`` serving ``reqs`` under
     ``torch.profiler``, after ``warm`` iterations (prefills done, every
     slot decoding): wall time, device busy time and idle share of the
-    window, the top device kernels and the top host operators by self CPU
-    time.  The requests are served to the end afterwards."""
+    window, the top device kernels, the device kernels whose names hold
+    ``watch[1]`` (``watch[0]`` names them in the log) and the top host
+    operators by self CPU time.  The requests are served to the end
+    afterwards."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1102,6 +1193,10 @@ def profile_serving(label, srv, reqs, warm: int = 24, steps: int = 16):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"[profile {label}]   device {e.self_device_time_total / 1e3 / steps:7.3f}"
             f" ms x{e.count // steps:<4} an iteration: {e.key[:70]}")
+    mine = [e for e in kernels if watch[1] in e.key]
+    log(f"[profile {label}]   {watch[0]} ({watch[1]}): device "
+        f"{sum(e.self_device_time_total for e in mine) / 1e3 / steps:.4f} ms x"
+        f"{sum(e.count for e in mine) // steps} an iteration")
     host = [e for e in events if e.device_type == DeviceType.CPU]
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
         log(f"[profile {label}]   host {e.self_cpu_time_total / 1e3 / steps:7.3f}"
@@ -1262,13 +1357,15 @@ def quant_phase(engine, prompts, gen, float_lane):
 
     # where a decode iteration's time goes, float lane against w8a8+kv8
     window = reqs[-4:] + reqs[:4]
-    for label, quantize, params in (("float", None, engine.params),
-                                    ("w8a8+kv8", "w8a8+kv8", weng.params)):
+    for label, quantize, params, watch in (
+            ("float", None, engine.params, ("B3", "attn_kernel")),
+            ("w8a8+kv8", "w8a8+kv8", weng.params,
+             ("kv8 B3", "q8_split_kernel"))):
         psrv = dt.init_serving(model, config={"dtype": "bf16"},
                                params=params, quantize=quantize, slots=8,
                                max_seq_len=1024, block_size=32,
                                prefill_chunk=128, sampling=False)
-        profile_serving(label, psrv, window)
+        profile_serving(label, psrv, window, watch)
         del psrv
 
     # teacher-forced logit error against the float lane, fed its tokens
@@ -1570,6 +1667,20 @@ def main() -> int:
             "deepspeed_tpu/ops/quantized_matmul.py:542",
         "quantized_matmul_cuda": "deepspeed_tpu/ops/quantized_matmul.py:140",
     }
+    # the CUDA kernel each wrapper launches on the main path (bf16)
+    designs = {
+        "decode_attention_cuda": "attn_kernel",
+        "paged_decode_attention_cuda": "attn_kernel",
+        "paged_verify_attention_cuda": "verify_split_kernel",
+        "paged_decode_attention_kv8_cuda": "q8_split_kernel",
+        "paged_verify_attention_kv8_cuda": "q8_split_kernel",
+        "flash_attention_fwd_cuda": "wgmma_fwd_kernel",
+        "flash_attention_bwd_dq_cuda": "dq_kernel",
+        "flash_attention_bwd_dkv_cuda": "dkv_kernel",
+        "w8a8_matmul_cuda": "w8a8_kernel",
+        "w8a8_matmul_stacked_cuda": "w8a8_kernel",
+        "quantized_matmul_cuda": "qmm_kernel",
+    }
     sources = {da: "deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
                fa: "deepspeed_tpu_torch/ops/csrc/flash_attention.cu",
                qm: "deepspeed_tpu_torch/ops/csrc/quantized_matmul.cu"}
@@ -1578,7 +1689,8 @@ def main() -> int:
         for fn in module.KERNELS:
             m = measured[fn.__name__]
             kernels.append({
-                "name": fn.__name__, "route": "cuda", "source": source,
+                "name": fn.__name__, "route": "cuda",
+                "kernel": designs[fn.__name__], "source": source,
                 "replaces": replaces[fn.__name__],
                 "launches": launches[fn.__name__],
                 "max_abs_err": m["max_abs_err"], "ms": m["ms"],

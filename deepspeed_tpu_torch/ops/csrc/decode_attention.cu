@@ -11,14 +11,21 @@
 //                                   window at position pos[b] + i, against the
 //                                   pool [NB,HKV,bs,D] through int32 [B,NBPER]
 //                                   tables (verify_split_kernel)
-//   ds_paged_verify_attention    <- the same on an f32 pool (attn_kernel)
+//   ds_paged_attention_q8_split  <- paged_decode_attention_pallas
+//                                   (_paged_decode_kernel, T = 1) and
+//                                   paged_verify_attention_pallas
+//                                   (_paged_verify_kernel, T <= 16) on an int8
+//                                   pool (_paged_pool_operands, quant=True):
+//                                   codes int8 [NB,HKV,bs,D] plus scales bf16
+//                                   [NB,HKV,bs] for K and for V, bf16 or fp16
+//                                   q (q8_split_kernel)
+//   ds_paged_verify_attention    <- the verify kernel on an f32 pool
+//                                   (attn_kernel)
 //   ds_paged_decode_attention    <- paged_decode_attention_pallas
 //                                   (_paged_decode_kernel): q [B,H,1,D] vs
 //                                   the pool (attn_kernel)
 //   ds_paged_decode_attention_q8 <- the decode and verify kernels on an int8
-//   ds_paged_verify_attention_q8    pool (_paged_pool_operands, quant=True):
-//                                   codes int8 [NB,HKV,bs,D] plus scales bf16
-//                                   [NB,HKV,bs] for K and for V (attn_kernel)
+//   ds_paged_verify_attention_q8    pool with f32 q (attn_kernel)
 //   ds_decode_attention          <- decode_attention_pallas (_decode_kernel):
 //                                   q [B,H,1,D] vs cache [B,HKV,S,D]
 //                                   (attn_kernel)
@@ -55,26 +62,55 @@
 // order, so results do not depend on which block finished last.  A row
 // whose keys fit one split writes its output directly.
 //
-// attn_kernel (f32 pools, B2, B3 and the int8 pools).  One thread block per
-// (row b, KV head g); grid (HKV, B).  The R query rows that share the KV
-// head (row r: head g*rep + r/T, window offset r%T) sit in shared memory as
-// f32.  The TPU kernel's sequential grid axis over KV chunks becomes a loop
-// inside the block over 32-key tiles up to the last key any row may see
-// (pos[b] + T - 1, capped at the cache length).  Per tile: the threads load
-// K and V with 16-byte vector loads into shared memory (f32), threads split
-// the R x 32 scores, one warp per query row runs the online-softmax update
-// of the TPU kernel (masking with NEG_INF past key pos[b] + r%T), and
-// threads split the R x D accumulator.  The finish divides by l, with l ==
-// 0 read as 1.  It still serves f32 pools (the tensor cores would round f32
-// to tf32 and miss the fp32 path's exactness), B2 and B3 (T = 1), and the
-// int8 pools; their redesign is later work (ROADMAP Queue B).
+// q8_split_kernel (int8 pools, bf16 or fp16 q; T = 1 decode and T <= 16
+// windows).  The same grid, warps, products, softmax and merge as
+// verify_split_kernel (one body, split_attention<T, KV>); what differs is
+// how the keys arrive.  Bound: each key a row may see is read once as 64
+// codes plus a 2-byte scale, for K and for V: 132 bytes a key against the
+// bf16 pool's 256, so the int8 pool halves the float kernel's bytes; the
+// arithmetic is the same 4*R*D flops a key.  The codes come by plain
+// 16-byte loads, four per lane for K and four for V, all issued before the
+// first is used (lane -> bytes 16*(lane%4).. of keys lane/4 + 8e, each
+// key's block looked up in the table), and are converted to T in registers
+// on their way to the swizzled 128-byte rows that the
+// ldmatrix / ldmatrix.trans path reads: no staging copy of the codes in
+// shared memory, and the conversion is exact (|code| <= 127 is exact in
+// bf16 and fp16).  K is converted before the products, V after the first
+// softmax, so V's loads stay in flight under Q K^T.  The scales are 2-byte
+// values (cp.async copies 4 bytes or more), so each lane loads its key's
+// two with plain loads and the warp shuffles them to the lanes whose score
+// columns hold that key.  They fold in as in the TPU kernel
+// (decode_attention.py:169-190): in the exp2 domain s = (q . code_k) *
+// (sm_scale * log2e) * ks[j] on the score fragment's column after the
+// product, and p * vs[j] becomes the A operand of P V while m and l stay
+// over the unscaled p.  At T = 1 and rep = 1 an m16 tile holds one live
+// query row: 15 of 16 product rows are padding, which costs nothing that
+// shows at this memory-bound shape (per 128-key block the warps issue 64
+// mma.sync against 16 KB of codes; the block's time is its loads' latency
+// and the merge), so T = 1 takes the same kernel.  f32 queries stay on
+// attn_kernel: the tensor cores would round them to tf32.
 //
-// int8 pools.  The tile holds the integer codes (as f32) and each key's K
-// and V scale; the scales fold into the columns as in the TPU kernel
-// (decode_attention.py:169-190): s = (q . code_k) * sm_scale * ks[j], and
-// the probability multiplies vs[j] before the P V product, while the online
-// softmax's m and l stay over the unscaled probabilities.  No dequantized
-// tile is ever written to device memory.
+// attn_kernel (f32 pools and f32 queries on int8 pools; B2 and the float
+// B3).  One thread block per (row b, KV head g); grid (HKV, B).  The R
+// query rows that share the KV head (row r: head g*rep + r/T, window offset
+// r%T) sit in shared memory as f32.  The TPU kernel's sequential grid axis
+// over KV chunks becomes a loop inside the block over 32-key tiles up to
+// the last key any row may see (pos[b] + T - 1, capped at the cache
+// length).  Per tile: the threads load K and V with 16-byte vector loads
+// into shared memory (f32), threads split the R x 32 scores, one warp per
+// query row runs the online-softmax update of the TPU kernel (masking with
+// NEG_INF past key pos[b] + r%T), and threads split the R x D accumulator.
+// The finish divides by l, with l == 0 read as 1.  It still serves f32
+// (the tensor cores would round f32 to tf32 and miss the fp32 path's
+// exactness), B2 and the float B3 (T = 1); their redesign is later work
+// (ROADMAP Queue B).
+//
+// int8 pools on attn_kernel.  The tile holds the integer codes (as f32)
+// and each key's K and V scale; the scales fold into the columns as in the
+// TPU kernel: s = (q . code_k) * sm_scale * ks[j], and the probability
+// multiplies vs[j] before the P V product, while the online softmax's m
+// and l stay over the unscaled probabilities.  No dequantized tile is ever
+// written to device memory.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -313,7 +349,8 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
 }
 
 // dtype: 0 float32, 1 float16, 2 bfloat16 (of q and out; of the pool too
-// unless Q8, whose pool holds int8 codes and bf16 scales).  D: 64 (GPT-2);
+// unless Q8, whose pool holds int8 codes and bf16 scales and whose q is
+// float32).  D: 64 (GPT-2);
 // another head dim is instantiated with the model family that needs it.
 // Unsupported (dtype, D) pairs return cudaErrorInvalidValue; the Python
 // wrapper checks them first.
@@ -331,18 +368,24 @@ int dispatch(int dtype, int D, const void* q, const void* k, const void* v,
     case 64: DS_CASE(TYPE, 64);                 \
     default: return (int)cudaErrorInvalidValue; \
   }
-  switch (dtype) {
-    case 0: DS_DIMS(float);
-    case 1: DS_DIMS(__half);
-    case 2: DS_DIMS(__nv_bfloat16);
-    default: return (int)cudaErrorInvalidValue;
+  if constexpr (Q8) {
+    // 16-bit queries on int8 pools take q8_split_kernel
+    if (dtype != 0) return (int)cudaErrorInvalidValue;
+    DS_DIMS(float);
+  } else {
+    switch (dtype) {
+      case 0: DS_DIMS(float);
+      case 1: DS_DIMS(__half);
+      case 2: DS_DIMS(__nv_bfloat16);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
 #undef DS_DIMS
 #undef DS_CASE
 }
 
 
-// ----------------------------------------- paged verify, 16-bit, split-K
+// ------------------------------- paged attention, 16-bit queries, split-K
 namespace splitk {
 
 constexpr int KS = 128;          // keys a block (one split)
@@ -434,6 +477,25 @@ __device__ __forceinline__ void store8(T* dst, const float (&x)[8], float inv) {
   *reinterpret_cast<uint4*>(dst) = u;
 }
 
+// The 16 int8 codes of c as 16 T at dst0 (the first 8) and dst1 (shared
+// memory, 16-byte aligned).  Exact: |code| <= 127 is exact in bf16 and fp16.
+template <typename T>
+__device__ __forceinline__ void store_codes(uint32_t dst0, uint32_t dst1, const int4& c) {
+  const uint32_t w[4] = {(uint32_t)c.x, (uint32_t)c.y, (uint32_t)c.z, (uint32_t)c.w};
+  uint32_t h[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t x = w[i >> 1] >> (16 * (i & 1));
+    h[i] = Mma<T>::pack((float)(int8_t)(uint8_t)x, (float)(int8_t)(uint8_t)(x >> 8));
+  }
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst0), "r"(h[0]), "r"(h[1]),
+               "r"(h[2]), "r"(h[3])
+               : "memory");
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst1), "r"(h[4]), "r"(h[5]),
+               "r"(h[6]), "r"(h[7])
+               : "memory");
+}
+
 size_t smem_bytes(int R) {
   const int rows = (R + 15) / 16 * 16;
   return (size_t)rows * 128 + 2 * (size_t)KS * 128 +
@@ -441,17 +503,19 @@ size_t smem_bytes(int R) {
 }
 
 // q/out [B, H, T, D] (the (b, g) slice is the contiguous [R, D] run at
-// (b*HKV + g) * R * D), pools [NB, HKV, bs, D] in T, D = 64.  part_o
+// (b*HKV + g) * R * D), D = 64.  Pools [NB, HKV, bs, D]: in T (KV = T), or
+// int8 codes (KV = int8_t) with bf16 scales ksp/vsp [NB, HKV, bs].  part_o
 // [B*HKV, nsplit, R, 64] and part_ml [B*HKV, nsplit, R, 2] f32 hold the
 // splits' partials (m in the exp2 domain); tickets [B*HKV] int32 are zero
 // between calls.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-verify_split_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
-                    const int* __restrict__ bt, const int* __restrict__ pos, T* __restrict__ out,
-                    float* __restrict__ part_o, float* __restrict__ part_ml,
-                    int* __restrict__ tickets, int HKV, int R, int win, int bs, int nbper,
-                    int nsplit, float scale2) {
+template <typename T, typename KV>
+__device__ __forceinline__ void split_attention(
+    const T* __restrict__ q, const KV* __restrict__ kp, const KV* __restrict__ vp,
+    const __nv_bfloat16* __restrict__ ksp, const __nv_bfloat16* __restrict__ vsp,
+    const int* __restrict__ bt, const int* __restrict__ pos, T* __restrict__ out,
+    float* __restrict__ part_o, float* __restrict__ part_ml, int* __restrict__ tickets, int HKV,
+    int R, int win, int bs, int nbper, int nsplit, float scale2) {
+  constexpr bool Q8 = std::is_same<KV, int8_t>::value;
   const int split = blockIdx.x, g = blockIdx.y, b = blockIdx.z, bg = b * HKV + g;
   const int base = pos[b];
   const int nkeys = max(0, min(base + win, nbper * bs));   // keys 0 .. nkeys-1
@@ -477,34 +541,81 @@ verify_split_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T* 
     cp_async16(qs + swz(r, c), q + qoff + (size_t)min(r, R - 1) * 64 + c * 8, r < R ? 16 : 0);
   }
   cp_async_commit();
-  // this warp's 32 keys: lane -> chunk lane%8 of keys lane/8 + 4e
   const int kw = split * KS + warp * WK;
-  size_t off[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const int key = kw + (lane >> 3) + 4 * e;
-    off[e] = 0;
-    if (key < nkeys) {
-      const int blk = max(bt[(size_t)b * nbper + key / bs], 0);
-      off[e] = (((size_t)blk * HKV + g) * bs + key % bs) * 64 + (lane & 7) * 8;
-    }
-    cp_async16(ks + swz(warp * WK + (lane >> 3) + 4 * e, lane & 7), kp + off[e],
-               key < nkeys ? 16 : 0);
-  }
-  cp_async_commit();
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const int key = kw + (lane >> 3) + 4 * e;
-    cp_async16(vs + swz(warp * WK + (lane >> 3) + 4 * e, lane & 7), vp + off[e],
-               key < nkeys ? 16 : 0);
-  }
-  cp_async_commit();
-  cp_async_wait<2>();
-  __syncthreads();                                         // Q, from every thread
-  cp_async_wait<1>();
-  __syncwarp();                                            // this warp's K
   const bool warp_live = kw < nkeys;
-  if (!warp_live) cp_async_wait<0>();
+  // int8 pools: this lane's V codes until they are converted, and the
+  // scales of this lane's score columns
+  [[maybe_unused]] int4 vc[4];
+  [[maybe_unused]] float kss[4][2], vss[4][2];
+  if constexpr (Q8) {
+    // this warp's 32 keys: lane -> bytes 16*(lane%4) .. of keys lane/4 + 8e
+    int4 kc[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = kw + (lane >> 2) + 8 * e;
+      kc[e] = vc[e] = make_int4(0, 0, 0, 0);
+      if (key < nkeys) {
+        const int blk = max(bt[(size_t)b * nbper + key / bs], 0);
+        const size_t off = (((size_t)blk * HKV + g) * bs + key % bs) * 64 + (lane & 3) * 16;
+        kc[e] = __ldg(reinterpret_cast<const int4*>(kp + off));
+        vc[e] = __ldg(reinterpret_cast<const int4*>(vp + off));
+      }
+    }
+    // lane -> the scales of key kw + lane, shuffled to the lanes whose
+    // score columns (n*8 + 2*t4 + j) hold it
+    float ksl = 0.f, vsl = 0.f;
+    if (kw + lane < nkeys) {
+      const int key = kw + lane;
+      const int blk = max(bt[(size_t)b * nbper + key / bs], 0);
+      const size_t soff = ((size_t)blk * HKV + g) * bs + key % bs;
+      ksl = __bfloat162float(ksp[soff]);
+      vsl = __bfloat162float(vsp[soff]);
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        kss[n][j] = __shfl_sync(0xffffffffu, ksl, n * 8 + 2 * t4 + j);
+        vss[n][j] = __shfl_sync(0xffffffffu, vsl, n * 8 + 2 * t4 + j);
+      }
+    cp_async_wait<0>();
+    __syncthreads();                                       // Q, from every thread
+    if (warp_live) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = warp * WK + (lane >> 2) + 8 * e;
+        store_codes<T>(ks + swz(r, 2 * (lane & 3)), ks + swz(r, 2 * (lane & 3) + 1), kc[e]);
+      }
+    }
+    __syncwarp();                                          // this warp's K
+  } else {
+    // this warp's 32 keys: lane -> chunk lane%8 of keys lane/8 + 4e
+    size_t off[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int key = kw + (lane >> 3) + 4 * e;
+      off[e] = 0;
+      if (key < nkeys) {
+        const int blk = max(bt[(size_t)b * nbper + key / bs], 0);
+        off[e] = (((size_t)blk * HKV + g) * bs + key % bs) * 64 + (lane & 7) * 8;
+      }
+      cp_async16(ks + swz(warp * WK + (lane >> 3) + 4 * e, lane & 7), kp + off[e],
+                 key < nkeys ? 16 : 0);
+    }
+    cp_async_commit();
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int key = kw + (lane >> 3) + 4 * e;
+      cp_async16(vs + swz(warp * WK + (lane >> 3) + 4 * e, lane & 7), vp + off[e],
+                 key < nkeys ? 16 : 0);
+    }
+    cp_async_commit();
+    cp_async_wait<2>();
+    __syncthreads();                                       // Q, from every thread
+    cp_async_wait<1>();
+    __syncwarp();                                          // this warp's K
+    if (!warp_live) cp_async_wait<0>();
+  }
 
   for (int mt = 0; mt < MT; ++mt) {
     float o[8][4];
@@ -532,7 +643,8 @@ verify_split_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T* 
           Mma<T>::run(sc[2 * np], qa[kk], kb[0], kb[1]);
           Mma<T>::run(sc[2 * np + 1], qa[kk], kb[2], kb[3]);
         }
-      // mask per query row, softmax over the warp's 32 keys (exp2 domain)
+      // mask per query row, softmax over the warp's 32 keys (exp2 domain);
+      // an int8 pool's K scale multiplies its score column
 #pragma unroll
       for (int n = 0; n < 4; ++n)
 #pragma unroll
@@ -540,7 +652,9 @@ verify_split_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T* 
           const int key = kw + n * 8 + 2 * t4 + (e & 1);
           const int r = mt * 16 + g4 + 8 * (e >> 1);
           const bool vis = key < nkeys && r < R && key <= base + r % win;
-          const float x = vis ? sc[n][e] * scale2 : NEG_INF;
+          float x = sc[n][e] * scale2;
+          if constexpr (Q8) x *= kss[n][e & 1];
+          x = vis ? x : NEG_INF;
           sc[n][e] = x;
           m2[e >> 1] = fmaxf(m2[e >> 1], x);
         }
@@ -555,8 +669,12 @@ verify_split_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T* 
         for (int e = 0; e < 4; ++e) {
           const float x = sc[n][e];
           const float p = x > 0.5f * NEG_INF ? exp2f(x - m2[e >> 1]) : 0.f;
-          sc[n][e] = p;
-          l2[e >> 1] += p;
+          l2[e >> 1] += p;                                 // l over the unscaled p
+          if constexpr (Q8) {
+            sc[n][e] = p * vss[n][e & 1];
+          } else {
+            sc[n][e] = p;
+          }
         }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -573,7 +691,15 @@ verify_split_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T* 
         pa[j][3] = Mma<T>::pack(sc[2 * j + 1][2], sc[2 * j + 1][3]);
       }
       if (mt == 0) {
-        cp_async_wait<0>();
+        if constexpr (Q8) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = warp * WK + (lane >> 2) + 8 * e;
+            store_codes<T>(vs + swz(r, 2 * (lane & 3)), vs + swz(r, 2 * (lane & 3) + 1), vc[e]);
+          }
+        } else {
+          cp_async_wait<0>();
+        }
         __syncwarp();                                      // this warp's V
       }
 #pragma unroll
@@ -667,21 +793,81 @@ verify_split_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T* 
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* bt, const void* pos,
-           void* out, void* scratch, void* tickets, int B, int H, int HKV, int win, int bs,
-           int nbper, int nsplit, float scale, void* stream) {
+__global__ void __launch_bounds__(THREADS)
+verify_split_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
+                    const int* __restrict__ bt, const int* __restrict__ pos, T* __restrict__ out,
+                    float* __restrict__ part_o, float* __restrict__ part_ml,
+                    int* __restrict__ tickets, int HKV, int R, int win, int bs, int nbper,
+                    int nsplit, float scale2) {
+  split_attention<T, T>(q, kp, vp, nullptr, nullptr, bt, pos, out, part_o, part_ml, tickets, HKV,
+                        R, win, bs, nbper, nsplit, scale2);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+q8_split_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
+                const __nv_bfloat16* __restrict__ ksc, const int8_t* __restrict__ vc,
+                const __nv_bfloat16* __restrict__ vsc, const int* __restrict__ bt,
+                const int* __restrict__ pos, T* __restrict__ out, float* __restrict__ part_o,
+                float* __restrict__ part_ml, int* __restrict__ tickets, int HKV, int R, int win,
+                int bs, int nbper, int nsplit, float scale2) {
+  split_attention<T, int8_t>(q, kc, vc, ksc, vsc, bt, pos, out, part_o, part_ml, tickets, HKV, R,
+                             win, bs, nbper, nsplit, scale2);
+}
+
+// KV = T: a 16-bit pool (k, v; the scales unused); KV = int8_t: codes k, v
+// with bf16 scales k_scale, v_scale.
+template <typename T, typename KV>
+int launch(const void* q, const void* k, const void* k_scale, const void* v,
+           const void* v_scale, const void* bt, const void* pos, void* out, void* scratch,
+           void* tickets, int B, int H, int HKV, int win, int bs, int nbper, int nsplit,
+           float scale, void* stream) {
   const int R = (H / HKV) * win;
   if (R > MAX_R || nsplit != (nbper * bs + KS - 1) / KS) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(R);
-  const cudaError_t e = cudaFuncSetAttribute(
-      verify_split_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  const int smem = (int)smem_bytes(R);
   float* part_o = (float*)scratch;
   float* part_ml = part_o + (size_t)B * HKV * nsplit * R * 64;
-  verify_split_kernel<T><<<dim3(nsplit, HKV, B), THREADS, smem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)bt, (const int*)pos, (T*)out, part_o,
-      part_ml, (int*)tickets, HKV, R, win, bs, nbper, nsplit, scale * LOG2E);
+  const dim3 grid(nsplit, HKV, B);
+  cudaError_t e;
+  if constexpr (std::is_same<KV, int8_t>::value) {
+    e = cudaFuncSetAttribute(q8_split_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return (int)e;
+    q8_split_kernel<T><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+        (const T*)q, (const int8_t*)k, (const __nv_bfloat16*)k_scale, (const int8_t*)v,
+        (const __nv_bfloat16*)v_scale, (const int*)bt, (const int*)pos, (T*)out, part_o, part_ml,
+        (int*)tickets, HKV, R, win, bs, nbper, nsplit, scale * LOG2E);
+  } else {
+    e = cudaFuncSetAttribute(verify_split_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    verify_split_kernel<T><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const int*)bt, (const int*)pos, (T*)out, part_o,
+        part_ml, (int*)tickets, HKV, R, win, bs, nbper, nsplit, scale * LOG2E);
+  }
   return (int)cudaGetLastError();
+}
+
+// dtype 1 (fp16) or 2 (bf16) of q and out: launch<T, KV> with KV = T, or
+// int8_t when Q8.
+template <bool Q8>
+int dispatch(int dtype, const void* q, const void* k, const void* k_scale, const void* v,
+             const void* v_scale, const void* bt, const void* pos, void* out, void* scratch,
+             void* tickets, int B, int H, int HKV, int T, int bs, int nbper, int nsplit,
+             int D, float scale, void* stream) {
+  if (D != 64) return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case 1:
+      return launch<__half, typename std::conditional<Q8, int8_t, __half>::type>(
+          q, k, k_scale, v, v_scale, bt, pos, out, scratch, tickets, B, H, HKV, T, bs, nbper,
+          nsplit, scale, stream);
+    case 2:
+      return launch<__nv_bfloat16, typename std::conditional<Q8, int8_t, __nv_bfloat16>::type>(
+          q, k, k_scale, v, v_scale, bt, pos, out, scratch, tickets, B, H, HKV, T, bs, nbper,
+          nsplit, scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace splitk
@@ -731,20 +917,27 @@ int ds_paged_verify_attention_split(const void* q, const void* k_pool,
                                     void* tickets, int B, int H, int HKV, int T,
                                     int bs, int nbper, int nsplit, int D,
                                     int dtype, float scale, void* stream) {
-  if (D != 64) return (int)cudaErrorInvalidValue;
-  switch (dtype) {
-    case 1:
-      return splitk::launch<__half>(q, k_pool, v_pool, block_tables, pos, out, scratch,
-                                    tickets, B, H, HKV, T, bs, nbper, nsplit, scale, stream);
-    case 2:
-      return splitk::launch<__nv_bfloat16>(q, k_pool, v_pool, block_tables, pos, out,
-                                           scratch, tickets, B, H, HKV, T, bs, nbper,
-                                           nsplit, scale, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return splitk::dispatch<false>(dtype, q, k_pool, nullptr, v_pool, nullptr, block_tables, pos,
+                                 out, scratch, tickets, B, H, HKV, T, bs, nbper, nsplit, D,
+                                 scale, stream);
 }
 
+// bf16 (dtype 2) or fp16 (1) q and out, T <= 16 (1 for decode), against an
+// int8 pool: codes int8 [NB,HKV,bs,D] and scales bf16 [NB,HKV,bs] for K and
+// for V; D = 64; scratch, tickets and nsplit as for
+// ds_paged_verify_attention_split.
+int ds_paged_attention_q8_split(const void* q, const void* k_codes, const void* k_scale,
+                                const void* v_codes, const void* v_scale,
+                                const void* block_tables, const void* pos, void* out,
+                                void* scratch, void* tickets, int B, int H, int HKV, int T,
+                                int bs, int nbper, int nsplit, int D, int dtype, float scale,
+                                void* stream) {
+  return splitk::dispatch<true>(dtype, q, k_codes, k_scale, v_codes, v_scale, block_tables, pos,
+                                out, scratch, tickets, B, H, HKV, T, bs, nbper, nsplit, D, scale,
+                                stream);
+}
+
+// f32 q only: 16-bit q takes ds_paged_attention_q8_split.
 int ds_paged_decode_attention_q8(const void* q, const void* k_codes,
                                  const void* k_scale, const void* v_codes,
                                  const void* v_scale,

@@ -21,9 +21,13 @@ Two kinds of function, one API:
    for tensors that lie on the CPU.  ``paged_verify_attention_cuda`` picks
    its kernel by the pool's dtype (:func:`verify_route`): bf16 and fp16
    pools run the split-K tensor-core kernel, f32 pools the f32 template.
- - ``paged_verify_split_plain``: a plain model of the split-K kernel's
-   algorithm (per-split partials, then the log-sum-exp merge), for the
-   tests and ``chip_smoke.py``; no serving path calls it.
+   The kv8 wrappers pick theirs by the query's dtype (:func:`kv8_route`):
+   bf16 and fp16 queries run the split-K tensor-core kernel over int8
+   codes, f32 queries the f32 template.
+ - ``paged_verify_split_plain``: a plain model of the split-K kernels'
+   algorithm (per-split partials, then the log-sum-exp merge), on float
+   pools and int8 pool records, for the tests and ``chip_smoke.py``; no
+   serving path calls it.
 
 The dispatchers ``decode_attention`` and ``paged_decode_attention`` pick
 between them by window length, as the JAX dispatchers do on the TPU.
@@ -129,27 +133,58 @@ def verify_route(dtype) -> str:
                      "float16, bfloat16)")
 
 
+def kv8_route(dtype) -> str:
+    """The kernel that queries of ``dtype`` run on an int8 pool, for decode
+    and verify alike: ``"split"`` (the split-K tensor-core kernel over int8
+    codes) for bfloat16 and float16, ``"template"`` (the f32 template) for
+    float32, whose tensor-core products would round to tf32; raises for any
+    other dtype."""
+    if dtype in (torch.bfloat16, torch.float16):
+        return "split"
+    if dtype == torch.float32:
+        return "template"
+    raise ValueError(f"kv8 paged attention: query dtype {dtype} not "
+                     "supported (float32, float16, bfloat16)")
+
+
+def _split_operands(pool, block_tables, dtype):
+    """A pool's gathered payload ``[B, HKV, S, D]`` in ``dtype`` and, for an
+    int8 record, its gathered scales ``[B, HKV, S]`` (else None)."""
+    if is_quantized_pool(pool):
+        return (paged_gather(pool["qp"], block_tables).to(dtype),
+                paged_gather(pool["ps"][..., None], block_tables)[..., 0]
+                .to(dtype))
+    return paged_gather(pool, block_tables).to(dtype), None
+
+
 def paged_verify_split_plain(q, k_pool, v_pool, block_tables, q_pos, *,
                              sm_scale: Optional[float] = None,
                              keys_per_split: int = VERIFY_KEYS_PER_SPLIT):
-    """The split-K verify kernel's algorithm in plain PyTorch (float32;
-    float64 stays float64): each row's keys cut into spans of
-    ``keys_per_split`` from key 0; per span the masked scores' max ``m_s``,
-    ``l_s = sum exp(s - m_s)`` and ``o_s = sum exp(s - m_s) v`` (an empty
-    span: m_s = NEG_INF, l_s = 0, o_s = 0); then ``m* = max m_s`` and ``o =
-    sum e^(m_s - m*) o_s / sum e^(m_s - m*) l_s``, a zero denominator read as
-    1.  Same arguments and result as :func:`paged_decode_attention_reference`
-    (float pools)."""
+    """The split-K kernels' algorithm in plain PyTorch (float32; float64
+    stays float64): each row's keys cut into spans of ``keys_per_split``
+    from key 0; per span the masked scores' max ``m_s``, ``l_s = sum exp(s -
+    m_s)`` and ``o_s = sum exp(s - m_s) v`` (an empty span: m_s = NEG_INF,
+    l_s = 0, o_s = 0); then ``m* = max m_s`` and ``o = sum e^(m_s - m*) o_s
+    / sum e^(m_s - m*) l_s``, a zero denominator read as 1.  On int8 pool
+    records the codes take the place of K and V and the per-token scales
+    fold in as the kv8 kernel folds them: ``ks`` multiplies each score
+    column, ``vs`` each probability before its product with V's codes, and
+    ``m_s`` and ``l_s`` stay over the unscaled probabilities.  Same
+    arguments and result as :func:`paged_decode_attention_reference`
+    (whose int8 path dequantizes first)."""
     b, h, t, d = q.shape
     cd = torch.promote_types(q.dtype, torch.float32)
-    k = paged_gather(k_pool, block_tables).to(cd)
-    v = paged_gather(v_pool, block_tables).to(cd)
+    k, ks = _split_operands(k_pool, block_tables, cd)
+    v, vs = _split_operands(v_pool, block_tables, cd)
     hkv, s = k.shape[1], k.shape[2]
     if h != hkv:
-        k = k.repeat_interleave(h // hkv, dim=1)
-        v = v.repeat_interleave(h // hkv, dim=1)
+        k, v = (x.repeat_interleave(h // hkv, dim=1) for x in (k, v))
+        if ks is not None:
+            ks, vs = (x.repeat_interleave(h // hkv, dim=1) for x in (ks, vs))
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     scores = torch.einsum("bhtd,bhsd->bhts", q.to(cd), k) * scale
+    if ks is not None:
+        scores = scores * ks[:, :, None, :]
     nsplit = verify_splits(1, s, keys_per_split)
     n = nsplit * keys_per_split
     base = _row_pos(q_pos, b, q.device).to(torch.int64)
@@ -165,6 +200,9 @@ def paged_verify_split_plain(q, k_pool, v_pool, block_tables, q_pos, *,
     m_s = scores.amax(-1)                                          # [B,H,T,n]
     p = torch.where(vis, torch.exp(scores - m_s[..., None]), 0.0)
     l_s = p.sum(-1)
+    if vs is not None:
+        p = p * torch.nn.functional.pad(vs, (0, n - s)).reshape(
+            b, h, 1, nsplit, keys_per_split)
     o_s = torch.einsum("bhtnk,bhnkd->bhtnd", p,
                        v.reshape(b, h, nsplit, keys_per_split, d))
     m_star = m_s.amax(-1, keepdim=True)
@@ -177,12 +215,17 @@ def paged_verify_split_plain(q, k_pool, v_pool, block_tables, q_pos, *,
 # ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
-def _lib():
-    """The kernels' library, built at first use (never at import)."""
-    from .op_builder import builder
+_LIB = None
 
-    lib = builder("decode_attention", ["decode_attention.cu"]).load()
-    if not getattr(lib, "_ds_typed", False):
+
+def _lib():
+    """The kernels' library, built at first use (never at import) and typed
+    once."""
+    global _LIB
+    if _LIB is None:
+        from .op_builder import builder
+
+        lib = builder("decode_attention", ["decode_attention.cu"]).load()
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.ds_decode_attention.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
                                             f, p]
@@ -192,6 +235,7 @@ def _lib():
                                                   i, i, i, i, i, f, p]
         lib.ds_paged_verify_attention_split.argtypes = [p] * 8 + [i] * 9 + [
             f, p]
+        lib.ds_paged_attention_q8_split.argtypes = [p] * 10 + [i] * 9 + [f, p]
         lib.ds_paged_decode_attention_q8.argtypes = [p, p, p, p, p, p, p, p,
                                                      i, i, i, i, i, i, i, f,
                                                      p]
@@ -201,13 +245,14 @@ def _lib():
         for fn in (lib.ds_decode_attention, lib.ds_paged_decode_attention,
                    lib.ds_paged_verify_attention,
                    lib.ds_paged_verify_attention_split,
+                   lib.ds_paged_attention_q8_split,
                    lib.ds_paged_decode_attention_q8,
                    lib.ds_paged_verify_attention_q8):
             fn.restype = ctypes.c_int
         lib.ds_attention_smem_bytes.argtypes = [i, i]
         lib.ds_attention_smem_bytes.restype = ctypes.c_size_t
-        lib._ds_typed = True
-    return lib
+        _LIB = lib
+    return _LIB
 
 
 def _row_pos(q_pos, b: int, device) -> torch.Tensor:
@@ -217,6 +262,9 @@ def _row_pos(q_pos, b: int, device) -> torch.Tensor:
         if q_pos.device != device:
             raise ValueError(
                 f"q_pos is on {q_pos.device}, the queries on {device}")
+        if q_pos.dtype == torch.int32 and q_pos.shape == (b,) \
+                and q_pos.is_contiguous():
+            return q_pos                   # the serving path's positions
         if q_pos.ndim not in (0, 1) or q_pos.numel() not in (1, b):
             raise ValueError(f"q_pos must be a scalar or [{b}], got "
                              f"{tuple(q_pos.shape)}")
@@ -231,8 +279,9 @@ def _check_cuda(name, q, kv, h, hkv, t, extra=(), kv_dtype=None,
     is ``torch.int8``; ``extra`` names more tensors for the device and
     layout checks; ``split``: the split-K verify kernel, whose limit is
     :data:`VERIFY_SPLIT_MAX_ROWS` query rows per KV head."""
+    dev = q.get_device()                   # -1 on the CPU
     for tname, x in (("q", q), ("k", kv[0]), ("v", kv[1])) + tuple(extra):
-        if not x.is_cuda or x.device != q.device:
+        if dev < 0 or x.get_device() != dev:
             raise ValueError(f"{name}: {tname} must be a CUDA tensor on "
                              f"{q.device}, got {x.device}")
         if not x.is_contiguous():
@@ -270,7 +319,11 @@ def _raise_on_error(name: str, err: int) -> None:
 
 
 def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The handle of the current stream on ``device``: what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without
+    building a ``Stream`` object (a few microseconds of every eager
+    call)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def decode_attention_cuda(q, k_cache, v_cache, q_pos, *,
@@ -323,9 +376,11 @@ def _tickets(device) -> torch.Tensor:
 def _paged_cuda(wrapper, entry, q, k_pool, v_pool, block_tables, q_pos,
                 sm_scale):
     """Shared checks + launch of the paged kernels; counts the launch on
-    ``wrapper``.  The ``_q8`` entries take int8 pool records."""
+    ``wrapper``.  The ``_q8`` entries take int8 pool records, the
+    ``_split`` entries scratch and tickets, and every entry but the
+    ``decode`` ones the window length."""
     name = wrapper.__name__
-    quant = entry.endswith("_q8")
+    quant = "_q8" in entry
     b, h, t, d = q.shape
     kc, vc = pool_payload(k_pool), pool_payload(v_pool)
     nb, hkv, bs, _ = kc.shape
@@ -366,12 +421,13 @@ def _paged_cuda(wrapper, entry, q, k_pool, v_pool, block_tables, q_pos,
             raise ValueError(f"{name}: {b} rows x {hkv} KV heads > "
                              f"{_TICKET_SLOTS} ticket counters")
         nsplit = verify_splits(nbper, bs)
-        rows = b * hkv * (h // hkv) * t
-        scratch = torch.empty(rows * nsplit * 66 if nsplit > 1 else 1,
-                              dtype=torch.float32, device=q.device)
-        args += [scratch.data_ptr(), _tickets(q.device).data_ptr()]
+        # one split: every row writes its output directly, no partials
+        scratch = None if nsplit == 1 else torch.empty(
+            b * h * t * nsplit * 66, dtype=torch.float32, device=q.device)
+        args += [0 if scratch is None else scratch.data_ptr(),
+                 _tickets(q.device).data_ptr()]
     args += [b, h, hkv]
-    if "verify" in entry:
+    if "decode" not in entry:
         args.append(t)
     args += [bs, nbper]
     if split:
@@ -444,16 +500,19 @@ def paged_decode_attention_kv8_cuda(q, k_pool, v_pool, block_tables, q_pos,
     int8 [NB, HKV, bs, D], "ps": bf16 [NB, HKV, bs]}``: the kernel reads
     codes and per-token scales and folds the scales into the score and
     probability columns.  Replaces the ``quant=True`` operands of
-    ``_paged_decode_pallas`` (``_paged_pool_operands``)."""
+    ``_paged_decode_pallas`` (``_paged_pool_operands``).  On CUDA the
+    query's dtype picks the kernel (:func:`kv8_route`): bf16 and fp16 run
+    the split-K tensor-core kernel, f32 the f32 template."""
     if not q.is_cuda:
         return paged_decode_attention_reference(
             q, k_pool, v_pool, block_tables, q_pos, sm_scale=sm_scale)
     if q.shape[2] != 1:
         raise ValueError(f"paged_decode_attention_kv8_cuda is single-token, "
                          f"got T={q.shape[2]}")
-    return _paged_cuda(paged_decode_attention_kv8_cuda,
-                       "ds_paged_decode_attention_q8", q, k_pool, v_pool,
-                       block_tables, q_pos, sm_scale)
+    entry = {"split": "ds_paged_attention_q8_split",
+             "template": "ds_paged_decode_attention_q8"}[kv8_route(q.dtype)]
+    return _paged_cuda(paged_decode_attention_kv8_cuda, entry, q, k_pool,
+                       v_pool, block_tables, q_pos, sm_scale)
 
 
 paged_decode_attention_kv8_cuda.launches = 0
@@ -462,15 +521,17 @@ paged_decode_attention_kv8_cuda.launches = 0
 def paged_verify_attention_kv8_cuda(q, k_pool, v_pool, block_tables, q_pos,
                                     *, sm_scale: Optional[float] = None):
     """:func:`paged_verify_attention_cuda` on int8 pool records (as
-    :func:`paged_decode_attention_kv8_cuda`).  Replaces the ``quant=True``
-    operands of ``_paged_verify_pallas``."""
+    :func:`paged_decode_attention_kv8_cuda`, the kernel picked the same
+    way).  Replaces the ``quant=True`` operands of
+    ``_paged_verify_pallas``."""
     if not q.is_cuda:
         return paged_decode_attention_reference(
             q, k_pool, v_pool, block_tables, q_pos, sm_scale=sm_scale)
     _check_window(q.shape[2])
-    return _paged_cuda(paged_verify_attention_kv8_cuda,
-                       "ds_paged_verify_attention_q8", q, k_pool, v_pool,
-                       block_tables, q_pos, sm_scale)
+    entry = {"split": "ds_paged_attention_q8_split",
+             "template": "ds_paged_verify_attention_q8"}[kv8_route(q.dtype)]
+    return _paged_cuda(paged_verify_attention_kv8_cuda, entry, q, k_pool,
+                       v_pool, block_tables, q_pos, sm_scale)
 
 
 paged_verify_attention_kv8_cuda.launches = 0
