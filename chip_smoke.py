@@ -21,8 +21,12 @@ Phases (any failure raises and exits non-zero):
  2b. the same for the flash-attention forward, dq and dkv kernels at the
     train phase's shape (bf16, causal, B=8, H=12, S=1024, D=64) and at
     phase 9's (B=2, S=2048), plus one-tile cases (B*H = 1, S = 64 and 128,
-    full and causal), S=130, S=1000 (unaligned), GQA, non-causal, fp32 and
-    the lse/delta taking dq and dkv calls;
+    full and causal), S=130, S=200, S=1000 (unaligned), GQA (rep 3 and 4),
+    non-causal, causal Sq != Sk, fp32 and the lse/delta taking dq and dkv
+    calls; the bf16 backward kernels also against the plain models of
+    their tiling, with a second call and a CUDA-graph replay bit-identical
+    to the first, and PyTorch's flash backward replayed from a CUDA graph
+    as a yardstick beside its eager time;
  2c. the same for the int8 kernels of the quantized lane: the kv8 variants
     of the paged decode and verify kernels (int8 pools with per-token bf16
     scales; bf16 and fp16 queries run the split-K kernel over int8 codes
@@ -201,13 +205,14 @@ def graph_ms(fn, flush, iters: int = 100) -> float:
 
 def graph_replay(fn):
     """A copy of what one replay of ``fn`` captured in a CUDA graph
-    writes."""
+    writes (a tensor, or a tuple of tensors)."""
     import torch
 
     graph, out = capture(fn)
     graph.replay()
     torch.cuda.synchronize()
-    out = out.clone()
+    out = tuple(x.clone() for x in out) if isinstance(out, tuple) \
+        else out.clone()
     del graph
     return out
 
@@ -529,9 +534,12 @@ def check_flash_kernels():
     # case is the shape phase 7 gives every call (12 layers x 20
     # micro-steps), whose times go into the kernels line; the S=2048 times
     # (phase 9, the JAX package's v3 regime) are logged only.  The bf16
-    # forward is the wgmma kernel (128-row query tiles, 128-key tiles): its
-    # one-tile cases come first, since a wrong shared-memory descriptor
-    # gives finite but wrong o there already
+    # kernels are the wgmma ones (forward: 128-row query tiles, 128-key
+    # tiles; dq: 128 rows, 64-key tiles; dkv: 128 keys, 64-query tiles):
+    # their one-tile cases come first, since a wrong shared-memory
+    # descriptor gives finite but wrong outputs there already.  S=200
+    # splits a causal diagonal between dkv's two 64-key warpgroups; causal
+    # Sq < Sk leaves dkv key tiles that no query sees (written as zeros)
     cases = [
         ("one tile S=64", 1, 1, 1, 64, 64, bf16, False, False),
         ("one tile S=64 causal", 1, 1, 1, 64, 64, bf16, True, False),
@@ -546,6 +554,11 @@ def check_flash_kernels():
         ("GQA H=8 Hkv=2", 4, 8, 2, 1024, 1024, bf16, True, False),
         ("non-causal Sq=384 Sk=640", 4, 12, 12, 384, 640, bf16, False,
          False),
+        ("S=200 (a split diagonal)", 2, 12, 12, 200, 200, bf16, True,
+         False),
+        ("GQA rep 3 S=200", 2, 12, 4, 200, 200, bf16, True, False),
+        ("causal Sq=384 Sk=640", 2, 12, 12, 384, 640, bf16, True, False),
+        ("causal Sq=640 Sk=384", 2, 12, 12, 640, 384, bf16, True, False),
         ("fp32 S=1024", 2, 12, 12, 1024, 1024, f32, True, False),
         ("fp32 GQA non-causal S=600", 2, 8, 2, 600, 600, f32, False, False),
     ]
@@ -594,6 +607,9 @@ def check_flash_kernels():
             f"{k} {e:.3e}" + (f" (row {rows[k]:.3e})" if rows[k] is not None
                               else "") for k, e in errs.items()))
         del o_p, lse_p, dq_p, dk_p, dv_p, want_dq, want_dk, want_dv
+        if fa.bwd_route(dtype) == "wgmma":
+            check_bwd_design(label, q, k, v, do, o, lse, delta, causal,
+                             (dq, dk, dv))
         if not main:
             continue
 
@@ -607,6 +623,9 @@ def check_flash_kernels():
 
         lib_fwd = timed_ms(sdpa_fwd, flush)
         lib_bwd = timed_ms(sdpa_fwd_bwd, flush) - lib_fwd
+        log(f"[flash] {label} sdpa backward: {lib_bwd:.4f} ms eager (fwd+bwd"
+            f" less fwd), {sdpa_backward_graph_ms(q, k, v, do, flush)} "
+            "replayed from a CUDA graph (the backward call alone)")
         calls = {
             "flash_attention_fwd_cuda": (
                 lambda: fa.flash_attention_fwd_cuda(q, k, v, causal),
@@ -641,6 +660,66 @@ def check_flash_kernels():
                 f"ms, bound {bound_ms:.4f} ms ({bound_by})")
     del flush
     return out
+
+
+def check_bwd_design(label, q, k, v, do, o, lse, delta, causal, got):
+    """The bf16 backward kernels (``wgmma_dq_kernel``,
+    ``wgmma_dkv_kernel``) against the plain models of their tiling on the
+    same inputs, at the bf16 bars; a second call and a CUDA-graph replay
+    must give the first call's bits."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    dq, dk, dv = got
+    want_dq = fa.flash_attention_bwd_dq_tiled_plain(q, k, v, do, lse, delta,
+                                                    causal)
+    want_dk, want_dv = fa.flash_attention_bwd_dkv_tiled_plain(
+        q, k, v, do, lse, delta, causal)
+    errs = [flash_compare(f"{label} {key} (tiled model)", g, w, q.dtype,
+                          FLASH_FP32_GRAD)[0]
+            for key, g, w in (("dq", dq, want_dq), ("dk", dk, want_dk),
+                              ("dv", dv, want_dv))]
+
+    def call_dq():
+        return fa.flash_attention_bwd_dq_cuda(q, k, v, do, lse, o=o,
+                                              causal=causal)
+
+    def call_dkv():
+        return fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                               causal=causal)
+
+    for how, (dq2, delta2), (dk2, dv2) in (
+            ("a second call", call_dq(), call_dkv()),
+            ("a CUDA-graph replay", graph_replay(call_dq),
+             graph_replay(call_dkv))):
+        if not (torch.equal(dq2, dq) and torch.equal(delta2, delta)
+                and torch.equal(dk2, dk) and torch.equal(dv2, dv)):
+            raise AssertionError(f"{label}: {how} of the backward differs")
+    log(f"[flash] {label}: backward vs the tiled models dq {errs[0]:.3e}, "
+        f"dk {errs[1]:.3e}, dv {errs[2]:.3e}; repeat and graph replay "
+        "bit-identical")
+
+
+def sdpa_backward_graph_ms(q, k, v, do, flush) -> str:
+    """The yardstick of the backward pair: PyTorch's flash-attention
+    backward alone (``aten::_scaled_dot_product_flash_attention_backward``
+    on its own forward's outputs, causal, MHA) replayed from a CUDA graph,
+    as a string of milliseconds; timed here only."""
+    import torch
+
+    aten = torch.ops.aten
+    try:
+        fwd = aten._scaled_dot_product_flash_attention(q, k, v, 0.0, True)
+        o, lse, cq, ck, mq, mk, seed, offset = fwd[:8]
+
+        def backward():
+            return aten._scaled_dot_product_flash_attention_backward(
+                do, q, k, v, o, lse, cq, ck, mq, mk, 0.0, True, seed, offset)
+
+        return f"{graph_ms(backward, flush):.4f} ms"
+    except (RuntimeError, TypeError) as e:
+        return f"not measured ({type(e).__name__}: {str(e)[:80]})"
 
 
 # -------------------------------------------------------------- phase 2c
@@ -1675,8 +1754,8 @@ def main() -> int:
         "paged_decode_attention_kv8_cuda": "q8_split_kernel",
         "paged_verify_attention_kv8_cuda": "q8_split_kernel",
         "flash_attention_fwd_cuda": "wgmma_fwd_kernel",
-        "flash_attention_bwd_dq_cuda": "dq_kernel",
-        "flash_attention_bwd_dkv_cuda": "dkv_kernel",
+        "flash_attention_bwd_dq_cuda": "wgmma_dq_kernel",
+        "flash_attention_bwd_dkv_cuda": "wgmma_dkv_kernel",
         "w8a8_matmul_cuda": "w8a8_kernel",
         "w8a8_matmul_stacked_cuda": "w8a8_kernel",
         "quantized_matmul_cuda": "qmm_kernel",

@@ -3,7 +3,8 @@
 Entry points keep the JAX package's signatures (``deepspeed_tpu/__init__.py``
 ``initialize``, ``init_inference`` and ``init_serving``), limited to the
 options this port supports so far; an option whose feature is not ported
-yet raises ``NotImplementedError`` naming the slice that brings it.  All
+yet raises ``NotImplementedError`` naming the slice that brings it and
+its ROADMAP Queue A item.  All
 run on CUDA unless the caller passes ``device="cpu"``.  Importing the
 package loads nothing heavy: the engines import on first call.
 """
@@ -69,7 +70,9 @@ def init_inference(model=None, config=None, params=None, device=None,
                    **kwargs):
     """Inference engine entry (reference ``__init__.py:233``).
 
-    ``model``: a model from ``deepspeed_tpu_torch.models`` (``gpt2.build``).
+    ``model``: a model from ``deepspeed_tpu_torch.models`` (``gpt2.build``);
+    the JAX package's other kinds of model, a HuggingFace model or a path
+    to its checkpoint, are not ported (ROADMAP Queue A item 7).
     ``config``: a dict or :class:`~deepspeed_tpu_torch.inference.config.
     DeepSpeedInferenceConfig` (or its keys as keyword arguments).
     ``params``: parameters as a nested dict of tensors (e.g.
@@ -81,6 +84,11 @@ def init_inference(model=None, config=None, params=None, device=None,
 
     if model is None:
         raise ValueError("init_inference needs a model (models.gpt2.build)")
+    if getattr(model, "decode_hooks", None) is None:
+        _unsupported("init_inference", f"model={type(model).__name__}", 7,
+                     "other model families (HuggingFace models and "
+                     "checkpoint paths go through module_inject and "
+                     "state_dict_factory)")
     if isinstance(config, dict):
         config = DeepSpeedInferenceConfig(**config)
     elif config is None:
@@ -88,55 +96,101 @@ def init_inference(model=None, config=None, params=None, device=None,
     return InferenceEngine(model, config, params=params, device=device)
 
 
-def _unsupported(option: str, later: str):
+def _unsupported(entry: str, option: str, item: int, later: str):
     raise NotImplementedError(
-        f"init_serving({option}): not ported yet — it comes with the "
-        f"PyTorch port's {later} (ROADMAP.md)")
+        f"{entry}({option}): not ported yet — it comes with the PyTorch "
+        f"port's {later} (ROADMAP.md Queue A item {item})")
 
 
-def init_serving(model=None, config=None, params=None, *, device=None,
-                 slots=8, max_seq_len=None, prefill_batch=4, block_size=32,
-                 num_blocks=None, prefill_chunk=128, prefix_caching=True,
-                 decode_steps=1, engine_mode="replicas", sp=1,
-                 resident_window_blocks=0, spec_tokens=0, quantize=None,
-                 host_blocks=0, sampling=True, topology=None,
-                 debug_checks=False, **kwargs):
+#: init_serving's keywords that the port takes only at the JAX default:
+#: (name, default, ROADMAP Queue A item, the work that brings it).
+#: ``sampling`` is the other way round: the port serves greedy only, so it
+#: takes ``False`` and refuses the JAX default.
+_SERVING_LATER = (
+    ("prompt_buckets", None, 4, "serving API remainder (bucketed prefill)"),
+    ("decode_steps", 1, 1, "captured decode step (fused decode_steps=K)"),
+    ("engine_mode", "replicas", 8, "multi-GPU slice (dp_tp)"),
+    ("sp", 1, 8, "multi-GPU slice (sequence-parallel prefill)"),
+    ("resident_window_blocks", 0, 9, "fleet layers (KV tiers)"),
+    ("spec_tokens", 0, 3, "speculative-verify slice"),
+    ("host_blocks", 0, 9, "fleet layers (KV tiers)"),
+    ("swap_batch", 8, 9, "fleet layers (KV tiers)"),
+    ("draft", None, 3, "speculative-verify slice (draft model)"),
+    ("role", "both", 9, "fleet layers (disaggregated roles)"),
+    ("nvme_blocks", 0, 9, "fleet layers (NVMe KV tier)"),
+    ("nvme_high_watermark", 0.9, 9, "fleet layers (NVMe KV tier)"),
+    ("nvme_path", None, 9, "fleet layers (NVMe KV tier)"),
+    ("ngram_max", 3, 3, "speculative-verify slice (n-gram proposer)"),
+    ("ngram_min", 1, 3, "speculative-verify slice (n-gram proposer)"),
+    ("spec_verifier", "rejection", 3, "speculative-verify slice"),
+    ("logit_masks", False, 3, "speculative-verify slice (constrained "
+     "decoding)"),
+    ("shard_kv", None, 8, "multi-GPU slice (head-sharded KV pool)"),
+    ("debug_checks", False, 5, "telemetry and tooling slice (the paged-state "
+     "audit, scale-lockstep included)"),
+    ("trace_capacity", 16384, 5, "telemetry and tooling slice (the event "
+     "trace)"),
+    ("slo_targets", None, 5, "telemetry and tooling slice (SLO report)"),
+    ("peak_flops", None, 5, "telemetry and tooling slice (flops report)"),
+)
+
+
+def init_serving(model=None, config=None, params=None, *, slots=8,
+                 max_seq_len=None, prompt_buckets=None, prefill_batch=4,
+                 block_size=32, num_blocks=None, chunked_prefill=None,
+                 prefill_chunk=128, prefix_caching=True, decode_steps=1,
+                 engine_mode="replicas", sp=1, resident_window_blocks=0,
+                 spec_tokens=0, quantize=None, host_blocks=0, swap_batch=8,
+                 draft=None, role="both", nvme_blocks=0,
+                 nvme_high_watermark=0.9, nvme_path=None, ngram_max=3,
+                 ngram_min=1, sampling=True, spec_verifier="rejection",
+                 logit_masks=False, shard_kv=None, topology=None,
+                 debug_checks=False, trace_capacity=16384, slo_targets=None,
+                 peak_flops=None, device=None, **kwargs):
     """Continuous-batching serving entry: an ``init_inference`` engine
     wrapped in the block-paged chunked-prefill scheduler
-    (``inference/serving.py``).  Greedy only so far: pass
-    ``sampling=False`` (the JAX default, on-device sampling, is a later
-    slice).  ``quantize``: ``None``, ``"kv8"`` (int8 KV pool),
+    (``inference/serving.py``).  The signature is the JAX package's
+    (``deepspeed_tpu/__init__.py:226``) plus ``device``.  Greedy only so
+    far: pass ``sampling=False`` (the JAX default, on-device sampling, is a
+    later slice).  ``quantize``: ``None``, ``"kv8"`` (int8 KV pool),
     ``"w8a8"`` or ``"w8a8+kv8"``; a ``w8a8`` value builds the engine with
     K-grouped int8 blocks, merging ``{"quant": {"enabled": True, "type":
     "w8a8"}}`` into the config as ``deepspeed_tpu/__init__.py:384-411``
-    does.  Remaining keyword arguments are inference-config keys."""
+    does.  Every other keyword the port does not implement yet is taken at
+    its JAX default only (``chunked_prefill`` also at ``True``, which is
+    what the port runs); any other value raises ``NotImplementedError``
+    naming its ROADMAP Queue A item.  Remaining keyword arguments are
+    inference-config keys."""
     from .inference.serving import ServingEngine, _parse_quantize
 
+    given = dict(prompt_buckets=prompt_buckets, decode_steps=decode_steps,
+                 engine_mode=engine_mode, sp=sp,
+                 resident_window_blocks=resident_window_blocks,
+                 spec_tokens=spec_tokens, host_blocks=host_blocks,
+                 swap_batch=swap_batch, draft=draft, role=role,
+                 nvme_blocks=nvme_blocks,
+                 nvme_high_watermark=nvme_high_watermark, nvme_path=nvme_path,
+                 ngram_max=ngram_max, ngram_min=ngram_min,
+                 spec_verifier=spec_verifier, logit_masks=logit_masks,
+                 shard_kv=shard_kv, debug_checks=debug_checks,
+                 trace_capacity=trace_capacity, slo_targets=slo_targets,
+                 peak_flops=peak_flops)
     if sampling:
-        _unsupported("sampling=True", "sampling and fused-decode slice; "
+        _unsupported("init_serving", "sampling=True", 2, "sampling slice; "
                      "pass sampling=False for greedy serving")
-    if int(decode_steps) != 1:
-        _unsupported(f"decode_steps={decode_steps}",
-                     "sampling and fused-decode slice")
-    if int(spec_tokens):
-        _unsupported(f"spec_tokens={spec_tokens}", "speculative-verify slice")
-    if debug_checks:
-        _unsupported("debug_checks=True", "telemetry and tooling slice (the "
-                     "paged-state audit, scale-lockstep included)")
-    if int(host_blocks):
-        _unsupported(f"host_blocks={host_blocks}", "KV-tier (fleet) slice")
-    if int(resident_window_blocks):
-        _unsupported(f"resident_window_blocks={resident_window_blocks}",
-                     "KV-tier (fleet) slice")
-    if int(sp) > 1:
-        _unsupported(f"sp={sp}", "multi-GPU slice")
-    if engine_mode != "replicas":
-        _unsupported(f"engine_mode={engine_mode!r}", "multi-GPU slice")
+    for name, default, item, later in _SERVING_LATER:
+        value = given[name]
+        if value is not default and value != default:
+            _unsupported("init_serving", f"{name}={value!r}", item, later)
+    if chunked_prefill is False:
+        _unsupported("init_serving", "chunked_prefill=False", 4,
+                     "serving API remainder (bucketed prefill)")
     if topology is not None:
         tp = int(topology) if not isinstance(topology, dict) else \
             int(topology.get("tp", topology.get("tp_size", 1)))
         if tp > 1:
-            _unsupported(f"topology={topology!r}", "multi-GPU slice")
+            _unsupported("init_serving", f"topology={topology!r}", 8,
+                         "multi-GPU slice")
     _, _, want_w8a8 = _parse_quantize(quantize)
     if want_w8a8:
         config = _with_w8a8(config, kwargs)

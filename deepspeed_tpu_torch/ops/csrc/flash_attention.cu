@@ -53,27 +53,55 @@
 // (no link against libcuda), and passed as __grid_constant__ parameters,
 // so a CUDA graph captures them by value.
 //
-// Forward, f32 (fwd_kernel), and the backward (both types): 64x64 tiles in
-// shared memory; for bf16, warp-level tensor-core products (nvcuda::wmma,
-// 16x16x16 bf16 fragments, f32 accumulators), for f32 a plain f32 loop (the
-// tensor cores would round f32 to tf32 and miss fp32's 1e-5).  The
-// backward's 5*B*H*S^2*D makes it operation-bound; it round-trips its
-// accumulators through shared memory with no copy/compute overlap, which
-// later work replaces as the forward's was.  dkv: one block per (key tile
-// of 64, KV head) over the query tiles of all rep query heads from the
-// diagonal on; dk/dv are written once at the end, so the gradients come out
-// the same from run to run (no atomics).
+// Backward, bf16 (wgmma_dq_kernel, wgmma_dkv_kernel).  Bound: at the train
+// shape dq does 6 and dkv 8 flops per visible (query, key) pair and dim,
+// 19.4 and 25.8 GFLOP, and each moves 76 MB: 20 and 26 us of tensor-core
+// work against 23 us of HBM traffic, so both sit at both limits, and what
+// keeps them from the bound is how the products are fed: operands from
+// shared memory that TMA filled ahead of use, results kept in registers.  The same machinery as the forward, with no online softmax:
+// P = exp2(S scale2 - lse2) and dS = P (dP - delta) are computed on the
+// accumulator fragments of the two score products, rounded to bf16 in
+// registers, and are the register A operand of the gradient products.
+//   dq: one block per (128-row query tile, bh), the heaviest causal tiles
+//   first; two consumer warpgroups own 64 rows each, Q and dO are loaded
+//   once, and one producer warp streams 64-key K and V tiles through a
+//   3-stage ring.  S = Q K^T and dP = dO V^T are wgmma.m64n64k16 from
+//   shared memory (K and V K-major), dQ += dS K is wgmma.m64n64k16 with dS
+//   from registers and the same K tile read MN-major.  With 64-key tiles S,
+//   dP, the packed dS and the dQ accumulator are 112 values a thread, within
+//   the 168 registers that 288 threads get (128-key tiles would need 192
+//   with the next tile's products in flight).  With o given,
+//   delta = rowsum(dO O) is computed in a prologue, each row by the quad of
+//   threads that holds it, and written out for the dkv call.
+//   dkv: the transposed problem, so that every operand lies where wgmma
+//   wants it: one block per (128-key tile, KV head), the key tiles that see
+//   the most queries first; two consumer warpgroups own 64 keys each, K and
+//   V are loaded once, and a producer warp streams 64-row Q and dO tiles
+//   of each of the rep query heads (from the diagonal on, under causal),
+//   with their lse and delta, which a tensor map cannot carry (a [BH, Sq]
+//   f32 row is not 16-byte aligned for every Sq), loaded by its lanes into
+//   the stage.  S^T = K Q^T and dP^T = V dO^T are wgmma.m64n64k16 from
+//   shared memory; P^T and dS^T take lse and delta by their fragment's
+//   column; dV += P^T dO and dK += dS^T Q read dO and Q MN-major.  The
+//   consumers need 232 registers a thread, which the producer warpgroup
+//   hands them with setmaxnreg.  dk and dv stay in registers over all query
+//   tiles and are written once, so the gradients come out the same from
+//   run to run (no atomics).
+//
+// Forward and backward, f32 (fwd_kernel, dq_kernel, dkv_kernel): 64x64
+// tiles in shared memory and a plain f32 loop for the products (the tensor
+// cores would round f32 to tf32 and miss fp32's 1e-5).  dkv: one block per
+// (key tile of 64, KV head) over the query tiles of all rep query heads
+// from the diagonal on; dk/dv are written once at the end.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 constexpr int BQ = 64;           // query rows per tile
@@ -86,18 +114,13 @@ constexpr float LN2 = 0.6931471805599453f;
 constexpr int LDF = 68;          // row stride of the f32 [64][64] tiles
 
 // Row stride of a [64][64] tile of T in shared memory: padded so rows start
-// on distinct banks, and a multiple of 16 bytes, as wmma's loads need.
+// on distinct banks, and a multiple of 16 bytes.
 template <typename T> struct Ld;
 template <> struct Ld<float> { static constexpr int v = 68; };
-template <> struct Ld<bf16> { static constexpr int v = 72; };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -125,36 +148,11 @@ __device__ void load_tile(T* dst, int ld, const T* src, int row0, int valid) {
   }
 }
 
-// C[M x N] (f32, row stride ldc) = (ACC ? C : 0) + A[M x K] * B[K x N].
-// A is row-major (A[m*lda + k]) or, with A_T, the transpose of a row-major
-// [K x M] tile (A[k*lda + m]); B is row-major [K x N] (B[k*ldb + n]) or,
-// with B_T, the transpose of a row-major [N x K] tile (B[n*ldb + k]).
-// M, N, K are multiples of 16.  bf16: the warps split C's 16x16 tiles and
-// run wmma products on them.
-template <bool A_T, bool B_T, bool ACC>
-__device__ void mma_tile(const bf16* A, int lda, const bf16* B, int ldb,
-                         float* C, int ldc, int M, int N, int K) {
-  using LA = typename std::conditional<A_T, wmma::col_major, wmma::row_major>::type;
-  using LB = typename std::conditional<B_T, wmma::col_major, wmma::row_major>::type;
-  const int warp = threadIdx.x / 32, nt = N / 16;
-  for (int t = warp; t < (M / 16) * nt; t += NWARPS) {
-    const int mi = t / nt, ni = t % nt;
-    float* cp = C + mi * 16 * ldc + ni * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    if (ACC) wmma::load_matrix_sync(c, cp, ldc, wmma::mem_row_major);
-    else wmma::fill_fragment(c, 0.f);
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b;
-      wmma::load_matrix_sync(a, A_T ? A + k0 * lda + mi * 16 : A + mi * 16 * lda + k0, lda);
-      wmma::load_matrix_sync(b, B_T ? B + ni * 16 * ldb + k0 : B + k0 * ldb + ni * 16, ldb);
-      wmma::mma_sync(c, a, b, c);
-    }
-    wmma::store_matrix_sync(cp, c, ldc, wmma::mem_row_major);
-  }
-}
-
-// The same product in plain f32 (threads split C's entries).
+// C[M x N] (f32, row stride ldc) = (ACC ? C : 0) + A[M x K] * B[K x N] in
+// plain f32, the threads splitting C's entries.  A is row-major
+// (A[m*lda + k]) or, with A_T, the transpose of a row-major [K x M] tile
+// (A[k*lda + m]); B is row-major [K x N] (B[k*ldb + n]) or, with B_T, the
+// transpose of a row-major [N x K] tile (B[n*ldb + k]).
 template <bool A_T, bool B_T, bool ACC>
 __device__ void mma_tile(const float* A, int lda, const float* B, int ldb,
                          float* C, int ldc, int M, int N, int K) {
@@ -171,8 +169,8 @@ __device__ __forceinline__ bool visible(int row, int col, int Sq, int Sk, int ca
   return row < Sq && col < Sk && (!causal || col <= row);
 }
 
-// ------------------------------------------------------------ forward, f32
-// (bf16 takes wgmma_fwd_kernel below)
+// ------------------------------------------------------- f32 tile kernels
+// (bf16 takes the wgmma kernels below)
 template <typename T>
 constexpr size_t fwd_smem() {
   return 4 * 64 * Ld<T>::v * sizeof(T) + 2 * 64 * LDF * sizeof(float) + 3 * 64 * sizeof(float);
@@ -270,6 +268,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
           const T* __restrict__ o, const T* __restrict__ dout,
           const float* __restrict__ lse, float* __restrict__ delta, T* __restrict__ dq,
           int Sq, int Sk, int rep, int causal, float sm_scale) {
+  static_assert(std::is_same<T, float>::value, "the bf16 dq is wgmma_dq_kernel");
   constexpr int LDT = Ld<T>::v;
   const float scale2 = sm_scale * LOG2E;
   const int q0 = blockIdx.x * BQ, bh = blockIdx.y, kvh = bh / rep;
@@ -340,8 +339,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 }
 
 // ---------------------------------------------------------------------- dkv
-// P and dS are written over the f32 tiles they come from, so that two
-// blocks fit on an SM in bf16 (107 KB each; 125 KB without the aliasing).
+// P and dS are written over the f32 tiles they come from.
 template <typename T>
 constexpr size_t dkv_smem() {
   return 4 * 64 * Ld<T>::v * sizeof(T) + 4 * 64 * LDF * sizeof(float) + 2 * 64 * sizeof(float);
@@ -353,6 +351,7 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
            const T* __restrict__ dout, const float* __restrict__ lse,
            const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
            int Sq, int Sk, int rep, int causal, float sm_scale) {
+  static_assert(std::is_same<T, float>::value, "the bf16 dkv is wgmma_dkv_kernel");
   constexpr int LDT = Ld<T>::v;
   const float scale2 = sm_scale * LOG2E;
   const int k0 = blockIdx.x * BK, kvh = blockIdx.y;
@@ -515,6 +514,12 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+// One arrival of the calling warp on a stage's empty barrier.
+__device__ __forceinline__ void release(uint32_t bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
 // -inf: a score the mask removed, and the row maximum before any key
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
@@ -553,6 +558,25 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] (f32, 32 registers a thread) (+)= A[64 x 16] * B[16 x 64], A
+// and B K-major in shared memory (descriptors da, db)
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -640,11 +664,13 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m_r)[2], f
   }
 }
 
-// P as the register A operand: k-step kk (keys 16kk..16kk+15) is the
-// accumulator's column chunks 2kk and 2kk+1.
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[8][4], const float (&sc)[64]) {
+// An accumulator of KS k-steps' width (P, dS) as the register A operand:
+// k-step kk (columns 16kk..16kk+15) is the accumulator's column chunks 2kk
+// and 2kk+1.
+template <int KS>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[KS][4], const float (&sc)[8 * KS]) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
     pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
     pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
@@ -745,10 +771,7 @@ wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     softmax_tile(sc, m_r, l_r, alpha, t * BN, row0, quad, wg_first, Sk, causal, scale2);
     wgmma_wait<0>();                                      // P_{t-1} V_{t-1}
     fence_regs(acc);
-    if (t > 0) {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty0 + 8 * ((t - 1) % STAGES));
-    }
+    if (t > 0) release(empty0 + 8 * ((t - 1) % STAGES), lane);
     pack_p(pa, sc);
     const int s1 = (t + 1) % STAGES;
     mbar_wait(full0 + 8 * s1, ((t + 1) / STAGES) & 1);
@@ -784,6 +807,407 @@ wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   }
 }
 
+// ---------------------------------------------------- backward, bf16, wgmma
+constexpr int KT = 64;                     // keys a dq tile, queries a dkv tile
+constexpr uint32_t HALF = 64 * 64 * 2;     // one [64][64] bf16 tile, 8 KB
+// dq: Q and dO, the ring of K and V tiles, 2 * STAGES + 1 mbarriers
+constexpr size_t DQ_SMEM = 1024 + 2 * TILE + STAGES * 2 * HALF + 8 * (2 * STAGES + 1);
+// dkv: K and V, the ring of Q and dO tiles with their lse and delta rows
+// (2 x 64 floats a stage), 2 * STAGES + 1 mbarriers
+constexpr uint32_t SIDE = 2 * 64 * 4;
+constexpr size_t DKV_SMEM = 1024 + 2 * TILE + STAGES * (2 * HALF + SIDE) + 8 * (2 * STAGES + 1);
+
+__device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
+
+// D = A B^T over D = 64 for this warpgroup's 64 rows of the K-major tile at
+// a against the 64 rows of the K-major tile at b: four k-steps of 16, 32
+// bytes apart in the swizzled 128-byte rows (committed by the caller, after
+// a wgmma_fence).
+__device__ __forceinline__ void issue_nt(float (&d)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n64k16_ss(d, desc_sw128(a + 32 * kk, 16, 1024), desc_sw128(b + 32 * kk, 16, 1024),
+                       kk);
+}
+
+// D += A B, A the 64 x 64 register operand pa and B the [64][64] tile at b
+// read MN-major: a k-step is 16 rows of b, two 1024-byte groups of 8.
+__device__ __forceinline__ void issue_rs(float (&d)[32], const uint32_t (&pa)[4][4], uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_m64n64k16_rs(d, pa[kk], desc_sw128(b + 2048 * kk, 1024, 1024));
+}
+
+// dq's step on the fragments of the 64-key tile at k0 (rows: the thread's
+// two query rows row0, row0 + 8): P = exp2(S scale2 - lse2[row]), zero for
+// keys >= Sk and, under causal, above the diagonal; dS = P (dP - delta[row])
+// is left in s.
+__device__ __forceinline__ void ds_rows(float (&s)[32], const float (&dp)[32],
+                                        const float (&lse2)[2], const float (&dl)[2], int k0,
+                                        int row0, int quad, bool edge, int Sk, int causal,
+                                        float scale2) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    float x = fmaf(s[i], scale2, -lse2[r]);
+    if (edge) {
+      const int col = k0 + 8 * (i >> 2) + 2 * quad + (i & 1);
+      if (col >= Sk || (causal && col > row0 + 8 * r)) x = neg_inf();
+    }
+    s[i] = ex2(x) * (dp[i] - dl[r]);
+  }
+}
+
+// dkv's step on the fragments of the transposed tile (rows: the thread's
+// two keys key0, key0 + 8; columns: the 64 queries from q0, whose lse2 and
+// delta lie in shared memory at side, side + 64): P^T is left in s and dS^T
+// in dp.  Queries >= Sq carry lse2 = +inf (P = 0); under causal a key
+// above the query's diagonal is masked.
+__device__ __forceinline__ void ds_cols(float (&s)[32], float (&dp)[32], const float* side,
+                                        int q0, int key0, int quad, bool edge, float scale2) {
+  float2 l2[8], dl[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    l2[j] = *reinterpret_cast<const float2*>(side + 8 * j + 2 * quad);
+    dl[j] = *reinterpret_cast<const float2*>(side + 64 + 8 * j + 2 * quad);
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int j = i >> 2;
+    const float lc = (i & 1) ? l2[j].y : l2[j].x;
+    const float dc = (i & 1) ? dl[j].y : dl[j].x;
+    float x = fmaf(s[i], scale2, -lc);
+    if (edge && q0 + 8 * j + 2 * quad + (i & 1) < key0 + 8 * ((i >> 1) & 1)) x = neg_inf();
+    const float p = ex2(x);
+    s[i] = p;
+    dp[i] = p * (dp[i] - dc);
+  }
+}
+
+// 16 bf16 at p (16-byte aligned) summed against 16 at q, in f32.
+__device__ __forceinline__ float dot16(const bf16* p, const bf16* q) {
+  float acc = 0.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint4 a = reinterpret_cast<const uint4*>(p)[h], b = reinterpret_cast<const uint4*>(q)[h];
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 x = __bfloat1622float2(a2[e]), y = __bfloat1622float2(b2[e]);
+      acc = fmaf(x.x, y.x, acc);
+      acc = fmaf(x.y, y.y, acc);
+    }
+  }
+  return acc;
+}
+
+// Fragments as in wgmma_fwd_kernel.  Per 64-key tile t: dS_t is computed
+// while dS_{t-1} K_{t-1} is still on the tensor cores; then that product is
+// retired (its stage released), dS_t packed, S_{t+1} and dP_{t+1} issued,
+// dS_t K_t issued, and S_{t+1}, dP_{t+1} awaited.  The last tile is peeled
+// off so that no wgmma or wait in the loop is conditional.
+__global__ void __launch_bounds__(THREADS, 1)
+wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                const float* __restrict__ lse, float* __restrict__ delta, bf16* __restrict__ dq,
+                int Sq, int Sk, int rep, int causal, float sm_scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t sbase = smem_u32(smem);
+  const uint32_t q_s = sbase, do_s = sbase + TILE;  // [128][64] bf16 each
+  const uint32_t ring = sbase + 2 * TILE;            // stage s: K, V [64][64]
+  const uint32_t bars = ring + STAGES * 2 * HALF;
+  const uint32_t full0 = bars, empty0 = bars + 8 * STAGES, qbar = bars + 16 * STAGES;
+
+  const int bh = blockIdx.x, kvh = bh / rep;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // the longest causal rows first
+  const int k_end = causal ? min(Sk, min(q0 + BM, Sq)) : Sk;
+  const int ntiles = (k_end + KT - 1) / KT;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, CONSUMERS / 32);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {                          // producer warp: one thread issues
+    if (tid == CONSUMERS) {
+      mbar_expect_tx(qbar, 2 * TILE);
+      tma_load_3d(q_s, &tq, qbar, 0, q0, bh);
+      tma_load_3d(do_s, &tdo, qbar, 0, q0, bh);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(empty0 + 8 * s, ((t / STAGES) & 1) ^ 1);
+        const uint32_t ks = ring + 2 * HALF * s;
+        mbar_expect_tx(full0 + 8 * s, 2 * HALF);
+        tma_load_3d(ks, &tk, full0 + 8 * s, 0, t * KT, kvh);
+        tma_load_3d(ks + HALF, &tv, full0 + 8 * s, 0, t * KT, kvh);
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128, lane = tid % 32, warp = (tid % 128) / 32;
+  const int quad = lane % 4;
+  const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;   // rows row0 and row0 + 8
+  const int wg_first = q0 + wg * 64;
+  const uint32_t qa = q_s + wg * 64 * 128, doa = do_s + wg * 64 * 128;
+
+  // lse (exp2 domain) and delta of the thread's two rows; with o given,
+  // delta = rowsum(dO O) in f32, the row's quad reading 16 values each
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const size_t ri = (size_t)bh * Sq + row;
+    if (o != nullptr) {
+      float d = row < Sq ? dot16(dout + ri * 64 + 16 * quad, o + ri * 64 + 16 * quad) : 0.f;
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      d += __shfl_xor_sync(0xffffffffu, d, 2);
+      if (quad == 0 && row < Sq) delta[ri] = d;
+      dl[r] = d;
+    } else {
+      dl[r] = row < Sq ? delta[ri] : 0.f;
+    }
+    lse2[r] = row < Sq ? lse[ri] * LOG2E : 0.f;
+  }
+  const float scale2 = sm_scale * LOG2E;
+
+  float acc[32], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = s[i] = dp[i] = 0.f;
+  uint32_t pa[4][4];
+
+  mbar_wait(qbar, 0);
+  mbar_wait(full0, 0);
+  wgmma_fence();
+  issue_nt(s, qa, ring);
+  issue_nt(dp, doa, ring + HALF);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+  fence_regs(dp);
+  for (int t = 0; t + 1 < ntiles; ++t) {
+    const int k0 = t * KT;
+    ds_rows(s, dp, lse2, dl, k0, row0, quad,
+            k0 + KT > Sk || (causal && k0 + KT - 1 > wg_first), Sk, causal, scale2);
+    wgmma_wait<0>();                                      // dS_{t-1} K_{t-1}
+    fence_regs(acc);
+    if (t > 0) release(empty0 + 8 * ((t - 1) % STAGES), lane);
+    pack_p(pa, s);
+    const int s1 = (t + 1) % STAGES;
+    mbar_wait(full0 + 8 * s1, ((t + 1) / STAGES) & 1);
+    wgmma_fence();
+    issue_nt(s, qa, ring + 2 * HALF * s1);                // S_{t+1}
+    issue_nt(dp, doa, ring + 2 * HALF * s1 + HALF);       // dP_{t+1}
+    wgmma_commit();
+    issue_rs(acc, pa, ring + 2 * HALF * (t % STAGES));    // dQ += dS_t K_t
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
+    fence_regs(dp);
+  }
+  {
+    const int t = ntiles - 1, k0 = t * KT;
+    ds_rows(s, dp, lse2, dl, k0, row0, quad,
+            k0 + KT > Sk || (causal && k0 + KT - 1 > wg_first), Sk, causal, scale2);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    pack_p(pa, s);
+    wgmma_fence();
+    issue_rs(acc, pa, ring + 2 * HALF * (t % STAGES));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= Sq) continue;
+    __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(dq + ((size_t)bh * Sq + row) * 64);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      out[4 * j + quad] = __floats2bfloat162_rn(acc[4 * j + 2 * r] * sm_scale,
+                                                acc[4 * j + 2 * r + 1] * sm_scale);
+  }
+}
+
+// The transposed problem, fragments as in wgmma_fwd_kernel with keys for
+// rows.  Query tile n (64 rows of query head kvh * rep + n / nqt) walks the
+// ring as the key tiles do in wgmma_dq_kernel: P^T_n and dS^T_n are
+// computed while dV += P^T_{n-1} dO_{n-1} and dK += dS^T_{n-1} Q_{n-1} are
+// in flight.  The warpgroup whose keys all lie below a diagonal tile's
+// queries computes zeros there, and keeps to the ring's protocol.  Four
+// 32-float accumulators, the two packed operands and the next tile's
+// products in flight need more than the 168 registers a thread that 288
+// threads get (ptxas spilled and serialised every wgmma), so the producer
+// is a whole warpgroup that hands registers to the consumers with
+// setmaxnreg (40 and 232 a thread), and one warp of it works.
+constexpr int DKV_THREADS = CONSUMERS + 128;
+__global__ void __launch_bounds__(DKV_THREADS, 1)
+wgmma_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                 const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk, int rep,
+                 int causal, float sm_scale) {
+  const int kvh = blockIdx.x;
+  const int k0 = blockIdx.y * BM;          // the key tiles that see the most queries first
+  const int q_start = causal ? k0 : 0;     // queries above the diagonal see none of these keys
+  const int nqt = q_start < Sq ? (Sq - q_start + KT - 1) / KT : 0;
+  const int ntiles = rep * nqt;
+  const int tid = threadIdx.x;
+  if (ntiles == 0) {                       // causal and Sq <= k0: no query sees these keys
+    const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
+    for (int i = tid; i < BM * 32; i += DKV_THREADS) {
+      const int key = k0 + i / 32;
+      if (key >= Sk) continue;
+      const size_t off = ((size_t)kvh * Sk + key) * 32 + i % 32;
+      reinterpret_cast<__nv_bfloat162*>(dk)[off] = zero;
+      reinterpret_cast<__nv_bfloat162*>(dv)[off] = zero;
+    }
+    return;
+  }
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t sbase = smem_u32(smem);
+  const uint32_t k_s = sbase, v_s = sbase + TILE;   // [128][64] bf16 each
+  const uint32_t ring = sbase + 2 * TILE;            // stage s: Q, dO [64][64]
+  float* side0 = reinterpret_cast<float*>(smem + 2 * TILE + STAGES * 2 * HALF);
+  const uint32_t bars = ring + STAGES * (2 * HALF + SIDE);
+  const uint32_t full0 = bars, empty0 = bars + 8 * STAGES, kvbar = bars + 16 * STAGES;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 32);              // every producer lane, one with expect_tx
+      mbar_init(empty0 + 8 * s, CONSUMERS / 32);
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {                        // producer warpgroup: one warp works
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid >= CONSUMERS + 32) return;
+    const int lane = tid - CONSUMERS;
+    if (lane == 0) {
+      mbar_expect_tx(kvbar, 2 * TILE);
+      tma_load_3d(k_s, &tk, kvbar, 0, k0, kvh);
+      tma_load_3d(v_s, &tv, kvbar, 0, k0, kvh);
+    }
+    for (int n = 0; n < ntiles; ++n) {
+      const int s = n % STAGES;
+      const int bh = kvh * rep + n / nqt, q0 = q_start + (n % nqt) * KT;
+      mbar_wait(empty0 + 8 * s, ((n / STAGES) & 1) ^ 1);
+      float* side = side0 + s * (SIDE / 4);
+#pragma unroll
+      for (int r = lane; r < KT; r += 32) {
+        const int row = q0 + r;
+        const bool ok = row < Sq;
+        side[r] = ok ? lse[(size_t)bh * Sq + row] * LOG2E : pos_inf();
+        side[KT + r] = ok ? delta[(size_t)bh * Sq + row] : 0.f;
+      }
+      if (lane == 0) {
+        const uint32_t qs = ring + 2 * HALF * s;
+        mbar_expect_tx(full0 + 8 * s, 2 * HALF);
+        tma_load_3d(qs, &tq, full0 + 8 * s, 0, q0, bh);
+        tma_load_3d(qs + HALF, &tdo, full0 + 8 * s, 0, q0, bh);
+      } else {
+        mbar_arrive(full0 + 8 * s);
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128, lane = tid % 32, warp = (tid % 128) / 32;
+  const int quad = lane % 4;
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int key0 = k0 + wg * 64 + warp * 16 + lane / 4;   // keys key0 and key0 + 8
+  const int wg_last = k0 + wg * 64 + 63;
+  const uint32_t ka = k_s + wg * 64 * 128, va = v_s + wg * 64 * 128;
+  const float scale2 = sm_scale * LOG2E;
+
+  float dka[32], dva[32], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dka[i] = dva[i] = s[i] = dp[i] = 0.f;
+  uint32_t pp[4][4], pd[4][4];
+
+  mbar_wait(kvbar, 0);
+  mbar_wait(full0, 0);
+  wgmma_fence();
+  issue_nt(s, ka, ring);                                  // S^T_0 = K Q_0^T
+  issue_nt(dp, va, ring + HALF);                          // dP^T_0 = V dO_0^T
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+  fence_regs(dp);
+  for (int n = 0; n + 1 < ntiles; ++n) {
+    const int q0 = q_start + (n % nqt) * KT;
+    ds_cols(s, dp, side0 + (n % STAGES) * (SIDE / 4), q0, key0, quad,
+            causal && q0 < wg_last, scale2);
+    wgmma_wait<0>();                                      // tile n-1's dV, dK
+    fence_regs(dka);
+    fence_regs(dva);
+    if (n > 0) release(empty0 + 8 * ((n - 1) % STAGES), lane);
+    pack_p(pp, s);
+    pack_p(pd, dp);
+    const int s1 = (n + 1) % STAGES;
+    mbar_wait(full0 + 8 * s1, ((n + 1) / STAGES) & 1);
+    const uint32_t qn = ring + 2 * HALF * (n % STAGES);
+    wgmma_fence();
+    issue_nt(s, ka, ring + 2 * HALF * s1);                // S^T_{n+1}
+    issue_nt(dp, va, ring + 2 * HALF * s1 + HALF);        // dP^T_{n+1}
+    wgmma_commit();
+    issue_rs(dva, pp, qn + HALF);                          // dV += P^T_n dO_n
+    issue_rs(dka, pd, qn);                                 // dK += dS^T_n Q_n
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
+    fence_regs(dp);
+  }
+  {
+    const int n = ntiles - 1, q0 = q_start + (n % nqt) * KT;
+    ds_cols(s, dp, side0 + (n % STAGES) * (SIDE / 4), q0, key0, quad,
+            causal && q0 < wg_last, scale2);
+    wgmma_wait<0>();
+    fence_regs(dka);
+    fence_regs(dva);
+    pack_p(pp, s);
+    pack_p(pd, dp);
+    const uint32_t qn = ring + 2 * HALF * (n % STAGES);
+    wgmma_fence();
+    issue_rs(dva, pp, qn + HALF);
+    issue_rs(dka, pd, qn);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dka);
+    fence_regs(dva);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key >= Sk) continue;
+    const size_t off = ((size_t)kvh * Sk + key) * 64;
+    __nv_bfloat162* dko = reinterpret_cast<__nv_bfloat162*>(dk + off);
+    __nv_bfloat162* dvo = reinterpret_cast<__nv_bfloat162*>(dv + off);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      dko[4 * j + quad] = __floats2bfloat162_rn(dka[4 * j + 2 * r] * sm_scale,
+                                                dka[4 * j + 2 * r + 1] * sm_scale);
+      dvo[4 * j + quad] = __floats2bfloat162_rn(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -809,11 +1233,12 @@ EncodeTiledFn encode_tiled() {
 }
 
 // The 3-D map (D = 64, S, BH) of a [BH, S, 64] bf16 array, in boxes of
-// 128 rows of one head, swizzled for wgmma.
-bool encode_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int S, int BH) {
+// `rows` rows of one head, swizzled for wgmma.
+bool encode_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int S, int BH,
+                int rows) {
   const cuuint64_t dims[3] = {64, (cuuint64_t)S, (cuuint64_t)BH};
   const cuuint64_t strides[2] = {64 * 2, (cuuint64_t)S * 64 * 2};
-  const cuuint32_t box[3] = {64, 128, 1};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
   const cuuint32_t estr[3] = {1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
              box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -826,14 +1251,59 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, 
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap mq, mk, mv;
-  if (!encode_map(enc, &mq, q, Sq, BH) || !encode_map(enc, &mk, k, Sk, BH / rep) ||
-      !encode_map(enc, &mv, v, Sk, BH / rep))
+  if (!encode_map(enc, &mq, q, Sq, BH, BM) || !encode_map(enc, &mk, k, Sk, BH / rep, BN) ||
+      !encode_map(enc, &mv, v, Sk, BH / rep, BN))
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaFuncSetAttribute(
       wgmma_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
   if (e != cudaSuccess) return (int)e;
   wgmma_fwd_kernel<<<dim3(BH, (Sq + BM - 1) / BM), THREADS, SMEM, (cudaStream_t)stream>>>(
       mq, mk, mv, (bf16*)o, (float*)lse, Sq, Sk, rep, causal, sm_scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+// Tensor maps of q and dO in boxes of q_rows rows, of k and v in boxes of
+// kv_rows rows; false when one does not encode.
+bool encode_bwd_maps(EncodeTiledFn enc, CUtensorMap (&m)[4], const void* q, const void* dout,
+                     const void* k, const void* v, int BH, int Sq, int Sk, int rep, int q_rows,
+                     int kv_rows) {
+  return encode_map(enc, &m[0], q, Sq, BH, q_rows) && encode_map(enc, &m[1], dout, Sq, BH, q_rows) &&
+         encode_map(enc, &m[2], k, Sk, BH / rep, kv_rows) &&
+         encode_map(enc, &m[3], v, Sk, BH / rep, kv_rows);
+}
+
+int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
+              const void* lse, void* delta, void* dq, int BH, int Sq, int Sk, int rep,
+              int causal, float sm_scale, void* stream) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap m[4];
+  if (!encode_bwd_maps(enc, m, q, dout, k, v, BH, Sq, Sk, rep, BM, KT))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      wgmma_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DQ_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  wgmma_dq_kernel<<<dim3(BH, (Sq + BM - 1) / BM), THREADS, DQ_SMEM, (cudaStream_t)stream>>>(
+      m[0], m[1], m[2], m[3], (const bf16*)o, (const bf16*)dout, (const float*)lse,
+      (float*)delta, (bf16*)dq, Sq, Sk, rep, causal, sm_scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* delta, void* dk, void* dv, int BHKV, int Sq, int Sk, int rep,
+               int causal, float sm_scale, void* stream) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap m[4];
+  if (!encode_bwd_maps(enc, m, q, dout, k, v, BHKV * rep, Sq, Sk, rep, KT, BM))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      wgmma_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DKV_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  wgmma_dkv_kernel<<<dim3(BHKV, (Sk + BM - 1) / BM), DKV_THREADS, DKV_SMEM,
+                     (cudaStream_t)stream>>>(
+      m[0], m[1], m[2], m[3], (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, Sq,
+      Sk, rep, causal, sm_scale);
   return (int)cudaGetLastError();
 }
 
@@ -885,19 +1355,13 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // dtype: 0 float32, 2 bfloat16 (float16 comes with the port's fp16 slice).
-// D: 64 (GPT-2).  Unsupported (dtype, D) pairs return cudaErrorInvalidValue;
-// the Python wrappers check them first.
-#define DS_DISPATCH(CALL)                                              \
-  if (D != 64) return (int)cudaErrorInvalidValue;                      \
-  switch (dtype) {                                                     \
-    case 0: { using T = float; return CALL; }                          \
-    case 2: { using T = bf16; return CALL; }                           \
-    default: return (int)cudaErrorInvalidValue;                        \
-  }
-
+// D: 64 (GPT-2).  Each entry point picks its kernel by dtype: bf16 the
+// wgmma + TMA kernel, float32 the plain-f32 tile kernel.  Unsupported
+// (dtype, D) pairs return cudaErrorInvalidValue; the Python wrappers check
+// them first.  There is no fallback: a tensor map that does not encode or a
+// launch that fails returns its error.
 extern "C" {
 
-// bf16 runs the wgmma + TMA kernel, float32 the plain-f32 tile kernel.
 int ds_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                            int BH, int Sq, int Sk, int rep, int D, int dtype, int causal,
                            float sm_scale, void* stream) {
@@ -914,16 +1378,28 @@ int ds_flash_attention_bwd_dq(const void* q, const void* k, const void* v, const
                               const void* dout, const void* lse, void* delta, void* dq,
                               int BH, int Sq, int Sk, int rep, int D, int dtype, int causal,
                               float sm_scale, void* stream) {
-  DS_DISPATCH((launch_dq<T, 64>(q, k, v, o, dout, lse, delta, dq, BH, Sq, Sk, rep, causal,
-                                sm_scale, stream)))
+  if (D != 64) return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: return launch_dq<float, 64>(q, k, v, o, dout, lse, delta, dq, BH, Sq, Sk, rep, causal,
+                                        sm_scale, stream);
+    case 2: return hopper::launch_dq(q, k, v, o, dout, lse, delta, dq, BH, Sq, Sk, rep, causal,
+                                     sm_scale, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 int ds_flash_attention_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                const void* lse, const void* delta, void* dk, void* dv,
                                int BHKV, int Sq, int Sk, int rep, int D, int dtype,
                                int causal, float sm_scale, void* stream) {
-  DS_DISPATCH((launch_dkv<T, 64>(q, k, v, dout, lse, delta, dk, dv, BHKV, Sq, Sk, rep,
-                                 causal, sm_scale, stream)))
+  if (D != 64) return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: return launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, BHKV, Sq, Sk, rep,
+                                         causal, sm_scale, stream);
+    case 2: return hopper::launch_dkv(q, k, v, dout, lse, delta, dk, dv, BHKV, Sq, Sk, rep,
+                                      causal, sm_scale, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

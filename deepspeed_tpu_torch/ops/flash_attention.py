@@ -15,15 +15,19 @@ Three kinds of function:
    ``flash_attention_bwd_plain`` (the textbook recompute backward), plus
    ``mha_reference``: plain PyTorch in float32 (float64 stays float64).
    They serve every CPU call and the tests' comparisons.
+   ``flash_attention_bwd_dq_tiled_plain`` / ``_dkv_tiled_plain`` model the
+   bf16 backward kernels' tiling and rounding, for the tests and
+   ``chip_smoke.py``; no training path calls them.
  - the kernel wrappers ``flash_attention_fwd_cuda``,
    ``flash_attention_bwd_dq_cuda`` and ``flash_attention_bwd_dkv_cuda``:
    hand-written CUDA kernels for Hopper (``ops/csrc/flash_attention.cu``,
    built by ``ops/op_builder.py``).  Given CUDA tensors a wrapper launches
    its kernel and adds one to its ``launches`` count, or raises; it takes
-   its plain version only for tensors that lie on the CPU.  The forward
-   picks its kernel by dtype: bf16 runs the Hopper kernel (wgmma products,
-   TMA loads, 128-row query tiles), float32 a plain-f32 tile kernel (the
-   tensor cores would round f32 to tf32).  The forward kernels and the
+   its plain version only for tensors that lie on the CPU.  Each entry
+   point picks its kernel by dtype (:func:`bwd_route` names the backward's
+   choice): bf16 runs the Hopper kernels (wgmma products, TMA loads,
+   register-resident score and gradient tiles), float32 plain-f32 tile
+   kernels (the tensor cores would round f32 to tf32).  The forward kernels and the
    dq/dkv pair compute what the JAX package's seven
    ``pallas_call`` sites compute (v1, v2 and v3 differ only in how they fit
    the TPU's VMEM).  The three wrappers are also the ring-attention
@@ -150,6 +154,87 @@ def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool = True,
     return (_sum_groups(dk, hkv).to(k.dtype), _sum_groups(dv, hkv).to(v.dtype))
 
 
+#: keys a tile of the bf16 dq kernel (``wgmma_dq_kernel``), and queries a
+#: tile of the bf16 dkv kernel (``wgmma_dkv_kernel``)
+BWD_TILE = 64
+
+
+def flash_attention_bwd_dq_tiled_plain(q, k, v, do, lse, delta,
+                                       causal: bool = True,
+                                       sm_scale: Optional[float] = None):
+    """``wgmma_dq_kernel``'s algorithm in plain PyTorch (float32; float64
+    stays float64): the keys cut into tiles of ``BWD_TILE`` from key 0;
+    per tile S = q k^T and dP = dO v^T, P = exp2(S sm_scale log2(e) - lse
+    log2(e)) (zero where masked), dS = P (dP - delta) rounded to q's dtype,
+    and dq += dS k summed over the tiles in key order; then dq * sm_scale
+    rounded to q's dtype."""
+    cd = _compute_dtype(q)
+    scale = _scale(sm_scale, q.shape[-1])
+    sq, sk = q.shape[2], k.shape[2]
+    qc, doc = q.to(cd), do.to(cd)
+    kc, vc = _expand_kv(q, k), _expand_kv(q, v)
+    lse2 = (lse.to(cd) * math.log2(math.e))[..., None]
+    dl = delta.to(cd)[..., None]
+    rows = torch.arange(sq, device=q.device)[:, None]
+    dq = torch.zeros(qc.shape, dtype=cd, device=q.device)
+    for k0 in range(0, sk, BWD_TILE):
+        kt, vt = kc[:, :, k0:k0 + BWD_TILE], vc[:, :, k0:k0 + BWD_TILE]
+        s = torch.matmul(qc, kt.transpose(-1, -2))
+        dp = torch.matmul(doc, vt.transpose(-1, -2))
+        p = torch.exp2(s * (scale * math.log2(math.e)) - lse2)
+        if causal:
+            cols = torch.arange(k0, k0 + kt.shape[2], device=q.device)[None]
+            p = torch.where(cols <= rows, p, 0.0)
+        ds = (p * (dp - dl)).to(q.dtype).to(cd)
+        dq = dq + torch.matmul(ds, kt)
+    return (dq * scale).to(q.dtype)
+
+
+def flash_attention_bwd_dkv_tiled_plain(q, k, v, do, lse, delta,
+                                        causal: bool = True,
+                                        sm_scale: Optional[float] = None):
+    """``wgmma_dkv_kernel``'s algorithm in plain PyTorch (float32; float64
+    stays float64), on the transposed problem: for each KV head, its rep
+    query heads in order and each head's queries in tiles of ``BWD_TILE``
+    from row 0, S^T = k q^T and dP^T = v dO^T, P^T =
+    exp2(S^T sm_scale log2(e) - lse log2(e)) taken by column (zero where
+    masked), dS^T = P^T (dP^T - delta); P^T and dS^T rounded to q's dtype,
+    dv += P^T dO and dk += dS^T q summed in that order; then dk * sm_scale
+    and dv rounded to k's dtype.  Key rows are independent, so the
+    kernel's 128-key tiles need no loop here; a query tile that lies
+    wholly above a key's diagonal adds zeros, as the kernel's skipped tiles
+    do."""
+    cd = _compute_dtype(q)
+    scale = _scale(sm_scale, q.shape[-1])
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rep = h // hkv
+    kc, vc = k.to(cd), v.to(cd)
+    log2e = math.log2(math.e)
+    keys = torch.arange(sk, device=q.device)[:, None]
+    dk = torch.zeros(kc.shape, dtype=cd, device=q.device)
+    dv = torch.zeros(vc.shape, dtype=cd, device=q.device)
+    for g in range(rep):
+        # query head kvh * rep + g of each KV head kvh
+        qh = q.reshape(b, hkv, rep, sq, d)[:, :, g].to(cd)
+        doh = do.reshape(b, hkv, rep, sq, d)[:, :, g].to(cd)
+        lh = lse.reshape(b, hkv, rep, sq)[:, :, g].to(cd) * log2e
+        dh = delta.reshape(b, hkv, rep, sq)[:, :, g].to(cd)
+        for q0 in range(0, sq, BWD_TILE):
+            rows = slice(q0, q0 + BWD_TILE)
+            qt, do_t = qh[:, :, rows], doh[:, :, rows]
+            st = torch.matmul(kc, qt.transpose(-1, -2))
+            dpt = torch.matmul(vc, do_t.transpose(-1, -2))
+            pt = torch.exp2(st * (scale * log2e) - lh[:, :, None, rows])
+            if causal:
+                cols = torch.arange(q0, q0 + qt.shape[2], device=q.device)
+                pt = torch.where(keys <= cols[None], pt, 0.0)
+            dst = pt * (dpt - dh[:, :, None, rows])
+            dv = dv + torch.matmul(pt.to(q.dtype).to(cd), do_t)
+            dk = dk + torch.matmul(dst.to(q.dtype).to(cd), qt)
+    return (dk * scale).to(k.dtype), dv.to(v.dtype)
+
+
 def _delta(o, do):
     """rowsum(dO * O) in the compute dtype, [B, H, Sq]."""
     cd = _compute_dtype(o)
@@ -185,6 +270,21 @@ def _lib():
             fn.restype = ctypes.c_int
         lib._ds_typed = True
     return lib
+
+
+def bwd_route(dtype) -> str:
+    """The backward kernels inputs of ``dtype`` run, by the rule of the
+    library's entry points: ``"wgmma"`` (``wgmma_dq_kernel`` and
+    ``wgmma_dkv_kernel``: wgmma products, TMA loads, register-resident
+    tiles) for bfloat16, ``"tile"`` (``dq_kernel`` and ``dkv_kernel``, plain
+    f32 products) for float32, whose tensor-core products would round to
+    tf32; raises for any other dtype."""
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == torch.float32:
+        return "tile"
+    raise ValueError(f"flash attention backward: dtype {dtype} not supported "
+                     "(float32, bfloat16; float16 comes with the fp16 slice)")
 
 
 def _check_cuda(name, q, k, v, *rest):
@@ -271,7 +371,7 @@ def flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta=None, *, o=None,
     ``[B, H, Sq]`` float32, as the ring callers do) or the forward's ``o``,
     from which the kernel computes delta and returns it for the dkv call.
     Replaces ``_bwd_dq_call`` (v1) and the dq halves of ``_bwd_v2`` and
-    ``_bwd_v3``."""
+    ``_bwd_v3``.  On CUDA the dtype picks the kernel (:func:`bwd_route`)."""
     if (delta is None) == (o is None):
         raise ValueError("flash_attention_bwd_dq_cuda: give delta or o")
     if not q.is_cuda:
@@ -309,7 +409,8 @@ def flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, *,
                                  sm_scale: Optional[float] = None):
     """(dk, dv) given lse and delta, each summed over the query heads of
     its KV head and written once per key tile.  Replaces ``_bwd_dkv_call``
-    (v1) and the dk/dv halves of ``_bwd_v2`` and ``_bwd_v3``."""
+    (v1) and the dk/dv halves of ``_bwd_v2`` and ``_bwd_v3``.  On CUDA the
+    dtype picks the kernel (:func:`bwd_route`)."""
     if not q.is_cuda:
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
                                              sm_scale)
@@ -375,7 +476,8 @@ def flash_attention(q, k, v, causal: bool = True,
     in q's dtype, differentiable in q, k and v.
 
     ``block_q`` / ``block_k`` are the JAX tiling hints; the CUDA kernels use
-    their own tiles (128 x 128 in the bf16 forward, 64 x 64 elsewhere) and
+    their own tiles (in bf16 128 x 128 in the forward, 128 query rows x 64
+    keys in dq and 128 keys x 64 query rows in dkv; 64 x 64 in f32) and
     mask ragged edges themselves, and the plain path does not tile, so both
     are accepted and ignored."""
     del block_q, block_k

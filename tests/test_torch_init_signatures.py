@@ -1,0 +1,137 @@
+"""The port's entry points against the JAX package's signatures: every
+keyword of ``deepspeed_tpu.init_serving`` / ``init_inference`` /
+``initialize`` is named by ``deepspeed_tpu_torch``'s, with the JAX default;
+a keyword the port does not implement yet accepts its JAX default only, and
+any other value raises ``NotImplementedError`` naming its ROADMAP Queue A
+item (no keyword falls through ``**kwargs`` into the inference config).
+The keywords the port implements still build servers that decode what
+``generate`` decodes (``GPT2Config.tiny()``, fp32, ``device="cpu"``)."""
+
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+import deepspeed_tpu
+import deepspeed_tpu_torch
+from deepspeed_tpu_torch.inference.serving import Request
+from deepspeed_tpu_torch.models import gpt2 as tgpt2
+
+#: init_serving's keywords the port implements
+PORTED = {"model", "config", "params", "slots", "max_seq_len",
+          "prefill_batch", "block_size", "num_blocks", "prefill_chunk",
+          "prefix_caching", "quantize", "kwargs"}
+
+# (keyword, a value other than the JAX default, its ROADMAP Queue A item)
+UNPORTED = [
+    ("prompt_buckets", [16, 32], 4),
+    ("chunked_prefill", False, 4),
+    ("decode_steps", 4, 1),
+    ("engine_mode", "dp_tp", 8),
+    ("sp", 2, 8),
+    ("resident_window_blocks", 4, 9),
+    ("spec_tokens", 3, 3),
+    ("host_blocks", 8, 9),
+    ("swap_batch", 4, 9),
+    ("draft", "draft-model", 3),
+    ("role", "prefill", 9),
+    ("nvme_blocks", 4, 9),
+    ("nvme_high_watermark", 0.5, 9),
+    ("nvme_path", "kv.spill", 9),
+    ("ngram_max", 4, 3),
+    ("ngram_min", 2, 3),
+    ("sampling", True, 2),
+    ("spec_verifier", "greedy", 3),
+    ("logit_masks", True, 3),
+    ("shard_kv", True, 8),
+    ("topology", 2, 8),
+    ("debug_checks", True, 5),
+    ("trace_capacity", 0, 5),
+    ("slo_targets", {"realtime": {"ttft_s": 1.0}}, 5),
+    ("peak_flops", 1e12, 5),
+]
+
+
+def _params(fn):
+    return inspect.signature(fn).parameters
+
+
+@pytest.mark.parametrize("name", ["init_serving", "init_inference",
+                                  "initialize"])
+def test_entry_points_name_every_jax_keyword_with_its_default(name):
+    want, got = (_params(getattr(deepspeed_tpu, name)),
+                 _params(getattr(deepspeed_tpu_torch, name)))
+    for p in want.values():
+        assert p.name in got, f"{name} lacks {p.name}"
+        assert got[p.name].kind == p.kind, p.name
+        assert got[p.name].default == p.default, p.name
+    assert set(got) - set(want) == {"device"}
+
+
+def test_every_unported_serving_keyword_is_listed():
+    assert {k for k, _, _ in UNPORTED} == \
+        set(_params(deepspeed_tpu.init_serving)) - PORTED
+
+
+@pytest.fixture(scope="module")
+def model():
+    return tgpt2.build(tgpt2.GPT2Config.tiny())
+
+
+@pytest.mark.parametrize("keyword,value,item", UNPORTED,
+                         ids=[k for k, _, _ in UNPORTED])
+def test_unported_serving_keywords_refuse_other_values(model, keyword, value,
+                                                       item):
+    kw = {"sampling": False, keyword: value}
+    with pytest.raises(NotImplementedError,
+                       match=rf"{keyword}=.*Queue A item {item}\)"):
+        deepspeed_tpu_torch.init_serving(model, device="cpu", **kw)
+
+
+def test_init_inference_refuses_models_it_does_not_port():
+    for model in ("gpt2", torch.nn.Linear(4, 4)):
+        with pytest.raises(NotImplementedError, match=r"Queue A item 7\)"):
+            deepspeed_tpu_torch.init_inference(model, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def engine(model):
+    return deepspeed_tpu_torch.init_inference(
+        model, config={"dtype": "fp32"}, device="cpu")
+
+
+# the keywords the port implements, and every unported one at its JAX
+# default given explicitly (chunked_prefill also at True, which the port runs)
+_JAX_DEFAULTS = {k: _params(deepspeed_tpu.init_serving)[k].default
+                 for k, _, _ in UNPORTED if k not in ("sampling",)}
+SERVERS = [
+    ("defaults", {}),
+    ("prefill_chunk=16", {"prefill_chunk": 16}),
+    ("prefix_caching=False", {"prefix_caching": False}),
+    ("chunked_prefill=True", {"chunked_prefill": True}),
+    ("every JAX default spelled out", _JAX_DEFAULTS),
+    ("kv8", {"quantize": "kv8"}),
+]
+
+
+@pytest.mark.parametrize("label,kw", SERVERS, ids=[s[0] for s in SERVERS])
+def test_ported_serving_keywords_build_working_servers(engine, label, kw):
+    srv = deepspeed_tpu_torch.init_serving(
+        engine.module, params=engine.params, config={"dtype": "fp32"},
+        device="cpu", sampling=False, slots=3, max_seq_len=64, block_size=8,
+        **kw)
+    rng = np.random.default_rng(3)
+    prefix = rng.integers(0, 256, 16)
+    prompts = [np.concatenate([prefix, rng.integers(0, 256, n)])
+               for n in (3, 9, 5, 12)]
+    out = srv.serve([Request(uid=i, prompt=p, max_new_tokens=6)
+                     for i, p in enumerate(prompts)])
+    for i, p in enumerate(prompts):        # prompt + 6 new tokens
+        np.testing.assert_array_equal(np.asarray(out[i])[:len(p)], p)
+        assert len(out[i]) == len(p) + 6
+        if "quantize" in kw:
+            assert srv.stats()["kv_dtype"] == "int8"
+            continue
+        want = engine.generate(p[None].astype(np.int64), max_new_tokens=6)
+        np.testing.assert_array_equal(np.asarray(out[i]), np.asarray(want)[0])
