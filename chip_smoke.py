@@ -8,16 +8,19 @@ Run from the root of a checkout on a machine with a CUDA GPU and ``nvcc``:
 
 Phases (any failure raises and exits non-zero):
  1. the card's name and power limit, the torch version, and the builds of
-    the decode-attention and flash-attention kernels from
+    the decode-attention, flash-attention and int8 matmul kernels from
     ``deepspeed_tpu_torch/ops/csrc`` (one nvcc each, started together);
  2. each decode kernel against its plain PyTorch version on the card at the
     shape the main path gives it (plus B=8 ragged, GQA and fp32 cases, and
-    for the split-K verify kernel block sizes 16 and 1, rows all at base 0,
-    a 160-key table and fp16, also held against the plain model of its
-    split-K algorithm), with
-    its time at that shape (per eager call, and replayed from a CUDA graph)
-    beside the plain version's, a ``scaled_dot_product_attention``
-    yardstick's, and its bound;
+    for the split-K kernel, which runs the 16-bit B4 windows and the 16-bit
+    B3 and B2 decode at T = 1 (B2's cache as a pool of one block a row),
+    block sizes 16 and 1, rows all at base 0, tables of 160 and 128 keys,
+    a 100-key cache and fp16, also held against the plain model of its
+    split-K algorithm, with a second call and a CUDA-graph replay
+    bit-identical to the first), with its time at that shape (per eager
+    call, and replayed from a CUDA graph) beside the plain version's, a
+    ``scaled_dot_product_attention`` yardstick's (eager and replayed from a
+    CUDA graph), and its bound;
  2b. the same for the flash-attention forward, dq and dkv kernels at the
     train phase's shape (bf16, causal, B=8, H=12, S=1024, D=64) and at
     phase 9's (B=2, S=2048), plus one-tile cases (B*H = 1, S = 64 and 128,
@@ -37,7 +40,14 @@ Phases (any failure raises and exits non-zero):
     w8a8 (B6) and weight-only (B7) matmuls at GPT-2 125M's four (K, N)
     shapes, 8, 4 and 1 rows, bf16 and fp32 activations; each of B5-B7 must
     give every row the same bits in a 1-, 4- or 8-row call, and B6 the bits
-    of B5 on the same layer;
+    of B5 on the same layer.  B5 and B6 (``w8a8_split_kernel``) must equal
+    the plain version bit for bit, there and at the added cases of
+    ``W8A8_CASES`` (one and three k-groups, N = 128 and 896, k-groups of
+    256, 64 and 96, fp16 and fp32 activations, an fp32 output, clusters of
+    12, 10, 1 and 13 blocks up to the 104-group limit), with a zero
+    k-group, B6's layer index -1 and L clamped, and a second call and a
+    CUDA-graph replay bit-identical to the first; the yardstick, bf16 ``x @
+    W``, is timed eagerly and replayed from a CUDA graph;
  3. ``init_inference(...).generate`` on GPT-2 125M (bf16, random weights
     from a seeded generator): 4 x 128-token prompts, 64 new tokens;
  4. ``init_serving(...).serve`` on the same weights: 16 requests, half of
@@ -70,8 +80,9 @@ Phases (any failure raises and exits non-zero):
     float cache, so the kv8 lanes are held, as the w8a8 one is, by the
     teacher-forced logit RMSE against the bf16 float lane, within
     W8A8_MAX_LOGIT_RMSE; their token agreement is reported.  Then one
-    profiled window of decode iterations, float lane against w8a8+kv8,
-    with B3's and kv8 B3's device time an iteration.
+    profiled window of decode iterations, float lane against w8a8+kv8:
+    device busy time, idle share and launches an iteration, with B3's,
+    kv8 B3's and B6's device time an iteration.
 
 Each main path is read alone: the decode kernels' counts are set to 0
 before phase 3 and read after phase 5, the flash kernels' before phase 7
@@ -291,6 +302,21 @@ def run_plain(case):
         case["q"], case["k"], case["v"], case["bt"], case["pos"])
 
 
+def split_model(case):
+    """``paged_verify_split_plain`` on the case; a contiguous cache is read
+    as ``decode_attention_cuda`` reads it, a pool of one block per row."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import decode_attention as da
+
+    bt = case.get("bt")
+    if case["kind"] == "contiguous":
+        bt = torch.arange(case["q"].shape[0], dtype=torch.int32,
+                          device="cuda")[:, None]
+    return da.paged_verify_split_plain(case["q"], case["k"], case["v"], bt,
+                                       case["pos"])
+
+
 def library_call(case):
     """``scaled_dot_product_attention`` over the (pre-gathered, for an int8
     pool dequantized) KV with the same causal-by-position mask — a
@@ -359,7 +385,12 @@ def check_kernels():
     # 16-bit B4 cases run the split-K kernel (128 keys a split): block sizes
     # 16 and 1 (a table entry per key), every row at base 0 (every split
     # but the first empty), a table of 160 keys (not a whole number of
-    # splits) and fp16; f32 takes the f32 template
+    # splits) and fp16; f32 takes the f32 template.  The 16-bit B3 and B2
+    # run the same kernel at T = 1 (decode_route; B2's cache as a pool of
+    # one block a row): the cases after B4 fp32 give B3 the same block
+    # sizes, rows at base 0, a 160-key table, a 128-key one (one split:
+    # every row writes its output directly) and fp16, and B2 fp16 and a
+    # 100-key cache
     fp16 = torch.float16
     cases = [
         ("B2 main", "contiguous", 4, 12, 12, 1, bf16, 8, 32, 160, True),
@@ -390,6 +421,18 @@ def check_kernels():
         ("B3 fp32", "paged", 8, 12, 12, 1, f32, 32, 32, "ragged", False),
         ("B4 fp32 T=16", "paged", 8, 12, 12, 16, f32, 32, 32, "ragged",
          False),
+        ("B3 bs=16", "paged", 8, 12, 12, 1, bf16, 64, 16, "ragged", False),
+        ("B3 bs=1", "paged", 8, 12, 12, 1, bf16, 1024, 1, "ragged", False),
+        ("B3 base 0", "paged", 8, 12, 12, 1, bf16, 32, 32, 0, False),
+        ("B3 160-key table", "paged", 8, 12, 12, 1, bf16, 5, 32, "ragged",
+         False),
+        ("B3 one split", "paged", 8, 12, 12, 1, bf16, 4, 32, "ragged",
+         False),
+        ("B3 fp16", "paged", 8, 12, 12, 1, fp16, 32, 32, "ragged", False),
+        ("B2 fp16", "contiguous", 8, 12, 12, 1, fp16, 32, 32, "ragged",
+         False),
+        ("B2 100-key cache", "contiguous", 8, 12, 12, 1, bf16, 1, 100,
+         "ragged", False),
     ]
     flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
     out = {}
@@ -408,16 +451,22 @@ def check_kernels():
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=rtol, msg=lambda m: f"{label}: {m}")
         split = ""
-        if kind == "paged" and t > 1 and dtype != f32:
-            # the split-K kernel against the plain model of its algorithm
-            model = da.paged_verify_split_plain(case["q"], case["k"],
-                                                case["v"], case["bt"],
-                                                case["pos"])
+        route = (da.decode_route if t == 1 else da.verify_route)(dtype)
+        if route == "split":
+            # the split-K kernel (B4 windows, and the 16-bit B3 and B2 at
+            # T = 1) against the plain model of its algorithm; a second call
+            # and a CUDA-graph replay must give the first call's bits
+            model = split_model(case)
             torch.testing.assert_close(
                 got.float(), model.float(), atol=tol, rtol=rtol,
                 msg=lambda m: f"{label} (split model): {m}")
+            if not torch.equal(run_kernel(case), got):
+                raise AssertionError(f"{label}: a second call differs")
+            if not torch.equal(graph_replay(lambda: run_kernel(case)), got):
+                raise AssertionError(f"{label}: a CUDA-graph replay differs")
             split = (f", vs the split-K model "
-                     f"{(got.float() - model.float()).abs().max().item():.3e}")
+                     f"{(got.float() - model.float()).abs().max().item():.3e}"
+                     "; repeat and graph replay bit-identical")
         log(f"[kernels] {label}: max_abs_err={err:.3e} (atol {tol}){split}")
         if not main:
             continue
@@ -427,14 +476,16 @@ def check_kernels():
         ms_graph = graph_ms(lambda: run_kernel(case), flush)
         plain_ms = timed_ms(lambda: run_plain(case), flush)
         library_ms = timed_ms(library_call(case), flush)
+        library_graph_ms = graph_ms(library_call(case), flush)
         bound_ms, bound_by = bound(case)
         out[name] = {"max_abs_err": err, "ms": ms, "graph_ms": ms_graph,
-                     "plain_ms": plain_ms,
-                     "library_ms": library_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by}
+                     "plain_ms": plain_ms, "library_ms": library_ms,
+                     "library_graph_ms": library_graph_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by}
         log(f"[kernels] {label}: kernel {ms:.4f} ms ({ms_graph:.4f} ms "
             f"replayed from a CUDA graph), plain {plain_ms:.4f} ms,"
-            f" sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            f" sdpa {library_ms:.4f} ms ({library_graph_ms:.4f} ms graph), "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
     del flush
     return out
 
@@ -623,28 +674,35 @@ def check_flash_kernels():
 
         lib_fwd = timed_ms(sdpa_fwd, flush)
         lib_bwd = timed_ms(sdpa_fwd_bwd, flush) - lib_fwd
-        log(f"[flash] {label} sdpa backward: {lib_bwd:.4f} ms eager (fwd+bwd"
-            f" less fwd), {sdpa_backward_graph_ms(q, k, v, do, flush)} "
-            "replayed from a CUDA graph (the backward call alone)")
+        lib_fwd_graph = graph_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), flush)
+        lib_bwd_graph = sdpa_backward_graph_ms(q, k, v, do, flush)
+        log(f"[flash] {label} sdpa: forward {lib_fwd:.4f} ms eager "
+            f"({lib_fwd_graph:.4f} ms graph); backward {lib_bwd:.4f} ms eager "
+            f"(fwd+bwd less fwd), {lib_bwd_graph} replayed from a CUDA graph "
+            "(the backward call alone)")
+        bwd_graph = float(lib_bwd_graph.split()[0]) \
+            if lib_bwd_graph.endswith(" ms") else None
         calls = {
             "flash_attention_fwd_cuda": (
                 lambda: fa.flash_attention_fwd_cuda(q, k, v, causal),
                 lambda: fa.flash_attention_fwd_plain(q, k, v, causal),
-                lib_fwd, max(errs["o"], errs["lse"])),
+                lib_fwd, lib_fwd_graph, max(errs["o"], errs["lse"])),
             "flash_attention_bwd_dq_cuda": (
                 lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, do, lse, o=o,
                                                        causal=causal),
                 lambda: fa.flash_attention_bwd_dq_plain(q, k, v, do, lse,
                                                         delta, causal),
-                lib_bwd, errs["dq"]),
+                lib_bwd, bwd_graph, errs["dq"]),
             "flash_attention_bwd_dkv_cuda": (
                 lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse,
                                                         delta, causal=causal),
                 lambda: fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse,
                                                          delta, causal),
-                lib_bwd, max(errs["dk"], errs["dv"])),
+                lib_bwd, bwd_graph, max(errs["dk"], errs["dv"])),
         }
-        for name, (kernel, plain, library_ms, err) in calls.items():
+        for name, (kernel, plain, library_ms, library_graph_ms, err) in \
+                calls.items():
             ms = timed_ms(kernel, flush)
             ms_graph = graph_ms(kernel, flush)
             plain_ms = timed_ms(plain, flush, iters=20)
@@ -653,6 +711,7 @@ def check_flash_kernels():
             out.setdefault(name, {
                 "max_abs_err": err, "ms": ms, "graph_ms": ms_graph,
                 "plain_ms": plain_ms, "library_ms": library_ms,
+                "library_graph_ms": library_graph_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by})
             log(f"[flash] {label} {name}: kernel {ms:.4f} ms ({ms_graph:.4f}"
                 f" ms replayed from a CUDA graph), plain {plain_ms:.4f} ms, "
@@ -823,13 +882,16 @@ def check_kv8_kernels(flush):
         ms_graph = graph_ms(lambda: run_kernel(case), flush)
         plain_ms = timed_ms(lambda: run_plain(case), flush)
         library_ms = timed_ms(library_call(case), flush)
+        library_graph_ms = graph_ms(library_call(case), flush)
         bound_ms, bound_by = bound(case)
         out[name] = {"max_abs_err": err, "ms": ms, "graph_ms": ms_graph,
                      "plain_ms": plain_ms, "library_ms": library_ms,
+                     "library_graph_ms": library_graph_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by}
         log(f"[kv8] {label}: kernel {ms:.4f} ms ({ms_graph:.4f} ms replayed "
             f"from a CUDA graph), plain {plain_ms:.4f} ms, sdpa over "
-            f"dequantized KV {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
+            f"dequantized KV {library_ms:.4f} ms ({library_graph_ms:.4f} ms "
+            f"graph), bound {bound_ms:.5f} ms "
             f"({bound_by}); host time a call: wrapper "
             f"{host_ms(lambda: run_kernel(case)):.4f} ms, sdpa "
             f"{host_ms(library_call(case)):.4f} ms")
@@ -853,14 +915,139 @@ def qmm_bound(name, rows, k, n, x_item, out_item):
                                        else "operations")
 
 
+#: w8a8 cases beyond GPT-2 125M's shapes: (label, K, N, k-group, x dtype,
+#: out dtype or None for x's).  One group and an odd number of groups, one
+#: 128-column weight and N = 896 (not a power of two), the k-groups of
+#: quantize_k_grouped's default (256), two passes' worth, part of one pass
+#: (64) and not a multiple of the 32-deep tensor-core step (96), every
+#: activation and output type; then the cluster's shapes: 12 blocks of one
+#: two-pass group (K=3072 in k-groups of 256), 10 blocks of 4 groups (two
+#: steps of two sub-blocks), one block of 17 (a prime count past 16 blocks:
+#: nine steps, the last with one sub-block idle) and the most groups a call
+#: may have, 104 (13 blocks of 8).  GPT-2's (3072, 768) runs 12 blocks of
+#: 2 groups
+W8A8_CASES = (
+    ("K=128, one group", 128, 2304, 128, "bfloat16", None),
+    ("K=384, three groups", 384, 768, 128, "bfloat16", None),
+    ("N=128", 768, 128, 128, "bfloat16", None),
+    ("N=896", 768, 896, 128, "bfloat16", None),
+    ("k_group 256", 768, 2304, 256, "bfloat16", None),
+    ("k_group 64", 768, 768, 64, "bfloat16", None),
+    ("k_group 96", 384, 256, 96, "bfloat16", None),
+    ("fp16 x", 768, 768, 128, "float16", None),
+    ("fp32 x", 384, 896, 128, "float32", None),
+    ("bf16 x, fp32 out", 768, 2304, 128, "bfloat16", "float32"),
+    ("K=3072, k_group 256", 3072, 768, 256, "bfloat16", None),
+    ("K=5120, 40 groups", 5120, 128, 128, "bfloat16", None),
+    ("K=2176, 17 groups", 2176, 256, 128, "bfloat16", None),
+    ("K=13312, 104 groups", 13312, 128, 128, "bfloat16", None),
+)
+
+
+def check_w8a8_exact(label, x8, rec, out_dtype=None):
+    """B5 and B6 (``w8a8_split_kernel``) bit for bit against
+    ``w8a8_matmul_plain`` on the stacked record ``rec``: B6 at layer
+    indices -1, 0, L-1 and L (read on the card and clamped), B5 on the last
+    layer at 8, 4 and 1 rows and each row alone; the plain model of the
+    kernel's tiling gives the same bits; a second call and a CUDA-graph
+    replay give the first call's (the tickets are left clean).  Row 2 of
+    ``x8`` holds a zero k-group (ax read as 1)."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+
+    qks, kss = rec["qk"], rec["kscale"]
+    n_layers = qks.shape[0]
+    for i in (-1, 0, n_layers - 1, n_layers):
+        l = min(max(i, 0), n_layers - 1)
+        want = qm.w8a8_matmul_plain(x8, qks[l], kss[l], out_dtype)
+        if not torch.equal(qm.w8a8_matmul_split_plain(x8, qks[l], kss[l],
+                                                      out_dtype), want):
+            raise AssertionError(f"{label}: the split model differs from "
+                                 "the plain version")
+        idx = torch.tensor([i], dtype=torch.int32, device="cuda")
+        got = qm.w8a8_matmul_stacked_cuda(idx, x8, qks, kss, out_dtype)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            err = (got.float() - want.float()).abs().max().item()
+            raise AssertionError(f"{label}: B6 at layer index {i} differs "
+                                 f"from the plain version of layer {l} (max "
+                                 f"{err:.3e})")
+    qk, ks = qks[n_layers - 1], kss[n_layers - 1]
+    idx = torch.tensor([n_layers - 1], dtype=torch.int32, device="cuda")
+
+    def b5(x):
+        return qm.w8a8_matmul_cuda(x, qk, ks, out_dtype)
+
+    def b6(x):
+        return qm.w8a8_matmul_stacked_cuda(idx, x, qks, kss, out_dtype)
+
+    full = b5(x8)
+    for rows in (8, 4, 1):
+        want = qm.w8a8_matmul_plain(x8[:rows], qk, ks, out_dtype)
+        got = b5(x8[:rows])
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            err = (got.float() - want.float()).abs().max().item()
+            raise AssertionError(f"{label}: B5 at {rows} rows differs from "
+                                 f"the plain version (max {err:.3e})")
+        if not torch.equal(got, full[:rows]):
+            raise AssertionError(f"{label}: B5's {rows}-row call differs "
+                                 "from the same rows of the 8-row call")
+    for r in range(1, 8):
+        if not torch.equal(b5(x8[r:r + 1]), full[r:r + 1]):
+            raise AssertionError(f"{label}: B5 row {r} alone differs")
+    for name, fn in (("B5", b5), ("B6", b6)):
+        if not torch.equal(fn(x8), full):
+            raise AssertionError(f"{label}: a second {name} call differs")
+        if not torch.equal(graph_replay(lambda: fn(x8)), full):
+            raise AssertionError(f"{label}: a CUDA-graph replay of {name} "
+                                 "differs")
+
+
+def w8a8_inputs(k, n, k_group, layers, dtype, seed):
+    """A stacked k-grouped record of ``layers`` random [K, N] weights and 8
+    activation rows in ``dtype`` whose row 2 has a zero k-group."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.quantization import quantize_k_grouped
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn((layers, k, n), generator=g, device="cuda") * 0.02
+    rec = quantize_k_grouped(w.to(torch.bfloat16), k_group)
+    x8 = torch.randn((8, k), generator=g, device="cuda")
+    x8[2, (k // k_group - 1) * k_group:] = 0.0
+    return rec, x8.to(dtype)
+
+
+def check_w8a8_cases():
+    """Phase 2c's added w8a8 cases (:data:`W8A8_CASES`), each through
+    :func:`check_w8a8_exact` on a 3-layer stack."""
+    import torch
+
+    for seed, (label, k, n, k_group, x_dtype, out_dtype) in \
+            enumerate(W8A8_CASES):
+        rec, x8 = w8a8_inputs(k, n, k_group, 3, getattr(torch, x_dtype),
+                              400 + seed)
+        check_w8a8_exact(f"w8a8 {label}", x8, rec,
+                         out_dtype and getattr(torch, out_dtype))
+        log(f"[qmm] w8a8 {label} (K={k}, N={n}, G={k_group}, x {x_dtype}"
+            f", out {out_dtype or x_dtype}): B5 and B6 equal the plain "
+            "version and the split model at rows 1/4/8, layer indices -1, "
+            "0, L-1, L; repeat and graph replay bit-identical")
+
+
 def check_qmm_kernels(flush):
     """Phase 2c, second half: B5, B6 and B7 against their plain versions at
     GPT-2 125M's four (K, N) shapes, with bf16 and fp32 activations at 8, 4
-    and 1 rows, and their row invariance; times at 8 rows for B6 (the
-    8-slot server) and 4 for B5 and B7 (``generate``'s batch), all four
-    shapes logged, (768, 2304) kept for the kernels line.  The yardstick is
-    the bf16 ``x @ W`` of the same shape: same shape, not the same
-    function (no single PyTorch call computes w8a8)."""
+    and 1 rows, and their row invariance; B5 and B6 bit for bit
+    (:func:`check_w8a8_exact`), after the added cases of
+    :func:`check_w8a8_cases`.  Times at 8 rows for B6 (the 8-slot server)
+    and 4 for B5 and B7 (``generate``'s batch), plus each one's graph time
+    at 8 rows; all four shapes logged, (768, 2304) kept for the kernels
+    line.  The yardstick is the bf16 ``x @ W`` of the same shape, eager and
+    replayed from a CUDA graph: same shape, not the same function (no
+    single PyTorch call computes w8a8)."""
     import torch
 
     from deepspeed_tpu_torch.ops import quantized_matmul as qm
@@ -870,6 +1057,7 @@ def check_qmm_kernels(flush):
     bf16, f32 = torch.bfloat16, torch.float32
     main_rows = {"w8a8_matmul_cuda": 4, "w8a8_matmul_stacked_cuda": 8,
                  "quantized_matmul_cuda": 4}
+    check_w8a8_cases()
     layers = 12
     ids = torch.arange(layers, dtype=torch.int32, device="cuda")
     out, max_err = {}, {}
@@ -933,10 +1121,13 @@ def check_qmm_kernels(flush):
                                calls["w8a8_matmul_stacked_cuda"][0](x8)):
                 raise AssertionError(f"({k}, {n}) {dtype}: stacked != "
                                      "per-layer w8a8")
+            check_w8a8_exact(f"({k}, {n}) {dtype}", x8, rec)
             log(f"[qmm] ({k}, {n}) {dtype}: max_abs_err " + ", ".join(
                 f"{nm} {e:.3e}" for nm, e in errs.items()) + " (atol = rtol "
                 f"{BF16_TOL if dtype == bf16 else FP32_TOL}); rows 1/4/8 "
-                "bit-identical; stacked == per-layer")
+                "bit-identical; stacked == per-layer; B5 and B6 equal the "
+                "plain version bit for bit (layer indices -1, 0, L-1, L; "
+                "repeat and graph replay)")
             if dtype != bf16:
                 continue
             for name, (kernel, plain) in calls.items():
@@ -946,16 +1137,22 @@ def check_qmm_kernels(flush):
                 ms_graph = graph_ms(lambda: kernel(x), flush)
                 plain_ms = timed_ms(lambda: plain(x), flush, iters=20)
                 library_ms = timed_ms(lambda: x @ w_bf16, flush)
+                library_graph_ms = graph_ms(lambda: x @ w_bf16, flush)
                 bound_ms, bound_by = qmm_bound(name, rows, k, n, 2, 2)
+                at8 = "" if rows == 8 else (
+                    f", {graph_ms(lambda: kernel(x8), flush):.4f} ms graph at "
+                    f"8 rows (x @ W {graph_ms(lambda: x8 @ w_bf16, flush):.4f})")
                 log(f"[qmm] ({k}, {n}) {name} at {rows} rows: kernel "
                     f"{ms:.4f} ms ({ms_graph:.4f} ms replayed from a CUDA "
-                    f"graph), plain {plain_ms:.4f} ms, bf16 x @ W (same "
-                    f"shape, not the same function) {library_ms:.4f} ms, "
-                    f"bound {bound_ms:.5f} ms ({bound_by})")
+                    f"graph{at8}), plain {plain_ms:.4f} ms, bf16 x @ W (same "
+                    f"shape, not the same function) {library_ms:.4f} ms "
+                    f"({library_graph_ms:.4f} ms graph), bound "
+                    f"{bound_ms:.5f} ms ({bound_by})")
                 if (k, n) == GPT2_MATMULS[0]:
                     out[name] = {"ms": ms, "graph_ms": ms_graph,
                                  "plain_ms": plain_ms,
                                  "library_ms": library_ms,
+                                 "library_graph_ms": library_graph_ms,
                                  "bound_ms": bound_ms, "bound_by": bound_by}
         del w, rec, wrec
     for name, m in out.items():
@@ -1236,15 +1433,15 @@ def teacher_forced_logits(engine, prompts, tokens, kv8: bool):
     return torch.stack(outs)
 
 
-def profile_serving(label, srv, reqs, watch, warm: int = 24,
+def profile_serving(label, srv, reqs, watches, warm: int = 24,
                     steps: int = 16):
     """``steps`` scheduler iterations of ``srv`` serving ``reqs`` under
     ``torch.profiler``, after ``warm`` iterations (prefills done, every
-    slot decoding): wall time, device busy time and idle share of the
-    window, the top device kernels, the device kernels whose names hold
-    ``watch[1]`` (``watch[0]`` names them in the log) and the top host
-    operators by self CPU time.  The requests are served to the end
-    afterwards."""
+    slot decoding): wall time, device busy time, idle share and kernel
+    launches of the window, the top device kernels, for each ``(name,
+    key)`` of ``watches`` the device kernels whose names hold ``key``, and
+    the top host operators by self CPU time.  The requests are served to
+    the end afterwards."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1266,16 +1463,20 @@ def profile_serving(label, srv, reqs, watch, warm: int = 24,
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
     log(f"[profile {label}] {steps} iterations: wall {wall_ms:.1f} ms "
-        f"({wall_ms / steps:.2f} ms each), device busy {busy:.1f} ms, idle "
-        f"share {1 - busy / wall_ms:.4f}")
+        f"({wall_ms / steps:.2f} ms each), device busy {busy:.1f} ms "
+        f"({busy / steps:.3f} ms an iteration), idle share "
+        f"{1 - busy / wall_ms:.4f}, {launches / steps:.1f} kernel launches "
+        "an iteration")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"[profile {label}]   device {e.self_device_time_total / 1e3 / steps:7.3f}"
             f" ms x{e.count // steps:<4} an iteration: {e.key[:70]}")
-    mine = [e for e in kernels if watch[1] in e.key]
-    log(f"[profile {label}]   {watch[0]} ({watch[1]}): device "
-        f"{sum(e.self_device_time_total for e in mine) / 1e3 / steps:.4f} ms x"
-        f"{sum(e.count for e in mine) // steps} an iteration")
+    for name, key in watches:
+        mine = [e for e in kernels if key in e.key]
+        log(f"[profile {label}]   {name} ({key}): device "
+            f"{sum(e.self_device_time_total for e in mine) / 1e3 / steps:.4f}"
+            f" ms x{sum(e.count for e in mine) // steps} an iteration")
     host = [e for e in events if e.device_type == DeviceType.CPU]
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
         log(f"[profile {label}]   host {e.self_cpu_time_total / 1e3 / steps:7.3f}"
@@ -1437,9 +1638,9 @@ def quant_phase(engine, prompts, gen, float_lane):
     # where a decode iteration's time goes, float lane against w8a8+kv8
     window = reqs[-4:] + reqs[:4]
     for label, quantize, params, watch in (
-            ("float", None, engine.params, ("B3", "attn_kernel")),
+            ("float", None, engine.params, [("B3", "verify_split_kernel")]),
             ("w8a8+kv8", "w8a8+kv8", weng.params,
-             ("kv8 B3", "q8_split_kernel"))):
+             [("kv8 B3", "q8_split_kernel"), ("B6", "w8a8_split_kernel")])):
         psrv = dt.init_serving(model, config={"dtype": "bf16"},
                                params=params, quantize=quantize, slots=8,
                                max_seq_len=1024, block_size=32,
@@ -1748,16 +1949,16 @@ def main() -> int:
     }
     # the CUDA kernel each wrapper launches on the main path (bf16)
     designs = {
-        "decode_attention_cuda": "attn_kernel",
-        "paged_decode_attention_cuda": "attn_kernel",
+        "decode_attention_cuda": "verify_split_kernel",
+        "paged_decode_attention_cuda": "verify_split_kernel",
         "paged_verify_attention_cuda": "verify_split_kernel",
         "paged_decode_attention_kv8_cuda": "q8_split_kernel",
         "paged_verify_attention_kv8_cuda": "q8_split_kernel",
         "flash_attention_fwd_cuda": "wgmma_fwd_kernel",
         "flash_attention_bwd_dq_cuda": "wgmma_dq_kernel",
         "flash_attention_bwd_dkv_cuda": "wgmma_dkv_kernel",
-        "w8a8_matmul_cuda": "w8a8_kernel",
-        "w8a8_matmul_stacked_cuda": "w8a8_kernel",
+        "w8a8_matmul_cuda": "w8a8_split_kernel",
+        "w8a8_matmul_stacked_cuda": "w8a8_split_kernel",
         "quantized_matmul_cuda": "qmm_kernel",
     }
     sources = {da: "deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
@@ -1775,7 +1976,8 @@ def main() -> int:
                 "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                 "graph_ms": m["graph_ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-                "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
+                "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+                "library_graph_ms": m["library_graph_ms"]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

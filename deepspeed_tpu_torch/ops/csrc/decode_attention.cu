@@ -6,8 +6,13 @@
 // Entry points and the TPU kernels they replace
 // (deepspeed_tpu/ops/decode_attention.py):
 //   ds_paged_verify_attention_split <- paged_verify_attention_pallas
-//                                   (_paged_verify_kernel) on a bf16 or fp16
-//                                   pool: q [B,H,T,D], T <= 16, row i of the
+//                                   (_paged_verify_kernel, T <= 16),
+//                                   paged_decode_attention_pallas
+//                                   (_paged_decode_kernel, T = 1) and
+//                                   decode_attention_pallas (_decode_kernel,
+//                                   a contiguous cache as a pool of one block
+//                                   a row) on bf16 or fp16
+//                                   K/V: q [B,H,T,D], row i of the
 //                                   window at position pos[b] + i, against the
 //                                   pool [NB,HKV,bs,D] through int32 [B,NBPER]
 //                                   tables (verify_split_kernel)
@@ -21,12 +26,11 @@
 //                                   q (q8_split_kernel)
 //   ds_paged_verify_attention    <- the verify kernel on an f32 pool
 //                                   (attn_kernel)
-//   ds_paged_decode_attention    <- paged_decode_attention_pallas
-//                                   (_paged_decode_kernel): q [B,H,1,D] vs
-//                                   the pool (attn_kernel)
+//   ds_paged_decode_attention    <- the decode kernel on an f32 pool:
+//                                   q [B,H,1,D] vs the pool (attn_kernel)
 //   ds_paged_decode_attention_q8 <- the decode and verify kernels on an int8
 //   ds_paged_verify_attention_q8    pool with f32 q (attn_kernel)
-//   ds_decode_attention          <- decode_attention_pallas (_decode_kernel):
+//   ds_decode_attention          <- the decode kernel on an f32 cache:
 //                                   q [B,H,1,D] vs cache [B,HKV,S,D]
 //                                   (attn_kernel)
 // Every one returns cudaGetLastError() after its launch.
@@ -39,7 +43,8 @@
 // decides its time is how many SMs stream keys at once and how long each
 // waits on its loads.
 //
-// verify_split_kernel (split-K, flash-decoding; 16-bit pools).  Grid
+// verify_split_kernel (split-K, flash-decoding; 16-bit pools: B4 windows
+// and, at T = 1, the B3 decode).  Grid
 // (nsplit, HKV, B): each block takes a fixed span of 128 keys of one row's
 // KV head, so no block walks more than 128 keys whatever the row's length,
 // and nsplit = ceil(NBPER * bs / 128) comes from the table's width on the
@@ -90,8 +95,8 @@
 // and the merge), so T = 1 takes the same kernel.  f32 queries stay on
 // attn_kernel: the tensor cores would round them to tf32.
 //
-// attn_kernel (f32 pools and f32 queries on int8 pools; B2 and the float
-// B3).  One thread block per (row b, KV head g); grid (HKV, B).  The R
+// attn_kernel (f32 pools and caches, f32 queries on int8 pools).  One
+// thread block per (row b, KV head g); grid (HKV, B).  The R
 // query rows that share the KV head (row r: head g*rep + r/T, window offset
 // r%T) sit in shared memory as f32.  The TPU kernel's sequential grid axis
 // over KV chunks becomes a loop inside the block over 32-key tiles up to
@@ -100,10 +105,13 @@
 // into shared memory (f32), threads split the R x 32 scores, one warp per
 // query row runs the online-softmax update of the TPU kernel (masking with
 // NEG_INF past key pos[b] + r%T), and threads split the R x D accumulator.
-// The finish divides by l, with l == 0 read as 1.  It still serves f32
-// (the tensor cores would round f32 to tf32 and miss the fp32 path's
-// exactness), B2 and the float B3 (T = 1); their redesign is later work
-// (ROADMAP Queue B).
+// The finish divides by l, with l == 0 read as 1.  It serves f32 only (the
+// tensor cores would round f32 to tf32 and miss the fp32 path's
+// exactness).  The 16-bit float B3 (T = 1) runs verify_split_kernel, as
+// the kv8 B3 runs q8_split_kernel, and so does the 16-bit B2: a contiguous
+// cache [B, HKV, S, D] is a pool of B blocks of S keys with the table
+// [[0], [1], ...], and generate's decode must share the paged server's
+// arithmetic for their greedy tokens to agree.
 //
 // int8 pools on attn_kernel.  The tile holds the integer codes (as f32)
 // and each key's K and V scale; the scales fold into the columns as in the
@@ -133,34 +141,6 @@ template <> struct Vec<float> {
     o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
   }
   __device__ static float store(float x) { return x; }
-};
-
-template <> struct Vec<__half> {
-  static constexpr int N = 8;
-  __device__ static void load(const __half* p, float* o) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const __half2* h = reinterpret_cast<const __half2*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __half22float2(h[i]);
-      o[2 * i] = f.x; o[2 * i + 1] = f.y;
-    }
-  }
-  __device__ static __half store(float x) { return __float2half(x); }
-};
-
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* o) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      o[2 * i] = f.x; o[2 * i + 1] = f.y;
-    }
-  }
-  __device__ static __nv_bfloat16 store(float x) { return __float2bfloat16(x); }
 };
 
 template <> struct Vec<int8_t> {
@@ -348,12 +328,11 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 float32, 1 float16, 2 bfloat16 (of q and out; of the pool too
-// unless Q8, whose pool holds int8 codes and bf16 scales and whose q is
-// float32).  D: 64 (GPT-2);
-// another head dim is instantiated with the model family that needs it.
-// Unsupported (dtype, D) pairs return cudaErrorInvalidValue; the Python
-// wrapper checks them first.
+// dtype: 0 float32 (of q and out; of the cache or pool too unless Q8, whose
+// pool holds int8 codes and bf16 scales); 16-bit q, caches and pools take
+// the split-K kernels.  D: 64 (GPT-2); another head dim is instantiated
+// with the model family that needs it.  Unsupported (dtype, D) pairs
+// return cudaErrorInvalidValue; the Python wrappers check them first.
 template <bool PAGED, bool Q8>
 int dispatch(int dtype, int D, const void* q, const void* k, const void* v,
              const void* k_scale, const void* v_scale, const void* bt,
@@ -368,18 +347,8 @@ int dispatch(int dtype, int D, const void* q, const void* k, const void* v,
     case 64: DS_CASE(TYPE, 64);                 \
     default: return (int)cudaErrorInvalidValue; \
   }
-  if constexpr (Q8) {
-    // 16-bit queries on int8 pools take q8_split_kernel
-    if (dtype != 0) return (int)cudaErrorInvalidValue;
-    DS_DIMS(float);
-  } else {
-    switch (dtype) {
-      case 0: DS_DIMS(float);
-      case 1: DS_DIMS(__half);
-      case 2: DS_DIMS(__nv_bfloat16);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  DS_DIMS(float);
 #undef DS_DIMS
 #undef DS_CASE
 }
@@ -896,13 +865,11 @@ int ds_paged_decode_attention(const void* q, const void* k_pool,
                                nbper, scale, stream);
 }
 
-// f32 pools only: 16-bit pools take ds_paged_verify_attention_split.
 int ds_paged_verify_attention(const void* q, const void* k_pool,
                               const void* v_pool, const void* block_tables,
                               const void* pos, void* out, int B, int H,
                               int HKV, int T, int bs, int nbper, int D,
                               int dtype, float scale, void* stream) {
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
   return dispatch<true, false>(dtype, D, q, k_pool, v_pool, nullptr, nullptr,
                                block_tables, pos, out, B, H, HKV, T, 0, bs,
                                nbper, scale, stream);
@@ -937,7 +904,6 @@ int ds_paged_attention_q8_split(const void* q, const void* k_codes, const void* 
                                 stream);
 }
 
-// f32 q only: 16-bit q takes ds_paged_attention_q8_split.
 int ds_paged_decode_attention_q8(const void* q, const void* k_codes,
                                  const void* k_scale, const void* v_codes,
                                  const void* v_scale,

@@ -17,27 +17,52 @@
 // Every one returns cudaGetLastError() after its launch.
 //
 // w8a8 arithmetic (quantized_matmul.py:249-263, kept literally): for each
-// k-group of G rows, in order, each row's ax = max|x| in f32 (0 read as 1),
-// codes xq = clip(rint(x * (127 / ax)), -127, 127), the exact int32 dot of
-// the codes with the int8 weight column, and acc += (float(dot) * (ax /
-// 127)) * kscale[n] in f32; one cast at the end.  The multiplies and adds
-// are the _rn intrinsics so nvcc cannot contract them into FMAs, and rintf
-// rounds half to even as jnp.round does.
+// k-group g of G rows, each row's ax = max|x| in f32 (0 read as 1), codes
+// xq = clip(rint(x * (127 / ax)), -127, 127), the exact int32 dot of the
+// codes with the int8 weight column, and t_g = (float(dot) * (ax / 127)) *
+// kscale[g, n] in f32; the output is ((t_0 + t_1) + ...) + t_{G-1}, summed in
+// group order in f32 and cast once.  The multiplies and adds are the _rn
+// intrinsics so nvcc cannot contract them into FMAs, and rintf rounds half
+// to even as jnp.round does.  So the result is the plain version's bits,
+// and a row's result depends on no other row, whatever B is.
 //
-// w8a8 design.  One block of 256 threads per 32 output columns, all rows
-// (B <= 8) and all of K; grid N/32.  Per k-group the block quantizes the
-// activations into shared memory (128 k-rows at a time), and its threads
-// split the group's k-rows 32 ways, each thread reading 4 weight columns as
-// one 32-bit load and keeping 8 rows x 4 columns of int32 partial dots.  The
-// 32 partials of a column are summed in shared memory (an exact integer sum,
-// so its order is free), and the thread that owns (row, column) adds the
-// group's scaled term to its f32 accumulator.  A row's result depends on no
-// other row, whatever B is.  Bound: the weight bytes (K*N int8 + K/G*N f32
-// scales) over 3.35 TB/s; 2*B*K*N int8 operations are far below the
-// tensor cores' rate at B <= 8.  Known limit: the 32-column tiles give few
-// blocks (24 at N=768), no copy/compute overlap, and the dot runs on the
-// integer ALUs, not the int8 tensor cores.
-//
+// w8a8_split_kernel (B5, B6).  Bound: the weight bytes, K*N int8 plus K/G*N
+// f32 scales, over 3.35 TB/s (0.55 us at GPT-2's (768, 2304)); 2*B*K*N
+// int8 operations are far below the tensor cores' rate at B <= 8.  At
+// these sizes what decides the time is how many SMs have weight bytes in
+// flight at once and how many dependent steps a block takes.  So each
+// 64-column tile gets a thread-block cluster of C <= 16 blocks that split
+// its k-groups, gpb = K/G/C each (the fewest that divide K/G): 216 blocks
+// of one group at (768, 2304), 288 at (768, 3072), 72 at (768, 768), 144
+// of two groups at (3072, 768).  A block of several groups is two
+// sub-blocks of 128 threads, each on its own group, so its two groups
+// take the time of one.  A sub-block's 4 warps issue their weight loads
+// first, 16 words a thread a pass of 128 k-rows straight into registers
+// (32 k-rows of 64 columns a warp; each 32-byte sector read whole), then
+// load and quantize their group's x (the only activations they read) into
+// shared memory; a group of more than one pass loads the next pass's
+// words while the current one multiplies.  The dot runs on the int8
+// tensor cores: mma.sync m16n8k32 s8 with the weight columns as M = 16 and
+// the <= 8 activation rows as N = 8, so a decode batch fills the
+// instruction.  The codes sit [row][k] in shared memory,
+// which is the B fragment's layout (one 32-bit load a register).  The A
+// fragment wants 4 consecutive k of one column while qk [K, N] keeps N
+// contiguous: m-tile mt's row m is column 4m + mt, so the 4 words a thread
+// loads for one register (4 k-rows of 4 adjacent columns) become that
+// register of the 4 m tiles by a 4 x 4 byte transpose (__byte_perm).  The
+// records keep the JAX package's layout.  int32 sums of 128 products of
+// |127| are exact, so the dot is the integer of the plain version.  The 4
+// warps' dots are summed in shared memory (exact), and each group's term
+// t_g is stored into the shared memory of the cluster's block 0 (terms
+// [K/G][8][64] f32: K/G <= 104 fits); after one cluster barrier block 0
+// sums the terms in group order and writes the output.  One launch, no
+// scratch in device memory, no second pass: a merge through device memory
+// (scratch, a fence, an atomic ticket, a re-read) costs three dependent
+// trips to L2 where this costs one cluster barrier.  B6 reads the layer
+// index once a block and clamps it to [0, L).  G is any divisor of K: a
+// group is taken in passes of 128 k-rows and rows past its end read as
+// zero codes and zero weights.
+
 // Weight-only arithmetic (quantized_matmul.py:91-98): out = sum_k bf16(x) *
 // bf16(bf16(q) * bf16(scale[k, n/G])) with f32 accumulation; the weight's
 // product rounds to bf16 as the TPU kernel's bf16 multiply does.  Design:
@@ -47,8 +72,11 @@
 // int8 weight bytes plus scales.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -66,103 +94,218 @@ template <> struct Cvt<__nv_bfloat16> {
   __device__ static __nv_bfloat16 out(float x) { return __float2bfloat16_rn(x); }
 };
 
-__device__ __forceinline__ float warp_max(float x) {
+constexpr int W8_THREADS = 128;                  // 4 warps
+constexpr int W8_ROWS = 8;                       // W8A8_MAX_ROWS: the mma's N
+constexpr int W8_TN = 64;                        // output columns per block
+constexpr int W8_KC = 128;                       // k-rows a pass, 32 a warp
+constexpr int W8_XQ = W8_KC + 16;                // code row stride (bytes)
+constexpr int W8_CLUSTER = 16;                   // blocks of a column tile
+// k-groups a call may have: their terms fill the first block's dynamic
+// shared memory, 2 KB each
+constexpr int W8_MAX_GROUPS = 104;
+constexpr size_t W8_MAX_SMEM = (size_t)W8_MAX_GROUPS * W8_ROWS * W8_TN * 4;
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// c[16 x 8] (s32) += a[16 x 32] * b[32 x 8] (s8), fragments as mma.sync lays
+// them out, lane = 4 * grp + tig: a[0] row grp at k 4*tig..+3 (the low byte
+// the lowest k), a[1] row grp + 8 at the same k, a[2] and a[3] the same
+// rows at k 16 + 4*tig..+3; b[0] column grp at k 4*tig..+3, b[1] at k
+// 16 + 4*tig..+3; c[i] row grp + 8 * (i >> 1), column 2 * tig + (i & 1).
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A 4 x 4 byte transpose: byte c of w[j] becomes byte j of o[c].
+__device__ __forceinline__ void transpose4(const uint32_t (&w)[4],
+                                           uint32_t (&o)[4]) {
+  const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);
+  const uint32_t t1 = __byte_perm(w[0], w[1], 0x7362);
+  const uint32_t t2 = __byte_perm(w[2], w[3], 0x5140);
+  const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);
+  o[0] = __byte_perm(t0, t2, 0x5410);
+  o[1] = __byte_perm(t0, t2, 0x7632);
+  o[2] = __byte_perm(t1, t3, 0x5410);
+  o[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// A thread's weight words of one pass: the warp's 32 k-rows from k-row kw
+// of the group (qg points at the group's first row, at the thread's first
+// column), as the A operand wants them.  m-tile mt's row m is column
+// 4m + mt of the block's 64, so the 4 words loaded for one register (k-rows
+// k..k+3 of 4 adjacent columns, at columns 4*grp.. or 32 + 4*grp..) become
+// that register of all 4 m tiles by transpose4.  Rows past the group read
+// as 0.
+__device__ __forceinline__ void load_pass(uint32_t (&w)[4][4],
+                                          const int8_t* qg, int kw, int G,
+                                          int N) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kk = kw + j + (r >> 1) * 16;
+      w[r][j] = kk < G ? __ldg(reinterpret_cast<const unsigned*>(
+                             qg + (size_t)kk * N + (r & 1) * 32))
+                       : 0u;
+    }
 }
 
-// byte c (0..3) of a 32-bit word as a signed int
-__device__ __forceinline__ int sbyte(int w, int c) {
-  return ((int)((unsigned)w << (24 - 8 * c))) >> 24;
-}
+// One cluster of blocks per 64-column tile, spanning K: grid (N / 64, C)
+// with cluster dims (1, C, 1), C = K / G / gpb <= 16 blocks, block y taking
+// k-groups [y * gpb, (y + 1) * gpb), P at a time: the block is P sub-blocks
+// of 128 threads, sub-block s on group gc + s of each step gc.  Each
+// group's term goes into the shared memory of the cluster's block 0
+// (terms [K / G][8 rows][16 column quads], dynamic), which after a cluster
+// barrier sums them in group order and writes the output.
+template <typename TX, typename TO, int P>
+__global__ void __launch_bounds__(W8_THREADS * P)
+w8a8_split_kernel(const TX* __restrict__ x, const int8_t* __restrict__ qk,
+                  const float* __restrict__ kscale,
+                  const int* __restrict__ layer, TO* __restrict__ out, int L,
+                  int B, int K, int N, int G, int gpb) {
+  __shared__ __align__(16) int red[P][4][W8_ROWS][W8_TN];   // warps' dots
+  __shared__ __align__(16) int8_t xq[P][W8_ROWS][W8_XQ];    // codes [row][k]
+  extern __shared__ float4 terms[];
 
-constexpr int W8_THREADS = 256;
-constexpr int W8_ROWS = 8;                       // W8A8_MAX_ROWS
-constexpr int W8_TN = 32;                        // output columns per block
-constexpr int W8_CPT = 4;                        // columns per thread
-constexpr int W8_TX = W8_TN / W8_CPT;            // 8 column lanes
-constexpr int W8_TY = W8_THREADS / W8_TX;        // 32 k-slices
-constexpr int W8_KC = 128;                       // k-rows of codes staged
-
-template <typename TX, typename TO>
-__global__ void __launch_bounds__(W8_THREADS)
-w8a8_kernel(const TX* __restrict__ x, const int8_t* __restrict__ qk,
-            const float* __restrict__ kscale, const int* __restrict__ layer,
-            TO* __restrict__ out, int L, int B, int K, int N, int G) {
-  __shared__ int part[W8_TY][W8_ROWS][W8_TN];
-  __shared__ __align__(8) int8_t xq[W8_KC][W8_ROWS];   // [k][row]
-  __shared__ float ax[W8_ROWS];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % W8_TX, ty = tid / W8_TX;
-  const int warp = tid / 32, lane = tid % 32;
-  const int ob = tid / W8_TN, oc = tid % W8_TN;       // owned output
-  const int n0 = blockIdx.x * W8_TN;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int sub = threadIdx.x / W8_THREADS, tid = threadIdx.x % W8_THREADS;
+  const int warp = tid >> 5, lane = tid & 31, grp = lane >> 2, tig = lane & 3;
+  const int n0 = blockIdx.x * W8_TN, g0 = blockIdx.y * gpb;
+  // the thread's activation row; its 8 k of each pass (quantization) and
+  // its 4 output columns (epilogue)
+  const int row = tid >> 4, k8 = (tid & 15) * 8, quad = tid & 15;
   if (layer != nullptr) {
-    const int l = min(max(*layer, 0), L - 1);
+    const int l = min(max(__ldg(layer), 0), L - 1);
     qk += (size_t)l * K * N;
     kscale += (size_t)l * (K / G) * N;
   }
-  float acc = 0.f;
-  for (int k0 = 0; k0 < K; k0 += G) {
-    if (warp < B) {                                    // one warp per row
-      float m = 0.f;
-      for (int i = lane; i < G; i += 32)
-        m = fmaxf(m, fabsf(Cvt<TX>::in(x[(size_t)warp * K + k0 + i])));
-      m = warp_max(m);
-      if (lane == 0) ax[warp] = m == 0.f ? 1.f : m;
-    }
-    int p[W8_ROWS][W8_CPT];
+  const int kw = 32 * warp + 4 * tig;
+  const TX* xrow = x + (size_t)min(row, B - 1) * K;
+  float4* sink = cluster.map_shared_rank(terms, 0);
+
+  for (int gc = 0; gc < gpb; gc += P) {
+    const bool live = gc + sub < gpb;
+    const int g = g0 + gc + sub;
+    const int8_t* qg = qk + (size_t)g * G * N + n0 + 4 * grp;
+    const TX* xg = xrow + (size_t)g * G;
+    // The first pass's weights go in flight first, the bytes that bound
+    // the kernel; then the group's scales and first activations
+    uint32_t w[4][4] = {};                       // [register][k row]
+    if (live) load_pass(w, qg, kw, G, N);
+    float4 ks = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (live)
+      ks = __ldg(reinterpret_cast<const float4*>(kscale + (size_t)g * N + n0 +
+                                                 4 * quad));
+    float xv[8];
 #pragma unroll
-    for (int r = 0; r < W8_ROWS; ++r)
+    for (int j = 0; j < 8; ++j)
+      xv[j] = live && row < B && k8 + j < G ? Cvt<TX>::in(xg[k8 + j]) : 0.f;
+    // every block of the cluster has started before any writes into block
+    // 0's shared memory; the barrier's latency hides under the loads'
+    if (gc == 0) cluster_arrive_relaxed();
+
+    // ax = max |x| over the row's group: the thread's values, then the 16
+    // threads of the row (an exact max, so its order is free)
+    float ax = 0.f;
 #pragma unroll
-      for (int c = 0; c < W8_CPT; ++c) p[r][c] = 0;
+    for (int j = 0; j < 8; ++j) ax = fmaxf(ax, fabsf(xv[j]));
+    if (live && row < B)
+      for (int k = k8 + W8_KC; k < G; k += W8_KC)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (k + j < G) ax = fmaxf(ax, fabsf(Cvt<TX>::in(xg[k + j])));
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1)
+      ax = fmaxf(ax, __shfl_xor_sync(0xffffffffu, ax, o));
+    if (ax == 0.f) ax = 1.f;
+    const float inv = __fdiv_rn(127.f, ax);
+
+    int acc[4][4] = {};                          // [m tile][fragment]
     for (int c0 = 0; c0 < G; c0 += W8_KC) {
-      const int kc = min(W8_KC, G - c0);
-      __syncthreads();                  // ax written; last chunk consumed
-      for (int i = tid; i < W8_KC * W8_ROWS; i += W8_THREADS) {
-        const int kk = i / W8_ROWS, r = i % W8_ROWS;
-        int8_t code = 0;
-        if (r < B && kk < kc) {
-          const float xv = Cvt<TX>::in(x[(size_t)r * K + k0 + c0 + kk]);
-          const float qv = rintf(__fmul_rn(xv, __fdiv_rn(127.f, ax[r])));
-          code = (int8_t)fminf(fmaxf(qv, -127.f), 127.f);
-        }
-        xq[kk][r] = code;
+      if (c0 > 0)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          xv[j] = live && row < B && c0 + k8 + j < G
+                      ? Cvt<TX>::in(xg[c0 + k8 + j]) : 0.f;
+      uint32_t cw[2] = {0u, 0u};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float qv = rintf(__fmul_rn(xv[j], inv));
+        qv = fminf(fmaxf(qv, -127.f), 127.f);
+        cw[j >> 2] |= (uint32_t)(uint8_t)(int8_t)(int)qv << (8 * (j & 3));
       }
+      *reinterpret_cast<uint2*>(&xq[sub][row][k8]) = make_uint2(cw[0], cw[1]);
       __syncthreads();
-      for (int kk = ty; kk < kc; kk += W8_TY) {
-        const int w = *reinterpret_cast<const int*>(
-            qk + (size_t)(k0 + c0 + kk) * N + n0 + tx * W8_CPT);
-        const int2 xr = *reinterpret_cast<const int2*>(&xq[kk][0]);
-        int wc[W8_CPT];
+      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(
+          &xq[sub][grp][32 * warp + 4 * tig]);
+      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(
+          &xq[sub][grp][32 * warp + 16 + 4 * tig]);
+      uint32_t a[4][4];                          // [m tile][register]
 #pragma unroll
-        for (int c = 0; c < W8_CPT; ++c) wc[c] = sbyte(w, c);
+      for (int r = 0; r < 4; ++r) {
+        uint32_t o[4];
+        transpose4(w[r], o);
 #pragma unroll
-        for (int r = 0; r < W8_ROWS; ++r) {
-          const int xv = sbyte(r < 4 ? xr.x : xr.y, r % 4);
-#pragma unroll
-          for (int c = 0; c < W8_CPT; ++c) p[r][c] += xv * wc[c];
-        }
+        for (int mt = 0; mt < 4; ++mt) a[mt][r] = o[mt];
       }
+      // a group longer than one pass loads the next while this multiplies
+      if (live && c0 + W8_KC < G) load_pass(w, qg, c0 + W8_KC + kw, G, N);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) mma_s8(acc[mt], a[mt], b0, b1);
+      __syncthreads();                           // xq is rewritten
     }
+
+    // the 4 warps' dots of (row, column) summed in shared memory (exact),
+    // then the group's term into block 0
 #pragma unroll
-    for (int r = 0; r < W8_ROWS; ++r)
-#pragma unroll
-      for (int c = 0; c < W8_CPT; ++c) part[ty][r][tx * W8_CPT + c] = p[r][c];
+    for (int f = 0; f < 4; ++f)
+      *reinterpret_cast<int4*>(
+          &red[sub][warp][2 * tig + (f & 1)][(f >> 1) * 32 + 4 * grp]) =
+          make_int4(acc[0][f], acc[1][f], acc[2][f], acc[3][f]);
     __syncthreads();
-    if (ob < B) {
-      int dot = 0;
-      for (int y = 0; y < W8_TY; ++y) dot += part[y][ob][oc];
-      const float term = __fmul_rn(__fmul_rn((float)dot,
-                                             __fdiv_rn(ax[ob], 127.f)),
-                                   kscale[(size_t)(k0 / G) * N + n0 + oc]);
-      acc = __fadd_rn(acc, term);
+    int dot[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int wi = 0; wi < 4; ++wi) {
+      const int4 v = *reinterpret_cast<const int4*>(&red[sub][wi][row][4 * quad]);
+      dot[0] += v.x; dot[1] += v.y; dot[2] += v.z; dot[3] += v.w;
     }
-    __syncthreads();                    // part and ax are reused
+    const float s = __fdiv_rn(ax, 127.f);
+    if (gc == 0) cluster_wait();
+    if (live)
+      sink[(g * W8_ROWS + row) * (W8_TN / 4) + quad] = make_float4(
+          __fmul_rn(__fmul_rn((float)dot[0], s), ks.x),
+          __fmul_rn(__fmul_rn((float)dot[1], s), ks.y),
+          __fmul_rn(__fmul_rn((float)dot[2], s), ks.z),
+          __fmul_rn(__fmul_rn((float)dot[3], s), ks.w));
   }
-  if (ob < B) out[(size_t)ob * N + n0 + oc] = Cvt<TO>::out(acc);
+
+  // block 0 sums the terms in group order once every block's are in
+  cluster.sync();
+  if (cluster.block_rank() == 0 && sub == 0 && row < B) {
+    const int ngroups = gpb * (int)gridDim.y;
+    float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int gi = 0; gi < ngroups; ++gi) {
+      const float4 v = terms[(gi * W8_ROWS + row) * (W8_TN / 4) + quad];
+      sum[0] = __fadd_rn(sum[0], v.x);
+      sum[1] = __fadd_rn(sum[1], v.y);
+      sum[2] = __fadd_rn(sum[2], v.z);
+      sum[3] = __fadd_rn(sum[3], v.w);
+    }
+    TO* orow = out + (size_t)row * N + n0 + 4 * quad;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) orow[j] = Cvt<TO>::out(sum[j]);
+  }
 }
 
 constexpr int QM_THREADS = 256;
@@ -224,16 +367,63 @@ qmm_kernel(const TX* __restrict__ x, const int8_t* __restrict__ q,
   }
 }
 
+// k-groups a block of the w8a8 kernel takes: the fewest that divide K / G
+// and leave at most W8_CLUSTER blocks, one cluster, a column tile; 0 past
+// W8_MAX_GROUPS groups.
+int w8a8_groups_per_block(int groups) {
+  if (groups < 1 || groups > W8_MAX_GROUPS) return 0;
+  int gpb = (groups + W8_CLUSTER - 1) / W8_CLUSTER;
+  while (groups % gpb) ++gpb;
+  return gpb;
+}
+
+template <typename TX, typename TO, int P>
+int launch_w8a8_p(const void* layer, const void* x, const void* qk,
+                  const void* kscale, void* out, int L, int B, int K, int N,
+                  int G, int gpb, void* stream) {
+  auto kernel = w8a8_split_kernel<TX, TO, P>;
+  static const cudaError_t setup = [&] {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)W8_MAX_SMEM);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    return e;
+  }();
+  if (setup != cudaSuccess) return (int)setup;
+  const int groups = K / G, blocks = groups / gpb;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(N / W8_TN, blocks);
+  cfg.blockDim = dim3(W8_THREADS * P);
+  cfg.dynamicSmemBytes = (size_t)groups * W8_ROWS * W8_TN * sizeof(float);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = blocks;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, (const TX*)x, (const int8_t*)qk, (const float*)kscale,
+      (const int*)layer, (TO*)out, L, B, K, N, G, gpb);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// A block of one k-group is one sub-block; a block of more takes two
+// groups at a time.
 template <typename TX, typename TO>
 int launch_w8a8(const void* layer, const void* x, const void* qk,
                 const void* kscale, void* out, int L, int B, int K, int N,
                 int G, void* stream) {
-  if (B < 1 || B > W8_ROWS || G < 1 || K % G || N % W8_TN)
+  const int gpb = G < 1 || K % G ? 0 : w8a8_groups_per_block(K / G);
+  if (B < 1 || B > W8_ROWS || gpb == 0 || N % W8_TN)
     return (int)cudaErrorInvalidValue;
-  w8a8_kernel<TX, TO><<<N / W8_TN, W8_THREADS, 0, (cudaStream_t)stream>>>(
-      (const TX*)x, (const int8_t*)qk, (const float*)kscale,
-      (const int*)layer, (TO*)out, L, B, K, N, G);
-  return (int)cudaGetLastError();
+  if (gpb == 1)
+    return launch_w8a8_p<TX, TO, 1>(layer, x, qk, kscale, out, L, B, K, N, G,
+                                    gpb, stream);
+  return launch_w8a8_p<TX, TO, 2>(layer, x, qk, kscale, out, L, B, K, N, G,
+                                  gpb, stream);
 }
 
 template <typename TX, typename TO>

@@ -18,9 +18,11 @@ Two kinds of function, one API:
    ``paged_verify_attention_kv8_cuda``, which fold the per-token scales
    in-kernel.  A wrapper given CUDA tensors launches its kernel and adds one
    to its ``launches`` count, or raises; it takes its plain version only
-   for tensors that lie on the CPU.  ``paged_verify_attention_cuda`` picks
-   its kernel by the pool's dtype (:func:`verify_route`): bf16 and fp16
-   pools run the split-K tensor-core kernel, f32 pools the f32 template.
+   for tensors that lie on the CPU.  The three float wrappers pick their
+   kernel by dtype (:func:`decode_route`, :func:`verify_route`): bf16 and
+   fp16 run the split-K tensor-core kernel (a window of one for decode; a
+   contiguous cache read as a pool of one block per row), f32 the f32
+   template.
    The kv8 wrappers pick theirs by the query's dtype (:func:`kv8_route`):
    bf16 and fp16 queries run the split-K tensor-core kernel over int8
    codes, f32 queries the f32 template.
@@ -131,6 +133,20 @@ def verify_route(dtype) -> str:
         return "template"
     raise ValueError(f"paged verify: dtype {dtype} not supported (float32, "
                      "float16, bfloat16)")
+
+
+def decode_route(dtype) -> str:
+    """The kernel a single-token decode on a float pool or a contiguous
+    float cache of ``dtype`` runs: ``"split"`` (the split-K tensor-core
+    kernel at T = 1) for bfloat16 and float16, ``"template"`` (the f32
+    template) for float32, whose tensor-core products would round to tf32
+    and miss the fp32 path's exactness; raises for any other dtype."""
+    if dtype in (torch.bfloat16, torch.float16):
+        return "split"
+    if dtype == torch.float32:
+        return "template"
+    raise ValueError(f"decode attention: dtype {dtype} not supported "
+                     "(float32, float16, bfloat16)")
 
 
 def kv8_route(dtype) -> str:
@@ -326,11 +342,28 @@ def _stream(device) -> int:
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 
+_ROW_TABLES = {}
+
+
+def _row_tables(b: int, device) -> torch.Tensor:
+    """int32 [B, 1] block tables ``[[0], [1], ...]``, made once per (device,
+    B): a contiguous cache [B, HKV, S, D] read as a pool of B blocks of S
+    keys each."""
+    if (device, b) not in _ROW_TABLES:
+        _ROW_TABLES[(device, b)] = torch.arange(
+            b, dtype=torch.int32, device=device)[:, None].contiguous()
+    return _ROW_TABLES[(device, b)]
+
+
 def decode_attention_cuda(q, k_cache, v_cache, q_pos, *,
                           sm_scale: Optional[float] = None):
     """Single-token decode: q [B, H, 1, D] vs cache [B, HKV, S, D];
     ``q_pos`` scalar or per-row int32 [B].  Replaces
-    ``decode_attention_pallas`` (``_decode_kernel``)."""
+    ``decode_attention_pallas`` (``_decode_kernel``).  On CUDA the dtype
+    picks the kernel (:func:`decode_route`) as for the paged decode: bf16
+    and fp16 run the split-K tensor-core kernel on the cache read as a pool
+    of one S-key block per row, so ``generate`` and the paged server decode
+    with the same arithmetic; f32 runs the f32 template."""
     if not q.is_cuda:
         return decode_attention_reference(q, k_cache, v_cache, q_pos,
                                           sm_scale=sm_scale)
@@ -342,6 +375,11 @@ def decode_attention_cuda(q, k_cache, v_cache, q_pos, *,
         raise ValueError(f"decode_attention_cuda: cache shapes "
                          f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)} do "
                          f"not match q {tuple(q.shape)}")
+    if decode_route(q.dtype) == "split":
+        # row b's cache [HKV, S, D] is block b of a pool of S-key blocks
+        return _paged_cuda(decode_attention_cuda,
+                           "ds_paged_verify_attention_split", q, k_cache,
+                           v_cache, _row_tables(b, q.device), q_pos, sm_scale)
     _check_cuda("decode_attention_cuda", q, (k_cache, v_cache), h, hkv, 1)
     pos = _row_pos(q_pos, b, q.device)
     out = torch.empty_like(q)
@@ -443,7 +481,10 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, block_tables, q_pos, *,
     """Single-token paged decode: q [B, H, 1, D] against the pool
     [NB, HKV, bs, D], walking each row's int32 [B, NBPER] block table
     in-kernel.  Replaces ``paged_decode_attention_pallas``; int8 pool
-    records go to :func:`paged_decode_attention_kv8_cuda`."""
+    records go to :func:`paged_decode_attention_kv8_cuda`.  On CUDA the
+    dtype picks the kernel (:func:`decode_route`): bf16 and fp16 run the
+    split-K tensor-core kernel with a window of one, f32 the f32
+    template."""
     if is_quantized_pool(k_pool):
         return paged_decode_attention_kv8_cuda(q, k_pool, v_pool,
                                                block_tables, q_pos,
@@ -454,8 +495,9 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, block_tables, q_pos, *,
     if q.shape[2] != 1:
         raise ValueError(f"paged_decode_attention_cuda is single-token, got "
                          f"T={q.shape[2]}")
-    return _paged_cuda(paged_decode_attention_cuda,
-                       "ds_paged_decode_attention", q, k_pool, v_pool,
+    entry = {"split": "ds_paged_verify_attention_split",
+             "template": "ds_paged_decode_attention"}[decode_route(q.dtype)]
+    return _paged_cuda(paged_decode_attention_cuda, entry, q, k_pool, v_pool,
                        block_tables, q_pos, sm_scale)
 
 

@@ -20,8 +20,13 @@ Each kernel wrapper (``w8a8_matmul_cuda``, ``w8a8_matmul_stacked_cuda``,
 (``ops/csrc/quantized_matmul.cu``, built by ``ops/op_builder.py`` at first
 use) on CUDA tensors and adds one to its ``launches`` count, or raises; it
 takes its plain PyTorch version (``*_plain``, the same arithmetic in the
-same order) only for tensors on the CPU.  The switches are read at call
-time, as the JAX package reads them; the TPU's block-size knobs
+same order) only for tensors on the CPU.  B5 and B6 share one kernel,
+``w8a8_split_kernel``: a cluster of up to 16 blocks per 64-column tile,
+each block on its own k-groups with the int8 tensor cores, and the groups'
+terms summed in group order by the cluster's first block;
+``w8a8_matmul_split_plain`` models that tiling for the tests and
+``chip_smoke.py``.  The switches are read at call time, as the JAX
+package reads them; the TPU's block-size knobs
 (``DS_QMM_STEP_MB``, ``DS_QMM_BN``, ``DS_QMM_VMEM_MB``) choose VMEM tiles,
 change no result, and are not read: their defaults decide eligibility.
 """
@@ -38,6 +43,15 @@ from . import quantization as quant
 #: decode-shaped row cap shared by w8a8_matmul / w8a8_matmul_stacked and the
 #: models' indexed-decode gate (gpt2.use_indexed_decode)
 W8A8_MAX_ROWS = 8
+
+#: output columns one block of the w8a8 kernel takes (``W8_TN`` in
+#: ``csrc/quantized_matmul.cu``)
+W8A8_TILE_N = 64
+#: blocks of one column tile (a thread-block cluster, ``W8_CLUSTER``) and
+#: the k-groups one call may have (``W8_MAX_GROUPS``: their terms fill the
+#: first block's shared memory)
+_W8A8_CLUSTER = 16
+W8A8_MAX_GROUPS = 104
 
 #: the JAX package's default fetch-block budgets (``DS_QMM_STEP_MB``): the
 #: weight-only kernel's 1 MB and the w8a8 kernels' 4 MB
@@ -135,6 +149,45 @@ def w8a8_matmul_plain(x2d, qk, kscale3, out_dtype=None):
     return acc.to(out_dtype)
 
 
+def w8a8_matmul_split_plain(x2d, qk, kscale3, out_dtype=None, order=None):
+    """The w8a8 kernel's tiling in plain PyTorch, for the tests and
+    ``chip_smoke.py`` (no serving path calls it): each (column tile of
+    :data:`W8A8_TILE_N`, k-group) pair computes its term t_g = (float(dot)
+    * (ax/127)) * kscale into a partial ``[K/G, B, N]``, the pairs taken in
+    ``order`` (a permutation of ``range(tiles * groups)``, pair ``i`` being
+    tile ``i // groups`` and group ``i % groups``; default: last to first),
+    as the kernel's blocks run in no order; then the terms are summed in
+    group order and cast once.  Same arguments and bits as
+    :func:`w8a8_matmul_plain`."""
+    out_dtype = out_dtype or x2d.dtype
+    b, k_dim = x2d.shape
+    n_dim = qk.shape[1]
+    groups = kscale3.shape[0]
+    k_group = k_dim // groups
+    tiles = -(-n_dim // W8A8_TILE_N)
+    if order is None:
+        order = range(tiles * groups - 1, -1, -1)
+    xf = x2d.to(torch.float32)
+    part = torch.empty((groups, b, n_dim), dtype=torch.float32,
+                       device=x2d.device)
+    for i in order:
+        tile, g = divmod(int(i), groups)
+        cols = slice(tile * W8A8_TILE_N, (tile + 1) * W8A8_TILE_N)
+        xt = xf[:, g * k_group:(g + 1) * k_group]
+        ax = xt.abs().amax(dim=1, keepdim=True)
+        ax = torch.where(ax == 0, torch.ones_like(ax), ax)
+        xq = torch.clamp(torch.round(xt * quant.ieee_div(127.0, ax)),
+                         -127, 127)
+        dot = xq.to(torch.float64) @ \
+            qk[g * k_group:(g + 1) * k_group, cols].to(torch.float64)
+        part[g, :, cols] = dot.to(torch.float32) * \
+            quant.ieee_div(ax, 127.0) * kscale3[g, :, cols]
+    acc = torch.zeros((b, n_dim), dtype=torch.float32, device=x2d.device)
+    for g in range(groups):
+        acc = acc + part[g]
+    return acc.to(out_dtype)
+
+
 def quantized_matmul_plain(x2d, q, scale, out_dtype=None):
     """x [M, K] float, q int8 [K, N], scale f32 [K, N/G] -> [M, N]:
     ``bf16(x) @ bf16(bf16(q) * bf16(scale))``, rounded to f32 — the
@@ -162,15 +215,27 @@ def _lib():
     lib = builder("quantized_matmul", ["quantized_matmul.cu"]).load()
     if not getattr(lib, "_ds_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ds_w8a8_matmul.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-        lib.ds_w8a8_matmul_stacked.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                               i, i, p]
+        lib.ds_w8a8_matmul.argtypes = [p] * 4 + [i] * 6 + [p]
+        lib.ds_w8a8_matmul_stacked.argtypes = [p] * 5 + [i] * 7 + [p]
         lib.ds_quantized_matmul.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
         for fn in (lib.ds_w8a8_matmul, lib.ds_w8a8_matmul_stacked,
                    lib.ds_quantized_matmul):
             fn.restype = ctypes.c_int
         lib._ds_typed = True
     return lib
+
+
+def w8a8_groups_per_block(groups: int) -> int:
+    """k-groups one block of the w8a8 kernel takes (the launcher's rule in
+    ``csrc/quantized_matmul.cu``): the fewest that divide ``groups`` and
+    leave at most 16 blocks, one cluster, a column tile; 0 past
+    :data:`W8A8_MAX_GROUPS` groups."""
+    if not 1 <= groups <= W8A8_MAX_GROUPS:
+        return 0
+    gpb = -(-groups // _W8A8_CLUSTER)
+    while groups % gpb:
+        gpb += 1
+    return gpb
 
 
 def _check(name, x2d, out_dtype, tensors):
@@ -192,13 +257,21 @@ def _check(name, x2d, out_dtype, tensors):
                              "(float32, float16, bfloat16)")
 
 
+def _check_scale_alignment(name, kscale):
+    """The kernel reads 4 scales at a time."""
+    if kscale.data_ptr() % 16:
+        raise ValueError(f"{name}: kscale is not 16-byte aligned")
+
+
 def _raise_on_error(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
 def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current stream's handle on ``device``, without building a
+    ``Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _check_w8a8_shapes(name, x2d, k_dim, n_dim, k_group):
@@ -211,6 +284,9 @@ def _check_w8a8_shapes(name, x2d, k_dim, n_dim, k_group):
     if n_dim % 128 or not k_group or k_dim % k_group:
         raise ValueError(f"{name}: N={n_dim} must be a multiple of 128 and "
                          f"K={k_dim} whole k-groups of {k_group}")
+    if not w8a8_groups_per_block(k_dim // k_group):
+        raise ValueError(f"{name}: K/G={k_dim // k_group} k-groups > "
+                         f"{W8A8_MAX_GROUPS}")
 
 
 def w8a8_matmul_cuda(x2d, qk, kscale3, out_dtype=None):
@@ -229,6 +305,7 @@ def w8a8_matmul_cuda(x2d, qk, kscale3, out_dtype=None):
                          f"match qk {tuple(qk.shape)}")
     _check(name, x2d, out_dtype, (("x", x2d, None), ("qk", qk, torch.int8),
                                   ("kscale", kscale3, torch.float32)))
+    _check_scale_alignment(name, kscale3)
     out = torch.empty((x2d.shape[0], n_dim), dtype=out_dtype,
                       device=x2d.device)
     err = _lib().ds_w8a8_matmul(
@@ -250,7 +327,7 @@ def w8a8_matmul_stacked_cuda(layer_idx, x2d, qks, kscales, out_dtype=None):
     kernel and clamped to [0, L) as ``dynamic_index_in_dim`` clamps; no
     host sync.  Replaces ``_w8a8_stacked_call``."""
     if not x2d.is_cuda:
-        l_idx = int(layer_idx)
+        l_idx = min(max(int(layer_idx), 0), qks.shape[0] - 1)
         return w8a8_matmul_plain(x2d, qks[l_idx], kscales[l_idx], out_dtype)
     name = "w8a8_matmul_stacked_cuda"
     out_dtype = out_dtype or x2d.dtype
@@ -266,6 +343,7 @@ def w8a8_matmul_stacked_cuda(layer_idx, x2d, qks, kscales, out_dtype=None):
     _check(name, x2d, out_dtype, (("x", x2d, None), ("qks", qks, torch.int8),
                                   ("kscales", kscales, torch.float32),
                                   ("layer_idx", layer_idx, torch.int32)))
+    _check_scale_alignment(name, kscales)
     out = torch.empty((x2d.shape[0], n_dim), dtype=out_dtype,
                       device=x2d.device)
     err = _lib().ds_w8a8_matmul_stacked(
