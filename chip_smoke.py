@@ -46,8 +46,18 @@ Phases (any failure raises and exits non-zero):
     256, 64 and 96, fp16 and fp32 activations, an fp32 output, clusters of
     12, 10, 1 and 13 blocks up to the 104-group limit), with a zero
     k-group, B6's layer index -1 and L clamped, and a second call and a
-    CUDA-graph replay bit-identical to the first; the yardstick, bf16 ``x @
-    W``, is timed eagerly and replayed from a CUDA graph;
+    CUDA-graph replay bit-identical to the first.  B7
+    (``qmm_split_kernel``) is held against the plain version and the plain
+    model of its tiling at the added cases of ``QMM_CASES`` (tail chunks,
+    one chunk, clusters of 2 to 16 blocks of 1 to 6 chunks, groups of 128,
+    256 and N, N = 128 and 896, 1 to 300 rows, fp16 and fp32 activations
+    with every output type) and at GPT-2's shapes on 256 rows, with rows of
+    1- to 256-row calls and rows alone bit-identical, its blocks' terms
+    merged in block order (bit for bit), and a second call and a CUDA-graph
+    replay bit-identical to the first.  The yardstick, bf16 ``x @ W``, is
+    timed eagerly and replayed from a CUDA graph, with each int8 wrapper's
+    host time a call beside its own; B7 also beside the ``DS_QMM=0`` path
+    (``x @ dequantize(rec)``), and replayed at 4 to 256 rows;
  3. ``init_inference(...).generate`` on GPT-2 125M (bf16, random weights
     from a seeded generator): 4 x 128-token prompts, 64 new tokens;
  4. ``init_serving(...).serve`` on the same weights: 16 requests, half of
@@ -74,15 +84,17 @@ Phases (any failure raises and exits non-zero):
     B3), a ``quantize="w8a8"`` server (float pool), a ``prefill_chunk=16``
     kv8 server (kv8 B4), w8a8 ``generate`` with ``DS_INDEXED_DECODE=0`` (B5;
     its tokens must equal the first run's) and weight-only ``generate``
-    with ``DS_QMM=1`` (B7).  The w8a8 server's tokens must agree with w8a8
-    ``generate`` on >= 0.95 of each request's positions (the same
-    arithmetic); the kv8 pool is another arithmetic than ``generate``'s
-    float cache, so the kv8 lanes are held, as the w8a8 one is, by the
-    teacher-forced logit RMSE against the bf16 float lane, within
+    with ``DS_QMM=1`` (B7), then without it (``x @ dequantize(rec)``, its
+    rate and token agreement reported).  The w8a8 server's tokens must
+    agree with w8a8 ``generate`` on >= 0.95 of each request's positions
+    (the same arithmetic); the kv8 pool is another arithmetic than
+    ``generate``'s float cache, so the kv8 lanes are held, as the w8a8 one
+    is, by the teacher-forced logit RMSE against the bf16 float lane, within
     W8A8_MAX_LOGIT_RMSE; their token agreement is reported.  Then one
-    profiled window of decode iterations, float lane against w8a8+kv8:
-    device busy time, idle share and launches an iteration, with B3's,
-    kv8 B3's and B6's device time an iteration.
+    profiled window of decode iterations each for the float lane,
+    w8a8+kv8, and weight-only int8 under ``DS_QMM=1`` and ``DS_QMM=0``:
+    device busy time, idle share and launches an iteration, with B3's, kv8
+    B3's, B6's and B7's device time an iteration.
 
 Each main path is read alone: the decode kernels' counts are set to 0
 before phase 3 and read after phase 5, the flash kernels' before phase 7
@@ -93,6 +105,7 @@ and the ``{"ok": true, "device": ...}`` JSON object.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import sys
@@ -1037,27 +1050,196 @@ def check_w8a8_cases():
             "0, L-1, L; repeat and graph replay bit-identical")
 
 
+#: weight-only (B7) cases beyond GPT-2 125M's shapes: (label, K, N, G, x
+#: dtype, out dtype or None for x's, rows).  The first holds every planted
+#: fault of the kernel: 4 blocks of one chunk, the last 72 rows (K % 16 ==
+#: 8: half a k-step of zeros), 7 scale groups, an fp32 output; then a tail
+#: chunk alone (K = 200: 2 blocks), one chunk, 12 blocks of 2 chunks (K =
+#: 3072), 9 blocks whose last takes 1 of 17 chunks, 16 blocks of 6 (K =
+#: 12288), groups of 256 and one group (G = N), N = 896; 1, 8, 9 (two
+#: n-tiles), 64 and 256 rows (row tiles of 32) and 300 (past the entry's
+#: row cap: the wrapper takes any M); fp16 and fp32 activations with every
+#: output type
+QMM_CASES = (
+    ("K=456, tail chunk, fp32", 456, 896, 128, "float32", None, 8),
+    ("K=200, tail chunk", 200, 896, 128, "bfloat16", None, 8),
+    ("K=128, one chunk", 128, 2304, 128, "bfloat16", None, 4),
+    ("K=3072, N=128", 3072, 128, 128, "bfloat16", None, 8),
+    ("K=2176, 17 chunks", 2176, 256, 128, "bfloat16", None, 8),
+    ("K=12288, 96 chunks", 12288, 128, 128, "bfloat16", None, 8),
+    ("G=256", 768, 768, 256, "bfloat16", None, 8),
+    ("G=N=896", 768, 896, 896, "bfloat16", None, 8),
+    ("1 row", 768, 2304, 128, "bfloat16", None, 1),
+    ("9 rows", 768, 2304, 128, "bfloat16", None, 9),
+    ("64 rows", 768, 768, 128, "bfloat16", None, 64),
+    ("256 rows", 768, 2304, 128, "bfloat16", None, 256),
+    ("300 rows", 3072, 768, 128, "bfloat16", None, 300),
+    ("fp16 x", 768, 896, 128, "float16", None, 8),
+    ("fp16 x, bf16 out", 768, 896, 128, "float16", "bfloat16", 8),
+    ("fp16 x, fp32 out", 384, 896, 128, "float16", "float32", 9),
+    ("fp32 x, bf16 out", 768, 896, 128, "float32", "bfloat16", 8),
+    ("fp32 x, fp16 out", 200, 896, 128, "float32", "float16", 33),
+    ("bf16 x, fp32 out", 768, 2304, 128, "bfloat16", "float32", 8),
+    ("bf16 x, fp16 out", 768, 2304, 128, "bfloat16", "float16", 8),
+)
+
+
+def check_qmm_exact(label, x, rec, out_dtype=None):
+    """B7 (``qmm_split_kernel``) on the activations ``x`` [M, K] against
+    ``quantized_matmul_plain`` and ``quantized_matmul_split_plain`` (the
+    model of its tiling) at FP32_TOL for an fp32 output and BF16_TOL for a
+    16-bit one.  Bit for bit: the rows of calls of 1, 4, 8, 9, 64 and 256
+    rows (those below M) and sampled rows alone equal the same rows of the
+    M-row call; the call equals the f32 sum, in block order, of calls
+    whose activations are zero outside one block's k-span (each such call
+    returns that block's term alone, so the terms merge in block order);
+    a second call and a CUDA-graph replay give the first call's bits.
+    Returns the largest error against the plain version."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+
+    q, scale = rec["q"], rec["scale"]
+    m, k = x.shape
+    n = q.shape[1]
+    out_dtype = out_dtype or x.dtype
+    tol = FP32_TOL if out_dtype == torch.float32 else BF16_TOL
+
+    def b7(a, dtype=out_dtype):
+        return qm.quantized_matmul_cuda(a, q, scale, dtype)
+
+    full = b7(x)
+    torch.cuda.synchronize()
+    if not torch.isfinite(full).all():
+        raise AssertionError(f"{label}: non-finite B7 output")
+    want = qm.quantized_matmul_plain(x, q, scale, out_dtype)
+    for ref_name, ref in (("the plain version", want), (
+            "the split model", qm.quantized_matmul_split_plain(
+                x, q, scale, out_dtype))):
+        torch.testing.assert_close(
+            full.float(), ref.float(), atol=tol, rtol=tol,
+            msg=lambda msg: f"{label}: B7 against {ref_name}: {msg}")
+    for rows in (1, 4, 8, 9, 64, 256):
+        if rows < m and not torch.equal(b7(x[:rows]), full[:rows]):
+            raise AssertionError(f"{label}: B7's {rows}-row call differs "
+                                 f"from the same rows of the {m}-row call")
+    for r in sorted({0, min(1, m - 1), m // 2, m - 1}):
+        if not torch.equal(b7(x[r:r + 1]), full[r:r + 1]):
+            raise AssertionError(f"{label}: B7 row {r} alone differs")
+    span = qm.qmm_chunks_per_block(k, n, n // scale.shape[1]) * \
+        qm.QMM_CHUNK_K
+    merged = torch.zeros((m, n), dtype=torch.float32, device="cuda")
+    for k0 in range(0, k, span):
+        xb = torch.zeros_like(x)
+        xb[:, k0:k0 + span] = x[:, k0:k0 + span]
+        merged = merged + b7(xb, torch.float32)
+    if not torch.equal(b7(x, torch.float32), merged):
+        raise AssertionError(f"{label}: B7 does not sum the blocks' terms "
+                             "in block order")
+    if not torch.equal(b7(x), full):
+        raise AssertionError(f"{label}: a second B7 call differs")
+    if not torch.equal(graph_replay(lambda: b7(x)), full):
+        raise AssertionError(f"{label}: a CUDA-graph replay of B7 differs")
+    return (full.float() - want.float()).abs().max().item()
+
+
+def qmm_inputs(k, n, group, rows, dtype, seed):
+    """A weight-only record of a random [K, N] weight (groups of ``group``
+    columns) and ``rows`` activation rows in ``dtype``."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.quantization import quantize
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn((k, n), generator=g, device="cuda") * 0.02
+    rec = quantize(w.to(torch.bfloat16), group_size=group)
+    x = torch.randn((rows, k), generator=g, device="cuda")
+    return rec, x.to(dtype)
+
+
+def check_qmm_cases():
+    """Phase 2c's added B7 cases (:data:`QMM_CASES`), each through
+    :func:`check_qmm_exact`.  Returns the largest error against the plain
+    version."""
+    import torch
+
+    err = 0.0
+    for seed, (label, k, n, group, x_dtype, out_dtype, rows) in \
+            enumerate(QMM_CASES):
+        rec, x = qmm_inputs(k, n, group, rows, getattr(torch, x_dtype),
+                            600 + seed)
+        e = check_qmm_exact(f"B7 {label}", x, rec,
+                            out_dtype and getattr(torch, out_dtype))
+        err = max(err, e)
+        log(f"[qmm] B7 {label} (K={k}, N={n}, G={group}, {rows} rows, x "
+            f"{x_dtype}, out {out_dtype or x_dtype}): max_abs_err {e:.3e}; "
+            "split model agrees; rows of smaller calls and rows alone "
+            "bit-identical; terms merged in block order; repeat and graph "
+            "replay bit-identical")
+    return err
+
+
+#: B7 row counts past :func:`check_qmm_kernels`' 4 and 8 timed at GPT-2
+#: 125M's shapes (those within the entry's row cap, min(256, max(8, 2**19
+#: // N)))
+QMM_SWEEP_ROWS = (16, 64, 128, 256)
+
+
+def qmm_sweep(flush):
+    """B7's time replayed from a CUDA graph at GPT-2 125M's four shapes
+    and :data:`QMM_SWEEP_ROWS`, beside the ``DS_QMM=0`` path (``x @
+    dequantize(rec)``, what the entry runs without the kernel) and the
+    bf16 ``x @ W`` of the same shape."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+    from deepspeed_tpu_torch.ops.quantization import dequantize
+
+    for si, (k, n) in enumerate(GPT2_MATMULS):
+        rec, x_all = qmm_inputs(k, n, 128, max(QMM_SWEEP_ROWS),
+                                torch.bfloat16, 500 + si)
+        w = dequantize(rec, torch.bfloat16)
+        cap = min(256, max(8, 2 ** 19 // n))
+        for rows in QMM_SWEEP_ROWS:
+            if rows > cap:
+                continue
+            x = x_all[:rows]
+            r = {"b7": graph_ms(lambda: qm.quantized_matmul_cuda(
+                     x, rec["q"], rec["scale"]), flush),
+                 "dequant_path": graph_ms(
+                     lambda: x @ dequantize(rec, x.dtype), flush),
+                 "x_at_w": graph_ms(lambda: x @ w, flush)}
+            log(f"[qmm sweep] ({k}, {n}) {rows} rows, graph ms: " +
+                ", ".join(f"{name} {v:.4f}" for name, v in r.items()))
+        del rec, x_all, w
+
+
 def check_qmm_kernels(flush):
     """Phase 2c, second half: B5, B6 and B7 against their plain versions at
     GPT-2 125M's four (K, N) shapes, with bf16 and fp32 activations at 8, 4
     and 1 rows, and their row invariance; B5 and B6 bit for bit
     (:func:`check_w8a8_exact`), after the added cases of
-    :func:`check_w8a8_cases`.  Times at 8 rows for B6 (the 8-slot server)
-    and 4 for B5 and B7 (``generate``'s batch), plus each one's graph time
-    at 8 rows; all four shapes logged, (768, 2304) kept for the kernels
+    :func:`check_w8a8_cases`; B7 through :func:`check_qmm_exact` on 256
+    rows, after the added cases of :func:`check_qmm_cases`.  Times at 8
+    rows for B6 (the 8-slot server) and 4 for B5 and B7 (``generate``'s
+    batch), plus each one's graph time at 8 rows and its wrapper's host
+    time a call; all four shapes logged, (768, 2304) kept for the kernels
     line.  The yardstick is the bf16 ``x @ W`` of the same shape, eager and
     replayed from a CUDA graph: same shape, not the same function (no
-    single PyTorch call computes w8a8)."""
+    single PyTorch call computes w8a8); B7 also has the ``DS_QMM=0`` path,
+    ``x @ dequantize(rec)``, beside it, then :func:`qmm_sweep`'s graph
+    times at 16-256 rows."""
     import torch
 
     from deepspeed_tpu_torch.ops import quantized_matmul as qm
-    from deepspeed_tpu_torch.ops.quantization import (quantize,
+    from deepspeed_tpu_torch.ops.quantization import (dequantize, quantize,
                                                       quantize_k_grouped)
 
     bf16, f32 = torch.bfloat16, torch.float32
     main_rows = {"w8a8_matmul_cuda": 4, "w8a8_matmul_stacked_cuda": 8,
                  "quantized_matmul_cuda": 4}
     check_w8a8_cases()
+    qmm_err = check_qmm_cases()
     layers = 12
     ids = torch.arange(layers, dtype=torch.int32, device="cuda")
     out, max_err = {}, {}
@@ -1069,6 +1251,7 @@ def check_qmm_kernels(flush):
         l = 5
         wrec = quantize(w[l], group_size=128)
         x_all = torch.randn((8, k), generator=g, device="cuda")
+        x256 = torch.randn((256, k), generator=g, device="cuda")
         w_bf16 = w[l].contiguous()
         for dtype in (bf16, f32):
             x8 = x_all.to(dtype)
@@ -1122,12 +1305,17 @@ def check_qmm_kernels(flush):
                 raise AssertionError(f"({k}, {n}) {dtype}: stacked != "
                                      "per-layer w8a8")
             check_w8a8_exact(f"({k}, {n}) {dtype}", x8, rec)
+            qmm_err = max(qmm_err, check_qmm_exact(f"B7 ({k}, {n}) {dtype}",
+                                                   x256.to(dtype), wrec))
             log(f"[qmm] ({k}, {n}) {dtype}: max_abs_err " + ", ".join(
                 f"{nm} {e:.3e}" for nm, e in errs.items()) + " (atol = rtol "
                 f"{BF16_TOL if dtype == bf16 else FP32_TOL}); rows 1/4/8 "
                 "bit-identical; stacked == per-layer; B5 and B6 equal the "
                 "plain version bit for bit (layer indices -1, 0, L-1, L; "
-                "repeat and graph replay)")
+                "repeat and graph replay); B7 on 256 rows: split model "
+                "agrees, rows of 1-256-row calls and rows alone "
+                "bit-identical, terms merged in block order, repeat and "
+                "graph replay bit-identical")
             if dtype != bf16:
                 continue
             for name, (kernel, plain) in calls.items():
@@ -1142,21 +1330,41 @@ def check_qmm_kernels(flush):
                 at8 = "" if rows == 8 else (
                     f", {graph_ms(lambda: kernel(x8), flush):.4f} ms graph at "
                     f"8 rows (x @ W {graph_ms(lambda: x8 @ w_bf16, flush):.4f})")
+                extra = {}
+                if name == "quantized_matmul_cuda":
+                    def dequant_path(a):
+                        return a @ dequantize(wrec, a.dtype)
+
+                    extra = {"dequant_ms": timed_ms(lambda: dequant_path(x),
+                                                    flush),
+                             "dequant_graph_ms": graph_ms(
+                                 lambda: dequant_path(x), flush)}
+                    at8 += (f"; the DS_QMM=0 path x @ dequantize(rec) "
+                            f"{extra['dequant_ms']:.4f} ms "
+                            f"({extra['dequant_graph_ms']:.4f} ms graph; "
+                            f"{graph_ms(lambda: dequant_path(x8), flush):.4f}"
+                            " ms graph at 8 rows)")
                 log(f"[qmm] ({k}, {n}) {name} at {rows} rows: kernel "
                     f"{ms:.4f} ms ({ms_graph:.4f} ms replayed from a CUDA "
                     f"graph{at8}), plain {plain_ms:.4f} ms, bf16 x @ W (same "
                     f"shape, not the same function) {library_ms:.4f} ms "
                     f"({library_graph_ms:.4f} ms graph), bound "
-                    f"{bound_ms:.5f} ms ({bound_by})")
+                    f"{bound_ms:.5f} ms ({bound_by}); host time a call: "
+                    f"wrapper {host_ms(lambda: kernel(x)):.4f} ms, x @ W "
+                    f"{host_ms(lambda: x @ w_bf16):.4f} ms")
                 if (k, n) == GPT2_MATMULS[0]:
                     out[name] = {"ms": ms, "graph_ms": ms_graph,
                                  "plain_ms": plain_ms,
                                  "library_ms": library_ms,
                                  "library_graph_ms": library_graph_ms,
-                                 "bound_ms": bound_ms, "bound_by": bound_by}
-        del w, rec, wrec
+                                 "bound_ms": bound_ms, "bound_by": bound_by,
+                                 **extra}
+        del w, rec, wrec, x256
+    max_err["quantized_matmul_cuda"] = max(max_err["quantized_matmul_cuda"],
+                                           qmm_err)
+    qmm_sweep(flush)
     for name, m in out.items():
-        m["max_abs_err"] = max_err[name]          # over every shape and dtype
+        m["max_abs_err"] = max_err[name]   # over every shape, dtype and case
     return out
 
 
@@ -1483,6 +1691,22 @@ def profile_serving(label, srv, reqs, watches, warm: int = 24,
             f" ms x{e.count // steps:<4} an iteration: {e.key[:70]}")
 
 
+@contextlib.contextmanager
+def qmm_switch(value):
+    """``DS_QMM`` set to ``value`` inside the block, restored after."""
+    import os
+
+    old = os.environ.get("DS_QMM")
+    os.environ["DS_QMM"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["DS_QMM"]
+        else:
+            os.environ["DS_QMM"] = old
+
+
 def quant_phase(engine, prompts, gen, float_lane):
     """Phase 10: the quantized lane on GPT-2 125M bf16 with phase 3's
     weights and phases 3-5's traffic.  Returns the int8 kernels' launch
@@ -1608,9 +1832,7 @@ def quant_phase(engine, prompts, gen, float_lane):
                              "indexed run's")
     # 5. weight-only int8 with the opt-in fused kernel (B7)
     before = int8_counts()
-    old = os.environ.get("DS_QMM")
-    os.environ["DS_QMM"] = "1"
-    try:
+    with qmm_switch("1"):
         t0 = time.perf_counter()
         qeng = dt.init_inference(model, config={
             "dtype": "bf16", "quant": {"enabled": True}},
@@ -1619,11 +1841,6 @@ def quant_phase(engine, prompts, gen, float_lane):
         t_build = time.perf_counter() - t0
         qgen, t_qgen = timed(lambda: qeng.generate(prompts,
                                                    max_new_tokens=64))
-    finally:
-        if old is None:
-            del os.environ["DS_QMM"]
-        else:
-            os.environ["DS_QMM"] = old
     c5 = {k: v - before[k] for k, v in int8_counts().items()}
     log(f"[quant 5: weight-only generate, DS_QMM=1] engine built in "
         f"{t_build:.2f} s; {4 * 64 / t_qgen:.1f} generated tok/s; launches {c5} "
@@ -1633,19 +1850,36 @@ def quant_phase(engine, prompts, gen, float_lane):
     if any(n == 0 for n in counts.values()):
         raise AssertionError(f"phase 10 left an int8 kernel unlaunched: "
                              f"{counts}")
+    # 5b. the same engine on the default path (DS_QMM=0: x @ dequantize(rec),
+    # no int8 kernel), to weigh the opt-in end to end
+    with qmm_switch("0"):
+        dgen, t_dgen = timed(lambda: qeng.generate(prompts,
+                                                   max_new_tokens=64))
+    log(f"[quant 5b: weight-only generate, DS_QMM=0] {4 * 64 / t_dgen:.1f} "
+        f"generated tok/s (DS_QMM=1: {4 * 64 / t_qgen:.1f}); " + lane_report(
+            "vs DS_QMM=1 (another weight rounding)", dgen, qgen))
     del qeng, srv, srv16, srv_w
 
-    # where a decode iteration's time goes, float lane against w8a8+kv8
+    # where a decode iteration's time goes: the float lane, w8a8+kv8, and
+    # weight-only int8 with the opt-in B7 (DS_QMM=1) and without it (the
+    # server quantizes phase 3's weights on the host)
     window = reqs[-4:] + reqs[:4]
-    for label, quantize, params, watch in (
-            ("float", None, engine.params, [("B3", "verify_split_kernel")]),
-            ("w8a8+kv8", "w8a8+kv8", weng.params,
-             [("kv8 B3", "q8_split_kernel"), ("B6", "w8a8_split_kernel")])):
-        psrv = dt.init_serving(model, config={"dtype": "bf16"},
-                               params=params, quantize=quantize, slots=8,
-                               max_seq_len=1024, block_size=32,
-                               prefill_chunk=128, sampling=False)
-        profile_serving(label, psrv, window, watch)
+    weight_only = {"dtype": "bf16", "quant": {"enabled": True}}
+    for label, config, quantize, params, qmm, watch in (
+            ("float", {"dtype": "bf16"}, None, engine.params, "0",
+             [("B3", "verify_split_kernel")]),
+            ("w8a8+kv8", {"dtype": "bf16"}, "w8a8+kv8", weng.params, "0",
+             [("kv8 B3", "q8_split_kernel"), ("B6", "w8a8_split_kernel")]),
+            ("weight-only DS_QMM=1", weight_only, None, engine.params, "1",
+             [("B7", "qmm_split_kernel"), ("B3", "verify_split_kernel")]),
+            ("weight-only DS_QMM=0", weight_only, None, engine.params, "0",
+             [("B3", "verify_split_kernel")])):
+        with qmm_switch(qmm):
+            psrv = dt.init_serving(model, config=config, params=params,
+                                   quantize=quantize, slots=8,
+                                   max_seq_len=1024, block_size=32,
+                                   prefill_chunk=128, sampling=False)
+            profile_serving(label, psrv, window, watch)
         del psrv
 
     # teacher-forced logit error against the float lane, fed its tokens
@@ -1959,7 +2193,7 @@ def main() -> int:
         "flash_attention_bwd_dkv_cuda": "wgmma_dkv_kernel",
         "w8a8_matmul_cuda": "w8a8_split_kernel",
         "w8a8_matmul_stacked_cuda": "w8a8_split_kernel",
-        "quantized_matmul_cuda": "qmm_kernel",
+        "quantized_matmul_cuda": "qmm_split_kernel",
     }
     sources = {da: "deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
                fa: "deepspeed_tpu_torch/ops/csrc/flash_attention.cu",
@@ -1977,7 +2211,10 @@ def main() -> int:
                 "graph_ms": m["graph_ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                 "bound_by": m["bound_by"], "library_ms": m["library_ms"],
-                "library_graph_ms": m["library_graph_ms"]})
+                "library_graph_ms": m["library_graph_ms"],
+                # B7: the DS_QMM=0 path, x @ dequantize(rec), beside it
+                **{key: m[key] for key in ("dequant_ms", "dequant_graph_ms")
+                   if key in m}})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

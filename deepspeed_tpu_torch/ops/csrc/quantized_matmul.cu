@@ -12,8 +12,9 @@
 //                              memory (the TPU's scalar prefetch), read by
 //                              the kernel, clamped to [0, L) as a dynamic
 //                              index is
-//   ds_quantized_matmul     <- _qmm_call (_kernel): x [M, K] float, q int8
-//                              [K, N], scale f32 [K, N/G], G % 128 == 0
+//   ds_quantized_matmul     <- _qmm_call (_kernel): x [M >= 1, K] float, q
+//                              int8 [K, N], scale f32 [K, N/G], K % 8 == 0,
+//                              G % 128 == 0
 // Every one returns cudaGetLastError() after its launch.
 //
 // w8a8 arithmetic (quantized_matmul.py:249-263, kept literally): for each
@@ -64,17 +65,50 @@
 // zero codes and zero weights.
 
 // Weight-only arithmetic (quantized_matmul.py:91-98): out = sum_k bf16(x) *
-// bf16(bf16(q) * bf16(scale[k, n/G])) with f32 accumulation; the weight's
-// product rounds to bf16 as the TPU kernel's bf16 multiply does.  Design:
-// 32 x 64 output tiles, 256 threads of 2 x 4 outputs each, k in steps of 32
-// staged in shared memory as f32 (x rounded to bf16, weights dequantized);
-// each output sums k in order, so rows are independent of M.  Bound: the
-// int8 weight bytes plus scales.
+// bf16(bf16(q) * bf16(scale[k, n/G])) with f32 accumulation, cast once; the
+// weight's product rounds to bf16 as the TPU kernel's bf16 multiply does
+// (the f32 product of an int8 and a bf16 is exact, so one rounding).
+//
+// qmm_split_kernel (B7).  Bound: the weight bytes, K*N int8 plus K*N/G f32
+// scales, over 3.35 TB/s (0.55 us at GPT-2's (768, 2304)); the 2*M*K*N bf16
+// products are far below the tensor cores' rate at decode sizes.  As for
+// w8a8, what decides the time is how many SMs have weight bytes in flight
+// and how many dependent steps a block takes.  K is cut into 128-row
+// chunks; each 64-column tile gets a thread-block cluster of C <= 16
+// blocks, block y on chunks [y*cpb, (y+1)*cpb), cpb the fewest that leave
+// at most 16 blocks (216 blocks of one chunk at (768, 2304), 72 at (768,
+// 768), 288 at (768, 3072), 144 of two at (3072, 768)).  A block's 4 warps
+// take 32 k-rows of each chunk; a thread loads its 8 columns of 8 k-rows
+// of the chunk as 8-byte words straight into registers (each warp load
+// reads 4 whole 64-byte row segments), and the next chunk's words, scales
+// and activations are in flight while the current chunk multiplies.  The
+// weight tile is dequantized in registers (int8 -> f32 exactly, times the
+// bf16-rounded scale, rounded once to bf16) into the A fragment of bf16
+// mma.sync m16n8k16 with f32 accumulation: the weight columns are the
+// mma's M (m-tile mt's rows g and g + 8 are columns 8g + 2mt and 8g + 2mt
+// + 1, so a thread's 8 columns are one 8-byte word), the activation rows
+// its N, so a decode batch fills the instruction; the activations sit
+// [row][k] as bf16 in shared memory, the B fragment's layout.  A 64-column
+// tile lies inside one scale group (64 | G): a chunk needs one scale per
+// k-row, staged once in shared memory.  The sum order is a function of
+// (K, N, G) alone: each warp accumulates its k-slices of the block's
+// chunks in chunk order, the 4 warps' partials are summed in warp order
+// into the block's term, and after a cluster barrier each output is the
+// cluster's terms summed in rank order, read from the blocks' shared
+// memory (the merge is spread over the blocks; a second barrier keeps
+// every term alive until read).  Rows only choose how many 8-row n-tiles a block takes (1, 2 or
+// 4) and how many row tiles the grid has (its z), never the split of K, so
+// a row's result is the same bits in a call of any row count.  Rows past M
+// read zero activations and are not written; k-rows past K read zero
+// weights and activations (K % 8 == 0; K % 16 == 8 leaves half a k-step
+// of zeros).  One launch, no scratch in device memory.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -308,63 +342,254 @@ w8a8_split_kernel(const TX* __restrict__ x, const int8_t* __restrict__ qk,
   }
 }
 
-constexpr int QM_THREADS = 256;
-constexpr int QM_TM = 32, QM_TN = 64, QM_TK = 32;
+constexpr int QM_THREADS = 128;                  // 4 warps
+constexpr int QM_TN = 64;                        // output columns per block
+constexpr int QM_KC = 128;                       // k-rows a chunk, 32 a warp
+constexpr int QM_CLUSTER = 16;                   // blocks of a column tile
+constexpr int QM_XS = QM_KC + 8;                 // activation row stride (bf16)
+constexpr int QM_RS = QM_TN + 4;                 // partial row stride (f32)
 
-template <typename TX, typename TO>
+// c[16 x 8] (f32) += a[16 x 16] * b[16 x 8] (bf16), lane = 4 * grp + tig:
+// a[0] row grp at k 2*tig, 2*tig+1 (the low half the lower k), a[1] row
+// grp + 8 at the same k, a[2] and a[3] the same rows at k + 8; b[0] column
+// grp at k 2*tig, 2*tig+1, b[1] at k + 8; c[i] row grp + 8 * (i >> 1),
+// column 2 * tig + (i & 1).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 8 consecutive activations of type TX, loaded as sizeof(TX) / 2 16-byte
+// words, rounded to bf16 and packed in k order
+template <typename TX>
+__device__ __forceinline__ uint4 qm_x_bf16(const uint4 (&r)[sizeof(TX) / 2]) {
+  if constexpr (std::is_same<TX, float>::value) {
+    return make_uint4(
+        bf16x2_bits(__uint_as_float(r[0].x), __uint_as_float(r[0].y)),
+        bf16x2_bits(__uint_as_float(r[0].z), __uint_as_float(r[0].w)),
+        bf16x2_bits(__uint_as_float(r[1].x), __uint_as_float(r[1].y)),
+        bf16x2_bits(__uint_as_float(r[1].z), __uint_as_float(r[1].w)));
+  } else if constexpr (std::is_same<TX, __half>::value) {
+    const uint32_t w[4] = {r[0].x, r[0].y, r[0].z, r[0].w};
+    uint32_t o[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      o[i] = bf16x2_bits(
+          __half2float(__ushort_as_half((unsigned short)(w[i] & 0xffffu))),
+          __half2float(__ushort_as_half((unsigned short)(w[i] >> 16))));
+    return make_uint4(o[0], o[1], o[2], o[3]);
+  } else {
+    return r[0];
+  }
+}
+
+// bf16(bf16(q) * s) for byte `b` of a thread's 8-column word (s already
+// rounded to bf16): the f32 product is exact, so it rounds once
+__device__ __forceinline__ float qm_deq(uint2 w, int b, float s) {
+  const uint32_t v = b < 4 ? w.x : w.y;
+  return __fmul_rn((float)(int8_t)(v >> (8 * (b & 3))), s);
+}
+
+// One cluster of blocks per 64-column tile, spanning K: grid (N / 64, C,
+// row tiles) with cluster dims (1, C, 1), block y on k-chunks [y * cpb,
+// min((y + 1) * cpb, chunks)), and NT 8-row n-tiles of rows [z * 8 * NT,
+// ...).  Warp w takes k-rows 32w..32w+31 of each chunk, in 2 k-steps of
+// 16; a thread (grp, tig) loads k-rows 2tig, 2tig+1, 2tig+8, 2tig+9 of each
+// step at columns 8grp..8grp+7, which are its A fragments' rows of all 4
+// m tiles.  Each block's term (the 4 warps' partials summed in warp order)
+// stays in its own shared memory; after a cluster barrier the outputs are
+// shared out over the blocks, each summing the C terms in rank order.
+template <typename TX, typename TO, int NT>
 __global__ void __launch_bounds__(QM_THREADS)
-qmm_kernel(const TX* __restrict__ x, const int8_t* __restrict__ q,
-           const float* __restrict__ scale, TO* __restrict__ out, int M,
-           int K, int N, int G) {
-  __shared__ float xs[QM_TK][QM_TM + 1];             // [k][row]
-  __shared__ float ws[QM_TK][QM_TN];                 // [k][column]
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;            // 4 columns x 2 rows
-  const int m0 = blockIdx.y * QM_TM, n0 = blockIdx.x * QM_TN;
-  const int ng = N / G;
-  float acc[2][4] = {};
-  for (int k0 = 0; k0 < K; k0 += QM_TK) {
-    for (int i = tid; i < QM_TM * QM_TK; i += QM_THREADS) {
-      const int m = i / QM_TK, kk = i % QM_TK;
-      float v = 0.f;
-      if (m0 + m < M && k0 + kk < K)
-        v = __bfloat162float(__float2bfloat16_rn(
-            Cvt<TX>::in(x[(size_t)(m0 + m) * K + k0 + kk])));
-      xs[kk][m] = v;
-    }
-    for (int i = tid; i < QM_TK * QM_TN; i += QM_THREADS) {
-      const int kk = i / QM_TN, n = i % QM_TN;
-      float w = 0.f;
-      if (k0 + kk < K) {
-        const size_t k = (size_t)(k0 + kk);
-        const float qb = (float)q[k * N + n0 + n];    // exact in bf16
-        const float sb = __bfloat162float(
-            __float2bfloat16_rn(scale[k * ng + (n0 + n) / G]));
-        w = __bfloat162float(__float2bfloat16_rn(__fmul_rn(qb, sb)));
+qmm_split_kernel(const TX* __restrict__ x, const int8_t* __restrict__ q,
+                 const float* __restrict__ scale, TO* __restrict__ out,
+                 int M, int K, int N, int G, int cpb) {
+  constexpr int R = 8 * NT;                      // rows of a block
+  constexpr int XW = sizeof(TX) / 2;             // 16-byte words of 8 x
+  __shared__ __align__(16) float part[4][R][QM_RS];         // warps' sums
+  __shared__ __align__(16) __nv_bfloat16 xs[R][QM_XS];      // [row][k]
+  __shared__ __align__(16) float ss[QM_KC];                 // bf16 scales
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int n0 = blockIdx.x * QM_TN, m0 = blockIdx.z * R;
+  const int chunks = (K + QM_KC - 1) / QM_KC;
+  const int c0 = blockIdx.y * cpb, c1 = min(c0 + cpb, chunks);
+  const int ng = N / G, sg = n0 / G;
+  // the thread's weight column word and its activations: 8 k from k8 of
+  // rows xr + 8i
+  const int8_t* qcol = q + n0 + 8 * grp;
+  const int xr = tid >> 4, k8 = (tid & 15) * 8;
+
+  uint2 w[2][4];                                 // [k step][k row]
+  uint4 xraw[NT][XW];
+  float sraw;
+  // chunk c's loads: the weight words first, the bytes that bound the
+  // kernel, then the scale and the activations
+  auto load_chunk = [&](int c) {
+    const int kw = c * QM_KC + 32 * warp + 2 * tig;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int k = kw + 16 * j + (r >> 1) * 8 + (r & 1);
+        w[j][r] = k < K ? __ldg(reinterpret_cast<const uint2*>(
+                              qcol + (size_t)k * N))
+                        : make_uint2(0u, 0u);
       }
-      ws[kk][n] = w;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < QM_TK; ++kk) {
-      const float a0 = xs[kk][ty * 2], a1 = xs[kk][ty * 2 + 1];
+    const int ks = c * QM_KC + tid;
+    sraw = ks < K ? __ldg(scale + (size_t)ks * ng + sg) : 0.f;
+    const int kx = c * QM_KC + k8;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float b = ws[kk][tx * 4 + c];
-        acc[0][c] += a0 * b;                         // products are exact
-        acc[1][c] += a1 * b;
+    for (int i = 0; i < NT; ++i) {
+      const int m = m0 + xr + 8 * i;
+      const bool live = m < M && kx < K;
+      const uint4* src =
+          reinterpret_cast<const uint4*>(x + (size_t)m * K + kx);
+#pragma unroll
+      for (int v = 0; v < XW; ++v)
+        xraw[i][v] = live ? __ldg(src + v) : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+
+  float acc[NT][4][4] = {};                      // [n tile][m tile][frag]
+  load_chunk(c0);
+  for (int c = c0; c < c1; ++c) {
+    if (c > c0) __syncthreads();                 // the last chunk's reads
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+      *reinterpret_cast<uint4*>(&xs[xr + 8 * i][k8]) =
+          qm_x_bf16<TX>(xraw[i]);
+    ss[tid] = __bfloat162float(__float2bfloat16_rn(sraw));
+    __syncthreads();
+    uint2 wc[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) wc[j][r] = w[j][r];
+    // the next chunk's loads go in flight while this one multiplies
+    if (c + 1 < c1) load_chunk(c + 1);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int kk = 32 * warp + 16 * j + 2 * tig;
+      const float2 s01 = *reinterpret_cast<const float2*>(&ss[kk]);
+      const float2 s89 = *reinterpret_cast<const float2*>(&ss[kk + 8]);
+      uint32_t a[4][4];                          // [m tile][register]
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int b = 2 * mt + h;
+          a[mt][h] = bf16x2_bits(qm_deq(wc[j][0], b, s01.x),
+                                 qm_deq(wc[j][1], b, s01.y));
+          a[mt][2 + h] = bf16x2_bits(qm_deq(wc[j][2], b, s89.x),
+                                     qm_deq(wc[j][3], b, s89.y));
+        }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(
+            &xs[8 * nt + grp][kk]);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(
+            &xs[8 * nt + grp][kk + 8]);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) mma_bf16(acc[nt][mt], a[mt], b0, b1);
       }
     }
-    __syncthreads();
   }
+
+  // c[mt][2h + e] is column 8grp + 2mt + h of row 8nt + 2tig + e
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int m = m0 + ty * 2 + i;
-    if (m < M)
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        out[(size_t)m * N + n0 + tx * 4 + c] = Cvt<TO>::out(acc[i][c]);
+    for (int e = 0; e < 2; ++e) {
+      float* p = &part[warp][8 * nt + 2 * tig + e][8 * grp];
+      const float(&c)[4][4] = acc[nt];
+      *reinterpret_cast<float4*>(p) =
+          make_float4(c[0][e], c[0][2 + e], c[1][e], c[1][2 + e]);
+      *reinterpret_cast<float4*>(p + 4) =
+          make_float4(c[2][e], c[2][2 + e], c[3][e], c[3][2 + e]);
+    }
+  __syncthreads();
+  // the block's term: the warps' partials in warp order, into part[0]
+  for (int e = tid; e < R * (QM_TN / 4); e += QM_THREADS) {
+    float4* t = reinterpret_cast<float4*>(&part[0][e >> 4][(e & 15) * 4]);
+    float4 v = *t;
+#pragma unroll
+    for (int wi = 1; wi < 4; ++wi) {
+      const float4 u = *reinterpret_cast<const float4*>(
+          &part[wi][e >> 4][(e & 15) * 4]);
+      v = make_float4(__fadd_rn(v.x, u.x), __fadd_rn(v.y, u.y),
+                      __fadd_rn(v.z, u.z), __fadd_rn(v.w, u.w));
+    }
+    *t = v;
   }
+  cluster.sync();
+  // each output 4-column quad: the cluster's terms summed in rank order
+  const int rank = (int)cluster.block_rank(), blocks = (int)gridDim.y;
+  for (int e = rank * QM_THREADS + tid; e < R * (QM_TN / 4);
+       e += blocks * QM_THREADS) {
+    const int row = e >> 4, col = (e & 15) * 4;
+    if (m0 + row >= M) continue;
+    float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int r = 0; r < blocks; ++r) {
+      const float4 t = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(&part[0][row][col], r));
+      sum[0] = __fadd_rn(sum[0], t.x);
+      sum[1] = __fadd_rn(sum[1], t.y);
+      sum[2] = __fadd_rn(sum[2], t.z);
+      sum[3] = __fadd_rn(sum[3], t.w);
+    }
+    TO* o = out + (size_t)(m0 + row) * N + n0 + col;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[j] = Cvt<TO>::out(sum[j]);
+  }
+  cluster.sync();                                // terms read: blocks may end
+}
+// Set once per kernel: the dynamic shared memory it may take (0: the
+// default) and clusters of more than 8 blocks.
+template <typename... A>
+cudaError_t allow_clusters(void (*kernel)(A...), size_t max_smem) {
+  cudaError_t e = cudaSuccess;
+  if (max_smem)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)max_smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
+// `kernel` on `grid` in clusters of (1, grid.y, 1) blocks, after its
+// allow_clusters `setup`; returns the launch's error.
+template <typename... A, typename... Args>
+int launch_cluster(void (*kernel)(A...), cudaError_t setup, dim3 grid,
+                   int threads, size_t smem, void* stream, Args... args) {
+  if (setup != cudaSuccess) return (int)setup;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = grid.y;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // k-groups a block of the w8a8 kernel takes: the fewest that divide K / G
@@ -382,32 +607,14 @@ int launch_w8a8_p(const void* layer, const void* x, const void* qk,
                   const void* kscale, void* out, int L, int B, int K, int N,
                   int G, int gpb, void* stream) {
   auto kernel = w8a8_split_kernel<TX, TO, P>;
-  static const cudaError_t setup = [&] {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)W8_MAX_SMEM);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    return e;
-  }();
-  if (setup != cudaSuccess) return (int)setup;
+  static const cudaError_t setup = allow_clusters(kernel, W8_MAX_SMEM);
   const int groups = K / G, blocks = groups / gpb;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(N / W8_TN, blocks);
-  cfg.blockDim = dim3(W8_THREADS * P);
-  cfg.dynamicSmemBytes = (size_t)groups * W8_ROWS * W8_TN * sizeof(float);
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = blocks;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kernel, (const TX*)x, (const int8_t*)qk, (const float*)kscale,
-      (const int*)layer, (TO*)out, L, B, K, N, G, gpb);
-  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+  return launch_cluster(kernel, setup, dim3(N / W8_TN, blocks),
+                        W8_THREADS * P,
+                        (size_t)groups * W8_ROWS * W8_TN * sizeof(float),
+                        stream, (const TX*)x, (const int8_t*)qk,
+                        (const float*)kscale, (const int*)layer, (TO*)out, L,
+                        B, K, N, G, gpb);
 }
 
 // A block of one k-group is one sub-block; a block of more takes two
@@ -426,15 +633,40 @@ int launch_w8a8(const void* layer, const void* x, const void* qk,
                                   gpb, stream);
 }
 
+// k-chunks a block of the weight-only kernel takes: the fewest that leave
+// at most QM_CLUSTER blocks, one cluster, a column tile; 0 for a shape the
+// kernel does not take (K % 8, G % 128, N % G).  No row count enters, so
+// the sum order is the same in calls of any row count.
+int qmm_chunks_per_block(int K, int N, int G) {
+  if (K < 8 || K % 8 || G < 128 || G % 128 || N % G) return 0;
+  const int chunks = (K + QM_KC - 1) / QM_KC;
+  return (chunks + QM_CLUSTER - 1) / QM_CLUSTER;
+}
+
+template <typename TX, typename TO, int NT>
+int launch_qmm_nt(const void* x, const void* q, const void* scale, void* out,
+                  int M, int K, int N, int G, int cpb, void* stream) {
+  auto kernel = qmm_split_kernel<TX, TO, NT>;
+  static const cudaError_t setup = allow_clusters(kernel, 0);
+  const int chunks = (K + QM_KC - 1) / QM_KC, blocks = (chunks + cpb - 1) / cpb;
+  return launch_cluster(kernel, setup,
+                        dim3(N / QM_TN, blocks, (M + 8 * NT - 1) / (8 * NT)),
+                        QM_THREADS, 0, stream, (const TX*)x, (const int8_t*)q,
+                        (const float*)scale, (TO*)out, M, K, N, G, cpb);
+}
+
+// A block takes 8 rows (one n-tile) up to 8, then 16, then 32 rows and as
+// many row tiles as the call needs.
 template <typename TX, typename TO>
 int launch_qmm(const void* x, const void* q, const void* scale, void* out,
                int M, int K, int N, int G, void* stream) {
-  if (M < 1 || G < 1 || N % G || N % QM_TN) return (int)cudaErrorInvalidValue;
-  const dim3 grid(N / QM_TN, (M + QM_TM - 1) / QM_TM);
-  qmm_kernel<TX, TO><<<grid, QM_THREADS, 0, (cudaStream_t)stream>>>(
-      (const TX*)x, (const int8_t*)q, (const float*)scale, (TO*)out, M, K, N,
-      G);
-  return (int)cudaGetLastError();
+  const int cpb = qmm_chunks_per_block(K, N, G);
+  if (M < 1 || cpb == 0) return (int)cudaErrorInvalidValue;
+  if (M <= 8)
+    return launch_qmm_nt<TX, TO, 1>(x, q, scale, out, M, K, N, G, cpb, stream);
+  if (M <= 16)
+    return launch_qmm_nt<TX, TO, 2>(x, q, scale, out, M, K, N, G, cpb, stream);
+  return launch_qmm_nt<TX, TO, 4>(x, q, scale, out, M, K, N, G, cpb, stream);
 }
 
 // dtype codes: 0 float32, 1 float16, 2 bfloat16; an unknown pair returns

@@ -25,10 +25,14 @@ same order) only for tensors on the CPU.  B5 and B6 share one kernel,
 each block on its own k-groups with the int8 tensor cores, and the groups'
 terms summed in group order by the cluster's first block;
 ``w8a8_matmul_split_plain`` models that tiling for the tests and
-``chip_smoke.py``.  The switches are read at call time, as the JAX
-package reads them; the TPU's block-size knobs
-(``DS_QMM_STEP_MB``, ``DS_QMM_BN``, ``DS_QMM_VMEM_MB``) choose VMEM tiles,
-change no result, and are not read: their defaults decide eligibility.
+``chip_smoke.py``.  B7 runs ``qmm_split_kernel``: the same cluster shape
+over 128-row k-chunks, the weight tile dequantized in registers into bf16
+tensor-core products, each block's term kept in its shared memory and the
+terms summed in block order; ``quantized_matmul_split_plain`` models it.
+The switches are read at call time, as the JAX package reads them; the
+TPU's block-size knobs (``DS_QMM_STEP_MB``, ``DS_QMM_BN``,
+``DS_QMM_VMEM_MB``) choose VMEM tiles, change no result, and are not read:
+their defaults decide eligibility.
 """
 
 from __future__ import annotations
@@ -52,6 +56,13 @@ W8A8_TILE_N = 64
 #: first block's shared memory)
 _W8A8_CLUSTER = 16
 W8A8_MAX_GROUPS = 104
+
+#: the weight-only kernel's column tile, k-chunk and most blocks of a
+#: column tile (``QM_TN``, ``QM_KC``, ``QM_CLUSTER`` in
+#: ``csrc/quantized_matmul.cu``)
+QMM_TILE_N = 64
+QMM_CHUNK_K = 128
+_QMM_CLUSTER = 16
 
 #: the JAX package's default fetch-block budgets (``DS_QMM_STEP_MB``): the
 #: weight-only kernel's 1 MB and the w8a8 kernels' 4 MB
@@ -205,6 +216,35 @@ def quantized_matmul_plain(x2d, q, scale, out_dtype=None):
             @ w.to(torch.float64)).to(torch.float32).to(out_dtype)
 
 
+def quantized_matmul_split_plain(x2d, q, scale, out_dtype=None):
+    """The weight-only kernel's tiling in plain PyTorch, for the tests and
+    ``chip_smoke.py`` (no serving path calls it): K is cut into the spans
+    of :func:`qmm_chunks_per_block` chunks of :data:`QMM_CHUNK_K` rows, one
+    span a block; each (block, column tile of :data:`QMM_TILE_N`) pair's
+    term is its bf16 products summed exactly (float64) and rounded to f32
+    — the kernel sums them on the tensor cores, its chunks in order, so its
+    term may differ in the last bits — and the terms are summed in block
+    order in f32 and cast once.  Same arguments as
+    :func:`quantized_matmul_plain`; a row's result depends on no other
+    row."""
+    out_dtype = out_dtype or x2d.dtype
+    k_dim, n_dim = q.shape
+    g = n_dim // scale.shape[1]
+    cpb = qmm_chunks_per_block(k_dim, n_dim, g)
+    if not cpb:
+        raise ValueError(f"quantized_matmul_split_plain: K={k_dim}, N="
+                         f"{n_dim}, G={g} does not tile")
+    s = scale.to(torch.bfloat16).repeat_interleave(g, dim=1)
+    w = (q.to(torch.bfloat16) * s).to(torch.float64)
+    xf = x2d.to(torch.bfloat16).to(torch.float64)
+    span = cpb * QMM_CHUNK_K
+    acc = torch.zeros((x2d.shape[0], n_dim), dtype=torch.float32,
+                      device=x2d.device)
+    for k0 in range(0, k_dim, span):
+        acc = acc + (xf[:, k0:k0 + span] @ w[k0:k0 + span]).to(torch.float32)
+    return acc.to(out_dtype)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
@@ -236,6 +276,19 @@ def w8a8_groups_per_block(groups: int) -> int:
     while groups % gpb:
         gpb += 1
     return gpb
+
+
+def qmm_chunks_per_block(k_dim: int, n_dim: int, group: int) -> int:
+    """k-chunks of :data:`QMM_CHUNK_K` rows one block of the weight-only
+    kernel takes (the launcher's rule in ``csrc/quantized_matmul.cu``): the
+    fewest that leave at most 16 blocks, one cluster, a column tile; 0 for
+    a shape the kernel does not take (K % 8, G % 128 or N % G not 0).  No
+    row count enters: a row's sum order is the same in every call."""
+    if k_dim < 8 or k_dim % 8 or group < 128 or group % 128 or \
+            n_dim % group:
+        return 0
+    chunks = -(-k_dim // QMM_CHUNK_K)
+    return -(-chunks // _QMM_CLUSTER)
 
 
 def _check(name, x2d, out_dtype, tensors):
@@ -361,22 +414,28 @@ w8a8_matmul_stacked_cuda.launches = 0
 
 def quantized_matmul_cuda(x2d, q, scale, out_dtype=None):
     """B7: x [M, K] float against a weight-only record q int8 [K, N],
-    scale f32 [K, N/G] with G % 128 == 0 -> [M, N].  Replaces
-    ``_qmm_call``."""
-    if not x2d.is_cuda:
-        return quantized_matmul_plain(x2d, q, scale, out_dtype)
+    scale f32 [K, N/G] with K % 8 == 0 and G % 128 == 0 -> [M, N], any M
+    >= 1.  Replaces ``_qmm_call``.  The shapes are checked on every
+    device; a CPU tensor then takes the plain version."""
     name = "quantized_matmul_cuda"
-    out_dtype = out_dtype or x2d.dtype
     k_dim, n_dim = q.shape
-    g = n_dim // scale.shape[1]
     if x2d.ndim != 2 or x2d.shape[1] != k_dim or x2d.shape[0] < 1:
         raise ValueError(f"{name}: x {tuple(x2d.shape)} does not match K="
                          f"{k_dim}")
-    if g % 128 or n_dim % g or tuple(scale.shape) != (k_dim, n_dim // g):
-        raise ValueError(f"{name}: scale {tuple(scale.shape)} must be "
-                         f"[{k_dim}, N/G] with G % 128 == 0")
+    groups = scale.shape[1] if scale.ndim == 2 else 0
+    g = n_dim // groups if groups and n_dim % groups == 0 else 0
+    if tuple(scale.shape) != (k_dim, groups) or \
+            not qmm_chunks_per_block(k_dim, n_dim, g):
+        raise ValueError(f"{name}: q {tuple(q.shape)} with scale "
+                         f"{tuple(scale.shape)} must be K % 8 == 0 rows in "
+                         "groups of G % 128 == 0 columns, scale [K, N/G]")
+    if not x2d.is_cuda:
+        return quantized_matmul_plain(x2d, q, scale, out_dtype)
+    out_dtype = out_dtype or x2d.dtype
     _check(name, x2d, out_dtype, (("x", x2d, None), ("q", q, torch.int8),
                                   ("scale", scale, torch.float32)))
+    if x2d.data_ptr() % 16 or q.data_ptr() % 16:
+        raise ValueError(f"{name}: x and q must be 16-byte aligned")
     out = torch.empty((x2d.shape[0], n_dim), dtype=out_dtype,
                       device=x2d.device)
     err = _lib().ds_quantized_matmul(
