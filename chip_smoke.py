@@ -96,9 +96,31 @@ Phases (any failure raises and exits non-zero):
     device busy time, idle share and launches an iteration, with B3's, kv8
     B3's, B6's and B7's device time an iteration.
 
+ 11. block-sparse attention (``ops/sparse_attention``) on the gated flash
+    kernels: each case of ``sparse_cases`` (the first built so that each
+    planted fault of PERF.md fails there: GQA 12/4, a layout per head at
+    block 16, a query band that sees no key and a key band no query sees;
+    then causal empty bands at block 32, Fixed per head at S=1008, Variable
+    at block 32, LocalSlidingWindow at S=48, BigBird at block 256, the
+    four full-width layouts, GQA Longformer and two fp32 cases) has its
+    gated forward, dq and dkv held against the plain versions with the
+    layout (bf16 at phase 2b's bars, fp32 at 1e-5 / 1e-4), the bf16
+    backward also against its tiling's models with a repeat and a graph
+    replay bit-identical, and its rows that see no key at o = dq = 0,
+    lse = -inf; the Dense layout at block 128 gives the ungated kernels'
+    bits (bf16 at S=4096 and fp32 at S=512, causal and not); the main path
+    (``SparseSelfAttention`` forward and backward at B=2, H=12, S=4096,
+    D=64, bf16, for Fixed/16, BigBird/64, Longformer/128 and Dense/128,
+    and ``sparse_attention`` for the other cases) must give the checked
+    calls' bits; then each gated kernel is timed at the four layouts
+    (eager, graph, plain, the ungated kernel, SDPA with the layout's mask,
+    the bound from the visible pairs, the live-tile share).
+
 Each main path is read alone: the decode kernels' counts are set to 0
 before phase 3 and read after phase 5, the flash kernels' before phase 7
-and after it, the int8 kernels' before phase 10 and after its five runs.
+and after it, the int8 kernels' before phase 10 and after its five runs,
+the gated flash kernels' (``layout_launches``) before phase 11's main path
+and after it.
 The last two lines of output are the ``{"kernels": [...]}`` JSON object
 and the ``{"ok": true, "device": ...}`` JSON object.
 """
@@ -511,12 +533,14 @@ def visible_pairs(sq, sk, causal) -> int:
     return sum(min(r + 1, sk) for r in range(sq))
 
 
-def flash_bound(name, b, h, hkv, sq, sk, d, item, causal):
+def flash_bound(name, b, h, hkv, sq, sk, d, item, causal, pairs=None):
     """(bound_ms, bound_by) of one call: each input read once and each
     output written once at 3.35 TB/s, against the products over the visible
     (query, key) pairs at the bf16 tensor-core peak — forward Q K^T and P V
     (4 flops per pair and dim), dq Q K^T, dO V^T and dS K (6), dkv
-    Q K^T, dO V^T, P^T dO and dS^T Q (8)."""
+    Q K^T, dO V^T, P^T dO and dS^T Q (8).  ``pairs``: the visible pairs
+    summed over batch and heads, by default those of the causal mask or
+    of none."""
     nq, nkv, rows = b * h * sq * d * item, b * hkv * sk * d * item, b * h * sq * 4
     if name == "flash_attention_fwd_cuda":
         nbytes, per = 2 * nq + 2 * nkv + rows, 4          # q, o, k, v, lse
@@ -524,7 +548,9 @@ def flash_bound(name, b, h, hkv, sq, sk, d, item, causal):
         nbytes, per = 4 * nq + 2 * nkv + 2 * rows, 6      # q, do, o, dq; lse, delta
     else:
         nbytes, per = 2 * nq + 4 * nkv + 2 * rows, 8      # q, do, k, v, dk, dv
-    flops = per * b * h * visible_pairs(sq, sk, causal) * d
+    if pairs is None:
+        pairs = b * h * visible_pairs(sq, sk, causal)
+    flops = per * pairs * d
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -734,20 +760,21 @@ def check_flash_kernels():
     return out
 
 
-def check_bwd_design(label, q, k, v, do, o, lse, delta, causal, got):
+def check_bwd_design(label, q, k, v, do, o, lse, delta, causal, got, **kw):
     """The bf16 backward kernels (``wgmma_dq_kernel``,
     ``wgmma_dkv_kernel``) against the plain models of their tiling on the
     same inputs, at the bf16 bars; a second call and a CUDA-graph replay
-    must give the first call's bits."""
+    must give the first call's bits.  ``kw``: a block-sparse ``layout``
+    and its ``block`` (phase 11), for the models and the kernels alike."""
     import torch
 
     from deepspeed_tpu_torch.ops import flash_attention as fa
 
     dq, dk, dv = got
     want_dq = fa.flash_attention_bwd_dq_tiled_plain(q, k, v, do, lse, delta,
-                                                    causal)
+                                                    causal, **kw)
     want_dk, want_dv = fa.flash_attention_bwd_dkv_tiled_plain(
-        q, k, v, do, lse, delta, causal)
+        q, k, v, do, lse, delta, causal, **kw)
     errs = [flash_compare(f"{label} {key} (tiled model)", g, w, q.dtype,
                           FLASH_FP32_GRAD)[0]
             for key, g, w in (("dq", dq, want_dq), ("dk", dk, want_dk),
@@ -755,11 +782,11 @@ def check_bwd_design(label, q, k, v, do, o, lse, delta, causal, got):
 
     def call_dq():
         return fa.flash_attention_bwd_dq_cuda(q, k, v, do, lse, o=o,
-                                              causal=causal)
+                                              causal=causal, **kw)
 
     def call_dkv():
         return fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta,
-                                               causal=causal)
+                                               causal=causal, **kw)
 
     for how, (dq2, delta2), (dk2, dv2) in (
             ("a second call", call_dq(), call_dkv()),
@@ -2103,6 +2130,437 @@ def long_sequence_phase():
         raise AssertionError(f"S=2048 flash launches {counts}")
 
 
+# ------------------------------------------------------------- phase 11
+#: the gated kernels' entries in the kernels line: wrapper, its kernel
+#: (bf16), and the JAX site with its layout-gate lines
+SPARSE_KERNELS = (
+    ("flash_attention_fwd_cuda", "wgmma_fwd_kernel<GATED>",
+     "deepspeed_tpu/ops/flash_attention.py:142 (:63-68)"),
+    ("flash_attention_bwd_dq_cuda", "wgmma_dq_kernel<GATED>",
+     "deepspeed_tpu/ops/flash_attention.py:317 (:183-188)"),
+    ("flash_attention_bwd_dkv_cuda", "wgmma_dkv_kernel<GATED>",
+     "deepspeed_tpu/ops/flash_attention.py:365 (:244-249)"),
+)
+
+
+def sparse_configs(h):
+    """Phase 11's four timed configs for ``h`` heads: DeepSpeed's Fixed
+    defaults (block 16, local 4, global 1, unidirectional), BigBird's
+    defaults at block 64, BSLongformer (block 128, window 5, globals [0])
+    and Dense at block 128."""
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    return {
+        "Fixed/16": sa.FixedSparsityConfig(h, block=16, num_local_blocks=4,
+                                           num_global_blocks=1,
+                                           attention="unidirectional"),
+        "BigBird/64": sa.BigBirdSparsityConfig(h, block=64),
+        "Longformer/128": sa.BSLongformerSparsityConfig(
+            h, block=128, num_sliding_window_blocks=5,
+            global_block_indices=[0]),
+        "Dense/128": sa.DenseSparsityConfig(h, block=128),
+    }
+
+
+def sparse_layouts(h, s):
+    """{label: (layout [h, s/block, s/block] numpy, block, causal)} of
+    :func:`sparse_configs` at sequence length ``s``."""
+    return {label: (c.make_layout(s), c.block,
+                    getattr(c, "attention", "") == "unidirectional")
+            for label, c in sparse_configs(h).items()}
+
+
+def empty_band_layout(h, s, block):
+    """BigBird at ``block`` with a different layout per head (random
+    blocks), the query rows 128-255 gated off for every head (a 128-row
+    query tile with no live key tile) and the keys 384-511 seen by no query
+    (a 128-key tile with an empty column list)."""
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    lay = sa.BigBirdSparsityConfig(h, block=block,
+                                   different_layout_per_head=True,
+                                   num_random_blocks=2).make_layout(s)
+    lay[:, 128 // block:256 // block] = 0
+    lay[:, :, 384 // block:512 // block] = 0
+    return lay
+
+
+def sparse_cases():
+    """(label, B, H, Hkv, S, dtype, layout, block, causal), checked in this
+    order.  The first is built so that each planted fault of PERF.md fails
+    there: GQA with a layout per head, block 16 inside the 128-row tiles,
+    an empty query band and an unseen key band."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("empty bands, GQA 12/4, BigBird/16 per head, S=1024", 1, 12, 4,
+              1024, bf16, empty_band_layout(12, 1024, 16), 16, False),
+             ("empty bands causal, BigBird/32 per head, S=1024", 2, 12, 12,
+              1024, bf16, empty_band_layout(12, 1024, 32), 32, True)]
+    fixed = sa.FixedSparsityConfig(12, block=16, num_local_blocks=4,
+                                   different_layout_per_head=True,
+                                   num_different_global_patterns=4,
+                                   attention="unidirectional")
+    cases.append(("Fixed/16 per head causal, GQA 12/3, S=1008 (ragged "
+                  "tiles)", 2, 12, 4, 1008, bf16, fixed.make_layout(1008), 16,
+                  True))
+    var = sa.VariableSparsityConfig(12, block=32, num_random_blocks=2,
+                                    local_window_blocks=[4, 8],
+                                    global_block_indices=[1],
+                                    horizontal_global_attention=True)
+    cases.append(("Variable/32, S=1024", 2, 12, 12, 1024, bf16,
+                  var.make_layout(1024), 32, False))
+    slide = sa.LocalSlidingWindowSparsityConfig(12, block=16)
+    cases.append(("LocalSlidingWindow/16, S=48", 1, 12, 12, 48, bf16,
+                  slide.make_layout(48), 16, True))
+    big = sa.BigBirdSparsityConfig(12, block=256, attention="unidirectional")
+    cases.append(("BigBird/256 causal, S=1024 (block above the tile)", 2, 12,
+                  12, 1024, bf16, big.make_layout(1024), 256, True))
+    for label, (lay, block, causal) in sparse_layouts(12, 4096).items():
+        cases.append((f"{label} S=4096", 2, 12, 12, 4096, bf16, lay, block,
+                      causal))
+    lay, block, causal = sparse_layouts(12, 4096)["Longformer/128"]
+    cases.append(("GQA 12/4 Longformer/128 S=4096", 2, 12, 4, 4096, bf16, lay,
+                  block, causal))
+    cases.append(("fp32 empty bands, GQA 12/3, BigBird/16 per head, S=512",
+                  2, 12, 4, 512, f32, empty_band_layout(12, 512, 16), 16,
+                  False))
+    lay, block, causal = sparse_layouts(12, 512)["Fixed/16"]
+    cases.append(("fp32 Fixed/16 S=512", 2, 12, 12, 512, f32, lay, block,
+                  causal))
+    return cases
+
+
+def lse_compare(label, got, want):
+    """The gated lse against the plain one: -inf (rows that see no key) at
+    the same places, no NaN, the rest at FLASH_FP32_FWD."""
+    import torch
+
+    if torch.isnan(got).any() or torch.isposinf(got).any():
+        raise AssertionError(f"{label}: NaN or +inf in the kernel's lse")
+    empty = torch.isneginf(want)
+    if not torch.equal(torch.isneginf(got), empty):
+        raise AssertionError(f"{label}: -inf at other rows than the plain "
+                             "lse's")
+    return flash_compare(label, got[~empty], want[~empty], torch.float32,
+                         FLASH_FP32_FWD)[0]
+
+
+def check_sparse_case(label, b, h, hkv, s, dtype, layout, block, causal, seed):
+    """One phase-11 case: the gated forward, dq and dkv against the plain
+    versions with the layout (bf16 at the phase-2b bars, fp32 at
+    FLASH_FP32_FWD / FLASH_FP32_GRAD), the bf16 backward also against the
+    plain models of its tiling, with a second call and a CUDA-graph replay
+    bit-identical; rows that see no key give o = 0 and dq = 0 exactly and
+    lse = -inf.  Returns the inputs, the layout tensor and the kernels'
+    (o, lse, dq, dk, dv), and the errors."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = flash_case(b, h, hkv, s, s, dtype, seed)
+    lay = torch.as_tensor(layout, dtype=torch.int32, device="cuda")
+    kw = dict(causal=causal, layout=lay, block=block)
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
+    dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, do, lse, o=o, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    pkw = dict(layout=lay, block=block)
+    o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, causal, **pkw)
+    dq_p, dk_p, dv_p = fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                    causal, **pkw)
+    errs = {"lse": lse_compare(f"{label} lse", lse, lse_p)}
+    for key, got, want, tol in (("o", o, o_p, FLASH_FP32_FWD),
+                                ("dq", dq, dq_p, FLASH_FP32_GRAD),
+                                ("dk", dk, dk_p, FLASH_FP32_GRAD),
+                                ("dv", dv, dv_p, FLASH_FP32_GRAD)):
+        errs[key] = flash_compare(f"{label} {key}", got, want, dtype, tol)[0]
+    empty = torch.isneginf(lse_p)
+    n_empty = int(empty.sum())
+    if n_empty and (o[empty].abs().max() != 0 or dq[empty].abs().max() != 0):
+        raise AssertionError(f"{label}: a row that sees no key has o or dq "
+                             "!= 0")
+    del o_p, dq_p, dk_p, dv_p
+    if fa.bwd_route(dtype) == "wgmma":
+        check_bwd_design(label, q, k, v, do, o, lse, delta, causal,
+                         (dq, dk, dv), layout=lay, block=block)
+    log(f"[sparse] {label}: max_abs_err " + ", ".join(
+        f"{key} {e:.3e}" for key, e in errs.items()) +
+        f"; {n_empty} rows see no key (o, dq exactly 0, lse -inf)")
+    return (q, k, v, do, lay), (o, lse, dq, dk, dv), errs
+
+
+def check_dense_layout_bits(b, h, s, dtype):
+    """A Dense layout at block 128 through the gated kernels gives the
+    ungated kernels' bits, causal and not."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = flash_case(b, h, h, s, s, dtype, 7)
+    lay = torch.ones((h, s // 128, s // 128), dtype=torch.int32,
+                     device="cuda")
+    for causal in (True, False):
+        outs = []
+        for kw in ({}, {"layout": lay, "block": 128}):
+            o, lse = fa.flash_attention_fwd_cuda(q, k, v, causal, **kw)
+            dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, do, lse, o=o,
+                                                       causal=causal, **kw)
+            dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                     causal=causal, **kw)
+            outs.append((o, lse, dq, delta, dk, dv))
+        for name, a, g in zip(("o", "lse", "dq", "delta", "dk", "dv"), *outs):
+            if not torch.equal(a, g):
+                raise AssertionError(
+                    f"Dense/128 {dtype} S={s} causal={causal}: the gated "
+                    f"{name} differs from the ungated kernel's")
+    log(f"[sparse] Dense/128 {str(dtype)[6:]} B={b} H={h} S={s}: gated o, "
+        "lse, dq, delta, dk, dv bit-identical to the ungated kernels, "
+        "causal and not")
+
+
+def visible_pairs_layout(layout, block, s, causal, heads) -> int:
+    """(query, key) pairs the layout and the causal mask let through,
+    summed over ``heads`` query heads (a one-head layout is broadcast)."""
+    import numpy as np
+
+    n = s // block
+    lay = np.broadcast_to(np.asarray(layout, bool), (heads, n, n))
+    # pairs in a (query block, key block) pair: block^2, or under causal
+    # block (block + 1) / 2 on the diagonal and 0 above it
+    per = np.full((n, n), block * block, np.int64)
+    if causal:
+        per = np.tril(per, -1) + np.diag(np.full(n, block * (block + 1) // 2))
+    return int((lay * per[None]).sum())
+
+
+def live_tile_share(layout, block, s, causal, dtype, hkv):
+    """{kernel: live tiles / the live tiles of a dense layout} from the
+    gated kernels' own tile maps."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    h = layout.shape[0]
+    dense = torch.ones_like(layout)
+    out = {}
+    for kernel in ("fwd", "dq", "dkv"):
+        tq, tk = fa.TILES[(kernel, dtype)]
+        kv = hkv if kernel == "dkv" else None
+        live = fa.layout_tile_map(layout, block, s, tq, tk, causal, kv).live
+        full = fa.layout_tile_map(dense, block, s, tq, tk, causal, kv).live
+        out[kernel] = live / full
+    return out
+
+
+def time_sparse_layout(label, inputs, outs, errs, layout_np, block, causal,
+                       flush):
+    """Phase 11's times at one full-width layout: each gated kernel eager
+    and replayed from a CUDA graph, its plain version, its bound from the
+    visible pairs, the ungated kernel at the same shape, and SDPA with the
+    boolean mask expanded from the layout (forward; backward through
+    autograd, less the forward).  Returns {kernel name: measurements}."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, lay = inputs
+    o, lse, dq, dk, dv = outs
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    delta = (do.float() * o.float()).sum(-1)
+    pairs = b * visible_pairs_layout(layout_np, block, s, causal, h)
+    dense_pairs = b * h * (visible_pairs(s, s, True) if causal else s * s)
+    tiles = live_tile_share(lay, block, s, causal, q.dtype, hkv)
+    log(f"[sparse] {label}: visible-pair share {pairs / dense_pairs:.4f}; "
+        "live-tile share " + ", ".join(f"{kn} {x:.4f}"
+                                       for kn, x in tiles.items()))
+    kw = dict(causal=causal, layout=lay, block=block)
+    pkw = dict(layout=lay, block=block)
+    calls = {
+        "flash_attention_fwd_cuda": (
+            lambda: fa.flash_attention_fwd_cuda(q, k, v, **kw),
+            lambda: fa.flash_attention_fwd_plain(q, k, v, causal, **pkw),
+            lambda: fa.flash_attention_fwd_cuda(q, k, v, causal),
+            max(errs["o"], errs["lse"])),
+        "flash_attention_bwd_dq_cuda": (
+            lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, do, lse, o=o,
+                                                   **kw),
+            lambda: fa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                    causal, **pkw),
+            lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, do, lse, o=o,
+                                                   causal=causal),
+            errs["dq"]),
+        "flash_attention_bwd_dkv_cuda": (
+            lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                    **kw),
+            lambda: fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                     causal, **pkw),
+            lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                    causal=causal),
+            max(errs["dk"], errs["dv"])),
+    }
+    # the yardstick: SDPA with the layout's boolean mask (causal folded in)
+    mask = fa._visible(s, s, causal, q.device, lay, block, h)[None]
+    qr, kr, vr = (x.detach().clone().requires_grad_() for x in (q, k, v))
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa_fwd(), (qr, kr, vr), do)
+
+    lib = {"fwd": timed_ms(sdpa_fwd, flush)}
+    lib["bwd"] = timed_ms(sdpa_fwd_bwd, flush) - lib["fwd"]
+    lib["fwd graph"] = graph_ms(sdpa_fwd, flush)
+    try:
+        lib["bwd graph"] = graph_ms(sdpa_fwd_bwd, flush) - lib["fwd graph"]
+    except RuntimeError as e:      # autograd not capturable on this build
+        lib["bwd graph"] = None
+        log(f"[sparse] {label} sdpa backward graph: not measured "
+            f"({str(e)[:80]})")
+    bwd_graph = "graph not measured" if lib["bwd graph"] is None else \
+        f"{lib['bwd graph']:.4f} ms graph"
+    log(f"[sparse] {label} sdpa with the layout's mask: forward "
+        f"{lib['fwd']:.4f} ms ({lib['fwd graph']:.4f} ms graph), backward "
+        f"{lib['bwd']:.4f} ms ({bwd_graph}), fwd+bwd less fwd")
+    del mask, qr, kr, vr
+    out = {}
+    for name, (kernel, plain, dense, err) in calls.items():
+        side = "fwd" if "fwd" in name else "bwd"
+        ms, ms_graph = timed_ms(kernel, flush), graph_ms(kernel, flush)
+        dense_graph = graph_ms(dense, flush)
+        plain_ms = timed_ms(plain, flush, iters=20)
+        bound_ms, bound_by = flash_bound(name, b, h, hkv, s, s, d,
+                                         q.element_size(), causal, pairs)
+        out[name] = {"max_abs_err": err, "ms": ms, "graph_ms": ms_graph,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib[side],
+                     "library_graph_ms": lib[f"{side} graph"],
+                     "dense_graph_ms": dense_graph}
+        log(f"[sparse] {label} {name}[layout]: kernel {ms:.4f} ms "
+            f"({ms_graph:.4f} ms graph), ungated {dense_graph:.4f} ms graph, "
+            f"plain {plain_ms:.4f} ms, sdpa {side} {lib[side]:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+    return out
+
+
+def time_sparse_main_path(label, cfg, inputs, kernels_ms, flush):
+    """``SparseSelfAttention`` forward and backward, eager, at one
+    full-width layout: the per-call cost of the main path, the wrappers'
+    host work and tile-map lookups included.  Raises if a call after the
+    first builds a tile map (the cache must not change)."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    q, k, v, do, _ = inputs
+    qr, kr, vr = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    attn = sa.SparseSelfAttention(cfg)
+
+    def step():
+        return torch.autograd.grad(attn(qr, kr, vr), (qr, kr, vr), do)
+
+    def maps():
+        return [(key, id(hit[2]), len(hit[2]))
+                for key, hit in fa._TILE_MAPS.items()]
+
+    step()
+    before = maps()
+    ms = timed_ms(step, flush, iters=20)
+    if maps() != before:
+        raise AssertionError(f"[sparse] {label}: SparseSelfAttention built "
+                             "a tile map after its first call")
+    log(f"[sparse] {label} main path: SparseSelfAttention forward + "
+        f"backward {ms:.4f} ms eager, no tile map built after the first "
+        f"call; the three gated kernels eager {kernels_ms:.4f} ms")
+    return ms
+
+
+def sparse_counts():
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    return {fn.__name__: fn.layout_launches for fn in fa.KERNELS}
+
+
+def sparse_main_path(results):
+    """Phase 11's main path: ``SparseSelfAttention`` forward and backward
+    (``_SparseAttention``) at GPT-2 125M's width for the four layouts, and
+    ``sparse_attention`` for the GQA, empty-band and fp32 cases, every
+    output and gradient equal bit for bit to the checked kernel calls'
+    (``results``: {label: (inputs, outputs)}).  Returns the gated kernels'
+    launch counts of the run."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    fa.reset_launch_counts()
+    for label, (inputs, outs, block, causal) in results.items():
+        q, k, v, do, lay = inputs
+        qr, kr, vr = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        cfg = sparse_configs(q.shape[1]).get(label.split(" S=")[0])
+        if cfg is not None:
+            got = sa.SparseSelfAttention(cfg)(qr, kr, vr)
+        else:
+            got = sa.sparse_attention(qr, kr, vr, lay, block, causal=causal)
+        got.backward(do)
+        for name, a, g in zip(("o", "dq", "dk", "dv"),
+                              (outs[0], outs[2], outs[3], outs[4]),
+                              (got, qr.grad, kr.grad, vr.grad)):
+            if not torch.equal(a, g):
+                raise AssertionError(f"[sparse main path] {label}: {name} "
+                                     "differs from the checked kernel call's")
+    torch.cuda.synchronize()
+    counts = sparse_counts()
+    dense = {fn.__name__: fn.launches for fn in fa.KERNELS}
+    log(f"[sparse main path] {len(results)} layouts through "
+        f"_SparseAttention: gated launches {counts}; ungated {dense}")
+    if any(n == 0 for n in counts.values()) or any(dense.values()):
+        raise AssertionError(f"phase 11 launches: gated {counts}, ungated "
+                             f"{dense}")
+    return counts
+
+
+def check_sparse_kernels():
+    """Phase 11: block-sparse attention (``ops/sparse_attention``) on the
+    gated flash kernels.  Every case of :func:`sparse_cases` against the
+    plain versions, Dense/128 bit-identical to the ungated kernels, the
+    main path through ``_SparseAttention`` with its launch counts, and the
+    four full-width layouts timed, kernels and SparseSelfAttention.  Returns ({kernel name: Fixed/16's
+    measurements}, {kernel name: launches})."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results, checked = {}, {}
+    for seed, (label, b, h, hkv, s, dtype, layout, block, causal) in \
+            enumerate(sparse_cases()):
+        inputs, outs, errs = check_sparse_case(label, b, h, hkv, s, dtype,
+                                               layout, block, causal,
+                                               300 + seed)
+        checked[label] = (inputs, outs, errs, layout, block, causal)
+        results[label] = (inputs, outs, block, causal)
+    check_dense_layout_bits(2, 12, 4096, torch.bfloat16)
+    check_dense_layout_bits(2, 12, 512, torch.float32)
+    counts = sparse_main_path(results)
+    measured = {}
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    for label, cfg in sparse_configs(12).items():
+        inputs, outs, errs, layout, block, causal = checked[f"{label} S=4096"]
+        m = time_sparse_layout(f"{label} S=4096", inputs, outs, errs, layout,
+                               block, causal, flush)
+        time_sparse_main_path(f"{label} S=4096", cfg, inputs,
+                              sum(x["ms"] for x in m.values()), flush)
+        measured.setdefault("layout", m)          # Fixed/16, the first
+    del flush
+    return measured["layout"], counts
+
+
 def build_all():
     """Phase 1's builds: one nvcc per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2157,6 +2615,7 @@ def main() -> int:
     long_sequence_phase()
     launches.update(quant_phase(engine, prompts, gen, float_lane))
     del engine, float_lane
+    sparse_measured, sparse_launches = check_sparse_kernels()
 
     # one line per kernel; a flash kernel replaces three TPU regimes (v1,
     # v2, v3: PERF.md) and names the v1 site, whose lse format it keeps
@@ -2215,6 +2674,17 @@ def main() -> int:
                 # B7: the DS_QMM=0 path, x @ dequantize(rec), beside it
                 **{key: m[key] for key in ("dequant_ms", "dequant_graph_ms")
                    if key in m}})
+    # the gated kernels (phase 11), at the Fixed/16 layout
+    for name, kernel, site in SPARSE_KERNELS:
+        m = sparse_measured[name]
+        kernels.append({
+            "name": f"{name}[layout]", "route": "cuda", "kernel": kernel,
+            "source": sources[fa], "replaces": site,
+            "launches": sparse_launches[name],
+            **{key: m[key] for key in (
+                "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "library_graph_ms",
+                "dense_graph_ms")}})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -18,6 +18,12 @@
 //                                 of _bwd_v2 and _bwd_v3 (:901): dk, dv
 //                                 summed over the rep query heads of a KV
 //                                 head
+//   ds_flash_attention_{fwd,bwd_dq,bwd_dkv}_layout
+//                              <- the same three with v1's block-sparse
+//                                 layout gate (_fwd_kernel :63-68,
+//                                 _bwd_dq_kernel :183-188, _bwd_dkv_kernel
+//                                 :244-249; _sparse_attention_bh :982):
+//                                 the same kernels instantiated GATED
 // Every one returns cudaGetLastError() after its launch.
 //
 // The TPU kernels walk a sequential grid axis and carry m/l/acc in VMEM
@@ -87,6 +93,31 @@
 //   hands them with setmaxnreg.  dk and dv stay in registers over all query
 //   tiles and are written once, so the gradients come out the same from
 //   run to run (no atomics).
+//
+// The layout gate (GATED instantiations).  The TPU kernels run one grid
+// program per (query block, key block) of the layout and skip it where
+// the layout is 0.  Here a block walks a list of live tiles instead: the
+// tile map that ops/flash_attention.py::layout_tile_map builds once per
+// layout, one row per (query head, query tile) listing key tiles in key
+// order (forward, dq), or per (KV head, key tile) listing the (rep head g,
+// query tile) pairs in g-major order (dkv), so a tile with no visible pair
+// costs neither a load nor a product.  The wgmma kernels launch their
+// blocks in the map's order, the longest lists first (a global row of
+// BigBird or Longformer sees every key tile).  A layout block may be
+// smaller than a tile (16 against 128), so each live tile carries the
+// bits of its layout sub-blocks: the producer writes them with the tile's
+// flags into the stage beside its tiles, and the consumers mask a tile
+// that is not FULL in a pass of its own (gate_pass) before the softmax;
+// dkv's producer instead writes each query row's lse once per key
+// sub-block, +inf where the layout gates the pair off.  A query row that
+// sees no key gets o = 0 and lse = -inf, and dq = 0; masked entries are
+// selected to -inf before exp2, never multiplied by a zero mask, since
+// such a row's exp2(S - lse) is +inf.  A query tile with no live key tile
+// writes its zeros and returns before any barrier is used, and the
+// consumers' first waits trap after 10 s, so a list no producer walks
+// fails the launch instead of hanging the card.  The gated kernels do the
+// work of the live tiles, not of the visible pairs: at block 16 every
+// 128 x 128 tile of DeepSpeed's Fixed layout is live.
 //
 // Forward and backward, f32 (fwd_kernel, dq_kernel, dkv_kernel): 64x64
 // tiles in shared memory and a plain f32 loop for the products (the tensor
@@ -169,6 +200,84 @@ __device__ __forceinline__ bool visible(int row, int col, int Sq, int Sk, int ca
   return row < Sq && col < Sk && (!causal || col <= row);
 }
 
+// ------------------------------------------------------------ layout gate
+// A gated kernel's tile map (ops/flash_attention.py::TileMap): the live
+// tiles of map row r are entries[offsets[r] .. offsets[r + 1]), each a
+// tile index (dkv: g * query tiles + query tile) with FULL set when every
+// element of the tile is visible and DIAG when, under causal, some key of
+// the tile lies after some query of it, and masks[] the tile's layout
+// sub-blocks: bit 8 * (query >> shift - first query >> shift) +
+// (key >> shift - first key >> shift), counted from the tile's first
+// query and key.  A layout block never straddles S (S % block == 0), so
+// the bits also mask the keys >= S.
+struct Gate {
+  const int* offsets;                 // [rows + 1]
+  const int* entries;                 // tile index | FULL
+  const unsigned long long* masks;    // sub-block bits of each entry
+  const int* order;                   // map rows, the longest lists first
+  int heads;                          // query heads (forward, dq), KV heads (dkv)
+  int shift;                          // log2 of the layout's block
+};
+constexpr int FULL = 1 << 30;
+constexpr int DIAG = 1 << 29;
+
+// A wgmma kernel's stage descriptor, which its producer writes beside the
+// stage's tiles before the stage's barrier completes: the tile's index,
+// flags and sub-block bits, so the consumers read them from shared memory
+// and never wait on the map in device memory.
+struct StageTile {
+  int index;
+  int flags;
+  unsigned long long bits;
+};
+
+struct Tile {
+  int index;                          // as in Gate::entries, without the flags
+  int flags;                          // FULL (no entry masked) | DIAG
+  unsigned long long bits;            // layout sub-blocks
+};
+
+// Entry t of the list from `first`; ungated, tile t itself.
+template <bool GATED>
+__device__ __forceinline__ Tile tile_at(const Gate& g, int first, int t) {
+  if constexpr (GATED) {
+    const int e = __ldg(g.entries + first + t);
+    return {e & (DIAG - 1), e & (FULL | DIAG), __ldg(g.masks + first + t)};
+  } else {
+    return {t, 0, 0ull};
+  }
+}
+
+// The bit of local query sub-block qbit / 8 and key sub-block kblk.
+__device__ __forceinline__ bool sub_on(unsigned long long bits, int qbit, int kblk) {
+  return (bits >> (qbit + kblk)) & 1ull;
+}
+
+// Entries [first, first + count) of map row `row`.
+__device__ __forceinline__ int gate_row(const Gate& g, int row, int& first) {
+  first = __ldg(g.offsets + row);
+  return __ldg(g.offsets + row + 1) - first;
+}
+
+// -inf: a score the mask removed, and the row maximum before any key
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+// kbits (a row of a tile's sub-block bits, one bit a block of 1 << shift
+// keys, shift >= 4) spread to one bit per 8 keys, for a tile of 8 * pairs
+// keys: the key columns a wgmma fragment thread holds come in runs of 8
+// (8 j + 2 (lane % 4) + {0, 1}), each inside one block.  Built once a tile
+// by a loop the compiler keeps rolled, so the element tests are a shift
+// by a constant.
+__device__ __forceinline__ uint32_t pair_bits(uint32_t kbits, int shift, int pairs) {
+  const int per = min(pairs, 1 << (shift - 3));           // 8-key runs a block
+  const uint32_t run = per == 32 ? 0xffffffffu : (1u << per) - 1u;
+  uint32_t pm = 0;
+#pragma unroll 1
+  for (int b = 0; b * per < pairs; ++b)
+    if ((kbits >> b) & 1u) pm |= run << (b * per);
+  return pm;
+}
+
 // ------------------------------------------------------- f32 tile kernels
 // (bf16 takes the wgmma kernels below)
 template <typename T>
@@ -176,11 +285,11 @@ constexpr size_t fwd_smem() {
   return 4 * 64 * Ld<T>::v * sizeof(T) + 2 * 64 * LDF * sizeof(float) + 3 * 64 * sizeof(float);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool GATED>
 __global__ void __launch_bounds__(NTHREADS)
 fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
            T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int rep,
-           int causal, float scale2) {
+           int causal, float scale2, const Gate gate) {
   static_assert(std::is_same<T, float>::value, "the bf16 forward is wgmma_fwd_kernel");
   constexpr int LDT = Ld<T>::v;
   const int q0 = blockIdx.x * BQ, bh = blockIdx.y, kvh = bh / rep;
@@ -204,7 +313,8 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const int k_end = causal ? min(Sk, min(q0 + BQ, Sq)) : Sk;
   __syncthreads();
 
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
+  // the key tile at k0 (GATED: with its sub-block bits)
+  auto step = [&](int k0, Tile tl) {
     load_tile<T, D>(ks, LDT, kb, k0, min(BK, Sk - k0));
     load_tile<T, D>(vs, LDT, vb, k0, min(BK, Sk - k0));
     __syncthreads();
@@ -217,7 +327,11 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 #pragma unroll
       for (int e = 0; e < BK / 32; ++e) {
         const int j = lane + 32 * e;
-        s[e] = visible(row, k0 + j, Sq, Sk, causal) ? ss[r * LDF + j] * scale2 : NEG_INF;
+        bool vis = visible(row, k0 + j, Sq, Sk, causal);
+        if constexpr (GATED)
+          vis = vis && sub_on(tl.bits, 8 * ((row >> gate.shift) - (q0 >> gate.shift)),
+                              ((k0 + j) >> gate.shift) - (k0 >> gate.shift));
+        s[e] = vis ? ss[r * LDF + j] * scale2 : NEG_INF;
         mx = fmaxf(mx, s[e]);
       }
       const float m_prev = m[r];
@@ -242,6 +356,16 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     __syncthreads();
     mma_tile<false, false, true>(ps, LDT, vs, LDT, os, LDF, BQ, D, BK);
     __syncthreads();
+  };
+  if constexpr (GATED) {
+    int first;
+    const int ntiles = gate_row(gate, (bh % gate.heads) * gridDim.x + blockIdx.x, first);
+    for (int t = 0; t < ntiles; ++t) {
+      const Tile tl = tile_at<true>(gate, first, t);
+      step(tl.index * BK, tl);
+    }
+  } else {
+    for (int k0 = 0; k0 < k_end; k0 += BK) step(k0, Tile{0, 0, 0ull});
   }
 
   for (int i = tid; i < BQ * D; i += NTHREADS) {
@@ -252,8 +376,11 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     }
   }
   for (int r = tid; r < BQ; r += NTHREADS)
-    if (q0 + r < Sq)
-      lse[(size_t)bh * Sq + q0 + r] = m[r] * LN2 + logf(l[r] == 0.f ? 1.f : l[r]);
+    if (q0 + r < Sq) {
+      float x = m[r] * LN2 + logf(l[r] == 0.f ? 1.f : l[r]);
+      if constexpr (GATED) x = l[r] == 0.f ? neg_inf() : x;   // a row that sees no key
+      lse[(size_t)bh * Sq + q0 + r] = x;
+    }
 }
 
 // ----------------------------------------------------------------------- dq
@@ -262,12 +389,12 @@ constexpr size_t dq_smem() {
   return 5 * 64 * Ld<T>::v * sizeof(T) + 3 * 64 * LDF * sizeof(float) + 2 * 64 * sizeof(float);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool GATED>
 __global__ void __launch_bounds__(NTHREADS)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           const T* __restrict__ o, const T* __restrict__ dout,
           const float* __restrict__ lse, float* __restrict__ delta, T* __restrict__ dq,
-          int Sq, int Sk, int rep, int causal, float sm_scale) {
+          int Sq, int Sk, int rep, int causal, float sm_scale, const Gate gate) {
   static_assert(std::is_same<T, float>::value, "the bf16 dq is wgmma_dq_kernel");
   constexpr int LDT = Ld<T>::v;
   const float scale2 = sm_scale * LOG2E;
@@ -310,7 +437,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const int k_end = causal ? min(Sk, min(q0 + BQ, Sq)) : Sk;
   __syncthreads();
 
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
+  // the key tile at k0 (GATED: with its sub-block bits)
+  auto step = [&](int k0, Tile tl) {
     load_tile<T, D>(ks, LDT, kb, k0, min(BK, Sk - k0));
     load_tile<T, D>(vs, LDT, vb, k0, min(BK, Sk - k0));
     __syncthreads();
@@ -320,7 +448,11 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     for (int i = tid; i < BQ * BK; i += NTHREADS) {
       const int r = i / BK, j = i % BK;
       float ds = 0.f;
-      if (visible(q0 + r, k0 + j, Sq, Sk, causal)) {
+      bool vis = visible(q0 + r, k0 + j, Sq, Sk, causal);
+      if constexpr (GATED)
+        vis = vis && sub_on(tl.bits, 8 * (((q0 + r) >> gate.shift) - (q0 >> gate.shift)),
+                            ((k0 + j) >> gate.shift) - (k0 >> gate.shift));
+      if (vis) {
         const float p = exp2f(ss[r * LDF + j] * scale2 - lse2[r]);
         ds = p * (dps[r * LDF + j] - dl[r]);
       }
@@ -329,6 +461,16 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     __syncthreads();
     mma_tile<false, false, true>(dss, LDT, ks, LDT, dqs, LDF, BQ, D, BK);
     __syncthreads();
+  };
+  if constexpr (GATED) {
+    int first;
+    const int ntiles = gate_row(gate, (bh % gate.heads) * gridDim.x + blockIdx.x, first);
+    for (int t = 0; t < ntiles; ++t) {
+      const Tile tl = tile_at<true>(gate, first, t);
+      step(tl.index * BK, tl);
+    }
+  } else {
+    for (int k0 = 0; k0 < k_end; k0 += BK) step(k0, Tile{0, 0, 0ull});
   }
 
   for (int i = tid; i < BQ * D; i += NTHREADS) {
@@ -345,12 +487,12 @@ constexpr size_t dkv_smem() {
   return 4 * 64 * Ld<T>::v * sizeof(T) + 4 * 64 * LDF * sizeof(float) + 2 * 64 * sizeof(float);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool GATED>
 __global__ void __launch_bounds__(NTHREADS)
 dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
            const T* __restrict__ dout, const float* __restrict__ lse,
            const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-           int Sq, int Sk, int rep, int causal, float sm_scale) {
+           int Sq, int Sk, int rep, int causal, float sm_scale, const Gate gate) {
   static_assert(std::is_same<T, float>::value, "the bf16 dkv is wgmma_dkv_kernel");
   constexpr int LDT = Ld<T>::v;
   const float scale2 = sm_scale * LOG2E;
@@ -381,46 +523,60 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   // query rows above the diagonal never see these keys
   const int q_start = causal ? (k0 / BQ) * BQ : 0;
 
-  for (int h = 0; h < rep; ++h) {
-    const int bh = kvh * rep + h;
+  // one query tile of query head bh: dk += dS^T Q, dv += P^T dO
+  auto step = [&](int bh, int q0, Tile tl) {
     const size_t qoff = (size_t)bh * Sq * D;
-    for (int q0 = q_start; q0 < Sq; q0 += BQ) {
-      __syncthreads();
-      load_tile<T, D>(qs, LDT, q + qoff, q0, min(BQ, Sq - q0));
-      load_tile<T, D>(dos, LDT, dout + qoff, q0, min(BQ, Sq - q0));
-      for (int r = tid; r < BQ; r += NTHREADS) {
-        const bool ok = q0 + r < Sq;
-        lse2[r] = ok ? lse[(size_t)bh * Sq + q0 + r] * LOG2E : 0.f;
-        dl[r] = ok ? delta[(size_t)bh * Sq + q0 + r] : 0.f;
-      }
-      __syncthreads();
-      mma_tile<false, true, false>(qs, LDT, ks, LDT, ss, LDF, BQ, BK, D);
-      mma_tile<false, true, false>(dos, LDT, vs, LDT, dps, LDF, BQ, BK, D);
-      __syncthreads();
-      // p and ds stay in registers across the barrier, then overwrite the
-      // f32 tiles they were computed from
-      float p[PER], ds[PER];
-#pragma unroll
-      for (int e = 0; e < PER; ++e) {
-        const int i = tid + e * NTHREADS, r = i / BK, j = i % BK;
-        p[e] = 0.f;
-        ds[e] = 0.f;
-        if (visible(q0 + r, k0 + j, Sq, Sk, causal)) {
-          p[e] = exp2f(ss[r * LDF + j] * scale2 - lse2[r]);
-          ds[e] = p[e] * (dps[r * LDF + j] - dl[r]);
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int e = 0; e < PER; ++e) {
-        const int i = tid + e * NTHREADS, r = i / BK, j = i % BK;
-        pts[r * LDT + j] = from_f<T>(p[e]);
-        dss[r * LDT + j] = from_f<T>(ds[e]);
-      }
-      __syncthreads();
-      mma_tile<true, false, true>(pts, LDT, dos, LDT, dvs, LDF, BK, D, BQ);  // dv += P^T dO
-      mma_tile<true, false, true>(dss, LDT, qs, LDT, dks, LDF, BK, D, BQ);   // dk += dS^T Q
+    __syncthreads();
+    load_tile<T, D>(qs, LDT, q + qoff, q0, min(BQ, Sq - q0));
+    load_tile<T, D>(dos, LDT, dout + qoff, q0, min(BQ, Sq - q0));
+    for (int r = tid; r < BQ; r += NTHREADS) {
+      const bool ok = q0 + r < Sq;
+      lse2[r] = ok ? lse[(size_t)bh * Sq + q0 + r] * LOG2E : 0.f;
+      dl[r] = ok ? delta[(size_t)bh * Sq + q0 + r] : 0.f;
     }
+    __syncthreads();
+    mma_tile<false, true, false>(qs, LDT, ks, LDT, ss, LDF, BQ, BK, D);
+    mma_tile<false, true, false>(dos, LDT, vs, LDT, dps, LDF, BQ, BK, D);
+    __syncthreads();
+    // p and ds stay in registers across the barrier, then overwrite the
+    // f32 tiles they were computed from
+    float p[PER], ds[PER];
+#pragma unroll
+    for (int e = 0; e < PER; ++e) {
+      const int i = tid + e * NTHREADS, r = i / BK, j = i % BK;
+      p[e] = 0.f;
+      ds[e] = 0.f;
+      bool vis = visible(q0 + r, k0 + j, Sq, Sk, causal);
+      if constexpr (GATED)
+        vis = vis && sub_on(tl.bits, 8 * (((q0 + r) >> gate.shift) - (q0 >> gate.shift)),
+                            ((k0 + j) >> gate.shift) - (k0 >> gate.shift));
+      if (vis) {
+        p[e] = exp2f(ss[r * LDF + j] * scale2 - lse2[r]);
+        ds[e] = p[e] * (dps[r * LDF + j] - dl[r]);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < PER; ++e) {
+      const int i = tid + e * NTHREADS, r = i / BK, j = i % BK;
+      pts[r * LDT + j] = from_f<T>(p[e]);
+      dss[r * LDT + j] = from_f<T>(ds[e]);
+    }
+    __syncthreads();
+    mma_tile<true, false, true>(pts, LDT, dos, LDT, dvs, LDF, BK, D, BQ);  // dv += P^T dO
+    mma_tile<true, false, true>(dss, LDT, qs, LDT, dks, LDF, BK, D, BQ);   // dk += dS^T Q
+  };
+  if constexpr (GATED) {
+    int first;
+    const int ntiles = gate_row(gate, (kvh % gate.heads) * gridDim.x + blockIdx.x, first);
+    const int nqt = (Sq + BQ - 1) / BQ;
+    for (int n = 0; n < ntiles; ++n) {
+      const Tile tl = tile_at<true>(gate, first, n);
+      step(kvh * rep + tl.index / nqt, (tl.index % nqt) * BQ, tl);
+    }
+  } else {
+    for (int h = 0; h < rep; ++h)
+      for (int q0 = q_start; q0 < Sq; q0 += BQ) step(kvh * rep + h, q0, Tile{0, 0, 0ull});
   }
   __syncthreads();
 
@@ -464,9 +620,23 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
+__device__ __forceinline__ uint64_t globaltimer_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
 // Spin until the phase of parity `parity` of the barrier has completed.
+// WATCH (a gated kernel's consumers, at their first waits, where a list
+// the producer never walks would leave them): a wait still spinning after
+// 1024 tries starts a clock, and traps once it reads 10 s, so that it
+// fails the launch with an error instead of hanging.  (In the loops the
+// watch's registers cost dkv its wgmma overlap: ptxas C7512.)
+template <bool WATCH = false>
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done;
+  uint64_t t0 = 0;
+  uint32_t spins = 0;
   do {
     asm volatile(
         "{\n.reg .pred p;\n"
@@ -475,6 +645,13 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "=r"(done)
         : "r"(bar), "r"(parity)
         : "memory");
+    if constexpr (WATCH) {
+      if (!done && (++spins & 1023u) == 0) {
+        const uint64_t t = globaltimer_ns();
+        if (t0 == 0) t0 = t;
+        else if (t - t0 > 10000000000ull) __trap();
+      }
+    }
   } while (!done);
 }
 
@@ -519,9 +696,6 @@ __device__ __forceinline__ void release(uint32_t bar, int lane) {
   __syncwarp();
   if (lane == 0) mbar_arrive(bar);
 }
-
-// -inf: a score the mask removed, and the row maximum before any key
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -614,12 +788,38 @@ __device__ __forceinline__ void issue_scores(float (&sc)[64], uint32_t qa, uint3
 // The online-softmax step on the S fragments of the tile at key k0 (exp2
 // domain): masks keys >= Sk and, under causal, above the diagonal; updates
 // the running max m_r and sum l_r of the thread's two rows, leaves P in sc
-// and the factor O must be rescaled by in alpha.
+// GATED masking of a score fragment x[N] (column pairs j = i >> 2, rows r
+// = (i >> 1) & 1), in a pass of its own before the softmax, taken only on
+// a tile that is not FULL: -inf where the key's layout sub-block is off
+// for the thread's two rows (one sub-block: bit j of pm, pair_bits) and,
+// on a DIAG tile, after each row (column 8 j + 2 quad + (i & 1) >
+// row: 8 j + (i & 1) > row - k0 - 2 quad).  Masking inside the softmax's
+// loop instead, as the ungated path does on its edge tiles, slowed the
+// gated kernels even on tiles that were never masked (PERF.md §6).
+template <int N>
+__device__ __forceinline__ void gate_pass(float (&x)[N], int flags, uint32_t pm, int k0, int row0,
+                                          int quad) {
+  if (flags & FULL) return;
+  const bool diag = flags & DIAG;
+  const int lim0 = row0 - k0 - 2 * quad;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int lim = lim0 + 8 * ((i >> 1) & 1);
+    if (!((pm >> (i >> 2)) & 1u) || (diag && 8 * (i >> 2) + (i & 1) > lim)) x[i] = neg_inf();
+  }
+}
+
+// and the factor O must be rescaled by in alpha.  GATED: the masking is
+// gate_pass's, before this step's loop, which then runs unmasked.
+template <bool GATED>
 __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m_r)[2], float (&l_r)[2],
                                              float (&alpha)[2], int k0, int row0, int quad,
-                                             int wg_first, int Sk, int causal, float scale2) {
+                                             int wg_first, int Sk, int causal, float scale2,
+                                             int flags, uint32_t pm) {
   const float kNegInf = neg_inf();
-  const bool edge = k0 + BN > Sk || (causal && k0 + BN - 1 > wg_first);
+  bool edge = false;
+  if constexpr (GATED) gate_pass(sc, flags, pm, k0, row0, quad);
+  else edge = k0 + BN > Sk || (causal && k0 + BN - 1 > wg_first);
   // row max and row sum in four independent chains a row (column chunk j
   // goes to chain j % 4), so that two warps a scheduler keep it busy
   float mx[2][4], sum[2][4];
@@ -691,13 +891,27 @@ __device__ __forceinline__ void rescale_and_issue_pv(float (&acc)[32], const uin
     wgmma_m64n64k16_rs(acc, pa[kk], desc_sw128(vs + 2048 * kk, 1024, 1024));
 }
 
+// 128 rows of a [BH, S, 64] bf16 array from row0 of head bh set to zero
+// (rows >= S left alone), by all the block's threads: the output of a
+// gated kernel's query tile that sees no key tile.
+__device__ void zero_rows(bf16* x, int bh, int row0, int S) {
+  const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
+  for (int i = threadIdx.x; i < BM * 32; i += blockDim.x) {
+    const int row = row0 + i / 32;
+    if (row < S) reinterpret_cast<__nv_bfloat162*>(x)[((size_t)bh * S + row) * 32 + i % 32] = zero;
+  }
+}
+
 // Accumulator fragments of m64nN (f32): register i of a thread of warp w
 // holds row 16*w + lane/4 + 8*((i >> 1) & 1), column 8*(i >> 2) + 2*(lane%4)
-// + (i & 1) of its warpgroup's 64-row tile.
+// + (i & 1) of its warpgroup's 64-row tile.  GATED: the ring walks the
+// live key tiles of the query tile's map row (stage = list position).
+template <bool GATED>
 __global__ void __launch_bounds__(THREADS, 1)
 wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
-                 float* __restrict__ lse, int Sq, int Sk, int rep, int causal, float scale2) {
+                 float* __restrict__ lse, int Sq, int Sk, int rep, int causal, float scale2,
+                 const Gate gate) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   const uint32_t sbase = smem_u32(smem);            // 1024-aligned: the swizzle's period
@@ -705,11 +919,31 @@ wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   const uint32_t bars = sbase + TILE * (1 + 2 * STAGES);
   const uint32_t full0 = bars, empty0 = bars + 8 * STAGES, qbar = bars + 16 * STAGES;
 
-  const int bh = blockIdx.x, kvh = bh / rep;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // the longest causal rows first
+  StageTile* descs = reinterpret_cast<StageTile*>(smem + TILE * (1 + 2 * STAGES) + 64);
+
+  // ungated: block (bh, the longest causal rows first); GATED: block
+  // (batch, the map row of the order's entry blockIdx.y), the longest
+  // lists of live tiles first
+  int bh = blockIdx.x, q0 = (gridDim.y - 1 - blockIdx.y) * BM, map_row = 0;
+  if constexpr (GATED) {
+    map_row = __ldg(gate.order + blockIdx.y);
+    const int nt = gridDim.y / gate.heads;
+    bh = blockIdx.x * gate.heads + map_row / nt;
+    q0 = (map_row % nt) * BM;
+  }
+  const int kvh = bh / rep;
   const int k_end = causal ? min(Sk, min(q0 + BM, Sq)) : Sk;
-  const int ntiles = (k_end + BN - 1) / BN;
+  int first = 0, ntiles = (k_end + BN - 1) / BN;
   const int tid = threadIdx.x;
+  if constexpr (GATED) {
+    ntiles = gate_row(gate, map_row, first);
+    if (ntiles == 0) {                              // no key: o = 0, lse = -inf
+      zero_rows(o, bh, q0, Sq);
+      for (int r = tid; r < BM && q0 + r < Sq; r += THREADS)
+        lse[(size_t)bh * Sq + q0 + r] = neg_inf();
+      return;
+    }
+  }
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -725,13 +959,17 @@ wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     if (tid == CONSUMERS) {
       mbar_expect_tx(qbar, TILE);
       tma_load_3d(q_s, &tq, qbar, 0, q0, bh);
+      Tile next = tile_at<GATED>(gate, first, 0);  // GATED: entry t + 1 loads during wait t
       for (int t = 0; t < ntiles; ++t) {
         const int s = t % STAGES;
+        const Tile tl = next;
+        if (t + 1 < ntiles) next = tile_at<GATED>(gate, first, t + 1);
         mbar_wait(empty0 + 8 * s, ((t / STAGES) & 1) ^ 1);   // first pass: free
         const uint32_t ks = sbase + TILE * (1 + 2 * s);
+        if constexpr (GATED) descs[s] = StageTile{tl.index, tl.flags, tl.bits};
         mbar_expect_tx(full0 + 8 * s, 2 * TILE);
-        tma_load_3d(ks, &tk, full0 + 8 * s, 0, t * BN, kvh);
-        tma_load_3d(ks + TILE, &tv, full0 + 8 * s, 0, t * BN, kvh);
+        tma_load_3d(ks, &tk, full0 + 8 * s, 0, tl.index * BN, kvh);
+        tma_load_3d(ks + TILE, &tv, full0 + 8 * s, 0, tl.index * BN, kvh);
       }
     }
     return;
@@ -742,6 +980,22 @@ wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;   // rows row0 and row0 + 8
   const int wg_first = q0 + wg * 64;
   const uint32_t qa = q_s + wg * 64 * 128;                // this warpgroup's 64 Q rows
+  // GATED: the thread's query sub-block x 8, and tile t's key offset, FULL
+  // flag and the 8-key runs its sub-block's row lets through, from the
+  // stage descriptor
+  const int qbit = GATED ? 8 * ((row0 >> gate.shift) - (q0 >> gate.shift)) : 0;
+  auto stage_tile = [&](int t, int& k0, int& flags, uint32_t& pm) {
+    if constexpr (GATED) {
+      const StageTile d = descs[t % STAGES];
+      k0 = d.index * BN;
+      flags = d.flags;
+      pm = flags & FULL ? 0u : pair_bits((uint32_t)(d.bits >> qbit) & 0xffu, gate.shift, BN / 8);
+    } else {
+      k0 = t * BN;
+      flags = 0;
+      pm = 0;
+    }
+  };
 
   const float kNegInf = neg_inf();
   float acc[32];
@@ -753,8 +1007,8 @@ wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
 #pragma unroll
   for (int i = 0; i < 64; ++i) sc[i] = 0.f;
 
-  mbar_wait(qbar, 0);
-  mbar_wait(full0, 0);
+  mbar_wait<GATED>(qbar, 0);
+  mbar_wait<GATED>(full0, 0);
   issue_scores(sc, qa, sbase + TILE);
   wgmma_commit();
   wgmma_wait<0>();
@@ -768,7 +1022,11 @@ wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   float alpha[2];
   uint32_t pa[8][4];
   for (int t = 0; t + 1 < ntiles; ++t) {
-    softmax_tile(sc, m_r, l_r, alpha, t * BN, row0, quad, wg_first, Sk, causal, scale2);
+    int k0, flags;
+    uint32_t pm;
+    stage_tile(t, k0, flags, pm);
+    softmax_tile<GATED>(sc, m_r, l_r, alpha, k0, row0, quad, wg_first, Sk, causal, scale2, flags,
+                        pm);
     wgmma_wait<0>();                                      // P_{t-1} V_{t-1}
     fence_regs(acc);
     if (t > 0) release(empty0 + 8 * ((t - 1) % STAGES), lane);
@@ -784,7 +1042,11 @@ wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   }
   {
     const int t = ntiles - 1;
-    softmax_tile(sc, m_r, l_r, alpha, t * BN, row0, quad, wg_first, Sk, causal, scale2);
+    int k0, flags;
+    uint32_t pm;
+    stage_tile(t, k0, flags, pm);
+    softmax_tile<GATED>(sc, m_r, l_r, alpha, k0, row0, quad, wg_first, Sk, causal, scale2, flags,
+                        pm);
     wgmma_wait<0>();
     fence_regs(acc);
     pack_p(pa, sc);
@@ -813,9 +1075,19 @@ constexpr uint32_t HALF = 64 * 64 * 2;     // one [64][64] bf16 tile, 8 KB
 // dq: Q and dO, the ring of K and V tiles, 2 * STAGES + 1 mbarriers
 constexpr size_t DQ_SMEM = 1024 + 2 * TILE + STAGES * 2 * HALF + 8 * (2 * STAGES + 1);
 // dkv: K and V, the ring of Q and dO tiles with their lse and delta rows
-// (2 x 64 floats a stage), 2 * STAGES + 1 mbarriers
-constexpr uint32_t SIDE = 2 * 64 * 4;
-constexpr size_t DKV_SMEM = 1024 + 2 * TILE + STAGES * (2 * HALF + SIDE) + 8 * (2 * STAGES + 1);
+// (2 x 64 floats a stage; GATED 8 lse rows, one per key sub-block of the
+// tile, then delta and the tile's first query row), 2 * STAGES + 1
+// mbarriers
+template <bool GATED>
+__host__ __device__ constexpr int dkv_lse_rows() { return GATED ? 8 : 1; }
+template <bool GATED>
+__host__ __device__ constexpr uint32_t dkv_side() {
+  return (dkv_lse_rows<GATED>() + 1) * 64 * 4 + (GATED ? 16 : 0);
+}
+template <bool GATED>
+constexpr size_t dkv_smem() {
+  return 1024 + 2 * TILE + STAGES * (2 * HALF + dkv_side<GATED>()) + 8 * (2 * STAGES + 1);
+}
 
 __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
 
@@ -839,12 +1111,23 @@ __device__ __forceinline__ void issue_rs(float (&d)[32], const uint32_t (&pa)[4]
 
 // dq's step on the fragments of the 64-key tile at k0 (rows: the thread's
 // two query rows row0, row0 + 8): P = exp2(S scale2 - lse2[row]), zero for
-// keys >= Sk and, under causal, above the diagonal; dS = P (dP - delta[row])
-// is left in s.
+// keys >= Sk and, under causal, above the diagonal; dS = P (dP -
+// delta[row]) is left in s.  GATED: x = S scale2 - lse2 first, then
+// gate_pass on x (never on S: a row that sees no key has lse2 = -inf,
+// and -inf - (-inf) would be NaN), then the exp2.
+template <bool GATED>
 __device__ __forceinline__ void ds_rows(float (&s)[32], const float (&dp)[32],
                                         const float (&lse2)[2], const float (&dl)[2], int k0,
                                         int row0, int quad, bool edge, int Sk, int causal,
-                                        float scale2) {
+                                        float scale2, int flags, uint32_t pm) {
+  if constexpr (GATED) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = fmaf(s[i], scale2, -lse2[(i >> 1) & 1]);
+    gate_pass(s, flags, pm, k0, row0, quad);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = ex2(s[i]) * (dp[i] - dl[(i >> 1) & 1]);
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     const int r = (i >> 1) & 1;
@@ -859,16 +1142,19 @@ __device__ __forceinline__ void ds_rows(float (&s)[32], const float (&dp)[32],
 
 // dkv's step on the fragments of the transposed tile (rows: the thread's
 // two keys key0, key0 + 8; columns: the 64 queries from q0, whose lse2 and
-// delta lie in shared memory at side, side + 64): P^T is left in s and dS^T
-// in dp.  Queries >= Sq carry lse2 = +inf (P = 0); under causal a key
-// above the query's diagonal is masked.
-__device__ __forceinline__ void ds_cols(float (&s)[32], float (&dp)[32], const float* side,
-                                        int q0, int key0, int quad, bool edge, float scale2) {
+// delta lie in shared memory at lrow and drow): P^T is left in s and dS^T
+// in dp.  Queries >= Sq carry lse2 = +inf (P = 0); under causal (edge) a
+// key above the query's diagonal is masked.  GATED, lrow is the row of
+// the keys' layout sub-block, where a query whose sub-block bit is 0 also
+// carries lse2 = +inf, so the layout costs the step nothing.
+__device__ __forceinline__ void ds_cols(float (&s)[32], float (&dp)[32], const float* lrow,
+                                        const float* drow, int q0, int key0, int quad, bool edge,
+                                        float scale2) {
   float2 l2[8], dl[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    l2[j] = *reinterpret_cast<const float2*>(side + 8 * j + 2 * quad);
-    dl[j] = *reinterpret_cast<const float2*>(side + 64 + 8 * j + 2 * quad);
+    l2[j] = *reinterpret_cast<const float2*>(lrow + 8 * j + 2 * quad);
+    dl[j] = *reinterpret_cast<const float2*>(drow + 8 * j + 2 * quad);
   }
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
@@ -901,17 +1187,42 @@ __device__ __forceinline__ float dot16(const bf16* p, const bf16* q) {
   return acc;
 }
 
+// lse (exp2 domain) and delta of the thread's two rows row0, row0 + 8 of
+// head bh; with o given, delta = rowsum(dO O) in f32, the row's quad
+// reading 16 values each, and written out for the dkv call.
+__device__ __forceinline__ void dq_row_stats(const bf16* o, const bf16* dout, const float* lse,
+                                             float* delta, int bh, int Sq, int row0, int quad,
+                                             float (&lse2)[2], float (&dl)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const size_t ri = (size_t)bh * Sq + row;
+    if (o != nullptr) {
+      float d = row < Sq ? dot16(dout + ri * 64 + 16 * quad, o + ri * 64 + 16 * quad) : 0.f;
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      d += __shfl_xor_sync(0xffffffffu, d, 2);
+      if (quad == 0 && row < Sq) delta[ri] = d;
+      dl[r] = d;
+    } else {
+      dl[r] = row < Sq ? delta[ri] : 0.f;
+    }
+    lse2[r] = row < Sq ? lse[ri] * LOG2E : 0.f;
+  }
+}
+
 // Fragments as in wgmma_fwd_kernel.  Per 64-key tile t: dS_t is computed
 // while dS_{t-1} K_{t-1} is still on the tensor cores; then that product is
 // retired (its stage released), dS_t packed, S_{t+1} and dP_{t+1} issued,
 // dS_t K_t issued, and S_{t+1}, dP_{t+1} awaited.  The last tile is peeled
-// off so that no wgmma or wait in the loop is conditional.
+// off so that no wgmma or wait in the loop is conditional.  GATED: the
+// ring walks the live 64-key tiles of the query tile's map row.
+template <bool GATED>
 __global__ void __launch_bounds__(THREADS, 1)
 wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                 const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                 const bf16* __restrict__ o, const bf16* __restrict__ dout,
                 const float* __restrict__ lse, float* __restrict__ delta, bf16* __restrict__ dq,
-                int Sq, int Sk, int rep, int causal, float sm_scale) {
+                int Sq, int Sk, int rep, int causal, float sm_scale, const Gate gate) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   const uint32_t sbase = smem_u32(smem);
@@ -920,11 +1231,33 @@ wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   const uint32_t bars = ring + STAGES * 2 * HALF;
   const uint32_t full0 = bars, empty0 = bars + 8 * STAGES, qbar = bars + 16 * STAGES;
 
-  const int bh = blockIdx.x, kvh = bh / rep;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // the longest causal rows first
+  StageTile* descs = reinterpret_cast<StageTile*>(smem + 2 * TILE + STAGES * 2 * HALF + 64);
+
+  // blocks as in wgmma_fwd_kernel
+  int bh = blockIdx.x, q0 = (gridDim.y - 1 - blockIdx.y) * BM, map_row = 0;
+  if constexpr (GATED) {
+    map_row = __ldg(gate.order + blockIdx.y);
+    const int nt = gridDim.y / gate.heads;
+    bh = blockIdx.x * gate.heads + map_row / nt;
+    q0 = (map_row % nt) * BM;
+  }
+  const int kvh = bh / rep;
   const int k_end = causal ? min(Sk, min(q0 + BM, Sq)) : Sk;
-  const int ntiles = (k_end + KT - 1) / KT;
+  int first = 0, ntiles = (k_end + KT - 1) / KT;
   const int tid = threadIdx.x;
+  if constexpr (GATED) {
+    ntiles = gate_row(gate, map_row, first);
+    if (ntiles == 0) {                              // no key: dq = 0, delta still written
+      if (tid < CONSUMERS) {
+        const int lane = tid % 32;
+        float lse2[2], dl[2];
+        dq_row_stats(o, dout, lse, delta, bh, Sq, q0 + (tid / 32) * 16 + lane / 4, lane % 4,
+                     lse2, dl);
+      }
+      zero_rows(dq, bh, q0, Sq);
+      return;
+    }
+  }
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -941,13 +1274,17 @@ wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       mbar_expect_tx(qbar, 2 * TILE);
       tma_load_3d(q_s, &tq, qbar, 0, q0, bh);
       tma_load_3d(do_s, &tdo, qbar, 0, q0, bh);
+      Tile next = tile_at<GATED>(gate, first, 0);  // GATED: entry t + 1 loads during wait t
       for (int t = 0; t < ntiles; ++t) {
         const int s = t % STAGES;
+        const Tile tl = next;
+        if (t + 1 < ntiles) next = tile_at<GATED>(gate, first, t + 1);
         mbar_wait(empty0 + 8 * s, ((t / STAGES) & 1) ^ 1);
         const uint32_t ks = ring + 2 * HALF * s;
+        if constexpr (GATED) descs[s] = StageTile{tl.index, tl.flags, tl.bits};
         mbar_expect_tx(full0 + 8 * s, 2 * HALF);
-        tma_load_3d(ks, &tk, full0 + 8 * s, 0, t * KT, kvh);
-        tma_load_3d(ks + HALF, &tv, full0 + 8 * s, 0, t * KT, kvh);
+        tma_load_3d(ks, &tk, full0 + 8 * s, 0, tl.index * KT, kvh);
+        tma_load_3d(ks + HALF, &tv, full0 + 8 * s, 0, tl.index * KT, kvh);
       }
     }
     return;
@@ -958,25 +1295,25 @@ wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;   // rows row0 and row0 + 8
   const int wg_first = q0 + wg * 64;
   const uint32_t qa = q_s + wg * 64 * 128, doa = do_s + wg * 64 * 128;
-
-  // lse (exp2 domain) and delta of the thread's two rows; with o given,
-  // delta = rowsum(dO O) in f32, the row's quad reading 16 values each
-  float lse2[2], dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    const size_t ri = (size_t)bh * Sq + row;
-    if (o != nullptr) {
-      float d = row < Sq ? dot16(dout + ri * 64 + 16 * quad, o + ri * 64 + 16 * quad) : 0.f;
-      d += __shfl_xor_sync(0xffffffffu, d, 1);
-      d += __shfl_xor_sync(0xffffffffu, d, 2);
-      if (quad == 0 && row < Sq) delta[ri] = d;
-      dl[r] = d;
+  // as in wgmma_fwd_kernel; ungated, edge marks the tiles the mask reaches
+  const int qbit = GATED ? 8 * ((row0 >> gate.shift) - (q0 >> gate.shift)) : 0;
+  auto stage_tile = [&](int t, int& k0, bool& edge, int& flags, uint32_t& pm) {
+    if constexpr (GATED) {
+      const StageTile d = descs[t % STAGES];
+      k0 = d.index * KT;
+      flags = d.flags;
+      edge = false;
+      pm = flags & FULL ? 0u : pair_bits((uint32_t)(d.bits >> qbit) & 0xffu, gate.shift, KT / 8);
     } else {
-      dl[r] = row < Sq ? delta[ri] : 0.f;
+      k0 = t * KT;
+      edge = k0 + KT > Sk || (causal && k0 + KT - 1 > wg_first);
+      flags = 0;
+      pm = 0;
     }
-    lse2[r] = row < Sq ? lse[ri] * LOG2E : 0.f;
-  }
+  };
+
+  float lse2[2], dl[2];
+  dq_row_stats(o, dout, lse, delta, bh, Sq, row0, quad, lse2, dl);
   const float scale2 = sm_scale * LOG2E;
 
   float acc[32], s[32], dp[32];
@@ -984,8 +1321,8 @@ wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   for (int i = 0; i < 32; ++i) acc[i] = s[i] = dp[i] = 0.f;
   uint32_t pa[4][4];
 
-  mbar_wait(qbar, 0);
-  mbar_wait(full0, 0);
+  mbar_wait<GATED>(qbar, 0);
+  mbar_wait<GATED>(full0, 0);
   wgmma_fence();
   issue_nt(s, qa, ring);
   issue_nt(dp, doa, ring + HALF);
@@ -994,9 +1331,11 @@ wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   fence_regs(s);
   fence_regs(dp);
   for (int t = 0; t + 1 < ntiles; ++t) {
-    const int k0 = t * KT;
-    ds_rows(s, dp, lse2, dl, k0, row0, quad,
-            k0 + KT > Sk || (causal && k0 + KT - 1 > wg_first), Sk, causal, scale2);
+    int k0, flags;
+    bool edge;
+    uint32_t pm;
+    stage_tile(t, k0, edge, flags, pm);
+    ds_rows<GATED>(s, dp, lse2, dl, k0, row0, quad, edge, Sk, causal, scale2, flags, pm);
     wgmma_wait<0>();                                      // dS_{t-1} K_{t-1}
     fence_regs(acc);
     if (t > 0) release(empty0 + 8 * ((t - 1) % STAGES), lane);
@@ -1014,9 +1353,12 @@ wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     fence_regs(dp);
   }
   {
-    const int t = ntiles - 1, k0 = t * KT;
-    ds_rows(s, dp, lse2, dl, k0, row0, quad,
-            k0 + KT > Sk || (causal && k0 + KT - 1 > wg_first), Sk, causal, scale2);
+    const int t = ntiles - 1;
+    int k0, flags;
+    bool edge;
+    uint32_t pm;
+    stage_tile(t, k0, edge, flags, pm);
+    ds_rows<GATED>(s, dp, lse2, dl, k0, row0, quad, edge, Sk, causal, scale2, flags, pm);
     wgmma_wait<0>();
     fence_regs(acc);
     pack_p(pa, s);
@@ -1049,21 +1391,37 @@ wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 // products in flight need more than the 168 registers a thread that 288
 // threads get (ptxas spilled and serialised every wgmma), so the producer
 // is a whole warpgroup that hands registers to the consumers with
-// setmaxnreg (40 and 232 a thread), and one warp of it works.
+// setmaxnreg (40 and 232 a thread), and one warp of it works.  GATED: the
+// blocks follow the map's order (batch, the longest column lists first);
+// tile n is entry n of the key tile's column list, g * nqt + query tile
+// over all nqt query tiles, with query head kvh * rep + g under its own
+// layout head; a key tile no query sees writes zeros, as under causal.
+// The producer writes each query row's lse once per key sub-block, +inf
+// where the layout gates the pair off.
 constexpr int DKV_THREADS = CONSUMERS + 128;
+template <bool GATED>
 __global__ void __launch_bounds__(DKV_THREADS, 1)
 wgmma_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                  const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk, int rep,
-                 int causal, float sm_scale) {
-  const int kvh = blockIdx.x;
-  const int k0 = blockIdx.y * BM;          // the key tiles that see the most queries first
-  const int q_start = causal ? k0 : 0;     // queries above the diagonal see none of these keys
+                 int causal, float sm_scale, const Gate gate) {
+  // ungated: the key tiles that see the most queries first
+  int kvh = blockIdx.x, k0 = blockIdx.y * BM, map_row = 0;
+  if constexpr (GATED) {
+    map_row = __ldg(gate.order + blockIdx.y);
+    const int nt = gridDim.y / gate.heads;
+    kvh = blockIdx.x * gate.heads + map_row / nt;
+    k0 = (map_row % nt) * BM;
+  }
+  // queries above the diagonal see none of these keys; GATED: the list's
+  // query tiles count from 0
+  const int q_start = causal && !GATED ? k0 : 0;
   const int nqt = q_start < Sq ? (Sq - q_start + KT - 1) / KT : 0;
-  const int ntiles = rep * nqt;
+  int first = 0, ntiles = rep * nqt;
+  if constexpr (GATED) ntiles = gate_row(gate, map_row, first);
   const int tid = threadIdx.x;
-  if (ntiles == 0) {                       // causal and Sq <= k0: no query sees these keys
+  if (ntiles == 0) {                       // no query sees these keys
     const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
     for (int i = tid; i < BM * 32; i += DKV_THREADS) {
       const int key = k0 + i / 32;
@@ -1075,6 +1433,8 @@ wgmma_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     return;
   }
 
+  constexpr uint32_t SIDE = dkv_side<GATED>();
+  constexpr int LROWS = dkv_lse_rows<GATED>();       // delta at side + 64 LROWS
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   const uint32_t sbase = smem_u32(smem);
@@ -1103,17 +1463,31 @@ wgmma_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       tma_load_3d(k_s, &tk, kvbar, 0, k0, kvh);
       tma_load_3d(v_s, &tv, kvbar, 0, k0, kvh);
     }
+    Tile next = tile_at<GATED>(gate, first, 0);    // GATED: entry n + 1 loads during wait n
     for (int n = 0; n < ntiles; ++n) {
       const int s = n % STAGES;
-      const int bh = kvh * rep + n / nqt, q0 = q_start + (n % nqt) * KT;
+      const Tile tl = next;
+      if (n + 1 < ntiles) next = tile_at<GATED>(gate, first, n + 1);
+      const int bh = kvh * rep + tl.index / nqt, q0 = q_start + (tl.index % nqt) * KT;
       mbar_wait(empty0 + 8 * s, ((n / STAGES) & 1) ^ 1);
       float* side = side0 + s * (SIDE / 4);
 #pragma unroll
       for (int r = lane; r < KT; r += 32) {
         const int row = q0 + r;
         const bool ok = row < Sq;
-        side[r] = ok ? lse[(size_t)bh * Sq + row] * LOG2E : pos_inf();
-        side[KT + r] = ok ? delta[(size_t)bh * Sq + row] : 0.f;
+        const float l2 = ok ? lse[(size_t)bh * Sq + row] * LOG2E : pos_inf();
+        side[LROWS * KT + r] = ok ? delta[(size_t)bh * Sq + row] : 0.f;
+        if constexpr (GATED) {  // one lse row per key sub-block
+          const int qb = (row >> gate.shift) - (q0 >> gate.shift);
+          const uint32_t kb = (uint32_t)(tl.bits >> (8 * qb));
+#pragma unroll
+          for (int b = 0; b < LROWS; ++b) side[b * KT + r] = (kb >> b) & 1u ? l2 : pos_inf();
+        } else {
+          side[r] = l2;
+        }
+      }
+      if constexpr (GATED) {
+        if (lane == 0) reinterpret_cast<int*>(side + (LROWS + 1) * KT)[0] = q0;
       }
       if (lane == 0) {
         const uint32_t qs = ring + 2 * HALF * s;
@@ -1134,14 +1508,22 @@ wgmma_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   const int wg_last = k0 + wg * 64 + 63;
   const uint32_t ka = k_s + wg * 64 * 128, va = v_s + wg * 64 * 128;
   const float scale2 = sm_scale * LOG2E;
+  // the lse row of the thread's keys (key0 and key0 + 8 share a layout
+  // sub-block), and tile n's first query row (GATED: from the stage's side
+  // area, written by the producer)
+  const int lrow = GATED ? KT * ((key0 >> gate.shift) - (k0 >> gate.shift)) : 0;
+  auto tile_q0 = [&](int n, const float* side) {
+    if constexpr (GATED) return reinterpret_cast<const int*>(side + (LROWS + 1) * KT)[0];
+    else return q_start + (n % nqt) * KT;
+  };
 
   float dka[32], dva[32], s[32], dp[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) dka[i] = dva[i] = s[i] = dp[i] = 0.f;
   uint32_t pp[4][4], pd[4][4];
 
-  mbar_wait(kvbar, 0);
-  mbar_wait(full0, 0);
+  mbar_wait<GATED>(kvbar, 0);
+  mbar_wait<GATED>(full0, 0);
   wgmma_fence();
   issue_nt(s, ka, ring);                                  // S^T_0 = K Q_0^T
   issue_nt(dp, va, ring + HALF);                          // dP^T_0 = V dO_0^T
@@ -1150,9 +1532,10 @@ wgmma_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   fence_regs(s);
   fence_regs(dp);
   for (int n = 0; n + 1 < ntiles; ++n) {
-    const int q0 = q_start + (n % nqt) * KT;
-    ds_cols(s, dp, side0 + (n % STAGES) * (SIDE / 4), q0, key0, quad,
-            causal && q0 < wg_last, scale2);
+    const float* side = side0 + (n % STAGES) * (SIDE / 4);
+    const int q0 = tile_q0(n, side);
+    ds_cols(s, dp, side + lrow, side + LROWS * KT, q0, key0, quad, causal && q0 < wg_last,
+            scale2);
     wgmma_wait<0>();                                      // tile n-1's dV, dK
     fence_regs(dka);
     fence_regs(dva);
@@ -1174,9 +1557,11 @@ wgmma_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     fence_regs(dp);
   }
   {
-    const int n = ntiles - 1, q0 = q_start + (n % nqt) * KT;
-    ds_cols(s, dp, side0 + (n % STAGES) * (SIDE / 4), q0, key0, quad,
-            causal && q0 < wg_last, scale2);
+    const int n = ntiles - 1;
+    const float* side = side0 + (n % STAGES) * (SIDE / 4);
+    const int q0 = tile_q0(n, side);
+    ds_cols(s, dp, side + lrow, side + LROWS * KT, q0, key0, quad, causal && q0 < wg_last,
+            scale2);
     wgmma_wait<0>();
     fence_regs(dka);
     fence_regs(dva);
@@ -1246,19 +1631,24 @@ bool encode_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int S, int
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+template <bool GATED>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int Sq,
-               int Sk, int rep, int causal, float sm_scale, void* stream) {
+               int Sk, int rep, int causal, float sm_scale, const Gate& gate, void* stream) {
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap mq, mk, mv;
   if (!encode_map(enc, &mq, q, Sq, BH, BM) || !encode_map(enc, &mk, k, Sk, BH / rep, BN) ||
       !encode_map(enc, &mv, v, Sk, BH / rep, BN))
     return (int)cudaErrorInvalidValue;
+  // GATED: the stage descriptors after the barriers; blocks (batch, map row)
+  const size_t smem = SMEM + (GATED ? STAGES * sizeof(StageTile) : 0);
+  const int nt = (Sq + BM - 1) / BM;
+  const dim3 grid = GATED ? dim3(BH / gate.heads, gate.heads * nt) : dim3(BH, nt);
   const cudaError_t e = cudaFuncSetAttribute(
-      wgmma_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+      wgmma_fwd_kernel<GATED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  wgmma_fwd_kernel<<<dim3(BH, (Sq + BM - 1) / BM), THREADS, SMEM, (cudaStream_t)stream>>>(
-      mq, mk, mv, (bf16*)o, (float*)lse, Sq, Sk, rep, causal, sm_scale * LOG2E);
+  wgmma_fwd_kernel<GATED><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      mq, mk, mv, (bf16*)o, (float*)lse, Sq, Sk, rep, causal, sm_scale * LOG2E, gate);
   return (int)cudaGetLastError();
 }
 
@@ -1272,38 +1662,46 @@ bool encode_bwd_maps(EncodeTiledFn enc, CUtensorMap (&m)[4], const void* q, cons
          encode_map(enc, &m[3], v, Sk, BH / rep, kv_rows);
 }
 
+template <bool GATED>
 int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
               const void* lse, void* delta, void* dq, int BH, int Sq, int Sk, int rep,
-              int causal, float sm_scale, void* stream) {
+              int causal, float sm_scale, const Gate& gate, void* stream) {
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap m[4];
   if (!encode_bwd_maps(enc, m, q, dout, k, v, BH, Sq, Sk, rep, BM, KT))
     return (int)cudaErrorInvalidValue;
+  // GATED: the stage descriptors after the barriers; blocks (batch, map row)
+  const size_t smem = DQ_SMEM + (GATED ? 8 + STAGES * sizeof(StageTile) : 0);
+  const int nt = (Sq + BM - 1) / BM;
+  const dim3 grid = GATED ? dim3(BH / gate.heads, gate.heads * nt) : dim3(BH, nt);
   const cudaError_t e = cudaFuncSetAttribute(
-      wgmma_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DQ_SMEM);
+      wgmma_dq_kernel<GATED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  wgmma_dq_kernel<<<dim3(BH, (Sq + BM - 1) / BM), THREADS, DQ_SMEM, (cudaStream_t)stream>>>(
+  wgmma_dq_kernel<GATED><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       m[0], m[1], m[2], m[3], (const bf16*)o, (const bf16*)dout, (const float*)lse,
-      (float*)delta, (bf16*)dq, Sq, Sk, rep, causal, sm_scale);
+      (float*)delta, (bf16*)dq, Sq, Sk, rep, causal, sm_scale, gate);
   return (int)cudaGetLastError();
 }
 
+template <bool GATED>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, void* dk, void* dv, int BHKV, int Sq, int Sk, int rep,
-               int causal, float sm_scale, void* stream) {
+               int causal, float sm_scale, const Gate& gate, void* stream) {
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap m[4];
   if (!encode_bwd_maps(enc, m, q, dout, k, v, BHKV * rep, Sq, Sk, rep, KT, BM))
     return (int)cudaErrorInvalidValue;
+  constexpr size_t DKV_SMEM = dkv_smem<GATED>();
+  const int nt = (Sk + BM - 1) / BM;   // GATED: blocks (batch, map row)
+  const dim3 grid = GATED ? dim3(BHKV / gate.heads, gate.heads * nt) : dim3(BHKV, nt);
   const cudaError_t e = cudaFuncSetAttribute(
-      wgmma_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DKV_SMEM);
+      wgmma_dkv_kernel<GATED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DKV_SMEM);
   if (e != cudaSuccess) return (int)e;
-  wgmma_dkv_kernel<<<dim3(BHKV, (Sk + BM - 1) / BM), DKV_THREADS, DKV_SMEM,
-                     (cudaStream_t)stream>>>(
+  wgmma_dkv_kernel<GATED><<<grid, DKV_THREADS, DKV_SMEM, (cudaStream_t)stream>>>(
       m[0], m[1], m[2], m[3], (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, Sq,
-      Sk, rep, causal, sm_scale);
+      Sk, rep, causal, sm_scale, gate);
   return (int)cudaGetLastError();
 }
 
@@ -1317,39 +1715,89 @@ int set_smem(K kernel, size_t bytes) {
                                    (int)bytes);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool GATED>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
-               int Sq, int Sk, int rep, int causal, float sm_scale, void* stream) {
+               int Sq, int Sk, int rep, int causal, float sm_scale, const Gate& gate,
+               void* stream) {
   const size_t smem = fwd_smem<T>();
-  if (int e = set_smem(fwd_kernel<T, D>, smem)) return e;
-  fwd_kernel<T, D><<<dim3((Sq + BQ - 1) / BQ, BH), NTHREADS, smem, (cudaStream_t)stream>>>(
+  if (int e = set_smem(fwd_kernel<T, D, GATED>, smem)) return e;
+  fwd_kernel<T, D, GATED><<<dim3((Sq + BQ - 1) / BQ, BH), NTHREADS, smem, (cudaStream_t)stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, Sq, Sk, rep, causal,
-      sm_scale * LOG2E);
+      sm_scale * LOG2E, gate);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool GATED>
 int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
               const void* lse, void* delta, void* dq, int BH, int Sq, int Sk, int rep,
-              int causal, float sm_scale, void* stream) {
+              int causal, float sm_scale, const Gate& gate, void* stream) {
   const size_t smem = dq_smem<T>();
-  if (int e = set_smem(dq_kernel<T, D>, smem)) return e;
-  dq_kernel<T, D><<<dim3((Sq + BQ - 1) / BQ, BH), NTHREADS, smem, (cudaStream_t)stream>>>(
+  if (int e = set_smem(dq_kernel<T, D, GATED>, smem)) return e;
+  dq_kernel<T, D, GATED><<<dim3((Sq + BQ - 1) / BQ, BH), NTHREADS, smem, (cudaStream_t)stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout, (const float*)lse,
-      (float*)delta, (T*)dq, Sq, Sk, rep, causal, sm_scale);
+      (float*)delta, (T*)dq, Sq, Sk, rep, causal, sm_scale, gate);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool GATED>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int BHKV, int Sq,
-               int Sk, int rep, int causal, float sm_scale, void* stream) {
+               int Sk, int rep, int causal, float sm_scale, const Gate& gate, void* stream) {
   const size_t smem = dkv_smem<T>();
-  if (int e = set_smem(dkv_kernel<T, D>, smem)) return e;
-  dkv_kernel<T, D><<<dim3((Sk + BK - 1) / BK, BHKV), NTHREADS, smem, (cudaStream_t)stream>>>(
+  if (int e = set_smem(dkv_kernel<T, D, GATED>, smem)) return e;
+  dkv_kernel<T, D, GATED><<<dim3((Sk + BK - 1) / BK, BHKV), NTHREADS, smem,
+                            (cudaStream_t)stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-      (const float*)delta, (T*)dk, (T*)dv, Sq, Sk, rep, causal, sm_scale);
+      (const float*)delta, (T*)dk, (T*)dv, Sq, Sk, rep, causal, sm_scale, gate);
   return (int)cudaGetLastError();
+}
+
+// The three entry points over both routes, ungated or GATED by `gate`.
+template <bool GATED>
+int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int Sq, int Sk,
+        int rep, int D, int dtype, int causal, float sm_scale, const Gate& gate, void* stream) {
+  if (D != 64) return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: return launch_fwd<float, 64, GATED>(q, k, v, o, lse, BH, Sq, Sk, rep, causal,
+                                                sm_scale, gate, stream);
+    case 2: return hopper::launch_fwd<GATED>(q, k, v, o, lse, BH, Sq, Sk, rep, causal, sm_scale,
+                                             gate, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <bool GATED>
+int bwd_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
+           const void* lse, void* delta, void* dq, int BH, int Sq, int Sk, int rep, int D,
+           int dtype, int causal, float sm_scale, const Gate& gate, void* stream) {
+  if (D != 64) return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: return launch_dq<float, 64, GATED>(q, k, v, o, dout, lse, delta, dq, BH, Sq, Sk, rep,
+                                               causal, sm_scale, gate, stream);
+    case 2: return hopper::launch_dq<GATED>(q, k, v, o, dout, lse, delta, dq, BH, Sq, Sk, rep,
+                                            causal, sm_scale, gate, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <bool GATED>
+int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+            const void* delta, void* dk, void* dv, int BHKV, int Sq, int Sk, int rep, int D,
+            int dtype, int causal, float sm_scale, const Gate& gate, void* stream) {
+  if (D != 64) return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: return launch_dkv<float, 64, GATED>(q, k, v, dout, lse, delta, dk, dv, BHKV, Sq, Sk,
+                                                rep, causal, sm_scale, gate, stream);
+    case 2: return hopper::launch_dkv<GATED>(q, k, v, dout, lse, delta, dk, dv, BHKV, Sq, Sk, rep,
+                                             causal, sm_scale, gate, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+Gate make_gate(const void* offsets, const void* entries, const void* masks, const void* order,
+               int heads, int shift) {
+  return Gate{(const int*)offsets, (const int*)entries, (const unsigned long long*)masks,
+              (const int*)order, heads, shift};
 }
 
 }  // namespace
@@ -1359,18 +1807,18 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 // wgmma + TMA kernel, float32 the plain-f32 tile kernel.  Unsupported
 // (dtype, D) pairs return cudaErrorInvalidValue; the Python wrappers check
 // them first.  There is no fallback: a tensor map that does not encode or a
-// launch that fails returns its error.
+// launch that fails returns its error.  The _layout entry points take the
+// tile map of ops/flash_attention.py::layout_tile_map for the kernel's
+// tiles (bf16: forward 128 x 128, dq 128 queries x 64 keys, dkv 64 x 128;
+// f32: 64 x 64), its head count (query heads; dkv: KV heads) and log2 of
+// the layout's block.
 extern "C" {
 
 int ds_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                            int BH, int Sq, int Sk, int rep, int D, int dtype, int causal,
                            float sm_scale, void* stream) {
-  if (D != 64) return (int)cudaErrorInvalidValue;
-  switch (dtype) {
-    case 0: return launch_fwd<float, 64>(q, k, v, o, lse, BH, Sq, Sk, rep, causal, sm_scale, stream);
-    case 2: return hopper::launch_fwd(q, k, v, o, lse, BH, Sq, Sk, rep, causal, sm_scale, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return fwd<false>(q, k, v, o, lse, BH, Sq, Sk, rep, D, dtype, causal, sm_scale, Gate{},
+                    stream);
 }
 
 // o may be null: delta is then read; otherwise delta is computed and written.
@@ -1378,28 +1826,46 @@ int ds_flash_attention_bwd_dq(const void* q, const void* k, const void* v, const
                               const void* dout, const void* lse, void* delta, void* dq,
                               int BH, int Sq, int Sk, int rep, int D, int dtype, int causal,
                               float sm_scale, void* stream) {
-  if (D != 64) return (int)cudaErrorInvalidValue;
-  switch (dtype) {
-    case 0: return launch_dq<float, 64>(q, k, v, o, dout, lse, delta, dq, BH, Sq, Sk, rep, causal,
-                                        sm_scale, stream);
-    case 2: return hopper::launch_dq(q, k, v, o, dout, lse, delta, dq, BH, Sq, Sk, rep, causal,
-                                     sm_scale, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return bwd_dq<false>(q, k, v, o, dout, lse, delta, dq, BH, Sq, Sk, rep, D, dtype, causal,
+                       sm_scale, Gate{}, stream);
 }
 
 int ds_flash_attention_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                const void* lse, const void* delta, void* dk, void* dv,
                                int BHKV, int Sq, int Sk, int rep, int D, int dtype,
                                int causal, float sm_scale, void* stream) {
-  if (D != 64) return (int)cudaErrorInvalidValue;
-  switch (dtype) {
-    case 0: return launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, BHKV, Sq, Sk, rep,
-                                         causal, sm_scale, stream);
-    case 2: return hopper::launch_dkv(q, k, v, dout, lse, delta, dk, dv, BHKV, Sq, Sk, rep,
-                                      causal, sm_scale, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return bwd_dkv<false>(q, k, v, dout, lse, delta, dk, dv, BHKV, Sq, Sk, rep, D, dtype, causal,
+                        sm_scale, Gate{}, stream);
+}
+
+int ds_flash_attention_fwd_layout(const void* q, const void* k, const void* v, void* o,
+                                  void* lse, int BH, int Sq, int Sk, int rep, int D, int dtype,
+                                  int causal, float sm_scale, const void* offsets,
+                                  const void* entries, const void* masks, const void* order,
+                                  int heads, int shift, void* stream) {
+  return fwd<true>(q, k, v, o, lse, BH, Sq, Sk, rep, D, dtype, causal, sm_scale,
+                   make_gate(offsets, entries, masks, order, heads, shift), stream);
+}
+
+int ds_flash_attention_bwd_dq_layout(const void* q, const void* k, const void* v, const void* o,
+                                     const void* dout, const void* lse, void* delta, void* dq,
+                                     int BH, int Sq, int Sk, int rep, int D, int dtype,
+                                     int causal, float sm_scale, const void* offsets,
+                                     const void* entries, const void* masks, const void* order,
+                                     int heads, int shift, void* stream) {
+  return bwd_dq<true>(q, k, v, o, dout, lse, delta, dq, BH, Sq, Sk, rep, D, dtype, causal,
+                      sm_scale, make_gate(offsets, entries, masks, order, heads, shift), stream);
+}
+
+int ds_flash_attention_bwd_dkv_layout(const void* q, const void* k, const void* v,
+                                      const void* dout, const void* lse, const void* delta,
+                                      void* dk, void* dv, int BHKV, int Sq, int Sk, int rep,
+                                      int D, int dtype, int causal, float sm_scale,
+                                      const void* offsets, const void* entries,
+                                      const void* masks, const void* order, int heads,
+                                      int shift, void* stream) {
+  return bwd_dkv<true>(q, k, v, dout, lse, delta, dk, dv, BHKV, Sq, Sk, rep, D, dtype, causal,
+                       sm_scale, make_gate(offsets, entries, masks, order, heads, shift), stream);
 }
 
 }  // extern "C"

@@ -8,6 +8,13 @@ aligned (key ``<=`` query row, as ``tril(ones(Sq, Sk))``); the row
 log-sum-exp is natural-log ``[B, H, Sq]`` float32, the format of the JAX
 ``_fwd`` (v1).
 
+Block-sparse attention (``ops/sparse_attention``) passes a ``layout``
+``[1 or H, S/block, S/block]`` of 0/1 and its ``block`` to every function
+below: a (query row, key) pair is then visible only where
+``layout[h, row // block, col // block]`` is set (h the query head), on top
+of the causal mask, and a query row that sees no key gets o = 0 and
+lse = -inf, as the JAX kernels' layout gate gives it.
+
 Three kinds of function:
  - the plain versions, ``flash_attention_fwd_plain`` (``(o, lse)``),
    ``flash_attention_bwd_dq_plain`` / ``flash_attention_bwd_dkv_plain``
@@ -43,6 +50,8 @@ from __future__ import annotations
 
 import ctypes
 import math
+import weakref
+from collections import OrderedDict
 from typing import Optional, Tuple
 
 import torch
@@ -74,20 +83,31 @@ def _expand_kv(q, kv):
     return kv.repeat_interleave(rep, dim=1) if rep > 1 else kv
 
 
-def _visible(sq, sk, causal, device):
-    """[Sq, Sk] bool mask, or None when every key is visible."""
-    if not causal:
-        return None
-    return torch.ones((sq, sk), dtype=torch.bool, device=device).tril()
+def _visible(sq, sk, causal, device, layout=None, block=None, heads=1):
+    """The visibility mask, or None when every key is visible: [Sq, Sk]
+    bool, or with a layout [heads, Sq, Sk] (``layout[h, row // block,
+    col // block] != 0`` and the causal mask; a one-head layout is
+    broadcast to ``heads``)."""
+    mask = None
+    if causal:
+        mask = torch.ones((sq, sk), dtype=torch.bool, device=device).tril()
+    if layout is None:
+        return mask
+    lay = layout.to(device) != 0
+    lay = lay[:, torch.arange(sq, device=device) // block]
+    lay = lay[:, :, torch.arange(sk, device=device) // block]
+    lay = lay.expand(heads, sq, sk)
+    return lay if mask is None else lay & mask
 
 
-def _scores(q, k, causal, sm_scale):
+def _scores(q, k, causal, sm_scale, layout=None, block=None):
     """Scaled scores ``q k^T`` [B, H, Sq, Sk] in the compute dtype, masked
     entries at ``DEFAULT_MASK_VALUE``; and the mask."""
     cd = _compute_dtype(q)
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(cd), _expand_kv(q, k))
     s = s * _scale(sm_scale, q.shape[-1])
-    mask = _visible(q.shape[2], k.shape[2], causal, q.device)
+    mask = _visible(q.shape[2], k.shape[2], causal, q.device, layout, block,
+                    q.shape[1])
     if mask is not None:
         s = torch.where(mask, s, DEFAULT_MASK_VALUE)
     return s, mask
@@ -103,26 +123,34 @@ def mha_reference(q, k, v, causal: bool = True,
 
 
 def flash_attention_fwd_plain(q, k, v, causal: bool = True,
-                              sm_scale: Optional[float] = None):
+                              sm_scale: Optional[float] = None, *,
+                              layout=None, block: Optional[int] = None):
     """``(o, lse)``: o ``[B, H, Sq, D]`` in q's dtype and the natural-log
-    row log-sum-exp ``[B, H, Sq]`` of the scaled, masked scores."""
-    s, _ = _scores(q, k, causal, sm_scale)
-    lse = torch.logsumexp(s, dim=-1)
-    p = torch.exp(s - lse[..., None])
+    row log-sum-exp ``[B, H, Sq]`` of the scaled, masked scores.  With a
+    layout, a row that sees no key gets o = 0 and lse = -inf."""
+    s, mask = _scores(q, k, causal, sm_scale, layout, block)
+    if layout is None:
+        lse = torch.logsumexp(s, dim=-1)
+        p = torch.exp(s - lse[..., None])
+    else:
+        lse = torch.logsumexp(s.masked_fill(~mask, -math.inf), dim=-1)
+        p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
     o = torch.einsum("bhqk,bhkd->bhqd", p, _expand_kv(q, v))
     return o.to(q.dtype), lse
 
 
-def _probs(q, k, lse, causal, sm_scale):
-    """Softmax probabilities rebuilt from the lse, zero where masked."""
-    s, mask = _scores(q, k, causal, sm_scale)
+def _probs(q, k, lse, causal, sm_scale, layout=None, block=None):
+    """Softmax probabilities rebuilt from the lse, zero where masked
+    (selected, not multiplied: a row that sees no key has lse = -inf)."""
+    s, mask = _scores(q, k, causal, sm_scale, layout, block)
     p = torch.exp(s - lse.to(s.dtype)[..., None])
     return p if mask is None else torch.where(mask, p, 0.0)
 
 
-def _dscores(q, k, v, do, lse, delta, causal, sm_scale):
+def _dscores(q, k, v, do, lse, delta, causal, sm_scale, layout=None,
+             block=None):
     """(p, ds) with ds = p * (dO v^T - delta), both [B, H, Sq, Sk]."""
-    p = _probs(q, k, lse, causal, sm_scale)
+    p = _probs(q, k, lse, causal, sm_scale, layout, block)
     dp = torch.einsum("bhqd,bhkd->bhqk", do.to(p.dtype), _expand_kv(q, v))
     return p, p * (dp - delta.to(p.dtype)[..., None])
 
@@ -135,18 +163,20 @@ def _sum_groups(x, hkv):
 
 
 def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool = True,
-                                 sm_scale: Optional[float] = None):
+                                 sm_scale: Optional[float] = None, *,
+                                 layout=None, block: Optional[int] = None):
     """dq given the forward's lse and ``delta = rowsum(dO * O)``."""
-    _, ds = _dscores(q, k, v, do, lse, delta, causal, sm_scale)
+    _, ds = _dscores(q, k, v, do, lse, delta, causal, sm_scale, layout, block)
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, _expand_kv(q, k))
     return (dq * _scale(sm_scale, q.shape[-1])).to(q.dtype)
 
 
 def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool = True,
-                                  sm_scale: Optional[float] = None):
+                                  sm_scale: Optional[float] = None, *,
+                                  layout=None, block: Optional[int] = None):
     """(dk, dv) given lse and delta, summed over each KV head's query
     heads."""
-    p, ds = _dscores(q, k, v, do, lse, delta, causal, sm_scale)
+    p, ds = _dscores(q, k, v, do, lse, delta, causal, sm_scale, layout, block)
     hkv = k.shape[1]
     dv = torch.einsum("bhqk,bhqd->bhkd", p, do.to(p.dtype))
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.to(p.dtype))
@@ -161,13 +191,16 @@ BWD_TILE = 64
 
 def flash_attention_bwd_dq_tiled_plain(q, k, v, do, lse, delta,
                                        causal: bool = True,
-                                       sm_scale: Optional[float] = None):
+                                       sm_scale: Optional[float] = None, *,
+                                       layout=None,
+                                       block: Optional[int] = None):
     """``wgmma_dq_kernel``'s algorithm in plain PyTorch (float32; float64
     stays float64): the keys cut into tiles of ``BWD_TILE`` from key 0;
     per tile S = q k^T and dP = dO v^T, P = exp2(S sm_scale log2(e) - lse
     log2(e)) (zero where masked), dS = P (dP - delta) rounded to q's dtype,
     and dq += dS k summed over the tiles in key order; then dq * sm_scale
-    rounded to q's dtype."""
+    rounded to q's dtype.  With a layout the gated kernel skips tiles that
+    hold no visible pair; they add exact zeros here."""
     cd = _compute_dtype(q)
     scale = _scale(sm_scale, q.shape[-1])
     sq, sk = q.shape[2], k.shape[2]
@@ -175,16 +208,15 @@ def flash_attention_bwd_dq_tiled_plain(q, k, v, do, lse, delta,
     kc, vc = _expand_kv(q, k), _expand_kv(q, v)
     lse2 = (lse.to(cd) * math.log2(math.e))[..., None]
     dl = delta.to(cd)[..., None]
-    rows = torch.arange(sq, device=q.device)[:, None]
+    mask = _visible(sq, sk, causal, q.device, layout, block, q.shape[1])
     dq = torch.zeros(qc.shape, dtype=cd, device=q.device)
     for k0 in range(0, sk, BWD_TILE):
         kt, vt = kc[:, :, k0:k0 + BWD_TILE], vc[:, :, k0:k0 + BWD_TILE]
         s = torch.matmul(qc, kt.transpose(-1, -2))
         dp = torch.matmul(doc, vt.transpose(-1, -2))
         p = torch.exp2(s * (scale * math.log2(math.e)) - lse2)
-        if causal:
-            cols = torch.arange(k0, k0 + kt.shape[2], device=q.device)[None]
-            p = torch.where(cols <= rows, p, 0.0)
+        if mask is not None:
+            p = torch.where(mask[..., k0:k0 + BWD_TILE], p, 0.0)
         ds = (p * (dp - dl)).to(q.dtype).to(cd)
         dq = dq + torch.matmul(ds, kt)
     return (dq * scale).to(q.dtype)
@@ -192,7 +224,9 @@ def flash_attention_bwd_dq_tiled_plain(q, k, v, do, lse, delta,
 
 def flash_attention_bwd_dkv_tiled_plain(q, k, v, do, lse, delta,
                                         causal: bool = True,
-                                        sm_scale: Optional[float] = None):
+                                        sm_scale: Optional[float] = None, *,
+                                        layout=None,
+                                        block: Optional[int] = None):
     """``wgmma_dkv_kernel``'s algorithm in plain PyTorch (float32; float64
     stays float64), on the transposed problem: for each KV head, its rep
     query heads in order and each head's queries in tiles of ``BWD_TILE``
@@ -202,8 +236,9 @@ def flash_attention_bwd_dkv_tiled_plain(q, k, v, do, lse, delta,
     dv += P^T dO and dk += dS^T q summed in that order; then dk * sm_scale
     and dv rounded to k's dtype.  Key rows are independent, so the
     kernel's 128-key tiles need no loop here; a query tile that lies
-    wholly above a key's diagonal adds zeros, as the kernel's skipped tiles
-    do."""
+    wholly above a key's diagonal, or outside the layout, adds zeros, as
+    the kernel's skipped tiles do (query head ``kvh * rep + g`` under its
+    own layout head)."""
     cd = _compute_dtype(q)
     scale = _scale(sm_scale, q.shape[-1])
     b, h, sq, d = q.shape
@@ -211,7 +246,12 @@ def flash_attention_bwd_dkv_tiled_plain(q, k, v, do, lse, delta,
     rep = h // hkv
     kc, vc = k.to(cd), v.to(cd)
     log2e = math.log2(math.e)
-    keys = torch.arange(sk, device=q.device)[:, None]
+    # [Sk, Sq], or [hkv, rep, Sk, Sq] per query head
+    mask = _visible(sq, sk, causal, q.device, layout, block, h)
+    if mask is not None:
+        mask = mask.transpose(-1, -2)
+        if mask.ndim == 3:
+            mask = mask.reshape(hkv, rep, sk, sq)
     dk = torch.zeros(kc.shape, dtype=cd, device=q.device)
     dv = torch.zeros(vc.shape, dtype=cd, device=q.device)
     for g in range(rep):
@@ -226,9 +266,9 @@ def flash_attention_bwd_dkv_tiled_plain(q, k, v, do, lse, delta,
             st = torch.matmul(kc, qt.transpose(-1, -2))
             dpt = torch.matmul(vc, do_t.transpose(-1, -2))
             pt = torch.exp2(st * (scale * log2e) - lh[:, :, None, rows])
-            if causal:
-                cols = torch.arange(q0, q0 + qt.shape[2], device=q.device)
-                pt = torch.where(keys <= cols[None], pt, 0.0)
+            if mask is not None:
+                pt = torch.where(mask[:, g, :, rows] if mask.ndim == 4
+                                 else mask[:, rows], pt, 0.0)
             dst = pt * (dpt - dh[:, :, None, rows])
             dv = dv + torch.matmul(pt.to(q.dtype).to(cd), do_t)
             dk = dk + torch.matmul(dst.to(q.dtype).to(cd), qt)
@@ -242,14 +282,192 @@ def _delta(o, do):
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = True,
-                              sm_scale: Optional[float] = None):
+                              sm_scale: Optional[float] = None, *,
+                              layout=None, block: Optional[int] = None):
     """The recompute backward: (dq, dk, dv) from the forward's o and lse."""
     delta = _delta(o, do)
+    kw = dict(layout=layout, block=block)
     dq = flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal,
-                                      sm_scale)
+                                      sm_scale, **kw)
     dk, dv = flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
-                                           sm_scale)
+                                           sm_scale, **kw)
     return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# Block-sparse layouts: checks and the kernels' tile maps
+# ---------------------------------------------------------------------------
+#: (query rows, keys) a tile of each gated kernel: bf16 wgmma_fwd_kernel,
+#: wgmma_dq_kernel and wgmma_dkv_kernel; f32 fwd_kernel, dq_kernel and
+#: dkv_kernel.  dkv walks a key tile's column of query tiles.
+TILES = {("fwd", torch.bfloat16): (128, 128),
+         ("dq", torch.bfloat16): (128, 64),
+         ("dkv", torch.bfloat16): (64, 128),
+         ("fwd", torch.float32): (64, 64),
+         ("dq", torch.float32): (64, 64),
+         ("dkv", torch.float32): (64, 64)}
+#: bit 30 of a tile map entry: every element of the tile is visible
+FULL = 1 << 30
+#: bit 29: under causal, some key of the tile lies after some query of it
+DIAG = 1 << 29
+#: layout sub-blocks a tile may span along either axis (64-bit masks)
+MAX_SUB = 8
+
+
+def _check_layout(name, q, k, layout, block):
+    """Raises unless the layout passes the checks every device makes: an
+    integer or bool tensor ``[1 or H, S/block, S/block]`` on q's device,
+    ``block`` a positive divisor of S = Sq = Sk.  On CUDA ``block`` must
+    also be a power of two of at least 16 (DeepSpeed's block-sparse
+    kernels take 16, 32, 64 and 128), so that a tile spans at most 8
+    layout blocks a side and each block lies on whole tiles or is one."""
+    h, sq, sk = q.shape[1], q.shape[2], k.shape[2]
+    if not isinstance(layout, torch.Tensor) or layout.dtype.is_floating_point \
+            or layout.dtype.is_complex:
+        got = getattr(layout, "dtype", type(layout))
+        raise ValueError(f"{name}: the layout must be an integer or bool "
+                         f"tensor, got {got}")
+    if not isinstance(block, int) or block < 1 or sq != sk or sq % block:
+        raise ValueError(f"{name}: a layout needs Sq == Sk and a block that "
+                         f"divides them (Sq={sq}, Sk={sk}, block={block})")
+    n = sq // block
+    if layout.ndim != 3 or layout.shape[0] not in (1, h) or \
+            tuple(layout.shape[1:]) != (n, n):
+        raise ValueError(f"{name}: layout {tuple(layout.shape)}, expected "
+                         f"[1 or {h}, {n}, {n}]")
+    if layout.device != q.device:
+        raise ValueError(f"{name}: the layout lies on {layout.device}, q on "
+                         f"{q.device}")
+    if q.is_cuda and (block < 16 or block & (block - 1)):
+        raise ValueError(f"{name}: the CUDA kernels take a layout block that "
+                         f"is a power of two >= 16, got {block}")
+
+
+class TileMap:
+    """A layout's live tiles for one kernel's tile shape, as CSR on the
+    layout's device.  ``offsets`` int32 ``[rows + 1]``; ``entries`` int32
+    (tile index, ``| FULL`` when every element of the tile is visible,
+    ``| DIAG`` when, under causal, some key of the tile lies after some
+    query of it);
+    ``masks`` int64, the tile's layout sub-blocks that hold a visible pair
+    (bit ``8 * local query block + local key block``, blocks of ``block``
+    elements counted from the tile's first; one block when it covers the
+    tile).  A row map (``by_key=False``) has a row per (query head, query
+    tile) listing key tiles in key order; a column map (dkv's) has a row
+    per (KV head, key tile) listing ``g * n_query_tiles + query tile`` for
+    the query heads ``kvh * rep + g`` in that order.  ``order`` int32
+    ``[rows]``: the rows by falling length (ties in row order), the order
+    in which the wgmma kernels launch their blocks, so that the longest
+    lists (a global row, the last causal rows) start first."""
+
+    def __init__(self, offsets, entries, masks, order, live):
+        self.offsets, self.entries, self.masks = offsets, entries, masks
+        self.order = order
+        self.live = live                           # live tiles
+
+
+def _tile_bits(layout, block, s, tq, tk, causal):
+    """(masks, flags) ``[H, nq, nk]``: each tile's sub-block bits (layout
+    blocks with a visible pair in the tile) and its FULL and DIAG flags."""
+    dev = layout.device
+    lay = layout != 0
+    nb = lay.shape[1]
+    nq, nk = -(-s // tq), -(-s // tk)
+
+    def spans(n, t):
+        """Layout block of (tile, local block), and that part's element
+        range clipped to the tile and the sequence."""
+        sub = max(1, t // block)
+        start = torch.arange(n, device=dev)[:, None] * t
+        blk = start // block + torch.arange(sub, device=dev)[None]
+        lo = torch.maximum(blk * block, start)
+        hi = torch.minimum(torch.minimum((blk + 1) * block, start + t),
+                           torch.tensor(s, device=dev))
+        return blk.clamp(max=nb - 1), lo, hi, sub
+
+    qb, r_lo, r_hi, sub_q = spans(nq, tq)
+    kb, c_lo, c_hi, sub_k = spans(nk, tk)
+    on = lay[:, qb][:, :, :, kb]                   # [H, nq, sub_q, nk, sub_k]
+    vis = on & ((r_lo < r_hi)[:, :, None, None] & (c_lo < c_hi)[None, None])
+    if causal:                                     # some key <= some query
+        vis &= c_lo[None, None] <= (r_hi - 1)[:, :, None, None]
+    # 1 << (8 i + j): bit 63 wraps to the sign bit, and the sum of distinct
+    # powers of two is their OR
+    shifts = MAX_SUB * torch.arange(sub_q, device=dev)[:, None] + \
+        torch.arange(sub_k, device=dev)[None]
+    weights = torch.ones_like(shifts) << shifts
+    masks = (vis.permute(0, 1, 3, 2, 4).long() * weights).sum((-1, -2))
+    qt, kt = torch.arange(nq, device=dev), torch.arange(nk, device=dev)
+    full = on.all(4).all(2) & (((qt + 1) * tq <= s)[:, None] &
+                               ((kt + 1) * tk <= s)[None])
+    diag = torch.zeros_like(full)
+    if causal:
+        diag = (kt * tk + tk - 1)[None] > (qt * tq)[:, None]
+        full &= ~diag
+    return masks, full.long() * FULL | diag.long() * DIAG
+
+
+def layout_tile_map(layout, block: int, seq: int, tile_q: int, tile_k: int,
+                    causal: bool, kv_heads: Optional[int] = None) -> TileMap:
+    """The :class:`TileMap` of ``layout`` (``[H, S/block, S/block]``, query
+    heads) for tiles of ``tile_q`` query rows x ``tile_k`` keys over a
+    sequence of ``seq``: a row map, or with ``kv_heads`` dkv's column map.
+    Built with tensor operations on the layout's device."""
+    sub = max(1, tile_q // block), max(1, tile_k // block)
+    if max(sub) > MAX_SUB or (block < max(tile_q, tile_k) and
+                              max(tile_q, tile_k) % block):
+        raise ValueError(f"layout block {block} does not tile {tile_q} x "
+                         f"{tile_k} into at most {MAX_SUB} x {MAX_SUB} "
+                         "whole blocks")
+    masks, flags = _tile_bits(layout, block, seq, tile_q, tile_k, causal)
+    h, nq, nk = masks.shape
+    live = masks != 0
+    if kv_heads is None:
+        idx = live.nonzero()[:, 2]
+        rows = live.sum(-1).flatten()
+    else:
+        rep = h // kv_heads
+        def order(x):
+            return x.reshape(kv_heads, rep, nq, nk).permute(0, 3, 1, 2)
+
+        live, masks, flags = order(live), order(masks), order(flags)
+        g_i = live.nonzero()
+        idx = g_i[:, 2] * nq + g_i[:, 3]
+        rows = live.sum((-1, -2)).flatten()
+    offsets = torch.zeros(rows.numel() + 1, dtype=torch.int32,
+                          device=layout.device)
+    offsets[1:] = rows.cumsum(0)
+    entries = (idx | flags[live]).to(torch.int32)
+    order = torch.sort(rows, descending=True, stable=True).indices
+    return TileMap(offsets, entries, masks[live].contiguous(),
+                   order.to(torch.int32), int(idx.numel()))
+
+
+#: tile maps of live layouts: id(layout) -> (weakref, version, {key: map})
+_TILE_MAPS: "OrderedDict[int, tuple]" = OrderedDict()
+
+
+def _kernel_tile_map(kernel, dtype, layout, block, seq, causal, heads,
+                     kv_heads):
+    """The tile map ``kernel`` (fwd, dq or dkv) launched on ``dtype`` needs
+    for ``heads`` query heads over ``kv_heads`` KV heads, built once per
+    (layout, shape): cached by the layout tensor's identity and version, so
+    a layout edited in place is mapped again."""
+    key = (kernel, dtype, block, seq, bool(causal), heads, kv_heads)
+    hit = _TILE_MAPS.get(id(layout))
+    if hit is None or hit[0]() is not layout or hit[1] != layout._version:
+        hit = (weakref.ref(layout), layout._version, {})
+        _TILE_MAPS[id(layout)] = hit
+        while len(_TILE_MAPS) > 8:
+            _TILE_MAPS.popitem(last=False)
+    maps = hit[2]
+    if key not in maps:
+        tq, tk = TILES[(kernel, dtype)]
+        n = layout.shape[1]
+        maps[key] = layout_tile_map(layout.expand(heads, n, n), block, seq,
+                                    tq, tk, causal,
+                                    kv_heads if kernel == "dkv" else None)
+    return maps[key]
 
 
 # ---------------------------------------------------------------------------
@@ -265,8 +483,20 @@ def _lib():
         lib.ds_flash_attention_fwd.argtypes = [p, p, p, p, p] + [i] * 7 + [f, p]
         lib.ds_flash_attention_bwd_dq.argtypes = [p] * 8 + [i] * 7 + [f, p]
         lib.ds_flash_attention_bwd_dkv.argtypes = [p] * 8 + [i] * 7 + [f, p]
+        # the gated kernels: the tile map (offsets, entries, masks, order),
+        # its head count and log2 of the layout's block before the stream
+        gate = [p, p, p, p, i, i, p]
+        lib.ds_flash_attention_fwd_layout.argtypes = \
+            [p] * 5 + [i] * 7 + [f] + gate
+        lib.ds_flash_attention_bwd_dq_layout.argtypes = \
+            [p] * 8 + [i] * 7 + [f] + gate
+        lib.ds_flash_attention_bwd_dkv_layout.argtypes = \
+            [p] * 8 + [i] * 7 + [f] + gate
         for fn in (lib.ds_flash_attention_fwd, lib.ds_flash_attention_bwd_dq,
-                   lib.ds_flash_attention_bwd_dkv):
+                   lib.ds_flash_attention_bwd_dkv,
+                   lib.ds_flash_attention_fwd_layout,
+                   lib.ds_flash_attention_bwd_dq_layout,
+                   lib.ds_flash_attention_bwd_dkv_layout):
             fn.restype = ctypes.c_int
         lib._ds_typed = True
     return lib
@@ -333,20 +563,31 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _gate_args(kernel, q, layout, block, causal, hkv):
+    """The gated entry points' tile-map arguments for ``kernel``."""
+    h, seq = q.shape[1], q.shape[2]
+    tm = _kernel_tile_map(kernel, q.dtype, layout, block, seq, causal, h,
+                          hkv)
+    return (tm.offsets.data_ptr(), tm.entries.data_ptr(), tm.masks.data_ptr(),
+            tm.order.data_ptr(), hkv if kernel == "dkv" else h,
+            block.bit_length() - 1)
+
+
 def flash_attention_fwd_cuda(q, k, v, causal: bool = True,
                              sm_scale: Optional[float] = None, *,
-                             layout=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                             layout=None, block: Optional[int] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward: ``(o, lse)``, o ``[B, H, Sq, D]`` and the natural-log lse
     ``[B, H, Sq]`` float32.  Replaces ``_fwd`` (v1), ``_fwd_v2`` and
     ``_fwd_v3``.  On CUDA the dtype picks the kernel, by an explicit rule
     in the library's entry point: bfloat16 runs the wgmma + TMA kernel,
     float32 the plain-f32 tile kernel, whose products stay exact enough for
-    the fp32 path; a failure to build or launch either raises.  ``layout``
-    is v1's block-sparse gate, which is not ported."""
+    the fp32 path; a failure to build or launch either raises.  With a
+    ``layout`` (v1's block-sparse gate, ``_fwd_kernel`` :63-68) the same
+    kernels run gated over the layout's live tiles and count in
+    ``layout_launches``."""
     if layout is not None:
-        raise NotImplementedError(
-            "flash attention with a block-sparse layout: not ported yet — it "
-            "comes with the PyTorch port's sparse-attention slice (ROADMAP.md)")
+        return _fwd_gated(q, k, v, causal, sm_scale, layout, block)
     if not q.is_cuda:
         return flash_attention_fwd_plain(q, k, v, causal, sm_scale)
     b, h, hkv, sq, sk, d = _check_cuda("flash_attention_fwd_cuda", q, k, v)
@@ -361,34 +602,52 @@ def flash_attention_fwd_cuda(q, k, v, causal: bool = True,
     return o, lse
 
 
+def _fwd_gated(q, k, v, causal, sm_scale, layout, block):
+    name = "flash_attention_fwd_cuda"
+    _check_layout(name, q, k, layout, block)
+    if not q.is_cuda:
+        return flash_attention_fwd_plain(q, k, v, causal, sm_scale,
+                                         layout=layout, block=block)
+    b, h, hkv, sq, sk, d = _check_cuda(name, q, k, v)
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    err = _lib().ds_flash_attention_fwd_layout(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        b * h, sq, sk, h // hkv, d, _DTYPE_CODES[q.dtype], int(causal),
+        _scale(sm_scale, d), *_gate_args("fwd", q, layout, block, causal, hkv),
+        _stream(q.device))
+    _raise_on_error(name, err)
+    flash_attention_fwd_cuda.layout_launches += 1
+    return o, lse
+
+
 flash_attention_fwd_cuda.launches = 0
+flash_attention_fwd_cuda.layout_launches = 0
 
 
 def flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta=None, *, o=None,
                                 causal: bool = True,
-                                sm_scale: Optional[float] = None):
+                                sm_scale: Optional[float] = None, layout=None,
+                                block: Optional[int] = None):
     """dq: ``(dq, delta)``.  Give either ``delta`` (``rowsum(dO * O)``
     ``[B, H, Sq]`` float32, as the ring callers do) or the forward's ``o``,
     from which the kernel computes delta and returns it for the dkv call.
     Replaces ``_bwd_dq_call`` (v1) and the dq halves of ``_bwd_v2`` and
-    ``_bwd_v3``.  On CUDA the dtype picks the kernel (:func:`bwd_route`)."""
+    ``_bwd_v3``.  On CUDA the dtype picks the kernel (:func:`bwd_route`);
+    with a ``layout`` it runs gated (``_bwd_dq_kernel`` :183-188) and
+    counts in ``layout_launches``."""
     if (delta is None) == (o is None):
         raise ValueError("flash_attention_bwd_dq_cuda: give delta or o")
+    if layout is not None:
+        return _dq_gated(q, k, v, do, lse, delta, o, causal, sm_scale, layout,
+                         block)
     if not q.is_cuda:
         if delta is None:
             delta = _delta(o, do)
         return (flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal,
                                              sm_scale), delta)
     name = "flash_attention_bwd_dq_cuda"
-    b, h, sq = q.shape[:3]
-    rows = (b, h, sq)
-    extra = (("do", do, None, q.shape), ("lse", lse, torch.float32, rows))
-    if o is not None:
-        extra += (("o", o, None, q.shape),)
-        delta = torch.empty(rows, dtype=torch.float32, device=q.device)
-    else:
-        extra += (("delta", delta, torch.float32, rows),)
-    b, h, hkv, sq, sk, d = _check_cuda(name, q, k, v, *extra)
+    b, h, hkv, sq, sk, d, delta = _dq_checked(name, q, k, v, do, lse, delta, o)
     dq = torch.empty_like(q)
     err = _lib().ds_flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -401,16 +660,58 @@ def flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta=None, *, o=None,
     return dq, delta
 
 
+def _dq_checked(name, q, k, v, do, lse, delta, o):
+    """dq's checks; with ``o`` given, the delta it will write."""
+    b, h, sq = q.shape[:3]
+    rows = (b, h, sq)
+    extra = (("do", do, None, q.shape), ("lse", lse, torch.float32, rows))
+    if o is not None:
+        extra += (("o", o, None, q.shape),)
+        delta = torch.empty(rows, dtype=torch.float32, device=q.device)
+    else:
+        extra += (("delta", delta, torch.float32, rows),)
+    return _check_cuda(name, q, k, v, *extra) + (delta,)
+
+
+def _dq_gated(q, k, v, do, lse, delta, o, causal, sm_scale, layout, block):
+    name = "flash_attention_bwd_dq_cuda"
+    _check_layout(name, q, k, layout, block)
+    if not q.is_cuda:
+        if delta is None:
+            delta = _delta(o, do)
+        return (flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal,
+                                             sm_scale, layout=layout,
+                                             block=block), delta)
+    b, h, hkv, sq, sk, d, delta = _dq_checked(name, q, k, v, do, lse, delta, o)
+    dq = torch.empty_like(q)
+    err = _lib().ds_flash_attention_bwd_dq_layout(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr() if o is not None else None, do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b * h, sq, sk,
+        h // hkv, d, _DTYPE_CODES[q.dtype], int(causal), _scale(sm_scale, d),
+        *_gate_args("dq", q, layout, block, causal, hkv), _stream(q.device))
+    _raise_on_error(name, err)
+    flash_attention_bwd_dq_cuda.layout_launches += 1
+    return dq, delta
+
+
 flash_attention_bwd_dq_cuda.launches = 0
+flash_attention_bwd_dq_cuda.layout_launches = 0
 
 
 def flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, *,
                                  causal: bool = True,
-                                 sm_scale: Optional[float] = None):
+                                 sm_scale: Optional[float] = None, layout=None,
+                                 block: Optional[int] = None):
     """(dk, dv) given lse and delta, each summed over the query heads of
     its KV head and written once per key tile.  Replaces ``_bwd_dkv_call``
     (v1) and the dk/dv halves of ``_bwd_v2`` and ``_bwd_v3``.  On CUDA the
-    dtype picks the kernel (:func:`bwd_route`)."""
+    dtype picks the kernel (:func:`bwd_route`); with a ``layout`` it runs
+    gated (``_bwd_dkv_kernel`` :244-249, each query head under its own
+    layout head) and counts in ``layout_launches``."""
+    if layout is not None:
+        return _dkv_gated(q, k, v, do, lse, delta, causal, sm_scale, layout,
+                          block)
     if not q.is_cuda:
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
                                              sm_scale)
@@ -431,9 +732,36 @@ def flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, *,
     return dk, dv
 
 
-flash_attention_bwd_dkv_cuda.launches = 0
+def _dkv_gated(q, k, v, do, lse, delta, causal, sm_scale, layout, block):
+    name = "flash_attention_bwd_dkv_cuda"
+    _check_layout(name, q, k, layout, block)
+    if not q.is_cuda:
+        return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
+                                             sm_scale, layout=layout,
+                                             block=block)
+    rows = tuple(q.shape[:3])
+    b, h, hkv, sq, sk, d = _check_cuda(
+        name, q, k, v, ("do", do, None, q.shape),
+        ("lse", lse, torch.float32, rows),
+        ("delta", delta, torch.float32, rows))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = _lib().ds_flash_attention_bwd_dkv_layout(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b * hkv, sq, sk, h // hkv, d, _DTYPE_CODES[q.dtype], int(causal),
+        _scale(sm_scale, d), *_gate_args("dkv", q, layout, block, causal, hkv),
+        _stream(q.device))
+    _raise_on_error(name, err)
+    flash_attention_bwd_dkv_cuda.layout_launches += 1
+    return dk, dv
 
-#: every kernel wrapper of this module, for launch-count bookkeeping
+
+flash_attention_bwd_dkv_cuda.launches = 0
+flash_attention_bwd_dkv_cuda.layout_launches = 0
+
+#: every kernel wrapper of this module, for launch-count bookkeeping; each
+#: counts its dense launches in ``launches`` and its gated (``layout=``)
+#: ones in ``layout_launches``
 KERNELS = (flash_attention_fwd_cuda, flash_attention_bwd_dq_cuda,
            flash_attention_bwd_dkv_cuda)
 
@@ -441,6 +769,7 @@ KERNELS = (flash_attention_fwd_cuda, flash_attention_bwd_dq_cuda,
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+        fn.layout_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -466,6 +795,33 @@ class _FlashAttention(torch.autograd.Function):
         dq, delta = flash_attention_bwd_dq_cuda(q, k, v, do, lse, o=o, **kw)
         dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
         return dq, dk, dv, None, None
+
+
+class _SparseAttention(torch.autograd.Function):
+    """The JAX ``_sparse_attention_bh`` custom_vjp (``_sparse_fwd_rule`` /
+    ``_sparse_bwd_rule``): the gated forward saves o and its v1-format lse
+    whatever S is; the backward runs the gated dq (delta from o) and dkv.
+    The layout gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, layout, block, sm_scale, causal):
+        kw = dict(layout=layout, block=block)
+        o, lse = flash_attention_fwd_cuda(q, k, v, causal, sm_scale, **kw)
+        ctx.save_for_backward(q, k, v, o, lse)
+        # the layout object itself, whose tile maps are cached by identity
+        ctx.layout, ctx.block = layout, block
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        kw = dict(causal=ctx.causal, sm_scale=ctx.sm_scale, layout=ctx.layout,
+                  block=ctx.block)
+        dq, delta = flash_attention_bwd_dq_cuda(q, k, v, do, lse, o=o, **kw)
+        dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, causal: bool = True,

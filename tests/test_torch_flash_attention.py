@@ -188,5 +188,15 @@ def test_cpu_calls_never_count_and_wrappers_check_their_arguments():
     assert [fn.launches for fn in tfa.KERNELS] == [0, 0, 0]
     with pytest.raises(ValueError, match="delta or o"):
         tfa.flash_attention_bwd_dq_cuda(q, k, v, do, lse)
-    with pytest.raises(NotImplementedError, match="sparse"):
+    # the block-sparse gate: a float layout, or one without its block, is
+    # refused; a one-block all-ones layout is the dense mask
+    with pytest.raises(ValueError, match="integer or bool"):
         tfa.flash_attention_fwd_cuda(q, k, v, layout=torch.ones(2, 1, 1))
+    lay = torch.ones(2, 1, 1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="block"):
+        tfa.flash_attention_fwd_cuda(q, k, v, layout=lay)
+    o, lse = tfa.flash_attention_fwd_cuda(q, k, v, layout=lay, block=8)
+    want_o, want_lse = tfa.flash_attention_fwd_plain(q, k, v)
+    assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
+    assert [fn.launches + fn.layout_launches for fn in tfa.KERNELS] == \
+        [0, 0, 0]

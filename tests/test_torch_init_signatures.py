@@ -69,6 +69,34 @@ def test_entry_points_name_every_jax_keyword_with_its_default(name):
     assert set(got) - set(want) == {"device"}
 
 
+#: the block-sparse attention entry points, each with its JAX counterpart's
+#: signature (``interpret``: accepted and ignored)
+SPARSE = ["sparse_attention", "SparseSelfAttention",
+          "SparseSelfAttention.__call__", "SparsityConfig",
+          "DenseSparsityConfig", "FixedSparsityConfig",
+          "VariableSparsityConfig", "BigBirdSparsityConfig",
+          "BSLongformerSparsityConfig", "LocalSlidingWindowSparsityConfig"]
+
+
+def _attr(module, path):
+    for name in path.split("."):
+        module = getattr(module, name)
+    return module
+
+
+@pytest.mark.parametrize("name", SPARSE)
+def test_sparse_attention_entry_points_keep_the_jax_signatures(name):
+    from deepspeed_tpu.ops import sparse_attention as jsa
+    from deepspeed_tpu_torch.ops import sparse_attention as tsa
+
+    want, got = _params(_attr(jsa, name)), _params(_attr(tsa, name))
+    assert list(got) == list(want), name
+    for p in want.values():
+        assert got[p.name].kind == p.kind, p.name
+        assert got[p.name].default == p.default, p.name
+    assert tsa.__all__ == jsa.__all__
+
+
 def test_every_unported_serving_keyword_is_listed():
     assert {k for k, _, _ in UNPORTED} == \
         set(_params(deepspeed_tpu.init_serving)) - PORTED
