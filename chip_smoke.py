@@ -91,10 +91,10 @@ Phases (any failure raises and exits non-zero):
     ``generate``'s float cache, so the kv8 lanes are held, as the w8a8 one
     is, by the teacher-forced logit RMSE against the bf16 float lane, within
     W8A8_MAX_LOGIT_RMSE; their token agreement is reported.  Then one
-    profiled window of decode iterations each for the float lane,
-    w8a8+kv8, and weight-only int8 under ``DS_QMM=1`` and ``DS_QMM=0``:
-    device busy time, idle share and launches an iteration, with B3's, kv8
-    B3's, B6's and B7's device time an iteration.
+    profiled window of captured decode iterations each for weight-only
+    int8 under ``DS_QMM=1`` and ``DS_QMM=0``: device busy time, idle share
+    and launches an iteration, with B3's and B7's device time an
+    iteration (the float and w8a8+kv8 lanes are profiled in phase 12).
 
  11. block-sparse attention (``ops/sparse_attention``) on the gated flash
     kernels: each case of ``sparse_cases`` (the first built so that each
@@ -121,6 +121,27 @@ before phase 3 and read after phase 5, the flash kernels' before phase 7
 and after it, the int8 kernels' before phase 10 and after its five runs,
 the gated flash kernels' (``layout_launches``) before phase 11's main path
 and after it.
+Since the servers capture their decode step in a CUDA graph, a kernel's
+count is its executions: a capture records the launches its graph holds
+and every replay adds them.
+
+ 12. the captured decode step on phase 3's weights (and phase 10's w8a8
+    records) with phase 4's traffic: the float and w8a8+kv8 servers'
+    tokens must equal the eager step's (the server's private
+    ``_serve_eager``) bit for bit, with the same kernel launches and one
+    captured graph (captured under ``set_sync_debug_mode("error")``);
+    ``decode_steps=4`` must give K = 1's tokens in both lanes with an eos
+    inside a window; a ``sampling=True`` server with every request at
+    temperature 0 must give the greedy server's tokens, and a sampled
+    trace (temperature 0.8, top_k 50, top_p 0.9, a seed per request) the
+    same tokens twice and at K = 4, and in fp32 under a 48-block pool that
+    preempts the same tokens as unpreempted (in bf16 the re-prefilled KV
+    is another rounding, so that agreement is reported); 4000 draws on the card from a 5-token distribution must pass the TV
+    gate (< 0.05).  Then both lanes, eager and captured, and the sampled
+    float lane captured: wall time, device busy time, idle share, kernels
+    and host launch calls an iteration of a profiled decode window, and
+    ``serve`` tok/s and TTFT p50 of phase 4's traffic.
+
 The last two lines of output are the ``{"kernels": [...]}`` JSON object
 and the ``{"ok": true, "device": ...}`` JSON object.
 """
@@ -1669,41 +1690,60 @@ def teacher_forced_logits(engine, prompts, tokens, kv8: bool):
 
 
 def profile_serving(label, srv, reqs, watches, warm: int = 24,
-                    steps: int = 16):
-    """``steps`` scheduler iterations of ``srv`` serving ``reqs`` under
-    ``torch.profiler``, after ``warm`` iterations (prefills done, every
-    slot decoding): wall time, device busy time, idle share and kernel
-    launches of the window, the top device kernels, for each ``(name,
-    key)`` of ``watches`` the device kernels whose names hold ``key``, and
-    the top host operators by self CPU time.  The requests are served to
-    the end afterwards."""
+                    steps: int = 16, eager: bool = False):
+    """``steps`` scheduler iterations of ``srv`` serving ``reqs`` timed
+    alone, then ``steps`` more under ``torch.profiler``, after ``warm``
+    iterations (prefills done, every slot decoding): wall time an
+    iteration (unprofiled), device busy time, idle share (busy over the
+    profiled window's wall), kernels run and host launch calls an
+    iteration, the top device kernels, for each ``(name, key)`` of
+    ``watches`` the device kernels whose names hold ``key``, and the top
+    host operators by self CPU time.  ``eager`` runs every decode step
+    eagerly (the server's private switch) instead of from its captured
+    graph.  The requests are served to the end afterwards.  Returns the
+    numbers an iteration."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for r in reqs:
-        srv.submit(r)
-    for _ in range(warm):
-        srv.step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    srv._eager_only = eager
+    try:
+        for r in reqs:
+            srv.submit(r)
+        for _ in range(warm):
+            srv.step()
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
             srv.step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    while srv.step():
-        pass
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                srv.step()
+            torch.cuda.synchronize()
+            prof_wall_ms = 1e3 * (time.perf_counter() - t0)
+        while srv.step():
+            pass
+    finally:
+        srv._eager_only = False
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    host_launches = sum(e.count for e in host if "Launch" in e.key)
+    out = {"wall_ms": wall_ms / steps, "busy_ms": busy / steps,
+           "idle": 1 - busy / prof_wall_ms, "kernels": launches / steps,
+           "host_launches": host_launches / steps}
     log(f"[profile {label}] {steps} iterations: wall {wall_ms:.1f} ms "
-        f"({wall_ms / steps:.2f} ms each), device busy {busy:.1f} ms "
-        f"({busy / steps:.3f} ms an iteration), idle share "
-        f"{1 - busy / wall_ms:.4f}, {launches / steps:.1f} kernel launches "
-        "an iteration")
+        f"({out['wall_ms']:.3f} ms each; {prof_wall_ms / steps:.3f} under "
+        f"the profiler), device busy {busy:.1f} ms ({out['busy_ms']:.3f} ms "
+        f"an iteration), idle share {out['idle']:.4f}, "
+        f"{out['kernels']:.1f} kernels and {out['host_launches']:.1f} host "
+        "launch calls an iteration")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"[profile {label}]   device {e.self_device_time_total / 1e3 / steps:7.3f}"
             f" ms x{e.count // steps:<4} an iteration: {e.key[:70]}")
@@ -1712,10 +1752,10 @@ def profile_serving(label, srv, reqs, watches, warm: int = 24,
         log(f"[profile {label}]   {name} ({key}): device "
             f"{sum(e.self_device_time_total for e in mine) / 1e3 / steps:.4f}"
             f" ms x{sum(e.count for e in mine) // steps} an iteration")
-    host = [e for e in events if e.device_type == DeviceType.CPU]
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
         log(f"[profile {label}]   host {e.self_cpu_time_total / 1e3 / steps:7.3f}"
             f" ms x{e.count // steps:<4} an iteration: {e.key[:70]}")
+    return out
 
 
 @contextlib.contextmanager
@@ -1887,16 +1927,13 @@ def quant_phase(engine, prompts, gen, float_lane):
             "vs DS_QMM=1 (another weight rounding)", dgen, qgen))
     del qeng, srv, srv16, srv_w
 
-    # where a decode iteration's time goes: the float lane, w8a8+kv8, and
-    # weight-only int8 with the opt-in B7 (DS_QMM=1) and without it (the
-    # server quantizes phase 3's weights on the host)
+    # where a captured decode iteration's time goes on weight-only int8,
+    # with the opt-in B7 (DS_QMM=1) and without it (the server quantizes
+    # phase 3's weights on the host); the float and w8a8+kv8 lanes are
+    # profiled eager and captured in phase 12
     window = reqs[-4:] + reqs[:4]
     weight_only = {"dtype": "bf16", "quant": {"enabled": True}}
     for label, config, quantize, params, qmm, watch in (
-            ("float", {"dtype": "bf16"}, None, engine.params, "0",
-             [("B3", "verify_split_kernel")]),
-            ("w8a8+kv8", {"dtype": "bf16"}, "w8a8+kv8", weng.params, "0",
-             [("kv8 B3", "q8_split_kernel"), ("B6", "w8a8_split_kernel")]),
             ("weight-only DS_QMM=1", weight_only, None, engine.params, "1",
              [("B7", "qmm_split_kernel"), ("B3", "verify_split_kernel")]),
             ("weight-only DS_QMM=0", weight_only, None, engine.params, "0",
@@ -1925,7 +1962,217 @@ def quant_phase(engine, prompts, gen, float_lane):
             not all(np.isfinite(list(rmse.values()))):
         raise AssertionError(f"quantized logit RMSE {rmse} > "
                              f"{W8A8_MAX_LOGIT_RMSE}")
-    return counts
+    return counts, weng
+
+
+# ------------------------------------------------------------- phase 12
+#: phase 12's sampled trace: the knobs of every request (seeds per request)
+SAMPLED = {"temperature": 0.8, "top_k": 50, "top_p": 0.9}
+
+
+def sampled_requests(reqs, seed0=1000):
+    from deepspeed_tpu_torch.inference.serving import Request
+
+    return [Request(uid=r.uid, prompt=r.prompt,
+                    max_new_tokens=r.max_new_tokens, seed=seed0 + i,
+                    **SAMPLED) for i, r in enumerate(reqs)]
+
+
+def kernel_counts():
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+
+    return {fn.__name__: fn.launches for fn in da.KERNELS + qm.KERNELS}
+
+
+def counts_since(before):
+    return {k: v - before[k] for k, v in kernel_counts().items()
+            if v != before[k]}
+
+
+def same_tokens(a, b, reqs) -> bool:
+    return all((a[r.uid] == b[r.uid]).all() for r in reqs)
+
+
+def timed_serve(srv, reqs, eager: bool):
+    """One timed ``serve`` of ``reqs`` on a fresh server, captured or (via
+    the server's private method) eager: (results, generated tok/s, TTFT
+    p50 in s)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = srv._serve_eager(reqs) if eager else srv.serve(reqs)
+    torch.cuda.synchronize()
+    st = srv.stats()
+    return res, st["generated_tokens"] / (time.perf_counter() - t0), \
+        st["ttft_p50_s"]
+
+
+def capture_phase(engine, weng, float_lane):
+    """Phase 12: the captured decode step (one CUDA graph a decode shape),
+    fused ``decode_steps=4`` and on-device sampling on phase 3's GPT-2
+    125M bf16 weights (and phase 10's w8a8 records) with phase 4's
+    traffic.  Fails unless the captured float and w8a8+kv8 servers give
+    the eager step's tokens bit for bit with the same kernel launches (the
+    capture runs under ``set_sync_debug_mode("error")``), K = 4 gives K =
+    1's tokens with eos inside a window, and the sampled checks hold; then
+    profiles both lanes eager and captured."""
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.ops import sampling as sops
+
+    model = engine.module
+    reqs = float_lane["reqs"]
+    window = reqs[-4:] + reqs[:4]
+    lanes = (("float", engine.params, None, [("B3", "verify_split_kernel")]),
+             ("w8a8+kv8", weng.params, "w8a8+kv8",
+              [("kv8 B3", "q8_split_kernel"), ("B6", "w8a8_split_kernel")]))
+
+    def server(params, quantize, **kw):
+        kw = {"slots": 8, "max_seq_len": 1024, "block_size": 32,
+              "prefill_chunk": 128, "sampling": False, **kw}
+        return dt.init_serving(model, config={"dtype": "bf16"},
+                               params=params, quantize=quantize, **kw)
+
+    # 12a: the captured step against the eager one, bit for bit
+    greedy = {}
+    for label, params, quantize, _ in lanes:
+        srv_e = server(params, quantize)
+        c0 = kernel_counts()
+        res_e = srv_e._serve_eager(reqs)
+        ce = counts_since(c0)
+        srv_c = server(params, quantize)
+        c0 = kernel_counts()
+        res_c = srv_c.serve(reqs)
+        cc = counts_since(c0)
+        st = srv_c.stats()
+        log(f"[capture {label}] {len(reqs)} requests: tokens equal to the "
+            f"eager step's: {same_tokens(res_c, res_e, reqs)}; "
+            f"captured_graphs {st['captured_graphs']} (eager "
+            f"{srv_e.stats()['captured_graphs']}); launches captured {cc}, "
+            f"eager {ce}")
+        if not same_tokens(res_c, res_e, reqs):
+            raise AssertionError(f"{label}: captured tokens differ from "
+                                 "the eager step's")
+        if cc != ce or not cc:
+            raise AssertionError(f"{label}: launches under replay {cc} != "
+                                 f"eager {ce}")
+        if st["captured_graphs"] != 1 or srv_e.stats()["captured_graphs"]:
+            raise AssertionError(f"{label}: captured_graphs "
+                                 f"{st['captured_graphs']}")
+        greedy[label] = res_c
+        del srv_e, srv_c
+
+    # 12b: decode_steps=4 against K = 1, eos inside a window
+    for label, params, quantize, _ in lanes:
+        first = window[0]
+        eos = int(greedy[label][first.uid][first.prompt.size + 5])
+        r1 = server(params, quantize).serve(window, eos_token_id=eos)
+        srv4 = server(params, quantize, decode_steps=4)
+        r4 = srv4.serve(window, eos_token_id=eos)
+        st = srv4.stats()
+        stopped = [r.uid for r in window
+                   if (r4[r.uid][r.prompt.size:-1] == eos).any()]
+        log(f"[fused {label}] decode_steps=4: tokens equal to K=1's: "
+            f"{same_tokens(r4, r1, window)}; eos {eos} stopped {stopped}; "
+            f"decode_steps {st['decode_steps']}, fused_iterations "
+            f"{st['fused_iterations']}, host_fence_waits "
+            f"{st['host_fence_waits']}, captured_graphs "
+            f"{st['captured_graphs']}")
+        if not same_tokens(r4, r1, window):
+            raise AssertionError(f"{label}: decode_steps=4 tokens differ "
+                                 "from K=1's")
+        if first.uid not in stopped or not st["fused_iterations"] or \
+                st["captured_graphs"] != 1:
+            raise AssertionError(f"{label}: the fused window never ran or "
+                                 f"eos never fired ({st})")
+
+    # 12c: sampling on the float lane
+    srv = server(engine.params, None, sampling=True)
+    res = srv.serve(reqs)
+    if not same_tokens(res, greedy["float"], reqs):
+        raise AssertionError("sampling=True with temperature 0 differs from "
+                             "the greedy server")
+    sreqs = sampled_requests(window)
+    sa = server(engine.params, None, sampling=True).serve(sreqs)
+    sb = server(engine.params, None, sampling=True).serve(sreqs)
+    s4 = server(engine.params, None, sampling=True,
+                decode_steps=4).serve(sreqs)
+    moved = sum(not (sa[r.uid] == greedy["float"][r.uid]).all()
+                for r in window)
+    # a preempted request re-prefills its tokens in 128-token windows: in
+    # bf16 that KV is another rounding than the decode steps wrote, which
+    # moves draws (reported); in fp32 the replay must be token-exact
+    tight = server(engine.params, None, sampling=True, num_blocks=48)
+    sp = tight.serve(sreqs)
+    bf16_agree = [round(agreement(sp[r.uid], sa[r.uid]), 4) for r in window]
+    f32 = dt.init_inference(model, config={"dtype": "fp32"},
+                            params=engine.params)
+    roomy32 = dt.init_serving(model, config={"dtype": "fp32"},
+                              params=f32.params, slots=8, max_seq_len=1024,
+                              block_size=32, prefill_chunk=128)
+    tight32 = dt.init_serving(model, config={"dtype": "fp32"},
+                              params=f32.params, slots=8, max_seq_len=1024,
+                              block_size=32, prefill_chunk=128,
+                              num_blocks=48)
+    sa32, sp32 = roomy32.serve(sreqs), tight32.serve(sreqs)
+    log(f"[sampling] temperature 0 on a sampling=True server equals the "
+        f"greedy server: True; sampled trace ({SAMPLED}, seeds per "
+        f"request) twice equal: {same_tokens(sa, sb, window)}; K=4 equal "
+        f"to K=1: {same_tokens(s4, sa, window)}; requests whose tokens "
+        f"differ from greedy {moved} of {len(window)}; under a 48-block "
+        f"pool: fp32 ({tight32.preempted} preemptions) equal: "
+        f"{same_tokens(sp32, sa32, window)}, bf16 ({tight.preempted} "
+        f"preemptions) agreement {bf16_agree}")
+    if not (same_tokens(sa, sb, window) and same_tokens(s4, sa, window)
+            and same_tokens(sp32, sa32, window)):
+        raise AssertionError("sampled streams are not reproducible")
+    if not tight32.preempted or not moved:
+        raise AssertionError(f"preemptions {tight32.preempted}, sampled "
+                             f"requests off greedy {moved}")
+    del f32, roomy32, tight32
+    probs = np.array([0.45, 0.25, 0.15, 0.1, 0.05], np.float32)
+    n = 4000
+    lp = torch.as_tensor(np.tile(np.log(probs), (n, 1)), device="cuda")
+    keys = sops.slot_keys(torch.full((n,), 7, device="cuda"),
+                          torch.arange(n, device="cuda"), sops.SALT_TOKEN)
+    draws = sops.sample_tokens(lp, keys).cpu().numpy()
+    cpu = sops.sample_tokens(lp.cpu(), keys.cpu()).numpy()
+    tv = 0.5 * np.abs(np.bincount(draws, minlength=5) / n - probs).sum()
+    log(f"[sampling] {n} draws on the card from {probs.tolist()}: TV "
+        f"{tv:.4f} (limit 0.05); equal to the CPU's draws on "
+        f"{(draws == cpu).mean():.4f} of them")
+    if tv >= 0.05:
+        raise AssertionError(f"sampled distribution TV {tv} >= 0.05")
+    del srv, tight
+
+    # 12d: where a decode iteration's time goes, eager against captured,
+    # and each lane's serve rate; then the captured sampled float lane
+    table = []
+    for label, params, quantize, watch in lanes:
+        for eager in (True, False):
+            path = "eager" if eager else "captured"
+            m = profile_serving(f"{label} {path}", server(params, quantize),
+                                window, watch, eager=eager)
+            _, m["tok_s"], m["ttft"] = timed_serve(server(params, quantize),
+                                                   reqs, eager)
+            table.append((label, path, m))
+    m = profile_serving("float sampled captured",
+                        server(engine.params, None, sampling=True),
+                        sampled_requests(window), lanes[0][3])
+    _, m["tok_s"], m["ttft"] = timed_serve(
+        server(engine.params, None, sampling=True), sampled_requests(reqs),
+        False)
+    table.append(("float sampled", "captured", m))
+    for label, path, m in table:
+        log(f"[capture table] {label:14s} {path:8s}: wall {m['wall_ms']:.3f}"
+            f" ms an iteration, device busy {m['busy_ms']:.3f} ms, idle "
+            f"share {m['idle']:.4f}, {m['kernels']:.1f} kernels and "
+            f"{m['host_launches']:.1f} host launch calls an iteration; "
+            f"serve {m['tok_s']:.1f} tok/s, TTFT p50 {m['ttft']:.4f} s")
 
 
 # ------------------------------------------------------------- phases 7-9
@@ -2613,8 +2860,10 @@ def main() -> int:
     launches.update(train_phase(card))
     fp32_train_check()
     long_sequence_phase()
-    launches.update(quant_phase(engine, prompts, gen, float_lane))
-    del engine, float_lane
+    quant_launches, weng = quant_phase(engine, prompts, gen, float_lane)
+    launches.update(quant_launches)
+    capture_phase(engine, weng, float_lane)
+    del engine, weng, float_lane
     sparse_measured, sparse_launches = check_sparse_kernels()
 
     # one line per kernel; a flash kernel replaces three TPU regimes (v1,

@@ -104,11 +104,8 @@ def _unsupported(entry: str, option: str, item: int, later: str):
 
 #: init_serving's keywords that the port takes only at the JAX default:
 #: (name, default, ROADMAP Queue A item, the work that brings it).
-#: ``sampling`` is the other way round: the port serves greedy only, so it
-#: takes ``False`` and refuses the JAX default.
 _SERVING_LATER = (
     ("prompt_buckets", None, 4, "serving API remainder (bucketed prefill)"),
-    ("decode_steps", 1, 1, "captured decode step (fused decode_steps=K)"),
     ("engine_mode", "replicas", 8, "multi-GPU slice (dp_tp)"),
     ("sp", 1, 8, "multi-GPU slice (sequence-parallel prefill)"),
     ("resident_window_blocks", 0, 9, "fleet layers (KV tiers)"),
@@ -150,9 +147,14 @@ def init_serving(model=None, config=None, params=None, *, slots=8,
     """Continuous-batching serving entry: an ``init_inference`` engine
     wrapped in the block-paged chunked-prefill scheduler
     (``inference/serving.py``).  The signature is the JAX package's
-    (``deepspeed_tpu/__init__.py:226``) plus ``device``.  Greedy only so
-    far: pass ``sampling=False`` (the JAX default, on-device sampling, is a
-    later slice).  ``quantize``: ``None``, ``"kv8"`` (int8 KV pool),
+    (``deepspeed_tpu/__init__.py:226``) plus ``device``.  On CUDA the
+    decode step is one captured CUDA graph.  ``sampling=True`` (the JAX
+    default) serves per-request ``temperature`` / ``top_k`` / ``top_p`` /
+    ``seed`` (``Request``) on the device, ``temperature=0`` rows greedy;
+    ``sampling=False`` keeps the argmax alone.  ``decode_steps=K`` runs K
+    decode steps per captured window with per-slot eos and budget checks
+    on the device, token-exact with K = 1.  ``quantize``: ``None``,
+    ``"kv8"`` (int8 KV pool),
     ``"w8a8"`` or ``"w8a8+kv8"``; a ``w8a8`` value builds the engine with
     K-grouped int8 blocks, merging ``{"quant": {"enabled": True, "type":
     "w8a8"}}`` into the config as ``deepspeed_tpu/__init__.py:384-411``
@@ -163,7 +165,7 @@ def init_serving(model=None, config=None, params=None, *, slots=8,
     inference-config keys."""
     from .inference.serving import ServingEngine, _parse_quantize
 
-    given = dict(prompt_buckets=prompt_buckets, decode_steps=decode_steps,
+    given = dict(prompt_buckets=prompt_buckets,
                  engine_mode=engine_mode, sp=sp,
                  resident_window_blocks=resident_window_blocks,
                  spec_tokens=spec_tokens, host_blocks=host_blocks,
@@ -175,9 +177,6 @@ def init_serving(model=None, config=None, params=None, *, slots=8,
                  shard_kv=shard_kv, debug_checks=debug_checks,
                  trace_capacity=trace_capacity, slo_targets=slo_targets,
                  peak_flops=peak_flops)
-    if sampling:
-        _unsupported("init_serving", "sampling=True", 2, "sampling slice; "
-                     "pass sampling=False for greedy serving")
     for name, default, item, later in _SERVING_LATER:
         value = given[name]
         if value is not default and value != default:
@@ -198,7 +197,9 @@ def init_serving(model=None, config=None, params=None, *, slots=8,
     return ServingEngine(engine, slots=slots, max_seq_len=max_seq_len,
                          prefill_batch=prefill_batch, block_size=block_size,
                          num_blocks=num_blocks, prefill_chunk=prefill_chunk,
-                         prefix_caching=prefix_caching, quantize=quantize)
+                         prefix_caching=prefix_caching,
+                         decode_steps=decode_steps, sampling=sampling,
+                         quantize=quantize)
 
 
 def _with_w8a8(config, kwargs):

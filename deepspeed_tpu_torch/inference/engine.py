@@ -3,11 +3,15 @@
 device.
 
 The engine casts the parameters to the config dtype, holds them on its
-device, and runs ``forward`` and greedy ``generate``: a prefill over the
-prompt, then single-token steps over a static KV cache through the model's
+device, and runs ``forward`` and ``generate``: a prefill over the prompt,
+then single-token steps over a static KV cache through the model's
 ``decode_hooks`` (the decode attention is the hand-written CUDA kernel of
 ``ops/decode_attention.py`` on a GPU).  With an ``eos_token_id`` the token
-loop stops once every row has emitted it.
+loop stops once every row has emitted it.  ``generate`` is greedy, or
+with ``do_sample=True`` draws each step's tokens by temperature / top-k /
+top-p sampling (``_make_token_picker``) with the key ``fold_in(PRNGKey(
+seed), position)`` of JAX's threefry (``ops/sampling.py``); its loop runs
+eagerly.
 
 ``quant.enabled`` stores a quant-aware model's stacked blocks as int8
 records, quantized on the host at construction (``engine.py:128-273``):
@@ -20,6 +24,7 @@ f32.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -27,8 +32,18 @@ import torch
 
 from ..accelerator import resolve_device
 from ..ops import quantization as quant
+from ..ops import sampling as sampling_ops
 from ..utils.logging import log_dist
 from .config import DeepSpeedInferenceConfig
+
+
+def _auto_seed(obj, seed):
+    """Fresh draws per call (HF generate uses a stateful RNG); pass an
+    explicit seed for reproducibility (``engine.py:39``)."""
+    if seed is not None:
+        return seed
+    obj._sample_calls = getattr(obj, "_sample_calls", -1) + 1
+    return obj._sample_calls
 
 
 def _fill_after_eos(out, prompt_len, eos_token_id):
@@ -173,13 +188,14 @@ class InferenceEngine:
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens: int = 32,
                  eos_token_id: Optional[int] = None,
-                 do_sample: bool = False):
-        """Greedy decode over a static KV cache (``engine.py:371``): returns
+                 do_sample: bool = False, temperature: float = 1.0,
+                 top_k: int = 0, top_p: float = 1.0,
+                 seed: Optional[int] = None):
+        """Decode over a static KV cache (``engine.py:371``): greedy, or
+        with ``do_sample=True`` temperature / top-k / top-p sampling with
+        one key ``fold_in(PRNGKey(seed), position)`` a step for the whole
+        ``[B, V]`` draw (``seed=None``: a fresh seed per call).  Returns
         int32 ``[B, prompt + max_new_tokens]`` with eos back-fill."""
-        if do_sample:
-            raise NotImplementedError(
-                "do_sample=True: sampling comes with the port's sampling "
-                "slice; greedy decoding only")
         input_ids = np.asarray(input_ids)
         b, prompt_len = input_ids.shape
         total = prompt_len + max_new_tokens
@@ -189,6 +205,9 @@ class InferenceEngine:
             raise ValueError(
                 f"prompt ({prompt_len}) + max_new_tokens ({max_new_tokens}) "
                 f"= {total} exceeds the model context length {max_ctx}")
+        pick = _make_token_picker((do_sample, float(temperature), int(top_k),
+                                   float(top_p)) if do_sample else None)
+        rng = sampling_ops.PRNGKey(_auto_seed(self, seed), self.device)
         fwd = hooks["forward_cached"]
         # the workspace rounds up to 128 positions, as in the JAX engine
         cache_len = -(-total // 128) * 128
@@ -196,16 +215,48 @@ class InferenceEngine:
         buf = torch.zeros((b, total), dtype=torch.int64, device=self.device)
         buf[:, :prompt_len] = torch.as_tensor(input_ids, device=self.device)
         logits, cache = fwd(self.params, buf[:, :prompt_len], cache, 0)
-        nxt = logits.argmax(dim=-1)
+        nxt = pick(logits, rng, prompt_len)
         buf[:, prompt_len] = nxt
         done = nxt == eos_token_id if eos_token_id is not None else None
         for pos in range(prompt_len, total - 1):
             if done is not None and bool(done.all()):
                 break
             logits, cache = fwd(self.params, buf[:, pos:pos + 1], cache, pos)
-            nxt = logits.argmax(dim=-1)
+            nxt = pick(logits, rng, pos + 1)
             buf[:, pos + 1] = nxt
             if done is not None:
                 done |= nxt == eos_token_id
         out = buf.cpu().numpy().astype(np.int32)
         return _fill_after_eos(out, prompt_len, eos_token_id)
+
+
+def _make_token_picker(sample_cfg):
+    """Greedy argmax, or temperature / top-k / top-p sampling
+    (``engine.py:558``): ``pick(logits [B, V], rng, position)`` -> ``[B]``
+    tokens, the draw keyed by ``fold_in(rng, position)``.  The top-p
+    cutoff is the smallest sorted prefix with cumulative probability
+    ``>= top_p``; when no prefix reaches it (rounding), nothing is cut,
+    as the JAX gather's out-of-bounds fill leaves it."""
+    if sample_cfg is None:
+        return lambda logits, rng, position: logits.argmax(dim=-1)
+    _, temperature, top_k, top_p = sample_cfg
+
+    def pick(logits, rng, position):
+        logits = quant.ieee_div(logits.float(), max(temperature, 1e-6))
+        v = logits.shape[-1]
+        if top_k and top_k < v:
+            kth = torch.sort(logits, dim=-1).values[:, v - top_k][:, None]
+            logits = torch.where(logits < kth, -math.inf, logits)
+        if top_p < 1.0:
+            sorted_logits = torch.sort(logits, dim=-1,
+                                       descending=True).values
+            cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+            cutoff_idx = (cum < top_p).sum(dim=-1, keepdim=True)
+            cutoff = torch.gather(sorted_logits, -1,
+                                  cutoff_idx.clamp(max=v - 1))
+            cutoff = torch.where(cutoff_idx < v, cutoff, -math.inf)
+            logits = torch.where(logits < cutoff, -math.inf, logits)
+        key = sampling_ops.fold_in(rng, position)
+        return sampling_ops.categorical(key, logits).to(torch.int64)
+
+    return pick

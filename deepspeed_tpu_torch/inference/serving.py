@@ -29,12 +29,39 @@ and chunked prefill — the PyTorch port of
    engine whose blocks are w8a8 records (``init_serving`` builds one), so
    decode matmuls run the w8a8 kernels; ``"w8a8+kv8"`` both.
 
+ - **Captured decode step**: on CUDA the decode step — embedding, every
+   layer with its paged attention kernel, KV scatter and matmuls, the
+   head and the token rule — is one ``torch.cuda.CUDAGraph`` per decode
+   shape (slots x block-table width), captured at the second decode
+   iteration (the first runs eagerly, so every kernel library, constant
+   and counter the step uses exists before capture) and replayed after
+   that: the host copies the step's operands into one static buffer,
+   replays, and reads the ``[slots, K]`` tokens back once.  The pool is
+   written in place, so the graph's input and output pool are the same
+   tensors.  Graphs are bounded by an LRU (``utils/lru.py``) and counted
+   in ``stats()["captured_graphs"]``, the port's ``compile_count``.  A
+   capture runs under ``torch.cuda.set_sync_debug_mode("error")``, and a
+   capture or replay that fails raises: there is no eager fallback.  On
+   the CPU the same step runs eagerly.
+ - **Fused decode** (``decode_steps=K``): one captured window of K decode
+   steps with per-slot eos and budget checks on the device behind an
+   ``active`` mask (the JAX ``fused_core`` while loop; a graph cannot exit
+   early, so the window always runs K steps, frozen rows re-feeding their
+   last token at a frozen length).  The host catches up once per window
+   at the fence by replaying the K = 1 commit sequence.
+ - **Sampling** (``sampling=True``, the JAX default): per-request
+   ``temperature`` / ``top_k`` / ``top_p`` / ``seed`` ride as ``[slots]``
+   operands of the same graph (``ops/sampling.py``), keyed by the
+   request's seed and emitted-token index, so sampled streams replay token
+   for token across preemption and across K; ``temperature=0`` rows are
+   the argmax.
+
 Scheduling is iteration-level: every :meth:`ServingEngine.step` admits
 waiting requests into free slots (gated on block availability — the queue
 head blocks admission, no starvation), advances every prefilling slot by one
-chunk, then runs one single-token decode step over all slots with
-per-sequence positions.  Greedy decoding only: per-request outputs are
-token-identical to sequential ``generate``.
+chunk, then runs one decode step (or one fused window of K) over all slots
+with per-sequence positions.  Greedy outputs are token-identical to
+sequential ``generate``.
 """
 
 from __future__ import annotations
@@ -49,18 +76,31 @@ import numpy as np
 import torch
 
 from ..ops import decode_attention, quantized_matmul
+from ..ops import sampling as sampling_ops
 from ..ops.paged_kv import blocks_for, is_quantized_pool, quantize_pool
 from ..ops.quantization import tree_leaves
 from ..utils.logging import log_dist
+from ..utils.lru import LRUCache
 from .paged import BlockAllocator, PrefixCache
 
 
 @dataclasses.dataclass
 class Request:
-    """One serving request: prompt token ids + a completion budget."""
+    """One serving request: prompt token ids + a completion budget, plus
+    the per-request sampling contract (``serving.py:346``).
+    ``temperature=0`` (the default) is greedy and rides the same decode
+    graph as sampled traffic; ``seed`` keys the counter-based PRNG
+    (``ops/sampling.py``), so a sampled stream is a pure function of
+    ``(prompt, params, seed)``.  ``mask_builder`` (constrained decoding)
+    comes with the speculative-verify slice and must be ``None``."""
     uid: Any
     prompt: np.ndarray                      # int32 [prompt_len]
     max_new_tokens: int = 32
+    temperature: float = 0.0                # 0 = greedy (the default row)
+    top_k: int = 0                          # 0 = off
+    top_p: float = 1.0                      # 1 = off
+    seed: int = 0                           # counter-based PRNG root
+    mask_builder: Optional[Any] = None      # constrained decoding: later
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
@@ -69,6 +109,30 @@ class Request:
         if self.max_new_tokens < 1:
             raise ValueError(f"request {self.uid!r}: max_new_tokens must "
                              "be >= 1")
+        if self.temperature < 0:
+            raise ValueError(f"request {self.uid!r}: temperature must be "
+                             f">= 0 (0 = greedy), got {self.temperature}")
+        if self.top_k < 0:
+            raise ValueError(f"request {self.uid!r}: top_k must be >= 0 "
+                             f"(0 = off), got {self.top_k}")
+        if not 0 < self.top_p <= 1:
+            raise ValueError(f"request {self.uid!r}: top_p must be in "
+                             f"(0, 1] (1 = off), got {self.top_p}")
+        # the PRNG root is stored as a uint32 at admission
+        if not 0 <= self.seed < 2 ** 32:
+            raise ValueError(f"request {self.uid!r}: seed must be in "
+                             f"[0, 2**32), got {self.seed}")
+        if self.mask_builder is not None:
+            raise NotImplementedError(
+                f"request {self.uid!r}: mask_builder (constrained decoding) "
+                "is not ported yet — it comes with the PyTorch port's "
+                "speculative-verify slice (ROADMAP.md Queue A item 3)")
+
+    @property
+    def sampled(self) -> bool:
+        """True when this request draws from the sampler (any nonzero
+        temperature)."""
+        return self.temperature > 0
 
 
 class RequestHandle:
@@ -214,6 +278,34 @@ class _SlotState:
         return len(self.prior) + len(self.out)
 
 
+#: the decode step's [slots] int32 operands, in staging-buffer order (the
+#: block tables follow them)
+_OPERANDS = ("tokens", "lengths", "active", "budgets", "eos", "counts",
+             "temps", "topks", "topps", "seeds")
+
+#: an LRU entry for a decode shape that has run eagerly once, not captured
+_WARMED = "warmed"
+
+
+def _kernel_wrappers():
+    """Every kernel wrapper a decode step may launch (launch bookkeeping)."""
+    return decode_attention.KERNELS + quantized_matmul.KERNELS
+
+
+class _CapturedStep:
+    """One captured decode graph and the launches of each kernel wrapper
+    it holds; a replay adds them, so ``fn.launches`` counts executions."""
+
+    def __init__(self, graph, launches):
+        self.graph = graph
+        self.launches = launches
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for fn, n in self.launches:
+            fn.launches += n
+
+
 #: legal ``quantize=`` values (order-normalized; ``None`` = full precision)
 _QUANT_MODES = ("kv8", "w8a8", "w8a8+kv8")
 
@@ -258,6 +350,11 @@ class ServingEngine:
     prefill_batch:  sequences per prefill call; short groups pad with
                     scratch-routed rows.
     prefix_caching: enable the block trie.
+    decode_steps:   K >= 1 decode steps per captured window (module
+                    docstring); K = 1 is one step an iteration.
+    sampling:       thread the per-request sampling operands through the
+                    decode step and the prefill's first token; ``False``
+                    keeps the argmax alone and refuses sampled requests.
     quantize:       ``None``, ``"kv8"``, ``"w8a8"`` or ``"w8a8+kv8"``
                     (module docstring).
     """
@@ -269,7 +366,14 @@ class ServingEngine:
                  num_blocks: Optional[int] = None,
                  prefill_chunk: int = 128,
                  prefix_caching: bool = True,
+                 decode_steps: int = 1,
+                 sampling: bool = True,
                  quantize: Optional[str] = None):
+        self._K = int(decode_steps)
+        if self._K < 1:
+            raise ValueError(
+                f"decode_steps must be >= 1, got {decode_steps}")
+        self.sampling = bool(sampling)
         self.quantize, self.kv_quant, want_w8a8 = _parse_quantize(quantize)
         qcfg = engine._config.quant
         self.weight_quant = qcfg.type if qcfg.enabled else None
@@ -350,16 +454,29 @@ class ServingEngine:
         self._trace_times: Dict[Any, Dict[str, float]] = {}
         self._ttft: deque = deque(maxlen=4096)   # recent finished requests
         self._tpot: deque = deque(maxlen=4096)
+        # per-slot sampling knobs, set at admission; idle rows keep the
+        # greedy defaults (serving.py:1220-1223)
+        self._temps = np.zeros(self.slots, np.float32)
+        self._topks = np.zeros(self.slots, np.int32)
+        self._topps = np.ones(self.slots, np.float32)
+        self._seeds = np.zeros(self.slots, np.uint32)
+        self._init_decode_buffers()
+        #: captured decode graphs by decode shape (serving.py:1236-1241)
+        self._graphs = LRUCache(capacity=4)
+        self._eager_only = False
         self.counters = dict.fromkeys(
             ("iterations", "decode_steps", "prefill_calls", "admitted",
              "preempted", "finished", "prompt_tokens", "prefix_hit_tokens",
-             "generated_tokens"), 0)
+             "generated_tokens", "fused_iterations", "host_fence_waits",
+             "captured_graphs", "sampled_requests"), 0)
         log_dist(
             f"ServingEngine: slots={self.slots}, cache_len={self._cache_len}, "
             f"block_size={self.block_size}, num_blocks={num_blocks}, chunked "
             f"prefill (chunk={self.prefill_chunk}, prefix_cache="
             f"{self._prefix is not None}), prefill_batch={self.prefill_batch}"
-            f", quantize={self.quantize}", ranks=[0])
+            f", quantize={self.quantize}, sampling={self.sampling}"
+            + (f", fused decode K={self._K}" if self._K > 1 else ""),
+            ranks=[0])
 
     @property
     def prefix_hit_tokens(self) -> int:
@@ -377,6 +494,12 @@ class ServingEngine:
         self._tables[slot] = 0
         self._tokens[slot] = 0
         self._lengths[slot] = 0
+        # idle rows revert to the greedy defaults: their lanes still run
+        # in every decode step (outputs discarded)
+        self._temps[slot] = 0.0
+        self._topks[slot] = 0
+        self._topps[slot] = 1.0
+        self._seeds[slot] = 0
 
     def _preempt(self, slot: int) -> None:
         """Evict a sequence under block pressure: free its blocks and
@@ -482,6 +605,11 @@ class ServingEngine:
                             eos=item.eos, handle=item.handle)
             self._admit_seq += 1
             active[slot] = st
+            if self.sampling:
+                self._temps[slot] = np.float32(req.temperature)
+                self._topks[slot] = np.int32(req.top_k)
+                self._topps[slot] = np.float32(req.top_p)
+                self._seeds[slot] = np.uint32(req.seed)
             if st.handle is not None:
                 st.handle._on_active()
             if self._admission_log is not None:
@@ -498,6 +626,12 @@ class ServingEngine:
                 f"request {r.uid!r}: prompt ({len(r.prompt)}) + "
                 f"max_new_tokens ({r.max_new_tokens}) = {total} exceeds "
                 f"max_seq_len {self.max_seq_len}")
+        if r.sampled and not self.sampling:
+            raise ValueError(
+                f"request {r.uid!r} asks for temperature="
+                f"{r.temperature} but this engine was built with "
+                "sampling=False (argmax only) — rebuild with sampling=True "
+                "to serve sampled traffic")
 
     def submit(self, request: Request, *, priority: int = 0,
                eos_token_id: Optional[int] = None) -> RequestHandle:
@@ -514,6 +648,7 @@ class ServingEngine:
         self._pending.push(_PendingItem(
             req=request, prior=[], priority=priority, eos=eos_token_id,
             handle=handle))
+        self.counters["sampled_requests"] += int(request.sampled)
         self._live_uids.add(request.uid)
         return handle
 
@@ -527,7 +662,10 @@ class ServingEngine:
         self.counters["iterations"] += 1
         self._admit()
         self._run_prefill(params)
-        self._run_plain_decode(params)
+        if self._K > 1:
+            self._run_fused_decode()
+        else:
+            self._run_plain_decode()
         return bool(self._pending or self._active)
 
     def serve(self, requests: Sequence[Request],
@@ -604,7 +742,186 @@ class ServingEngine:
     def _to_device(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(a, dtype=dtype, device=self.device)
 
-    def _run_plain_decode(self, params) -> None:
+    # ------------------------------------------------------ decode operands
+    def _init_decode_buffers(self) -> None:
+        """The decode step's operands in ONE int32 buffer (float knobs and
+        uint32 seeds as their bit patterns), staged on the host (pinned on
+        CUDA) and copied to the device in one transfer a step; the step
+        reads the device views, so a captured graph sees new values
+        through fixed addresses.  ``_dev_out`` receives the ``[slots, K]``
+        tokens (``-1`` past a slot's end)."""
+        s, nbper = self.slots, self._nbper
+        n = len(_OPERANDS) * s + s * nbper
+        cuda = self.device.type == "cuda"
+        self._host_ops = torch.zeros(n, dtype=torch.int32, pin_memory=cuda)
+        self._dev_ops = torch.zeros(n, dtype=torch.int32,
+                                    device=self.device) if cuda \
+            else self._host_ops
+        host = self._host_ops.numpy()
+        self._op_np, self._op_dev = {}, {}
+        for i, name in enumerate(_OPERANDS):
+            self._op_np[name] = host[i * s:(i + 1) * s]
+            self._op_dev[name] = self._dev_ops[i * s:(i + 1) * s]
+        for name in ("temps", "topps"):
+            self._op_np[name] = self._op_np[name].view(np.float32)
+            self._op_dev[name] = self._op_dev[name].view(torch.float32)
+        off = len(_OPERANDS) * s
+        self._op_np["tables"] = host[off:].reshape(s, nbper)
+        self._op_dev["tables"] = self._dev_ops[off:].view(s, nbper)
+        self._dev_out = torch.full((s, self._K), -1, dtype=torch.int32,
+                                   device=self.device)
+
+    def _decode_counts(self) -> np.ndarray:
+        """[slots] emitted counts for a decode dispatch (idle rows 0 —
+        their greedy lane never touches the PRNG)."""
+        counts = np.zeros(self.slots, np.int32)
+        for slot, st in self._active.items():
+            if st.phase == "decode":
+                counts[slot] = st.gen_count
+        return counts
+
+    def _samp_rows(self, group, rows: int):
+        """The ROW-gathered sampling operands of a prefill call (pad rows
+        keep the greedy defaults): ``(temps, topks, topps, seeds,
+        counts)`` device tensors from one host->device copy, or ``None``
+        for a ``sampling=False`` engine (``serving.py:1861``)."""
+        if not self.sampling:
+            return None
+        packed = np.zeros((5, rows), np.int32)
+        temps, topps = packed[0].view(np.float32), packed[2].view(np.float32)
+        topps[:] = 1.0
+        for row, slot in enumerate(group):
+            temps[row] = self._temps[slot]
+            packed[1, row] = self._topks[slot]
+            topps[row] = self._topps[slot]
+            packed[3, row] = self._seeds[slot].view(np.int32)
+            packed[4, row] = self._active[slot].gen_count
+        dev = self._to_device(packed)
+        return (dev[0].view(torch.float32), dev[1], dev[2].view(torch.float32),
+                dev[3], dev[4])
+
+    def _next_tokens(self, logits, samp) -> torch.Tensor:
+        """The per-row token rule of every step (``serving.py:1809``):
+        argmax for a ``sampling=False`` engine; otherwise a per-row
+        ``where(temp > 0)`` between the sampler (counter-keyed by the
+        row's seed and emitted count) and the same argmax, so one graph
+        serves mixed greedy and sampled batches.  int32 ``[rows]``."""
+        if samp is None:
+            return logits.argmax(dim=-1).to(torch.int32)
+        temps, topks, topps, seeds, counts = samp
+        greedy, lp = sampling_ops.filtered_logprobs(logits, temps, topks,
+                                                    topps)
+        keys = sampling_ops.slot_keys(seeds, counts, sampling_ops.SALT_TOKEN)
+        return torch.where(temps > 0, sampling_ops.sample_tokens(lp, keys),
+                           greedy)
+
+    # ------------------------------------------------- captured decode step
+    def _decode_body(self) -> None:
+        """The device work of one decode dispatch: K steps over every slot
+        reading the static operand views, the pool written in place, the
+        ``[slots, K]`` tokens into ``_dev_out`` (``fused_core``,
+        ``serving.py:1927-1975``; K = 1 is ``step_core``).  Nothing here
+        creates a device tensor from a host value or synchronises, so it
+        runs eagerly and under CUDA-graph capture alike.  Rows with
+        ``active == 0`` emit ``-1``; a row that stops (eos or budget)
+        re-feeds its last token at a frozen length — an idempotent rewrite
+        of its KV, or a write past its held span, which its table routes to
+        the scratch block."""
+        v = self._op_dev
+        params = self.engine.params
+        toks, lens, act = v["tokens"], v["lengths"], v["active"] != 0
+        outs = []
+        for i in range(self._K):
+            logits, _ = self._fwd(params, toks.to(torch.int64)[:, None],
+                                  self._cache, 0, lengths=lens,
+                                  block_tables=v["tables"])
+            samp = None if not self.sampling else (
+                v["temps"], v["topks"], v["topps"], v["seeds"],
+                v["counts"] + i)
+            nxt = self._next_tokens(logits, samp)
+            outs.append(torch.where(act, nxt, -1))
+            if i + 1 < self._K:
+                lens = lens + act.to(torch.int32)
+                toks = torch.where(act, nxt, toks)
+                act = act & (nxt != v["eos"]) & (v["budgets"] > i + 1)
+        self._dev_out.copy_(torch.stack(outs, dim=1))
+
+    def _capture(self) -> "_CapturedStep":
+        """Capture :meth:`_decode_body` as a CUDA graph, under
+        ``set_sync_debug_mode("error")`` so that a synchronisation in the
+        step raises.  The kernel wrappers count their launches on the host
+        while the body is captured; those counts are taken back (a capture
+        executes nothing) and kept, and each replay adds them."""
+        wrappers = _kernel_wrappers()
+        before = [fn.launches for fn in wrappers]
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    self._decode_body()
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+            held = tuple((fn, fn.launches - n)
+                         for fn, n in zip(wrappers, before)
+                         if fn.launches != n)
+        finally:
+            for fn, n in zip(wrappers, before):
+                fn.launches = n
+        self.counters["captured_graphs"] += 1
+        return _CapturedStep(graph, held)
+
+    def _run_decode_step(self) -> None:
+        """Run :meth:`_decode_body` once: eagerly on the CPU; on CUDA
+        eagerly at the first dispatch of a decode shape, then from the
+        captured graph (captured at the second dispatch, replayed from
+        then on)."""
+        if self.device.type != "cuda" or self._eager_only:
+            self._decode_body()
+            return
+        key = (self.slots, self._nbper, self._K, self.sampling)
+        rec = self._graphs.get(key)
+        if rec is None:
+            self._decode_body()
+            self._graphs.put(key, _WARMED)
+            return
+        if rec is _WARMED:
+            rec = self._capture()
+            self._graphs.put(key, rec)
+        rec.replay()
+
+    def _serve_eager(self, requests, eos_token_id=None):
+        """:meth:`serve` with every decode step run eagerly, never from a
+        graph: the reference the captured step is held against."""
+        self._eager_only = True
+        try:
+            return self.serve(requests, eos_token_id=eos_token_id)
+        finally:
+            self._eager_only = False
+
+    def _dispatch_decode(self, bt, active, budgets, eos_ids) -> np.ndarray:
+        """Stage one decode dispatch's operands, run it, and read the
+        ``[slots, K]`` int32 tokens back (the one host wait of the
+        dispatch)."""
+        o = self._op_np
+        o["tokens"][:] = self._tokens
+        o["lengths"][:] = self._lengths
+        o["active"][:] = active
+        o["budgets"][:] = budgets
+        o["eos"][:] = eos_ids
+        o["counts"][:] = self._decode_counts()
+        o["temps"][:] = self._temps
+        o["topks"][:] = self._topks
+        o["topps"][:] = self._topps
+        o["seeds"][:] = self._seeds.view(np.int32)
+        o["tables"][:] = bt
+        if self._dev_ops is not self._host_ops:
+            self._dev_ops.copy_(self._host_ops, non_blocking=True)
+        self._run_decode_step()
+        return self._dev_out.cpu().numpy().copy()
+
+    def _run_plain_decode(self) -> None:
         """One single-token decode step over every slot (``serving.py:
         3746-3782``); prefilling and empty slots point at the scratch
         block."""
@@ -619,15 +936,76 @@ class ServingEngine:
             return
         bt = np.zeros_like(self._tables)
         bt[dec] = self._tables[dec]
-        logits, self._cache = self._fwd(
-            params, self._to_device(self._tokens)[:, None], self._cache, 0,
-            lengths=self._to_device(self._lengths),
-            block_tables=self._to_device(bt))
-        nxt = logits.argmax(dim=-1).cpu().numpy()
+        actv = np.zeros(self.slots, np.int32)
+        actv[dec] = 1
+        nxt = self._dispatch_decode(bt, actv, actv, -1)
         self.counters["decode_steps"] += 1
         for slot in dec:
             self._lengths[slot] += 1       # the fed token is now cached
-            self._emit(slot, active[slot], int(nxt[slot]))
+            self._emit(slot, active[slot], int(nxt[slot, 0]))
+
+    def _run_fused_decode(self) -> None:
+        """``decode_steps`` decode iterations in one dispatch
+        (``serving.py:3795-3887``): blocks are reserved for the whole
+        window before it (``_ensure_blocks`` up to each slot's remaining
+        budget, the device budget clamped to the held span), eos and budget
+        checks run on the device, and the host catches up at the fence by
+        replaying the committed ``out[slot, i]`` tokens through the K = 1
+        commit sequence."""
+        K = self._K
+        active = self._active
+        dec = sorted((s for s, st in active.items() if st.phase == "decode"),
+                     key=lambda s: active[s].admit_seq)
+        want: Dict[int, int] = {}
+        for slot in dec:
+            if slot in active and active[slot].phase == "decode":
+                st = active[slot]
+                ln = int(self._lengths[slot])
+                w = max(1, min(K, st.req.max_new_tokens - st.gen_count))
+                want[slot] = w
+                self._ensure_blocks(slot, min(ln + w, self._cache_len))
+        dec = sorted(s for s, st in active.items() if st.phase == "decode")
+        budgets = np.zeros(self.slots, np.int32)
+        eos_ids = np.full(self.slots, -1, np.int32)
+        actv = np.zeros(self.slots, np.int32)
+        for slot in dec:
+            st = active[slot]
+            ln = int(self._lengths[slot])
+            # a window never writes past the blocks it reserved
+            span = int(np.count_nonzero(self._tables[slot])) \
+                * self.block_size
+            b = min(want.get(slot, K), max(span - ln, 0))
+            if b < 1:
+                continue
+            budgets[slot] = b
+            actv[slot] = 1
+            if st.eos is not None:
+                eos_ids[slot] = int(st.eos)
+        dec = [s for s in dec if actv[s]]
+        if not dec:
+            return
+        bt = np.zeros_like(self._tables)
+        bt[dec] = self._tables[dec]
+        out = self._dispatch_decode(bt, actv, budgets, eos_ids)
+        self.counters["host_fence_waits"] += 1
+        trips = 0
+        for slot in dec:
+            st = active[slot]
+            emitted = 0
+            for i in range(K):
+                tok = int(out[slot, i])
+                if tok < 0:
+                    break
+                emitted += 1
+                self._lengths[slot] += 1
+                self._emit(slot, st, tok)
+                if slot not in active:
+                    break
+            trips = max(trips, emitted)
+        # decode_steps counts the deepest slot's emitted steps, as the JAX
+        # while loop's trip count does
+        self.counters["decode_steps"] += trips
+        self.counters["fused_iterations"] += trips
 
     def _run_prefill(self, params) -> None:
         """Advance prefilling slots by one ``prefill_chunk`` window each,
@@ -668,10 +1046,11 @@ class ServingEngine:
             bt[row] = self._tables[slot]
             base[row] = st.base
             valid[row] = v
+        samp = self._samp_rows(group, j)
         logits, self._cache = self._fwd(
             params, self._to_device(ids), self._cache, self._to_device(base),
             lengths=self._to_device(valid), block_tables=self._to_device(bt))
-        first = logits.argmax(dim=-1).cpu().numpy()
+        first = self._next_tokens(logits, samp).cpu().numpy()
         self.counters["prefill_calls"] += 1
         for row, slot in enumerate(group):
             st = active[slot]
@@ -693,11 +1072,15 @@ class ServingEngine:
     # ------------------------------------------------------------------ stats
     def stats(self) -> Dict[str, Any]:
         """Serving-loop counters: admissions, preemptions (``evicted``),
-        decode steps and prefill calls, prefix-cache hit rate, block
+        decode steps (the deepest slot's steps of each fused window),
+        fused iterations and host fences (``decode_steps > 1``), captured
+        decode graphs, sampled requests and prefill calls, prefix-cache
+        hit rate, block
         occupancy, TTFT/TPOT percentiles over recent finished requests, the
         KV pool's footprint (``kv_pool_bytes``: codes plus the scale table
         under ``kv8``) and quantization, and the launches of each
-        decode-attention and int8-matmul kernel (process-wide)."""
+        decode-attention and int8-matmul kernel (process-wide executions:
+        a replayed graph adds the launches it holds)."""
         c = self.counters
         pool_bytes = sum(t.numel() * t.element_size()
                          for t in tree_leaves(self._cache))
@@ -707,6 +1090,11 @@ class ServingEngine:
         st = {
             "iterations": c["iterations"],
             "decode_steps": c["decode_steps"],
+            "fused_iterations": c["fused_iterations"],
+            "host_fence_waits": c["host_fence_waits"],
+            "captured_graphs": c["captured_graphs"],
+            "sampling": self.sampling,
+            "sampled_requests": c["sampled_requests"],
             "prefill_calls": c["prefill_calls"],
             "admitted": c["admitted"],
             "evicted": c["preempted"],

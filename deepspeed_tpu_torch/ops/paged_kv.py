@@ -38,9 +38,12 @@ def blocks_for(num_tokens: int, block_size: int) -> int:
 
 
 def _row_positions(pos, b: int, device) -> torch.Tensor:
-    """``pos`` (int, 0-d or ``[B]`` tensor) as an int64 ``[B]`` tensor."""
-    pos = torch.as_tensor(pos, device=device)
-    return pos.reshape(-1).to(torch.int64).expand(b)
+    """``pos`` (int, 0-d or ``[B]`` tensor) as an int64 ``[B]`` tensor; an
+    int is filled on the device, never copied from the host, so the
+    decode step stays capturable in a CUDA graph."""
+    if not isinstance(pos, torch.Tensor):
+        return torch.full((b,), int(pos), dtype=torch.int64, device=device)
+    return pos.to(device).reshape(-1).to(torch.int64).expand(b)
 
 
 #: scale-table dtype: absmax/127 of activation-range values always fits,

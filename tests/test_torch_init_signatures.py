@@ -21,13 +21,12 @@ from deepspeed_tpu_torch.models import gpt2 as tgpt2
 #: init_serving's keywords the port implements
 PORTED = {"model", "config", "params", "slots", "max_seq_len",
           "prefill_batch", "block_size", "num_blocks", "prefill_chunk",
-          "prefix_caching", "quantize", "kwargs"}
+          "prefix_caching", "decode_steps", "sampling", "quantize", "kwargs"}
 
 # (keyword, a value other than the JAX default, its ROADMAP Queue A item)
 UNPORTED = [
     ("prompt_buckets", [16, 32], 4),
     ("chunked_prefill", False, 4),
-    ("decode_steps", 4, 1),
     ("engine_mode", "dp_tp", 8),
     ("sp", 2, 8),
     ("resident_window_blocks", 4, 9),
@@ -41,7 +40,6 @@ UNPORTED = [
     ("nvme_path", "kv.spill", 9),
     ("ngram_max", 4, 3),
     ("ngram_min", 2, 3),
-    ("sampling", True, 2),
     ("spec_verifier", "greedy", 3),
     ("logit_masks", True, 3),
     ("shard_kv", True, 8),
@@ -130,9 +128,11 @@ def engine(model):
 
 
 # the keywords the port implements, and every unported one at its JAX
-# default given explicitly (chunked_prefill also at True, which the port runs)
+# default given explicitly (chunked_prefill also at True, which the port
+# runs): init_serving(model) as the JAX package is called, sampling=True
+# included
 _JAX_DEFAULTS = {k: _params(deepspeed_tpu.init_serving)[k].default
-                 for k, _, _ in UNPORTED if k not in ("sampling",)}
+                 for k, _, _ in UNPORTED}
 SERVERS = [
     ("defaults", {}),
     ("prefill_chunk=16", {"prefill_chunk": 16}),
@@ -140,15 +140,20 @@ SERVERS = [
     ("chunked_prefill=True", {"chunked_prefill": True}),
     ("every JAX default spelled out", _JAX_DEFAULTS),
     ("kv8", {"quantize": "kv8"}),
+    ("sampling=True", {"sampling": True}),
+    ("sampling=False", {"sampling": False}),
+    ("decode_steps=4", {"decode_steps": 4}),
+    ("sampling=True decode_steps=4", {"sampling": True, "decode_steps": 4}),
 ]
 
 
 @pytest.mark.parametrize("label,kw", SERVERS, ids=[s[0] for s in SERVERS])
 def test_ported_serving_keywords_build_working_servers(engine, label, kw):
+    """Each server serves a greedy trace (temperature-0 rows on a sampling
+    server are the argmax) token-exact with ``generate``."""
     srv = deepspeed_tpu_torch.init_serving(
         engine.module, params=engine.params, config={"dtype": "fp32"},
-        device="cpu", sampling=False, slots=3, max_seq_len=64, block_size=8,
-        **kw)
+        device="cpu", slots=3, max_seq_len=64, block_size=8, **kw)
     rng = np.random.default_rng(3)
     prefix = rng.integers(0, 256, 16)
     prompts = [np.concatenate([prefix, rng.integers(0, 256, n)])
@@ -163,3 +168,6 @@ def test_ported_serving_keywords_build_working_servers(engine, label, kw):
             continue
         want = engine.generate(p[None].astype(np.int64), max_new_tokens=6)
         np.testing.assert_array_equal(np.asarray(out[i]), np.asarray(want)[0])
+    st = srv.stats()
+    assert st["sampling"] is kw.get("sampling", True)
+    assert (st["fused_iterations"] > 0) == (kw.get("decode_steps", 1) > 1)
