@@ -120,7 +120,8 @@ Each main path is read alone: the decode kernels' counts are set to 0
 before phase 3 and read after phase 5, the flash kernels' before phase 7
 and after it, the int8 kernels' before phase 10 and after its five runs,
 the gated flash kernels' (``layout_launches``) before phase 11's main path
-and after it.
+and after it; phase 13's decode-attention and int8 launches (its checks,
+not its table) are added to those of phases 3-5 and 10.
 Since the servers capture their decode step in a CUDA graph, a kernel's
 count is its executions: a capture records the launches its graph holds
 and every replay adds them.
@@ -141,6 +142,28 @@ and every replay adds them.
     float lane captured: wall time, device busy time, idle share, kernels
     and host launch calls an iteration of a profiled decode window, and
     ``serve`` tok/s and TTFT p50 of phase 4's traffic.
+ 13. speculative and constrained decoding on phase 3's weights (and phase
+    10's w8a8 records) with phase 4's traffic, K = 4 (the verify kernel at
+    T = 5 on every round): an n-gram server and one with a
+    ``distilgpt2``-shaped draft (6 layers, its own random weights) must
+    agree with phase 4 on >= 0.95 of each request's positions, give the
+    eager steps' tokens and launches, hold 1 / 2 captured graphs, 12 B4
+    launches a round and 6 x K B3 launches a round on the draft pool; a
+    self-draft (the target as its own draft) must accept >= 0.9 of its
+    eligible drafts and agree with phase 4 on >= 0.95; in fp32 on a small
+    input, greedy n-gram and draft serve and the unspeculated server must
+    equal greedy ``generate``; sampled traffic through the rejection
+    verifier must repeat and keep temperature-0 rows greedy; the verifier's
+    emitted token over 4000 seeds on the card must pass the TV gate; a
+    w8a8+kv8 n-gram server must launch kv8 B4, give the eager steps'
+    tokens and agree with phase 12's w8a8+kv8 server on >= 0.95; JSON-
+    constrained sampled requests (``logit_masks=True``, with and without
+    spec) must emit only tokens their builder allowed at each step.  Then
+    the ``[spec table]``: plain, n-gram and draft servers' ``serve`` tok/s
+    and TTFT p50, and a profiled window's wall and device-busy ms, tokens
+    emitted and kernels a round.  Phases 2 and 2c time B4 and kv8 B4 at its
+    verify window (8 rows, T = 5, 1024-key tables); the kernels line gives
+    them under ``verify`` and counts phase 13's launches.
 
 The last two lines of output are the ``{"kernels": [...]}`` JSON object
 and the ``{"ok": true, "device": ...}`` JSON object.
@@ -489,6 +512,9 @@ def check_kernels():
          False),
         ("B2 100-key cache", "contiguous", 8, 12, 12, 1, bf16, 1, 100,
          "ragged", False),
+        # phase 13's verify window: 8 slots, T = K + 1 = 5, 1024-key tables
+        ("B4 verify T=5", "paged", 8, 12, 12, 5, bf16, 32, 32, "ragged",
+         "verify"),
     ]
     flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
     out = {}
@@ -534,10 +560,14 @@ def check_kernels():
         library_ms = timed_ms(library_call(case), flush)
         library_graph_ms = graph_ms(library_call(case), flush)
         bound_ms, bound_by = bound(case)
-        out[name] = {"max_abs_err": err, "ms": ms, "graph_ms": ms_graph,
-                     "plain_ms": plain_ms, "library_ms": library_ms,
-                     "library_graph_ms": library_graph_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by}
+        m = {"max_abs_err": err, "ms": ms, "graph_ms": ms_graph,
+             "plain_ms": plain_ms, "library_ms": library_ms,
+             "library_graph_ms": library_graph_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by}
+        if main == "verify":
+            out[name]["verify"] = m
+        else:
+            out[name] = m
         log(f"[kernels] {label}: kernel {ms:.4f} ms ({ms_graph:.4f} ms "
             f"replayed from a CUDA graph), plain {plain_ms:.4f} ms,"
             f" sdpa {library_ms:.4f} ms ({library_graph_ms:.4f} ms graph), "
@@ -904,6 +934,9 @@ def check_kv8_kernels(flush):
         ("kv8 B3 fp16", 8, 12, 12, 1, fp16, 32, 32, "ragged", False),
         ("kv8 B4 fp16 T=16", 4, 12, 12, 16, fp16, 32, 32, "chunks", False),
         ("kv8 B4 GQA T=16 fp16", 8, 8, 2, 16, fp16, 32, 32, "ragged", False),
+        # phase 13's w8a8+kv8 verify window: 8 slots, T = 5, 1024 keys
+        ("kv8 B4 verify T=5", 8, 12, 12, 5, bf16, 32, 32, "ragged",
+         "verify"),
     ]
     out = {}
     for seed, (label, b, h, hkv, t, dtype, nbper, bs, pos, main) in \
@@ -945,10 +978,14 @@ def check_kv8_kernels(flush):
         library_ms = timed_ms(library_call(case), flush)
         library_graph_ms = graph_ms(library_call(case), flush)
         bound_ms, bound_by = bound(case)
-        out[name] = {"max_abs_err": err, "ms": ms, "graph_ms": ms_graph,
-                     "plain_ms": plain_ms, "library_ms": library_ms,
-                     "library_graph_ms": library_graph_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by}
+        m = {"max_abs_err": err, "ms": ms, "graph_ms": ms_graph,
+             "plain_ms": plain_ms, "library_ms": library_ms,
+             "library_graph_ms": library_graph_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by}
+        if main == "verify":
+            out[name]["verify"] = m
+        else:
+            out[name] = m
         log(f"[kv8] {label}: kernel {ms:.4f} ms ({ms_graph:.4f} ms replayed "
             f"from a CUDA graph), plain {plain_ms:.4f} ms, sdpa over "
             f"dequantized KV {library_ms:.4f} ms ({library_graph_ms:.4f} ms "
@@ -1694,11 +1731,12 @@ def profile_serving(label, srv, reqs, watches, warm: int = 24,
     """``steps`` scheduler iterations of ``srv`` serving ``reqs`` timed
     alone, then ``steps`` more under ``torch.profiler``, after ``warm``
     iterations (prefills done, every slot decoding): wall time an
-    iteration (unprofiled), device busy time, idle share (busy over the
-    profiled window's wall), kernels run and host launch calls an
-    iteration, the top device kernels, for each ``(name, key)`` of
-    ``watches`` the device kernels whose names hold ``key``, and the top
-    host operators by self CPU time.  ``eager`` runs every decode step
+    iteration (unprofiled), tokens emitted an iteration (unprofiled),
+    device busy time, idle share (busy over the profiled window's wall),
+    kernels run and host launch calls an iteration, the top device
+    kernels, for each ``(name, key)`` of ``watches`` the device kernels
+    whose names hold ``key``, and the top host operators by self CPU
+    time.  ``eager`` runs every decode step
     eagerly (the server's private switch) instead of from its captured
     graph.  The requests are served to the end afterwards.  Returns the
     numbers an iteration."""
@@ -1713,11 +1751,13 @@ def profile_serving(label, srv, reqs, watches, warm: int = 24,
         for _ in range(warm):
             srv.step()
         torch.cuda.synchronize()
+        tok0 = srv.counters["generated_tokens"]
         t0 = time.perf_counter()
         for _ in range(steps):
             srv.step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+        tokens = srv.counters["generated_tokens"] - tok0
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1737,7 +1777,8 @@ def profile_serving(label, srv, reqs, watches, warm: int = 24,
     host_launches = sum(e.count for e in host if "Launch" in e.key)
     out = {"wall_ms": wall_ms / steps, "busy_ms": busy / steps,
            "idle": 1 - busy / prof_wall_ms, "kernels": launches / steps,
-           "host_launches": host_launches / steps}
+           "host_launches": host_launches / steps,
+           "tokens": tokens / steps}
     log(f"[profile {label}] {steps} iterations: wall {wall_ms:.1f} ms "
         f"({out['wall_ms']:.3f} ms each; {prof_wall_ms / steps:.3f} under "
         f"the profiler), device busy {busy:.1f} ms ({out['busy_ms']:.3f} ms "
@@ -2017,7 +2058,8 @@ def capture_phase(engine, weng, float_lane):
     the eager step's tokens bit for bit with the same kernel launches (the
     capture runs under ``set_sync_debug_mode("error")``), K = 4 gives K =
     1's tokens with eos inside a window, and the sampled checks hold; then
-    profiles both lanes eager and captured."""
+    profiles both lanes eager and captured.  Returns the captured greedy
+    servers' tokens of each lane."""
     import numpy as np
     import torch
 
@@ -2173,6 +2215,328 @@ def capture_phase(engine, weng, float_lane):
             f"share {m['idle']:.4f}, {m['kernels']:.1f} kernels and "
             f"{m['host_launches']:.1f} host launch calls an iteration; "
             f"serve {m['tok_s']:.1f} tok/s, TTFT p50 {m['ttft']:.4f} s")
+    return greedy
+
+
+# ------------------------------------------------------------- phase 13
+#: the draft model's shape: Hugging Face ``distilgpt2``'s published config
+#: (n_layer 6, n_embd 768, n_head 12, vocab 50257, n_positions 1024)
+DISTILGPT2 = {"vocab_size": 50257, "max_seq_len": 1024, "num_layers": 6,
+              "num_heads": 12, "hidden_size": 768}
+#: phase 13's speculative draft length: the verify window is K + 1 = 5
+SPEC_K = 4
+
+
+def draft_engine(dtype: str, seed: int):
+    """A ``distilgpt2``-shaped draft engine with random weights from
+    ``seed``."""
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import gpt2
+
+    cfg = gpt2.GPT2Config(**DISTILGPT2)
+    params = gpt2.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(seed))
+    return dt.init_inference(gpt2.build(cfg), config={"dtype": dtype},
+                             params=params)
+
+
+def min_agreement(a, b, reqs) -> float:
+    return min(agreement(a[r.uid], b[r.uid]) for r in reqs)
+
+
+def rejection_tv_check():
+    """Phase 13f: the rejection verifier's emitted token against a fixed
+    5-token target distribution and a fixed draft token, over 4000 seeds on
+    the card: the accept verdict (``accept_uniforms`` < ``token_probs``),
+    the residual draw (``residual_logits``, ``sample_tokens``) and the
+    plain draw, walked by ``rejection_accept`` at cap 1 (the verdict
+    consumed) and at cap 0 (a cap stop: the plain draw).  Returns the
+    larger TV against the target (the gate: < 0.05)."""
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.inference.spec import rejection_accept
+    from deepspeed_tpu_torch.ops import sampling as sops
+
+    probs = np.array([0.45, 0.25, 0.15, 0.1, 0.05], np.float32)
+    n, draft = 4000, 1
+    lp = torch.as_tensor(np.tile(np.log(probs), (n, 1)), device="cuda")
+    seeds = torch.arange(1, n + 1, device="cuda")
+    zero = torch.zeros(n, dtype=torch.int32, device="cuda")
+    drafts = torch.full((n,), draft, device="cuda")
+    u = sops.accept_uniforms(sops.slot_keys(seeds, zero, sops.SALT_ACCEPT))
+    accept = (u < sops.token_probs(lp, drafts)).cpu().numpy()
+    keys = sops.slot_keys(seeds, zero, sops.SALT_RESIDUAL)
+    resid = sops.sample_tokens(sops.residual_logits(lp, drafts),
+                               keys).cpu().numpy()
+    plain = sops.sample_tokens(lp, keys).cpu().numpy()
+    tvs = []
+    for cap in (1, 0):
+        emitted = np.array([rejection_accept(
+            [0, draft], [bool(accept[i])], [int(plain[i]), 0],
+            [int(resid[i])], cap, None, 1)[0][0] for i in range(n)])
+        tvs.append(0.5 * np.abs(np.bincount(emitted, minlength=5) / n
+                                - probs).sum())
+    log(f"[spec] rejection verifier, {n} seeds on the card, target "
+        f"{probs.tolist()}, draft token {draft}: TV {tvs[0]:.4f} at cap 1 "
+        f"(accepted {accept.mean():.4f}, p = {probs[draft]}), "
+        f"{tvs[1]:.4f} at cap 0 (limit 0.05)")
+    return max(tvs)
+
+
+def divergence_report(label, engine, got, want, reqs) -> None:
+    """For each request whose tokens differ from ``want``'s: its agreement,
+    the first differing generated position, and the top-2 logit margin of
+    ``engine``'s full forward over ``want``'s tokens before it (a third
+    arithmetic: the training path's), with the rank there of the token
+    ``got`` chose.  A margin within bf16 rounding marks a near-tie flip,
+    after which greedy decoding cascades."""
+    import torch
+
+    rows = []
+    for r in reqs:
+        a, b = got[r.uid], want[r.uid]
+        div = first_divergence(a, b)
+        if div < 0:
+            continue
+        logits = engine.forward(b[None, :div])[0, -1].float()
+        top = torch.topk(logits, 2).values
+        rank = int((logits > logits[int(a[div])]).sum())
+        rows.append(f"{r.uid}: {agreement(a, b):.4f}, token "
+                    f"{div - r.prompt.size}, margin "
+                    f"{float(top[0] - top[1]):.4f}, rank {rank}")
+    mean = sum(agreement(got[r.uid], want[r.uid]) for r in reqs) / len(reqs)
+    log(f"[spec {label}] mean agreement {mean:.4f}; {len(rows)} of "
+        f"{len(reqs)} requests differ: {rows}")
+
+
+def emitted_allowed(toks, eos, out, plen, max_new) -> bool:
+    """Whether every emitted token of ``out`` (up to its eos) was allowed
+    by a fresh ``JsonMaskBuilder`` at its step."""
+    from deepspeed_tpu_torch.inference.constrain import JsonMaskBuilder
+
+    builder = JsonMaskBuilder(toks, eos_token_id=eos)
+    gen = [int(t) for t in out[plen:]]
+    for i, tok in enumerate(gen):
+        if not builder.allowed(gen[:i], max_new - i)[tok]:
+            return False
+        if tok == eos:
+            break
+    return True
+
+
+def spec_phase(engine, weng, float_lane, greedy12, card):
+    """Phase 13: speculative decoding on the verify kernel (B4 at T = K +
+    1 = 5) and constrained decoding, on phase 3's GPT-2 125M bf16 weights
+    (and phase 10's w8a8 records) with phase 4's traffic.  Returns the
+    decode-attention and int8 kernels' launches of its checks."""
+    import numpy as np
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.inference.constrain import (JsonMaskBuilder,
+                                                         ascii_token_strings)
+    from deepspeed_tpu_torch.inference.serving import Request
+
+    model = engine.module
+    reqs, plain4 = float_lane["reqs"], float_lane["res"]
+    window = reqs[-4:] + reqs[:4]
+    layers = model.model_config.num_layers
+    dlayers = DISTILGPT2["num_layers"]
+    start = kernel_counts()
+
+    def server(params, quantize=None, **kw):
+        kw = {"slots": 8, "max_seq_len": 1024, "block_size": 32,
+              "prefill_chunk": 128, "sampling": False, **kw}
+        return dt.init_serving(model, config={"dtype": "bf16"},
+                               params=params, quantize=quantize, **kw)
+
+    draft = draft_engine("bf16", 4321)
+    failed = []
+
+    def require(ok, msg):
+        """Record a failed check; the phase raises after its last check,
+        so one run reports every failure."""
+        if not ok:
+            log(f"[spec] FAILED: {msg}")
+            failed.append(msg)
+
+    # 13a-c: n-gram, distilgpt2-shaped draft and self-draft, against phase
+    # 4; eager against captured for the first two
+    spec_res = {}
+    lanes = (("n-gram", {}, True), ("draft", {"draft": draft}, True),
+             ("self-draft", {"draft": engine}, False))
+    for label, kw, against_eager in lanes:
+        c0 = kernel_counts()
+        srv = server(engine.params, spec_tokens=SPEC_K, **kw)
+        res = srv.serve(reqs)
+        cc = counts_since(c0)
+        st = srv.stats()
+        rounds = st["spec_rounds"]
+        agree = min_agreement(res, plain4, reqs)
+        divergence_report(label, engine, res, plain4, reqs)
+        spec_res[label] = res
+        verify = cc.get("paged_verify_attention_cuda", 0)
+        b3 = cc.get("paged_decode_attention_cuda", 0)
+        msg = (f"[spec {label}] {len(reqs)} requests: {rounds} rounds, "
+               f"{st['generated_tokens']} tokens "
+               f"({st['generated_tokens'] / rounds:.3f} a round), "
+               f"acceptance rate {st['acceptance_rate']:.4f} "
+               f"({st['accepted_tokens']} of {st['drafted_tokens']}); "
+               f"captured_graphs {st['captured_graphs']}, decode_steps "
+               f"{st['decode_steps']}; launches {cc}; min agreement with "
+               f"phase 4 {agree:.4f}")
+        if against_eager:
+            c0 = kernel_counts()
+            res_e = server(engine.params, spec_tokens=SPEC_K,
+                           **kw)._serve_eager(reqs)
+            ce = counts_since(c0)
+            msg += (f"; equal to the eager steps': "
+                    f"{same_tokens(res, res_e, reqs)}, eager launches {ce}")
+            require(same_tokens(res, res_e, reqs) and ce == cc,
+                    f"{label}: captured {cc} differs from eager {ce}")
+        log(msg)
+        graphs = 1 if label == "n-gram" else 2
+        require(st["captured_graphs"] == graphs and not st["decode_steps"]
+                and rounds, f"{label}: {st}")
+        require(verify == layers * rounds,
+                f"{label}: {verify} verify launches for {rounds} rounds")
+        want_b3 = 0 if label == "n-gram" else \
+            (dlayers if label == "draft" else layers) * SPEC_K * rounds
+        require(b3 == want_b3, f"{label}: {b3} B3 launches, want {want_b3}")
+        require(agree >= 0.95, f"{label}: agreement {agree} < 0.95")
+        if label == "self-draft":
+            require(st["acceptance_rate"] >= 0.9, f"self-draft acceptance "
+                    f"{st['acceptance_rate']} < 0.9")
+        del srv
+
+    # 13d: fp32 on a small input: spec serve equals greedy generate
+    f32 = dt.init_inference(model, config={"dtype": "fp32"},
+                            params=engine.params)
+    d32 = draft_engine("fp32", 4321)
+    prompts = np.random.default_rng(1).integers(0, model.model_config
+                                                .vocab_size, (4, 40))
+    # repeat a span so the n-gram proposer has something to find
+    prompts[:, 24:36] = prompts[:, 4:16]
+    want = f32.generate(prompts, max_new_tokens=24)
+    small = [Request(uid=i, prompt=prompts[i], max_new_tokens=24)
+             for i in range(4)]
+    kw32 = {"slots": 4, "max_seq_len": 128, "block_size": 32,
+            "prefill_chunk": 16, "sampling": False}
+    for label, kw in (("plain", {}), ("n-gram", {"spec_tokens": SPEC_K}),
+                      ("draft", {"spec_tokens": SPEC_K, "draft": d32})):
+        srv = dt.init_serving(model, config={"dtype": "fp32"},
+                              params=f32.params, **kw32, **kw)
+        res = srv.serve(small)
+        exact = all((res[i] == want[i]).all() for i in range(4))
+        log(f"[spec fp32 {label}] serve equals greedy generate: {exact} "
+            f"(spec rounds {srv.stats()['spec_rounds']}, acceptance "
+            f"{srv.stats()['acceptance_rate']:.4f})")
+        require(exact, f"fp32 {label} serve != generate")
+    del f32, d32
+
+    # 13e: sampled traffic through the rejection verifier, twice, and a
+    # mixed trace whose temperature-0 rows must give the greedy tokens
+    sreqs = sampled_requests(window, seed0=2000)
+    mixed = [r if i % 2 else Request(uid=r.uid, prompt=r.prompt,
+                                     max_new_tokens=r.max_new_tokens)
+             for i, r in enumerate(sreqs)]
+    for label, kw in (("n-gram", {}), ("draft", {"draft": draft})):
+        runs = [server(engine.params, spec_tokens=SPEC_K, sampling=True,
+                       **kw).serve(sreqs) for _ in range(2)]
+        mix = server(engine.params, spec_tokens=SPEC_K, sampling=True,
+                     **kw).serve(mixed)
+        temp0 = [r for r in mixed if not r.sampled]
+        moved = sum(not (runs[0][r.uid] == spec_res[label][r.uid]).all()
+                    for r in window)
+        log(f"[spec sampled {label}] {SAMPLED}: twice equal "
+            f"{same_tokens(runs[0], runs[1], window)}; temperature-0 rows "
+            f"of a mixed trace equal the greedy server's "
+            f"{same_tokens(mix, spec_res[label], temp0)}; requests off "
+            f"greedy {moved} of {len(window)}")
+        require(same_tokens(runs[0], runs[1], window)
+                and same_tokens(mix, spec_res[label], temp0) and moved,
+                f"sampled {label} spec is not reproducible")
+    require(rejection_tv_check() < 0.05, "rejection verifier TV >= 0.05")
+
+    # 13g: the w8a8+kv8 lane, n-gram: kv8 B4 at the verify window
+    c0 = kernel_counts()
+    wsrv = server(weng.params, "w8a8+kv8", spec_tokens=SPEC_K)
+    wres = wsrv.serve(reqs)
+    cc = counts_since(c0)
+    c0 = kernel_counts()
+    wres_e = server(weng.params, "w8a8+kv8",
+                    spec_tokens=SPEC_K)._serve_eager(reqs)
+    ce = counts_since(c0)
+    wst = wsrv.stats()
+    agree = min_agreement(wres, greedy12["w8a8+kv8"], reqs)
+    log(f"[spec w8a8+kv8 n-gram] rounds {wst['spec_rounds']}, "
+        f"acceptance {wst['acceptance_rate']:.4f}; launches {cc}; "
+        f"equal to the eager steps': {same_tokens(wres, wres_e, reqs)}; min "
+        f"agreement with phase 12's w8a8+kv8 server {agree:.4f}")
+    divergence_report("w8a8+kv8 n-gram", weng, wres, greedy12["w8a8+kv8"],
+                      reqs)
+    require(cc.get("paged_verify_attention_kv8_cuda") and cc == ce
+            and same_tokens(wres, wres_e, reqs),
+            f"w8a8+kv8 spec: launches {cc} / {ce}")
+    require(agree >= 0.95, f"w8a8+kv8 spec: agreement {agree} < 0.95")
+    # the verify multiplies one window position (8 rows) at a time, so its
+    # matmuls take the decode step's route, B6 (the JAX verify multiplies
+    # all 40 rows at once, past W8A8_MAX_ROWS, and dequantizes there)
+    b6 = 4 * layers * (SPEC_K + 1) * wst["spec_rounds"]
+    require(cc.get("w8a8_matmul_stacked_cuda") == b6
+            and "w8a8_matmul_cuda" not in cc,
+            f"the verify's w8a8 launches {cc}, want B6 x {b6}")
+    del wsrv
+
+    # 13h: constrained decoding: every emitted token allowed at its step
+    vocab, eos = model.model_config.vocab_size, 0
+    toks = ascii_token_strings(vocab)
+    for spec in (0, SPEC_K):
+        creqs = [Request(uid=r.uid, prompt=r.prompt, max_new_tokens=24,
+                         seed=3000 + i, mask_builder=JsonMaskBuilder(toks,
+                                                                     eos),
+                         **SAMPLED) for i, r in enumerate(window)]
+        csrv = server(engine.params, sampling=True, logit_masks=True,
+                      spec_tokens=spec)
+        cres = csrv.serve(creqs, eos_token_id=eos)
+        ok = [emitted_allowed(toks, eos, cres[r.uid], r.prompt.size, 24)
+              for r in creqs]
+        texts = ["".join(toks[t] for t in cres[r.uid][r.prompt.size:]
+                         if t != eos) for r in creqs[:2]]
+        log(f"[spec logit_masks spec_tokens={spec}] {len(creqs)} JSON-"
+            f"constrained requests: every token allowed {all(ok)}; spec "
+            f"rounds {csrv.stats()['spec_rounds']}; e.g. {texts}")
+        require(all(ok), f"constrained spec={spec}: {ok}")
+    counts13 = {k: v - start[k] for k, v in kernel_counts().items()}
+
+    # 13i: the [spec table]; the profiled window's requests take 160 new
+    # tokens, so that every slot still decodes after 26 rounds of 5 tokens
+    table = []
+    long = [Request(uid=r.uid, prompt=r.prompt, max_new_tokens=160)
+            for r in window]
+    for label, kw in (("plain", {}), ("n-gram", {"spec_tokens": SPEC_K}),
+                      ("draft", {"spec_tokens": SPEC_K, "draft": draft})):
+        srv = server(engine.params, **kw)
+        m = profile_serving(f"spec {label}", srv, long,
+                            [("B3/B4", "verify_split_kernel")], warm=10,
+                            steps=8)
+        m["accept"] = srv.stats()["acceptance_rate"]
+        _, m["tok_s"], m["ttft"] = timed_serve(server(engine.params, **kw),
+                                               reqs, False)
+        table.append((label, m))
+    for label, m in table:
+        log(f"[spec table] {label:7s}: serve {m['tok_s']:.1f} tok/s, TTFT "
+            f"p50 {m['ttft']:.4f} s; wall {m['wall_ms']:.3f} ms a round, "
+            f"device busy {m['busy_ms']:.3f} ms, idle share "
+            f"{m['idle']:.4f}; {m['tokens']:.3f} tokens emitted a round "
+            f"({m['tokens'] / 8:.3f} a slot), acceptance rate "
+            f"{m['accept']:.4f}; {m['kernels']:.1f} kernels a round; {card}")
+    if failed:
+        raise AssertionError(f"phase 13: {len(failed)} checks failed: "
+                             f"{failed}")
+    return counts13
 
 
 # ------------------------------------------------------------- phases 7-9
@@ -2862,8 +3226,11 @@ def main() -> int:
     long_sequence_phase()
     quant_launches, weng = quant_phase(engine, prompts, gen, float_lane)
     launches.update(quant_launches)
-    capture_phase(engine, weng, float_lane)
-    del engine, weng, float_lane
+    greedy12 = capture_phase(engine, weng, float_lane)
+    for name, n in spec_phase(engine, weng, float_lane, greedy12,
+                              card).items():
+        launches[name] += n
+    del engine, weng, float_lane, greedy12
     sparse_measured, sparse_launches = check_sparse_kernels()
 
     # one line per kernel; a flash kernel replaces three TPU regimes (v1,
@@ -2920,9 +3287,10 @@ def main() -> int:
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                 "bound_by": m["bound_by"], "library_ms": m["library_ms"],
                 "library_graph_ms": m["library_graph_ms"],
-                # B7: the DS_QMM=0 path, x @ dequantize(rec), beside it
-                **{key: m[key] for key in ("dequant_ms", "dequant_graph_ms")
-                   if key in m}})
+                # B7: the DS_QMM=0 path, x @ dequantize(rec), beside it;
+                # B4: phase 13's verify window
+                **{key: m[key] for key in ("dequant_ms", "dequant_graph_ms",
+                                           "verify") if key in m}})
     # the gated kernels (phase 11), at the Fixed/16 layout
     for name, kernel, site in SPARSE_KERNELS:
         m = sparse_measured[name]

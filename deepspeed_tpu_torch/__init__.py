@@ -109,19 +109,12 @@ _SERVING_LATER = (
     ("engine_mode", "replicas", 8, "multi-GPU slice (dp_tp)"),
     ("sp", 1, 8, "multi-GPU slice (sequence-parallel prefill)"),
     ("resident_window_blocks", 0, 9, "fleet layers (KV tiers)"),
-    ("spec_tokens", 0, 3, "speculative-verify slice"),
     ("host_blocks", 0, 9, "fleet layers (KV tiers)"),
     ("swap_batch", 8, 9, "fleet layers (KV tiers)"),
-    ("draft", None, 3, "speculative-verify slice (draft model)"),
     ("role", "both", 9, "fleet layers (disaggregated roles)"),
     ("nvme_blocks", 0, 9, "fleet layers (NVMe KV tier)"),
     ("nvme_high_watermark", 0.9, 9, "fleet layers (NVMe KV tier)"),
     ("nvme_path", None, 9, "fleet layers (NVMe KV tier)"),
-    ("ngram_max", 3, 3, "speculative-verify slice (n-gram proposer)"),
-    ("ngram_min", 1, 3, "speculative-verify slice (n-gram proposer)"),
-    ("spec_verifier", "rejection", 3, "speculative-verify slice"),
-    ("logit_masks", False, 3, "speculative-verify slice (constrained "
-     "decoding)"),
     ("shard_kv", None, 8, "multi-GPU slice (head-sharded KV pool)"),
     ("debug_checks", False, 5, "telemetry and tooling slice (the paged-state "
      "audit, scale-lockstep included)"),
@@ -153,7 +146,14 @@ def init_serving(model=None, config=None, params=None, *, slots=8,
     ``seed`` (``Request``) on the device, ``temperature=0`` rows greedy;
     ``sampling=False`` keeps the argmax alone.  ``decode_steps=K`` runs K
     decode steps per captured window with per-slot eos and budget checks
-    on the device, token-exact with K = 1.  ``quantize``: ``None``,
+    on the device, token-exact with K = 1.  ``spec_tokens=K`` turns each
+    decode iteration into a speculative round: K tokens a slot proposed by
+    ``draft`` (a model or engine sharing the vocabulary; ``None`` = the
+    n-gram proposer, ``ngram_max`` / ``ngram_min``) and verified in one
+    captured window on the paged verify kernel, by ``spec_verifier``
+    (``"rejection"``, or ``"greedy"`` on a ``sampling=False`` engine).
+    ``logit_masks=True`` threads each request's ``mask_builder`` mask
+    through every token rule.  ``quantize``: ``None``,
     ``"kv8"`` (int8 KV pool),
     ``"w8a8"`` or ``"w8a8+kv8"``; a ``w8a8`` value builds the engine with
     K-grouped int8 blocks, merging ``{"quant": {"enabled": True, "type":
@@ -168,12 +168,9 @@ def init_serving(model=None, config=None, params=None, *, slots=8,
     given = dict(prompt_buckets=prompt_buckets,
                  engine_mode=engine_mode, sp=sp,
                  resident_window_blocks=resident_window_blocks,
-                 spec_tokens=spec_tokens, host_blocks=host_blocks,
-                 swap_batch=swap_batch, draft=draft, role=role,
+                 host_blocks=host_blocks, swap_batch=swap_batch, role=role,
                  nvme_blocks=nvme_blocks,
                  nvme_high_watermark=nvme_high_watermark, nvme_path=nvme_path,
-                 ngram_max=ngram_max, ngram_min=ngram_min,
-                 spec_verifier=spec_verifier, logit_masks=logit_masks,
                  shard_kv=shard_kv, debug_checks=debug_checks,
                  trace_capacity=trace_capacity, slo_targets=slo_targets,
                  peak_flops=peak_flops)
@@ -198,8 +195,11 @@ def init_serving(model=None, config=None, params=None, *, slots=8,
                          prefill_batch=prefill_batch, block_size=block_size,
                          num_blocks=num_blocks, prefill_chunk=prefill_chunk,
                          prefix_caching=prefix_caching,
-                         decode_steps=decode_steps, sampling=sampling,
-                         quantize=quantize)
+                         decode_steps=decode_steps, spec_tokens=spec_tokens,
+                         quantize=quantize, draft=draft, ngram_max=ngram_max,
+                         ngram_min=ngram_min, sampling=sampling,
+                         spec_verifier=spec_verifier,
+                         logit_masks=logit_masks)
 
 
 def _with_w8a8(config, kwargs):

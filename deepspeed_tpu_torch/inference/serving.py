@@ -1,6 +1,6 @@
 """Continuous-batching serving over a block-paged KV cache with prefix reuse
 and chunked prefill — the PyTorch port of
-``deepspeed_tpu/inference/serving.py`` in its greedy chunked-prefill mode.
+``deepspeed_tpu/inference/serving.py`` in its chunked-prefill mode.
 
  - **Block-paged KV pool**: one ``[L, num_blocks, HKV, block_size, hd]``
    cache plus per-slot ``int32`` block tables mapping each sequence's
@@ -55,18 +55,34 @@ and chunked prefill — the PyTorch port of
    request's seed and emitted-token index, so sampled streams replay token
    for token across preemption and across K; ``temperature=0`` rows are
    the argmax.
+ - **Speculative decoding** (``spec_tokens=K``): each decode iteration is
+   one round — a proposer guesses K tokens a slot (a draft model's
+   captured K-step rollout into its own pool over the target's block
+   tables, or the host's n-gram lookup, ``inference/spec.py``), one
+   captured verify step scores the ``[pending, d_1..d_K]`` window of
+   every slot through the paged verify kernel at T = K + 1, and the host
+   commits the accepted prefix plus one target token: the argmax prefix
+   match (token-exact with plain greedy decode) or, on a sampling engine,
+   the delta-proposal rejection sampler (distribution-exact).
+ - **Constrained decoding** (``logit_masks=True``): a ``[slots, vocab]``
+   bool operand, rebuilt each iteration from each request's
+   ``mask_builder`` (``inference/constrain.py``), gates every token rule
+   — prefill's first token, the decode step and verify — before
+   temperature, top-k and top-p.
 
 Scheduling is iteration-level: every :meth:`ServingEngine.step` admits
 waiting requests into free slots (gated on block availability — the queue
 head blocks admission, no starvation), advances every prefilling slot by one
 chunk, then runs one decode step (or one fused window of K) over all slots
-with per-sequence positions.  Greedy outputs are token-identical to
-sequential ``generate``.
+with per-sequence positions (or one speculative round).  Greedy outputs
+are token-identical to sequential ``generate``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
+import math
 import threading
 import time
 from collections import deque
@@ -82,6 +98,7 @@ from ..ops.quantization import tree_leaves
 from ..utils.logging import log_dist
 from ..utils.lru import LRUCache
 from .paged import BlockAllocator, PrefixCache
+from .spec import NGramProposer, greedy_accept, rejection_accept
 
 
 @dataclasses.dataclass
@@ -91,8 +108,10 @@ class Request:
     ``temperature=0`` (the default) is greedy and rides the same decode
     graph as sampled traffic; ``seed`` keys the counter-based PRNG
     (``ops/sampling.py``), so a sampled stream is a pure function of
-    ``(prompt, params, seed)``.  ``mask_builder`` (constrained decoding)
-    comes with the speculative-verify slice and must be ``None``."""
+    ``(prompt, params, seed)``.  ``mask_builder`` (a
+    :class:`~deepspeed_tpu_torch.inference.constrain.LogitMaskBuilder`)
+    opens the constrained-decoding lane; it needs an engine built with
+    ``logit_masks=True``."""
     uid: Any
     prompt: np.ndarray                      # int32 [prompt_len]
     max_new_tokens: int = 32
@@ -100,7 +119,7 @@ class Request:
     top_k: int = 0                          # 0 = off
     top_p: float = 1.0                      # 1 = off
     seed: int = 0                           # counter-based PRNG root
-    mask_builder: Optional[Any] = None      # constrained decoding: later
+    mask_builder: Optional[Any] = None      # constrained-decoding hook
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
@@ -122,11 +141,6 @@ class Request:
         if not 0 <= self.seed < 2 ** 32:
             raise ValueError(f"request {self.uid!r}: seed must be in "
                              f"[0, 2**32), got {self.seed}")
-        if self.mask_builder is not None:
-            raise NotImplementedError(
-                f"request {self.uid!r}: mask_builder (constrained decoding) "
-                "is not ported yet — it comes with the PyTorch port's "
-                "speculative-verify slice (ROADMAP.md Queue A item 3)")
 
     @property
     def sampled(self) -> bool:
@@ -277,14 +291,88 @@ class _SlotState:
     def gen_count(self) -> int:
         return len(self.prior) + len(self.out)
 
+    @property
+    def pos_cap(self) -> int:
+        """One past the highest cache position this request can ever
+        commit: original prompt + completion budget.  Speculative windows
+        reaching past it write to the scratch block instead of allocating
+        blocks the request can never use (``serving.py:658``)."""
+        return self.plen_eff - len(self.prior) + self.req.max_new_tokens
 
-#: the decode step's [slots] int32 operands, in staging-buffer order (the
-#: block tables follow them)
+
+#: the device steps' [slots] int32 operands, in staging-buffer order (the
+#: block tables, then the speculative window ``ids [slots, K+1]``, follow
+#: them; the ``[slots, vocab]`` bool masks sit after the int32 words)
 _OPERANDS = ("tokens", "lengths", "active", "budgets", "eos", "counts",
-             "temps", "topks", "topps", "seeds")
+             "temps", "topks", "topps", "seeds", "valid")
+
+#: rows of the speculative round's int32 output ``[5, slots, K+1]``: the
+#: verify step's per-position argmax, accept verdicts (K used), plain
+#: draws, residual draws (K used), and the window it scored
+_SPEC_OUT = ("scored", "accept", "plain", "resid", "ids")
 
 #: an LRU entry for a decode shape that has run eagerly once, not captured
 _WARMED = "warmed"
+
+
+def _validate_decode_hooks(module, *, speculative: bool = False,
+                           kv_quant: bool = False, sampling: bool = False,
+                           role: str = "model"):
+    """Fail at construction, naming the missing hook, instead of deep
+    inside the first prefill (``serving.py:263-320``): the hook dict and
+    the ``forward_cached`` signature."""
+    hooks = getattr(module, "decode_hooks", None)
+    name = getattr(module, "name", "<model>")
+    if not hooks:
+        raise ValueError(
+            f"continuous batching needs decode_hooks; {role} {name} has "
+            "none")
+    for key in ("init_cache", "forward_cached"):
+        if key not in hooks:
+            raise ValueError(
+                f"{role} {name}: decode_hooks is missing the '{key}' hook")
+    if not hooks.get("supports_lengths"):
+        raise ValueError(
+            f"{role} {name}'s decode hooks predate per-sequence lengths "
+            "(supports_lengths) — update its forward_cached to the lengths "
+            "contract first")
+    if not hooks.get("supports_paged"):
+        raise ValueError(
+            f"{role} {name}'s decode hooks predate the block-paged cache "
+            "(supports_paged) — thread block_tables through its "
+            "forward_cached first")
+    if speculative and not hooks.get("supports_verify"):
+        raise ValueError(
+            f"{role} {name}'s decode hooks lack the speculative verify "
+            "head (supports_verify) — add all-position logits "
+            "(all_positions=True) to its forward_cached first")
+    if sampling and not hooks.get("supports_sampling"):
+        raise ValueError(
+            f"{role} {name}'s decode hooks do not declare sampling "
+            "support (supports_sampling) — a family qualifies when its "
+            "forward_cached returns full-vocab logits the on-device "
+            "sampler can filter; set the flag after verifying that, or "
+            "build the engine with sampling=False (greedy-only)")
+    if kv_quant and not hooks.get("supports_kv_quant"):
+        raise ValueError(
+            f"{role} {name}'s decode hooks do not declare int8-KV support "
+            "(supports_kv_quant) — a family qualifies when every pool "
+            "read/write goes through ops/paged_kv (record-aware); set the "
+            "flag after verifying that, or drop quantize='kv8'")
+    try:
+        sig = inspect.signature(hooks["forward_cached"])
+    except (TypeError, ValueError):    # C callables carry no signature
+        sig = None
+    if sig is not None:
+        need = ["lengths", "block_tables"] + \
+            (["all_positions"] if speculative else [])
+        missing = [kw for kw in need if kw not in sig.parameters]
+        if missing:
+            raise ValueError(
+                f"{role} {name}: forward_cached does not accept the "
+                f"{missing} keyword(s) its hook flags promise "
+                f"(signature: forward_cached{sig})")
+    return hooks
 
 
 def _kernel_wrappers():
@@ -325,6 +413,11 @@ def _parse_quantize(quantize):
     return norm, "kv8" in parts, "w8a8" in parts
 
 
+def _nbytes(pool) -> int:
+    """Device bytes of a pool (codes plus scales for int8 records)."""
+    return sum(t.numel() * t.element_size() for t in tree_leaves(pool))
+
+
 def _percentile(samples, q: float) -> Optional[float]:
     return float(np.percentile(np.asarray(samples), q)) if samples else None
 
@@ -357,6 +450,25 @@ class ServingEngine:
                     keeps the argmax alone and refuses sampled requests.
     quantize:       ``None``, ``"kv8"``, ``"w8a8"`` or ``"w8a8+kv8"``
                     (module docstring).
+    spec_tokens:    speculative draft length K (0 = off; K + 1 <= the
+                    verify kernel's ``VERIFY_T_MAX`` window).  Each decode
+                    iteration becomes one round: propose K tokens a slot,
+                    score the ``[pending, d_1..d_K]`` window in one captured
+                    verify step, commit the accepted prefix plus one
+                    target token.  ``decode_steps`` is inert then.
+    draft:          a draft model (``models.gpt2.build``, wrapped with this
+                    engine's config on its device) or an ``InferenceEngine``
+                    sharing the target's vocabulary; its pool shares the
+                    target's block tables.  ``None`` drafts by n-gram
+                    lookup over each request's own tokens.
+    ngram_max / ngram_min: the n-gram proposer's longest / shortest match.
+    spec_verifier:  ``"rejection"`` (distribution-exact; greedy rows are the
+                    argmax prefix match) or ``"greedy"`` (``sampling=False``
+                    engines only).
+    logit_masks:    thread a ``[slots, vocab]`` bool mask through every
+                    token rule, rebuilt each iteration from each request's
+                    ``mask_builder`` (``inference/constrain.py``); needs
+                    ``sampling=True``.
     """
 
     def __init__(self, engine, *, slots: int = 8,
@@ -367,13 +479,48 @@ class ServingEngine:
                  prefill_chunk: int = 128,
                  prefix_caching: bool = True,
                  decode_steps: int = 1,
+                 spec_tokens: int = 0,
+                 quantize: Optional[str] = None,
+                 draft=None,
+                 ngram_max: int = 3,
+                 ngram_min: int = 1,
                  sampling: bool = True,
-                 quantize: Optional[str] = None):
-        self._K = int(decode_steps)
-        if self._K < 1:
+                 spec_verifier: str = "rejection",
+                 logit_masks: bool = False):
+        # the JAX constructor's checks, in its order (serving.py:822-866)
+        self.spec_tokens = int(spec_tokens)
+        if self.spec_tokens < 0:
+            raise ValueError(f"spec_tokens must be >= 0, got {spec_tokens}")
+        vmax = decode_attention.VERIFY_T_MAX
+        if self.spec_tokens and self.spec_tokens + 1 > vmax:
             raise ValueError(
-                f"decode_steps must be >= 1, got {decode_steps}")
+                f"spec_tokens={spec_tokens} needs a {spec_tokens + 1}-token "
+                f"verify window but the paged verify kernel takes at most "
+                f"{vmax} — lower spec_tokens to {vmax - 1} or less")
+        if draft is not None and not self.spec_tokens:
+            raise ValueError(
+                "a draft model was given but spec_tokens is 0 — pass "
+                "spec_tokens=K to enable speculative decoding")
         self.sampling = bool(sampling)
+        self.spec_verifier = str(spec_verifier)
+        if self.spec_verifier not in ("rejection", "greedy"):
+            raise ValueError(
+                f"spec_verifier must be 'rejection' or 'greedy', got "
+                f"{spec_verifier!r}")
+        if self.spec_tokens and self.sampling and \
+                self.spec_verifier == "greedy":
+            raise ValueError(
+                "speculative decoding on a sampling engine requires the "
+                "rejection verifier (spec_verifier='rejection') — the "
+                "greedy prefix-matcher would silently reshape sampled "
+                "output distributions; pass sampling=False to keep the "
+                "legacy greedy verifier")
+        self.logit_masks = bool(logit_masks)
+        if self.logit_masks and not self.sampling:
+            raise ValueError(
+                "logit_masks=True needs the sampling stack — constrained "
+                "decoding applies the mask inside the sampler programs; "
+                "drop sampling=False")
         self.quantize, self.kv_quant, want_w8a8 = _parse_quantize(quantize)
         qcfg = engine._config.quant
         self.weight_quant = qcfg.type if qcfg.enabled else None
@@ -383,18 +530,14 @@ class ServingEngine:
                 f"{self.weight_quant or 'full-precision'} weights — build "
                 "it with config={'quant': {'enabled': True, 'type': "
                 "'w8a8'}} (init_serving(quantize=...) does this for you)")
-        hooks = getattr(engine.module, "decode_hooks", None) or {}
-        if not (hooks.get("supports_lengths") and hooks.get("supports_paged")):
+        hooks = _validate_decode_hooks(engine.module,
+                                       speculative=bool(self.spec_tokens),
+                                       kv_quant=self.kv_quant,
+                                       sampling=self.sampling)
+        self._K = int(decode_steps)
+        if self._K < 1:
             raise ValueError(
-                f"continuous batching needs decode_hooks with per-sequence "
-                f"lengths and the paged cache; {engine.module.name} lacks them")
-        if self.kv_quant and not hooks.get("supports_kv_quant"):
-            raise ValueError(
-                f"model {engine.module.name}'s decode hooks do not declare "
-                "int8-KV support (supports_kv_quant) — a family qualifies "
-                "when every pool read/write goes through ops/paged_kv "
-                "(record-aware); set the flag after verifying that, or drop "
-                "quantize='kv8'")
+                f"decode_steps must be >= 1, got {decode_steps}")
         self.engine = engine
         self.device = engine.device
         self._fwd = hooks["forward_cached"]
@@ -429,17 +572,9 @@ class ServingEngine:
                 f"({self._nbper} blocks + 1 scratch)")
         self._alloc = BlockAllocator(num_blocks)
         self._prefix = PrefixCache(self.block_size) if prefix_caching else None
-        if self.kv_quant:
-            # int8 records built from the float pool's shapes alone (a
-            # meta-device pool): no transient float + int8 double footprint
-            self._cache = quantize_pool(
-                hooks["init_cache"](num_blocks, self.block_size, engine.dtype,
-                                    "meta"), device=self.device)
-            self._kv_dtype = "int8"
-        else:
-            self._cache = hooks["init_cache"](num_blocks, self.block_size,
-                                              engine.dtype, self.device)
-            self._kv_dtype = str(engine.dtype).replace("torch.", "")
+        self._cache = self._init_pool(hooks, num_blocks, engine.dtype)
+        self._kv_dtype = "int8" if self.kv_quant \
+            else str(engine.dtype).replace("torch.", "")
         # host-side block tables; entry 0 = scratch doubles as "unset"
         self._tables = np.zeros((self.slots, self._nbper), np.int32)
         self._held: List[List[int]] = [[] for _ in range(self.slots)]
@@ -460,23 +595,89 @@ class ServingEngine:
         self._topks = np.zeros(self.slots, np.int32)
         self._topps = np.ones(self.slots, np.float32)
         self._seeds = np.zeros(self.slots, np.uint32)
+        self._vocab = int(getattr(engine.module.model_config, "vocab_size",
+                                  0) or 0)
+        if self.logit_masks and not self._vocab:
+            raise ValueError(
+                "logit_masks=True needs the model config to expose "
+                "vocab_size — the [slots, vocab] mask operand is sized "
+                "from it")
+        #: constrained decoding: per-slot bool logit mask (True = allowed)
+        self._masks = np.ones((self.slots, self._vocab), bool) \
+            if self.logit_masks else None
+
+        # ----- speculative decoding (serving.py:1292-1358)
+        self._draft = None                 # draft InferenceEngine
+        self._dcache = None                # draft paged pool (shares tables)
+        self._proposer = None              # host-side n-gram proposer
+        if self.spec_tokens:
+            if draft is not None:
+                self._draft = self._wrap_draft(draft, num_blocks)
+            else:
+                self._proposer = NGramProposer(self.spec_tokens,
+                                               max_n=ngram_max,
+                                               min_n=ngram_min)
         self._init_decode_buffers()
-        #: captured decode graphs by decode shape (serving.py:1236-1241)
+        #: captured graphs by step and shape (serving.py:1236-1241)
         self._graphs = LRUCache(capacity=4)
         self._eager_only = False
         self.counters = dict.fromkeys(
             ("iterations", "decode_steps", "prefill_calls", "admitted",
              "preempted", "finished", "prompt_tokens", "prefix_hit_tokens",
              "generated_tokens", "fused_iterations", "host_fence_waits",
-             "captured_graphs", "sampled_requests"), 0)
+             "captured_graphs", "sampled_requests", "spec_rounds",
+             "drafted_tokens", "accepted_tokens", "spec_draft_rejected"), 0)
         log_dist(
             f"ServingEngine: slots={self.slots}, cache_len={self._cache_len}, "
             f"block_size={self.block_size}, num_blocks={num_blocks}, chunked "
             f"prefill (chunk={self.prefill_chunk}, prefix_cache="
             f"{self._prefix is not None}), prefill_batch={self.prefill_batch}"
             f", quantize={self.quantize}, sampling={self.sampling}"
-            + (f", fused decode K={self._K}" if self._K > 1 else ""),
+            + (f", fused decode K={self._K}" if self._K > 1
+               and not self.spec_tokens else "")
+            + (f", speculative K={self.spec_tokens} ("
+               + (f"draft {self._draft.module.name}" if self._draft
+                  else "n-gram") + ")" if self.spec_tokens else "")
+            + (", logit_masks" if self.logit_masks else ""),
             ranks=[0])
+
+    def _init_pool(self, hooks, num_blocks: int, dtype):
+        """A paged pool from a model's ``init_cache`` hook on this
+        engine's device; under ``kv8`` int8 records built from the float
+        pool's shapes alone (a meta-device pool), so there is no transient
+        float + int8 double footprint."""
+        if self.kv_quant:
+            return quantize_pool(
+                hooks["init_cache"](num_blocks, self.block_size, dtype,
+                                    "meta"), device=self.device)
+        return hooks["init_cache"](num_blocks, self.block_size, dtype,
+                                   self.device)
+
+    def _wrap_draft(self, draft, num_blocks: int):
+        """The draft as an ``InferenceEngine`` on the target's device (a
+        model is wrapped with the target engine's config, as
+        ``serving.py:1307-1308`` does), validated, with its pool of the
+        draft's own KV shapes over the target's block ids."""
+        from .engine import InferenceEngine
+
+        if not isinstance(draft, InferenceEngine):
+            draft = InferenceEngine(draft, self.engine._config,
+                                    device=self.device)
+        if draft.device != self.device:
+            raise ValueError(
+                f"the draft engine lives on {draft.device} but the target "
+                f"on {self.device} — build both on one device")
+        dhooks = _validate_decode_hooks(draft.module, role="draft model",
+                                        kv_quant=self.kv_quant,
+                                        sampling=self.sampling)
+        tv = getattr(self.engine.module.model_config, "vocab_size", None)
+        dv = getattr(draft.module.model_config, "vocab_size", None)
+        if tv is not None and dv is not None and tv != dv:
+            raise ValueError(
+                f"draft model vocab size {dv} != target vocab size {tv} — "
+                "speculative decoding needs a shared tokenizer")
+        self._dcache = self._init_pool(dhooks, num_blocks, draft.dtype)
+        return draft
 
     @property
     def prefix_hit_tokens(self) -> int:
@@ -494,15 +695,18 @@ class ServingEngine:
         self._tables[slot] = 0
         self._tokens[slot] = 0
         self._lengths[slot] = 0
-        # idle rows revert to the greedy defaults: their lanes still run
-        # in every decode step (outputs discarded)
+        # idle rows revert to the greedy, unmasked defaults: their lanes
+        # still run in every decode step (outputs discarded)
         self._temps[slot] = 0.0
         self._topks[slot] = 0
         self._topps[slot] = 1.0
         self._seeds[slot] = 0
+        if self._masks is not None:
+            self._masks[slot, :] = True
 
     def _preempt(self, slot: int) -> None:
-        """Evict a sequence under block pressure: free its blocks and
+        """Evict a sequence under block pressure: free its blocks (the
+        target's and, through the shared tables, the draft pool's) and
         re-queue it at the FRONT with generated tokens folded into the
         prompt (greedy => recompute is token-exact)."""
         st = self._active.pop(slot)
@@ -610,6 +814,8 @@ class ServingEngine:
                 self._topks[slot] = np.int32(req.top_k)
                 self._topps[slot] = np.float32(req.top_p)
                 self._seeds[slot] = np.uint32(req.seed)
+                if self._masks is not None:
+                    self._masks[slot, :] = True
             if st.handle is not None:
                 st.handle._on_active()
             if self._admission_log is not None:
@@ -632,6 +838,12 @@ class ServingEngine:
                 f"{r.temperature} but this engine was built with "
                 "sampling=False (argmax only) — rebuild with sampling=True "
                 "to serve sampled traffic")
+        if r.mask_builder is not None and not self.logit_masks:
+            raise ValueError(
+                f"request {r.uid!r} carries a mask_builder but this "
+                "engine was built without the constrained-decoding lane "
+                "— pass logit_masks=True (the [slots, vocab] mask "
+                "operand is only threaded through the programs then)")
 
     def submit(self, request: Request, *, priority: int = 0,
                eos_token_id: Optional[int] = None) -> RequestHandle:
@@ -648,21 +860,31 @@ class ServingEngine:
         self._pending.push(_PendingItem(
             req=request, prior=[], priority=priority, eos=eos_token_id,
             handle=handle))
-        self.counters["sampled_requests"] += int(request.sampled)
+        # constrained requests count too (serving.py:3199)
+        self.counters["sampled_requests"] += int(
+            request.sampled or request.mask_builder is not None)
         self._live_uids.add(request.uid)
         return handle
 
     @torch.no_grad()
     def step(self) -> bool:
         """ONE scheduler iteration: admit, advance prefills by one chunk,
-        run one decode step.  Returns whether work remains."""
+        run one decode step (a draft-verify round in speculative mode).
+        Constrained slots' masks are rebuilt before each of the two
+        dispatches: a slot that finishes prefill decodes in the same
+        iteration, and its first token gates the second.  Returns whether
+        work remains."""
         if not self._pending and not self._active:
             return False
         params = self.engine.params
         self.counters["iterations"] += 1
         self._admit()
+        self._refresh_masks()
         self._run_prefill(params)
-        if self._K > 1:
+        self._refresh_masks()
+        if self.spec_tokens:
+            self._run_spec_decode()
+        elif self._K > 1:
             self._run_fused_decode()
         else:
             self._run_plain_decode()
@@ -744,32 +966,53 @@ class ServingEngine:
 
     # ------------------------------------------------------ decode operands
     def _init_decode_buffers(self) -> None:
-        """The decode step's operands in ONE int32 buffer (float knobs and
-        uint32 seeds as their bit patterns), staged on the host (pinned on
-        CUDA) and copied to the device in one transfer a step; the step
-        reads the device views, so a captured graph sees new values
-        through fixed addresses.  ``_dev_out`` receives the ``[slots, K]``
-        tokens (``-1`` past a slot's end)."""
+        """Every device step's operands in ONE buffer, staged on the host
+        (pinned on CUDA) and copied to the device in one transfer a
+        dispatch; the steps read the device views, so a captured graph
+        sees new values through fixed addresses.  int32 words first:
+        ``_OPERANDS`` (float knobs and uint32 seeds as their bit
+        patterns), the block tables, and with ``spec_tokens`` the window
+        ``ids [slots, K+1]``; then, with ``logit_masks``, the ``[slots,
+        vocab]`` bool masks, one byte each.  ``_dev_out`` receives the
+        decode step's ``[slots, K]`` tokens (``-1`` past a slot's end),
+        ``_spec_out`` a speculative round's ``[5, slots, K+1]``
+        (``_SPEC_OUT``)."""
         s, nbper = self.slots, self._nbper
-        n = len(_OPERANDS) * s + s * nbper
+        width = self.spec_tokens + 1 if self.spec_tokens else 0
+        words = len(_OPERANDS) * s + s * nbper + s * width
+        nbytes = 4 * words + (-(-s * self._vocab // 4) * 4
+                              if self.logit_masks else 0)
         cuda = self.device.type == "cuda"
-        self._host_ops = torch.zeros(n, dtype=torch.int32, pin_memory=cuda)
-        self._dev_ops = torch.zeros(n, dtype=torch.int32,
+        self._host_ops = torch.zeros(nbytes, dtype=torch.uint8,
+                                     pin_memory=cuda)
+        self._dev_ops = torch.zeros(nbytes, dtype=torch.uint8,
                                     device=self.device) if cuda \
             else self._host_ops
-        host = self._host_ops.numpy()
+        host = self._host_ops[:4 * words].view(torch.int32)
+        dev = self._dev_ops[:4 * words].view(torch.int32)
         self._op_np, self._op_dev = {}, {}
-        for i, name in enumerate(_OPERANDS):
-            self._op_np[name] = host[i * s:(i + 1) * s]
-            self._op_dev[name] = self._dev_ops[i * s:(i + 1) * s]
+        regions = [(name, i * s, (s,)) for i, name in enumerate(_OPERANDS)]
+        off = len(_OPERANDS) * s
+        regions.append(("tables", off, (s, nbper)))
+        if width:
+            regions.append(("ids", off + s * nbper, (s, width)))
+        for name, start, shape in regions:
+            n = math.prod(shape)
+            self._op_np[name] = host[start:start + n].numpy().reshape(shape)
+            self._op_dev[name] = dev[start:start + n].view(shape)
         for name in ("temps", "topps"):
             self._op_np[name] = self._op_np[name].view(np.float32)
             self._op_dev[name] = self._op_dev[name].view(torch.float32)
-        off = len(_OPERANDS) * s
-        self._op_np["tables"] = host[off:].reshape(s, nbper)
-        self._op_dev["tables"] = self._dev_ops[off:].view(s, nbper)
+        if self.logit_masks:
+            n = s * self._vocab
+            self._op_np["masks"] = self._host_ops[4 * words:4 * words + n] \
+                .numpy().view(bool).reshape(s, self._vocab)
+            self._op_dev["masks"] = self._dev_ops[4 * words:4 * words + n] \
+                .view(torch.bool).view(s, self._vocab)
         self._dev_out = torch.full((s, self._K), -1, dtype=torch.int32,
                                    device=self.device)
+        self._spec_out = torch.zeros((len(_SPEC_OUT), s, width),
+                                     dtype=torch.int32, device=self.device)
 
     def _decode_counts(self) -> np.ndarray:
         """[slots] emitted counts for a decode dispatch (idle rows 0 —
@@ -782,9 +1025,10 @@ class ServingEngine:
 
     def _samp_rows(self, group, rows: int):
         """The ROW-gathered sampling operands of a prefill call (pad rows
-        keep the greedy defaults): ``(temps, topks, topps, seeds,
-        counts)`` device tensors from one host->device copy, or ``None``
-        for a ``sampling=False`` engine (``serving.py:1861``)."""
+        keep the greedy, unmasked defaults): ``(temps, topks, topps,
+        seeds, counts, masks)`` device tensors, ``masks`` ``None`` without
+        ``logit_masks``, or ``None`` for a ``sampling=False`` engine
+        (``serving.py:1861-1887``)."""
         if not self.sampling:
             return None
         packed = np.zeros((5, rows), np.int32)
@@ -797,25 +1041,42 @@ class ServingEngine:
             packed[3, row] = self._seeds[slot].view(np.int32)
             packed[4, row] = self._active[slot].gen_count
         dev = self._to_device(packed)
+        masks = None
+        if self.logit_masks:
+            masks = np.ones((rows, self._vocab), bool)
+            masks[:len(group)] = self._masks[list(group)]
+            masks = self._to_device(masks)
         return (dev[0].view(torch.float32), dev[1], dev[2].view(torch.float32),
-                dev[3], dev[4])
+                dev[3], dev[4], masks)
 
-    def _next_tokens(self, logits, samp) -> torch.Tensor:
+    def _step_samp(self, offset: int = 0):
+        """The slot-indexed sampling operands of a device step, read from
+        the static operand views, emission counts advanced by ``offset``;
+        ``None`` for a ``sampling=False`` engine."""
+        if not self.sampling:
+            return None
+        v = self._op_dev
+        return (v["temps"], v["topks"], v["topps"], v["seeds"],
+                v["counts"] + offset, v.get("masks"))
+
+    def _next_tokens(self, logits, samp,
+                     salt: int = sampling_ops.SALT_TOKEN) -> torch.Tensor:
         """The per-row token rule of every step (``serving.py:1809``):
         argmax for a ``sampling=False`` engine; otherwise a per-row
         ``where(temp > 0)`` between the sampler (counter-keyed by the
-        row's seed and emitted count) and the same argmax, so one graph
-        serves mixed greedy and sampled batches.  int32 ``[rows]``."""
+        row's seed, emitted count and ``salt``) and the same masked
+        argmax, so one graph serves mixed greedy, sampled and constrained
+        batches.  int32 ``[rows]``."""
         if samp is None:
             return logits.argmax(dim=-1).to(torch.int32)
-        temps, topks, topps, seeds, counts = samp
+        temps, topks, topps, seeds, counts, masks = samp
         greedy, lp = sampling_ops.filtered_logprobs(logits, temps, topks,
-                                                    topps)
-        keys = sampling_ops.slot_keys(seeds, counts, sampling_ops.SALT_TOKEN)
+                                                    topps, masks)
+        keys = sampling_ops.slot_keys(seeds, counts, salt)
         return torch.where(temps > 0, sampling_ops.sample_tokens(lp, keys),
                            greedy)
 
-    # ------------------------------------------------- captured decode step
+    # ------------------------------------------------- captured device steps
     def _decode_body(self) -> None:
         """The device work of one decode dispatch: K steps over every slot
         reading the static operand views, the pool written in place, the
@@ -835,10 +1096,7 @@ class ServingEngine:
             logits, _ = self._fwd(params, toks.to(torch.int64)[:, None],
                                   self._cache, 0, lengths=lens,
                                   block_tables=v["tables"])
-            samp = None if not self.sampling else (
-                v["temps"], v["topks"], v["topps"], v["seeds"],
-                v["counts"] + i)
-            nxt = self._next_tokens(logits, samp)
+            nxt = self._next_tokens(logits, self._step_samp(i))
             outs.append(torch.where(act, nxt, -1))
             if i + 1 < self._K:
                 lens = lens + act.to(torch.int32)
@@ -846,8 +1104,97 @@ class ServingEngine:
                 act = act & (nxt != v["eos"]) & (v["budgets"] > i + 1)
         self._dev_out.copy_(torch.stack(outs, dim=1))
 
-    def _capture(self) -> "_CapturedStep":
-        """Capture :meth:`_decode_body` as a CUDA graph, under
+    def _draft_body(self) -> None:
+        """The draft rollout (``propose``, ``serving.py:2203-2230``): K
+        single-token steps of the draft model from each slot's pending
+        token at its committed length, through the target's block tables
+        into the draft pool; sampled rows draw from the draft's own
+        filtered distribution with ``SALT_DRAFT`` keys (no masks: drafts
+        of constrained slots are never accepted).  The drafts land in the
+        window operand ``ids[:, 1:]`` the verify step reads (0 in rows with
+        no window, as the host stages them for the n-gram proposer)."""
+        v = self._op_dev
+        dfwd = self._draft.module.decode_hooks["forward_cached"]
+        dparams = self._draft.params
+        toks, lens = v["tokens"], v["lengths"]
+        drafts = []
+        for i in range(self.spec_tokens):
+            logits, _ = dfwd(dparams, toks.to(torch.int64)[:, None],
+                             self._dcache, 0, lengths=lens,
+                             block_tables=v["tables"])
+            samp = self._step_samp(i)
+            if samp is not None:
+                samp = samp[:5] + (None,)
+            toks = self._next_tokens(logits, samp, sampling_ops.SALT_DRAFT)
+            drafts.append(toks)
+            lens = lens + 1
+        v["ids"][:, 1:].copy_(torch.where(v["valid"][:, None] > 0,
+                                          torch.stack(drafts, dim=1), 0))
+
+    def _verify_body(self) -> None:
+        """The verify step (``verify``, ``serving.py:2109-2177``): one
+        paged forward of every slot's ``[pending, d_1..d_K]`` window at its
+        committed length (``valid`` tokens of it; 0 routes a row's writes
+        to scratch) through the paged verify kernel at T = K + 1, scoring
+        every position (``all_positions``: the model multiplies one
+        window position at a time, so each position's logits are the
+        decode step's bits and greedy spec serving is token-exact with
+        plain serving in every dtype, where the JAX verify multiplies all
+        ``slots * (K+1)`` rows at once).  Writes ``_spec_out``: the
+        per-position (masked) argmax, and on a sampling engine the
+        rejection sampler's accept verdicts and its two tail lanes — the
+        plain draw (a cap or bonus stop) and the residual draw (a
+        rejection stop), both on the ``SALT_RESIDUAL`` keys of their
+        emission index; the host walker picks one by stop reason.
+        Temperature-0 rows are the greedy prefix match bit for bit."""
+        v = self._op_dev
+        ids = v["ids"]
+        k = self.spec_tokens
+        rows, width = ids.shape
+        out = self._spec_out
+        logits, _ = self._fwd(self.engine.params, ids.to(torch.int64),
+                              self._cache, v["lengths"], lengths=v["valid"],
+                              block_tables=v["tables"], all_positions=True)
+        out[4].copy_(ids)
+        if not self.sampling:
+            out[0].copy_(logits.argmax(dim=-1))
+            return
+        temps, topks, topps, seeds, counts, masks = self._step_samp()
+        vocab = logits.shape[-1]
+
+        def rep(x):
+            return x[:, None].expand(rows, width).reshape(-1)
+
+        mrep = None if masks is None else \
+            masks[:, None].expand(rows, width, vocab).reshape(-1, vocab)
+        greedy, lp = sampling_ops.filtered_logprobs(
+            logits.reshape(-1, vocab), rep(temps), rep(topks), rep(topps),
+            mrep)
+        scored = greedy.reshape(rows, width)
+        lp = lp.reshape(rows, width, vocab)
+        # position i decides emission counts + i
+        pos = lp[:, :-1].reshape(-1, vocab)
+        drafts = ids[:, 1:].reshape(-1)
+        p_d = sampling_ops.token_probs(pos, drafts).reshape(rows, k)
+        u = sampling_ops.accept_uniforms(sampling_ops.grid_keys(
+            seeds, counts, sampling_ops.SALT_ACCEPT, k))
+        fkeys = sampling_ops.grid_keys(seeds, counts,
+                                       sampling_ops.SALT_RESIDUAL, width)
+        plain = sampling_ops.sample_tokens(lp.reshape(-1, vocab),
+                                           fkeys.reshape(-1, 2))
+        rkeys = sampling_ops.grid_keys(seeds, counts,
+                                       sampling_ops.SALT_RESIDUAL, k)
+        resid = sampling_ops.sample_tokens(
+            sampling_ops.residual_logits(pos, drafts), rkeys.reshape(-1, 2))
+        hot = temps[:, None] > 0
+        out[0].copy_(scored)
+        out[1, :, :k].copy_(u < p_d)
+        out[2].copy_(torch.where(hot, plain.reshape(rows, width), scored))
+        out[3, :, :k].copy_(torch.where(hot, resid.reshape(rows, k),
+                                        scored[:, :k]))
+
+    def _capture(self, body) -> "_CapturedStep":
+        """Capture ``body`` as a CUDA graph, under
         ``set_sync_debug_mode("error")`` so that a synchronisation in the
         step raises.  The kernel wrappers count their launches on the host
         while the body is captured; those counts are taken back (a capture
@@ -860,7 +1207,7 @@ class ServingEngine:
                 mode = torch.cuda.get_sync_debug_mode()
                 torch.cuda.set_sync_debug_mode("error")
                 try:
-                    self._decode_body()
+                    body()
                 finally:
                     torch.cuda.set_sync_debug_mode(mode)
             held = tuple((fn, fn.launches - n)
@@ -872,53 +1219,66 @@ class ServingEngine:
         self.counters["captured_graphs"] += 1
         return _CapturedStep(graph, held)
 
-    def _run_decode_step(self) -> None:
-        """Run :meth:`_decode_body` once: eagerly on the CPU; on CUDA
-        eagerly at the first dispatch of a decode shape, then from the
-        captured graph (captured at the second dispatch, replayed from
-        then on)."""
+    def _run_step(self, key, body) -> None:
+        """Run one device step ``body``: eagerly on the CPU; on CUDA
+        eagerly at the first dispatch of its ``key`` (step and shape), then
+        from the captured graph (captured at the second dispatch, replayed
+        from then on)."""
         if self.device.type != "cuda" or self._eager_only:
-            self._decode_body()
+            body()
             return
-        key = (self.slots, self._nbper, self._K, self.sampling)
         rec = self._graphs.get(key)
         if rec is None:
-            self._decode_body()
+            body()
             self._graphs.put(key, _WARMED)
             return
         if rec is _WARMED:
-            rec = self._capture()
+            rec = self._capture(body)
             self._graphs.put(key, rec)
         rec.replay()
 
     def _serve_eager(self, requests, eos_token_id=None):
-        """:meth:`serve` with every decode step run eagerly, never from a
-        graph: the reference the captured step is held against."""
+        """:meth:`serve` with every device step run eagerly, never from a
+        graph: the reference the captured steps are held against."""
         self._eager_only = True
         try:
             return self.serve(requests, eos_token_id=eos_token_id)
         finally:
             self._eager_only = False
 
-    def _dispatch_decode(self, bt, active, budgets, eos_ids) -> np.ndarray:
-        """Stage one decode dispatch's operands, run it, and read the
-        ``[slots, K]`` int32 tokens back (the one host wait of the
-        dispatch)."""
+    def _stage(self, bt, counts) -> None:
+        """Write the operands every step reads into the host staging
+        buffer: pending tokens, committed lengths, emission counts, the
+        sampling knobs, the masks and the block tables ``bt``."""
         o = self._op_np
         o["tokens"][:] = self._tokens
         o["lengths"][:] = self._lengths
-        o["active"][:] = active
-        o["budgets"][:] = budgets
-        o["eos"][:] = eos_ids
-        o["counts"][:] = self._decode_counts()
+        o["counts"][:] = counts
         o["temps"][:] = self._temps
         o["topks"][:] = self._topks
         o["topps"][:] = self._topps
         o["seeds"][:] = self._seeds.view(np.int32)
         o["tables"][:] = bt
+        if self._masks is not None:
+            o["masks"][:] = self._masks
+
+    def _upload(self) -> None:
+        """The dispatch's one host-to-device copy of the staged operands."""
         if self._dev_ops is not self._host_ops:
             self._dev_ops.copy_(self._host_ops, non_blocking=True)
-        self._run_decode_step()
+
+    def _dispatch_decode(self, bt, active, budgets, eos_ids) -> np.ndarray:
+        """Stage one decode dispatch's operands, run it, and read the
+        ``[slots, K]`` int32 tokens back (the one host wait of the
+        dispatch)."""
+        self._stage(bt, self._decode_counts())
+        o = self._op_np
+        o["active"][:] = active
+        o["budgets"][:] = budgets
+        o["eos"][:] = eos_ids
+        self._upload()
+        self._run_step(("decode", self.slots, self._nbper, self._K,
+                        self.sampling, self.logit_masks), self._decode_body)
         return self._dev_out.cpu().numpy().copy()
 
     def _run_plain_decode(self) -> None:
@@ -962,6 +1322,11 @@ class ServingEngine:
                 st = active[slot]
                 ln = int(self._lengths[slot])
                 w = max(1, min(K, st.req.max_new_tokens - st.gen_count))
+                if self._masks is not None \
+                        and st.req.mask_builder is not None:
+                    # constrained slots advance ONE token a dispatch: the
+                    # host rebuilds the mask row between dispatches only
+                    w = 1
                 want[slot] = w
                 self._ensure_blocks(slot, min(ln + w, self._cache_len))
         dec = sorted(s for s, st in active.items() if st.phase == "decode")
@@ -1007,6 +1372,117 @@ class ServingEngine:
         self.counters["decode_steps"] += trips
         self.counters["fused_iterations"] += trips
 
+    def _refresh_masks(self) -> None:
+        """Rebuild every constrained slot's ``[vocab]`` mask row from its
+        builder (``serving.py:1889-1912``): ``mask_builder.allowed(
+        generated tokens, remaining budget)``.  Unconstrained rows were set
+        all-True at admission and release and stay so."""
+        if self._masks is None:
+            return
+        for slot, st in self._active.items():
+            mb = st.req.mask_builder
+            if mb is None:
+                continue
+            row = np.asarray(
+                mb.allowed(st.prior + st.out,
+                           st.req.max_new_tokens - st.gen_count),
+                dtype=bool)
+            if row.shape != (self._vocab,):
+                raise ValueError(
+                    f"request {st.req.uid!r}: mask_builder.allowed() "
+                    f"returned shape {row.shape}, expected "
+                    f"({self._vocab},) (the model's vocab_size)")
+            self._masks[slot, :] = row
+
+    def _run_spec_decode(self) -> None:
+        """One speculative draft-verify round over every decode-phase slot
+        (``serving.py:3889-4018``).  Propose K tokens a slot (the draft
+        model's captured rollout, or the host's n-gram lookup), score the
+        ``[pending, d_1..d_K]`` window in one captured verify step at each
+        slot's committed length, then commit the accepted draft prefix
+        plus one target token (``spec.greedy_accept``, or
+        ``spec.rejection_accept`` on a sampling engine).  Rejected tokens
+        roll back by *not* advancing ``_lengths``: their KV stays past the
+        committed length, masked, and the next round overwrites it.  Block
+        demand is capped at each request's ``pos_cap``; window positions
+        past it write to scratch."""
+        k = self.spec_tokens
+        active = self._active
+        dec = sorted((s for s, st in active.items() if st.phase == "decode"),
+                     key=lambda s: active[s].admit_seq)
+        for slot in dec:
+            if slot in active and active[slot].phase == "decode":
+                st = active[slot]
+                ln = int(self._lengths[slot])
+                cap = max(st.pos_cap, ln + 1)
+                self._ensure_blocks(slot,
+                                    min(ln + k + 1, cap, self._cache_len))
+        dec = sorted(s for s, st in active.items() if st.phase == "decode")
+        if not dec:
+            return
+        bt = np.zeros_like(self._tables)
+        bt[dec] = self._tables[dec]
+        self._stage(bt, self._decode_counts())
+        o = self._op_np
+        o["valid"][:] = 0
+        o["valid"][dec] = k + 1
+        o["ids"][:] = 0
+        o["ids"][dec, 0] = self._tokens[dec]
+        if self._draft is None:
+            for slot in dec:
+                st = active[slot]
+                o["ids"][slot, 1:] = self._proposer.propose(
+                    np.concatenate([st.prompt_eff,
+                                    np.asarray(st.out, np.int32)]))
+        self._upload()
+        if self._draft is not None:
+            self._run_step(("draft", self.slots, self._nbper, k,
+                            self.sampling), self._draft_body)
+        self._run_step(("verify", self.slots, self._nbper, k + 1,
+                        self.sampling, self.logit_masks), self._verify_body)
+        out = self._spec_out.cpu().numpy()
+        scored, accept, plain, resid, ids = out
+        self.counters["spec_rounds"] += 1
+        # a draft model caps acceptance at K-1: the K-th draft's KV was
+        # never written to the draft pool, so accepting it would leave a
+        # hole at the draft's next feed position
+        max_accept = k - 1 if self._draft is not None else k
+        for slot in dec:
+            st = active[slot]
+            cap = max_accept
+            if self._masks is not None and st.req.mask_builder is not None:
+                # constrained slots accept no draft: the mask row is built
+                # per emitted token, so only the window's first position
+                # is gated right; the cap-0 stop emits plain[0]
+                cap = 0
+            budget = st.req.max_new_tokens - st.gen_count
+            if self.sampling:
+                emitted, accepted, finished = rejection_accept(
+                    ids[slot].tolist(), accept[slot, :k].tolist(),
+                    plain[slot].tolist(), resid[slot, :k].tolist(), cap,
+                    st.eos, budget)
+                verdicts = accept[slot, :k] != 0
+            else:
+                emitted, accepted, finished = greedy_accept(
+                    ids[slot].tolist(), scored[slot].tolist(), cap,
+                    st.eos, budget)
+                verdicts = ids[slot, 1:] == scored[slot, :k]
+            # the counters count the drafts whose verdicts are real: not
+            # the cap-ineligible ones, nor positions past the budget
+            eligible = min(k, cap, budget)
+            raw = 0
+            while raw < eligible and verdicts[raw]:
+                raw += 1
+            self.counters["drafted_tokens"] += eligible
+            self.counters["accepted_tokens"] += raw
+            self.counters["spec_draft_rejected"] += eligible - raw
+            for tok in emitted:            # the last finishes iff finished
+                self._emit(slot, st, tok)
+            if not finished:
+                # commit = pending + accepted drafts; the last emitted
+                # token is the new pending feed
+                self._lengths[slot] += accepted + 1
+
     def _run_prefill(self, params) -> None:
         """Advance prefilling slots by one ``prefill_chunk`` window each,
         ``prefill_batch`` rows per call (pad rows write to scratch)."""
@@ -1032,7 +1508,9 @@ class ServingEngine:
         """One prefill call: each row advances its slot by ``min(chunk,
         remaining prompt)`` tokens from its own base; rows whose window
         reaches the last prompt token yield the slot's first generated
-        token (logits gathered per row at ``valid - 1``)."""
+        token (logits gathered per row at ``valid - 1``).  With a draft
+        model the draft's pool takes the same window through the same
+        tables (the JAX server's fused prefill, ``serving.py:2070-2086``)."""
         active = self._active
         j, width = self.prefill_batch, self.prefill_chunk
         ids = np.zeros((j, width), np.int64)
@@ -1047,9 +1525,15 @@ class ServingEngine:
             base[row] = st.base
             valid[row] = v
         samp = self._samp_rows(group, j)
-        logits, self._cache = self._fwd(
-            params, self._to_device(ids), self._cache, self._to_device(base),
-            lengths=self._to_device(valid), block_tables=self._to_device(bt))
+        d_ids, d_base = self._to_device(ids), self._to_device(base)
+        kw = dict(lengths=self._to_device(valid),
+                  block_tables=self._to_device(bt))
+        logits, self._cache = self._fwd(params, d_ids, self._cache, d_base,
+                                        **kw)
+        if self._draft is not None:
+            dfwd = self._draft.module.decode_hooks["forward_cached"]
+            _, self._dcache = dfwd(self._draft.params, d_ids, self._dcache,
+                                   d_base, **kw)
         first = self._next_tokens(logits, samp).cpu().numpy()
         self.counters["prefill_calls"] += 1
         for row, slot in enumerate(group):
@@ -1066,6 +1550,18 @@ class ServingEngine:
                     self._prefix.register(st.prompt_eff,
                                           self._tables[slot, :nfull],
                                           self._alloc)
+            if self.spec_tokens and self.sampling and st.prior \
+                    and st.req.sampled:
+                # a sampled speculative resume: the original stream's token
+                # at emission index len(prior) came out of a verify round
+                # (accept / residual keys), not the prefill's token key — so
+                # back up one position instead of emitting: the last resumed
+                # token becomes the pending window head (its KV is rewritten
+                # with the same values), and the next round starts at the
+                # original round boundary (serving.py:4155-4168)
+                self._tokens[slot] = int(st.prompt_eff[-1])
+                self._lengths[slot] = st.plen_eff - 1
+                continue
             self._lengths[slot] = st.plen_eff
             self._emit(slot, st, int(first[row]))
 
@@ -1074,16 +1570,18 @@ class ServingEngine:
         """Serving-loop counters: admissions, preemptions (``evicted``),
         decode steps (the deepest slot's steps of each fused window),
         fused iterations and host fences (``decode_steps > 1``), captured
-        decode graphs, sampled requests and prefill calls, prefix-cache
-        hit rate, block
-        occupancy, TTFT/TPOT percentiles over recent finished requests, the
-        KV pool's footprint (``kv_pool_bytes``: codes plus the scale table
-        under ``kv8``) and quantization, and the launches of each
+        graphs (decode; verify and draft in speculative mode), sampled and
+        constrained requests and prefill calls, prefix-cache hit rate,
+        block occupancy, TTFT/TPOT percentiles over recent finished
+        requests, the KV pool's footprint (``kv_pool_bytes``: codes plus
+        the scale table under ``kv8``; the draft's ``draft_pool_bytes``)
+        and quantization, the speculative counters (rounds, drafts
+        eligible for a verdict, accepted and rejected ones, their ratio),
+        and the launches of each
         decode-attention and int8-matmul kernel (process-wide executions:
         a replayed graph adds the launches it holds)."""
         c = self.counters
-        pool_bytes = sum(t.numel() * t.element_size()
-                         for t in tree_leaves(self._cache))
+        pool_bytes = _nbytes(self._cache)
         scale_bytes = sum(leaf["ps"].numel() * leaf["ps"].element_size()
                           for leaf in self._cache.values()
                           if is_quantized_pool(leaf))
@@ -1121,7 +1619,22 @@ class ServingEngine:
             "weight_quant": self.weight_quant,
             "kv_scale_bytes": scale_bytes,
             "kv_pool_bytes": pool_bytes,
+            "speculative": (
+                None if not self.spec_tokens else
+                f"draft:{self._draft.module.name}" if self._draft
+                else "ngram"),
+            "spec_tokens": self.spec_tokens,
+            "spec_rounds": c["spec_rounds"],
+            "drafted_tokens": c["drafted_tokens"],
+            "accepted_tokens": c["accepted_tokens"],
+            "acceptance_rate": (c["accepted_tokens"] / c["drafted_tokens"]
+                                if c["drafted_tokens"] else 0.0),
+            "spec_draft_rejected": c["spec_draft_rejected"],
+            "spec_verifier": self.spec_verifier,
+            "logit_masks": self.logit_masks,
         }
+        if self._dcache is not None:
+            st["draft_pool_bytes"] = _nbytes(self._dcache)
         for fn in decode_attention.KERNELS + quantized_matmul.KERNELS:
             st[f"{fn.__name__}_launches"] = fn.launches
         return st

@@ -419,11 +419,27 @@ def _block_cached_body(cfg: GPT2Config, x, get, mm, ck, cv, pos,
     return _mlp_residual(get, mm, x)
 
 
+def _stepwise(mm):
+    """``mm`` applied one window position at a time: ``[B, 1, D]``
+    contiguous operands, a single-token decode step's shapes."""
+    def per_position(y, name, dtype):
+        return torch.cat([mm(y[:, i:i + 1].contiguous(), name, dtype)
+                          for i in range(y.shape[1])], dim=1)
+    return per_position
+
+
 def forward_cached(cfg: GPT2Config, params: Params, input_ids, cache, pos,
                    lengths=None, block_tables=None, all_positions=False):
     """Incremental forward (``gpt2.py:503``): logits for the LAST input
-    position (or every position with ``all_positions``) and the cache,
-    written in place.  Three position modes, as in the JAX function:
+    position (or every position with ``all_positions``, the speculative
+    verify head) and the cache, written in place.  With
+    ``all_positions`` every dense matmul, the head's included, runs one
+    window position at a time on ``[B, D]`` operands, the decode step's
+    shapes: a GEMM library picks its kernel, and so a row's summation
+    order, by the row count, so only those shapes give each position the
+    single-token decode step's bits (w8a8 records then take the decode
+    step's route too) and speculative greedy decoding stays token-exact
+    with plain decoding.  Three position modes, as in the JAX function:
 
      - ``lengths`` given and T == 1 (per-row decode): row ``b``'s token sits
        at position ``lengths[b]``; ``pos`` is ignored.
@@ -462,7 +478,8 @@ def forward_cached(cfg: GPT2Config, params: Params, input_ids, cache, pos,
     chunk_valid = lengths if (block_tables is not None
                               and lengths is not None and t > 1) else None
     blocks = params["blocks"]
-    indexed = use_indexed_decode(blocks, rows=b * t)
+    stepwise = all_positions and t > 1
+    indexed = use_indexed_decode(blocks, rows=b if stepwise else b * t)
     if indexed:
         layer_ids = torch.arange(cfg.num_layers, dtype=torch.int32,
                                  device=x.device)
@@ -475,6 +492,8 @@ def forward_cached(cfg: GPT2Config, params: Params, input_ids, cache, pos,
             get = layer.__getitem__
         else:
             get, mm = _accessors(layer)
+        if stepwise:
+            mm = _stepwise(mm)
         x = _block_cached_body(cfg, x, get, mm, _index(cache["k"], i),
                                _index(cache["v"], i), step_pos,
                                block_tables=block_tables,
@@ -482,7 +501,10 @@ def forward_cached(cfg: GPT2Config, params: Params, input_ids, cache, pos,
     if not all_positions:
         x = _gather_last(x, lengths if not per_row else None)
     x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
-    return x @ params["wte"].T.to(x.dtype), cache
+    head = (lambda y, name, dtype: y @ params["wte"].T.to(dtype))
+    if stepwise:
+        head = _stepwise(head)
+    return head(x, "wte", x.dtype), cache
 
 
 def _gather_last(x, lengths):
@@ -523,9 +545,13 @@ class GPT2Model(nn.Module):
             "max_seq_len": cfg.max_seq_len,
             "supports_lengths": True,
             "supports_paged": True,
+            # all-position logits over a K+1 window (speculative verify)
+            "supports_verify": True,
             # every pool read and write goes through ops/paged_kv and the
             # record-aware attention, so the server may quantize the pool
             "supports_kv_quant": True,
+            # full-vocab logits feed the on-device sampler unchanged
+            "supports_sampling": True,
         }
 
     def init_fn(self, generator: torch.Generator) -> Params:

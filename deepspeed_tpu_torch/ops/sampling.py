@@ -20,7 +20,8 @@ keys, the random bits, :func:`uniform`, :func:`gumbel` and
 :func:`categorical` reproduce JAX's threefry2x32 implementation
 (``jax/_src/prng.py``, ``jax/_src/random.py``, jax 0.9.0):
 
- - ``PRNGKey(seed)`` is the word pair ``[seed >> 32, seed & 0xFFFFFFFF]``;
+ - ``PRNGKey(seed)`` is the word pair ``[0, seed & 0xFFFFFFFF]``: JAX's
+   default 32-bit mode takes the seed as an int32, so the high word is 0;
  - ``fold_in(key, d)`` is ``threefry2x32(key, (0, d))``;
  - the bits of a draw of shape ``S`` (``jax_threefry_partitionable``,
    True in jax 0.9.0) hash the row-major flat index of each element, as
@@ -121,11 +122,11 @@ def threefry2x32(k1, k2, x1, x2):
 
 
 def PRNGKey(seed: int, device=None) -> torch.Tensor:
-    """``jax.random.PRNGKey(seed)``: ``[seed >> 32, seed & 0xFFFFFFFF]``
-    as an int64 ``[2]`` tensor."""
-    seed = int(seed)
-    return torch.tensor([(seed >> 32) & _M32, seed & _M32],
-                        dtype=torch.int64, device=device)
+    """``jax.random.PRNGKey(seed)`` with ``jax_enable_x64`` off (JAX's
+    default): ``[0, seed & 0xFFFFFFFF]`` as an int64 ``[2]`` tensor, for
+    any Python or numpy integer (negative, or at or past 2**32, included)."""
+    return torch.tensor([0, int(seed) & _M32], dtype=torch.int64,
+                        device=device)
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
@@ -204,11 +205,13 @@ def grid_keys(seeds, counts, salt, width: int) -> torch.Tensor:
     """``[rows, width, 2]`` keys for window draws: row ``s`` position
     ``i`` keys the emission index ``counts[s] + i``."""
     seeds, counts = torch.as_tensor(seeds), torch.as_tensor(counts)
-    offs = torch.arange(int(width), dtype=torch.int64, device=counts.device)
+    width = int(width)
+    offs = torch.arange(width, dtype=torch.int64, device=counts.device)
     cnts = (counts.to(torch.int64)[:, None] + offs[None, :]).reshape(-1)
-    flat = slot_keys(torch.repeat_interleave(seeds.to(torch.int64),
-                                             int(width)), cnts, salt)
-    return flat.reshape(-1, int(width), 2)
+    # an expanded view, not repeat_interleave: nothing here may wait for
+    # the device (the verify step runs under CUDA-graph capture)
+    rows = seeds.to(torch.int64)[:, None].expand(-1, width).reshape(-1)
+    return slot_keys(rows, cnts, salt).reshape(-1, width, 2)
 
 
 def filtered_logprobs(logits, temps, top_k, top_p, masks=None):

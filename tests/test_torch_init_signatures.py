@@ -21,7 +21,9 @@ from deepspeed_tpu_torch.models import gpt2 as tgpt2
 #: init_serving's keywords the port implements
 PORTED = {"model", "config", "params", "slots", "max_seq_len",
           "prefill_batch", "block_size", "num_blocks", "prefill_chunk",
-          "prefix_caching", "decode_steps", "sampling", "quantize", "kwargs"}
+          "prefix_caching", "decode_steps", "sampling", "quantize",
+          "spec_tokens", "draft", "ngram_max", "ngram_min", "spec_verifier",
+          "logit_masks", "kwargs"}
 
 # (keyword, a value other than the JAX default, its ROADMAP Queue A item)
 UNPORTED = [
@@ -30,18 +32,12 @@ UNPORTED = [
     ("engine_mode", "dp_tp", 8),
     ("sp", 2, 8),
     ("resident_window_blocks", 4, 9),
-    ("spec_tokens", 3, 3),
     ("host_blocks", 8, 9),
     ("swap_batch", 4, 9),
-    ("draft", "draft-model", 3),
     ("role", "prefill", 9),
     ("nvme_blocks", 4, 9),
     ("nvme_high_watermark", 0.5, 9),
     ("nvme_path", "kv.spill", 9),
-    ("ngram_max", 4, 3),
-    ("ngram_min", 2, 3),
-    ("spec_verifier", "greedy", 3),
-    ("logit_masks", True, 3),
     ("shard_kv", True, 8),
     ("topology", 2, 8),
     ("debug_checks", True, 5),
@@ -144,13 +140,30 @@ SERVERS = [
     ("sampling=False", {"sampling": False}),
     ("decode_steps=4", {"decode_steps": 4}),
     ("sampling=True decode_steps=4", {"sampling": True, "decode_steps": 4}),
+    ("spec_tokens=3", {"spec_tokens": 3}),
+    ("spec_tokens=4 ngram_max=2 ngram_min=2",
+     {"spec_tokens": 4, "ngram_max": 2, "ngram_min": 2}),
+    ("spec_verifier=greedy sampling=False",
+     {"spec_tokens": 3, "spec_verifier": "greedy", "sampling": False}),
+    ("spec_tokens=3 kv8", {"spec_tokens": 3, "quantize": "kv8"}),
+    ("draft model", {"spec_tokens": 3, "draft": "draft"}),
+    ("draft model sampling=False",
+     {"spec_tokens": 2, "draft": "draft", "sampling": False}),
+    ("logit_masks", {"logit_masks": True}),
+    ("logit_masks spec_tokens=3", {"logit_masks": True, "spec_tokens": 3}),
 ]
 
 
 @pytest.mark.parametrize("label,kw", SERVERS, ids=[s[0] for s in SERVERS])
 def test_ported_serving_keywords_build_working_servers(engine, label, kw):
     """Each server serves a greedy trace (temperature-0 rows on a sampling
-    server are the argmax) token-exact with ``generate``."""
+    server are the argmax) token-exact with ``generate``; speculative
+    servers run rounds, a ``draft`` model (a 1-layer GPT-2) is wrapped
+    with the target's config."""
+    if kw.get("draft") == "draft":
+        kw = dict(kw, draft=tgpt2.build(tgpt2.GPT2Config(
+            vocab_size=512, max_seq_len=64, num_layers=1, num_heads=2,
+            hidden_size=32)))
     srv = deepspeed_tpu_torch.init_serving(
         engine.module, params=engine.params, config={"dtype": "fp32"},
         device="cpu", slots=3, max_seq_len=64, block_size=8, **kw)
@@ -171,3 +184,5 @@ def test_ported_serving_keywords_build_working_servers(engine, label, kw):
     st = srv.stats()
     assert st["sampling"] is kw.get("sampling", True)
     assert (st["fused_iterations"] > 0) == (kw.get("decode_steps", 1) > 1)
+    assert (st["spec_rounds"] > 0) == bool(kw.get("spec_tokens"))
+    assert st["logit_masks"] is kw.get("logit_masks", False)

@@ -139,9 +139,10 @@ def test_request_and_engine_validation(engines):
         with pytest.raises(ValueError, match=word):
             Request(uid=0, prompt=prompt, max_new_tokens=4, **kw)
     Request(uid=0, prompt=prompt, max_new_tokens=4, seed=2 ** 32 - 1)
-    with pytest.raises(NotImplementedError, match=r"Queue A item 3\)"):
-        Request(uid=0, prompt=prompt, max_new_tokens=4,
-                mask_builder=object())
+    # a mask builder needs an engine with the constrained lane
+    with pytest.raises(ValueError, match="logit_masks=True"):
+        ServingEngine(teng, **_KW).submit(Request(
+            uid=0, prompt=prompt, max_new_tokens=4, mask_builder=object()))
     off = ServingEngine(teng, sampling=False, **_KW)
     with pytest.raises(ValueError, match="sampling=False"):
         off.submit(Request(uid=1, prompt=prompt, max_new_tokens=4,
@@ -149,9 +150,11 @@ def test_request_and_engine_validation(engines):
     with pytest.raises(ValueError, match="sampling=False"):
         off.serve([Request(uid=2, prompt=prompt, max_new_tokens=4,
                            temperature=0.7)])
-    with pytest.raises(NotImplementedError, match="logit_masks"):
+    with pytest.raises(ValueError, match="logit_masks=True needs the "
+                       "sampling stack"):
         deepspeed_tpu_torch.init_serving(teng.module, device="cpu",
-                                         logit_masks=True, **_KW)
+                                         logit_masks=True, sampling=False,
+                                         **_KW)
 
 
 def test_sampled_streams_agree_with_the_jax_server(engines):

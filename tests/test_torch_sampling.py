@@ -78,6 +78,20 @@ def test_prngkey_and_fold_in_bit_exact(seed):
             T.fold_in(T.PRNGKey(seed), data).numpy(), want.astype(np.int64))
 
 
+@pytest.mark.parametrize("seed", [-1, -7, 2 ** 31 + 1, 2 ** 32 - 1,
+                                  2 ** 32 + 5, 2 ** 40 + 7, 0])
+def test_prngkey_maps_seeds_as_jax_x32_does(seed):
+    """Python-int seeds outside [0, 2**32) too: JAX's default 32-bit mode
+    takes the seed as an int32, so the high word is 0."""
+    want = np.asarray(jax.random.key_data(jax.random.PRNGKey(seed)))
+    np.testing.assert_array_equal(T.PRNGKey(seed).numpy(),
+                                  want.astype(np.int64))
+    np.testing.assert_array_equal(
+        T.fold_in(T.PRNGKey(seed), 7).numpy(),
+        np.asarray(jax.random.fold_in(jax.random.PRNGKey(seed), 7))
+        .astype(np.int64))
+
+
 # -------------------------------------------------- bits, uniform, gumbel
 SHAPES = [(513,), (3, 257)]
 

@@ -165,9 +165,7 @@ def test_submit_step_and_streaming_handles(engines):
 
 def test_init_serving_refuses_unported_options(engines):
     model = tgpt2.build(tgpt2.GPT2Config.tiny())
-    for kw, word in (({"logit_masks": True}, "constrained"),
-                     ({"spec_tokens": 3}, "speculative"),
-                     ({"debug_checks": True}, "audit"),
+    for kw, word in (({"debug_checks": True}, "audit"),
                      ({"host_blocks": 8}, "tier"),
                      ({"resident_window_blocks": 4}, "tier"),
                      ({"sp": 2}, "multi-GPU"),
