@@ -22,7 +22,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     ``__init__.py:30``).  Returns ``(engine, optimizer,
     training_dataloader, lr_scheduler)``.
 
-    ``model``: a model from ``deepspeed_tpu_torch.models`` (``gpt2.build``).
+    ``model``: a model from ``deepspeed_tpu_torch.models`` (``gpt2.build``;
+    ``llama.build`` trains on the CPU, and on CUDA once the flash kernels
+    take its head dim 128).
     ``config``: a dict or JSON path with the JAX package's keys.
     ``model_parameters``: initial parameters as a nested dict of tensors or
     arrays (e.g. ``gpt2.params_from_jax``); without it the engine draws
@@ -70,20 +72,23 @@ def init_inference(model=None, config=None, params=None, device=None,
                    **kwargs):
     """Inference engine entry (reference ``__init__.py:233``).
 
-    ``model``: a model from ``deepspeed_tpu_torch.models`` (``gpt2.build``);
-    the JAX package's other kinds of model, a HuggingFace model or a path
-    to its checkpoint, are not ported (ROADMAP Queue A item 7).
+    ``model``: a model from ``deepspeed_tpu_torch.models``
+    (``gpt2.build``, ``llama.build`` or ``get_model("llama-3-8b")``); the
+    JAX package's other kinds of model, a HuggingFace model or a path to
+    its checkpoint, are not ported (ROADMAP Queue A item 7).
     ``config``: a dict or :class:`~deepspeed_tpu_torch.inference.config.
     DeepSpeedInferenceConfig` (or its keys as keyword arguments).
     ``params``: parameters as a nested dict of tensors (e.g.
     ``gpt2.params_from_jax``); without it the engine draws random ones from
-    ``torch.Generator().manual_seed(0)``.  ``device``: ``None`` = CUDA
+    seed 0 (llama: on the engine's device in the serving dtype; GPT-2: in
+    f32 from ``torch.Generator().manual_seed(0)``).  ``device``: ``None`` = CUDA
     (raises when no GPU is present), or ``"cpu"``."""
     from .inference.config import DeepSpeedInferenceConfig
     from .inference.engine import InferenceEngine
 
     if model is None:
-        raise ValueError("init_inference needs a model (models.gpt2.build)")
+        raise ValueError("init_inference needs a model (models.gpt2.build, "
+                         "models.llama.build or models.get_model)")
     if getattr(model, "decode_hooks", None) is None:
         _unsupported("init_inference", f"model={type(model).__name__}", 7,
                      "other model families (HuggingFace models and "

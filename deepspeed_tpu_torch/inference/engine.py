@@ -14,7 +14,8 @@ seed), position)`` of JAX's threefry (``ops/sampling.py``); its loop runs
 eagerly.
 
 ``quant.enabled`` stores a quant-aware model's stacked blocks as int8
-records, quantized on the host at construction (``engine.py:128-273``):
+records, quantized on the engine's device at construction, one layer at a
+time (``engine.py:128-273``):
 ``quant.type="w8a8"`` gives K-grouped records for the w8a8 kernels,
 ``"weight"`` (the default) weight-only records for ``quantized_matmul``.
 Records arriving in ``params`` pass through when their kind matches the
@@ -97,12 +98,15 @@ def _to_device(tree, device, dtype):
     return t.to(device=device, dtype=dtype if t.is_floating_point() else None)
 
 
-def _quantize_blocks(model, params, qcfg):
-    """The host-side quantization of ``engine.py:166-234`` (one device):
-    the stacked blocks of a quant-aware model, already in the serving
-    dtype, become w8a8 records (k-groups of ``max(128, group_size)``) or
-    weight-only records (``min_ndim=3`` keeps the per-layer biases dense);
-    pre-quantized params pass through when their record kind matches."""
+def _quantize_blocks(model, params, qcfg, device):
+    """The quantization of ``engine.py:166-234`` (one device): the stacked
+    blocks of a quant-aware model, already in the serving dtype, become
+    w8a8 records (k-groups of ``max(128, group_size)``) or weight-only
+    records (``min_ndim=3`` keeps the per-layer biases dense), computed on
+    ``device`` one layer at a time (the JAX engine quantizes the whole
+    stack on the host in f32: 28 GB of temporaries at Llama-3-8B; the
+    records are the same bits); pre-quantized params pass through when
+    their record kind matches."""
     bkey = getattr(model, "blocks_key", None) \
         if getattr(model, "quant_aware", False) else None
     w8a8 = qcfg.type == "w8a8"
@@ -130,16 +134,29 @@ def _quantize_blocks(model, params, qcfg):
     node = params
     for k in bkey[:-1]:
         node = node[k]
-    cpu = {k: v.cpu() for k, v in node[bkey[-1]].items()}
     if w8a8:
         node[bkey[-1]] = quant.quantize_pytree_k_grouped(
-            cpu, k_group=max(128, int(qcfg.group_size)), min_ndim=3,
-            shard_multiple=qcfg.shard_multiple or 1)
+            node[bkey[-1]], k_group=max(128, int(qcfg.group_size)),
+            min_ndim=3, shard_multiple=qcfg.shard_multiple or 1,
+            device=device)
     else:
         node[bkey[-1]] = quant.quantize_pytree(
-            cpu, num_bits=qcfg.num_bits, group_size=qcfg.group_size,
-            min_ndim=3)
+            node[bkey[-1]], num_bits=qcfg.num_bits,
+            group_size=qcfg.group_size, min_ndim=3, device=device)
     return params
+
+
+def _default_params(model, device, dtype):
+    """Random weights when the caller gives none, from seed 0 as the JAX
+    engine's ``init_fn(PRNGKey(0))``: a model whose ``init_on_device`` is
+    set (llama) draws on ``device`` in the serving dtype, one layer at a
+    time (Llama-3-8B in f32 on the host would be 32 GB and minutes of
+    drawing); GPT-2 keeps its f32 draw on the host, so its default weights
+    are the ones they always were."""
+    if getattr(model, "init_on_device", False):
+        return model.init_fn(torch.Generator(device=device).manual_seed(0),
+                             dtype=dtype)
+    return model.init_fn(torch.Generator().manual_seed(0))
 
 
 class InferenceEngine:
@@ -149,14 +166,15 @@ class InferenceEngine:
         if getattr(model, "decode_hooks", None) is None or \
                 not hasattr(model, "init_fn"):
             raise TypeError("init_inference expects a deepspeed_tpu_torch "
-                            "model (models.gpt2.build)")
+                            "model (models.gpt2.build, models.llama.build "
+                            "or models.get_model)")
         _check_supported(config)
         self.module = model
         self._config = config
         self.device = resolve_device(device)
         self.dtype = config.torch_dtype
         if params is None:
-            params = model.init_fn(torch.Generator().manual_seed(0))
+            params = _default_params(model, self.device, self.dtype)
         if config.quant.enabled:
             from ..ops import quantized_matmul as qmm
 
@@ -164,9 +182,9 @@ class InferenceEngine:
             # cast first, as the JAX engine does: records are quantized from
             # the serving-dtype weights; the tree is rebuilt, never the
             # caller's dicts mutated
-            params = _quantize_blocks(model, _to_device(params, "cpu",
+            params = _quantize_blocks(model, _to_device(params, self.device,
                                                         self.dtype),
-                                      config.quant)
+                                      config.quant, self.device)
         self.params = _to_device(params, self.device, self.dtype)
         log_dist(f"InferenceEngine: device={self.device}, dtype={config.dtype}"
                  + (f", quant={config.quant.type}" if config.quant.enabled

@@ -91,6 +91,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import _unsupported
 from ..ops import decode_attention, quantized_matmul
 from ..ops import sampling as sampling_ops
 from ..ops.paged_kv import blocks_for, is_quantized_pool, quantize_pool
@@ -456,8 +457,9 @@ class ServingEngine:
                     score the ``[pending, d_1..d_K]`` window in one captured
                     verify step, commit the accepted prefix plus one
                     target token.  ``decode_steps`` is inert then.
-    draft:          a draft model (``models.gpt2.build``, wrapped with this
-                    engine's config on its device) or an ``InferenceEngine``
+    draft:          a draft model (``models.gpt2.build`` or
+                    ``models.llama.build``, wrapped with this engine's
+                    config on its device) or an ``InferenceEngine``
                     sharing the target's vocabulary; its pool shares the
                     target's block tables.  ``None`` drafts by n-gram
                     lookup over each request's own tokens.
@@ -846,10 +848,17 @@ class ServingEngine:
                 "operand is only threaded through the programs then)")
 
     def submit(self, request: Request, *, priority: int = 0,
+               slo_class: Optional[str] = None,
                eos_token_id: Optional[int] = None) -> RequestHandle:
         """Enqueue one request and return its :class:`RequestHandle`.
         Admission happens on subsequent :meth:`step` calls; higher
-        ``priority`` admits first, FIFO within a priority."""
+        ``priority`` admits first, FIFO within a priority.  ``slo_class``
+        (the JAX signature, ``serving.py:3170``) is taken at its default
+        ``None`` only: SLO classes come with the port's serving API
+        remainder."""
+        if slo_class is not None:
+            _unsupported("ServingEngine.submit", f"slo_class={slo_class!r}",
+                         4, "serving API remainder (SLO classes)")
         self._validate_request(request)
         if request.uid in self._live_uids:
             raise ValueError(
@@ -892,12 +901,26 @@ class ServingEngine:
 
     def serve(self, requests: Sequence[Request],
               eos_token_id: Optional[int] = None,
-              admission_log: Optional[list] = None) -> Dict[Any, np.ndarray]:
+              admission_log: Optional[list] = None,
+              step_log: Optional[list] = None,
+              debug_checks: Optional[bool] = None,
+              profile_dir: Optional[str] = None,
+              profile_iters: Optional[int] = None) -> Dict[Any, np.ndarray]:
         """Run a request trace to completion; returns ``uid -> [prompt +
         completion]`` int32 arrays, padded to ``prompt + max_new_tokens``
         with eos back-fill (HF semantics, same as ``generate``).
         ``admission_log``, when given, collects ``(uid, slot)`` in admission
-        order."""
+        order.  The JAX signature's ``step_log``, ``debug_checks``,
+        ``profile_dir`` and ``profile_iters`` (``serving.py:3616-3622``) are
+        taken at their default ``None`` only: they come with the port's
+        telemetry and tooling slice."""
+        for name, value in (("step_log", step_log),
+                            ("debug_checks", debug_checks),
+                            ("profile_dir", profile_dir),
+                            ("profile_iters", profile_iters)):
+            if value is not None:
+                _unsupported("ServingEngine.serve", f"{name}={value!r}", 5,
+                             "telemetry and tooling slice")
         requests = list(requests)
         if not requests:
             return {}

@@ -255,9 +255,9 @@ def _dequant_resident(params, dtype=None):
             for k, v in params.items()}
 
 
-def _accessors(layer):
-    """``(get, mm)`` over a pre-sliced layer: ``get(name)`` a small leaf,
-    ``mm(y, name, dtype)`` the matmul through :func:`_qmm`."""
+def layer_accessors(layer):
+    """``(get, mm)`` over a pre-sliced layer (``gpt2.py:233``): ``get(name)``
+    a small leaf, ``mm(y, name, dtype)`` the matmul through :func:`_qmm`."""
     return layer.__getitem__, lambda y, name, dtype: _qmm(y, layer[name],
                                                           dtype)
 
@@ -280,7 +280,7 @@ def _block(cfg: GPT2Config, x, layer):
     """One transformer block (``gpt2.py:285``): flash attention or einsum
     attention by ``cfg.use_flash`` (module docstring)."""
     b, s, d = x.shape
-    get, mm = _accessors(layer)
+    get, mm = layer_accessors(layer)
     y = _layer_norm(x, get("ln1_scale"), get("ln1_bias"))
     q, k, v = _qkv(cfg, get, mm, y)
     use_flash = cfg.use_flash
@@ -428,6 +428,52 @@ def _stepwise(mm):
     return per_position
 
 
+def _stack_len(leaf) -> int:
+    """Layers of a stacked leaf or record."""
+    if quant.is_record(leaf):
+        leaf = leaf.get("qk", leaf.get("q"))
+    return leaf.shape[0]
+
+
+def decode_over_layers(body, x, blocks: Params, cache_k, cache_v,
+                       num_layers: int, probe: str = "qkv_w",
+                       stepwise: bool = False):
+    """Run ``body(x, get, mm, ck, cv) -> x`` over all layers
+    (``gpt2.py:442``), each layer's cache leaves (or int8 pool records)
+    written in place: a loop over pre-sliced layers (:func:`layer_accessors`)
+    normally, or, with K-grouped blocks and the stacked kernel on
+    (:func:`use_indexed_decode` on ``blocks[probe]``), a loop whose
+    matmuls select the layer in the stacked w8a8 kernel, the index a slice
+    of one ``arange(L)`` on the device.  ``stepwise`` runs every matmul one
+    window position at a time (:func:`_stepwise`: the speculative verify's
+    all-position window), and the indexed gate then counts one position's
+    rows.  Raises when the stack does not hold ``num_layers`` layers, as
+    ``lax.scan`` would."""
+    n_stack = _stack_len(next(iter(blocks.values())))
+    if n_stack != num_layers:
+        raise ValueError(f"stacked blocks carry {n_stack} layers but "
+                         f"num_layers={num_layers}")
+    b, t = x.shape[0], x.shape[1]
+    indexed = use_indexed_decode(blocks, probe,
+                                 rows=b if stepwise else b * t)
+    if indexed:
+        layer_ids = torch.arange(num_layers, dtype=torch.int32,
+                                 device=x.device)
+    for i in range(num_layers):
+        layer = _layer(blocks, i)
+        if indexed:
+            def mm(y, name, dtype, l_idx=layer_ids[i:i + 1]):
+                return _qmm_indexed(y, blocks[name], l_idx, dtype)
+
+            get = layer.__getitem__
+        else:
+            get, mm = layer_accessors(layer)
+        if stepwise:
+            mm = _stepwise(mm)
+        x = body(x, get, mm, _index(cache_k, i), _index(cache_v, i))
+    return x
+
+
 def forward_cached(cfg: GPT2Config, params: Params, input_ids, cache, pos,
                    lengths=None, block_tables=None, all_positions=False):
     """Incremental forward (``gpt2.py:503``): logits for the LAST input
@@ -452,13 +498,14 @@ def forward_cached(cfg: GPT2Config, params: Params, input_ids, cache, pos,
 
     ``cache`` is ``{"k", "v"}`` of ``[L, B, H, S, hd]`` (contiguous) or
     ``[L, NB, H, bs, hd]`` (paged, with ``block_tables`` int32 [B, NBPER]),
-    each leaf possibly an int8 pool record.  With K-grouped blocks and at
-    most ``W8A8_MAX_ROWS`` rows the layer loop takes the stacked w8a8
-    kernel, each layer's index a slice of one ``arange(L)`` on the device
+    each leaf possibly an int8 pool record.  The layer loop is
+    :func:`decode_over_layers`: with K-grouped blocks and at most
+    ``W8A8_MAX_ROWS`` rows it takes the stacked w8a8 kernel, each layer's
+    index a slice of one ``arange(L)`` on the device
     (:func:`use_indexed_decode`).
     """
     params = _dequant_resident(params)
-    b, t = input_ids.shape
+    t = input_ids.shape[1]
     wpe = params["wpe"]
     smax = cfg.max_seq_len
     per_row = lengths is not None and t == 1
@@ -477,27 +524,13 @@ def forward_cached(cfg: GPT2Config, params: Params, input_ids, cache, pos,
     x = (params["wte"][input_ids] + pe).to(params["wte"].dtype)
     chunk_valid = lengths if (block_tables is not None
                               and lengths is not None and t > 1) else None
-    blocks = params["blocks"]
     stepwise = all_positions and t > 1
-    indexed = use_indexed_decode(blocks, rows=b if stepwise else b * t)
-    if indexed:
-        layer_ids = torch.arange(cfg.num_layers, dtype=torch.int32,
-                                 device=x.device)
-    for i in range(cfg.num_layers):
-        layer = _layer(blocks, i)
-        if indexed:
-            def mm(y, name, dtype, l_idx=layer_ids[i:i + 1]):
-                return _qmm_indexed(y, blocks[name], l_idx, dtype)
-
-            get = layer.__getitem__
-        else:
-            get, mm = _accessors(layer)
-        if stepwise:
-            mm = _stepwise(mm)
-        x = _block_cached_body(cfg, x, get, mm, _index(cache["k"], i),
-                               _index(cache["v"], i), step_pos,
-                               block_tables=block_tables,
-                               chunk_valid=chunk_valid)
+    x = decode_over_layers(
+        lambda x, get, mm, ck, cv: _block_cached_body(
+            cfg, x, get, mm, ck, cv, step_pos, block_tables=block_tables,
+            chunk_valid=chunk_valid),
+        x, params["blocks"], cache["k"], cache["v"], cfg.num_layers,
+        stepwise=stepwise)
     if not all_positions:
         x = _gather_last(x, lengths if not per_row else None)
     x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
@@ -528,6 +561,9 @@ class GPT2Model(nn.Module):
     quant_aware = True
     #: where the stacked per-layer weights live in the parameter tree
     blocks_key = ("blocks",)
+    #: the inference engine draws default weights in f32 from a host
+    #: generator (``init_fn`` draws on the generator's device)
+    init_on_device = False
 
     def __init__(self, cfg: GPT2Config):
         super().__init__()

@@ -51,8 +51,8 @@
 // host (no sync to learn the lengths); a block whose span starts past its
 // row's last visible key exits at once.  Each of the 4 warps loads its 32
 // keys of K and then V in their own 16-bit type with cp.async (16-byte
-// copies into XOR-swizzled 128-byte rows, each key's block looked up in the
-// table, so any bs works; -1 entries clamp to scratch block 0), and
+// copies into XOR-swizzled rows of D * 2 bytes, each key's block looked up
+// in the table, so any bs works; -1 entries clamp to scratch block 0), and
 // computes Q K^T on the tensor cores while V is still in flight:
 // mma.sync.m16n8k16 (f32 accumulate) with ldmatrix for Q and K and
 // ldmatrix.trans for V, the R = rep*T query rows in m16 tiles.  mma.sync,
@@ -67,17 +67,29 @@
 // order, so results do not depend on which block finished last.  A row
 // whose keys fit one split writes its output directly.
 //
+// Head dim D (64: GPT-2; 128: llama).  One body, split_attention<T, KV, D>,
+// serves both: D sets the rows' width (D * 2 bytes of q, K and V a row, in
+// D / 8 swizzled 16-byte chunks), the QK^T k-steps (D / 16), the PV n-tiles
+// (D / 8) and the partials' width, and nothing else: a row's sums over
+// keys, warps and splits run in the same order at any D.  At D = 128 a
+// block stages 128 keys of K and of V (32 KB each), up to 64 query rows
+// (16 KB at R = 64: llama's GQA rep 4 times a 16-token window) and the
+// warps' f32 merge tiles (34 KB), 116 KB of the SM's 227; its accumulators
+// double (64 registers of O a thread).  The bound doubles with D too: a
+// bf16 key and value are 512 bytes.
+//
 // q8_split_kernel (int8 pools, bf16 or fp16 q; T = 1 decode and T <= 16
 // windows).  The same grid, warps, products, softmax and merge as
 // verify_split_kernel (one body, split_attention<T, KV>); what differs is
-// how the keys arrive.  Bound: each key a row may see is read once as 64
-// codes plus a 2-byte scale, for K and for V: 132 bytes a key against the
-// bf16 pool's 256, so the int8 pool halves the float kernel's bytes; the
-// arithmetic is the same 4*R*D flops a key.  The codes come by plain
-// 16-byte loads, four per lane for K and four for V, all issued before the
-// first is used (lane -> bytes 16*(lane%4).. of keys lane/4 + 8e, each
-// key's block looked up in the table), and are converted to T in registers
-// on their way to the swizzled 128-byte rows that the
+// how the keys arrive.  Bound: each key a row may see is read once as D
+// codes plus a 2-byte scale, for K and for V: 2 * (D + 2) bytes a key
+// against the bf16 pool's 4 * D, so the int8 pool halves the float
+// kernel's bytes; the arithmetic is the same 4*R*D flops a key.  The codes
+// come by plain 16-byte loads, D / 16 per lane for K and as many for V,
+// all issued before the first is used (lane -> bytes 16*(lane%CK).. of
+// keys lane/CK + (32/CK)e with CK = D/16, each key's block looked up in
+// the table), and are converted to T in registers on their way to the
+// swizzled rows that the
 // ldmatrix / ldmatrix.trans path reads: no staging copy of the codes in
 // shared memory, and the conversion is exact (|code| <= 127 is exact in
 // bf16 and fp16).  K is converted before the products, V after the first
@@ -330,8 +342,8 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
 
 // dtype: 0 float32 (of q and out; of the cache or pool too unless Q8, whose
 // pool holds int8 codes and bf16 scales); 16-bit q, caches and pools take
-// the split-K kernels.  D: 64 (GPT-2); another head dim is instantiated
-// with the model family that needs it.  Unsupported (dtype, D) pairs
+// the split-K kernels.  D: 64 (GPT-2) or 128 (llama); another head dim is
+// instantiated with the model family that needs it.  Unsupported (dtype, D) pairs
 // return cudaErrorInvalidValue; the Python wrappers check them first.
 template <bool PAGED, bool Q8>
 int dispatch(int dtype, int D, const void* q, const void* k, const void* v,
@@ -345,6 +357,7 @@ int dispatch(int dtype, int D, const void* q, const void* k, const void* v,
 #define DS_DIMS(TYPE)                           \
   switch (D) {                                  \
     case 64: DS_CASE(TYPE, 64);                 \
+    case 128: DS_CASE(TYPE, 128);               \
     default: return (int)cudaErrorInvalidValue; \
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
@@ -361,18 +374,19 @@ constexpr int KS = 128;          // keys a block (one split)
 constexpr int WK = 32;           // keys a warp
 constexpr int THREADS = 128;     // 4 warps
 constexpr int MAX_R = 256;       // query rows a KV head (rep * T)
-constexpr int LDO = 68;          // row stride of the warps' f32 merge tiles
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Byte offset of 16-byte chunk c of row r of a [rows][64] 16-bit tile whose
-// chunks are XOR-swizzled by the row, so that ldmatrix's 8 row reads hit 8
-// different bank groups.
+// Byte offset of 16-byte chunk c of row r of a [rows][D] 16-bit tile (rows
+// of D * 2 bytes, D / 8 chunks) whose chunks are XOR-swizzled by the row in
+// their low three bits, so that ldmatrix's 8 row reads hit 8 different
+// bank groups (a row of 128 or 256 bytes starts at bank 0).
+template <int D>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
-  return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
+  return (uint32_t)(r * (D * 2) + ((c ^ (r & 7)) << 4));
 }
 
 // 16 bytes from global to shared memory, asynchronously; bytes = 0 writes
@@ -437,7 +451,7 @@ template <> struct Mma<__half> {
 
 // 8 f32 values x[i] * inv as 8 T at dst (16-byte aligned).
 template <typename T>
-__device__ __forceinline__ void store8(T* dst, const float (&x)[8], float inv) {
+__device__ __forceinline__ void store8(T* dst, const float* x, float inv) {
   uint4 u;
   u.x = Mma<T>::pack(x[0] * inv, x[1] * inv);
   u.y = Mma<T>::pack(x[2] * inv, x[3] * inv);
@@ -465,19 +479,25 @@ __device__ __forceinline__ void store_codes(uint32_t dst0, uint32_t dst1, const 
                : "memory");
 }
 
-size_t smem_bytes(int R) {
+// Dynamic shared memory of one block at head dim D: q [MT*16][D], K and V
+// [KS][D] in T (2 bytes), the warps' merge tiles [4][16][D + 4] f32 with
+// their maxima and sums, and the merge flag.  At D = 128 and R = 64 (a
+// 16-token window of llama's GQA rep 4): 16 + 64 + 34 KB.
+size_t smem_bytes(int R, int D) {
   const int rows = (R + 15) / 16 * 16;
-  return (size_t)rows * 128 + 2 * (size_t)KS * 128 +
-         (4 * 16 * LDO + 2 * 4 * 16) * sizeof(float) + 16;
+  return (size_t)rows * D * 2 + 2 * (size_t)KS * D * 2 +
+         (4 * 16 * (size_t)(D + 4) + 2 * 4 * 16) * sizeof(float) + 16;
 }
 
 // q/out [B, H, T, D] (the (b, g) slice is the contiguous [R, D] run at
-// (b*HKV + g) * R * D), D = 64.  Pools [NB, HKV, bs, D]: in T (KV = T), or
-// int8 codes (KV = int8_t) with bf16 scales ksp/vsp [NB, HKV, bs].  part_o
-// [B*HKV, nsplit, R, 64] and part_ml [B*HKV, nsplit, R, 2] f32 hold the
-// splits' partials (m in the exp2 domain); tickets [B*HKV] int32 are zero
-// between calls.
-template <typename T, typename KV>
+// (b*HKV + g) * R * D), D = 64 or 128.  Pools [NB, HKV, bs, D]: in T (KV =
+// T), or int8 codes (KV = int8_t) with bf16 scales ksp/vsp [NB, HKV, bs].
+// part_o [B*HKV, nsplit, R, D] and part_ml [B*HKV, nsplit, R, 2] f32 hold
+// the splits' partials (m in the exp2 domain); tickets [B*HKV] int32 are
+// zero between calls.  D sets the rows' width and nothing else: the
+// products run D / 16 k-steps of Q K^T and D / 8 n-tiles of P V, and every
+// sum over keys, warps and splits is taken in the same order at any D.
+template <typename T, typename KV, int D>
 __device__ __forceinline__ void split_attention(
     const T* __restrict__ q, const KV* __restrict__ kp, const KV* __restrict__ vp,
     const __nv_bfloat16* __restrict__ ksp, const __nv_bfloat16* __restrict__ vsp,
@@ -485,6 +505,9 @@ __device__ __forceinline__ void split_attention(
     float* __restrict__ part_o, float* __restrict__ part_ml, int* __restrict__ tickets, int HKV,
     int R, int win, int bs, int nbper, int nsplit, float scale2) {
   constexpr bool Q8 = std::is_same<KV, int8_t>::value;
+  constexpr int CH = D / 8;                                // 16-byte chunks of a T row
+  constexpr int LDO = D + 4;                                // merge tile row stride
+  constexpr int CPT = D / 8;                               // merge columns a thread
   const int split = blockIdx.x, g = blockIdx.y, b = blockIdx.z, bg = b * HKV + g;
   const int base = pos[b];
   const int nkeys = max(0, min(base + win, nbper * bs));   // keys 0 .. nkeys-1
@@ -496,36 +519,39 @@ __device__ __forceinline__ void split_attention(
 
   extern __shared__ __align__(128) unsigned char split_smem[];
   unsigned char* smem = split_smem;
-  const uint32_t qs = smem_u32(smem);                      // [MT*16][64] T
-  const uint32_t ks = qs + MT * 16 * 128;                  // [KS][64] T
-  const uint32_t vs = ks + KS * 128;                       // [KS][64] T
-  float* mo = reinterpret_cast<float*>(smem + MT * 16 * 128 + 2 * KS * 128);  // [4][16][LDO]
+  const uint32_t qs = smem_u32(smem);                      // [MT*16][D] T
+  const uint32_t ks = qs + MT * 16 * D * 2;                // [KS][D] T
+  const uint32_t vs = ks + KS * D * 2;                     // [KS][D] T
+  float* mo = reinterpret_cast<float*>(smem + MT * 16 * D * 2 + 2 * KS * D * 2);  // [4][16][LDO]
   float* mm = mo + 4 * 16 * LDO;                           // [4][16] warp maxima
   float* ml = mm + 4 * 16;                                 // [4][16] warp sums
   int* last = reinterpret_cast<int*>(ml + 4 * 16);
 
-  const size_t qoff = (size_t)bg * R * 64;
-  for (int i = tid; i < MT * 16 * 8; i += THREADS) {
-    const int r = i >> 3, c = i & 7;
-    cp_async16(qs + swz(r, c), q + qoff + (size_t)min(r, R - 1) * 64 + c * 8, r < R ? 16 : 0);
+  const size_t qoff = (size_t)bg * R * D;
+  for (int i = tid; i < MT * 16 * CH; i += THREADS) {
+    const int r = i / CH, c = i % CH;
+    cp_async16(qs + swz<D>(r, c), q + qoff + (size_t)min(r, R - 1) * D + c * 8, r < R ? 16 : 0);
   }
   cp_async_commit();
   const int kw = split * KS + warp * WK;
   const bool warp_live = kw < nkeys;
+  // int8 pools: a key's D codes are CK 16-byte chunks, KPP keys a pass of
+  // the warp's 32 lanes and E passes for its 32 keys
+  constexpr int CK = D / 16, KPP = 32 / CK, E = WK / KPP;
   // int8 pools: this lane's V codes until they are converted, and the
   // scales of this lane's score columns
-  [[maybe_unused]] int4 vc[4];
+  [[maybe_unused]] int4 vc[E];
   [[maybe_unused]] float kss[4][2], vss[4][2];
   if constexpr (Q8) {
-    // this warp's 32 keys: lane -> bytes 16*(lane%4) .. of keys lane/4 + 8e
-    int4 kc[4];
+    // this warp's 32 keys: lane -> bytes 16*(lane%CK) .. of keys lane/CK + KPP*e
+    int4 kc[E];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = kw + (lane >> 2) + 8 * e;
+    for (int e = 0; e < E; ++e) {
+      const int key = kw + lane / CK + KPP * e;
       kc[e] = vc[e] = make_int4(0, 0, 0, 0);
       if (key < nkeys) {
         const int blk = max(bt[(size_t)b * nbper + key / bs], 0);
-        const size_t off = (((size_t)blk * HKV + g) * bs + key % bs) * 64 + (lane & 3) * 16;
+        const size_t off = (((size_t)blk * HKV + g) * bs + key % bs) * D + (lane % CK) * 16;
         kc[e] = __ldg(reinterpret_cast<const int4*>(kp + off));
         vc[e] = __ldg(reinterpret_cast<const int4*>(vp + off));
       }
@@ -551,31 +577,33 @@ __device__ __forceinline__ void split_attention(
     __syncthreads();                                       // Q, from every thread
     if (warp_live) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = warp * WK + (lane >> 2) + 8 * e;
-        store_codes<T>(ks + swz(r, 2 * (lane & 3)), ks + swz(r, 2 * (lane & 3) + 1), kc[e]);
+      for (int e = 0; e < E; ++e) {
+        const int r = warp * WK + lane / CK + KPP * e;
+        store_codes<T>(ks + swz<D>(r, 2 * (lane % CK)), ks + swz<D>(r, 2 * (lane % CK) + 1),
+                       kc[e]);
       }
     }
     __syncwarp();                                          // this warp's K
   } else {
-    // this warp's 32 keys: lane -> chunk lane%8 of keys lane/8 + 4e
-    size_t off[8];
+    // this warp's 32 keys: lane -> chunk lane%CH of keys lane/CH + KP*e
+    constexpr int KP = 32 / CH, EP = WK / KP;
+    size_t off[EP];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int key = kw + (lane >> 3) + 4 * e;
+    for (int e = 0; e < EP; ++e) {
+      const int key = kw + lane / CH + KP * e;
       off[e] = 0;
       if (key < nkeys) {
         const int blk = max(bt[(size_t)b * nbper + key / bs], 0);
-        off[e] = (((size_t)blk * HKV + g) * bs + key % bs) * 64 + (lane & 7) * 8;
+        off[e] = (((size_t)blk * HKV + g) * bs + key % bs) * D + (lane % CH) * 8;
       }
-      cp_async16(ks + swz(warp * WK + (lane >> 3) + 4 * e, lane & 7), kp + off[e],
+      cp_async16(ks + swz<D>(warp * WK + lane / CH + KP * e, lane % CH), kp + off[e],
                  key < nkeys ? 16 : 0);
     }
     cp_async_commit();
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int key = kw + (lane >> 3) + 4 * e;
-      cp_async16(vs + swz(warp * WK + (lane >> 3) + 4 * e, lane & 7), vp + off[e],
+    for (int e = 0; e < EP; ++e) {
+      const int key = kw + lane / CH + KP * e;
+      cp_async16(vs + swz<D>(warp * WK + lane / CH + KP * e, lane % CH), vp + off[e],
                  key < nkeys ? 16 : 0);
     }
     cp_async_commit();
@@ -587,31 +615,30 @@ __device__ __forceinline__ void split_attention(
   }
 
   for (int mt = 0; mt < MT; ++mt) {
-    float o[8][4];
+    float o[D / 8][4];
 #pragma unroll
-    for (int d = 0; d < 8; ++d)
+    for (int d = 0; d < D / 8; ++d)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
     float m2[2] = {NEG_INF, NEG_INF}, l2[2] = {0.f, 0.f};
     if (warp_live) {
-      uint32_t qa[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        ldsm_x4(qa[kk], qs + swz(mt * 16 + (lane & 7) + (mi & 1) * 8, 2 * kk + (mi >> 1)));
       float sc[4][4];
 #pragma unroll
       for (int n = 0; n < 4; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t qa[4];
+        ldsm_x4(qa, qs + swz<D>(mt * 16 + (lane & 7) + (mi & 1) * 8, 2 * kk + (mi >> 1)));
 #pragma unroll
         for (int np = 0; np < 2; ++np) {
           uint32_t kb[4];
-          ldsm_x4(kb, ks + swz(warp * WK + np * 16 + (lane & 7) + (mi >> 1) * 8, 2 * kk + (mi & 1)));
-          Mma<T>::run(sc[2 * np], qa[kk], kb[0], kb[1]);
-          Mma<T>::run(sc[2 * np + 1], qa[kk], kb[2], kb[3]);
+          ldsm_x4(kb, ks + swz<D>(warp * WK + np * 16 + (lane & 7) + (mi >> 1) * 8, 2 * kk + (mi & 1)));
+          Mma<T>::run(sc[2 * np], qa, kb[0], kb[1]);
+          Mma<T>::run(sc[2 * np + 1], qa, kb[2], kb[3]);
         }
+      }
       // mask per query row, softmax over the warp's 32 keys (exp2 domain);
       // an int8 pool's K scale multiplies its score column
 #pragma unroll
@@ -662,9 +689,10 @@ __device__ __forceinline__ void split_attention(
       if (mt == 0) {
         if constexpr (Q8) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = warp * WK + (lane >> 2) + 8 * e;
-            store_codes<T>(vs + swz(r, 2 * (lane & 3)), vs + swz(r, 2 * (lane & 3) + 1), vc[e]);
+          for (int e = 0; e < E; ++e) {
+            const int r = warp * WK + lane / CK + KPP * e;
+            store_codes<T>(vs + swz<D>(r, 2 * (lane % CK)), vs + swz<D>(r, 2 * (lane % CK) + 1),
+                           vc[e]);
           }
         } else {
           cp_async_wait<0>();
@@ -674,16 +702,16 @@ __device__ __forceinline__ void split_attention(
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int dp = 0; dp < 4; ++dp) {
+        for (int dp = 0; dp < D / 16; ++dp) {
           uint32_t vb[4];
-          ldsm_x4_trans(vb, vs + swz(warp * WK + 16 * j + (lane & 7) + (mi & 1) * 8, 2 * dp + (mi >> 1)));
+          ldsm_x4_trans(vb, vs + swz<D>(warp * WK + 16 * j + (lane & 7) + (mi & 1) * 8, 2 * dp + (mi >> 1)));
           Mma<T>::run(o[2 * dp], pa[j], vb[0], vb[1]);
           Mma<T>::run(o[2 * dp + 1], pa[j], vb[2], vb[3]);
         }
     }
     // the block's partial for rows mt*16 ..: merge the four warps
 #pragma unroll
-    for (int d = 0; d < 8; ++d)
+    for (int d = 0; d < D / 8; ++d)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         *reinterpret_cast<float2*>(&mo[(warp * 16 + g4 + 8 * h) * LDO + d * 8 + 2 * t4]) =
@@ -697,28 +725,33 @@ __device__ __forceinline__ void split_attention(
     }
     __syncthreads();
     {
-      const int row = tid >> 3, c0 = (tid & 7) * 8, grow = mt * 16 + row;
+      // thread -> row tid / 8 of the tile, columns c0 .. c0 + CPT - 1
+      const int row = tid >> 3, c0 = (tid & 7) * CPT, grow = mt * 16 + row;
       float mstar = NEG_INF;
 #pragma unroll
       for (int w = 0; w < 4; ++w) mstar = fmaxf(mstar, mm[w * 16 + row]);
-      float lsum = 0.f, acc[8];
+      float lsum = 0.f, acc[CPT];
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[c] = 0.f;
+      for (int c = 0; c < CPT; ++c) acc[c] = 0.f;
 #pragma unroll
       for (int w = 0; w < 4; ++w) {
         const float wt = exp2f(mm[w * 16 + row] - mstar);
         lsum += wt * ml[w * 16 + row];
 #pragma unroll
-        for (int c = 0; c < 8; ++c) acc[c] += wt * mo[(w * 16 + row) * LDO + c0 + c];
+        for (int c = 0; c < CPT; ++c) acc[c] += wt * mo[(w * 16 + row) * LDO + c0 + c];
       }
       if (grow < R) {
         if (nlive == 1) {
-          store8(out + qoff + (size_t)grow * 64 + c0, acc, 1.f / (lsum == 0.f ? 1.f : lsum));
+          const float inv = 1.f / (lsum == 0.f ? 1.f : lsum);
+#pragma unroll
+          for (int c = 0; c < CPT; c += 8)
+            store8(out + qoff + (size_t)grow * D + c0 + c, acc + c, inv);
         } else {
           const size_t pr = ((size_t)bg * nsplit + split) * R + grow;
-          float4* po = reinterpret_cast<float4*>(part_o + pr * 64 + c0);
-          po[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-          po[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+          float4* po = reinterpret_cast<float4*>(part_o + pr * D + c0);
+#pragma unroll
+          for (int c = 0; c < CPT / 4; ++c)
+            po[c] = make_float4(acc[4 * c], acc[4 * c + 1], acc[4 * c + 2], acc[4 * c + 3]);
           if ((tid & 7) == 0) *reinterpret_cast<float2*>(part_ml + pr * 2) = make_float2(mstar, lsum);
         }
       }
@@ -738,10 +771,10 @@ __device__ __forceinline__ void split_attention(
   __syncthreads();
   if (!*last) return;
   __threadfence();
-  const float* po = part_o + (size_t)bg * nsplit * R * 64;
+  const float* po = part_o + (size_t)bg * nsplit * R * D;
   const float* pml = part_ml + (size_t)bg * nsplit * R * 2;
-  for (int i = tid; i < R * 8; i += THREADS) {
-    const int row = i >> 3, c0 = (i & 7) * 8;
+  for (int i = tid; i < R * CH; i += THREADS) {
+    const int row = i / CH, c0 = (i % CH) * 8;
     float mstar = NEG_INF;
     for (int sp = 0; sp < nlive; ++sp) mstar = fmaxf(mstar, __ldcg(pml + ((size_t)sp * R + row) * 2));
     float lsum = 0.f, acc[8];
@@ -752,27 +785,27 @@ __device__ __forceinline__ void split_attention(
       const float2 ml_s = __ldcg(reinterpret_cast<const float2*>(pml + pr * 2));
       const float wt = exp2f(ml_s.x - mstar);
       lsum += wt * ml_s.y;
-      const float4 a = __ldcg(reinterpret_cast<const float4*>(po + pr * 64 + c0));
-      const float4 c = __ldcg(reinterpret_cast<const float4*>(po + pr * 64 + c0 + 4));
+      const float4 a = __ldcg(reinterpret_cast<const float4*>(po + pr * D + c0));
+      const float4 c = __ldcg(reinterpret_cast<const float4*>(po + pr * D + c0 + 4));
       acc[0] += wt * a.x; acc[1] += wt * a.y; acc[2] += wt * a.z; acc[3] += wt * a.w;
       acc[4] += wt * c.x; acc[5] += wt * c.y; acc[6] += wt * c.z; acc[7] += wt * c.w;
     }
-    store8(out + qoff + (size_t)row * 64 + c0, acc, 1.f / (lsum == 0.f ? 1.f : lsum));
+    store8(out + qoff + (size_t)row * D + c0, acc, 1.f / (lsum == 0.f ? 1.f : lsum));
   }
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 verify_split_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
                     const int* __restrict__ bt, const int* __restrict__ pos, T* __restrict__ out,
                     float* __restrict__ part_o, float* __restrict__ part_ml,
                     int* __restrict__ tickets, int HKV, int R, int win, int bs, int nbper,
                     int nsplit, float scale2) {
-  split_attention<T, T>(q, kp, vp, nullptr, nullptr, bt, pos, out, part_o, part_ml, tickets, HKV,
-                        R, win, bs, nbper, nsplit, scale2);
+  split_attention<T, T, D>(q, kp, vp, nullptr, nullptr, bt, pos, out, part_o, part_ml, tickets,
+                           HKV, R, win, bs, nbper, nsplit, scale2);
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 q8_split_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
                 const __nv_bfloat16* __restrict__ ksc, const int8_t* __restrict__ vc,
@@ -780,60 +813,76 @@ q8_split_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
                 const int* __restrict__ pos, T* __restrict__ out, float* __restrict__ part_o,
                 float* __restrict__ part_ml, int* __restrict__ tickets, int HKV, int R, int win,
                 int bs, int nbper, int nsplit, float scale2) {
-  split_attention<T, int8_t>(q, kc, vc, ksc, vsc, bt, pos, out, part_o, part_ml, tickets, HKV, R,
-                             win, bs, nbper, nsplit, scale2);
+  split_attention<T, int8_t, D>(q, kc, vc, ksc, vsc, bt, pos, out, part_o, part_ml, tickets, HKV,
+                                R, win, bs, nbper, nsplit, scale2);
 }
 
 // KV = T: a 16-bit pool (k, v; the scales unused); KV = int8_t: codes k, v
 // with bf16 scales k_scale, v_scale.
-template <typename T, typename KV>
+template <typename T, typename KV, int D>
 int launch(const void* q, const void* k, const void* k_scale, const void* v,
            const void* v_scale, const void* bt, const void* pos, void* out, void* scratch,
            void* tickets, int B, int H, int HKV, int win, int bs, int nbper, int nsplit,
            float scale, void* stream) {
   const int R = (H / HKV) * win;
   if (R > MAX_R || nsplit != (nbper * bs + KS - 1) / KS) return (int)cudaErrorInvalidValue;
-  const int smem = (int)smem_bytes(R);
+  const int smem = (int)smem_bytes(R, D);
   float* part_o = (float*)scratch;
-  float* part_ml = part_o + (size_t)B * HKV * nsplit * R * 64;
+  float* part_ml = part_o + (size_t)B * HKV * nsplit * R * D;
   const dim3 grid(nsplit, HKV, B);
   cudaError_t e;
   if constexpr (std::is_same<KV, int8_t>::value) {
-    e = cudaFuncSetAttribute(q8_split_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    e = cudaFuncSetAttribute(q8_split_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
     if (e != cudaSuccess) return (int)e;
-    q8_split_kernel<T><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+    q8_split_kernel<T, D><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
         (const T*)q, (const int8_t*)k, (const __nv_bfloat16*)k_scale, (const int8_t*)v,
         (const __nv_bfloat16*)v_scale, (const int*)bt, (const int*)pos, (T*)out, part_o, part_ml,
         (int*)tickets, HKV, R, win, bs, nbper, nsplit, scale * LOG2E);
   } else {
-    e = cudaFuncSetAttribute(verify_split_kernel<T>,
+    e = cudaFuncSetAttribute(verify_split_kernel<T, D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    verify_split_kernel<T><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+    verify_split_kernel<T, D><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (const int*)bt, (const int*)pos, (T*)out, part_o,
         part_ml, (int*)tickets, HKV, R, win, bs, nbper, nsplit, scale * LOG2E);
   }
   return (int)cudaGetLastError();
 }
 
-// dtype 1 (fp16) or 2 (bf16) of q and out: launch<T, KV> with KV = T, or
-// int8_t when Q8.
+// dtype 1 (fp16) or 2 (bf16) of q and out, D 64 or 128: launch<T, KV, D>
+// with KV = T, or int8_t when Q8.
+template <bool Q8, int D>
+int dispatch_d(int dtype, const void* q, const void* k, const void* k_scale, const void* v,
+               const void* v_scale, const void* bt, const void* pos, void* out, void* scratch,
+               void* tickets, int B, int H, int HKV, int T, int bs, int nbper, int nsplit,
+               float scale, void* stream) {
+  switch (dtype) {
+    case 1:
+      return launch<__half, typename std::conditional<Q8, int8_t, __half>::type, D>(
+          q, k, k_scale, v, v_scale, bt, pos, out, scratch, tickets, B, H, HKV, T, bs, nbper,
+          nsplit, scale, stream);
+    case 2:
+      return launch<__nv_bfloat16, typename std::conditional<Q8, int8_t, __nv_bfloat16>::type,
+                    D>(q, k, k_scale, v, v_scale, bt, pos, out, scratch, tickets, B, H, HKV, T,
+                       bs, nbper, nsplit, scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <bool Q8>
 int dispatch(int dtype, const void* q, const void* k, const void* k_scale, const void* v,
              const void* v_scale, const void* bt, const void* pos, void* out, void* scratch,
              void* tickets, int B, int H, int HKV, int T, int bs, int nbper, int nsplit,
              int D, float scale, void* stream) {
-  if (D != 64) return (int)cudaErrorInvalidValue;
-  switch (dtype) {
-    case 1:
-      return launch<__half, typename std::conditional<Q8, int8_t, __half>::type>(
-          q, k, k_scale, v, v_scale, bt, pos, out, scratch, tickets, B, H, HKV, T, bs, nbper,
-          nsplit, scale, stream);
-    case 2:
-      return launch<__nv_bfloat16, typename std::conditional<Q8, int8_t, __nv_bfloat16>::type>(
-          q, k, k_scale, v, v_scale, bt, pos, out, scratch, tickets, B, H, HKV, T, bs, nbper,
-          nsplit, scale, stream);
+  switch (D) {
+    case 64:
+      return dispatch_d<Q8, 64>(dtype, q, k, k_scale, v, v_scale, bt, pos, out, scratch, tickets,
+                                B, H, HKV, T, bs, nbper, nsplit, scale, stream);
+    case 128:
+      return dispatch_d<Q8, 128>(dtype, q, k, k_scale, v, v_scale, bt, pos, out, scratch,
+                                 tickets, B, H, HKV, T, bs, nbper, nsplit, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -875,8 +924,8 @@ int ds_paged_verify_attention(const void* q, const void* k_pool,
                                nbper, scale, stream);
 }
 
-// bf16 (dtype 2) or fp16 (1) q, pools and out; D = 64.  scratch: f32
-// [B*HKV*nsplit*R*66] for the splits' partials, R = (H/HKV)*T; tickets:
+// bf16 (dtype 2) or fp16 (1) q, pools and out; D = 64 or 128.  scratch:
+// f32 [B*HKV*nsplit*R*(D+2)] for the splits' partials, R = (H/HKV)*T; tickets:
 // int32 [B*HKV], zero on entry and on return; nsplit = ceil(nbper*bs/128).
 int ds_paged_verify_attention_split(const void* q, const void* k_pool,
                                     const void* v_pool, const void* block_tables,
@@ -891,7 +940,7 @@ int ds_paged_verify_attention_split(const void* q, const void* k_pool,
 
 // bf16 (dtype 2) or fp16 (1) q and out, T <= 16 (1 for decode), against an
 // int8 pool: codes int8 [NB,HKV,bs,D] and scales bf16 [NB,HKV,bs] for K and
-// for V; D = 64; scratch, tickets and nsplit as for
+// for V; D = 64 or 128; scratch, tickets and nsplit as for
 // ds_paged_verify_attention_split.
 int ds_paged_attention_q8_split(const void* q, const void* k_codes, const void* k_scale,
                                 const void* v_codes, const void* v_scale,

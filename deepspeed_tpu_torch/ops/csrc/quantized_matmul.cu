@@ -35,7 +35,9 @@
 // 64-column tile gets a thread-block cluster of C <= 16 blocks that split
 // its k-groups, gpb = K/G/C each (the fewest that divide K/G): 216 blocks
 // of one group at (768, 2304), 288 at (768, 3072), 72 at (768, 768), 144
-// of two groups at (3072, 768).  A block of several groups is two
+// of two groups at (3072, 768); at llama-3-8b's w2 (14336, 4096), 112
+// groups, 1024 blocks of 7, and at llama-3-70b's (28672, 8192), 224
+// groups, 2048 blocks of 14.  A block of several groups is two
 // sub-blocks of 128 threads, each on its own group, so its two groups
 // take the time of one.  A sub-block's 4 warps issue their weight loads
 // first, 16 words a thread a pass of 128 k-rows straight into registers
@@ -54,12 +56,17 @@
 // records keep the JAX package's layout.  int32 sums of 128 products of
 // |127| are exact, so the dot is the integer of the plain version.  The 4
 // warps' dots are summed in shared memory (exact), and each group's term
-// t_g is stored into the shared memory of the cluster's block 0 (terms
-// [K/G][8][64] f32: K/G <= 104 fits); after one cluster barrier block 0
-// sums the terms in group order and writes the output.  One launch, no
-// scratch in device memory, no second pass: a merge through device memory
-// (scratch, a fence, an atomic ticket, a re-read) costs three dependent
-// trips to L2 where this costs one cluster barrier.  B6 reads the layer
+// t_g stays in the shared memory of the block that computed it (terms
+// [gpb][8][64] f32, 2 KB a group: gpb <= 104 fits); after a cluster barrier
+// block 0 reads the terms in group order, group g from rank g / gpb through
+// distributed shared memory, sums them and writes the output, and a second
+// barrier keeps every block's terms alive until then.  So the number of
+// groups is bounded by 16 blocks of 104, not by one block's shared memory
+// (as when every term went into block 0's: 104 groups), and the sum order
+// is the same group order as that design's, so its outputs are the same
+// bits.  One launch, no scratch in device memory, no second pass: a merge
+// through device memory (scratch, a fence, an atomic ticket, a re-read)
+// costs three dependent trips to L2 where this costs a cluster barrier.  B6 reads the layer
 // index once a block and clamps it to [0, L).  G is any divisor of K: a
 // group is taken in passes of 128 k-rows and rows past its end read as
 // zero codes and zero weights.
@@ -134,17 +141,10 @@ constexpr int W8_TN = 64;                        // output columns per block
 constexpr int W8_KC = 128;                       // k-rows a pass, 32 a warp
 constexpr int W8_XQ = W8_KC + 16;                // code row stride (bytes)
 constexpr int W8_CLUSTER = 16;                   // blocks of a column tile
-// k-groups a call may have: their terms fill the first block's dynamic
-// shared memory, 2 KB each
-constexpr int W8_MAX_GROUPS = 104;
-constexpr size_t W8_MAX_SMEM = (size_t)W8_MAX_GROUPS * W8_ROWS * W8_TN * 4;
-
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
+// k-groups a block may take: their terms fill its dynamic shared memory,
+// 2 KB each (so a call takes up to 16 x 104 groups, as they divide)
+constexpr int W8_MAX_GPB = 104;
+constexpr size_t W8_MAX_SMEM = (size_t)W8_MAX_GPB * W8_ROWS * W8_TN * 4;
 
 // c[16 x 8] (s32) += a[16 x 32] * b[32 x 8] (s8), fragments as mma.sync lays
 // them out, lane = 4 * grp + tig: a[0] row grp at k 4*tig..+3 (the low byte
@@ -198,9 +198,9 @@ __device__ __forceinline__ void load_pass(uint32_t (&w)[4][4],
 // with cluster dims (1, C, 1), C = K / G / gpb <= 16 blocks, block y taking
 // k-groups [y * gpb, (y + 1) * gpb), P at a time: the block is P sub-blocks
 // of 128 threads, sub-block s on group gc + s of each step gc.  Each
-// group's term goes into the shared memory of the cluster's block 0
-// (terms [K / G][8 rows][16 column quads], dynamic), which after a cluster
-// barrier sums them in group order and writes the output.
+// group's term stays in the block's shared memory (terms [gpb][8 rows][16
+// column quads], dynamic); after a cluster barrier the cluster's block 0
+// reads them all in group order, sums them and writes the output.
 template <typename TX, typename TO, int P>
 __global__ void __launch_bounds__(W8_THREADS * P)
 w8a8_split_kernel(const TX* __restrict__ x, const int8_t* __restrict__ qk,
@@ -225,7 +225,6 @@ w8a8_split_kernel(const TX* __restrict__ x, const int8_t* __restrict__ qk,
   }
   const int kw = 32 * warp + 4 * tig;
   const TX* xrow = x + (size_t)min(row, B - 1) * K;
-  float4* sink = cluster.map_shared_rank(terms, 0);
 
   for (int gc = 0; gc < gpb; gc += P) {
     const bool live = gc + sub < gpb;
@@ -244,9 +243,6 @@ w8a8_split_kernel(const TX* __restrict__ x, const int8_t* __restrict__ qk,
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       xv[j] = live && row < B && k8 + j < G ? Cvt<TX>::in(xg[k8 + j]) : 0.f;
-    // every block of the cluster has started before any writes into block
-    // 0's shared memory; the barrier's latency hides under the loads'
-    if (gc == 0) cluster_arrive_relaxed();
 
     // ax = max |x| over the row's group: the thread's values, then the 16
     // threads of the row (an exact max, so its order is free)
@@ -314,32 +310,35 @@ w8a8_split_kernel(const TX* __restrict__ x, const int8_t* __restrict__ qk,
       dot[0] += v.x; dot[1] += v.y; dot[2] += v.z; dot[3] += v.w;
     }
     const float s = __fdiv_rn(ax, 127.f);
-    if (gc == 0) cluster_wait();
     if (live)
-      sink[(g * W8_ROWS + row) * (W8_TN / 4) + quad] = make_float4(
+      terms[((gc + sub) * W8_ROWS + row) * (W8_TN / 4) + quad] = make_float4(
           __fmul_rn(__fmul_rn((float)dot[0], s), ks.x),
           __fmul_rn(__fmul_rn((float)dot[1], s), ks.y),
           __fmul_rn(__fmul_rn((float)dot[2], s), ks.z),
           __fmul_rn(__fmul_rn((float)dot[3], s), ks.w));
   }
 
-  // block 0 sums the terms in group order once every block's are in
+  // block 0 sums the terms in group order once every block's are in,
+  // group gi from rank gi / gpb's shared memory
   cluster.sync();
   if (cluster.block_rank() == 0 && sub == 0 && row < B) {
-    const int ngroups = gpb * (int)gridDim.y;
     float sum[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int r = 0; r < (int)gridDim.y; ++r) {
+      const float4* src = cluster.map_shared_rank(terms, r) + row * (W8_TN / 4) + quad;
 #pragma unroll 4
-    for (int gi = 0; gi < ngroups; ++gi) {
-      const float4 v = terms[(gi * W8_ROWS + row) * (W8_TN / 4) + quad];
-      sum[0] = __fadd_rn(sum[0], v.x);
-      sum[1] = __fadd_rn(sum[1], v.y);
-      sum[2] = __fadd_rn(sum[2], v.z);
-      sum[3] = __fadd_rn(sum[3], v.w);
+      for (int lg = 0; lg < gpb; ++lg) {
+        const float4 v = src[lg * W8_ROWS * (W8_TN / 4)];
+        sum[0] = __fadd_rn(sum[0], v.x);
+        sum[1] = __fadd_rn(sum[1], v.y);
+        sum[2] = __fadd_rn(sum[2], v.z);
+        sum[3] = __fadd_rn(sum[3], v.w);
+      }
     }
     TO* orow = out + (size_t)row * N + n0 + 4 * quad;
 #pragma unroll
     for (int j = 0; j < 4; ++j) orow[j] = Cvt<TO>::out(sum[j]);
   }
+  cluster.sync();                                // terms read: blocks may end
 }
 
 constexpr int QM_THREADS = 128;                  // 4 warps
@@ -593,13 +592,13 @@ int launch_cluster(void (*kernel)(A...), cudaError_t setup, dim3 grid,
 }
 
 // k-groups a block of the w8a8 kernel takes: the fewest that divide K / G
-// and leave at most W8_CLUSTER blocks, one cluster, a column tile; 0 past
-// W8_MAX_GROUPS groups.
+// and leave at most W8_CLUSTER blocks, one cluster, a column tile; 0 when
+// that is more than W8_MAX_GPB (a prime count past 104, or past 16 x 104).
 int w8a8_groups_per_block(int groups) {
-  if (groups < 1 || groups > W8_MAX_GROUPS) return 0;
+  if (groups < 1) return 0;
   int gpb = (groups + W8_CLUSTER - 1) / W8_CLUSTER;
   while (groups % gpb) ++gpb;
-  return gpb;
+  return gpb <= W8_MAX_GPB ? gpb : 0;
 }
 
 template <typename TX, typename TO, int P>
@@ -611,7 +610,7 @@ int launch_w8a8_p(const void* layer, const void* x, const void* qk,
   const int groups = K / G, blocks = groups / gpb;
   return launch_cluster(kernel, setup, dim3(N / W8_TN, blocks),
                         W8_THREADS * P,
-                        (size_t)groups * W8_ROWS * W8_TN * sizeof(float),
+                        (size_t)gpb * W8_ROWS * W8_TN * sizeof(float),
                         stream, (const TX*)x, (const int8_t*)qk,
                         (const float*)kscale, (const int*)layer, (TO*)out, L,
                         B, K, N, G, gpb);

@@ -32,7 +32,9 @@ Two kinds of function, one API:
    serving path calls it.
 
 The dispatchers ``decode_attention`` and ``paged_decode_attention`` pick
-between them by window length, as the JAX dispatchers do on the TPU.
+between them by window length, as the JAX dispatchers do on the TPU;
+``sliced_window_attention`` runs a window of any width through the verify
+kernel, sixteen query positions at a time (the llama family's prefill).
 """
 
 from __future__ import annotations
@@ -58,9 +60,9 @@ VERIFY_SPLIT_MAX_ROWS = 256
 #: counters the split-K kernel's merge uses
 _TICKET_SLOTS = 1 << 16
 
-#: head dims the library is built for (GPT-2's 64; others come with the
-#: model families that need them)
-_HEAD_DIMS = (64,)
+#: head dims the library is built for (GPT-2's 64, llama's 128; others come
+#: with the model families that need them)
+_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _SMEM_LIMIT = 227 * 1024
 
@@ -461,7 +463,8 @@ def _paged_cuda(wrapper, entry, q, k_pool, v_pool, block_tables, q_pos,
         nsplit = verify_splits(nbper, bs)
         # one split: every row writes its output directly, no partials
         scratch = None if nsplit == 1 else torch.empty(
-            b * h * t * nsplit * 66, dtype=torch.float32, device=q.device)
+            b * h * t * nsplit * (d + 2), dtype=torch.float32,
+            device=q.device)
         args += [0 if scratch is None else scratch.data_ptr(),
                  _tickets(q.device).data_ptr()]
     args += [b, h, hkv]
@@ -601,6 +604,27 @@ def decode_attention(q, k_cache, v_cache, q_pos, *,
                                      sm_scale=sm_scale)
     return decode_attention_reference(q, k_cache, v_cache, q_pos,
                                       sm_scale=sm_scale)
+
+
+def sliced_window_attention(q, k_cache, v_cache, q_pos, block_tables=None,
+                            *, sm_scale: Optional[float] = None):
+    """A window of any width T against a paged pool (``block_tables``
+    given) or a contiguous cache ``[B, HKV, S, D]`` (``None``: read as a
+    pool of one S-key block a row, as B2 reads it), through
+    :func:`paged_verify_attention_cuda` on slices of at most
+    :data:`VERIFY_T_MAX` query positions, slice ``j`` at base ``q_pos +
+    16 j``; the cache holds the whole window already.  A query row's
+    result depends only on its own position and keys, so a row gets the
+    same arithmetic in a 128-token prefill window as in sixteen-token ones
+    (the JAX dispatch sends windows past 16 to the plain path, another
+    arithmetic).  On the CPU each slice takes the plain version."""
+    if block_tables is None:
+        block_tables = _row_tables(q.shape[0], q.device)
+    out = [paged_verify_attention_cuda(
+        q[:, :, s0:s0 + VERIFY_T_MAX].contiguous(), k_cache, v_cache,
+        block_tables, q_pos + s0, sm_scale=sm_scale)
+        for s0 in range(0, q.shape[2], VERIFY_T_MAX)]
+    return out[0] if len(out) == 1 else torch.cat(out, dim=2)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, q_pos, *,

@@ -17,7 +17,8 @@ layouts so a record moves between the packages leaf for leaf
    token vector, the payload of the kv8 pool records of ``ops/paged_kv.py``.
 
 Everything here is plain PyTorch and runs on whatever device its inputs
-live on (the inference engine quantizes on the host).  Codes and scales
+live on (the inference engine quantizes on its own device, one layer of the
+stacked blocks at a time).  Codes and scales
 equal the JAX package's bit for bit: the same f32 operations in the same
 order, ``torch.round`` rounding half to even as ``jnp.round`` does.
 """
@@ -134,20 +135,50 @@ def _is_weight_matrix(x, path, min_size: int, min_ndim: int) -> bool:
             and not _is_norm_path(path))
 
 
+def _by_layer(fn: Callable, x: torch.Tensor, device) -> dict:
+    """``fn(x)`` of a stacked ``[L, ...]`` leaf computed one layer at a time
+    on ``device`` and stacked into records there.  Equal bit for bit to
+    ``fn(x)`` when ``fn``'s groups never span the leading axis (every
+    quantizer here); its temporaries are one layer's, not the stack's."""
+    out = None
+    for i in range(x.shape[0]):
+        rec = fn(x[i].to(device))
+        if out is None:
+            out = {k: torch.empty((x.shape[0],) + tuple(v.shape),
+                                  dtype=v.dtype, device=device)
+                   for k, v in rec.items()}
+        for k, v in rec.items():
+            out[k][i] = v
+    return out
+
+
+def _quantizer(fn: Callable, device):
+    """``fn`` on a whole leaf, or layer by layer on ``device``."""
+    if device is None:
+        return fn
+    return lambda x: _by_layer(fn, x, device)
+
+
 def quantize_pytree(params: PyTree, num_bits: int = 8, group_size: int = 64,
                     symmetric: bool = True, min_size: int = 4096,
-                    min_penultimate: int = 64, min_ndim: int = 2) -> PyTree:
+                    min_penultimate: int = 64, min_ndim: int = 2,
+                    device=None) -> PyTree:
     """Quantize weight-matrix-like float leaves, others pass through
     (``:81``): at least ``min_size`` elements and ``min_ndim`` (>= 2) dims,
     a last dim divisible by ``group_size``, ``shape[-2] >=
     min_penultimate``, and no norm/bias/scale name on the path.  Callers
     quantizing a stacked-blocks subtree pass ``min_ndim=3``, which keeps
-    every per-layer bias ``[L, d]`` dense."""
+    every per-layer bias ``[L, d]`` dense; with ``device`` too, each
+    eligible stacked leaf is quantized one layer at a time on ``device``
+    (the same records)."""
+    q = _quantizer(lambda x: quantize(x, num_bits, group_size, symmetric),
+                   device)
+
     def one(path, x):
         if (_is_weight_matrix(x, path, min_size, min_ndim)
                 and x.shape[-1] % group_size == 0
                 and x.shape[-2] >= min_penultimate):
-            return quantize(x, num_bits, group_size, symmetric)
+            return q(x)
         return x
 
     return _map_with_path(one, params)
@@ -236,19 +267,21 @@ def dequantize_k(rec: dict, dtype=torch.bfloat16) -> torch.Tensor:
 
 def quantize_pytree_k_grouped(params: PyTree, k_group: int = 256,
                               min_size: int = 4096, min_ndim: int = 2,
-                              shard_multiple: int = 1) -> PyTree:
+                              shard_multiple: int = 1,
+                              device=None) -> PyTree:
     """The w8a8 variant of :func:`quantize_pytree` (``:291``): the same
     weight-matrix selection (``min_ndim=3`` for stacked blocks), with
     ``K % k_group == 0`` and ``N % 128 == 0``; an eligible leaf's group
     size refines through :func:`pick_k_group` by ``shard_multiple``
     (uniformly: the JAX package's ``spec_tree`` refinement waits for the
     multi-GPU slice), so records are bit-identical to the JAX package's
-    for the same ``quant.shard_multiple``."""
+    for the same ``quant.shard_multiple``.  ``device`` as in
+    :func:`quantize_pytree`."""
     def one(path, x):
         if (_is_weight_matrix(x, path, min_size, min_ndim)
                 and x.shape[-2] % k_group == 0 and x.shape[-1] % 128 == 0):
             g = pick_k_group(x.shape[-2], k_group, shard_multiple) or k_group
-            return quantize_k_grouped(x, g)
+            return _quantizer(lambda w: quantize_k_grouped(w, g), device)(x)
         return x
 
     return _map_with_path(one, params)

@@ -22,8 +22,10 @@ use) on CUDA tensors and adds one to its ``launches`` count, or raises; it
 takes its plain PyTorch version (``*_plain``, the same arithmetic in the
 same order) only for tensors on the CPU.  B5 and B6 share one kernel,
 ``w8a8_split_kernel``: a cluster of up to 16 blocks per 64-column tile,
-each block on its own k-groups with the int8 tensor cores, and the groups'
-terms summed in group order by the cluster's first block;
+each block on its own k-groups with the int8 tensor cores, keeping their
+terms in its shared memory, and the groups' terms summed in group order by
+the cluster's first block, which reads the others' through distributed
+shared memory;
 ``w8a8_matmul_split_plain`` models that tiling for the tests and
 ``chip_smoke.py``.  B7 runs ``qmm_split_kernel``: the same cluster shape
 over 128-row k-chunks, the weight tile dequantized in registers into bf16
@@ -52,10 +54,10 @@ W8A8_MAX_ROWS = 8
 #: ``csrc/quantized_matmul.cu``)
 W8A8_TILE_N = 64
 #: blocks of one column tile (a thread-block cluster, ``W8_CLUSTER``) and
-#: the k-groups one call may have (``W8_MAX_GROUPS``: their terms fill the
-#: first block's shared memory)
+#: the k-groups one block may take (``W8_MAX_GPB``: their terms fill its
+#: shared memory), so a call takes up to 16 x 104 groups as they divide
 _W8A8_CLUSTER = 16
-W8A8_MAX_GROUPS = 104
+W8A8_MAX_GROUPS_PER_BLOCK = 104
 
 #: the weight-only kernel's column tile, k-chunk and most blocks of a
 #: column tile (``QM_TN``, ``QM_KC``, ``QM_CLUSTER`` in
@@ -268,14 +270,15 @@ def _lib():
 def w8a8_groups_per_block(groups: int) -> int:
     """k-groups one block of the w8a8 kernel takes (the launcher's rule in
     ``csrc/quantized_matmul.cu``): the fewest that divide ``groups`` and
-    leave at most 16 blocks, one cluster, a column tile; 0 past
-    :data:`W8A8_MAX_GROUPS` groups."""
-    if not 1 <= groups <= W8A8_MAX_GROUPS:
+    leave at most 16 blocks, one cluster, a column tile; 0 when that is
+    more than :data:`W8A8_MAX_GROUPS_PER_BLOCK` (a prime count past 104, or
+    more than 16 x 104 groups)."""
+    if groups < 1:
         return 0
     gpb = -(-groups // _W8A8_CLUSTER)
     while groups % gpb:
         gpb += 1
-    return gpb
+    return gpb if gpb <= W8A8_MAX_GROUPS_PER_BLOCK else 0
 
 
 def qmm_chunks_per_block(k_dim: int, n_dim: int, group: int) -> int:
@@ -338,8 +341,9 @@ def _check_w8a8_shapes(name, x2d, k_dim, n_dim, k_group):
         raise ValueError(f"{name}: N={n_dim} must be a multiple of 128 and "
                          f"K={k_dim} whole k-groups of {k_group}")
     if not w8a8_groups_per_block(k_dim // k_group):
-        raise ValueError(f"{name}: K/G={k_dim // k_group} k-groups > "
-                         f"{W8A8_MAX_GROUPS}")
+        raise ValueError(f"{name}: K/G={k_dim // k_group} k-groups do not "
+                         f"split into at most 16 blocks of "
+                         f"{W8A8_MAX_GROUPS_PER_BLOCK}")
 
 
 def w8a8_matmul_cuda(x2d, qk, kscale3, out_dtype=None):

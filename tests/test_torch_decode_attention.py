@@ -81,6 +81,59 @@ def test_paged_attention_reference_matches_jax(rep, t):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
+@pytest.mark.parametrize("t", [1, 5, 16])
+def test_head_dim_128_gqa_matches_jax_reference_and_pallas(t):
+    """Llama's geometry: head dim 128, GQA rep 4 (8 query heads over 2 KV
+    heads), ragged rows: the plain paths and the split-K model against
+    the JAX reference and its Pallas kernels in interpret mode (the
+    contiguous decode at T = 1, the paged decode or verify)."""
+    c = _case(900 + t, b=4, h=8, hkv=2, t=t, d=128, bs=16, nbper=10)
+    args = (c["q"], c["kp"], c["vp"], c["bt"], c["pos"])
+    jargs = tuple(map(jnp.asarray, args))
+    want = np.asarray(jda.paged_decode_attention_reference(*jargs))
+    fn = jda.paged_decode_attention_pallas if t == 1 \
+        else jda.paged_verify_attention_pallas
+    np.testing.assert_allclose(np.asarray(fn(*jargs, interpret=True)), want,
+                               **TOL)
+    for got in (tda.paged_decode_attention(*map(_t, args)),
+                tda.paged_verify_split_plain(*map(_t, args))):
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+    if t != 1:
+        return
+    cargs = (c["q"], c["k"], c["v"], c["pos"])
+    want = np.asarray(jda.decode_attention_reference(*map(jnp.asarray,
+                                                         cargs)))
+    np.testing.assert_allclose(np.asarray(jda.decode_attention_pallas(
+        *map(jnp.asarray, cargs), interpret=True)), want, **TOL)
+    bt = torch.arange(4, dtype=torch.int32)[:, None]
+    for got in (tda.decode_attention(*map(_t, cargs)),
+                tda.paged_verify_split_plain(_t(c["q"]), _t(c["k"]),
+                                             _t(c["v"]), bt, _t(c["pos"]))):
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_sliced_window_attention_matches_jax_reference(paged):
+    """A 40-position window through ``sliced_window_attention`` (slices of
+    16, 16 and 8 at their own bases; on the CPU each slice takes the plain
+    version) against the JAX reference of the whole window, head dim 128,
+    GQA rep 4, per-row and shared positions."""
+    c = _case(950, b=3, h=8, hkv=2, t=40, d=128, bs=16, nbper=6)
+    if paged:
+        args = (c["q"], c["kp"], c["vp"], c["bt"], c["pos"])
+        want = jda.paged_decode_attention_reference(*map(jnp.asarray, args))
+        got = tda.sliced_window_attention(_t(c["q"]), _t(c["kp"]),
+                                          _t(c["vp"]), _t(c["pos"]),
+                                          _t(c["bt"]))
+    else:
+        args = (c["q"], c["k"], c["v"], np.int32(17))
+        want = jda.decode_attention_reference(*map(jnp.asarray, args))
+        got = tda.sliced_window_attention(_t(c["q"]), _t(c["k"]),
+                                          _t(c["v"]), 17)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert [fn.launches for fn in tda.KERNELS] == [0] * 5
+
+
 def test_wide_window_takes_the_plain_path_and_cpu_never_counts():
     """Windows past VERIFY_T_MAX go to the plain path, and CPU calls never
     count as kernel launches."""

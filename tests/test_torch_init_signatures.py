@@ -91,6 +91,79 @@ def test_sparse_attention_entry_points_keep_the_jax_signatures(name):
     assert tsa.__all__ == jsa.__all__
 
 
+def _method_pairs():
+    """(label, JAX callable, port callable) for the serving methods, the
+    request record, ``generate`` and the llama family's builders."""
+    from deepspeed_tpu.inference import engine as jeng
+    from deepspeed_tpu.inference import serving as jsrv
+    from deepspeed_tpu.models import llama as jllama
+    from deepspeed_tpu_torch.inference import engine as teng
+    from deepspeed_tpu_torch.inference import serving as tsrv
+    from deepspeed_tpu_torch.models import llama as tllama
+
+    return [
+        ("ServingEngine.submit", jsrv.ServingEngine.submit,
+         tsrv.ServingEngine.submit),
+        ("ServingEngine.serve", jsrv.ServingEngine.serve,
+         tsrv.ServingEngine.serve),
+        ("Request", jsrv.Request, tsrv.Request),
+        ("InferenceEngine.generate", jeng.InferenceEngine.generate,
+         teng.InferenceEngine.generate),
+        ("llama.build", jllama.build, tllama.build),
+        ("LlamaConfig", jllama.LlamaConfig, tllama.LlamaConfig),
+    ]
+
+
+METHODS = ["ServingEngine.submit", "ServingEngine.serve", "Request",
+           "InferenceEngine.generate", "llama.build", "LlamaConfig"]
+
+
+@pytest.mark.parametrize("name", METHODS)
+def test_methods_keep_the_jax_signatures(name):
+    """Every parameter of the JAX method, in its order, with its kind and
+    default (a keyword the port does not implement is taken at that
+    default only: see the test below)."""
+    _, jfn, tfn = next(p for p in _method_pairs() if p[0] == name)
+    want, got = _params(jfn), _params(tfn)
+    assert list(got) == list(want), name
+    for p in want.values():
+        assert got[p.name].kind == p.kind, p.name
+        assert got[p.name].default == p.default, p.name
+
+
+# (method, keyword, a value other than the JAX default, its Queue A item)
+UNPORTED_METHOD_KEYWORDS = [
+    ("submit", "slo_class", "realtime", 4),
+    ("serve", "step_log", [], 5),
+    ("serve", "debug_checks", True, 5),
+    ("serve", "profile_dir", "prof", 5),
+    ("serve", "profile_iters", 4, 5),
+]
+
+
+@pytest.mark.parametrize("method,keyword,value,item",
+                         UNPORTED_METHOD_KEYWORDS,
+                         ids=[k for _, k, _, _ in UNPORTED_METHOD_KEYWORDS])
+def test_unported_method_keywords_refuse_other_values(engine, method, keyword,
+                                                      value, item):
+    """The serving methods' keywords the port does not implement yet raise
+    ``NotImplementedError`` naming their Queue A item for any value but
+    the JAX default; at the default the call serves as before."""
+    srv = deepspeed_tpu_torch.init_serving(
+        engine.module, params=engine.params, config={"dtype": "fp32"},
+        device="cpu", slots=2, max_seq_len=64, block_size=8, sampling=False)
+    req = Request(uid=0, prompt=np.arange(5), max_new_tokens=2)
+    fn = getattr(srv, method)
+    with pytest.raises(NotImplementedError,
+                       match=rf"{keyword}=.*Queue A item {item}\)"):
+        fn(req, **{keyword: value}) if method == "submit" else \
+            fn([req], **{keyword: value})
+    out = srv.serve([req], **{keyword: None}) if method == "serve" else \
+        srv.serve([req])
+    want = engine.generate(np.arange(5)[None], max_new_tokens=2)[0]
+    np.testing.assert_array_equal(out[0], want)
+
+
 def test_every_unported_serving_keyword_is_listed():
     assert {k for k, _, _ in UNPORTED} == \
         set(_params(deepspeed_tpu.init_serving)) - PORTED
@@ -109,6 +182,23 @@ def test_unported_serving_keywords_refuse_other_values(model, keyword, value,
     with pytest.raises(NotImplementedError,
                        match=rf"{keyword}=.*Queue A item {item}\)"):
         deepspeed_tpu_torch.init_serving(model, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("name,layers", [("llama-3-8b", 32),
+                                         ("Llama_3.70B", 80), ("gpt2", 12)])
+def test_get_model_keeps_the_jax_names(name, layers):
+    from deepspeed_tpu_torch import models
+
+    assert models.get_model(name).model_config.num_layers == layers
+    assert models.get_model(name, num_layers=2).model_config.num_layers == 2
+
+
+@pytest.mark.parametrize("name", ["mixtral-8x7b", "opt-125m", "bert"])
+def test_get_model_refuses_families_it_does_not_port(name):
+    from deepspeed_tpu_torch import models
+
+    with pytest.raises(NotImplementedError, match=r"Queue A item 7\)"):
+        models.get_model(name)
 
 
 def test_init_inference_refuses_models_it_does_not_port():

@@ -35,14 +35,15 @@ BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 
 
 @functools.lru_cache(maxsize=None)
-def _case(bs, t, rep, keys=48, base0_only=False, dtype="float32"):
+def _case(bs, t, rep, keys=48, base0_only=False, dtype="float32", d=16):
     """int8 records (numpy: codes, and bf16 scales as float32), queries,
     tables and positions, and the JAX Pallas kernel's output: 4 rows, 2 KV
-    heads, head dim 16; positions 0, the last window base and two between
-    (or all 0); shuffled tables with -1 past each row's span and one -1
-    inside row 1's span (both packages clamp it to scratch block 0)."""
+    heads, head dim ``d``; positions 0, the last window base and two
+    between (or all 0); shuffled tables with -1 past each row's span and
+    one -1 inside row 1's span (both packages clamp it to scratch block
+    0)."""
     rng = np.random.default_rng(1000 * bs + 10 * t + rep + keys)
-    b, hkv, d = 4, 2, 16
+    b, hkv = 4, 2
     nbper = keys // bs
     last = keys - t
     pos = np.zeros(b) if base0_only else np.concatenate(
@@ -88,6 +89,22 @@ def test_kv8_split_plain_matches_jax_pallas(keys_per_split, bs, t, rep):
                                        keys_per_split=keys_per_split)
     assert got.dtype == torch.float32 and got.shape == case[-1].shape
     np.testing.assert_allclose(got.numpy(), case[-1], **TOL)
+
+
+@pytest.mark.parametrize("keys_per_split", [8, tda.VERIFY_KEYS_PER_SPLIT])
+@pytest.mark.parametrize("t", [1, 5, 16])
+def test_kv8_split_plain_at_head_dim_128(keys_per_split, t):
+    """Llama's head dim 128 at GQA rep 4 on int8 records (the D = 128
+    ``q8_split_kernel``'s model) against the JAX Pallas kernel in
+    interpret mode; bf16 queries against its bf16 run."""
+    case = _case(4, t, 4, d=128)
+    got = tda.paged_verify_split_plain(*_torch_args(case),
+                                       keys_per_split=keys_per_split)
+    np.testing.assert_allclose(got.numpy(), case[-1], **TOL)
+    bf = _case(4, t, 4, d=128, dtype="bfloat16")
+    got = tda.paged_verify_split_plain(*_torch_args(bf, torch.bfloat16),
+                                       keys_per_split=keys_per_split)
+    np.testing.assert_allclose(got.float().numpy(), bf[-1], **BF16_TOL)
 
 
 @pytest.mark.parametrize("keys_per_split", [1, 8, tda.VERIFY_KEYS_PER_SPLIT])

@@ -205,6 +205,9 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         "import deepspeed_tpu_torch.ops.quantization\n"
         "import deepspeed_tpu_torch.ops.quantized_matmul\n"
         "import deepspeed_tpu_torch.ops.sparse_attention\n"
+        "import deepspeed_tpu_torch.models.llama\n"
+        "from deepspeed_tpu_torch.models import get_model\n"
+        "get_model('llama-3-8b')\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or "

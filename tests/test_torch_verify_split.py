@@ -29,13 +29,13 @@ KEYS = 48          # keys a row's table spans (NBPER * bs)
 
 
 @functools.lru_cache(maxsize=None)
-def _case(bs, t, rep, base0_only=False):
+def _case(bs, t, rep, base0_only=False, d=16):
     """Inputs (numpy) and the JAX reference's output: 4 rows, 2 KV heads,
-    head dim 16; positions 0, the last window base and two between (or all
-    0); shuffled tables with -1 past each row's span and one -1 inside
+    head dim ``d``; positions 0, the last window base and two between (or
+    all 0); shuffled tables with -1 past each row's span and one -1 inside
     row 1's span (both packages clamp it to scratch block 0)."""
     rng = np.random.default_rng(1000 * bs + 10 * t + rep)
-    b, hkv, d = 4, 2, 16
+    b, hkv = 4, 2
     nbper = KEYS // bs
     last = KEYS - t
     pos = np.zeros(b) if base0_only else np.concatenate(
@@ -70,6 +70,22 @@ def test_split_plain_matches_jax_reference(keys_per_split, bs, t, rep):
                                        keys_per_split=keys_per_split)
     assert got.dtype == torch.float32 and got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("keys_per_split", [8, tda.VERIFY_KEYS_PER_SPLIT])
+@pytest.mark.parametrize("t", [1, 5, 16])
+def test_split_plain_at_head_dim_128(keys_per_split, t):
+    """Llama's head dim 128 at GQA rep 4 (the D = 128 split kernels'
+    model), against the JAX reference and the JAX Pallas verify / decode
+    kernel in interpret mode."""
+    args, want = _case(4, t, 4, d=128)
+    got = tda.paged_verify_split_plain(*map(_t, args),
+                                       keys_per_split=keys_per_split)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    fn = jda.paged_decode_attention_pallas if t == 1 \
+        else jda.paged_verify_attention_pallas
+    pallas = np.asarray(fn(*map(jnp.asarray, args), interpret=True))
+    np.testing.assert_allclose(got.numpy(), pallas, **TOL)
 
 
 @pytest.mark.parametrize("keys_per_split", [1, 8, tda.VERIFY_KEYS_PER_SPLIT])

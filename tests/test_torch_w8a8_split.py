@@ -109,6 +109,37 @@ def test_split_plain_matches_jax_w8a8_call(k, k_group, n, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("groups", [112, 224])
+def test_split_plain_equals_jax_past_104_groups(groups, dtype):
+    """The long-K shapes (llama-3-8b's w2 at 112 k-groups of 128, and
+    llama-3-70b's at 224), which a block's shared memory no longer bounds:
+    the split model in its cluster's block layout (7 and 14 groups a
+    block) equals the plain version bit for bit, and the JAX
+    ``_w8a8_call`` and ``_w8a8_stacked_call`` in interpret mode at the
+    file's tolerances, f32 out.  (XLA on the CPU sums the groups' terms
+    with other roundings than the kernel's literal order: at two or more
+    groups the JAX interpret kernel differs from that order in the last
+    bits of 44-77% of the outputs, so no port can equal it bit for bit and
+    keep GPT-2's bits.)"""
+    k = 128 * groups
+    x, trec, jrec = _recs(k, 128, 128, layers=2)
+    gpb = tqm.w8a8_groups_per_block(groups)
+    assert gpb == groups // 16
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    qk, ks = trec["qk"][1], trec["kscale"][1]
+    # the (tile, group) pairs in an order the kernel's blocks may take:
+    # block y's groups together, the last block first, tile by tile
+    order = [tile * groups + g for tile in (1, 0)
+             for y in reversed(range(16)) for g in range(y * gpb,
+                                                         (y + 1) * gpb)]
+    got = tqm.w8a8_matmul_split_plain(xt, qk, ks, torch.float32, order=order)
+    assert torch.equal(got, tqm.w8a8_matmul_plain(xt, qk, ks, torch.float32))
+    for stacked in (False, True):
+        want = np.asarray(_jax_w8a8(x, jrec, 1, dtype, stacked))
+        np.testing.assert_allclose(got.numpy(), want, **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("k,k_group,n", [(384, 128, 896), (768, 256, 128)])
 def test_split_plain_matches_jax_stacked_call(k, k_group, n, dtype):
     """B6: layer indices 0, L - 1 and L (clamped to L - 1 in both
@@ -157,11 +188,13 @@ def test_zero_k_group_reads_ax_as_one():
 
 @pytest.mark.parametrize("groups,gpb", [
     (1, 1), (3, 1), (6, 1), (16, 1), (17, 17), (24, 2), (40, 4), (41, 41),
-    (104, 8), (105, 0)])
+    (104, 8), (105, 7), (107, 0), (112, 7), (224, 14), (1664, 104),
+    (1665, 0)])
 def test_w8a8_groups_per_block(groups, gpb):
     """The launcher's rule: the fewest k-groups a block that divide K / G
-    and leave at most 16 blocks (one cluster) a column tile; none past 104
-    groups, whose terms would not fit the first block's shared memory."""
+    and leave at most 16 blocks (one cluster) a column tile; none when that
+    is more than 104 groups a block, whose terms would not fit its shared
+    memory (a prime count past 104, or past 16 x 104 groups)."""
     assert tqm.w8a8_groups_per_block(groups) == gpb
     if gpb:
         assert groups % gpb == 0 and groups // gpb <= 16
