@@ -9,8 +9,8 @@ Run from the root of a checkout on a machine with a CUDA GPU and ``nvcc``:
 Phases (any failure raises and exits non-zero):
  1. the card's name and power limit, the torch version, and the builds of
     the decode-attention, flash-attention and int8 matmul kernels from
-    ``deepspeed_tpu_torch/ops/csrc`` and of phase 14's planted faults (one
-    nvcc each, started together);
+    ``deepspeed_tpu_torch/ops/csrc`` and of phases 14's and 15's planted
+    faults (one nvcc each, started together);
  2. each decode kernel against its plain PyTorch version on the card at the
     shape the main path gives it (plus B=8 ragged, GQA and fp32 cases, and
     for the split-K kernel, which runs the 16-bit B4 windows and the 16-bit
@@ -197,6 +197,30 @@ and every replay adds them.
     fp32 at full width and 2 layers, greedy ``generate`` and ``serve``
     equal to full-forward recompute.  Phase 14 (b)'s launches are read
     alone and give the ``[llama-3-8b]`` entries of the kernels line.
+    Phase 14 (a) also holds B7 (weight-only ``qmm_split_kernel``) at the
+    four (K, N) shapes at 8 and 4 rows (:func:`check_qmm_exact`) and logs
+    its graph times beside bf16 ``x @ W`` and its bound.
+ 15. Llama-3-8B training.  (a) The flash forward, dq and dkv kernels at
+    head dim 128 and GQA 32 / 8 (:func:`llama_flash_cases`: one-tile S =
+    64 and 128, causal B=2 S=2048, non-causal S=1000, Sq != Sk both ways,
+    fp32 at S=512 and 200, and the training shape B=1 S=8192) against
+    their plain versions at phase 2b's bars, the bf16 backward also
+    against its tiling's models with a repeat and a graph replay
+    bit-identical; each kernel timed at the training shape beside its
+    plain version, SDPA with ``enable_gqa`` (forward; fwd+bwd less fwd)
+    and its bound; then each planted fault (:data:`FLASH128_FAULTS`,
+    built in phase 1) must fail its first check.  (b)
+    ``initialize(model=llama.build(llama3_8b at 4 layers))`` ->
+    ``train_batch`` (AdamW, WarmupLR, clipping 1.0, bf16, remat, random
+    weights drawn on the card from the config seed) at micro-batch 1 x S =
+    8192 x GAS 2 for 5 steps: finite falling losses, a finite grad norm,
+    the forward launched 2 x layers x micro-steps times (remat) and dq
+    and dkv once a layer and micro-step; step time, tokens/s, MFU (phase
+    7's formula), peak memory, a profiled step and the LM head's GEMMs
+    timed alone; then fp32 at full width, 2 layers and S = 512: the first
+    loss and every gradient within 1e-4 of einsum attention's.  Phase 15
+    (b)'s launches are read alone and give the ``[llama-train]`` entries
+    of the kernels line.
 
 The last two lines of output are the ``{"kernels": [...]}`` JSON object
 and the ``{"ok": true, "device": ...}`` JSON object.
@@ -642,7 +666,7 @@ def flash_bound(name, b, h, hkv, sq, sk, d, item, causal, pairs=None):
                                        else "operations")
 
 
-def flash_case(b, h, hkv, sq, sk, dtype, seed):
+def flash_case(b, h, hkv, sq, sk, dtype, seed, d=64):
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -650,8 +674,26 @@ def flash_case(b, h, hkv, sq, sk, dtype, seed):
     def rand(*shape):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
-    return (rand(b, h, sq, 64), rand(b, hkv, sk, 64), rand(b, hkv, sk, 64),
-            rand(b, h, sq, 64))
+    return (rand(b, h, sq, d), rand(b, hkv, sk, d), rand(b, hkv, sk, d),
+            rand(b, h, sq, d))
+
+
+def plain_by_heads(fn, q, k, v, *rows, per=2, **kw):
+    """The plain version ``fn`` over ``per`` KV heads (and their query
+    heads) at a time, the results joined along the head axis: the same
+    arithmetic in a quarter of the memory at Llama's 8 KV heads.  ``rows``:
+    per-query-head arguments after q, k and v (o, lse, do, delta)."""
+    import torch
+
+    rep = q.shape[1] // k.shape[1]
+    outs = []
+    for g in range(0, k.shape[1], per):
+        qh, kh = slice(g * rep, (g + per) * rep), slice(g, g + per)
+        outs.append(fn(q[:, qh], k[:, kh], v[:, kh],
+                       *[r[:, qh] for r in rows], **kw))
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts, 1) for parts in zip(*outs))
+    return torch.cat(outs, 1)
 
 
 def row_reading(got, want) -> float:
@@ -743,49 +785,7 @@ def check_flash_kernels():
     for seed, (label, b, h, hkv, sq, sk, dtype, causal, main) in \
             enumerate(cases):
         q, k, v, do = flash_case(b, h, hkv, sq, sk, dtype, 100 + seed)
-        o, lse = fa.flash_attention_fwd_cuda(q, k, v, causal)
-        dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, do, lse, o=o,
-                                                   causal=causal)
-        dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta,
-                                                 causal=causal)
-        torch.cuda.synchronize()
-        o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, causal)
-        # the backward kernels against the plain backward on their own
-        # inputs, the forward kernel's o and lse: from the plain o, delta
-        # would carry the two forwards' different bf16 roundings of o
-        dq_p, dk_p, dv_p = fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
-                                                        causal)
-        delta_o = (do.float() * o.float()).sum(-1)
-        # the ring building blocks: dq and dkv given the plain lse and delta
-        delta_p = (do.float() * o_p.float()).sum(-1)
-        dq_r, _ = fa.flash_attention_bwd_dq_cuda(q, k, v, do, lse_p, delta_p,
-                                                 causal=causal)
-        dk_r, dv_r = fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse_p,
-                                                     delta_p, causal=causal)
-        want_dq = fa.flash_attention_bwd_dq_plain(q, k, v, do, lse_p, delta_p,
-                                                  causal)
-        want_dk, want_dv = fa.flash_attention_bwd_dkv_plain(
-            q, k, v, do, lse_p, delta_p, causal)
-        errs, rows = {}, {}
-        for key, got, want, tol in (
-                ("o", o, o_p, FLASH_FP32_FWD),
-                ("lse", lse, lse_p, FLASH_FP32_FWD),
-                ("delta", delta, delta_o, FLASH_FP32_FWD),
-                ("dq", dq, dq_p, FLASH_FP32_GRAD),
-                ("dk", dk, dk_p, FLASH_FP32_GRAD),
-                ("dv", dv, dv_p, FLASH_FP32_GRAD),
-                ("dq(lse,delta)", dq_r, want_dq, FLASH_FP32_GRAD),
-                ("dk(lse,delta)", dk_r, want_dk, FLASH_FP32_GRAD),
-                ("dv(lse,delta)", dv_r, want_dv, FLASH_FP32_GRAD)):
-            errs[key], rows[key] = flash_compare(f"{label} {key}", got, want,
-                                                 dtype, tol)
-        log(f"[flash] {label}: max_abs_err " + ", ".join(
-            f"{k} {e:.3e}" + (f" (row {rows[k]:.3e})" if rows[k] is not None
-                              else "") for k, e in errs.items()))
-        del o_p, lse_p, dq_p, dk_p, dv_p, want_dq, want_dk, want_dv
-        if fa.bwd_route(dtype) == "wgmma":
-            check_bwd_design(label, q, k, v, do, o, lse, delta, causal,
-                             (dq, dk, dv))
+        (o, lse, delta), errs = check_flash_case(label, q, k, v, do, causal)
         if not main:
             continue
 
@@ -844,6 +844,65 @@ def check_flash_kernels():
                 f"ms, bound {bound_ms:.4f} ms ({bound_by})")
     del flush
     return out
+
+
+def check_flash_case(label, q, k, v, do, causal, plain=None):
+    """The flash forward, dq and dkv kernels on (q, k, v, do) against their
+    plain versions (``plain`` calls one with its arguments; default: the
+    whole call), and the lse/delta taking dq and dkv calls against the
+    plain ones; the bf16 backward also against its tiling's models
+    (:func:`check_bwd_design`).  Returns ((o, lse, delta), {name: max abs
+    error})."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    plain = plain or (lambda fn, *args, **kw: fn(*args, **kw))
+    dtype = q.dtype
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v, causal)
+    dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, do, lse, o=o,
+                                               causal=causal)
+    dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                             causal=causal)
+    torch.cuda.synchronize()
+    o_p, lse_p = plain(fa.flash_attention_fwd_plain, q, k, v, causal=causal)
+    # the backward kernels against the plain backward on their own inputs,
+    # the forward kernel's o and lse: from the plain o, delta would carry
+    # the two forwards' different bf16 roundings of o
+    dq_p, dk_p, dv_p = plain(fa.flash_attention_bwd_plain, q, k, v, o, lse,
+                             do, causal=causal)
+    delta_o = (do.float() * o.float()).sum(-1)
+    # the ring building blocks: dq and dkv given the plain lse and delta
+    delta_p = (do.float() * o_p.float()).sum(-1)
+    dq_r, _ = fa.flash_attention_bwd_dq_cuda(q, k, v, do, lse_p, delta_p,
+                                             causal=causal)
+    dk_r, dv_r = fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse_p,
+                                                 delta_p, causal=causal)
+    want_dq = plain(fa.flash_attention_bwd_dq_plain, q, k, v, do, lse_p,
+                    delta_p, causal=causal)
+    want_dk, want_dv = plain(fa.flash_attention_bwd_dkv_plain, q, k, v, do,
+                             lse_p, delta_p, causal=causal)
+    errs, rows = {}, {}
+    for key, got, want, tol in (
+            ("o", o, o_p, FLASH_FP32_FWD),
+            ("lse", lse, lse_p, FLASH_FP32_FWD),
+            ("delta", delta, delta_o, FLASH_FP32_FWD),
+            ("dq", dq, dq_p, FLASH_FP32_GRAD),
+            ("dk", dk, dk_p, FLASH_FP32_GRAD),
+            ("dv", dv, dv_p, FLASH_FP32_GRAD),
+            ("dq(lse,delta)", dq_r, want_dq, FLASH_FP32_GRAD),
+            ("dk(lse,delta)", dk_r, want_dk, FLASH_FP32_GRAD),
+            ("dv(lse,delta)", dv_r, want_dv, FLASH_FP32_GRAD)):
+        errs[key], rows[key] = flash_compare(f"{label} {key}", got, want,
+                                             dtype, tol)
+    log(f"[flash] {label}: max_abs_err " + ", ".join(
+        f"{k} {e:.3e}" + (f" (row {rows[k]:.3e})" if rows[k] is not None
+                          else "") for k, e in errs.items()))
+    del o_p, lse_p, dq_p, dk_p, dv_p, want_dq, want_dk, want_dv
+    if fa.bwd_route(dtype) == "wgmma":
+        check_bwd_design(label, q, k, v, do, o, lse, delta, causal,
+                         (dq, dk, dv))
+    return (o, lse, delta), errs
 
 
 def check_bwd_design(label, q, k, v, do, o, lse, delta, causal, got, **kw):
@@ -2676,7 +2735,7 @@ def profile_steps(engine, batches, steps: int = 3):
                if e.device_type == DeviceType.CUDA]
     total = {}
     families = (("flash", ("fwd_kernel", "dq_kernel", "dkv_kernel")),
-                ("matmul", ("gemm", "xmma", "cutlass", "sm90_")),
+                ("matmul", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")),
                 ("other", ("",)))
     for e in kernels:
         fam = next(f for f, keys in families if any(k in e.key for k in keys))
@@ -3234,14 +3293,16 @@ LLAMA_FAULTS = (
 
 
 def fault_builders():
-    """One ``CUDAOpBuilder`` per :data:`LLAMA_FAULTS` entry, over a patched
-    copy of its source written under ``build/`` (the text must occur once)."""
+    """One ``CUDAOpBuilder`` per :data:`LLAMA_FAULTS` and
+    :data:`FLASH128_FAULTS` entry, over a patched copy of its source written
+    under ``build/`` (the text must occur once)."""
     from deepspeed_tpu_torch.ops import op_builder
 
     out = []
     root = op_builder.BUILD_DIR / "faults"
     root.mkdir(parents=True, exist_ok=True)
-    for i, (label, lib, src, old, new) in enumerate(LLAMA_FAULTS):
+    for i, (label, lib, src, old, new) in enumerate(LLAMA_FAULTS +
+                                                    FLASH128_FAULTS):
         text = (op_builder.CSRC / src).read_text()
         if text.count(old) != 1:
             raise AssertionError(f"planted fault {label!r}: its text occurs "
@@ -3438,30 +3499,75 @@ def check_llama_w8a8(flush, timed: bool = True):
     return out
 
 
-def check_llama_faults(faults):
-    """Each planted fault, built in phase 1, swapped in for its library:
-    the first check of phase 14 it reaches must fail (and a fault that
-    passes fails the phase).  The real libraries are restored after."""
+def check_llama_qmm(flush):
+    """B7 (``qmm_split_kernel``) at Llama-3-8B's four (K, N) shapes, bf16
+    activations at 8 rows, through :func:`check_qmm_exact`: against the
+    plain version and the split model at BF16_TOL (tensor-core sums), and
+    bit for bit the rows of the 1- and 4-row calls and rows alone against
+    the 8-row call, the blocks' terms merged in block order, a repeat and a
+    graph replay.  Each shape timed at 8 and 4 rows from a CUDA graph
+    beside bf16 ``x @ W`` and its bound; w2 (14336, 4096) also eager and
+    its plain version.  No llama lane runs B7 (``quant.type="weight"``
+    serves GPT-2 only), so these are logged, not in the kernels line."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+    from deepspeed_tpu_torch.ops.quantization import dequantize
+
+    for si, (k, n) in enumerate(LLAMA_MATMULS):
+        rec, x = qmm_inputs(k, n, 128, 8, torch.bfloat16, 900 + si)
+        err = check_qmm_exact(f"B7 llama ({k}, {n})", x, rec)
+        w = dequantize(rec, torch.bfloat16)
+        for rows in (8, 4):
+            xr = x[:rows]
+
+            def b7():
+                return qm.quantized_matmul_cuda(xr, rec["q"], rec["scale"])
+
+            ms_graph = graph_ms(b7, flush)
+            lib_graph = graph_ms(lambda: xr @ w, flush)
+            bound_ms, bound_by = qmm_bound("quantized_matmul_cuda", rows, k,
+                                           n, 2, 2)
+            extra = ""
+            if (k, n) == LLAMA_MATMULS[3]:
+                ms = timed_ms(b7, flush)
+                plain_ms = timed_ms(lambda: qm.quantized_matmul_plain(
+                    xr, rec["q"], rec["scale"]), flush, iters=10)
+                lib_ms = timed_ms(lambda: xr @ w, flush)
+                extra = (f"; eager {ms:.4f} ms, plain {plain_ms:.4f} ms, bf16 "
+                         f"x @ W eager {lib_ms:.4f} ms")
+            log(f"[llama qmm] B7 ({k}, {n}) at {rows} rows: max_abs_err "
+                f"{err:.3e}; {ms_graph:.4f} ms replayed from a CUDA graph, "
+                f"bf16 x @ W (same shape, not the same function) "
+                f"{lib_graph:.4f} ms graph, bound {bound_ms:.5f} ms "
+                f"({bound_by}){extra}")
+        del rec, x, w
+
+
+def check_planted_faults(faults, checks, phase):
+    """Each planted fault, built in phase 1, whose library ``checks`` names,
+    swapped in for that library: the first check it reaches must fail (and
+    a fault that passes fails the phase).  The real libraries are restored
+    after."""
     import torch
 
     from deepspeed_tpu_torch.ops import decode_attention as da
     from deepspeed_tpu_torch.ops import op_builder
 
-    checks = {"decode_attention": lambda: check_llama_attention(
-                  None, kv8=False, timed=False),
-              "quantized_matmul": lambda: check_llama_w8a8(None,
-                                                           timed=False)}
     for label, lib, fb in faults:
+        if lib not in checks:
+            continue
         real = op_builder._BUILDERS[lib]
         op_builder._BUILDERS[lib] = fb
         da._LIB = None
         try:
             checks[lib]()
         except AssertionError as e:
-            log(f"[llama faults] {label}: caught ({str(e).splitlines()[0]})")
+            log(f"[{phase} faults] {label}: caught "
+                f"({str(e).splitlines()[0]})")
         else:
-            raise AssertionError(f"planted fault {label!r} passed phase 14's "
-                                 "kernel checks")
+            raise AssertionError(f"planted fault {label!r} passed phase "
+                                 f"{phase}'s kernel checks")
         finally:
             op_builder._BUILDERS[lib] = real
             da._LIB = None
@@ -3470,16 +3576,21 @@ def check_llama_faults(faults):
 
 def check_llama_kernels(faults):
     """Phase 14 (a): the kernels at Llama-3-8B's shapes (D = 128 decode
-    attention, float and kv8; B5/B6 at 112 and 224 k-groups), then the
-    planted faults.  Returns {kernel name: measurements}."""
+    attention, float and kv8; B5/B6 at 112 and 224 k-groups; B7, logged),
+    then the planted faults.  Returns {kernel name: measurements}."""
     import torch
 
     flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
     out = check_llama_attention(flush, kv8=False)
     out.update(check_llama_attention(flush, kv8=True))
     out.update(check_llama_w8a8(flush))
+    check_llama_qmm(flush)
     del flush
-    check_llama_faults(faults)
+    check_planted_faults(faults, {
+        "decode_attention": lambda: check_llama_attention(None, kv8=False,
+                                                          timed=False),
+        "quantized_matmul": lambda: check_llama_w8a8(None, timed=False)},
+        14)
     return out
 
 
@@ -3802,9 +3913,334 @@ def llama_phase(card, faults):
     return measured, launches
 
 
+# ------------------------------------------------------------- phase 15
+#: phase 15's training shape: Llama-3-8B's width at 4 layers, micro-batch
+#: 1 x S = 8192 tokens (Llama 3's pretraining sequence length) x GAS 2
+LLAMA_TRAIN_S, LLAMA_TRAIN_LAYERS, LLAMA_TRAIN_STEPS = 8192, 4, 5
+#: planted faults of the D = 128 flash kernels, built in phase 1 beside the
+#: real builds as :data:`LLAMA_FAULTS` are; each must fail the first check
+#: of :func:`check_llama_flash` it reaches (:func:`check_planted_faults`)
+FLASH128_FAULTS = (
+    ("D = 128 forward skips the second 64-column span of the head dim",
+     "flash_attention", "flash_attention.cu",
+     "for (int kk = 0; kk < Head<D>::KSTEPS; ++kk)\n"
+     "    wgmma_m64n128k16_ss(",
+     "for (int kk = 0; kk < (D == 128 ? 4 : Head<D>::KSTEPS); ++kk)\n"
+     "    wgmma_m64n128k16_ss("),
+    ("D = 128 dkv sums only the first query head of each KV group",
+     "flash_attention", "flash_attention.cu",
+     "int first = 0, ntiles = rep * nqt;",
+     "int first = 0, ntiles = (D == 128 ? 1 : rep) * nqt;"),
+)
+
+
+def llama_flash_cases():
+    """Phase 15 (a)'s cases at Llama's GQA 32 / 8 and head dim 128: (label,
+    B, Sq, Sk, dtype, causal, timed).  The one-tile cases come first (a
+    wrong span offset or descriptor shows there already, and every planted
+    fault fails the first); the timed one is the shape phase 15 (b) gives
+    every call."""
+    import torch
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    s = LLAMA_TRAIN_S
+    return [
+        ("D=128 one tile S=64", 1, 64, 64, bf16, False, False),
+        ("D=128 one tile S=64 causal", 1, 64, 64, bf16, True, False),
+        ("D=128 one tile S=128", 1, 128, 128, bf16, False, False),
+        ("D=128 one tile S=128 causal", 1, 128, 128, bf16, True, False),
+        ("D=128 causal B=2 S=2048", 2, 2048, 2048, bf16, True, False),
+        ("D=128 non-causal S=1000", 1, 1000, 1000, bf16, False, False),
+        ("D=128 causal Sq=384 Sk=640", 1, 384, 640, bf16, True, False),
+        ("D=128 non-causal Sq=640 Sk=384", 1, 640, 384, bf16, False, False),
+        ("D=128 fp32 causal S=512", 1, 512, 512, f32, True, False),
+        ("D=128 fp32 non-causal S=200", 1, 200, 200, f32, False, False),
+        (f"D=128 train S={s}", 1, s, s, bf16, True, True),
+    ]
+
+
+def time_llama_flash(q, k, v, do, o, lse, delta, errs, flush, card):
+    """The three D = 128 kernels at phase 15 (b)'s shape: eager and graph
+    ms, the plain version's ms (at S = 2048 when the whole call does not fit
+    the card, said so in ``plain_at``), SDPA with ``enable_gqa`` forward
+    and backward (fwd + bwd less fwd) as the yardstick, and the bound.
+    Returns {kernel name: measurements}."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    qr, kr, vr = (x.detach().clone().requires_grad_() for x in (q, k, v))
+
+    def sdpa(a, bb, c):
+        return F.scaled_dot_product_attention(a, bb, c, is_causal=True,
+                                              enable_gqa=True)
+
+    lib_fwd = timed_ms(lambda: sdpa(qr, kr, vr), flush, iters=20)
+    lib_bwd = timed_ms(lambda: torch.autograd.grad(
+        sdpa(qr, kr, vr), (qr, kr, vr), do), flush, iters=20) - lib_fwd
+    lib_fwd_graph = graph_ms(lambda: sdpa(q, k, v), flush, iters=20)
+    del qr, kr, vr
+    log(f"[llama flash] sdpa (enable_gqa) at S={s}: forward {lib_fwd:.4f} "
+        f"ms eager ({lib_fwd_graph:.4f} ms graph), backward {lib_bwd:.4f} ms "
+        f"eager (fwd+bwd less fwd) ({card})")
+    calls = {
+        "flash_attention_fwd_cuda": (
+            lambda: fa.flash_attention_fwd_cuda(q, k, v, True),
+            lambda a, bb, c, dd, l, dl: fa.flash_attention_fwd_plain(
+                a, bb, c, True),
+            lib_fwd, lib_fwd_graph, max(errs["o"], errs["lse"])),
+        "flash_attention_bwd_dq_cuda": (
+            lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, do, lse, o=o,
+                                                   causal=True),
+            lambda a, bb, c, dd, l, dl: fa.flash_attention_bwd_dq_plain(
+                a, bb, c, dd, l, dl, True),
+            lib_bwd, None, errs["dq"]),
+        "flash_attention_bwd_dkv_cuda": (
+            lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                    causal=True),
+            lambda a, bb, c, dd, l, dl: fa.flash_attention_bwd_dkv_plain(
+                a, bb, c, dd, l, dl, True),
+            lib_bwd, None, max(errs["dk"], errs["dv"])),
+    }
+    out = {}
+    for name, (kernel, plain, library_ms, library_graph_ms, err) in \
+            calls.items():
+        ms = timed_ms(kernel, flush, iters=20)
+        ms_graph = graph_ms(kernel, flush, iters=20)
+        plain_at = s
+        try:
+            plain_ms = timed_ms(lambda: plain(q, k, v, do, lse, delta), flush,
+                                iters=3)
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            plain_at = 2048
+            sl = slice(0, plain_at)
+            qs, ks_, vs, dos = (x[:, :, sl].contiguous()
+                                for x in (q, k, v, do))
+            ls, dls = lse[:, :, sl].contiguous(), delta[:, :, sl].contiguous()
+            plain_ms = timed_ms(lambda: plain(qs, ks_, vs, dos, ls, dls),
+                                flush, iters=3)
+            del qs, ks_, vs, dos, ls, dls
+        torch.cuda.empty_cache()
+        bound_ms, bound_by = flash_bound(name, b, h, hkv, s, s, d,
+                                         q.element_size(), True)
+        out[name] = {"max_abs_err": err, "ms": ms, "graph_ms": ms_graph,
+                     "plain_ms": plain_ms, "plain_at": plain_at,
+                     "library_ms": library_ms,
+                     "library_graph_ms": library_graph_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+        log(f"[llama flash] {name} at B={b} H={h} Hkv={hkv} S={s} D={d} "
+            f"causal bf16: kernel {ms:.4f} ms ({ms_graph:.4f} ms replayed "
+            f"from a CUDA graph), plain {plain_ms:.4f} ms (at S={plain_at}), "
+            f"sdpa {'fwd' if 'fwd' in name else 'bwd'} {library_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}) ({card})")
+    return out
+
+
+def check_llama_flash(card=None):
+    """Phase 15 (a): the flash forward, dq and dkv kernels at head dim 128
+    and GQA 32 / 8 against their plain versions (run a KV-head pair at a
+    time, :func:`plain_by_heads`), the bf16 backward also against its
+    tiling's models with a repeat and a graph replay bit-identical
+    (:func:`check_flash_case`), at phase 2b's bars; then, given the
+    ``card`` label, each kernel timed at phase 15 (b)'s shape (without it
+    the timed case is skipped).  Returns {kernel name: measurements}."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    out = {}
+    for seed, (label, b, sq, sk, dtype, causal, main) in \
+            enumerate(llama_flash_cases()):
+        if main and card is None:
+            continue
+        q, k, v, do = flash_case(b, LLAMA_H, LLAMA_HKV, sq, sk, dtype,
+                                 1500 + seed, d=LLAMA_D)
+        (o, lse, delta), errs = check_flash_case(label, q, k, v, do, causal,
+                                                 plain=plain_by_heads)
+        if main:
+            out = time_llama_flash(q, k, v, do, o, lse, delta, errs, flush,
+                                   card)
+        del q, k, v, do, o, lse, delta
+        torch.cuda.empty_cache()
+    del flush
+    return out
+
+
+def llama_train_config(layers: int):
+    import dataclasses
+
+    from deepspeed_tpu_torch.models import llama
+
+    return dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                               num_layers=layers)
+
+
+def head_gemm_ms(cfg, s, flush) -> dict:
+    """The LM head's three bf16 GEMMs of one micro-step at [S, hidden] x
+    [hidden, V], timed alone: logits = x W, dx = dlogits W^T, dW = x^T
+    dlogits."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    bf16 = torch.bfloat16
+    x = torch.randn((s, cfg.hidden_size), generator=g, device="cuda").to(bf16)
+    w = torch.randn((cfg.hidden_size, cfg.vocab_size), generator=g,
+                    device="cuda").to(bf16)
+    dl = torch.randn((s, cfg.vocab_size), generator=g, device="cuda").to(bf16)
+    out = {"x @ W": graph_ms(lambda: x @ w, flush, iters=20),
+           "dlogits @ W^T": graph_ms(lambda: dl @ w.t(), flush, iters=20),
+           "x^T @ dlogits": graph_ms(lambda: x.t() @ dl, flush, iters=20)}
+    del x, w, dl
+    return out
+
+
+def llama_fp32_train_check():
+    """Phase 15 (b), fp32: Llama-3-8B's width at 2 layers and S = 512 (the
+    f32 route of the flash kernels at head dim 128): the first loss and
+    every gradient against the same step with einsum attention
+    (``use_flash=False``), within 1e-4, as phase 8 holds GPT-2."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    cfg = llama_train_config(2)
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(15))
+    ids = np.random.default_rng(15).integers(0, cfg.vocab_size, (1, 513))
+    batch = {"input_ids": torch.as_tensor(ids, device="cuda")}
+
+    def loss_and_grads(use_flash):
+        c = dataclasses.replace(cfg, use_flash=use_flash)
+        p = {k: ({n: t.clone().requires_grad_() for n, t in v.items()}
+                 if isinstance(v, dict) else v.clone().requires_grad_())
+             for k, v in params.items()}
+        loss = llama.loss_from_batch(c, p, batch)
+        loss.backward()
+        grads = [t.grad for v in p.values()
+                 for t in (v.values() if isinstance(v, dict) else [v])]
+        return loss.item(), grads
+
+    before = fa.flash_attention_fwd_cuda.launches
+    loss_k, grads_k = loss_and_grads(None)          # None = kernel on CUDA
+    if fa.flash_attention_fwd_cuda.launches == before:
+        raise AssertionError("the llama fp32 check did not run the flash "
+                             "kernel")
+    loss_e, grads_e = loss_and_grads(False)
+    grad_err = max((a - b).abs().max().item()
+                   for a, b in zip(grads_k, grads_e))
+    del params, grads_k, grads_e
+    torch.cuda.empty_cache()
+    log(f"[llama fp32 train check] 2 layers at full width, S=512: loss "
+        f"{loss_k:.6f} vs einsum {loss_e:.6f}, max grad error {grad_err:.3e}")
+    if abs(loss_k - loss_e) > 1e-4 or grad_err > 1e-4:
+        raise AssertionError(f"llama fp32 flash vs einsum: loss {loss_k} vs "
+                             f"{loss_e}, max grad error {grad_err}")
+
+
+def llama_train_phase(card):
+    """Phase 15 (b): Llama-3-8B's width at :data:`LLAMA_TRAIN_LAYERS`
+    layers trained through ``initialize(model=llama.build(cfg))`` ->
+    ``train_batch`` (AdamW, WarmupLR, clipping 1.0, bf16, remat as the
+    config defaults, random weights drawn on the card from the config
+    seed), micro-batch 1 x S = 8192 x GAS 2, :data:`LLAMA_TRAIN_STEPS`
+    steps; then the fp32 check.  Returns the flash kernels' launches of the
+    bf16 run."""
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    cfg = llama_train_config(LLAMA_TRAIN_LAYERS)
+    s, gas, steps = LLAMA_TRAIN_S, 2, LLAMA_TRAIN_STEPS
+    torch.cuda.empty_cache()
+    held_gib = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = llama.build(cfg)
+    engine, *_ = dt.initialize(model=model, config=train_config(1, gas))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(15)
+    batches = [rng.integers(0, cfg.vocab_size, (gas, s + 1))
+               for _ in range(3)]
+    fa.reset_launch_counts()
+    losses, step_s = [], []
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = engine.train_batch({"input_ids": batches[step % 3]})
+        losses.append(metrics["loss"])               # waits for the step
+        step_s.append(time.perf_counter() - t0)
+    counts = flash_counts()
+    grad_norm = metrics["grad_norm"]
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    tokens = gas * s
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]  # median past the first
+    attn_per_token = 6 * cfg.num_layers * cfg.hidden_size * s
+    mfu = (model.flops_per_token + attn_per_token) * tokens / steady / \
+        BF16_FLOPS_PER_S
+    log(f"[llama train] Llama-3-8B width, {cfg.num_layers} layers "
+        f"({cfg.num_params() / 1e9:.3f} B parameters), bf16, micro 1 x gas "
+        f"{gas} x {s} tokens, remat: init {init_s:.1f} s; losses "
+        f"{[round(x, 4) for x in losses]}; grad_norm {grad_norm:.4f}; step "
+        f"{1e3 * steady:.1f} ms (median of steps 2-{steps}; first "
+        f"{1e3 * step_s[0]:.1f} ms), {tokens / steady:.0f} tokens/s, MFU "
+        f"{100 * mfu:.2f}% of 989 TFLOP/s ({card}); peak memory "
+        f"{peak_gib:.1f} GiB ({held_gib:.2f} GiB held before the engine); "
+        f"launches {counts}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not math.isfinite(grad_norm):
+        raise AssertionError(f"non-finite llama training: losses {losses}, "
+                             f"grad_norm {grad_norm}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"llama loss did not fall: {losses}")
+    want = {"flash_attention_fwd_cuda": 2 * cfg.num_layers * gas * steps,
+            "flash_attention_bwd_dq_cuda": cfg.num_layers * gas * steps,
+            "flash_attention_bwd_dkv_cuda": cfg.num_layers * gas * steps}
+    if counts != want:
+        raise AssertionError(f"llama flash launches {counts}, expected "
+                             f"{want} (remat: the forward twice a layer)")
+    profile_steps(engine, batches, steps=1)
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    heads = head_gemm_ms(cfg, s, flush)
+    log(f"[llama train] the LM head's GEMMs of one micro-step, graph ms "
+        f"({card}): " + ", ".join(f"{k} {v:.3f}" for k, v in heads.items())
+        + f"; x {gas} micro-steps {gas * sum(heads.values()):.3f} ms a step")
+    del engine, model, flush
+    torch.cuda.empty_cache()
+    llama_fp32_train_check()
+    return counts
+
+
+def llama_train_full_phase(card, faults):
+    """Phase 15: (a) the D = 128 flash kernels and their planted faults,
+    (b) Llama-3-8B's width trained on the card.  Returns (measurements,
+    launches of (b))."""
+    t0 = time.perf_counter()
+    measured = check_llama_flash(card)
+    check_planted_faults(faults, {"flash_attention": check_llama_flash}, 15)
+    t1 = time.perf_counter()
+    launches = llama_train_phase(card)
+    log(f"[llama train] phase 15 (a) in {t1 - t0:.1f} s, (b) in "
+        f"{time.perf_counter() - t1:.1f} s")
+    return measured, launches
+
+
 def build_all():
     """Phase 1's builds: one nvcc per source, and one per planted fault of
-    phase 14 (:func:`fault_builders`), all started together.  Returns the
+    phases 14 and 15 (:func:`fault_builders`), all started together.  Returns the
     faults as (label, library name, built builder)."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -3868,6 +4304,7 @@ def main() -> int:
     del engine, weng, float_lane, greedy12
     sparse_measured, sparse_launches = check_sparse_kernels()
     llama_measured, llama_launches = llama_phase(card, faults)
+    train_measured, train_launches = llama_train_full_phase(card, faults)
 
     # one line per kernel; a flash kernel replaces three TPU regimes (v1,
     # v2, v3: PERF.md) and names the v1 site, whose lse format it keeps
@@ -3954,6 +4391,18 @@ def main() -> int:
                     "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
                     "bound_by", "library_ms", "library_graph_ms",
                     "verify") if key in m}})
+    # phase 15: the flash kernels at head dim 128 and GQA 32 / 8, timed at
+    # phase 15 (b)'s shape and launched by its training run
+    for fn in fa.KERNELS:
+        m = train_measured[fn.__name__]
+        kernels.append({
+            "name": f"{fn.__name__}[llama-train]", "route": "cuda",
+            "kernel": designs[fn.__name__], "source": sources[fa],
+            "replaces": replaces[fn.__name__],
+            "launches": train_launches[fn.__name__],
+            **{key: m[key] for key in (
+                "max_abs_err", "ms", "graph_ms", "plain_ms", "plain_at",
+                "bound_ms", "bound_by", "library_ms", "library_graph_ms")}})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

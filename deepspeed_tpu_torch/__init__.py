@@ -22,9 +22,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     ``__init__.py:30``).  Returns ``(engine, optimizer,
     training_dataloader, lr_scheduler)``.
 
-    ``model``: a model from ``deepspeed_tpu_torch.models`` (``gpt2.build``;
-    ``llama.build`` trains on the CPU, and on CUDA once the flash kernels
-    take its head dim 128).
+    ``model``: a model from ``deepspeed_tpu_torch.models`` (``gpt2.build``
+    or ``llama.build``; on CUDA their attention runs the flash kernels at
+    head dim 64 and 128).
     ``config``: a dict or JSON path with the JAX package's keys.
     ``model_parameters``: initial parameters as a nested dict of tensors or
     arrays (e.g. ``gpt2.params_from_jax``); without it the engine draws

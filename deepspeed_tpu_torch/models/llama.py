@@ -23,9 +23,11 @@ sixteen positions at a time (:func:`_cached_attention`), and its matmuls
 take at least :data:`PREFILL_MIN_ROWS` rows.
 
 ``forward`` and ``loss_from_batch`` are the training path: attention by
-``cfg.use_flash`` as in GPT-2 (``None``: the flash kernel on CUDA, einsum
-elsewhere); ``cfg.remat`` recomputes each block in the backward pass
-(``torch.utils.checkpoint``), as ``jax.checkpoint`` does.
+``cfg.use_flash`` as in GPT-2 (``None``: the flash kernels on CUDA, at head
+dim 128 with the KV heads unrepeated, einsum elsewhere); ``cfg.remat``
+recomputes each block in the backward pass (``torch.utils.checkpoint``),
+as ``jax.checkpoint`` does, so a remat micro-step launches the flash
+forward twice a layer and dq and dkv once.
 """
 
 from __future__ import annotations
@@ -246,7 +248,9 @@ def _rope_cached(cfg: LlamaConfig, x, pos):
 
 def _attention(cfg: LlamaConfig, q, k, v):
     """Causal attention over [B, H(KV), S, hd] (``:142``): the flash
-    kernel or einsum by ``cfg.use_flash`` (module docstring)."""
+    kernels or einsum by ``cfg.use_flash`` (module docstring).  The flash
+    op takes the KV heads as they are: query head h reads KV head
+    h // (H // HKV) in place, as the JAX kernels' index map does."""
     use_flash = cfg.use_flash
     if use_flash is None:
         use_flash = q.is_cuda

@@ -119,11 +119,29 @@
 // work of the live tiles, not of the visible pairs: at block 16 every
 // 128 x 128 tile of DeepSpeed's Fixed layout is live.
 //
+// Head dim 128 (Llama; ungated only).  Bound: at Llama-3-8B's training
+// shape (B=1, H=32, Hkv=8, S=8192, causal) the forward does 550 GFLOP,
+// dq 825 and dkv 1100 on 169-304 MB: 0.56, 0.83 and 1.11 ms of bf16
+// tensor-core work against 0.05-0.09 ms of HBM traffic, so all three are
+// bound by the products.  The same kernels instantiated at D = 128
+// (Head<128>): each Q/K/V/dO tile is two 64-column spans, each a TMA box
+// of its own and a 128-byte-swizzled [rows][64] tile (a 256-byte row does
+// not fit one 128-byte swizzle atom), the k-loop of a score product 8
+// k-steps of 16 over the two spans, and each product whose N is D one
+// m64n64 wgmma a span.  Registers: O (dQ) is 64 a consumer thread and S
+// 64 (dq: S, dP 32 each), so the forward and dq take a producer
+// warpgroup and setmaxnreg 24 / 240; dkv keeps 40 / 232 and runs each
+// tile's two product pairs in turn (its dK and dV are 128 registers).
+// Shared memory: the forward's ring is 2 stages of 32 KB K and V tiles
+// (161 KB with Q), dq's 3 stages of 16 KB K and V (161 KB with Q and dO),
+// dkv's 3 stages of 16 KB Q and dO (163 KB with K and V).
+//
 // Forward and backward, f32 (fwd_kernel, dq_kernel, dkv_kernel): 64x64
 // tiles in shared memory and a plain f32 loop for the products (the tensor
-// cores would round f32 to tf32 and miss fp32's 1e-5).  dkv: one block per
-// (key tile of 64, KV head) over the query tiles of all rep query heads
-// from the diagonal on; dk/dv are written once at the end.
+// cores would round f32 to tf32 and miss fp32's 1e-5); at D = 128 only K
+// and V keep padded rows (F32Tiles), so dkv's eight tiles fit a block.
+// dkv: one block per (key tile of 64, KV head) over the query tiles of all
+// rep query heads from the diagonal on; dk/dv are written once at the end.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -142,12 +160,22 @@ constexpr int NWARPS = NTHREADS / 32;
 constexpr float NEG_INF = -0.7f * 3.4028234663852886e38f;  // DEFAULT_MASK_VALUE
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-constexpr int LDF = 68;          // row stride of the f32 [64][64] tiles
+constexpr int LDF = 68;          // row stride of the f32 [64][64] tiles at D = 64
 
-// Row stride of a [64][64] tile of T in shared memory: padded so rows start
-// on distinct banks, and a multiple of 16 bytes.
-template <typename T> struct Ld;
-template <> struct Ld<float> { static constexpr int v = 68; };
+// Row strides (floats) of the f32 kernels' shared tiles.  K and V, which
+// the score products read across threads by row (B^T), are padded by 4 so
+// that rows start on distinct banks; at D = 64 every tile keeps that
+// stride (68, a multiple of 16 bytes).  At D = 128 the other tiles (Q, dO,
+// the [64][D] sums and the [64][64] score tiles) are read along their rows
+// only and stay unpadded, so that dkv's eight tiles fit the 232,448 bytes
+// a block may use (231,936).
+template <int D>
+struct F32Tiles {
+  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static constexpr int KV = D + 4;                 // K, V
+  static constexpr int ROW = D == 64 ? LDF : D;    // Q, dO, o / dq / dk / dv sums
+  static constexpr int SC = D == 64 ? LDF : 64;    // S, dP, P, dS [64][64]
+};
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 template <typename T> __device__ __forceinline__ T from_f(float x);
@@ -280,9 +308,10 @@ __device__ __forceinline__ uint32_t pair_bits(uint32_t kbits, int shift, int pai
 
 // ------------------------------------------------------- f32 tile kernels
 // (bf16 takes the wgmma kernels below)
-template <typename T>
+template <typename T, int D>
 constexpr size_t fwd_smem() {
-  return 4 * 64 * Ld<T>::v * sizeof(T) + 2 * 64 * LDF * sizeof(float) + 3 * 64 * sizeof(float);
+  using L = F32Tiles<D>;
+  return 64 * (2 * L::ROW + 2 * L::KV + 2 * L::SC) * sizeof(float) + 3 * 64 * sizeof(float);
 }
 
 template <typename T, int D, bool GATED>
@@ -291,34 +320,34 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
            T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int rep,
            int causal, float scale2, const Gate gate) {
   static_assert(std::is_same<T, float>::value, "the bf16 forward is wgmma_fwd_kernel");
-  constexpr int LDT = Ld<T>::v;
+  using L = F32Tiles<D>;
   const int q0 = blockIdx.x * BQ, bh = blockIdx.y, kvh = bh / rep;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem);             // [BQ][LDT]
-  T* ks = qs + 64 * LDT;                          // [BK][LDT]
-  T* vs = ks + 64 * LDT;                          // [BK][LDT]
-  T* ps = vs + 64 * LDT;                          // [BQ][LDT] probabilities
-  float* ss = reinterpret_cast<float*>(ps + 64 * LDT);  // [BQ][LDF] scores
-  float* os = ss + 64 * LDF;                      // [BQ][LDF] output sums
-  float* m = os + 64 * LDF;                       // [BQ] running max (log2)
+  T* qs = reinterpret_cast<T*>(smem);             // [BQ][ROW]
+  T* ks = qs + 64 * L::ROW;                       // [BK][KV]
+  T* vs = ks + 64 * L::KV;                        // [BK][KV]
+  T* ps = vs + 64 * L::KV;                        // [BQ][SC] probabilities
+  float* ss = reinterpret_cast<float*>(ps + 64 * L::SC);  // [BQ][SC] scores
+  float* os = ss + 64 * L::SC;                    // [BQ][ROW] output sums
+  float* m = os + 64 * L::ROW;                    // [BQ] running max (log2)
   float* l = m + BQ;                              // [BQ] running sum
   float* alpha = l + BQ;                          // [BQ] this tile's rescale
 
   const T* kb = k + (size_t)kvh * Sk * D;
   const T* vb = v + (size_t)kvh * Sk * D;
-  load_tile<T, D>(qs, LDT, q + (size_t)bh * Sq * D, q0, min(BQ, Sq - q0));
-  for (int i = tid; i < BQ * D; i += NTHREADS) os[(i / D) * LDF + i % D] = 0.f;
+  load_tile<T, D>(qs, L::ROW, q + (size_t)bh * Sq * D, q0, min(BQ, Sq - q0));
+  for (int i = tid; i < BQ * D; i += NTHREADS) os[(i / D) * L::ROW + i % D] = 0.f;
   for (int r = tid; r < BQ; r += NTHREADS) { m[r] = NEG_INF; l[r] = 0.f; }
   const int k_end = causal ? min(Sk, min(q0 + BQ, Sq)) : Sk;
   __syncthreads();
 
   // the key tile at k0 (GATED: with its sub-block bits)
   auto step = [&](int k0, Tile tl) {
-    load_tile<T, D>(ks, LDT, kb, k0, min(BK, Sk - k0));
-    load_tile<T, D>(vs, LDT, vb, k0, min(BK, Sk - k0));
+    load_tile<T, D>(ks, L::KV, kb, k0, min(BK, Sk - k0));
+    load_tile<T, D>(vs, L::KV, vb, k0, min(BK, Sk - k0));
     __syncthreads();
-    mma_tile<false, true, false>(qs, LDT, ks, LDT, ss, LDF, BQ, BK, D);
+    mma_tile<false, true, false>(qs, L::ROW, ks, L::KV, ss, L::SC, BQ, BK, D);
     __syncthreads();
     for (int r = warp; r < BQ; r += NWARPS) {
       const int row = q0 + r;
@@ -331,7 +360,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
         if constexpr (GATED)
           vis = vis && sub_on(tl.bits, 8 * ((row >> gate.shift) - (q0 >> gate.shift)),
                               ((k0 + j) >> gate.shift) - (k0 >> gate.shift));
-        s[e] = vis ? ss[r * LDF + j] * scale2 : NEG_INF;
+        s[e] = vis ? ss[r * L::SC + j] * scale2 : NEG_INF;
         mx = fmaxf(mx, s[e]);
       }
       const float m_prev = m[r];
@@ -340,7 +369,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 #pragma unroll
       for (int e = 0; e < BK / 32; ++e) {
         const float p = s[e] > 0.5f * NEG_INF ? exp2f(s[e] - m_new) : 0.f;
-        ps[r * LDT + lane + 32 * e] = from_f<T>(p);
+        ps[r * L::SC + lane + 32 * e] = from_f<T>(p);
         sum += p;
       }
       sum = warp_sum(sum);
@@ -352,9 +381,9 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
       }
     }
     __syncthreads();
-    for (int i = tid; i < BQ * D; i += NTHREADS) os[(i / D) * LDF + i % D] *= alpha[i / D];
+    for (int i = tid; i < BQ * D; i += NTHREADS) os[(i / D) * L::ROW + i % D] *= alpha[i / D];
     __syncthreads();
-    mma_tile<false, false, true>(ps, LDT, vs, LDT, os, LDF, BQ, D, BK);
+    mma_tile<false, false, true>(ps, L::SC, vs, L::KV, os, L::ROW, BQ, D, BK);
     __syncthreads();
   };
   if constexpr (GATED) {
@@ -372,7 +401,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     const int r = i / D;
     if (q0 + r < Sq) {
       const float lr = l[r] == 0.f ? 1.f : l[r];
-      o[((size_t)bh * Sq + q0 + r) * D + i % D] = from_f<T>(os[r * LDF + i % D] / lr);
+      o[((size_t)bh * Sq + q0 + r) * D + i % D] = from_f<T>(os[r * L::ROW + i % D] / lr);
     }
   }
   for (int r = tid; r < BQ; r += NTHREADS)
@@ -384,9 +413,10 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 }
 
 // ----------------------------------------------------------------------- dq
-template <typename T>
+template <typename T, int D>
 constexpr size_t dq_smem() {
-  return 5 * 64 * Ld<T>::v * sizeof(T) + 3 * 64 * LDF * sizeof(float) + 2 * 64 * sizeof(float);
+  using L = F32Tiles<D>;
+  return 64 * (3 * L::ROW + 2 * L::KV + 3 * L::SC) * sizeof(float) + 2 * 64 * sizeof(float);
 }
 
 template <typename T, int D, bool GATED>
@@ -396,28 +426,28 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
           const float* __restrict__ lse, float* __restrict__ delta, T* __restrict__ dq,
           int Sq, int Sk, int rep, int causal, float sm_scale, const Gate gate) {
   static_assert(std::is_same<T, float>::value, "the bf16 dq is wgmma_dq_kernel");
-  constexpr int LDT = Ld<T>::v;
+  using L = F32Tiles<D>;
   const float scale2 = sm_scale * LOG2E;
   const int q0 = blockIdx.x * BQ, bh = blockIdx.y, kvh = bh / rep;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem);             // [BQ][LDT]
-  T* dos = qs + 64 * LDT;                         // [BQ][LDT]
-  T* ks = dos + 64 * LDT;                         // [BK][LDT]
-  T* vs = ks + 64 * LDT;                          // [BK][LDT]
-  T* dss = vs + 64 * LDT;                         // [BQ][LDT] dS
-  float* ss = reinterpret_cast<float*>(dss + 64 * LDT);  // [BQ][LDF] scores
-  float* dps = ss + 64 * LDF;                     // [BQ][LDF] dO V^T
-  float* dqs = dps + 64 * LDF;                    // [BQ][LDF] dq sums
-  float* lse2 = dqs + 64 * LDF;                   // [BQ] lse * log2(e)
+  T* qs = reinterpret_cast<T*>(smem);             // [BQ][ROW]
+  T* dos = qs + 64 * L::ROW;                      // [BQ][ROW]
+  T* ks = dos + 64 * L::ROW;                      // [BK][KV]
+  T* vs = ks + 64 * L::KV;                        // [BK][KV]
+  T* dss = vs + 64 * L::KV;                       // [BQ][SC] dS
+  float* ss = reinterpret_cast<float*>(dss + 64 * L::SC);  // [BQ][SC] scores
+  float* dps = ss + 64 * L::SC;                   // [BQ][SC] dO V^T
+  float* dqs = dps + 64 * L::SC;                  // [BQ][ROW] dq sums
+  float* lse2 = dqs + 64 * L::ROW;                // [BQ] lse * log2(e)
   float* dl = lse2 + BQ;                          // [BQ] delta
 
   const size_t qoff = (size_t)bh * Sq * D;
   const T* kb = k + (size_t)kvh * Sk * D;
   const T* vb = v + (size_t)kvh * Sk * D;
-  load_tile<T, D>(qs, LDT, q + qoff, q0, min(BQ, Sq - q0));
-  load_tile<T, D>(dos, LDT, dout + qoff, q0, min(BQ, Sq - q0));
-  for (int i = tid; i < BQ * D; i += NTHREADS) dqs[(i / D) * LDF + i % D] = 0.f;
+  load_tile<T, D>(qs, L::ROW, q + qoff, q0, min(BQ, Sq - q0));
+  load_tile<T, D>(dos, L::ROW, dout + qoff, q0, min(BQ, Sq - q0));
+  for (int i = tid; i < BQ * D; i += NTHREADS) dqs[(i / D) * L::ROW + i % D] = 0.f;
   for (int r = warp; r < BQ; r += NWARPS) {
     const int row = q0 + r;
     float dr = 0.f;
@@ -439,11 +469,11 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 
   // the key tile at k0 (GATED: with its sub-block bits)
   auto step = [&](int k0, Tile tl) {
-    load_tile<T, D>(ks, LDT, kb, k0, min(BK, Sk - k0));
-    load_tile<T, D>(vs, LDT, vb, k0, min(BK, Sk - k0));
+    load_tile<T, D>(ks, L::KV, kb, k0, min(BK, Sk - k0));
+    load_tile<T, D>(vs, L::KV, vb, k0, min(BK, Sk - k0));
     __syncthreads();
-    mma_tile<false, true, false>(qs, LDT, ks, LDT, ss, LDF, BQ, BK, D);
-    mma_tile<false, true, false>(dos, LDT, vs, LDT, dps, LDF, BQ, BK, D);
+    mma_tile<false, true, false>(qs, L::ROW, ks, L::KV, ss, L::SC, BQ, BK, D);
+    mma_tile<false, true, false>(dos, L::ROW, vs, L::KV, dps, L::SC, BQ, BK, D);
     __syncthreads();
     for (int i = tid; i < BQ * BK; i += NTHREADS) {
       const int r = i / BK, j = i % BK;
@@ -453,13 +483,13 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
         vis = vis && sub_on(tl.bits, 8 * (((q0 + r) >> gate.shift) - (q0 >> gate.shift)),
                             ((k0 + j) >> gate.shift) - (k0 >> gate.shift));
       if (vis) {
-        const float p = exp2f(ss[r * LDF + j] * scale2 - lse2[r]);
-        ds = p * (dps[r * LDF + j] - dl[r]);
+        const float p = exp2f(ss[r * L::SC + j] * scale2 - lse2[r]);
+        ds = p * (dps[r * L::SC + j] - dl[r]);
       }
-      dss[r * LDT + j] = from_f<T>(ds);
+      dss[r * L::SC + j] = from_f<T>(ds);
     }
     __syncthreads();
-    mma_tile<false, false, true>(dss, LDT, ks, LDT, dqs, LDF, BQ, D, BK);
+    mma_tile<false, false, true>(dss, L::SC, ks, L::KV, dqs, L::ROW, BQ, D, BK);
     __syncthreads();
   };
   if constexpr (GATED) {
@@ -476,15 +506,16 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   for (int i = tid; i < BQ * D; i += NTHREADS) {
     const int r = i / D;
     if (q0 + r < Sq)
-      dq[qoff + (size_t)(q0 + r) * D + i % D] = from_f<T>(dqs[r * LDF + i % D] * sm_scale);
+      dq[qoff + (size_t)(q0 + r) * D + i % D] = from_f<T>(dqs[r * L::ROW + i % D] * sm_scale);
   }
 }
 
 // ---------------------------------------------------------------------- dkv
 // P and dS are written over the f32 tiles they come from.
-template <typename T>
+template <typename T, int D>
 constexpr size_t dkv_smem() {
-  return 4 * 64 * Ld<T>::v * sizeof(T) + 4 * 64 * LDF * sizeof(float) + 2 * 64 * sizeof(float);
+  using L = F32Tiles<D>;
+  return 64 * (4 * L::ROW + 2 * L::KV + 2 * L::SC) * sizeof(float) + 2 * 64 * sizeof(float);
 }
 
 template <typename T, int D, bool GATED>
@@ -494,31 +525,31 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
            const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
            int Sq, int Sk, int rep, int causal, float sm_scale, const Gate gate) {
   static_assert(std::is_same<T, float>::value, "the bf16 dkv is wgmma_dkv_kernel");
-  constexpr int LDT = Ld<T>::v;
+  using L = F32Tiles<D>;
   const float scale2 = sm_scale * LOG2E;
   const int k0 = blockIdx.x * BK, kvh = blockIdx.y;
   const int tid = threadIdx.x;
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int PER = BQ * BK / NTHREADS;         // score entries per thread
-  T* ks = reinterpret_cast<T*>(smem);             // [BK][LDT]
-  T* vs = ks + 64 * LDT;                          // [BK][LDT]
-  T* qs = vs + 64 * LDT;                          // [BQ][LDT]
-  T* dos = qs + 64 * LDT;                         // [BQ][LDT]
-  float* ss = reinterpret_cast<float*>(dos + 64 * LDT);  // [BQ][LDF] scores
-  float* dps = ss + 64 * LDF;                     // [BQ][LDF] dO V^T
-  float* dks = dps + 64 * LDF;                    // [BK][LDF] dk sums
-  float* dvs = dks + 64 * LDF;                    // [BK][LDF] dv sums
-  float* lse2 = dvs + 64 * LDF;                   // [BQ]
+  T* ks = reinterpret_cast<T*>(smem);             // [BK][KV]
+  T* vs = ks + 64 * L::KV;                        // [BK][KV]
+  T* qs = vs + 64 * L::KV;                        // [BQ][ROW]
+  T* dos = qs + 64 * L::ROW;                      // [BQ][ROW]
+  float* ss = reinterpret_cast<float*>(dos + 64 * L::ROW);  // [BQ][SC] scores
+  float* dps = ss + 64 * L::SC;                   // [BQ][SC] dO V^T
+  float* dks = dps + 64 * L::SC;                  // [BK][ROW] dk sums
+  float* dvs = dks + 64 * L::ROW;                 // [BK][ROW] dv sums
+  float* lse2 = dvs + 64 * L::ROW;                // [BQ]
   float* dl = lse2 + BQ;                          // [BQ]
-  T* pts = reinterpret_cast<T*>(ss);              // [BQ][LDT] P, over ss
-  T* dss = reinterpret_cast<T*>(dps);             // [BQ][LDT] dS, over dps
+  T* pts = reinterpret_cast<T*>(ss);              // [BQ][SC] P, over ss
+  T* dss = reinterpret_cast<T*>(dps);             // [BQ][SC] dS, over dps
 
   const size_t koff = (size_t)kvh * Sk * D;
-  load_tile<T, D>(ks, LDT, k + koff, k0, min(BK, Sk - k0));
-  load_tile<T, D>(vs, LDT, v + koff, k0, min(BK, Sk - k0));
+  load_tile<T, D>(ks, L::KV, k + koff, k0, min(BK, Sk - k0));
+  load_tile<T, D>(vs, L::KV, v + koff, k0, min(BK, Sk - k0));
   for (int i = tid; i < BK * D; i += NTHREADS) {
-    dks[(i / D) * LDF + i % D] = 0.f;
-    dvs[(i / D) * LDF + i % D] = 0.f;
+    dks[(i / D) * L::ROW + i % D] = 0.f;
+    dvs[(i / D) * L::ROW + i % D] = 0.f;
   }
   // query rows above the diagonal never see these keys
   const int q_start = causal ? (k0 / BQ) * BQ : 0;
@@ -527,16 +558,16 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   auto step = [&](int bh, int q0, Tile tl) {
     const size_t qoff = (size_t)bh * Sq * D;
     __syncthreads();
-    load_tile<T, D>(qs, LDT, q + qoff, q0, min(BQ, Sq - q0));
-    load_tile<T, D>(dos, LDT, dout + qoff, q0, min(BQ, Sq - q0));
+    load_tile<T, D>(qs, L::ROW, q + qoff, q0, min(BQ, Sq - q0));
+    load_tile<T, D>(dos, L::ROW, dout + qoff, q0, min(BQ, Sq - q0));
     for (int r = tid; r < BQ; r += NTHREADS) {
       const bool ok = q0 + r < Sq;
       lse2[r] = ok ? lse[(size_t)bh * Sq + q0 + r] * LOG2E : 0.f;
       dl[r] = ok ? delta[(size_t)bh * Sq + q0 + r] : 0.f;
     }
     __syncthreads();
-    mma_tile<false, true, false>(qs, LDT, ks, LDT, ss, LDF, BQ, BK, D);
-    mma_tile<false, true, false>(dos, LDT, vs, LDT, dps, LDF, BQ, BK, D);
+    mma_tile<false, true, false>(qs, L::ROW, ks, L::KV, ss, L::SC, BQ, BK, D);
+    mma_tile<false, true, false>(dos, L::ROW, vs, L::KV, dps, L::SC, BQ, BK, D);
     __syncthreads();
     // p and ds stay in registers across the barrier, then overwrite the
     // f32 tiles they were computed from
@@ -551,20 +582,20 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
         vis = vis && sub_on(tl.bits, 8 * (((q0 + r) >> gate.shift) - (q0 >> gate.shift)),
                             ((k0 + j) >> gate.shift) - (k0 >> gate.shift));
       if (vis) {
-        p[e] = exp2f(ss[r * LDF + j] * scale2 - lse2[r]);
-        ds[e] = p[e] * (dps[r * LDF + j] - dl[r]);
+        p[e] = exp2f(ss[r * L::SC + j] * scale2 - lse2[r]);
+        ds[e] = p[e] * (dps[r * L::SC + j] - dl[r]);
       }
     }
     __syncthreads();
 #pragma unroll
     for (int e = 0; e < PER; ++e) {
       const int i = tid + e * NTHREADS, r = i / BK, j = i % BK;
-      pts[r * LDT + j] = from_f<T>(p[e]);
-      dss[r * LDT + j] = from_f<T>(ds[e]);
+      pts[r * L::SC + j] = from_f<T>(p[e]);
+      dss[r * L::SC + j] = from_f<T>(ds[e]);
     }
     __syncthreads();
-    mma_tile<true, false, true>(pts, LDT, dos, LDT, dvs, LDF, BK, D, BQ);  // dv += P^T dO
-    mma_tile<true, false, true>(dss, LDT, qs, LDT, dks, LDF, BK, D, BQ);   // dk += dS^T Q
+    mma_tile<true, false, true>(pts, L::SC, dos, L::ROW, dvs, L::ROW, BK, D, BQ);  // dv += P^T dO
+    mma_tile<true, false, true>(dss, L::SC, qs, L::ROW, dks, L::ROW, BK, D, BQ);   // dk += dS^T Q
   };
   if constexpr (GATED) {
     int first;
@@ -584,8 +615,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     const int r = i / D;
     if (k0 + r < Sk) {
       const size_t off = koff + (size_t)(k0 + r) * D + i % D;
-      dk[off] = from_f<T>(dks[r * LDF + i % D] * sm_scale);
-      dv[off] = from_f<T>(dvs[r * LDF + i % D]);
+      dk[off] = from_f<T>(dks[r * L::ROW + i % D] * sm_scale);
+      dv[off] = from_f<T>(dvs[r * L::ROW + i % D]);
     }
   }
 }
@@ -599,9 +630,34 @@ constexpr int STAGES = 3;                  // K/V ring depth
 constexpr int CONSUMERS = 256;             // two consumer warpgroups
 constexpr int THREADS = CONSUMERS + 32;    // and one producer warp
 constexpr uint32_t TILE = 128 * 64 * 2;    // one [128][64] bf16 tile, 16 KB
-// Q, the ring of K and V tiles, 2 * STAGES + 1 mbarriers, and slack to
+
+// The head dim of a wgmma kernel.  A bf16 row of D = 128 is 256 bytes, and
+// a 128-byte-swizzled TMA box is at most 128 bytes wide, so a [rows][D]
+// tile is D / 64 spans of [rows][64], one box each, span h (columns 64 h ..
+// 64 h + 63) at h x rows x 128 bytes: a k-step of 16 over D lies in span
+// kk / 4 at 32 (kk % 4) bytes, and a product whose N is D (P V, dS K, P^T
+// dO, dS^T Q) is one m64n64 wgmma a span, into its own 32-register
+// accumulator.  At D = 128 the accumulators of O (dQ; dK and dV) are twice
+// as wide, more than the 168 registers a thread that 288 threads get, so
+// the forward's and dq's producer is a whole warpgroup that hands
+// registers to the consumers with setmaxnreg (24 and 240 a thread; dkv
+// had one already, at 40 and 232), and the forward's ring of 32 KB K and
+// V tiles is 2 stages deep (5 tiles, 161 KB).
+template <int D>
+struct Head {
+  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static constexpr int SPANS = D / 64;
+  static constexpr int KSTEPS = D / 16;
+  static constexpr int THREADS = D == 64 ? CONSUMERS + 32 : CONSUMERS + 128;
+  static constexpr int FWD_STAGES = D == 64 ? STAGES : 2;
+};
+
+// Q, the ring of K and V tiles, 2 * stages + 1 mbarriers, and slack to
 // align to 1024
-constexpr size_t SMEM = 1024 + TILE * (1 + 2 * STAGES) + 64;
+template <int D>
+constexpr size_t wgmma_fwd_smem() {
+  return 1024 + TILE * Head<D>::SPANS * (1 + 2 * Head<D>::FWD_STAGES) + 64;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -690,6 +746,23 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+template <int S, int N>
+__device__ __forceinline__ void fence_regs(float (&r)[S][N]) {
+#pragma unroll
+  for (int s = 0; s < S; ++s) fence_regs(r[s]);
+}
+
+// The forward's and dq's register budget at D = 128 (Head): the producer
+// warpgroup gives registers back, the consumers take them (dkv keeps its
+// 40 / 232 at both head dims: its producer loads lse and delta itself).
+template <int D>
+__device__ __forceinline__ void producer_regs() {
+  if constexpr (D == 128) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+}
+template <int D>
+__device__ __forceinline__ void consumer_regs() {
+  if constexpr (D == 128) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+}
 
 // One arrival of the calling warp on a stage's empty barrier.
 __device__ __forceinline__ void release(uint32_t bar, int lane) {
@@ -774,15 +847,17 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
 }
 
 
-// sc = Q K^T for this warpgroup's 64 rows against the [128][64] K tile at
-// ks: four k-steps of 16 over D = 64, 32 bytes apart in the swizzled
-// 128-byte rows (committed by the caller).
+// sc = Q K^T for this warpgroup's 64 rows against the [128][D] K tile at
+// ks: D / 16 k-steps of 16, 32 bytes apart in the swizzled 128-byte rows of
+// a span, the spans of both 128-row tiles TILE apart (committed by the
+// caller).
+template <int D>
 __device__ __forceinline__ void issue_scores(float (&sc)[64], uint32_t qa, uint32_t ks) {
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_m64n128k16_ss(sc, desc_sw128(qa + 32 * kk, 16, 1024), desc_sw128(ks + 32 * kk, 16, 1024),
-                        kk);
+  for (int kk = 0; kk < Head<D>::KSTEPS; ++kk)
+    wgmma_m64n128k16_ss(sc, desc_sw128(qa + TILE * (kk / 4) + 32 * (kk % 4), 16, 1024),
+                        desc_sw128(ks + TILE * (kk / 4) + 32 * (kk % 4), 16, 1024), kk);
 }
 
 // The online-softmax step on the S fragments of the tile at key k0 (exp2
@@ -878,17 +953,23 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[KS][4], const float (&sc)[
   }
 }
 
-// O = alpha O + P V, issued (committed by the caller): V's [128 keys][64]
-// tile at vs read MN-major; a k-step is 16 key rows, two 1024-byte groups
-// of 8 rows.
-__device__ __forceinline__ void rescale_and_issue_pv(float (&acc)[32], const uint32_t (&pa)[8][4],
+// O = alpha O + P V, issued (committed by the caller): V's [128 keys][D]
+// tile at vs read MN-major, span h into acc[h]; a k-step is 16 key rows,
+// two 1024-byte groups of 8 rows.
+template <int SPANS>
+__device__ __forceinline__ void rescale_and_issue_pv(float (&acc)[SPANS][32],
+                                                     const uint32_t (&pa)[8][4],
                                                      const float (&alpha)[2], uint32_t vs) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] *= alpha[(i >> 1) & 1];
+  for (int h = 0; h < SPANS; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] *= alpha[(i >> 1) & 1];
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
-    wgmma_m64n64k16_rs(acc, pa[kk], desc_sw128(vs + 2048 * kk, 1024, 1024));
+  for (int h = 0; h < SPANS; ++h)
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_m64n64k16_rs(acc[h], pa[kk], desc_sw128(vs + TILE * h + 2048 * kk, 1024, 1024));
 }
 
 // 128 rows of a [BH, S, 64] bf16 array from row0 of head bh set to zero
@@ -906,20 +987,23 @@ __device__ void zero_rows(bf16* x, int bh, int row0, int S) {
 // holds row 16*w + lane/4 + 8*((i >> 1) & 1), column 8*(i >> 2) + 2*(lane%4)
 // + (i & 1) of its warpgroup's 64-row tile.  GATED: the ring walks the
 // live key tiles of the query tile's map row (stage = list position).
-template <bool GATED>
-__global__ void __launch_bounds__(THREADS, 1)
+template <bool GATED, int D>
+__global__ void __launch_bounds__(Head<D>::THREADS, 1)
 wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
                  float* __restrict__ lse, int Sq, int Sk, int rep, int causal, float scale2,
                  const Gate gate) {
+  static_assert(!GATED || D == 64, "the layout gate runs at head dim 64");
+  constexpr int SPANS = Head<D>::SPANS, NST = Head<D>::FWD_STAGES;
+  constexpr uint32_t T = TILE * SPANS;              // one [128][D] bf16 tile
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   const uint32_t sbase = smem_u32(smem);            // 1024-aligned: the swizzle's period
-  const uint32_t q_s = sbase;                       // [128][64] bf16
-  const uint32_t bars = sbase + TILE * (1 + 2 * STAGES);
-  const uint32_t full0 = bars, empty0 = bars + 8 * STAGES, qbar = bars + 16 * STAGES;
+  const uint32_t q_s = sbase;                       // [128][D] bf16
+  const uint32_t bars = sbase + T * (1 + 2 * NST);
+  const uint32_t full0 = bars, empty0 = bars + 8 * NST, qbar = bars + 16 * NST;
 
-  StageTile* descs = reinterpret_cast<StageTile*>(smem + TILE * (1 + 2 * STAGES) + 64);
+  StageTile* descs = reinterpret_cast<StageTile*>(smem + T * (1 + 2 * NST) + 64);
 
   // ungated: block (bh, the longest causal rows first); GATED: block
   // (batch, the map row of the order's entry blockIdx.y), the longest
@@ -946,7 +1030,7 @@ wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   }
 
   if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < NST; ++s) {
       mbar_init(full0 + 8 * s, 1);                  // the producer's expect_tx
       mbar_init(empty0 + 8 * s, CONSUMERS / 32);    // one arrival per consumer warp
     }
@@ -955,25 +1039,31 @@ wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   }
   __syncthreads();
 
-  if (tid >= CONSUMERS) {                           // producer warp: one thread issues
+  if (tid >= CONSUMERS) {                           // producer: one thread issues
+    producer_regs<D>();
     if (tid == CONSUMERS) {
-      mbar_expect_tx(qbar, TILE);
-      tma_load_3d(q_s, &tq, qbar, 0, q0, bh);
+      mbar_expect_tx(qbar, T);
+#pragma unroll
+      for (int h = 0; h < SPANS; ++h) tma_load_3d(q_s + TILE * h, &tq, qbar, 64 * h, q0, bh);
       Tile next = tile_at<GATED>(gate, first, 0);  // GATED: entry t + 1 loads during wait t
       for (int t = 0; t < ntiles; ++t) {
-        const int s = t % STAGES;
+        const int s = t % NST;
         const Tile tl = next;
         if (t + 1 < ntiles) next = tile_at<GATED>(gate, first, t + 1);
-        mbar_wait(empty0 + 8 * s, ((t / STAGES) & 1) ^ 1);   // first pass: free
-        const uint32_t ks = sbase + TILE * (1 + 2 * s);
+        mbar_wait(empty0 + 8 * s, ((t / NST) & 1) ^ 1);       // first pass: free
+        const uint32_t ks = sbase + T * (1 + 2 * s);
         if constexpr (GATED) descs[s] = StageTile{tl.index, tl.flags, tl.bits};
-        mbar_expect_tx(full0 + 8 * s, 2 * TILE);
-        tma_load_3d(ks, &tk, full0 + 8 * s, 0, tl.index * BN, kvh);
-        tma_load_3d(ks + TILE, &tv, full0 + 8 * s, 0, tl.index * BN, kvh);
+        mbar_expect_tx(full0 + 8 * s, 2 * T);
+#pragma unroll
+        for (int h = 0; h < SPANS; ++h) {
+          tma_load_3d(ks + TILE * h, &tk, full0 + 8 * s, 64 * h, tl.index * BN, kvh);
+          tma_load_3d(ks + T + TILE * h, &tv, full0 + 8 * s, 64 * h, tl.index * BN, kvh);
+        }
       }
     }
     return;
   }
+  consumer_regs<D>();
 
   const int wg = tid / 128, lane = tid % 32, warp = (tid % 128) / 32;
   const int quad = lane % 4;
@@ -986,7 +1076,7 @@ wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   const int qbit = GATED ? 8 * ((row0 >> gate.shift) - (q0 >> gate.shift)) : 0;
   auto stage_tile = [&](int t, int& k0, int& flags, uint32_t& pm) {
     if constexpr (GATED) {
-      const StageTile d = descs[t % STAGES];
+      const StageTile d = descs[t % NST];
       k0 = d.index * BN;
       flags = d.flags;
       pm = flags & FULL ? 0u : pair_bits((uint32_t)(d.bits >> qbit) & 0xffu, gate.shift, BN / 8);
@@ -998,9 +1088,11 @@ wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   };
 
   const float kNegInf = neg_inf();
-  float acc[32];
+  float acc[SPANS][32];                                   // O, span h in acc[h]
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int h = 0; h < SPANS; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
   // running row max (scaled, exp2 domain; -inf until a key is seen) and sum
   float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
   float sc[64];                                           // S of the tile in hand
@@ -1009,7 +1101,7 @@ wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
 
   mbar_wait<GATED>(qbar, 0);
   mbar_wait<GATED>(full0, 0);
-  issue_scores(sc, qa, sbase + TILE);
+  issue_scores<D>(sc, qa, sbase + T);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(sc);
@@ -1029,13 +1121,13 @@ wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
                         pm);
     wgmma_wait<0>();                                      // P_{t-1} V_{t-1}
     fence_regs(acc);
-    if (t > 0) release(empty0 + 8 * ((t - 1) % STAGES), lane);
+    if (t > 0) release(empty0 + 8 * ((t - 1) % NST), lane);
     pack_p(pa, sc);
-    const int s1 = (t + 1) % STAGES;
-    mbar_wait(full0 + 8 * s1, ((t + 1) / STAGES) & 1);
-    issue_scores(sc, qa, sbase + TILE * (1 + 2 * s1));   // S_{t+1}
+    const int s1 = (t + 1) % NST;
+    mbar_wait(full0 + 8 * s1, ((t + 1) / NST) & 1);
+    issue_scores<D>(sc, qa, sbase + T * (1 + 2 * s1));   // S_{t+1}
     wgmma_commit();
-    rescale_and_issue_pv(acc, pa, alpha, sbase + TILE * (2 + 2 * (t % STAGES)));
+    rescale_and_issue_pv(acc, pa, alpha, sbase + T * (2 + 2 * (t % NST)));
     wgmma_commit();
     wgmma_wait<1>();                                      // S_{t+1}
     fence_regs(sc);
@@ -1050,7 +1142,7 @@ wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     wgmma_wait<0>();
     fence_regs(acc);
     pack_p(pa, sc);
-    rescale_and_issue_pv(acc, pa, alpha, sbase + TILE * (2 + 2 * (t % STAGES)));
+    rescale_and_issue_pv(acc, pa, alpha, sbase + T * (2 + 2 * (t % NST)));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -1061,10 +1153,13 @@ wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     const int row = row0 + 8 * r;
     if (row >= Sq) continue;
     const float lr = l_r[r] == 0.f ? 1.f : l_r[r];
-    __nv_bfloat162* orow = reinterpret_cast<__nv_bfloat162*>(o + ((size_t)bh * Sq + row) * 64);
+    __nv_bfloat162* orow = reinterpret_cast<__nv_bfloat162*>(o + ((size_t)bh * Sq + row) * D);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      orow[4 * j + quad] = __floats2bfloat162_rn(acc[4 * j + 2 * r] / lr, acc[4 * j + 2 * r + 1] / lr);
+    for (int h = 0; h < SPANS; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        orow[32 * h + 4 * j + quad] = __floats2bfloat162_rn(acc[h][4 * j + 2 * r] / lr,
+                                                            acc[h][4 * j + 2 * r + 1] / lr);
     if (quad == 0) lse[(size_t)bh * Sq + row] = m_r[r] * LN2 + logf(lr);
   }
 }
@@ -1073,7 +1168,10 @@ wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
 constexpr int KT = 64;                     // keys a dq tile, queries a dkv tile
 constexpr uint32_t HALF = 64 * 64 * 2;     // one [64][64] bf16 tile, 8 KB
 // dq: Q and dO, the ring of K and V tiles, 2 * STAGES + 1 mbarriers
-constexpr size_t DQ_SMEM = 1024 + 2 * TILE + STAGES * 2 * HALF + 8 * (2 * STAGES + 1);
+template <int D>
+constexpr size_t dq_smem() {
+  return 1024 + (2 * TILE + STAGES * 2 * HALF) * Head<D>::SPANS + 8 * (2 * STAGES + 1);
+}
 // dkv: K and V, the ring of Q and dO tiles with their lse and delta rows
 // (2 x 64 floats a stage; GATED 8 lse rows, one per key sub-block of the
 // tile, then delta and the tile's first query row), 2 * STAGES + 1
@@ -1084,29 +1182,39 @@ template <bool GATED>
 __host__ __device__ constexpr uint32_t dkv_side() {
   return (dkv_lse_rows<GATED>() + 1) * 64 * 4 + (GATED ? 16 : 0);
 }
-template <bool GATED>
+template <bool GATED, int D>
 constexpr size_t dkv_smem() {
-  return 1024 + 2 * TILE + STAGES * (2 * HALF + dkv_side<GATED>()) + 8 * (2 * STAGES + 1);
+  return 1024 + 2 * TILE * Head<D>::SPANS +
+         STAGES * (2 * HALF * Head<D>::SPANS + dkv_side<GATED>()) + 8 * (2 * STAGES + 1);
 }
 
 __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
 
-// D = A B^T over D = 64 for this warpgroup's 64 rows of the K-major tile at
-// a against the 64 rows of the K-major tile at b: four k-steps of 16, 32
-// bytes apart in the swizzled 128-byte rows (committed by the caller, after
-// a wgmma_fence).
-__device__ __forceinline__ void issue_nt(float (&d)[32], uint32_t a, uint32_t b) {
+// D = A B^T over D for this warpgroup's 64 rows of the K-major tile at a
+// against the 64 rows of the K-major tile at b: D / 16 k-steps of 16, 32
+// bytes apart in the swizzled 128-byte rows of a span, the spans of a and
+// of b a_span and b_span bytes apart (committed by the caller, after a
+// wgmma_fence).
+template <int D>
+__device__ __forceinline__ void issue_nt(float (&d)[32], uint32_t a, uint32_t a_span, uint32_t b,
+                                         uint32_t b_span) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_m64n64k16_ss(d, desc_sw128(a + 32 * kk, 16, 1024), desc_sw128(b + 32 * kk, 16, 1024),
-                       kk);
+  for (int kk = 0; kk < Head<D>::KSTEPS; ++kk)
+    wgmma_m64n64k16_ss(d, desc_sw128(a + a_span * (kk / 4) + 32 * (kk % 4), 16, 1024),
+                       desc_sw128(b + b_span * (kk / 4) + 32 * (kk % 4), 16, 1024), kk);
 }
 
-// D += A B, A the 64 x 64 register operand pa and B the [64][64] tile at b
-// read MN-major: a k-step is 16 rows of b, two 1024-byte groups of 8.
-__device__ __forceinline__ void issue_rs(float (&d)[32], const uint32_t (&pa)[4][4], uint32_t b) {
+// d[h] += A B_h, A the 64 x 64 register operand pa and B_h span h of the
+// [64][D] tile at b (spans b_span bytes apart) read MN-major: a k-step is
+// 16 rows of b, two 1024-byte groups of 8.
+template <int SPANS>
+__device__ __forceinline__ void issue_rs(float (&d)[SPANS][32], const uint32_t (&pa)[4][4],
+                                         uint32_t b, uint32_t b_span) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_m64n64k16_rs(d, pa[kk], desc_sw128(b + 2048 * kk, 1024, 1024));
+  for (int h = 0; h < SPANS; ++h)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n64k16_rs(d[h], pa[kk], desc_sw128(b + b_span * h + 2048 * kk, 1024, 1024));
 }
 
 // dq's step on the fragments of the 64-key tile at k0 (rows: the thread's
@@ -1147,9 +1255,31 @@ __device__ __forceinline__ void ds_rows(float (&s)[32], const float (&dp)[32],
 // key above the query's diagonal is masked.  GATED, lrow is the row of
 // the keys' layout sub-block, where a query whose sub-block bit is 0 also
 // carries lse2 = +inf, so the layout costs the step nothing.
+// LEAN (D = 128, where dK and dV hold 128 registers a thread): the lse and
+// delta pairs are read one column pair j at a time instead of all first.
+template <bool LEAN = false>
 __device__ __forceinline__ void ds_cols(float (&s)[32], float (&dp)[32], const float* lrow,
                                         const float* drow, int q0, int key0, int quad, bool edge,
                                         float scale2) {
+  auto col = [&](int i, float2 l2, float2 dl) {
+    const float lc = (i & 1) ? l2.y : l2.x;
+    const float dc = (i & 1) ? dl.y : dl.x;
+    float x = fmaf(s[i], scale2, -lc);
+    if (edge && q0 + 8 * (i >> 2) + 2 * quad + (i & 1) < key0 + 8 * ((i >> 1) & 1)) x = neg_inf();
+    const float p = ex2(x);
+    s[i] = p;
+    dp[i] = p * (dp[i] - dc);
+  };
+  if constexpr (LEAN) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lrow + 8 * j + 2 * quad);
+      const float2 dl = *reinterpret_cast<const float2*>(drow + 8 * j + 2 * quad);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) col(4 * j + e, l2, dl);
+    }
+    return;
+  }
   float2 l2[8], dl[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -1157,16 +1287,7 @@ __device__ __forceinline__ void ds_cols(float (&s)[32], float (&dp)[32], const f
     dl[j] = *reinterpret_cast<const float2*>(drow + 8 * j + 2 * quad);
   }
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int j = i >> 2;
-    const float lc = (i & 1) ? l2[j].y : l2[j].x;
-    const float dc = (i & 1) ? dl[j].y : dl[j].x;
-    float x = fmaf(s[i], scale2, -lc);
-    if (edge && q0 + 8 * j + 2 * quad + (i & 1) < key0 + 8 * ((i >> 1) & 1)) x = neg_inf();
-    const float p = ex2(x);
-    s[i] = p;
-    dp[i] = p * (dp[i] - dc);
-  }
+  for (int i = 0; i < 32; ++i) col(i, l2[i >> 2], dl[i >> 2]);
 }
 
 // 16 bf16 at p (16-byte aligned) summed against 16 at q, in f32.
@@ -1189,7 +1310,8 @@ __device__ __forceinline__ float dot16(const bf16* p, const bf16* q) {
 
 // lse (exp2 domain) and delta of the thread's two rows row0, row0 + 8 of
 // head bh; with o given, delta = rowsum(dO O) in f32, the row's quad
-// reading 16 values each, and written out for the dkv call.
+// reading 16 values a span each, and written out for the dkv call.
+template <int D>
 __device__ __forceinline__ void dq_row_stats(const bf16* o, const bf16* dout, const float* lse,
                                              float* delta, int bh, int Sq, int row0, int quad,
                                              float (&lse2)[2], float (&dl)[2]) {
@@ -1198,7 +1320,10 @@ __device__ __forceinline__ void dq_row_stats(const bf16* o, const bf16* dout, co
     const int row = row0 + 8 * r;
     const size_t ri = (size_t)bh * Sq + row;
     if (o != nullptr) {
-      float d = row < Sq ? dot16(dout + ri * 64 + 16 * quad, o + ri * 64 + 16 * quad) : 0.f;
+      float d = row < Sq ? dot16(dout + ri * D + 16 * quad, o + ri * D + 16 * quad) : 0.f;
+      if constexpr (D == 128) {
+        if (row < Sq) d += dot16(dout + ri * D + 64 + 16 * quad, o + ri * D + 64 + 16 * quad);
+      }
       d += __shfl_xor_sync(0xffffffffu, d, 1);
       d += __shfl_xor_sync(0xffffffffu, d, 2);
       if (quad == 0 && row < Sq) delta[ri] = d;
@@ -1216,22 +1341,25 @@ __device__ __forceinline__ void dq_row_stats(const bf16* o, const bf16* dout, co
 // dS_t K_t issued, and S_{t+1}, dP_{t+1} awaited.  The last tile is peeled
 // off so that no wgmma or wait in the loop is conditional.  GATED: the
 // ring walks the live 64-key tiles of the query tile's map row.
-template <bool GATED>
-__global__ void __launch_bounds__(THREADS, 1)
+template <bool GATED, int D>
+__global__ void __launch_bounds__(Head<D>::THREADS, 1)
 wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                 const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                 const bf16* __restrict__ o, const bf16* __restrict__ dout,
                 const float* __restrict__ lse, float* __restrict__ delta, bf16* __restrict__ dq,
                 int Sq, int Sk, int rep, int causal, float sm_scale, const Gate gate) {
+  static_assert(!GATED || D == 64, "the layout gate runs at head dim 64");
+  constexpr int SPANS = Head<D>::SPANS;
+  constexpr uint32_t T = TILE * SPANS, KV = HALF * SPANS;   // [128][D], [64][D]
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   const uint32_t sbase = smem_u32(smem);
-  const uint32_t q_s = sbase, do_s = sbase + TILE;  // [128][64] bf16 each
-  const uint32_t ring = sbase + 2 * TILE;            // stage s: K, V [64][64]
-  const uint32_t bars = ring + STAGES * 2 * HALF;
+  const uint32_t q_s = sbase, do_s = sbase + T;     // [128][D] bf16 each
+  const uint32_t ring = sbase + 2 * T;               // stage s: K, V [64][D]
+  const uint32_t bars = ring + STAGES * 2 * KV;
   const uint32_t full0 = bars, empty0 = bars + 8 * STAGES, qbar = bars + 16 * STAGES;
 
-  StageTile* descs = reinterpret_cast<StageTile*>(smem + 2 * TILE + STAGES * 2 * HALF + 64);
+  StageTile* descs = reinterpret_cast<StageTile*>(smem + 2 * T + STAGES * 2 * KV + 64);
 
   // blocks as in wgmma_fwd_kernel
   int bh = blockIdx.x, q0 = (gridDim.y - 1 - blockIdx.y) * BM, map_row = 0;
@@ -1251,8 +1379,8 @@ wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       if (tid < CONSUMERS) {
         const int lane = tid % 32;
         float lse2[2], dl[2];
-        dq_row_stats(o, dout, lse, delta, bh, Sq, q0 + (tid / 32) * 16 + lane / 4, lane % 4,
-                     lse2, dl);
+        dq_row_stats<D>(o, dout, lse, delta, bh, Sq, q0 + (tid / 32) * 16 + lane / 4, lane % 4,
+                        lse2, dl);
       }
       zero_rows(dq, bh, q0, Sq);
       return;
@@ -1269,26 +1397,34 @@ wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   }
   __syncthreads();
 
-  if (tid >= CONSUMERS) {                          // producer warp: one thread issues
+  if (tid >= CONSUMERS) {                          // producer: one thread issues
+    producer_regs<D>();
     if (tid == CONSUMERS) {
-      mbar_expect_tx(qbar, 2 * TILE);
-      tma_load_3d(q_s, &tq, qbar, 0, q0, bh);
-      tma_load_3d(do_s, &tdo, qbar, 0, q0, bh);
+      mbar_expect_tx(qbar, 2 * T);
+#pragma unroll
+      for (int h = 0; h < SPANS; ++h) {
+        tma_load_3d(q_s + TILE * h, &tq, qbar, 64 * h, q0, bh);
+        tma_load_3d(do_s + TILE * h, &tdo, qbar, 64 * h, q0, bh);
+      }
       Tile next = tile_at<GATED>(gate, first, 0);  // GATED: entry t + 1 loads during wait t
       for (int t = 0; t < ntiles; ++t) {
         const int s = t % STAGES;
         const Tile tl = next;
         if (t + 1 < ntiles) next = tile_at<GATED>(gate, first, t + 1);
         mbar_wait(empty0 + 8 * s, ((t / STAGES) & 1) ^ 1);
-        const uint32_t ks = ring + 2 * HALF * s;
+        const uint32_t ks = ring + 2 * KV * s;
         if constexpr (GATED) descs[s] = StageTile{tl.index, tl.flags, tl.bits};
-        mbar_expect_tx(full0 + 8 * s, 2 * HALF);
-        tma_load_3d(ks, &tk, full0 + 8 * s, 0, tl.index * KT, kvh);
-        tma_load_3d(ks + HALF, &tv, full0 + 8 * s, 0, tl.index * KT, kvh);
+        mbar_expect_tx(full0 + 8 * s, 2 * KV);
+#pragma unroll
+        for (int h = 0; h < SPANS; ++h) {
+          tma_load_3d(ks + HALF * h, &tk, full0 + 8 * s, 64 * h, tl.index * KT, kvh);
+          tma_load_3d(ks + KV + HALF * h, &tv, full0 + 8 * s, 64 * h, tl.index * KT, kvh);
+        }
       }
     }
     return;
   }
+  consumer_regs<D>();
 
   const int wg = tid / 128, lane = tid % 32, warp = (tid % 128) / 32;
   const int quad = lane % 4;
@@ -1313,19 +1449,23 @@ wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   };
 
   float lse2[2], dl[2];
-  dq_row_stats(o, dout, lse, delta, bh, Sq, row0, quad, lse2, dl);
+  dq_row_stats<D>(o, dout, lse, delta, bh, Sq, row0, quad, lse2, dl);
   const float scale2 = sm_scale * LOG2E;
 
-  float acc[32], s[32], dp[32];
+  float acc[SPANS][32], s[32], dp[32];                    // dQ span h in acc[h]
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = s[i] = dp[i] = 0.f;
+  for (int i = 0; i < 32; ++i) {
+    s[i] = dp[i] = 0.f;
+#pragma unroll
+    for (int h = 0; h < SPANS; ++h) acc[h][i] = 0.f;
+  }
   uint32_t pa[4][4];
 
   mbar_wait<GATED>(qbar, 0);
   mbar_wait<GATED>(full0, 0);
   wgmma_fence();
-  issue_nt(s, qa, ring);
-  issue_nt(dp, doa, ring + HALF);
+  issue_nt<D>(s, qa, TILE, ring, HALF);
+  issue_nt<D>(dp, doa, TILE, ring + KV, HALF);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(s);
@@ -1343,10 +1483,10 @@ wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     const int s1 = (t + 1) % STAGES;
     mbar_wait(full0 + 8 * s1, ((t + 1) / STAGES) & 1);
     wgmma_fence();
-    issue_nt(s, qa, ring + 2 * HALF * s1);                // S_{t+1}
-    issue_nt(dp, doa, ring + 2 * HALF * s1 + HALF);       // dP_{t+1}
+    issue_nt<D>(s, qa, TILE, ring + 2 * KV * s1, HALF);          // S_{t+1}
+    issue_nt<D>(dp, doa, TILE, ring + 2 * KV * s1 + KV, HALF);   // dP_{t+1}
     wgmma_commit();
-    issue_rs(acc, pa, ring + 2 * HALF * (t % STAGES));    // dQ += dS_t K_t
+    issue_rs(acc, pa, ring + 2 * KV * (t % STAGES), HALF);       // dQ += dS_t K_t
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs(s);
@@ -1363,7 +1503,7 @@ wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     fence_regs(acc);
     pack_p(pa, s);
     wgmma_fence();
-    issue_rs(acc, pa, ring + 2 * HALF * (t % STAGES));
+    issue_rs(acc, pa, ring + 2 * KV * (t % STAGES), HALF);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -1373,11 +1513,13 @@ wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= Sq) continue;
-    __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(dq + ((size_t)bh * Sq + row) * 64);
+    __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(dq + ((size_t)bh * Sq + row) * D);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      out[4 * j + quad] = __floats2bfloat162_rn(acc[4 * j + 2 * r] * sm_scale,
-                                                acc[4 * j + 2 * r + 1] * sm_scale);
+    for (int h = 0; h < SPANS; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        out[32 * h + 4 * j + quad] = __floats2bfloat162_rn(acc[h][4 * j + 2 * r] * sm_scale,
+                                                           acc[h][4 * j + 2 * r + 1] * sm_scale);
   }
 }
 
@@ -1397,15 +1539,23 @@ wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 // over all nqt query tiles, with query head kvh * rep + g under its own
 // layout head; a key tile no query sees writes zeros, as under causal.
 // The producer writes each query row's lse once per key sub-block, +inf
-// where the layout gates the pair off.
+// where the layout gates the pair off.  D = 128: dK and dV alone take 128
+// registers a thread, and with S^T, dP^T and their packed operands the
+// overlapped loop would need about 245 of the 232 a consumer gets, so each
+// tile's products run in turn (S^T and dP^T, then dV and dK: about 220),
+// and the lse and delta pairs are read a column pair at a time
+// (ds_cols<true>).
 constexpr int DKV_THREADS = CONSUMERS + 128;
-template <bool GATED>
+template <bool GATED, int D>
 __global__ void __launch_bounds__(DKV_THREADS, 1)
 wgmma_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                  const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk, int rep,
                  int causal, float sm_scale, const Gate gate) {
+  static_assert(!GATED || D == 64, "the layout gate runs at head dim 64");
+  constexpr int SPANS = Head<D>::SPANS;
+  constexpr uint32_t T = TILE * SPANS, QT = HALF * SPANS;   // [128][D], [64][D]
   // ungated: the key tiles that see the most queries first
   int kvh = blockIdx.x, k0 = blockIdx.y * BM, map_row = 0;
   if constexpr (GATED) {
@@ -1423,10 +1573,10 @@ wgmma_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   const int tid = threadIdx.x;
   if (ntiles == 0) {                       // no query sees these keys
     const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
-    for (int i = tid; i < BM * 32; i += DKV_THREADS) {
-      const int key = k0 + i / 32;
+    for (int i = tid; i < BM * (D / 2); i += DKV_THREADS) {
+      const int key = k0 + i / (D / 2);
       if (key >= Sk) continue;
-      const size_t off = ((size_t)kvh * Sk + key) * 32 + i % 32;
+      const size_t off = ((size_t)kvh * Sk + key) * (D / 2) + i % (D / 2);
       reinterpret_cast<__nv_bfloat162*>(dk)[off] = zero;
       reinterpret_cast<__nv_bfloat162*>(dv)[off] = zero;
     }
@@ -1438,10 +1588,10 @@ wgmma_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   const uint32_t sbase = smem_u32(smem);
-  const uint32_t k_s = sbase, v_s = sbase + TILE;   // [128][64] bf16 each
-  const uint32_t ring = sbase + 2 * TILE;            // stage s: Q, dO [64][64]
-  float* side0 = reinterpret_cast<float*>(smem + 2 * TILE + STAGES * 2 * HALF);
-  const uint32_t bars = ring + STAGES * (2 * HALF + SIDE);
+  const uint32_t k_s = sbase, v_s = sbase + T;      // [128][D] bf16 each
+  const uint32_t ring = sbase + 2 * T;               // stage s: Q, dO [64][D]
+  float* side0 = reinterpret_cast<float*>(smem + 2 * T + STAGES * 2 * QT);
+  const uint32_t bars = ring + STAGES * (2 * QT + SIDE);
   const uint32_t full0 = bars, empty0 = bars + 8 * STAGES, kvbar = bars + 16 * STAGES;
 
   if (tid == 0) {
@@ -1459,9 +1609,12 @@ wgmma_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     if (tid >= CONSUMERS + 32) return;
     const int lane = tid - CONSUMERS;
     if (lane == 0) {
-      mbar_expect_tx(kvbar, 2 * TILE);
-      tma_load_3d(k_s, &tk, kvbar, 0, k0, kvh);
-      tma_load_3d(v_s, &tv, kvbar, 0, k0, kvh);
+      mbar_expect_tx(kvbar, 2 * T);
+#pragma unroll
+      for (int h = 0; h < SPANS; ++h) {
+        tma_load_3d(k_s + TILE * h, &tk, kvbar, 64 * h, k0, kvh);
+        tma_load_3d(v_s + TILE * h, &tv, kvbar, 64 * h, k0, kvh);
+      }
     }
     Tile next = tile_at<GATED>(gate, first, 0);    // GATED: entry n + 1 loads during wait n
     for (int n = 0; n < ntiles; ++n) {
@@ -1490,10 +1643,13 @@ wgmma_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
         if (lane == 0) reinterpret_cast<int*>(side + (LROWS + 1) * KT)[0] = q0;
       }
       if (lane == 0) {
-        const uint32_t qs = ring + 2 * HALF * s;
-        mbar_expect_tx(full0 + 8 * s, 2 * HALF);
-        tma_load_3d(qs, &tq, full0 + 8 * s, 0, q0, bh);
-        tma_load_3d(qs + HALF, &tdo, full0 + 8 * s, 0, q0, bh);
+        const uint32_t qs = ring + 2 * QT * s;
+        mbar_expect_tx(full0 + 8 * s, 2 * QT);
+#pragma unroll
+        for (int h = 0; h < SPANS; ++h) {
+          tma_load_3d(qs + HALF * h, &tq, full0 + 8 * s, 64 * h, q0, bh);
+          tma_load_3d(qs + QT + HALF * h, &tdo, full0 + 8 * s, 64 * h, q0, bh);
+        }
       } else {
         mbar_arrive(full0 + 8 * s);
       }
@@ -1517,79 +1673,116 @@ wgmma_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     else return q_start + (n % nqt) * KT;
   };
 
-  float dka[32], dva[32], s[32], dp[32];
+  float dka[SPANS][32], dva[SPANS][32], s[32], dp[32];   // dK, dV span h in [h]
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dka[i] = dva[i] = s[i] = dp[i] = 0.f;
+  for (int i = 0; i < 32; ++i) {
+    s[i] = dp[i] = 0.f;
+#pragma unroll
+    for (int h = 0; h < SPANS; ++h) dka[h][i] = dva[h][i] = 0.f;
+  }
   uint32_t pp[4][4], pd[4][4];
 
-  mbar_wait<GATED>(kvbar, 0);
-  mbar_wait<GATED>(full0, 0);
-  wgmma_fence();
-  issue_nt(s, ka, ring);                                  // S^T_0 = K Q_0^T
-  issue_nt(dp, va, ring + HALF);                          // dP^T_0 = V dO_0^T
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(s);
-  fence_regs(dp);
-  for (int n = 0; n + 1 < ntiles; ++n) {
-    const float* side = side0 + (n % STAGES) * (SIDE / 4);
-    const int q0 = tile_q0(n, side);
-    ds_cols(s, dp, side + lrow, side + LROWS * KT, q0, key0, quad, causal && q0 < wg_last,
-            scale2);
-    wgmma_wait<0>();                                      // tile n-1's dV, dK
-    fence_regs(dka);
-    fence_regs(dva);
-    if (n > 0) release(empty0 + 8 * ((n - 1) % STAGES), lane);
-    pack_p(pp, s);
-    pack_p(pd, dp);
-    const int s1 = (n + 1) % STAGES;
-    mbar_wait(full0 + 8 * s1, ((n + 1) / STAGES) & 1);
-    const uint32_t qn = ring + 2 * HALF * (n % STAGES);
+  if constexpr (D == 128) {              // each tile's products in turn
+    mbar_wait(kvbar, 0);
+    for (int n = 0; n < ntiles; ++n) {
+      const int st = n % STAGES;
+      const float* side = side0 + st * (SIDE / 4);
+      const int q0 = tile_q0(n, side);
+      const uint32_t qn = ring + 2 * QT * st;
+      mbar_wait(full0 + 8 * st, (n / STAGES) & 1);
+      wgmma_fence();
+      issue_nt<D>(s, ka, TILE, qn, HALF);                 // S^T_n = K Q_n^T
+      issue_nt<D>(dp, va, TILE, qn + QT, HALF);           // dP^T_n = V dO_n^T
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      ds_cols<true>(s, dp, side + lrow, side + LROWS * KT, q0, key0, quad,
+                    causal && q0 < wg_last, scale2);
+      pack_p(pp, s);
+      pack_p(pd, dp);
+      wgmma_fence();
+      issue_rs(dva, pp, qn + QT, HALF);                   // dV += P^T_n dO_n
+      issue_rs(dka, pd, qn, HALF);                        // dK += dS^T_n Q_n
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dka);
+      fence_regs(dva);
+      release(empty0 + 8 * st, lane);
+    }
+  } else {
+    mbar_wait<GATED>(kvbar, 0);
+    mbar_wait<GATED>(full0, 0);
     wgmma_fence();
-    issue_nt(s, ka, ring + 2 * HALF * s1);                // S^T_{n+1}
-    issue_nt(dp, va, ring + 2 * HALF * s1 + HALF);        // dP^T_{n+1}
+    issue_nt<D>(s, ka, TILE, ring, HALF);                   // S^T_0 = K Q_0^T
+    issue_nt<D>(dp, va, TILE, ring + QT, HALF);             // dP^T_0 = V dO_0^T
     wgmma_commit();
-    issue_rs(dva, pp, qn + HALF);                          // dV += P^T_n dO_n
-    issue_rs(dka, pd, qn);                                 // dK += dS^T_n Q_n
-    wgmma_commit();
-    wgmma_wait<1>();
+    wgmma_wait<0>();
     fence_regs(s);
     fence_regs(dp);
-  }
-  {
-    const int n = ntiles - 1;
-    const float* side = side0 + (n % STAGES) * (SIDE / 4);
-    const int q0 = tile_q0(n, side);
-    ds_cols(s, dp, side + lrow, side + LROWS * KT, q0, key0, quad, causal && q0 < wg_last,
-            scale2);
-    wgmma_wait<0>();
-    fence_regs(dka);
-    fence_regs(dva);
-    pack_p(pp, s);
-    pack_p(pd, dp);
-    const uint32_t qn = ring + 2 * HALF * (n % STAGES);
-    wgmma_fence();
-    issue_rs(dva, pp, qn + HALF);
-    issue_rs(dka, pd, qn);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(dka);
-    fence_regs(dva);
+    for (int n = 0; n + 1 < ntiles; ++n) {
+      const float* side = side0 + (n % STAGES) * (SIDE / 4);
+      const int q0 = tile_q0(n, side);
+      ds_cols(s, dp, side + lrow, side + LROWS * KT, q0, key0, quad, causal && q0 < wg_last,
+              scale2);
+      wgmma_wait<0>();                                      // tile n-1's dV, dK
+      fence_regs(dka);
+      fence_regs(dva);
+      if (n > 0) release(empty0 + 8 * ((n - 1) % STAGES), lane);
+      pack_p(pp, s);
+      pack_p(pd, dp);
+      const int s1 = (n + 1) % STAGES;
+      mbar_wait(full0 + 8 * s1, ((n + 1) / STAGES) & 1);
+      const uint32_t qn = ring + 2 * QT * (n % STAGES);
+      wgmma_fence();
+      issue_nt<D>(s, ka, TILE, ring + 2 * QT * s1, HALF);        // S^T_{n+1}
+      issue_nt<D>(dp, va, TILE, ring + 2 * QT * s1 + QT, HALF);  // dP^T_{n+1}
+      wgmma_commit();
+      issue_rs(dva, pp, qn + QT, HALF);                      // dV += P^T_n dO_n
+      issue_rs(dka, pd, qn, HALF);                           // dK += dS^T_n Q_n
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s);
+      fence_regs(dp);
+    }
+    {
+      const int n = ntiles - 1;
+      const float* side = side0 + (n % STAGES) * (SIDE / 4);
+      const int q0 = tile_q0(n, side);
+      ds_cols(s, dp, side + lrow, side + LROWS * KT, q0, key0, quad, causal && q0 < wg_last,
+              scale2);
+      wgmma_wait<0>();
+      fence_regs(dka);
+      fence_regs(dva);
+      pack_p(pp, s);
+      pack_p(pd, dp);
+      const uint32_t qn = ring + 2 * QT * (n % STAGES);
+      wgmma_fence();
+      issue_rs(dva, pp, qn + QT, HALF);
+      issue_rs(dka, pd, qn, HALF);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dka);
+      fence_regs(dva);
+    }
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = key0 + 8 * r;
     if (key >= Sk) continue;
-    const size_t off = ((size_t)kvh * Sk + key) * 64;
+    const size_t off = ((size_t)kvh * Sk + key) * D;
     __nv_bfloat162* dko = reinterpret_cast<__nv_bfloat162*>(dk + off);
     __nv_bfloat162* dvo = reinterpret_cast<__nv_bfloat162*>(dv + off);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      dko[4 * j + quad] = __floats2bfloat162_rn(dka[4 * j + 2 * r] * sm_scale,
-                                                dka[4 * j + 2 * r + 1] * sm_scale);
-      dvo[4 * j + quad] = __floats2bfloat162_rn(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
-    }
+    for (int h = 0; h < SPANS; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        dko[32 * h + 4 * j + quad] = __floats2bfloat162_rn(dka[h][4 * j + 2 * r] * sm_scale,
+                                                           dka[h][4 * j + 2 * r + 1] * sm_scale);
+        dvo[32 * h + 4 * j + quad] = __floats2bfloat162_rn(dva[h][4 * j + 2 * r],
+                                                           dva[h][4 * j + 2 * r + 1]);
+      }
   }
 }
 
@@ -1617,12 +1810,12 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The 3-D map (D = 64, S, BH) of a [BH, S, 64] bf16 array, in boxes of
-// `rows` rows of one head, swizzled for wgmma.
-bool encode_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int S, int BH,
-                int rows) {
-  const cuuint64_t dims[3] = {64, (cuuint64_t)S, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {64 * 2, (cuuint64_t)S * 64 * 2};
+// The 3-D map (D, S, BH) of a [BH, S, D] bf16 array, in boxes of 64
+// columns (one span, Head) by `rows` rows of one head, swizzled for wgmma.
+bool encode_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int S, int BH, int rows,
+                int D) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
   const cuuint32_t estr[3] = {1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
@@ -1631,23 +1824,23 @@ bool encode_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int S, int
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool GATED>
+template <bool GATED, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int Sq,
                int Sk, int rep, int causal, float sm_scale, const Gate& gate, void* stream) {
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap mq, mk, mv;
-  if (!encode_map(enc, &mq, q, Sq, BH, BM) || !encode_map(enc, &mk, k, Sk, BH / rep, BN) ||
-      !encode_map(enc, &mv, v, Sk, BH / rep, BN))
+  if (!encode_map(enc, &mq, q, Sq, BH, BM, D) || !encode_map(enc, &mk, k, Sk, BH / rep, BN, D) ||
+      !encode_map(enc, &mv, v, Sk, BH / rep, BN, D))
     return (int)cudaErrorInvalidValue;
   // GATED: the stage descriptors after the barriers; blocks (batch, map row)
-  const size_t smem = SMEM + (GATED ? STAGES * sizeof(StageTile) : 0);
+  const size_t smem = wgmma_fwd_smem<D>() + (GATED ? STAGES * sizeof(StageTile) : 0);
   const int nt = (Sq + BM - 1) / BM;
   const dim3 grid = GATED ? dim3(BH / gate.heads, gate.heads * nt) : dim3(BH, nt);
   const cudaError_t e = cudaFuncSetAttribute(
-      wgmma_fwd_kernel<GATED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      wgmma_fwd_kernel<GATED, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  wgmma_fwd_kernel<GATED><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  wgmma_fwd_kernel<GATED, D><<<grid, Head<D>::THREADS, smem, (cudaStream_t)stream>>>(
       mq, mk, mv, (bf16*)o, (float*)lse, Sq, Sk, rep, causal, sm_scale * LOG2E, gate);
   return (int)cudaGetLastError();
 }
@@ -1656,50 +1849,51 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, 
 // kv_rows rows; false when one does not encode.
 bool encode_bwd_maps(EncodeTiledFn enc, CUtensorMap (&m)[4], const void* q, const void* dout,
                      const void* k, const void* v, int BH, int Sq, int Sk, int rep, int q_rows,
-                     int kv_rows) {
-  return encode_map(enc, &m[0], q, Sq, BH, q_rows) && encode_map(enc, &m[1], dout, Sq, BH, q_rows) &&
-         encode_map(enc, &m[2], k, Sk, BH / rep, kv_rows) &&
-         encode_map(enc, &m[3], v, Sk, BH / rep, kv_rows);
+                     int kv_rows, int D) {
+  return encode_map(enc, &m[0], q, Sq, BH, q_rows, D) &&
+         encode_map(enc, &m[1], dout, Sq, BH, q_rows, D) &&
+         encode_map(enc, &m[2], k, Sk, BH / rep, kv_rows, D) &&
+         encode_map(enc, &m[3], v, Sk, BH / rep, kv_rows, D);
 }
 
-template <bool GATED>
+template <bool GATED, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
               const void* lse, void* delta, void* dq, int BH, int Sq, int Sk, int rep,
               int causal, float sm_scale, const Gate& gate, void* stream) {
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap m[4];
-  if (!encode_bwd_maps(enc, m, q, dout, k, v, BH, Sq, Sk, rep, BM, KT))
+  if (!encode_bwd_maps(enc, m, q, dout, k, v, BH, Sq, Sk, rep, BM, KT, D))
     return (int)cudaErrorInvalidValue;
   // GATED: the stage descriptors after the barriers; blocks (batch, map row)
-  const size_t smem = DQ_SMEM + (GATED ? 8 + STAGES * sizeof(StageTile) : 0);
+  const size_t smem = dq_smem<D>() + (GATED ? 8 + STAGES * sizeof(StageTile) : 0);
   const int nt = (Sq + BM - 1) / BM;
   const dim3 grid = GATED ? dim3(BH / gate.heads, gate.heads * nt) : dim3(BH, nt);
   const cudaError_t e = cudaFuncSetAttribute(
-      wgmma_dq_kernel<GATED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      wgmma_dq_kernel<GATED, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  wgmma_dq_kernel<GATED><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  wgmma_dq_kernel<GATED, D><<<grid, Head<D>::THREADS, smem, (cudaStream_t)stream>>>(
       m[0], m[1], m[2], m[3], (const bf16*)o, (const bf16*)dout, (const float*)lse,
       (float*)delta, (bf16*)dq, Sq, Sk, rep, causal, sm_scale, gate);
   return (int)cudaGetLastError();
 }
 
-template <bool GATED>
+template <bool GATED, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, void* dk, void* dv, int BHKV, int Sq, int Sk, int rep,
                int causal, float sm_scale, const Gate& gate, void* stream) {
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap m[4];
-  if (!encode_bwd_maps(enc, m, q, dout, k, v, BHKV * rep, Sq, Sk, rep, KT, BM))
+  if (!encode_bwd_maps(enc, m, q, dout, k, v, BHKV * rep, Sq, Sk, rep, KT, BM, D))
     return (int)cudaErrorInvalidValue;
-  constexpr size_t DKV_SMEM = dkv_smem<GATED>();
+  constexpr size_t DKV_SMEM = dkv_smem<GATED, D>();
   const int nt = (Sk + BM - 1) / BM;   // GATED: blocks (batch, map row)
   const dim3 grid = GATED ? dim3(BHKV / gate.heads, gate.heads * nt) : dim3(BHKV, nt);
   const cudaError_t e = cudaFuncSetAttribute(
-      wgmma_dkv_kernel<GATED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DKV_SMEM);
+      wgmma_dkv_kernel<GATED, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DKV_SMEM);
   if (e != cudaSuccess) return (int)e;
-  wgmma_dkv_kernel<GATED><<<grid, DKV_THREADS, DKV_SMEM, (cudaStream_t)stream>>>(
+  wgmma_dkv_kernel<GATED, D><<<grid, DKV_THREADS, DKV_SMEM, (cudaStream_t)stream>>>(
       m[0], m[1], m[2], m[3], (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, Sq,
       Sk, rep, causal, sm_scale, gate);
   return (int)cudaGetLastError();
@@ -1719,7 +1913,7 @@ template <typename T, int D, bool GATED>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
                int Sq, int Sk, int rep, int causal, float sm_scale, const Gate& gate,
                void* stream) {
-  const size_t smem = fwd_smem<T>();
+  const size_t smem = fwd_smem<T, D>();
   if (int e = set_smem(fwd_kernel<T, D, GATED>, smem)) return e;
   fwd_kernel<T, D, GATED><<<dim3((Sq + BQ - 1) / BQ, BH), NTHREADS, smem, (cudaStream_t)stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, Sq, Sk, rep, causal,
@@ -1731,7 +1925,7 @@ template <typename T, int D, bool GATED>
 int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
               const void* lse, void* delta, void* dq, int BH, int Sq, int Sk, int rep,
               int causal, float sm_scale, const Gate& gate, void* stream) {
-  const size_t smem = dq_smem<T>();
+  const size_t smem = dq_smem<T, D>();
   if (int e = set_smem(dq_kernel<T, D, GATED>, smem)) return e;
   dq_kernel<T, D, GATED><<<dim3((Sq + BQ - 1) / BQ, BH), NTHREADS, smem, (cudaStream_t)stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout, (const float*)lse,
@@ -1743,7 +1937,7 @@ template <typename T, int D, bool GATED>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int BHKV, int Sq,
                int Sk, int rep, int causal, float sm_scale, const Gate& gate, void* stream) {
-  const size_t smem = dkv_smem<T>();
+  const size_t smem = dkv_smem<T, D>();
   if (int e = set_smem(dkv_kernel<T, D, GATED>, smem)) return e;
   dkv_kernel<T, D, GATED><<<dim3((Sk + BK - 1) / BK, BHKV), NTHREADS, smem,
                             (cudaStream_t)stream>>>(
@@ -1752,16 +1946,43 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-// The three entry points over both routes, ungated or GATED by `gate`.
+// The three entry points over both routes and head dims 64 and 128 (the
+// layout gate: 64 only), ungated or GATED by `gate`.
+template <bool GATED, int D>
+int fwd_d(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int Sq, int Sk,
+          int rep, int dtype, int causal, float sm_scale, const Gate& gate, void* stream) {
+  switch (dtype) {
+    case 0: return launch_fwd<float, D, GATED>(q, k, v, o, lse, BH, Sq, Sk, rep, causal,
+                                               sm_scale, gate, stream);
+    case 2: return hopper::launch_fwd<GATED, D>(q, k, v, o, lse, BH, Sq, Sk, rep, causal,
+                                                sm_scale, gate, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <bool GATED>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int Sq, int Sk,
         int rep, int D, int dtype, int causal, float sm_scale, const Gate& gate, void* stream) {
-  if (D != 64) return (int)cudaErrorInvalidValue;
+  if (D == 64)
+    return fwd_d<GATED, 64>(q, k, v, o, lse, BH, Sq, Sk, rep, dtype, causal, sm_scale, gate,
+                            stream);
+  if constexpr (!GATED) {
+    if (D == 128)
+      return fwd_d<false, 128>(q, k, v, o, lse, BH, Sq, Sk, rep, dtype, causal, sm_scale, gate,
+                               stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool GATED, int D>
+int bwd_dq_d(const void* q, const void* k, const void* v, const void* o, const void* dout,
+             const void* lse, void* delta, void* dq, int BH, int Sq, int Sk, int rep, int dtype,
+             int causal, float sm_scale, const Gate& gate, void* stream) {
   switch (dtype) {
-    case 0: return launch_fwd<float, 64, GATED>(q, k, v, o, lse, BH, Sq, Sk, rep, causal,
-                                                sm_scale, gate, stream);
-    case 2: return hopper::launch_fwd<GATED>(q, k, v, o, lse, BH, Sq, Sk, rep, causal, sm_scale,
-                                             gate, stream);
+    case 0: return launch_dq<float, D, GATED>(q, k, v, o, dout, lse, delta, dq, BH, Sq, Sk, rep,
+                                              causal, sm_scale, gate, stream);
+    case 2: return hopper::launch_dq<GATED, D>(q, k, v, o, dout, lse, delta, dq, BH, Sq, Sk, rep,
+                                               causal, sm_scale, gate, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1770,12 +1991,26 @@ template <bool GATED>
 int bwd_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
            const void* lse, void* delta, void* dq, int BH, int Sq, int Sk, int rep, int D,
            int dtype, int causal, float sm_scale, const Gate& gate, void* stream) {
-  if (D != 64) return (int)cudaErrorInvalidValue;
+  if (D == 64)
+    return bwd_dq_d<GATED, 64>(q, k, v, o, dout, lse, delta, dq, BH, Sq, Sk, rep, dtype, causal,
+                               sm_scale, gate, stream);
+  if constexpr (!GATED) {
+    if (D == 128)
+      return bwd_dq_d<false, 128>(q, k, v, o, dout, lse, delta, dq, BH, Sq, Sk, rep, dtype,
+                                  causal, sm_scale, gate, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool GATED, int D>
+int bwd_dkv_d(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, void* dk, void* dv, int BHKV, int Sq, int Sk, int rep, int dtype,
+              int causal, float sm_scale, const Gate& gate, void* stream) {
   switch (dtype) {
-    case 0: return launch_dq<float, 64, GATED>(q, k, v, o, dout, lse, delta, dq, BH, Sq, Sk, rep,
-                                               causal, sm_scale, gate, stream);
-    case 2: return hopper::launch_dq<GATED>(q, k, v, o, dout, lse, delta, dq, BH, Sq, Sk, rep,
-                                            causal, sm_scale, gate, stream);
+    case 0: return launch_dkv<float, D, GATED>(q, k, v, dout, lse, delta, dk, dv, BHKV, Sq, Sk,
+                                               rep, causal, sm_scale, gate, stream);
+    case 2: return hopper::launch_dkv<GATED, D>(q, k, v, dout, lse, delta, dk, dv, BHKV, Sq, Sk,
+                                                rep, causal, sm_scale, gate, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1784,14 +2019,15 @@ template <bool GATED>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
             const void* delta, void* dk, void* dv, int BHKV, int Sq, int Sk, int rep, int D,
             int dtype, int causal, float sm_scale, const Gate& gate, void* stream) {
-  if (D != 64) return (int)cudaErrorInvalidValue;
-  switch (dtype) {
-    case 0: return launch_dkv<float, 64, GATED>(q, k, v, dout, lse, delta, dk, dv, BHKV, Sq, Sk,
-                                                rep, causal, sm_scale, gate, stream);
-    case 2: return hopper::launch_dkv<GATED>(q, k, v, dout, lse, delta, dk, dv, BHKV, Sq, Sk, rep,
-                                             causal, sm_scale, gate, stream);
-    default: return (int)cudaErrorInvalidValue;
+  if (D == 64)
+    return bwd_dkv_d<GATED, 64>(q, k, v, dout, lse, delta, dk, dv, BHKV, Sq, Sk, rep, dtype,
+                                causal, sm_scale, gate, stream);
+  if constexpr (!GATED) {
+    if (D == 128)
+      return bwd_dkv_d<false, 128>(q, k, v, dout, lse, delta, dk, dv, BHKV, Sq, Sk, rep, dtype,
+                                   causal, sm_scale, gate, stream);
   }
+  return (int)cudaErrorInvalidValue;
 }
 
 Gate make_gate(const void* offsets, const void* entries, const void* masks, const void* order,
@@ -1803,7 +2039,8 @@ Gate make_gate(const void* offsets, const void* entries, const void* masks, cons
 }  // namespace
 
 // dtype: 0 float32, 2 bfloat16 (float16 comes with the port's fp16 slice).
-// D: 64 (GPT-2).  Each entry point picks its kernel by dtype: bf16 the
+// D: 64 (GPT-2) or 128 (Llama), the _layout entry points 64 only.  Each
+// entry point picks its kernel by dtype: bf16 the
 // wgmma + TMA kernel, float32 the plain-f32 tile kernel.  Unsupported
 // (dtype, D) pairs return cudaErrorInvalidValue; the Python wrappers check
 // them first.  There is no fallback: a tensor map that does not encode or a

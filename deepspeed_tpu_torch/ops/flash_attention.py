@@ -58,8 +58,10 @@ import torch
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
-#: head dims the library is built for (GPT-2's 64)
-_HEAD_DIMS = (64,)
+#: head dims the library is built for: GPT-2's 64 and Llama's 128; the
+#: gated (``layout=``) kernels take 64 only
+_HEAD_DIMS = (64, 128)
+_LAYOUT_HEAD_DIMS = (64,)
 #: dtype codes of the library (float16 comes with the port's fp16 slice)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 2}
 
@@ -517,9 +519,22 @@ def bwd_route(dtype) -> str:
                      "(float32, bfloat16; float16 comes with the fp16 slice)")
 
 
-def _check_cuda(name, q, k, v, *rest):
+def check_head_dim(name: str, d: int, gated: bool = False) -> None:
+    """Raises unless the kernels are built for head dim ``d``: 64 or 128,
+    and with a layout (``gated``) 64 only."""
+    if gated and d in _HEAD_DIMS and d not in _LAYOUT_HEAD_DIMS:
+        raise ValueError(
+            f"{name}: the layout gate runs at head dim {_LAYOUT_HEAD_DIMS}, "
+            f"not {d} (ROADMAP.md Queue B 'still to port': the layout gate "
+            "at head dim 128)")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {_HEAD_DIMS}")
+
+
+def _check_cuda(name, q, k, v, *rest, gated=False):
     """Validate what the kernels take; raises on anything else.  ``rest``:
-    (label, tensor, dtype or None for q's dtype, shape)."""
+    (label, tensor, dtype or None for q's dtype, shape); ``gated``: a
+    layout call."""
     b, h, sq, d = q.shape
     if k.ndim != 4 or k.shape[0] != b or k.shape[3] != d or \
             v.shape != k.shape:
@@ -532,8 +547,7 @@ def _check_cuda(name, q, k, v, *rest):
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: dtype {q.dtype} not supported (float32, "
                          "bfloat16; float16 comes with the fp16 slice)")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not in {_HEAD_DIMS}")
+    check_head_dim(name, d, gated)
     if sq < 1 or sk < 1:
         raise ValueError(f"{name}: empty sequence (Sq={sq}, Sk={sk})")
     for label, x, dtype, shape in (("q", q, None, None), ("k", k, None, None),
@@ -608,7 +622,7 @@ def _fwd_gated(q, k, v, causal, sm_scale, layout, block):
     if not q.is_cuda:
         return flash_attention_fwd_plain(q, k, v, causal, sm_scale,
                                          layout=layout, block=block)
-    b, h, hkv, sq, sk, d = _check_cuda(name, q, k, v)
+    b, h, hkv, sq, sk, d = _check_cuda(name, q, k, v, gated=True)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     err = _lib().ds_flash_attention_fwd_layout(
@@ -660,7 +674,7 @@ def flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta=None, *, o=None,
     return dq, delta
 
 
-def _dq_checked(name, q, k, v, do, lse, delta, o):
+def _dq_checked(name, q, k, v, do, lse, delta, o, gated=False):
     """dq's checks; with ``o`` given, the delta it will write."""
     b, h, sq = q.shape[:3]
     rows = (b, h, sq)
@@ -670,7 +684,7 @@ def _dq_checked(name, q, k, v, do, lse, delta, o):
         delta = torch.empty(rows, dtype=torch.float32, device=q.device)
     else:
         extra += (("delta", delta, torch.float32, rows),)
-    return _check_cuda(name, q, k, v, *extra) + (delta,)
+    return _check_cuda(name, q, k, v, *extra, gated=gated) + (delta,)
 
 
 def _dq_gated(q, k, v, do, lse, delta, o, causal, sm_scale, layout, block):
@@ -682,7 +696,8 @@ def _dq_gated(q, k, v, do, lse, delta, o, causal, sm_scale, layout, block):
         return (flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal,
                                              sm_scale, layout=layout,
                                              block=block), delta)
-    b, h, hkv, sq, sk, d, delta = _dq_checked(name, q, k, v, do, lse, delta, o)
+    b, h, hkv, sq, sk, d, delta = _dq_checked(name, q, k, v, do, lse, delta, o,
+                                              gated=True)
     dq = torch.empty_like(q)
     err = _lib().ds_flash_attention_bwd_dq_layout(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -743,7 +758,7 @@ def _dkv_gated(q, k, v, do, lse, delta, causal, sm_scale, layout, block):
     b, h, hkv, sq, sk, d = _check_cuda(
         name, q, k, v, ("do", do, None, q.shape),
         ("lse", lse, torch.float32, rows),
-        ("delta", delta, torch.float32, rows))
+        ("delta", delta, torch.float32, rows), gated=True)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = _lib().ds_flash_attention_bwd_dkv_layout(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -831,11 +846,12 @@ def flash_attention(q, k, v, causal: bool = True,
     k, v: ``[B, Hkv, Sk, D]`` (GQA: ``Hkv | H``).  Returns ``[B, H, Sq, D]``
     in q's dtype, differentiable in q, k and v.
 
-    ``block_q`` / ``block_k`` are the JAX tiling hints; the CUDA kernels use
-    their own tiles (in bf16 128 x 128 in the forward, 128 query rows x 64
-    keys in dq and 128 keys x 64 query rows in dkv; 64 x 64 in f32) and
-    mask ragged edges themselves, and the plain path does not tile, so both
-    are accepted and ignored."""
+    On CUDA the head dim is 64 or 128 (GPT-2's and Llama's; the JAX
+    kernels take any D up to 256).  ``block_q`` / ``block_k`` are the JAX
+    tiling hints; the CUDA kernels use their own tiles (in bf16 128 x 128
+    in the forward, 128 query rows x 64 keys in dq and 128 keys x 64 query
+    rows in dkv; 64 x 64 in f32) and mask ragged edges themselves, and the
+    plain path does not tile, so both are accepted and ignored."""
     del block_q, block_k
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),
                                  v.contiguous(), causal, sm_scale)

@@ -109,7 +109,7 @@ class DeepSpeedEngine:
                  device=None):
         if model is None or not hasattr(model, "loss_fn"):
             raise TypeError("initialize needs a deepspeed_tpu_torch model "
-                            "(models.gpt2.build)")
+                            "(models.gpt2.build or models.llama.build)")
         if mpu is not None:
             raise NotImplementedError(
                 "mpu: model parallelism comes with the PyTorch port's "
@@ -131,9 +131,12 @@ class DeepSpeedEngine:
         self._configure_optimizer()
 
         # float32 master weights: the caller's (model_parameters, e.g.
-        # gpt2.params_from_jax) or the model's init from the config seed
+        # gpt2.params_from_jax), copied, or the model's init from the config
+        # seed, drawn on the engine's device (llama: a leaf at a time) and
+        # kept without a copy
         seed = self._config.seed or 42
-        if model_parameters is None:
+        drawn = model_parameters is None
+        if drawn:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             model_parameters = model.init_fn(gen)
         flat = _flatten(model_parameters)
@@ -144,8 +147,10 @@ class DeepSpeedEngine:
                                 isinstance(leaf, torch.Tensor) else leaf)
             if t.is_floating_point():
                 t = t.to(torch.float32)
-            self._leaves.append(t.to(self.device).detach().clone()
-                                .requires_grad_(t.is_floating_point()))
+            t = t.to(self.device).detach()
+            if not drawn:
+                t = t.clone()
+            self._leaves.append(t.requires_grad_(t.is_floating_point()))
         self._params = _unflatten(self._paths, self._leaves)
         self._opt_state = self.optimizer.init(self._leaves)
         n = sum(t.numel() for t in self._leaves)

@@ -11,6 +11,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -23,6 +24,11 @@ from deepspeed_tpu.models import gpt2 as jgpt2
 from deepspeed_tpu_torch.inference import constrain as tcon
 from deepspeed_tpu_torch.inference.serving import Request, ServingEngine
 from deepspeed_tpu_torch.models import gpt2 as tgpt2
+
+# one intra-op thread: the suite runs as pytest-xdist workers that share
+# the machine's cores, and a torch pool of every core in each worker
+# left them oversubscribed (ROADMAP.md "Time budget")
+torch.set_num_threads(1)
 
 _KW = dict(slots=4, max_seq_len=128, block_size=8, prefill_chunk=16,
            prefill_batch=2)

@@ -25,6 +25,11 @@ import jax.numpy as jnp
 from deepspeed_tpu.ops import flash_attention as jfa
 from deepspeed_tpu_torch.ops import flash_attention as tfa
 
+# one intra-op thread: the suite runs as pytest-xdist workers that share
+# the machine's cores, and a torch pool of every core in each worker
+# left them oversubscribed (ROADMAP.md "Time budget")
+torch.set_num_threads(1)
+
 FWD_TOL = dict(atol=1e-5, rtol=1e-5)
 GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -93,6 +98,46 @@ def test_forward_and_grads_match_v2_and_v1(causal, h, hkv, s):
     np.testing.assert_allclose(o.numpy(), want_o, **FWD_TOL)
     np.testing.assert_allclose(o.numpy(), v1_o, **FWD_TOL)
     np.testing.assert_allclose(lse.numpy(), v1_lse, **FWD_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dim_128_matches_v2_and_v1(causal):
+    """Llama's head dim 128 at GQA 8 / 2 and an unaligned S: the port's op
+    against the JAX kernels (forward, lse and grads) as at D = 16."""
+    q, k, v, do = _inputs(128 + causal, 1, 8, 2, 72, d=128)
+    want_o, want_g = _jax_fwd_bwd(q, k, v, do, causal, block=32)
+    got_o, got_g = _port_fwd_bwd(q, k, v, do, causal)
+    np.testing.assert_allclose(got_o, want_o, **FWD_TOL)
+    for got, want in zip(got_g, want_g):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **GRAD_TOL)
+    o, lse = tfa.flash_attention_fwd_plain(_t(q), _t(k), _t(v), causal)
+    v1_o, v1_lse = _v1_fwd(q, k, v, causal, 32)
+    np.testing.assert_allclose(o.numpy(), v1_o, **FWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), v1_lse, **FWD_TOL)
+
+
+def test_the_kernels_take_head_dims_64_and_128():
+    """The CUDA entry points' head dims: 64 and 128, the layout gate 64
+    only (ROADMAP Queue B "still to port"); every other D raises before
+    anything is launched."""
+    for d in (64, 128):
+        tfa.check_head_dim("fa", d)
+    tfa.check_head_dim("fa", 64, gated=True)
+    with pytest.raises(ValueError, match="layout gate at head dim 128"):
+        tfa.check_head_dim("fa", 128, gated=True)
+    for d in (16, 96, 256):
+        for gated in (False, True):
+            with pytest.raises(ValueError, match=f"head dim {d} not in"):
+                tfa.check_head_dim("fa", d, gated)
+    # on CPU tensors the CUDA checks pass the head dim and stop at the
+    # device; D = 96 stops at the head dim
+    for d, match in ((128, "must be a CUDA tensor"), (96, "head dim 96")):
+        q, k, v, _ = map(_t, _inputs(2, 1, 2, 1, 8, d=d))
+        with pytest.raises(ValueError, match=match):
+            tfa._check_cuda("fa", q, k, v)
+    with pytest.raises(ValueError, match="layout gate"):
+        tfa._check_cuda("fa", *map(_t, _inputs(2, 1, 2, 1, 8, d=128)[:3]),
+                        gated=True)
 
 
 @pytest.mark.parametrize("causal,hkv", [(True, 2), (False, 4)])

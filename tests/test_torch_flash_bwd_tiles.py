@@ -28,6 +28,11 @@ import chip_smoke
 from deepspeed_tpu.ops import flash_attention as jfa
 from deepspeed_tpu_torch.ops import flash_attention as tfa
 
+# one intra-op thread: the suite runs as pytest-xdist workers that share
+# the machine's cores, and a torch pool of every core in each worker
+# left them oversubscribed (ROADMAP.md "Time budget")
+torch.set_num_threads(1)
+
 FWD_TOL = dict(atol=1e-5, rtol=1e-5)
 GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
 D = 16

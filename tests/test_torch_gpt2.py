@@ -19,6 +19,11 @@ import deepspeed_tpu_torch
 from deepspeed_tpu.models import gpt2 as jgpt2
 from deepspeed_tpu_torch.models import gpt2 as tgpt2
 
+# one intra-op thread: the suite runs as pytest-xdist workers that share
+# the machine's cores, and a torch pool of every core in each worker
+# left them oversubscribed (ROADMAP.md "Time budget")
+torch.set_num_threads(1)
+
 ATOL = 1e-4
 
 

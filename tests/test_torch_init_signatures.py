@@ -18,6 +18,11 @@ import deepspeed_tpu_torch
 from deepspeed_tpu_torch.inference.serving import Request
 from deepspeed_tpu_torch.models import gpt2 as tgpt2
 
+# one intra-op thread: the suite runs as pytest-xdist workers that share
+# the machine's cores, and a torch pool of every core in each worker
+# left them oversubscribed (ROADMAP.md "Time budget")
+torch.set_num_threads(1)
+
 #: init_serving's keywords the port implements
 PORTED = {"model", "config", "params", "slots", "max_seq_len",
           "prefill_batch", "block_size", "num_blocks", "prefill_chunk",
@@ -244,8 +249,22 @@ SERVERS = [
 ]
 
 
+@pytest.fixture(scope="module")
+def greedy_trace(engine):
+    """The servers' trace (4 prompts over a shared 16-token prefix) and
+    ``generate``'s 6 greedy tokens for each, computed once for every case
+    of :func:`test_ported_serving_keywords_build_working_servers`."""
+    rng = np.random.default_rng(3)
+    prefix = rng.integers(0, 256, 16)
+    prompts = [np.concatenate([prefix, rng.integers(0, 256, n)])
+               for n in (3, 9, 5, 12)]
+    return prompts, [np.asarray(engine.generate(
+        p[None].astype(np.int64), max_new_tokens=6))[0] for p in prompts]
+
+
 @pytest.mark.parametrize("label,kw", SERVERS, ids=[s[0] for s in SERVERS])
-def test_ported_serving_keywords_build_working_servers(engine, label, kw):
+def test_ported_serving_keywords_build_working_servers(engine, greedy_trace,
+                                                       label, kw):
     """Each server serves a greedy trace (temperature-0 rows on a sampling
     server are the argmax) token-exact with ``generate``; speculative
     servers run rounds, a ``draft`` model (a 1-layer GPT-2) is wrapped
@@ -257,10 +276,7 @@ def test_ported_serving_keywords_build_working_servers(engine, label, kw):
     srv = deepspeed_tpu_torch.init_serving(
         engine.module, params=engine.params, config={"dtype": "fp32"},
         device="cpu", slots=3, max_seq_len=64, block_size=8, **kw)
-    rng = np.random.default_rng(3)
-    prefix = rng.integers(0, 256, 16)
-    prompts = [np.concatenate([prefix, rng.integers(0, 256, n)])
-               for n in (3, 9, 5, 12)]
+    prompts, greedy = greedy_trace
     out = srv.serve([Request(uid=i, prompt=p, max_new_tokens=6)
                      for i, p in enumerate(prompts)])
     for i, p in enumerate(prompts):        # prompt + 6 new tokens
@@ -269,8 +285,7 @@ def test_ported_serving_keywords_build_working_servers(engine, label, kw):
         if "quantize" in kw:
             assert srv.stats()["kv_dtype"] == "int8"
             continue
-        want = engine.generate(p[None].astype(np.int64), max_new_tokens=6)
-        np.testing.assert_array_equal(np.asarray(out[i]), np.asarray(want)[0])
+        np.testing.assert_array_equal(np.asarray(out[i]), greedy[i])
     st = srv.stats()
     assert st["sampling"] is kw.get("sampling", True)
     assert (st["fused_iterations"] > 0) == (kw.get("decode_steps", 1) > 1)

@@ -37,6 +37,11 @@ from deepspeed_tpu_torch.models import llama as tllama
 from deepspeed_tpu_torch.ops import paged_kv as tpk
 from deepspeed_tpu_torch.ops import quantization as tq
 
+# one intra-op thread: the suite runs as pytest-xdist workers that share
+# the machine's cores, and a torch pool of every core in each worker
+# left them oversubscribed (ROADMAP.md "Time budget")
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 SERVE_KW = dict(slots=3, max_seq_len=64, block_size=8, prefill_chunk=16,
                 prefill_batch=2)

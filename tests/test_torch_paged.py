@@ -15,6 +15,11 @@ from deepspeed_tpu_torch.inference import paged as tpaged
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
 from deepspeed_tpu_torch.ops import paged_kv as tkv
 
+# one intra-op thread: the suite runs as pytest-xdist workers that share
+# the machine's cores, and a torch pool of every core in each worker
+# left them oversubscribed (ROADMAP.md "Time budget")
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("block_size", [1, 4, 16])
 def test_chain_keys_and_checksums_byte_equal(block_size):

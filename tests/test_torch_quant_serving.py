@@ -38,6 +38,11 @@ from deepspeed_tpu_torch.ops import decode_attention as tda
 from deepspeed_tpu_torch.ops import paged_kv as tpk
 from deepspeed_tpu_torch.ops import quantization as tq
 
+# one intra-op thread: the suite runs as pytest-xdist workers that share
+# the machine's cores, and a torch pool of every core in each worker
+# left them oversubscribed (ROADMAP.md "Time budget")
+torch.set_num_threads(1)
+
 sys.path.insert(0, str(Path(__file__).resolve().parent / "unit"))
 from quant_divergence import (assert_bounded_divergence,  # noqa: E402
                               max_logit_rmse, token_match_rate)

@@ -18,6 +18,11 @@ from deepspeed_tpu.ops import quantization as jq
 from deepspeed_tpu_torch.models import gpt2 as tgpt2
 from deepspeed_tpu_torch.ops import quantization as tq
 
+# one intra-op thread: the suite runs as pytest-xdist workers that share
+# the machine's cores, and a torch pool of every core in each worker
+# left them oversubscribed (ROADMAP.md "Time budget")
+torch.set_num_threads(1)
+
 
 def _np(x):
     """A JAX or torch array as numpy, bfloat16 read as float32."""

@@ -26,6 +26,11 @@ from deepspeed_tpu.ops import sampling as J
 from deepspeed_tpu_torch.inference import engine as tengine
 from deepspeed_tpu_torch.ops import sampling as T
 
+# one intra-op thread: the suite runs as pytest-xdist workers that share
+# the machine's cores, and a torch pool of every core in each worker
+# left them oversubscribed (ROADMAP.md "Time budget")
+torch.set_num_threads(1)
+
 SEEDS = np.array([0, 1, 7, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1, 123456789,
                   4000000000], np.uint64).astype(np.uint32)
 COUNTS = np.array([0, 1, 3, 999, 65536, 10 ** 6 - 1, 10 ** 6, 77], np.int32)

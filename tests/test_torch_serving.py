@@ -22,6 +22,11 @@ from deepspeed_tpu.models import gpt2 as jgpt2
 from deepspeed_tpu_torch.inference.serving import Request, ServingEngine
 from deepspeed_tpu_torch.models import gpt2 as tgpt2
 
+# one intra-op thread: the suite runs as pytest-xdist workers that share
+# the machine's cores, and a torch pool of every core in each worker
+# left them oversubscribed (ROADMAP.md "Time budget")
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def engines():

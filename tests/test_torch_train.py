@@ -24,14 +24,21 @@ import jax.numpy as jnp
 import deepspeed_tpu
 import deepspeed_tpu_torch
 from deepspeed_tpu.models import gpt2 as jgpt2
+from deepspeed_tpu.models import llama as jllama
 from deepspeed_tpu.ops import optimizers as jopt
 from deepspeed_tpu.runtime import lr_schedules as jlr
 from deepspeed_tpu.runtime.config import DeepSpeedConfig as JConfig
 from deepspeed_tpu_torch.models import gpt2 as tgpt2
+from deepspeed_tpu_torch.models import llama as tllama
 from deepspeed_tpu_torch.ops import optimizers as topt
 from deepspeed_tpu_torch.runtime import lr_schedules as tlr
 from deepspeed_tpu_torch.runtime.config import (DeepSpeedConfig as TConfig,
                                                 DeepSpeedConfigError)
+
+# one intra-op thread: the suite runs as pytest-xdist workers that share
+# the machine's cores, and a torch pool of every core in each worker
+# left them oversubscribed (ROADMAP.md "Time budget")
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")
@@ -250,6 +257,59 @@ def test_engine_trajectory_matches_jax(tiny, gas):
                        rtol=2e-4, atol=2e-5)
     assert teng.global_steps == 5 and teng.micro_steps == 5 * gas
     assert sched.get_lr() == teng.get_lr()
+
+
+# -------------------------------------------------------------------- llama
+@pytest.mark.parametrize("remat,use_flash", [(True, True), (False, False)])
+def test_llama_engine_trajectory_matches_jax(remat, use_flash):
+    """A tiny llama (GQA 4 / 2) through both engines from the same JAX
+    weights, fp32, AdamW + WarmupLR + clipping, GAS 2, 3 steps: the card's
+    route (remat, the flash op: its plain versions here, the JAX Pallas
+    kernel in interpret mode) and plain attention without remat."""
+    kw = dict(remat=remat, use_flash=use_flash)
+    cfg = dataclasses.replace(jllama.LlamaConfig.tiny(), **kw)
+    tcfg = dataclasses.replace(tllama.LlamaConfig.tiny(), **kw)
+    conf = _engine_config(2)
+    deepspeed_tpu.comm.reset_topology()
+    jeng, *_ = deepspeed_tpu.initialize(model=jllama.build(cfg), config=conf)
+    start = jax.device_get(jeng.state["params"])
+    teng, *_ = deepspeed_tpu_torch.initialize(
+        model=tllama.build(tcfg), config=conf,
+        model_parameters=tllama.params_from_jax(start), device="cpu")
+    rng = np.random.default_rng(8)
+    for _ in range(3):
+        ids = rng.integers(0, cfg.vocab_size, (16, 25)).astype(np.int32)
+        _, jm = jeng.train_batch({"input_ids": ids})
+        _, tm = teng.train_batch({"input_ids": ids})
+        np.testing.assert_allclose(tm["loss"], jm["loss"], rtol=2e-4)
+        np.testing.assert_allclose(tm["grad_norm"], jm["grad_norm"],
+                                   rtol=2e-4)
+    _assert_tree_close(teng.params, jax.device_get(jeng.state["params"]),
+                       rtol=2e-4, atol=2e-5)
+    assert teng.global_steps == 3 and teng.micro_steps == 6
+
+
+def test_llama_head_dim_128_loss_and_grads_match_jax():
+    """Head dim 128 (hidden 256, 2 query heads over 1 KV head), remat and
+    the flash op, against JAX's loss and grads (its Pallas kernel in
+    interpret mode): the shapes Llama-3-8B gives the D = 128 kernels."""
+    kw = dict(vocab_size=256, max_seq_len=64, num_layers=1, num_heads=2,
+              num_kv_heads=1, hidden_size=256, ffn_size=512,
+              rope_theta=500000.0, remat=True, use_flash=True)
+    cfg, tcfg = jllama.LlamaConfig(**kw), tllama.LlamaConfig(**kw)
+    assert tcfg.head_dim == 128
+    jparams = jax.device_get(jllama.init_params(cfg, jax.random.PRNGKey(4)))
+    ids = np.random.default_rng(9).integers(0, 256, (2, 41)).astype(np.int32)
+    want, want_g = jax.value_and_grad(lambda p: jllama.loss_from_batch(
+        cfg, p, {"input_ids": jnp.asarray(ids)}))(jparams)
+    tparams = jax.tree_util.tree_map(lambda x: x.requires_grad_(),
+                                     tllama.params_from_jax(jparams))
+    got = tllama.loss_from_batch(tcfg, tparams,
+                                 {"input_ids": torch.from_numpy(ids).long()})
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(want), atol=1e-5, rtol=1e-5)
+    _assert_tree_close(jax.tree_util.tree_map(lambda t: t.grad, tparams),
+                       want_g, atol=1e-4, rtol=1e-4)
 
 
 def test_micro_step_shims_match_train_batch(tiny):

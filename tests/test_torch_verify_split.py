@@ -24,6 +24,11 @@ import jax.numpy as jnp
 from deepspeed_tpu.ops import decode_attention as jda
 from deepspeed_tpu_torch.ops import decode_attention as tda
 
+# one intra-op thread: the suite runs as pytest-xdist workers that share
+# the machine's cores, and a torch pool of every core in each worker
+# left them oversubscribed (ROADMAP.md "Time budget")
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 KEYS = 48          # keys a row's table spans (NBPER * bs)
 

@@ -39,6 +39,11 @@ from deepspeed_tpu_torch.ops import decode_attention as tda
 from deepspeed_tpu_torch.ops import quantization as tq
 from deepspeed_tpu_torch.ops import quantized_matmul as tqm
 
+# one intra-op thread: the suite runs as pytest-xdist workers that share
+# the machine's cores, and a torch pool of every core in each worker
+# left them oversubscribed (ROADMAP.md "Time budget")
+torch.set_num_threads(1)
+
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 ATTN_TOL = dict(atol=1e-5, rtol=1e-5)
