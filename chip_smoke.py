@@ -8,9 +8,10 @@ Run from the root of a checkout on a machine with a CUDA GPU and ``nvcc``:
 
 Phases (any failure raises and exits non-zero):
  1. the card's name and power limit, the torch version, and the builds of
-    the decode-attention, flash-attention and int8 matmul kernels from
-    ``deepspeed_tpu_torch/ops/csrc`` and of phases 14's and 15's planted
-    faults (one nvcc each, started together);
+    the decode-attention, flash-attention and int8 matmul kernels and of
+    the host C++ (``cpu_adam.cpp``, ``aio.cpp``) from
+    ``deepspeed_tpu_torch/ops/csrc`` and of phases 14's, 15's and 16's
+    planted faults (one nvcc or g++ each, started together);
  2. each decode kernel against its plain PyTorch version on the card at the
     shape the main path gives it (plus B=8 ragged, GQA and fp32 cases, and
     for the split-K kernel, which runs the 16-bit B4 windows and the 16-bit
@@ -222,6 +223,33 @@ and every replay adds them.
     (b)'s launches are read alone and give the ``[llama-train]`` entries
     of the kernels line.
 
+ 16. ZeRO-Offload and ZeRO-Infinity (``runtime/zero/offload.py``,
+    ``param_stream.py``, the host C++ of ``ops/csrc/cpu_adam.cpp`` and
+    ``aio.cpp``, built with g++ in phase 1).  (a) On the host's CPU: each
+    planted fault of :data:`CPU_ADAM_FAULTS` must fail the first check;
+    the C++ AdamW (bf16-writing entry) and Adagrad against their plain
+    versions bit for bit at 1 M and 256 M elements, and their GB/s beside
+    a host copy of the same bytes; the host's memory, cores and ``ulimit
+    -l``.  (b) ``llama3_8b()`` at :data:`OFFLOAD_LAYERS` layers through
+    ``initialize`` -> ``train_batch`` with ``zero_optimization: {stage: 2,
+    offload_optimizer: {device: cpu}}`` (phase 15's config otherwise), 4
+    steps: finite falling losses, a finite grad norm, the forward launched
+    2 x layers x micro-steps times and dq and dkv once a layer and
+    micro-step; step ms, tokens/s, MFU, the split of a step (device, host
+    step, waits for gradients and weight slots, bytes each way), a
+    profiled step's idle share, peak device memory and host RSS, after
+    asserting the host holds what the depth needs.  (c) phase 15's 4-layer
+    shape offloaded, its step beside phase 15's resident one.  (d)
+    ``offload_param: cpu`` at :data:`STREAM_LAYERS` layers, 2 steps, with
+    the bytes streamed each way a micro-step.  (e) fp32 at full width, 2
+    layers, S = 512: 3 steps each of the stage-0 resident engine, the cpu
+    and nvme offload engines and the streamed one; offload within 2e-4 of
+    resident, nvme equal to cpu bit for bit, streamed within 8e-3 of the
+    offload losses and its block gradients within 1e-4 of the resident
+    ones, and a checkpoint resume (2 steps, save, 1 more against load + 1
+    more) bit-identical.  Phase 16 (b)'s launches give the
+    ``[llama-offload]`` entries of the kernels line.
+
 The last two lines of output are the ``{"kernels": [...]}`` JSON object
 and the ``{"ok": true, "device": ...}`` JSON object.
 """
@@ -231,6 +259,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import sys
 import time
 
@@ -2718,7 +2747,8 @@ def train_phase(card: str):
 def profile_steps(engine, batches, steps: int = 3):
     """``steps`` more train steps under ``torch.profiler``: device time by
     kernel family, and the device's idle share of the same window's wall
-    time (the profiler's host cost included)."""
+    time (the profiler's host cost included).  Returns the last step's
+    ``(state, metrics)``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2728,7 +2758,8 @@ def profile_steps(engine, batches, steps: int = 3):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for step in range(steps):
-            engine.train_batch({"input_ids": batches[step % len(batches)]})
+            out = engine.train_batch(
+                {"input_ids": batches[step % len(batches)]})
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = [e for e in prof.key_averages()
@@ -2743,7 +2774,7 @@ def profile_steps(engine, batches, steps: int = 3):
     busy = sum(total.values())
     if busy == 0:
         log("[profile] the profiler recorded no device time")
-        return
+        return out
     log(f"[profile] {steps} train steps: wall {wall_ms:.1f} ms, device busy "
         f"{busy:.1f} ms, idle share {1 - busy / wall_ms:.4f}; per step "
         + ", ".join(f"{f} {ms / steps:.1f} ms"
@@ -2751,6 +2782,7 @@ def profile_steps(engine, batches, steps: int = 3):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"[profile]   {e.self_device_time_total / 1e3 / steps:8.2f} ms "
             f"x{e.count // steps:<5} a step: {e.key[:80]}")
+    return out
 
 
 def fp32_train_check():
@@ -3294,23 +3326,25 @@ LLAMA_FAULTS = (
 
 def fault_builders():
     """One ``CUDAOpBuilder`` per :data:`LLAMA_FAULTS` and
-    :data:`FLASH128_FAULTS` entry, over a patched copy of its source written
-    under ``build/`` (the text must occur once)."""
+    :data:`FLASH128_FAULTS` entry and one ``HostOpBuilder`` (g++) per
+    :data:`CPU_ADAM_FAULTS` entry, over a patched copy of its source
+    written under ``build/`` (the text must occur once)."""
     from deepspeed_tpu_torch.ops import op_builder
 
     out = []
     root = op_builder.BUILD_DIR / "faults"
     root.mkdir(parents=True, exist_ok=True)
-    for i, (label, lib, src, old, new) in enumerate(LLAMA_FAULTS +
-                                                    FLASH128_FAULTS):
+    for i, (label, lib, src, old, new) in enumerate(
+            LLAMA_FAULTS + FLASH128_FAULTS + CPU_ADAM_FAULTS):
         text = (op_builder.CSRC / src).read_text()
         if text.count(old) != 1:
             raise AssertionError(f"planted fault {label!r}: its text occurs "
                                  f"{text.count(old)} times in {src}")
         path = root / f"fault{i}_{src}"
         path.write_text(text.replace(old, new))
-        out.append((label, lib, op_builder.CUDAOpBuilder(
-            f"{lib}_fault{i}", [str(path)])))
+        kind = (op_builder.HostOpBuilder if src.endswith(".cpp")
+                else op_builder.CUDAOpBuilder)
+        out.append((label, lib, kind(f"{lib}_fault{i}", [str(path)])))
     return out
 
 
@@ -3982,10 +4016,19 @@ def time_llama_flash(q, k, v, do, o, lse, delta, errs, flush, card):
     lib_bwd = timed_ms(lambda: torch.autograd.grad(
         sdpa(qr, kr, vr), (qr, kr, vr), do), flush, iters=20) - lib_fwd
     lib_fwd_graph = graph_ms(lambda: sdpa(q, k, v), flush, iters=20)
+    try:
+        lib_bwd_graph = graph_ms(lambda: torch.autograd.grad(
+            sdpa(qr, kr, vr), (qr, kr, vr), do), flush, iters=20) - \
+            lib_fwd_graph
+    except RuntimeError as e:
+        lib_bwd_graph = None
+        log(f"[llama flash] sdpa backward not captured: {str(e)[:120]}")
     del qr, kr, vr
     log(f"[llama flash] sdpa (enable_gqa) at S={s}: forward {lib_fwd:.4f} "
         f"ms eager ({lib_fwd_graph:.4f} ms graph), backward {lib_bwd:.4f} ms "
-        f"eager (fwd+bwd less fwd) ({card})")
+        f"eager (fwd+bwd less fwd; "
+        + (f"{lib_bwd_graph:.4f} ms graph" if lib_bwd_graph is not None
+           else "graph not measured") + f") ({card})")
     calls = {
         "flash_attention_fwd_cuda": (
             lambda: fa.flash_attention_fwd_cuda(q, k, v, True),
@@ -3997,13 +4040,13 @@ def time_llama_flash(q, k, v, do, o, lse, delta, errs, flush, card):
                                                    causal=True),
             lambda a, bb, c, dd, l, dl: fa.flash_attention_bwd_dq_plain(
                 a, bb, c, dd, l, dl, True),
-            lib_bwd, None, errs["dq"]),
+            lib_bwd, lib_bwd_graph, errs["dq"]),
         "flash_attention_bwd_dkv_cuda": (
             lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta,
                                                     causal=True),
             lambda a, bb, c, dd, l, dl: fa.flash_attention_bwd_dkv_plain(
                 a, bb, c, dd, l, dl, True),
-            lib_bwd, None, max(errs["dk"], errs["dv"])),
+            lib_bwd, lib_bwd_graph, max(errs["dk"], errs["dv"])),
     }
     out = {}
     for name, (kernel, plain, library_ms, library_graph_ms, err) in \
@@ -4221,34 +4264,513 @@ def llama_train_phase(card):
     del engine, model, flush
     torch.cuda.empty_cache()
     llama_fp32_train_check()
-    return counts
+    return counts, steady
 
 
 def llama_train_full_phase(card, faults):
     """Phase 15: (a) the D = 128 flash kernels and their planted faults,
     (b) Llama-3-8B's width trained on the card.  Returns (measurements,
-    launches of (b))."""
+    launches of (b), its median step in seconds)."""
     t0 = time.perf_counter()
     measured = check_llama_flash(card)
     check_planted_faults(faults, {"flash_attention": check_llama_flash}, 15)
     t1 = time.perf_counter()
-    launches = llama_train_phase(card)
+    launches, steady = llama_train_phase(card)
     log(f"[llama train] phase 15 (a) in {t1 - t0:.1f} s, (b) in "
         f"{time.perf_counter() - t1:.1f} s")
-    return measured, launches
+    return measured, launches, steady
+
+
+# ------------------------------------------------------------- phase 16
+#: phase 16 (b): the depth Llama-3-8B trains at with ``offload_optimizer:
+#: cpu``.  The host holds 12 bytes a parameter (the f32 master and two
+#: moments): 32 layers need 89.75 GiB, and the H100 machine's host has
+#: 101.00 GiB in all, 88-91 GiB of it available when phase 16 (b) starts
+#: (PERF.md section 4); 28 layers need 79.99 GiB
+OFFLOAD_LAYERS = 28
+#: phase 16 (d): the depth of the ``offload_param`` run.  The host holds
+#: 18 bytes a streamed parameter (master, moments, the bf16 compute copy
+#: and the f32 gradient accumulator) and 12 a resident one: 32 layers need
+#: 138 GB, 16 layers 75.4 GB (the cut of PERF.md section 4)
+STREAM_LAYERS = 16
+#: phase 16 (a)'s host step: 256 M elements
+HOST_STEP_ELEMS = 256 << 20
+#: the host memory phase 16 leaves free beyond what an engine needs (the
+#: process's own growth while it trains, the pinned ring)
+HOST_MARGIN = 4 << 30
+#: planted faults of the host Adam (built in phase 1 with g++); each must
+#: fail the first check of :func:`check_host_step` (phase 16 (a))
+CPU_ADAM_FAULTS = (
+    ("host Adam without bias correction", "cpu_adam", "cpu_adam.cpp",
+     "    bc1 = 1.0f - std::pow(beta1, (float)step);\n"
+     "    bc2 = 1.0f - std::pow(beta2, (float)step);\n",
+     "    bc1 = 1.0f;\n    bc2 = 1.0f;\n"),
+    ("host Adam never writes m", "cpu_adam", "cpu_adam.cpp",
+     "    m[i] = mi;\n", ""),
+)
+
+
+def host_reading() -> dict:
+    """The host's memory (``/proc/meminfo``), cores, ``ulimit -l``, this
+    process's resident memory and its peak as ``getrusage`` reports it, in
+    bytes."""
+    import resource
+
+    mem = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            mem[key] = int(val.split()[0]) * 1024
+    status = {}
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS"):
+                key, val = line.split(":", 1)
+                status[key] = int(val.split()[0]) * 1024
+    return {"mem_total": mem["MemTotal"],
+            "mem_available": mem.get("MemAvailable", mem["MemFree"]),
+            "cores": os.cpu_count(),
+            "memlock": resource.getrlimit(resource.RLIMIT_MEMLOCK)[0],
+            "rss": status.get("VmRSS", 0),
+            "maxrss": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+            * 1024}
+
+
+def gib(n) -> str:
+    return f"{n / 2 ** 30:.2f} GiB"
+
+
+def log_host(label):
+    h = host_reading()
+    log(f"[host] {label}: MemTotal {gib(h['mem_total'])}, MemAvailable "
+        f"{gib(h['mem_available'])}, {h['cores']} cores, ulimit -l "
+        f"{h['memlock']} bytes, RSS {gib(h['rss'])} (ru_maxrss "
+        f"{gib(h['maxrss'])})")
+    return h
+
+
+def host_need(cfg, stream: bool) -> int:
+    """Host bytes an offload engine of ``cfg`` holds: the f32 master and
+    two moments of every parameter (the gradient streams through the
+    pinned ring), and for streamed blocks their bf16 compute copy and f32
+    gradient accumulator."""
+    blocks = cfg.num_params() - llama_train_config(0).num_params()
+    return 12 * cfg.num_params() + (6 * blocks if stream else 0)
+
+
+def assert_host_holds(cfg, stream: bool, label: str, wait_s: float = 180.0):
+    """Fail unless the host has what an engine of ``cfg`` needs, plus
+    :data:`HOST_MARGIN`.  Memory an earlier engine freed can take the
+    operating system a few seconds to report available again: poll for up
+    to ``wait_s`` seconds."""
+    need = host_need(cfg, stream)
+    t0 = time.perf_counter()
+    while True:
+        h = host_reading()
+        if h["mem_available"] >= need + HOST_MARGIN:
+            break
+        if time.perf_counter() - t0 > wait_s:
+            log_host(label)
+            raise AssertionError(
+                f"{label}: the host has {gib(h['mem_available'])} available, "
+                f"the engine needs {gib(need)} + {gib(HOST_MARGIN)} (the "
+                "depth is fixed in chip_smoke.py, never cut here)")
+        time.sleep(2.0)
+    log_host(label)
+    log(f"[host] {label} needs {gib(need)} on the host (available after "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+
+def release():
+    """Free what earlier work left: Python cycles, the device cache and the
+    cache of pinned host blocks."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    if hasattr(torch._C, "_host_emptyCache"):
+        torch._C._host_emptyCache()
+
+
+def check_host_step(n: int, seed: int = 16):
+    """Phase 16 (a)'s check: one AdamW step (bf16-writing entry, nonzero
+    moments, count 3) and one Adagrad step on ``n`` elements, against their
+    plain versions, bit for bit.  Returns the host buffers for timing."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import cpu_adam
+
+    g = torch.Generator().manual_seed(seed)
+    p = torch.randn(n, generator=g)
+    grad = torch.randn(n, generator=g)
+    m = torch.randn(n, generator=g) * 0.1
+    v = torch.rand(n, generator=g) * 0.01
+    kw = dict(lr=1e-3, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1)
+    opt = cpu_adam.DeepSpeedCPUAdam(**kw)
+    opt.step_count = 2
+    got = [p.clone(), m.clone(), v.clone()]
+    out16 = torch.empty(n, dtype=torch.bfloat16)
+    opt.step(got[0], grad, got[1], got[2], out16=out16)
+    want = [p.clone(), m.clone(), v.clone()]
+    cpu_adam.adam_step_plain(want[0], grad, want[1], want[2], 3,
+                             kw["lr"], kw["betas"], kw["eps"],
+                             kw["weight_decay"])
+    for name, a, b in zip(("p", "m", "v"), got, want):
+        bad = int((a.view(torch.int32) != b.view(torch.int32)).sum())
+        if bad:
+            raise AssertionError(f"host Adam {name} differs from the plain "
+                                 f"version in {bad} of {n} elements")
+    if not torch.equal(out16, got[0].to(torch.bfloat16)):
+        raise AssertionError("host Adam's bf16 copy is not the masters' "
+                             "bf16 rounding")
+    s = v.clone()
+    ga, pa = p.clone(), p.clone()
+    cpu_adam.DeepSpeedCPUAdagrad(lr=1e-2, weight_decay=0.01).step(
+        ga, grad, s)
+    sp = v.clone()
+    cpu_adam.adagrad_step_plain(pa, grad, sp, 1e-2, weight_decay=0.01)
+    if not (torch.equal(ga, pa) and torch.equal(s, sp)):
+        raise AssertionError("host Adagrad differs from the plain version")
+    return {"p": p, "g": grad, "m": m, "v": v, "out16": out16}
+
+
+def host_kernels_phase(card, faults):
+    """Phase 16 (a): the host C++ on the chip machine's CPU: the planted
+    faults first (each must fail the first check), then the check at 1 M
+    and 256 M elements, and each entry's GB/s beside a host copy of the
+    same bytes (the memcpy-class bound, timed the same way)."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import cpu_adam, op_builder
+
+    h = log_host("phase 16 (a)")
+    threads = h["cores"]
+    torch.set_num_threads(threads)
+    cpu_adam.set_num_threads(threads)
+    for label, lib, fb in faults:
+        if lib != "cpu_adam":
+            continue
+        real = op_builder._BUILDERS[lib]
+        op_builder._BUILDERS[lib] = fb
+        cpu_adam._LIB = None
+        try:
+            check_host_step(1 << 20)
+        except AssertionError as e:
+            log(f"[16 faults] {label}: caught ({str(e).splitlines()[0]})")
+        else:
+            raise AssertionError(f"planted fault {label!r} passed phase "
+                                 "16 (a)'s check")
+        finally:
+            op_builder._BUILDERS[lib] = real
+            cpu_adam._LIB = None
+    check_host_step(1 << 20)
+    n = HOST_STEP_ELEMS
+    t0 = time.perf_counter()
+    bufs = check_host_step(n)
+    log(f"[16a] host AdamW (bf16 copy) and Adagrad on {n >> 20} M elements "
+        f"equal their plain versions bit for bit ({time.perf_counter() - t0:.1f}"
+        f" s with the plain runs); {threads} OpenMP threads")
+
+    def rate(fn, nbytes, reps=5):
+        fn()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return nbytes * reps / (time.perf_counter() - t) / 1e9
+
+    p, g, m, v, o16 = (bufs[k] for k in ("p", "g", "m", "v", "out16"))
+    adam = cpu_adam.DeepSpeedCPUAdam(lr=1e-4)
+    adag = cpu_adam.DeepSpeedCPUAdagrad(lr=1e-4)
+    src = torch.empty(n * 4, dtype=torch.uint8)
+    dst = torch.empty_like(src)
+    src.fill_(1)
+    results = {
+        # bytes each element needs read and written once
+        "ds_adam_step_bf16": rate(lambda: adam.step(p, g, m, v, out16=o16),
+                                  n * 30),
+        "ds_adam_step": rate(lambda: adam.step(p, g, m, v), n * 28),
+        "ds_adagrad_step": rate(lambda: adag.step(p, g, v), n * 20),
+        "copy": rate(lambda: dst.copy_(src), n * 8),
+    }
+    bound = results["copy"]
+    log("[16a] host GB/s (bytes read and written once): " + ", ".join(
+        f"{k} {r:.1f}" for k, r in results.items()) + f"; copy is the bound: "
+        + ", ".join(f"{k} {100 * r / bound:.1f}%" for k, r in results.items()
+                    if k != "copy") + f" of it ({card} host)")
+    del bufs, p, g, m, v, o16, src, dst
+    release()
+    return results
+
+
+def offload_config(zero, dtype="bf16"):
+    conf = train_config(1, 2, dtype)
+    conf["zero_optimization"] = zero
+    return conf
+
+
+def offload_train(card, layers, zero, steps, label, profile=False,
+                  n_batches=3):
+    """Llama-3-8B's width at ``layers`` layers through ``initialize`` ->
+    ``train_batch`` with the ``zero`` block, micro 1 x S = 8192 x GAS 2,
+    ``steps`` steps over ``n_batches`` batches in turn (the loss must fall
+    by the last step: a batch seen again).  Returns (flash launches, median
+    step s, losses)."""
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    cfg = llama_train_config(layers)
+    stream = "offload_param" in zero
+    assert_host_holds(cfg, stream, label)
+    s, gas = LLAMA_TRAIN_S, 2
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = llama.build(cfg)
+    engine, *_ = dt.initialize(model=model, config=offload_config(zero))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(16)
+    batches = [rng.integers(0, cfg.vocab_size, (gas, s + 1))
+               for _ in range(n_batches)]
+    fa.reset_launch_counts()
+    losses, step_s, splits = [], [], []
+    rss = [host_reading()["rss"]]
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if profile and step == steps - 1:
+            # the last step under the profiler: the device's idle share
+            _, metrics = profile_steps(engine, [batches[step % n_batches]],
+                                       steps=1)
+        else:
+            _, metrics = engine.train_batch(
+                {"input_ids": batches[step % n_batches]})
+        losses.append(metrics["loss"])
+        step_s.append(time.perf_counter() - t0)
+        splits.append(dict(engine.offload_timings))
+        rss.append(host_reading()["rss"])
+    counts = flash_counts()
+    grad_norm = metrics["grad_norm"]
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    split = splits[step_s.index(steady)]
+    tokens = gas * s
+    mfu = (model.flops_per_token + 6 * cfg.num_layers * cfg.hidden_size * s) \
+        * tokens / steady / BF16_FLOPS_PER_S
+    peak = torch.cuda.max_memory_allocated()
+    h = host_reading()
+    log(f"[{label}] Llama-3-8B width, {layers} layers ({cfg.num_params() / 1e9:.3f}"
+        f" B parameters), bf16, micro 1 x gas {gas} x {s}, zero {zero}: init "
+        f"{init_s:.1f} s; losses {[round(x, 4) for x in losses]}; grad_norm "
+        f"{grad_norm:.4f}; step {1e3 * steady:.1f} ms (median of steps 2-"
+        f"{steps}; first {1e3 * step_s[0]:.1f} ms), {tokens / steady:.0f} "
+        f"tokens/s, MFU {100 * mfu:.2f}% of 989 TFLOP/s ({card}); peak device "
+        f"{gib(peak)}, host RSS {gib(max(rss))} (the largest of the readings "
+        f"after init and after each step; ru_maxrss {gib(h['maxrss'])}); "
+        f"launches {counts}")
+    tail = split["offload_step_s"] - split.get("wait_grads_s", 0) - \
+        split.get("host_step_s", 0) - split.get("wait_slot_s", 0)
+    log(f"[{label}] split of that step (ms): device micro-steps + norm + clip "
+        f"{1e3 * split['device_s']:.1f}; streamed blocks' host step "
+        f"{1e3 * split['block_step_s']:.1f}; host step {1e3 * split['offload_step_s']:.1f}"
+        f" = waiting for gradients {1e3 * split.get('wait_grads_s', 0):.1f} + "
+        f"C++ step {1e3 * split.get('host_step_s', 0):.1f} + waiting for a "
+        f"weight slot {1e3 * split.get('wait_slot_s', 0):.1f} + the last "
+        f"weights back and the rest {1e3 * tail:.1f}; bytes to the host "
+        f"{split.get('d2h_bytes', 0) / 1e9:.2f} GB, to the card "
+        f"{split.get('h2d_bytes', 0) / 1e9:.2f} GB"
+        + (f"; streamed a step: weights in {split['stream_bytes_in'] / 1e9:.2f}"
+           f" GB, gradients out {split['stream_bytes_out'] / 1e9:.2f} GB "
+           f"({split['stream_bytes_in'] / gas / 1e9:.2f} / "
+           f"{split['stream_bytes_out'] / gas / 1e9:.2f} GB a micro-step)"
+           if "stream_bytes_in" in split else ""))
+    if not all(math.isfinite(x) for x in losses) or \
+            not math.isfinite(grad_norm):
+        raise AssertionError(f"{label}: non-finite losses {losses}, "
+                             f"grad_norm {grad_norm}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: loss did not fall: {losses}")
+    want = {"flash_attention_fwd_cuda": 2 * layers * gas * steps,
+            "flash_attention_bwd_dq_cuda": layers * gas * steps,
+            "flash_attention_bwd_dkv_cuda": layers * gas * steps}
+    if counts != want:
+        raise AssertionError(f"{label}: flash launches {counts}, expected "
+                             f"{want}")
+    engine.close()
+    del engine, model
+    release()
+    return counts, steady, losses
+
+
+def fp32_engine(cfg, params, zero):
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import llama
+
+    engine, *_ = dt.initialize(model=llama.build(cfg),
+                               config=offload_config(zero, "fp32"),
+                               model_parameters=params)
+    return engine
+
+
+def offload_fp32_checks(card):
+    """Phase 16 (e): fp32 at full width, 2 layers, S = 512: 3 steps each of
+    the resident stage-0 engine, the cpu and nvme offload engines and the
+    streamed one from the same weights and batches; a checkpoint resume of
+    the cpu offload engine."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.models import llama
+
+    cfg = llama_train_config(2)
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(16))
+    rng = np.random.default_rng(16)
+    batches = [{"input_ids": rng.integers(0, cfg.vocab_size, (2, 513))}
+               for _ in range(3)]
+    tmp = tempfile.mkdtemp(prefix="ds_phase16_")
+    cpu = {"stage": 2, "offload_optimizer": {"device": "cpu"}}
+    nvme = {"stage": 2, "offload_optimizer": {"device": "nvme",
+                                              "nvme_path": tmp},
+            "sub_group_size": 1 << 26}
+    stream = {"stage": 3, "offload_optimizer": {"device": "cpu"},
+              "offload_param": {"device": "cpu"}}
+    runs, masters, times = {}, {}, {}
+    try:
+        for name, zero in (("resident", {"stage": 0}), ("cpu", cpu),
+                           ("nvme", nvme), ("stream", stream)):
+            t0 = time.perf_counter()
+            eng = fp32_engine(cfg, params, zero)
+            if name == "stream":
+                # one micro-step's streamed block gradients against the
+                # resident engine's (kept from its first micro-step)
+                loss = eng._micro_loss(eng._micro_batches(batches[0])[0])
+                loss.backward()
+                eng._param_store.join()
+                got = eng._param_store.grad_flat.clone()
+                eng._param_store.grad_flat.zero_()
+                eng._dev_grad.zero_()
+                err = (got - first_grads).abs().max().item()
+                log(f"[16e] streamed block gradients of one micro-step "
+                    f"against the resident engine's: max error {err:.3e}")
+                if err > 1e-4:
+                    raise AssertionError(f"streamed gradients differ by {err}")
+            if name == "resident":
+                loss = eng._micro_loss(eng._micro_batches(batches[0])[0])
+                loss.backward()
+                first_grads = torch.cat([p.grad.reshape(-1).cpu() for path, p
+                                         in zip(eng._paths, eng._leaves)
+                                         if path[0] == "blocks"])
+                for p in eng._leaves:
+                    p.grad = None
+            runs[name] = [eng.train_batch(b)[1]["loss"] for b in batches]
+            times[name] = time.perf_counter() - t0
+            if name in ("cpu", "nvme"):
+                masters[name] = eng._offload_opt.master.copy()
+            eng.close()
+            del eng
+            release()
+        log(f"[16e] fp32, 2 layers, S=512, 3 steps: losses {runs}; seconds "
+            f"{ {k: round(v, 1) for k, v in times.items()} } ({card})")
+        base = np.array(runs["resident"])
+        for name in ("cpu", "nvme"):
+            if not np.allclose(runs[name], base, rtol=2e-4, atol=1e-5):
+                raise AssertionError(f"{name} offload losses {runs[name]} "
+                                     f"against resident {list(base)}")
+        if runs["nvme"] != runs["cpu"] or \
+                not np.array_equal(masters["nvme"], masters["cpu"]):
+            raise AssertionError("nvme offload is not the cpu offload bit for "
+                                 "bit")
+        if not np.allclose(runs["stream"], runs["cpu"], rtol=0, atol=8e-3):
+            raise AssertionError(f"streamed losses {runs['stream']} against "
+                                 f"resident offload {runs['cpu']}")
+        del masters
+        # a checkpoint resume
+        t0 = time.perf_counter()
+        a = fp32_engine(cfg, params, cpu)
+        for b in batches[:2]:
+            a.train_batch(b)
+        a.save_checkpoint(tmp + "/ck")
+        t_save = time.perf_counter() - t0
+        want = a.train_batch(batches[2])[1]["loss"]
+        want_master = a._offload_opt.master.copy()
+        a.close()
+        del a
+        release()
+        b = fp32_engine(cfg, params, cpu)
+        t1 = time.perf_counter()
+        b.load_checkpoint(tmp + "/ck")
+        t_load = time.perf_counter() - t1
+        got = b.train_batch(batches[2])[1]["loss"]
+        same = got == want and np.array_equal(b._offload_opt.master,
+                                              want_master)
+        log(f"[16e] checkpoint resume (cpu offload): loss {got} vs {want}, "
+            f"masters {'equal' if same else 'differ'} (save path "
+            f"{t_save:.1f} s with 2 steps, load {t_load:.1f} s)")
+        b.close()
+        del b, want_master
+        if not same:
+            raise AssertionError("checkpoint resume is not bit-identical")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        del params
+        release()
+
+
+def offload_phase(card, faults, resident_step_s):
+    """Phase 16: ZeRO-Offload and ZeRO-Infinity (module docstring).
+    ``resident_step_s``: phase 15's resident 4-layer step, printed beside
+    (c)'s.  Returns the flash kernels' launches of (b)."""
+    import torch
+
+    release()
+    t0 = time.perf_counter()
+    host_kernels_phase(card, faults)
+    t1 = time.perf_counter()
+    cpu = {"stage": 2, "offload_optimizer": {"device": "cpu"}}
+    launches, _, _ = offload_train(card, OFFLOAD_LAYERS, cpu, 4,
+                                   "16b offload", profile=True)
+    t2 = time.perf_counter()
+    _, step_c, _ = offload_train(card, LLAMA_TRAIN_LAYERS, cpu, 4,
+                                 "16c offload")
+    log(f"[16c] {LLAMA_TRAIN_LAYERS} layers: offloaded step "
+        f"{1e3 * step_c:.1f} ms against phase 15's resident "
+        f"{1e3 * resident_step_s:.1f} ms in this run ({card})")
+    t3 = time.perf_counter()
+    stream = {"stage": 3, "offload_optimizer": {"device": "cpu"},
+              "offload_param": {"device": "cpu"}}
+    offload_train(card, STREAM_LAYERS, stream, 2, "16d offload_param",
+                  n_batches=1)
+    t4 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    offload_fp32_checks(card)
+    log(f"[16] phase 16 (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+        f"{t3 - t2:.1f} s, (d) {t4 - t3:.1f} s, (e) "
+        f"{time.perf_counter() - t4:.1f} s")
+    return launches
 
 
 def build_all():
-    """Phase 1's builds: one nvcc per source, and one per planted fault of
-    phases 14 and 15 (:func:`fault_builders`), all started together.  Returns the
+    """Phase 1's builds: one nvcc per CUDA source and one g++ per host
+    source, and one per planted fault of phases 14, 15 and 16
+    (:func:`fault_builders`), all started together.  Returns the
     faults as (label, library name, built builder)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from deepspeed_tpu_torch.ops.op_builder import builder
+    from deepspeed_tpu_torch.ops.op_builder import builder, host_builder
 
     builders = [builder("decode_attention", ["decode_attention.cu"]),
                 builder("flash_attention", ["flash_attention.cu"]),
-                builder("quantized_matmul", ["quantized_matmul.cu"])]
+                builder("quantized_matmul", ["quantized_matmul.cu"]),
+                host_builder("cpu_adam", ["cpu_adam.cpp"]),
+                host_builder("aio", ["aio.cpp"], ["-pthread"])]
     faults = fault_builders()
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builders) + len(faults)) as pool:
@@ -4304,7 +4826,9 @@ def main() -> int:
     del engine, weng, float_lane, greedy12
     sparse_measured, sparse_launches = check_sparse_kernels()
     llama_measured, llama_launches = llama_phase(card, faults)
-    train_measured, train_launches = llama_train_full_phase(card, faults)
+    train_measured, train_launches, resident_step_s = \
+        llama_train_full_phase(card, faults)
+    offload_launches = offload_phase(card, faults, resident_step_s)
 
     # one line per kernel; a flash kernel replaces three TPU regimes (v1,
     # v2, v3: PERF.md) and names the v1 site, whose lse format it keeps
@@ -4400,6 +4924,18 @@ def main() -> int:
             "kernel": designs[fn.__name__], "source": sources[fa],
             "replaces": replaces[fn.__name__],
             "launches": train_launches[fn.__name__],
+            **{key: m[key] for key in (
+                "max_abs_err", "ms", "graph_ms", "plain_ms", "plain_at",
+                "bound_ms", "bound_by", "library_ms", "library_graph_ms")}})
+    # phase 16: the same kernels at the same shape, launched by phase 16
+    # (b)'s offloaded run of all the layers
+    for fn in fa.KERNELS:
+        m = train_measured[fn.__name__]
+        kernels.append({
+            "name": f"{fn.__name__}[llama-offload]", "route": "cuda",
+            "kernel": designs[fn.__name__], "source": sources[fa],
+            "replaces": replaces[fn.__name__],
+            "launches": offload_launches[fn.__name__],
             **{key: m[key] for key in (
                 "max_abs_err", "ms", "graph_ms", "plain_ms", "plain_at",
                 "bound_ms", "bound_by", "library_ms", "library_graph_ms")}})

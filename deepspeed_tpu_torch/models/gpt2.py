@@ -302,11 +302,19 @@ def _block(cfg: GPT2Config, x, layer):
     return _mlp_residual(get, mm, x)
 
 
+def _embed(cfg: GPT2Config, params: Params, input_ids):
+    """Token + position embeddings [B, S, D] in the dtype of
+    ``params["wte"]``."""
+    del cfg
+    s = input_ids.shape[1]
+    return (params["wte"][input_ids] + params["wpe"][:s]).to(
+        params["wte"].dtype)
+
+
 def _trunk(cfg: GPT2Config, params: Params, input_ids):
     """Embeddings + all blocks: pre-final-LN activations [B, S, D]
     (``gpt2.py:591``), in the dtype of ``params["wte"]``."""
-    s = input_ids.shape[1]
-    x = (params["wte"][input_ids] + params["wpe"][:s]).to(params["wte"].dtype)
+    x = _embed(cfg, params, input_ids)
     for i in range(cfg.num_layers):
         x = _block(cfg, x, _layer(params["blocks"], i))
     return x
@@ -588,6 +596,16 @@ class GPT2Model(nn.Module):
             "supports_kv_quant": True,
             # full-vocab logits feed the on-device sampler unchanged
             "supports_sampling": True,
+        }
+        # the block-structured view the parameter-streaming engine drives
+        # (``gpt2.py:827-831``): embeddings, one block, final LN + head loss
+        self.pipeline_hooks = {
+            "blocks_key": ("blocks",),
+            "embed_fn": lambda params, ids: _embed(cfg, params, ids),
+            "block_fn": lambda layer, x, rng=None: _block(cfg, x, layer),
+            "head_loss_fn": lambda params, x, tgt: _head_loss(cfg, params, x,
+                                                              tgt),
+            "dropout": cfg.dropout,
         }
 
     def init_fn(self, generator: torch.Generator) -> Params:

@@ -351,12 +351,26 @@ def loss_from_batch(cfg: LlamaConfig, params: Params, batch, rng=None,
     if labels is None:
         labels = input_ids[:, 1:]
         input_ids = input_ids[:, :-1]
-    logits = forward(cfg, params, input_ids).float()
+    params = gpt2._dequant_resident(params)
+    return _head_loss(cfg, params, _trunk(cfg, params, input_ids), labels)
+
+
+def _head_loss(cfg: LlamaConfig, params: Params, x, labels):
+    """Final RMSNorm, LM head and the mean cross entropy over the labels
+    that are not -100 (``llama.py:406``, ``pp_head_loss``)."""
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    logits = (x @ params["lm_head"].to(x.dtype)).float()
     valid = labels >= 0
     safe = torch.where(valid, labels, 0)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, safe[..., None])[..., 0]
     return torch.where(valid, nll, 0.0).sum() / valid.sum().clamp(min=1)
+
+
+def _block_hook(cfg: LlamaConfig, layer: Params, x):
+    """One block with its RoPE angles (``llama.py:402``, ``pp_block``)."""
+    cos, sin = rope_angles(cfg, x.shape[1], device=x.device)
+    return block_apply(cfg, layer, x, cos, sin)
 
 
 def init_cache(cfg: LlamaConfig, batch_size: int, max_len: int,
@@ -496,6 +510,16 @@ class LlamaModel(nn.Module):
             # pass through ops/paged_kv untouched by this family
             "supports_kv_quant": True,
             "supports_sampling": True,
+        }
+        # the block-structured view the parameter-streaming engine drives
+        # (``llama.py:419-423``)
+        self.pipeline_hooks = {
+            "blocks_key": ("blocks",),
+            "embed_fn": lambda params, ids: params["embed"][ids].to(
+                params["embed"].dtype),
+            "block_fn": lambda layer, x, rng=None: _block_hook(cfg, layer, x),
+            "head_loss_fn": lambda params, x, tgt: _head_loss(cfg, params, x,
+                                                              tgt),
         }
 
     def init_fn(self, generator: torch.Generator,

@@ -3,9 +3,12 @@
 the same keys, ``"auto"`` values and batch-size triple, on the standard
 library.
 
-The port trains on one GPU, so the data-parallel world size is 1.  Keys
-whose feature is not ported yet are refused here, each with a
-``NotImplementedError`` naming the slice that brings it, never ignored.
+The port trains on one GPU, so the data-parallel world size is 1: ZeRO
+stages 0-3 and the offload tiers (``offload_optimizer`` / ``offload_param``
+at ``cpu`` or ``nvme``) are accepted, as the JAX package accepts them on a
+one-device mesh.  Keys whose feature is not ported yet (more than one rank
+among them) are refused here, each with a ``NotImplementedError`` naming
+the slice that brings it, never ignored.
 """
 
 from __future__ import annotations
@@ -62,6 +65,9 @@ def resolve_auto_config(pd: dict, hidden_size: Optional[int] = None) -> dict:
     return out
 
 
+MULTI_GPU = "multi-GPU (Queue A 8)"
+
+
 def _unported(key: str, slice_name: str):
     raise NotImplementedError(
         f"config {key!r}: not ported yet — it comes with the PyTorch port's "
@@ -72,13 +78,11 @@ def _refuse_unported(pd: dict, zero: DeepSpeedZeroConfig) -> None:
     """Raise for every enabled feature this port does not have yet."""
     if pd.get(C.FP16, {}).get(C.FP16_ENABLED, False):
         _unported("fp16", "fp16 (dynamic loss scaling)")
-    if int(zero.stage) > 0:
-        _unported(f"zero_optimization.stage={int(zero.stage)}", "multi-GPU")
-    if zero.offload_enabled():
-        _unported("zero_optimization.offload_*", "multi-GPU")
+    # ZeRO stages 0-3 and the offload tiers run at world size 1 (one GPU),
+    # as the JAX package runs them on a one-device mesh; more ranks wait
     for axis, n in (pd.get(C.MESH) or {}).items():
         if int(n) > 1:
-            _unported(f"mesh.{axis}={n}", "multi-GPU")
+            _unported(f"mesh.{axis}={n}", MULTI_GPU)
     if pd.get(C.ACTIVATION_CHECKPOINTING):
         _unported("activation_checkpointing", "remat")
     if pd.get(C.CURRICULUM_LEARNING_LEGACY, {}).get("enabled", False):
@@ -94,26 +98,31 @@ def _refuse_unported(pd: dict, zero: DeepSpeedZeroConfig) -> None:
     if pd.get(C.COMPRESSION_TRAINING):
         _unported("compression_training", "compression")
     if pd.get(C.SPARSE_GRADIENTS, C.SPARSE_GRADIENTS_DEFAULT):
-        _unported("sparse_gradients", "multi-GPU")
+        _unported("sparse_gradients", MULTI_GPU)
     if pd.get(C.FLOPS_PROFILER, {}).get("enabled", False):
         _unported("flops_profiler", "telemetry")
     for key in C.MONITORS:
         if pd.get(key, {}).get("enabled", False):
             _unported(key, "telemetry")
     if pd.get(C.PIPELINE):
-        _unported("pipeline", "multi-GPU")
+        _unported("pipeline", MULTI_GPU)
     if pd.get(C.ELASTICITY, {}).get("enabled", False):
-        _unported("elasticity", "multi-GPU")
+        _unported("elasticity", MULTI_GPU)
     opt = (pd.get(C.OPTIMIZER) or {}).get(C.TYPE)
     if opt is not None:
         name = str(opt).lower()
         if name in C.ONEBIT_OPTIMIZERS:
-            _unported(f"optimizer {opt!r}", "multi-GPU (1-bit optimizers)")
-        if name not in C.PORTED_OPTIMIZERS:
+            _unported(f"optimizer {opt!r}", "multi-GPU (1-bit optimizers, "
+                      "Queue A 8)")
+        offloaded = zero.offload_optimizer is not None and \
+            zero.offload_optimizer.device != "none"
+        if name not in C.PORTED_OPTIMIZERS and not (
+                offloaded and name in C.OFFLOAD_OPTIMIZERS):
             raise NotImplementedError(
                 f"optimizer {opt!r}: the PyTorch port runs Adam and AdamW "
-                f"({C.PORTED_OPTIMIZERS}) so far; the others come with the "
-                "optimizer slice (ROADMAP.md)")
+                f"({C.PORTED_OPTIMIZERS}) so far, and Adagrad with "
+                "zero_optimization.offload_optimizer (the host C++ step); "
+                "the others come with the optimizer slice (ROADMAP.md)")
 
 
 class DeepSpeedConfig:

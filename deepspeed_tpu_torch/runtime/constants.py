@@ -21,6 +21,8 @@ SCHEDULER = "scheduler"
 
 #: the optimizers this port runs so far (ops/optimizers.py)
 PORTED_OPTIMIZERS = ["adam", "adamw", "fusedadam"]
+#: and with zero_optimization.offload_optimizer (ops/cpu_adam.py)
+OFFLOAD_OPTIMIZERS = ["adam", "adamw", "fusedadam", "adagrad"]
 ONEBIT_OPTIMIZERS = ["onebitadam", "onebitlamb", "zerooneadam"]
 
 #############################################

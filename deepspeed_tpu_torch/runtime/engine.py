@@ -1,6 +1,7 @@
 """The training engine — the PyTorch port of
-``deepspeed_tpu/runtime/engine.py`` (``DeepSpeedEngine``) on one GPU at
-ZeRO stage 0.
+``deepspeed_tpu/runtime/engine.py`` (``DeepSpeedEngine``) on one GPU, at
+ZeRO stages 0-3 (one rank holds the whole partition) with the offload
+tiers.
 
 The user contract is the JAX package's: ``initialize(model, config)``
 returns the engine, then either ``engine.train_batch(batch)`` (all
@@ -20,27 +21,52 @@ What one ``train_batch`` does (``engine.py:923-962`` and ``:866-895``):
  - Adam/AdamW (``ops/optimizers.py``) steps the float32 masters in place,
    reading the LR schedule at the number of updates already applied.
 
-Unported features (fp16 and its loss scaler, ZeRO >= 1, offload, meshes,
-activation checkpointing, curriculum, random-LTD, compression, sparse
-gradients, 1-bit optimizers, the flops profiler, monitors, the pipeline
-engine, checkpoints) raise ``NotImplementedError``, from the config
+ZeRO-Offload (``zero_optimization.offload_optimizer``, ``engine.py:745,
+973, 1436-1520``): the device holds the weights in the compute dtype only
+(the leaves of one flat buffer) and one flat float32 gradient
+accumulator; each micro-step's gradient of a leaf is folded into it as
+autograd completes it (``register_post_accumulate_grad_hook``), so the
+gradients of the whole model never exist in the compute dtype at once.
+The mean, the global norm and the clip (``min(1, clip / (norm + 1e-6))``,
+the JAX offload path's) run on the device; the float32 masters and the
+moments live on the host (``runtime/zero/offload.py``, ``device`` ``cpu``
+or ``nvme``), where the C++ Adam/Adagrad steps them piece by piece while
+the gradients stream in and the updated weights (bf16 written by the same
+pass) stream back through a ring of pinned slots
+(``offload.DeviceRing``).  The LR is read at the host optimizer's applied
+steps.  ZeRO-Infinity parameter streaming (``offload_param``,
+``engine.py:605-800``): the stacked blocks live on the host
+(``runtime/zero/param_stream.py``), each layer loaded for its forward and
+again for its backward; the host clip covers the resident and streamed
+gradients together.
+
+Checkpoints (``save_checkpoint`` / ``load_checkpoint``,
+``runtime/checkpointing.py``) keep the JAX layout.
+
+Unported features (fp16 and its loss scaler, more than one rank,
+activation checkpointing configs, curriculum, random-LTD, compression,
+sparse gradients, 1-bit optimizers, the flops profiler, monitors, the
+pipeline engine) raise ``NotImplementedError``, from the config
 (``runtime/config.py``), the model config or here.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..accelerator import resolve_device
+from ..ops import cpu_adam
 from ..ops.optimizers import (FusedAdam, clip_by_global_norm, get_optimizer,
                               global_norm)
 from ..utils.logging import log_dist
 from ..utils.timer import (BACKWARD_GLOBAL_TIMER, FORWARD_GLOBAL_TIMER,
                            STEP_GLOBAL_TIMER, TRAIN_BATCH_TIMER,
                            SynchronizedWallClockTimer, ThroughputTimer)
+from .checkpointing import CheckpointManager
 from .config import DeepSpeedConfig
 from .dataloader import DeepSpeedDataLoader, RepeatingLoader
 from .lr_schedules import LRScheduler, get_lr_schedule
@@ -113,7 +139,7 @@ class DeepSpeedEngine:
         if mpu is not None:
             raise NotImplementedError(
                 "mpu: model parallelism comes with the PyTorch port's "
-                "multi-GPU slice (ROADMAP.md)")
+                "multi-GPU slice (ROADMAP.md Queue A 8)")
         self._config = DeepSpeedConfig(config if config is not None else {})
         self.device = resolve_device(device)
         self.module = model
@@ -122,13 +148,51 @@ class DeepSpeedEngine:
         self.collate_fn = collate_fn
 
         self.global_steps = 0
+        self.global_samples = 0
         self.micro_steps = 0
+        self.skipped_steps = 0       # no overflow skips without fp16
         self._cached_metrics: Dict[str, Any] = {}
 
         self.compute_dtype = _DTYPES[self._config.precision_dtype]
 
+        # ZeRO at world size 1 and its offload tiers (engine.py:190-232)
+        zc = self._config.zero_config
+        self.zero_stage = int(zc.stage)
+        off = zc.offload_optimizer
+        self.offload_enabled = off is not None and off.device != "none"
+        if self.offload_enabled and optimizer is not None:
+            raise ValueError(
+                "offload_optimizer requires a config-specified optimizer "
+                "(adam/adamw/adagrad) — client optax transformations cannot "
+                "run on host (reference: offload needs DeepSpeedCPUAdam)")
+        offp = zc.offload_param
+        self.param_stream_enabled = offp is not None and \
+            offp.device != "none"
+        self._offload_opt = None
+        self._param_store = None
+        self._block_opt = None
+        if self.param_stream_enabled:
+            if not self.offload_enabled:
+                raise ValueError(
+                    "offload_param requires offload_optimizer too: streamed "
+                    "block gradients are accumulated on host and must be "
+                    "stepped by the host optimizer (reference ZeRO-Infinity "
+                    "couples param+optimizer NVMe tiers, zero/stage3.py:486)")
+            hooks = getattr(model, "pipeline_hooks", None)
+            if hooks is None:
+                raise ValueError(
+                    "offload_param needs a block-structured model "
+                    "(ModelSpec.pipeline_hooks) so layers can stream "
+                    "one scan step at a time")
+            if float(hooks.get("dropout", 0.0) or 0.0) > 0.0:
+                raise ValueError(
+                    "offload_param does not support dropout yet (the "
+                    "streamed block vjp would need the rng threaded through "
+                    "its residuals); set dropout=0")
+
         self._configure_lr_schedule()
-        self._configure_optimizer()
+        if not self.offload_enabled:
+            self._configure_optimizer()
 
         # float32 master weights: the caller's (model_parameters, e.g.
         # gpt2.params_from_jax), copied, or the model's init from the config
@@ -139,22 +203,27 @@ class DeepSpeedEngine:
         if drawn:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             model_parameters = model.init_fn(gen)
-        flat = _flatten(model_parameters)
-        self._paths = [path for path, _ in flat]
-        self._leaves: List[torch.Tensor] = []
-        for _, leaf in flat:
-            t = torch.as_tensor(np.asarray(leaf) if not
-                                isinstance(leaf, torch.Tensor) else leaf)
-            if t.is_floating_point():
-                t = t.to(torch.float32)
-            t = t.to(self.device).detach()
-            if not drawn:
-                t = t.clone()
-            self._leaves.append(t.requires_grad_(t.is_floating_point()))
-        self._params = _unflatten(self._paths, self._leaves)
-        self._opt_state = self.optimizer.init(self._leaves)
-        n = sum(t.numel() for t in self._leaves)
-        log_dist(f"initialized {n / 1e6:.2f}M parameters", ranks=[0])
+        if self.offload_enabled:
+            flat = _flatten(model_parameters)
+            del model_parameters
+            self._init_offload(flat)
+        else:
+            flat = _flatten(model_parameters)
+            self._paths = [path for path, _ in flat]
+            self._leaves: List[torch.Tensor] = []
+            for _, leaf in flat:
+                t = torch.as_tensor(np.asarray(leaf) if not
+                                    isinstance(leaf, torch.Tensor) else leaf)
+                if t.is_floating_point():
+                    t = t.to(torch.float32)
+                t = t.to(self.device).detach()
+                if not drawn:
+                    t = t.clone()
+                self._leaves.append(t.requires_grad_(t.is_floating_point()))
+            self._params = _unflatten(self._paths, self._leaves)
+            self._opt_state = self.optimizer.init(self._leaves)
+            n = sum(t.numel() for t in self._leaves)
+            log_dist(f"initialized {n / 1e6:.2f}M parameters", ranks=[0])
 
         self.training_dataloader = self.deepspeed_io(training_data) \
             if training_data is not None else None
@@ -167,8 +236,12 @@ class DeepSpeedEngine:
             device=self.device)
         self.wall_clock_breakdown_enabled = self._config.wall_clock_breakdown
         self._accum_losses: List[torch.Tensor] = []
+        self.checkpoint_manager = CheckpointManager(self)
         log_dist(
-            f"DeepSpeedEngine: device={self.device}, zero_stage=0, "
+            f"DeepSpeedEngine: device={self.device}, "
+            f"zero_stage={self.zero_stage}, offload="
+            f"{off.device.value if self.offload_enabled else 'none'}, "
+            f"param_stream={self.param_stream_enabled}, "
             f"dtype={self._config.precision_dtype}, "
             f"micro_bs={self.train_micro_batch_size_per_gpu()}, "
             f"gas={self.gradient_accumulation_steps()}, "
@@ -187,8 +260,13 @@ class DeepSpeedEngine:
     def steps_per_print(self) -> int:
         return self._config.steps_per_print
 
+    def zero_optimization_stage(self) -> int:
+        return self.zero_stage
+
     def get_lr(self) -> List[float]:
         """The learning rate of the next update."""
+        if self.offload_enabled:
+            return [self._host_lr()]
         return [self.optimizer.lr_at(self.global_steps)]
 
     def get_global_grad_norm(self) -> Optional[float]:
@@ -222,15 +300,216 @@ class DeepSpeedEngine:
                 self._config.optimizer_params or {},
                 lr_schedule=self.lr_schedule)
 
+    # ------------------------------------------------------- ZeRO-Offload
+    def _init_offload(self, flat: List[Tuple[tuple, Any]]) -> None:
+        """The offloaded state (``_init_offload_optimizer``, ``engine.py:745``,
+        and ``_build_state_streamed``, ``:605``) from the ``(path, leaf)``
+        list of the weights: the float32 weights, drawn on the device or
+        given, become the host masters leaf by leaf (the
+        streamed blocks the block optimizer's, the rest the resident
+        optimizer's); the device keeps a compute-dtype copy of the resident
+        leaves in one flat buffer, their views the leaves autograd sees, and
+        one flat float32 gradient accumulator.  The device's float32 copies
+        are dropped before the first step."""
+        from .zero.offload import DeviceRing, HostOffloadOptimizer, HostRing
+
+        zc = self._config.zero_config
+        off = zc.offload_optimizer
+        opt_args = dict(optimizer_name=self._config.optimizer_name or "adam",
+                        optimizer_params=self._config.optimizer_params or {},
+                        device=off.device.value, nvme_path=off.nvme_path,
+                        sub_group_size=zc.sub_group_size)
+        # ``flat`` is the caller's (path, leaf) list: emptied here, so that
+        # weights the engine drew are freed as soon as the host has them
+        leaves = [(path, (leaf if isinstance(leaf, torch.Tensor) else
+                          torch.as_tensor(np.asarray(leaf))).detach())
+                  for path, leaf in flat]
+        flat.clear()
+        flat = leaves
+        del leaves
+        if self.param_stream_enabled:
+            from .zero.param_stream import StreamedParamStore
+
+            key = self.module.pipeline_hooks["blocks_key"]
+            bpath = (key,) if isinstance(key, str) else tuple(key)
+            blocks = [(p, t) for p, t in flat if p[:len(bpath)] == bpath]
+            flat = [(p, t) for p, t in flat if p[:len(bpath)] != bpath]
+            self._block_opt = HostOffloadOptimizer(
+                [t for _, t in blocks], **opt_args)
+            self._param_store = StreamedParamStore(
+                {p[-1]: m for (p, _), m in
+                 zip(blocks, self._block_opt.param_leaves())},
+                self.compute_dtype, self.device)
+            self._block_paths = [p for p, _ in blocks]
+            del blocks
+        self._paths = [p for p, _ in flat]
+        shapes = [tuple(t.shape) for _, t in flat]
+        sizes = [t.numel() for _, t in flat]
+        total = sum(sizes)
+        # the compute copy first, from the float32 leaves where they are
+        self._dev_flat = torch.empty(total, dtype=self.compute_dtype,
+                                     device=self.device)
+        with torch.no_grad():
+            start = 0
+            for (_, t), n in zip(flat, sizes):
+                self._dev_flat[start:start + n].copy_(
+                    t.reshape(-1).to(torch.float32))
+                start += n
+        self._offload_opt = HostOffloadOptimizer([t for _, t in flat],
+                                                 **opt_args)
+        self.optimizer = self._offload_opt.opt
+        del flat
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        self._dev_grad = torch.zeros(total, dtype=torch.float32,
+                                     device=self.device)
+        self._leaves = []
+        start = 0
+        for shape, n in zip(shapes, sizes):
+            leaf = self._dev_flat[start:start + n].view(shape)
+            leaf.requires_grad_()
+            leaf.register_post_accumulate_grad_hook(self._fold_hook(
+                self._dev_grad[start:start + n].view(shape)))
+            self._leaves.append(leaf)
+            start += n
+        self._params = _unflatten(self._paths, self._leaves)
+        self._ring = (DeviceRing(self._dev_grad, self._dev_flat)
+                      if self.device.type == "cuda"
+                      else HostRing(self._dev_grad, self._dev_flat))
+        self._opt_state = ()
+        self.offload_timings: Dict[str, float] = {}
+        n_blk = self._block_opt.total if self._block_opt else 0
+        log_dist(f"optimizer offload -> {off.device.value}: {total / 1e6:.2f}M "
+                 f"resident and {n_blk / 1e6:.2f}M streamed parameters, "
+                 f"host optimizer {type(self.optimizer).__name__}", ranks=[0])
+
+    @staticmethod
+    def _fold_hook(grad: torch.Tensor):
+        """Fold a leaf's gradient into its float32 accumulator view as soon
+        as autograd has it, and free it."""
+        def fold(leaf):
+            grad.add_(leaf.grad)
+            leaf.grad = None
+        return fold
+
+    def _host_lr(self) -> float:
+        """LR for the host optimizer at its *applied* steps
+        (``engine.py:1447``)."""
+        if self.lr_schedule is not None:
+            return float(self.lr_schedule(self._offload_opt.applied_steps))
+        return float((self._config.optimizer_params or {}).get("lr", 1e-3))
+
+    def _streamed_loss(self, micro):
+        """The loss over streamed blocks (``engine.py:677``): embeddings
+        and head from the resident leaves, each block through the store."""
+        hooks = self.module.pipeline_hooks
+        batch = self._to_device(micro)
+        if isinstance(batch, (tuple, list)):
+            inputs, targets = batch
+        elif isinstance(batch, dict) and batch.get("labels") is not None:
+            inputs, targets = batch["input_ids"], batch["labels"]
+        else:
+            ids = batch["input_ids"] if isinstance(batch, dict) else batch
+            inputs, targets = ids[:, :-1], ids[:, 1:]
+        block_fn = hooks["block_fn"]
+        apply = self._param_store.streamed_block(
+            lambda layer, x: block_fn(layer, x, None))
+        x = hooks["embed_fn"](self._params, inputs)
+        for i in range(self._param_store.num_layers):
+            x = apply(i, x)
+        return hooks["head_loss_fn"](self._params, x, targets)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _offload_update(self, mean_loss, grad_scale: Optional[float],
+                        t_start: float):
+        """The offload step after the micro-steps (``offload_finish``
+        ``engine.py:973`` and ``_host_apply`` ``:1455``): scale the
+        accumulated gradients by ``grad_scale`` (1 / gas), take the global
+        norm and clip on the device, step the host masters and send the
+        updated weights back."""
+        grads = self._dev_grad
+        if grad_scale is not None:
+            grads.mul_(grad_scale)
+        norm = torch.linalg.vector_norm(grads)
+        clip = self._config.gradient_clipping
+        lr = self._host_lr()
+        store = self._param_store
+        if store is not None:
+            # the host clip covers the resident and streamed gradients
+            # together (engine.py:1480-1506)
+            store.join()
+            if grad_scale is not None:
+                cpu_adam.scale_(store.grad_flat, grad_scale)
+            total = float(np.sqrt(float(norm) ** 2 + store.sq_grad_norm()))
+            if clip:
+                c = min(1.0, clip / (total + 1e-6))
+                grads.mul_(c)
+                cpu_adam.scale_(store.grad_flat, c)
+            grad_norm = total
+        else:
+            if clip:
+                grads.mul_(torch.clamp(clip / (norm + 1e-6), max=1.0))
+            grad_norm = norm
+        self._sync()
+        t_dev = time.perf_counter()
+        if store is not None:
+            from .zero.offload import HostRing
+
+            self._block_opt.step_stream(
+                HostRing(store.grad_flat, store.compute_flat), lr)
+            store.grad_flat.zero_()
+        t_blk = time.perf_counter()
+        self._offload_opt.step_stream(self._ring, lr)
+        if self.device.type == "cuda":
+            self._ring.finish()
+        grads.zero_()
+        self._sync()
+        t_end = time.perf_counter()
+        # the split of the step: the device's micro-steps, norm and clip;
+        # the streamed blocks' host step; the resident host step with its
+        # transfers (the ring's stats split that one)
+        self.offload_timings = {"device_s": t_dev - t_start,
+                                "block_step_s": t_blk - t_dev,
+                                "offload_step_s": t_end - t_blk,
+                                **getattr(self._ring, "stats", {})}
+        if store is not None:
+            self.offload_timings.update(stream_bytes_in=store.bytes_in,
+                                        stream_bytes_out=store.bytes_out)
+            store.bytes_in = store.bytes_out = 0
+        return {"loss": mean_loss, "grad_norm": grad_norm, "lr": lr}
+
     # ------------------------------------------------------------------- state
     @property
     def params(self) -> Dict[str, Any]:
-        """The float32 master parameters, a nested dict of tensors."""
-        return self._params
+        """The float32 master parameters, a nested dict of tensors (under
+        offload: host tensors viewing the host masters, the streamed blocks
+        included)."""
+        if not self.offload_enabled:
+            return self._params
+        paths = list(self._paths)
+        leaves = [torch.from_numpy(m)
+                  for m in self._offload_opt.param_leaves()]
+        if self._block_opt is not None:
+            paths += self._block_paths
+            leaves += [torch.from_numpy(m)
+                       for m in self._block_opt.param_leaves()]
+        return _unflatten(paths, leaves)
 
     @property
     def state(self) -> Dict[str, Any]:
-        return {"step": self.global_steps, "params": self._params,
+        params = self.params
+        if self._param_store is not None:
+            # the streamed blocks live in the host store, as in the JAX
+            # engine's device state
+            key = self.module.pipeline_hooks["blocks_key"]
+            node = params
+            for k in ((key,) if isinstance(key, str) else key)[:-1]:
+                node = node[k]
+            node[((key,) if isinstance(key, str) else key)[-1]] = {}
+        return {"step": self.global_steps, "params": params,
                 "opt_state": self._opt_state}
 
     # ---------------------------------------------------------------- batching
@@ -265,7 +544,13 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------- train
     def _micro_loss(self, micro):
         """Loss of one micro-batch with the masters cast to the compute
-        dtype inside the autograd graph."""
+        dtype inside the autograd graph (under offload: the compute copy,
+        or the streamed blocks)."""
+        if self._param_store is not None:
+            return self._streamed_loss(micro)
+        if self.offload_enabled:
+            return self.module.loss_fn(self._params, self._to_device(micro),
+                                       None, True)
         params = self._params
         if self.compute_dtype != torch.float32:
             params = _unflatten(self._paths, [
@@ -302,17 +587,23 @@ class DeepSpeedEngine:
             micros = self._micro_batches(batch)
         self.tput_timer.start()
         self.timers(TRAIN_BATCH_TIMER).start()
+        t_start = time.perf_counter()
         loss_sum = None
         for micro in micros:
             loss = self._micro_loss(micro)
             loss.backward()
             loss = loss.detach().float()
             loss_sum = loss if loss_sum is None else loss_sum + loss
-        grads = self._grads()
-        if gas > 1:
-            torch._foreach_mul_(grads, 1.0 / gas)
-        metrics = self._apply_update(grads, loss_sum / gas)
+        if self.offload_enabled:
+            metrics = self._offload_update(
+                loss_sum / gas, 1.0 / gas if gas > 1 else None, t_start)
+        else:
+            grads = self._grads()
+            if gas > 1:
+                torch._foreach_mul_(grads, 1.0 / gas)
+            metrics = self._apply_update(grads, loss_sum / gas)
         self.global_steps += 1
+        self.global_samples += self.train_batch_size()
         self.micro_steps += gas
         self.timers(TRAIN_BATCH_TIMER).stop()
         self.tput_timer.stop(global_step=True, sync=self._report_step())
@@ -391,9 +682,14 @@ class DeepSpeedEngine:
         if self.wall_clock_breakdown_enabled:
             self.timers(STEP_GLOBAL_TIMER).start()
         mean_loss = torch.stack(self._accum_losses).mean()
-        metrics = self._apply_update(self._grads(), mean_loss)
+        if self.offload_enabled:
+            metrics = self._offload_update(mean_loss, None,
+                                           time.perf_counter())
+        else:
+            metrics = self._apply_update(self._grads(), mean_loss)
         self._accum_losses = []
         self.global_steps += 1
+        self.global_samples += self.train_batch_size()
         self._finalize_metrics(metrics)
         if self.wall_clock_breakdown_enabled:
             self.timers(STEP_GLOBAL_TIMER).stop()
@@ -402,6 +698,8 @@ class DeepSpeedEngine:
     @torch.no_grad()
     def eval_batch(self, batch, rng=None):
         """The loss of ``batch`` with the current weights (no update)."""
+        if self._param_store is not None:
+            return self._streamed_loss(batch)
         params = _unflatten(self._paths, [p.to(self.compute_dtype)
                                           for p in self._leaves])
         return self.module.loss_fn(params, self._to_device(batch), rng,
@@ -423,12 +721,30 @@ class DeepSpeedEngine:
             data_sampler=data_sampler)
 
     # ------------------------------------------------------------- checkpoints
-    def save_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError(
-            "save_checkpoint: checkpoints come with the PyTorch port's "
-            "checkpoint slice (ROADMAP.md)")
+    def save_checkpoint(self, save_dir=None, tag=None, client_state=None,
+                        save_latest=True):
+        """Write ``<save_dir>/<tag>/`` (default tag ``global_step{N}``) and
+        ``<save_dir>/latest`` (``engine.py:1689``); returns the tag's
+        directory."""
+        return self.checkpoint_manager.save(save_dir, tag=tag,
+                                            client_state=client_state or {},
+                                            save_latest=save_latest)
 
-    def load_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError(
-            "load_checkpoint: checkpoints come with the PyTorch port's "
-            "checkpoint slice (ROADMAP.md)")
+    def load_checkpoint(self, load_dir=None, tag=None, load_module_strict=True,
+                        load_optimizer_states=True,
+                        load_lr_scheduler_states=True,
+                        load_module_only=False):
+        """Restore a checkpoint (``engine.py:1695``): ``(directory,
+        client_state)``, or ``(None, {})`` when there is no ``latest``."""
+        return self.checkpoint_manager.load(
+            load_dir, tag=tag, load_optimizer_states=load_optimizer_states,
+            load_module_only=load_module_only)
+
+    def close(self) -> None:
+        """Release the host tiers (the NVMe swap files, the streaming
+        worker)."""
+        for opt in (self._offload_opt, self._block_opt):
+            if opt is not None:
+                opt.close()
+        if self._param_store is not None:
+            self._param_store.close()

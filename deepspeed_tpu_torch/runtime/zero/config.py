@@ -1,8 +1,10 @@
 """ZeRO config schema — the port's copy of
 ``deepspeed_tpu/runtime/zero/config.py`` (reference
 ``deepspeed/runtime/zero/config.py:79``), on the standard-library config
-model.  The keys are all accepted; the training engine runs stage 0 only
-and refuses a higher stage or an offload device (the multi-GPU slice)."""
+model.  The keys are all accepted.  At world size 1 every stage is the
+whole partition, so the engine runs stages 0-3 alike; ``offload_optimizer``
+and ``offload_param`` select the host tiers (``runtime/zero/offload.py``,
+``runtime/zero/param_stream.py``)."""
 
 from __future__ import annotations
 

@@ -102,9 +102,11 @@ def _method_pairs():
     from deepspeed_tpu.inference import engine as jeng
     from deepspeed_tpu.inference import serving as jsrv
     from deepspeed_tpu.models import llama as jllama
+    from deepspeed_tpu.runtime import engine as jtrain
     from deepspeed_tpu_torch.inference import engine as teng
     from deepspeed_tpu_torch.inference import serving as tsrv
     from deepspeed_tpu_torch.models import llama as tllama
+    from deepspeed_tpu_torch.runtime import engine as ttrain
 
     return [
         ("ServingEngine.submit", jsrv.ServingEngine.submit,
@@ -116,11 +118,19 @@ def _method_pairs():
          teng.InferenceEngine.generate),
         ("llama.build", jllama.build, tllama.build),
         ("LlamaConfig", jllama.LlamaConfig, tllama.LlamaConfig),
+        ("DeepSpeedEngine.save_checkpoint",
+         jtrain.DeepSpeedEngine.save_checkpoint,
+         ttrain.DeepSpeedEngine.save_checkpoint),
+        ("DeepSpeedEngine.load_checkpoint",
+         jtrain.DeepSpeedEngine.load_checkpoint,
+         ttrain.DeepSpeedEngine.load_checkpoint),
     ]
 
 
 METHODS = ["ServingEngine.submit", "ServingEngine.serve", "Request",
-           "InferenceEngine.generate", "llama.build", "LlamaConfig"]
+           "InferenceEngine.generate", "llama.build", "LlamaConfig",
+           "DeepSpeedEngine.save_checkpoint",
+           "DeepSpeedEngine.load_checkpoint"]
 
 
 @pytest.mark.parametrize("name", METHODS)

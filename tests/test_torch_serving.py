@@ -211,6 +211,11 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         "import deepspeed_tpu_torch.ops.quantized_matmul\n"
         "import deepspeed_tpu_torch.ops.sparse_attention\n"
         "import deepspeed_tpu_torch.models.llama\n"
+        "import deepspeed_tpu_torch.ops.cpu_adam\n"
+        "import deepspeed_tpu_torch.ops.aio\n"
+        "import deepspeed_tpu_torch.runtime.checkpointing\n"
+        "import deepspeed_tpu_torch.runtime.zero.offload\n"
+        "import deepspeed_tpu_torch.runtime.zero.param_stream\n"
         "from deepspeed_tpu_torch.models import get_model\n"
         "get_model('llama-3-8b')\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"

@@ -370,9 +370,9 @@ def test_training_data_loader_feeds_train_batch(tiny):
 # ------------------------------------------------------- what is not ported
 UNPORTED = [
     {"fp16": {"enabled": True}},
-    {"zero_optimization": {"stage": 1}},
-    {"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
     {"mesh": {"dp": 2}},
+    {"zero_optimization": {"stage": 2}, "mesh": {"dp": 4}},
+    {"optimizer": {"type": "Adagrad", "params": {}}},
     {"activation_checkpointing": {"partition_activations": True}},
     {"curriculum_learning": {"enabled": True}},
     {"data_efficiency": {"data_routing": {"random_ltd": {"enabled": True}}}},
@@ -395,17 +395,50 @@ def test_unported_options_raise(tiny, extra):
                                        device="cpu")
 
 
+#: ZeRO stages and offload tiers the port runs at world size 1, as the JAX
+#: package runs them on a one-device mesh
+WORLD_SIZE_1 = [
+    {"zero_optimization": {"stage": 1}},
+    {"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
+    {"zero_optimization": {"stage": 3}},
+    {"zero_optimization": {"stage": 2, "offload_optimizer": {
+        "device": "nvme"}}},
+    {"zero_optimization": {"stage": 3, "offload_optimizer": {
+        "device": "cpu"}, "offload_param": {"device": "cpu"}}},
+    {"optimizer": {"type": "Adagrad", "params": {"lr": 1e-2}},
+     "zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
+]
+
+
+@pytest.mark.parametrize("extra", WORLD_SIZE_1)
+def test_zero_and_offload_accepted_at_world_size_1(tiny, extra, tmp_path):
+    """Each config builds an engine that trains a step (the offload tiers
+    are held against the JAX package in ``test_torch_offload.py`` and
+    ``test_torch_param_stream.py``)."""
+    from deepspeed_tpu_torch.ops import cpu_adam
+
+    cpu_adam.set_num_threads(1)     # one OpenMP thread a test worker
+    _, tcfg, _ = tiny
+    conf = {"train_batch_size": 2, **extra}
+    off = conf["zero_optimization"].get("offload_optimizer")
+    if off:
+        off["nvme_path"] = str(tmp_path)
+    eng, *_ = deepspeed_tpu_torch.initialize(model=tgpt2.build(tcfg),
+                                             config=conf, device="cpu")
+    assert eng.zero_optimization_stage() == conf["zero_optimization"].get(
+        "stage", 0)
+    assert eng.offload_enabled == bool(off)
+    ids = np.random.default_rng(0).integers(0, tcfg.vocab_size, (2, 9))
+    _, metrics = eng.train_batch({"input_ids": ids})
+    assert np.isfinite(metrics["loss"]) and np.isfinite(metrics["grad_norm"])
+    eng.close()
+
+
 def test_unported_model_options_checkpoints_and_devices(tiny):
     _, tcfg, _ = tiny
     for kw in ({"remat": True}, {"fused_ce": True}, {"dropout": 0.1}):
         with pytest.raises(NotImplementedError):
             dataclasses.replace(tcfg, **kw)
-    eng, *_ = deepspeed_tpu_torch.initialize(
-        model=tgpt2.build(tcfg), config={"train_batch_size": 2},
-        device="cpu")
-    for fn in (eng.save_checkpoint, eng.load_checkpoint):
-        with pytest.raises(NotImplementedError):
-            fn("/nonexistent")
     with pytest.raises(NotImplementedError):
         topt.get_optimizer("sgd", {})
     if not torch.cuda.is_available():
