@@ -123,7 +123,10 @@ before phase 3 and read after phase 5, the flash kernels' before phase 7
 and after it, the int8 kernels' before phase 10 and after its five runs,
 the gated flash kernels' (``layout_launches``) before phase 11's main path
 and after it; phase 13's decode-attention and int8 launches (its checks,
-not its table) are added to those of phases 3-5 and 10.
+not its table) are added to those of phases 3-5 and 10; phases 14 (b),
+15 (b) and 16 (b) each set the counts to 0 before their run and read
+them after it, and 17 (b) and 17 (c) before and after each run of their
+main path (the two serves and bf16 ``generate``), summed.
 Since the servers capture their decode step in a CUDA graph, a kernel's
 count is its executions: a capture records the launches its graph holds
 and every replay adds them.
@@ -249,6 +252,50 @@ and every replay adds them.
     ones, and a checkpoint resume (2 steps, save, 1 more against load + 1
     more) bit-identical.  Phase 16 (b)'s launches give the
     ``[llama-offload]`` entries of the kernels line.
+
+ 17. Mixtral-8x7B and OPT-13B serving (``models/mixtral.py`` over
+    ``moe/``, ``models/opt.py``), run after phase 15 and before phase 16.
+    (a) The decode-attention kernels at OPT-13B's geometry, 40 heads of
+    head dim 128 with GQA rep 1 (:func:`opt_attention_cases`: B2 at 4 rows
+    over 256 keys, B3 at 8 ragged slots, B4 at prefill_batch 4 x T = 16
+    and the 8-slot verify window, block size 16, rows at base 0, the f32
+    template; the kv8 variants), against their plain versions and the
+    split-K model with a repeat and a graph replay bit-identical; B5/B6 at
+    OPT-13B's four (K, N) shapes (proj: 160 k-groups; fc: N = 20480) bit
+    for bit (:func:`check_w8a8_exact`); each timed at the main path's
+    shape beside SDPA / bf16 ``x @ W`` and its bound.  Mixtral's attention
+    shapes are Llama-3-8B's (phase 14 (a)); B5/B6 are held bit for bit and
+    timed at its (4096, 4096); top-2 gating on the card against the CPU's,
+    and
+    ``dequantize_k`` over a layer of experts against the two-step
+    expansion.  (b) Mixtral-8x7B (:func:`mixtral_serving_phase`, drop-free
+    capacity, :data:`MIXTRAL_SERVE_CAPACITY`): ``init_inference`` draws
+    and quantizes all 32 layers on the card layer by layer (w8a8 records,
+    ~47 GB); ``serve`` of phase 4's traffic under ``w8a8+kv8``, a
+    ``quantize="w8a8"`` server against w8a8 ``generate`` (>= 0.95 each),
+    B5 under ``DS_INDEXED_DECODE=0``, a profiled window and the MoE's
+    device ms an iteration by part; then bf16 at
+    :data:`MIXTRAL_BF16_LAYERS` layers (the same draw's first layers):
+    ``serve`` against ``generate`` (>= 0.95 each request), a server at the
+    JAX default capacity read beside it, a profiled window, the MoE split,
+    the teacher-forced logit RMSE of w8a8, kv8 and w8a8+kv8 with each
+    position's experts recorded beside the bf16 lane's (at 2 layers the
+    positions routed alike at every layer <= 0.15 and at most half the
+    positions flipped; the whole RMSE, the flips and 16 layers read: a
+    flipped position takes other experts' outputs), fp32 at full width
+    and 2 layers: greedy ``generate`` and ``serve`` equal to full-forward
+    recompute, and fp32 at the JAX default capacity (2.0), whose prefill
+    windows drop choices: the card's ``serve`` equal to the CPU's token
+    for token (:func:`mixtral_capacity_check`).  (c)
+    OPT-13B at full width and depth (:func:`opt_serving_phase`): bf16
+    ``generate`` and ``serve`` against it (>= 0.95 each request), the w8a8
+    engine quantized on the card, ``serve`` under ``w8a8+kv8``, a
+    ``quantize="w8a8"`` server against w8a8 ``generate``, B5, profiled
+    windows of both lanes, the RMSE (<= 0.15 at 2 layers, read at 40) and
+    the fp32 check.  Phase 17 (b)'s and (c)'s main-path launches give the
+    ``[mixtral-8x7b]`` and ``[opt-13b]`` entries of the kernels line (B2,
+    B3, B4, their kv8 forms and B6; B5 runs there only in the
+    ``DS_INDEXED_DECODE=0`` check and is not listed).
 
 The last two lines of output are the ``{"kernels": [...]}`` JSON object
 and the ``{"ok": true, "device": ...}`` JSON object.
@@ -3380,30 +3427,34 @@ def llama_attention_cases():
     ]
 
 
-def check_llama_attention(flush, kv8: bool, timed: bool = True):
-    """The decode-attention kernels at head dim 128 with GQA rep 4 against
-    their plain versions, the split-K ones also against the plain model of
-    their algorithm with a repeat and a CUDA-graph replay bit-identical;
-    ``kv8`` stores the pools as int8 records (the kv8 B3/B4 kernels).
-    Times at the main path's shapes unless ``timed`` is False.  Returns
-    {kernel name: measurements}."""
+def check_llama_attention(flush, kv8: bool, timed: bool = True,
+                          cases=None, geometry=None, tag="llama"):
+    """The decode-attention kernels at head dim 128 (``geometry`` (H, HKV,
+    D), default Llama-3-8B's GQA 32/8) on ``cases`` (default
+    :func:`llama_attention_cases`) against their plain versions, the
+    split-K ones also against the plain model of their algorithm with a
+    repeat and a CUDA-graph replay bit-identical; ``kv8`` stores the pools
+    as int8 records (the kv8 B3/B4 kernels).  Times at the main path's
+    shapes unless ``timed`` is False.  Returns {kernel name:
+    measurements}."""
     import torch
 
     from deepspeed_tpu_torch.ops import decode_attention as da
 
+    h, hkv, d = geometry or (LLAMA_H, LLAMA_HKV, LLAMA_D)
     f32 = torch.float32
     names = {"contiguous": "decode_attention_cuda",
              1: "paged_decode_attention_cuda",
              "verify": "paged_verify_attention_cuda"}
     out = {}
-    tag = "kv8 " if kv8 else ""
+    kvtag = "kv8 " if kv8 else ""
     for seed, (label, kind, b, t, dtype, nbper, bs, pos, main) in \
-            enumerate(llama_attention_cases()):
+            enumerate(cases or llama_attention_cases()):
         if kv8 and kind == "contiguous":
             continue                     # the int8 pool is paged only
-        label = tag + label
-        case = make_case(kind, b, LLAMA_H, LLAMA_HKV, t, LLAMA_D, dtype,
-                         700 + seed, bs=bs, nbper=nbper, pos=pos)
+        label = kvtag + label
+        case = make_case(kind, b, h, hkv, t, d, dtype, 700 + seed, bs=bs,
+                         nbper=nbper, pos=pos)
         if kv8:
             case = kv8_case(case)
         got, want = run_kernel(case), run_plain(case)
@@ -3430,7 +3481,7 @@ def check_llama_attention(flush, kv8: bool, timed: bool = True):
             split = (f", vs the split-K model "
                      f"{(got.float() - model.float()).abs().max().item():.3e}"
                      "; repeat and graph replay bit-identical")
-        log(f"[llama kernels] {label}: max_abs_err={err:.3e} (atol {tol})"
+        log(f"[{tag} kernels] {label}: max_abs_err={err:.3e} (atol {tol})"
             f"{split}")
         if not main or not timed:
             continue
@@ -3440,7 +3491,7 @@ def check_llama_attention(flush, kv8: bool, timed: bool = True):
         else:
             name = names["contiguous" if kind == "contiguous"
                          else (1 if t == 1 else "verify")]
-        m = time_attention(label, case, flush, err)
+        m = time_attention(label, case, flush, err, tag)
         if main == "verify":
             out[name]["verify"] = m
         else:
@@ -3448,7 +3499,7 @@ def check_llama_attention(flush, kv8: bool, timed: bool = True):
     return out
 
 
-def time_attention(label, case, flush, err):
+def time_attention(label, case, flush, err, tag="llama"):
     """Phase 2's measurements of one decode-attention case: the kernel
     eager and replayed from a CUDA graph, the plain version, SDPA (GQA
     through ``enable_gqa``) over the gathered (dequantized) KV eager and
@@ -3459,7 +3510,7 @@ def time_attention(label, case, flush, err):
     library_ms = timed_ms(library_call(case), flush)
     library_graph_ms = graph_ms(library_call(case), flush)
     bound_ms, bound_by = bound(case)
-    log(f"[llama kernels] {label}: kernel {ms:.4f} ms ({ms_graph:.4f} ms "
+    log(f"[{tag} kernels] {label}: kernel {ms:.4f} ms ({ms_graph:.4f} ms "
         f"replayed from a CUDA graph), plain {plain_ms:.4f} ms, sdpa "
         f"{library_ms:.4f} ms ({library_graph_ms:.4f} ms graph), bound "
         f"{bound_ms:.5f} ms ({bound_by})")
@@ -3470,66 +3521,92 @@ def time_attention(label, case, flush, err):
 
 
 def check_llama_w8a8(flush, timed: bool = True):
-    """B5 and B6 at Llama-3-8B's four (K, N) shapes on a 2-layer stack and
-    at a 224-group K, bit for bit against the plain version
-    (:func:`check_w8a8_exact`: rows 8/4/1 and alone, layer indices -1, 0,
-    L-1, L, the split model, repeat and graph replay), bf16 activations.
-    Times at 8 rows (B6: the 8-slot server) and 4 (B5: ``generate``'s
-    batch) at (14336, 4096), w2's 112 groups, beside bf16 ``x @ W``; the
-    other shapes' graph times are logged.  Returns {kernel name:
-    measurements}."""
+    """B5 and B6 at Llama-3-8B's four (K, N) shapes and at a 224-group K
+    (:func:`check_w8a8_shapes`; times at w2's (14336, 4096), 112 groups;
+    the 224-group K untimed).  Returns {kernel name: measurements}."""
+    return check_w8a8_shapes(flush, LLAMA_MATMULS + (LLAMA70_W2,),
+                             LLAMA_MATMULS[3], "llama", 800, timed=timed,
+                             untimed=(LLAMA70_W2,))
+
+
+def check_w8a8_shapes(flush, shapes, main, tag, seed0, timed=True,
+                      untimed=()):
+    """B5 and B6 at each (K, N) of ``shapes`` on a 2-layer stack, bit for
+    bit against the plain version (:func:`check_w8a8_exact`: rows 8/4/1
+    and alone, layer indices -1, 0, L-1, L, the split model, repeat and
+    graph replay), bf16 activations.  Each shape not in ``untimed`` timed
+    by :func:`time_w8a8` (at ``main`` in full).  Returns {kernel name:
+    measurements at ``main``}."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+
+    out = {}
+    for si, (k, n) in enumerate(shapes):
+        rec, x8 = w8a8_inputs(k, n, 128, 2, torch.bfloat16, seed0 + si)
+        groups = k // 128
+        check_w8a8_exact(f"{tag} ({k}, {n})", x8, rec)
+        log(f"[{tag} qmm] ({k}, {n}), {groups} k-groups "
+            f"({qm.w8a8_groups_per_block(groups)} a block): B5 and B6 equal "
+            "the plain version and the split model bit for bit at rows "
+            "1/4/8 and alone, layer indices -1, 0, L-1, L; repeat and graph "
+            "replay bit-identical")
+        if timed and (k, n) not in untimed:
+            m = time_w8a8(flush, rec, x8, tag, full=(k, n) == main)
+            if (k, n) == main:
+                out.update(m)
+        del rec, x8
+    return out
+
+
+def time_w8a8(flush, rec, x8, tag, full: bool):
+    """B5 at 4 rows (``generate``'s batch) and B6 at 8 (the 8-slot server)
+    on layer 1 of ``rec`` replayed from a CUDA graph, beside bf16 ``x @ W``
+    (same shape, not the same function) and the bound; with ``full`` also
+    eager, the plain version and ``x @ W`` eager.  Returns {kernel name:
+    measurements} (``max_abs_err`` 0: :func:`check_w8a8_exact` holds these
+    bits)."""
     import torch
 
     from deepspeed_tpu_torch.ops import quantized_matmul as qm
     from deepspeed_tpu_torch.ops.quantization import dequantize_k
 
-    bf16 = torch.bfloat16
-    out = {}
+    k, n = rec["qk"].shape[1:]
     ids = torch.arange(2, dtype=torch.int32, device="cuda")
-    for si, (k, n) in enumerate(LLAMA_MATMULS + (LLAMA70_W2,)):
-        rec, x8 = w8a8_inputs(k, n, 128, 2, bf16, 800 + si)
-        groups = k // 128
-        check_w8a8_exact(f"llama ({k}, {n})", x8, rec)
-        log(f"[llama qmm] ({k}, {n}), {groups} k-groups "
-            f"({qm.w8a8_groups_per_block(groups)} a block): B5 and B6 equal "
-            "the plain version and the split model bit for bit at rows "
-            "1/4/8 and alone, layer indices -1, 0, L-1, L; repeat and graph "
-            "replay bit-identical")
-        if not timed or (k, n) == LLAMA70_W2:
+    w_bf16 = dequantize_k({"qk": rec["qk"][1], "kscale": rec["kscale"][1]},
+                          torch.bfloat16)                 # the yardstick's
+    calls = {
+        "w8a8_matmul_cuda": (4, lambda x: qm.w8a8_matmul_cuda(
+            x, rec["qk"][1], rec["kscale"][1])),
+        "w8a8_matmul_stacked_cuda": (8, lambda x: qm.w8a8_matmul_stacked_cuda(
+            ids[1:2], x, rec["qk"], rec["kscale"])),
+    }
+    out = {}
+    for name, (rows, kernel) in calls.items():
+        x = x8[:rows]
+        ms_graph = graph_ms(lambda: kernel(x), flush)
+        library_graph_ms = graph_ms(lambda: x @ w_bf16, flush)
+        bound_ms, bound_by = qmm_bound(name, rows, k, n, 2, 2)
+        if not full:
+            log(f"[{tag} qmm] ({k}, {n}) {name} at {rows} rows: "
+                f"{ms_graph:.4f} ms replayed from a CUDA graph, bf16 x @ "
+                f"W {library_graph_ms:.4f} ms graph, bound "
+                f"{bound_ms:.5f} ms ({bound_by})")
             continue
-        w_bf16 = dequantize_k({"qk": rec["qk"][1], "kscale":
-                               rec["kscale"][1]}, bf16)   # the yardstick's
-        calls = {
-            "w8a8_matmul_cuda": (4, lambda x: qm.w8a8_matmul_cuda(
-                x, rec["qk"][1], rec["kscale"][1])),
-            "w8a8_matmul_stacked_cuda": (8, lambda x: qm.w8a8_matmul_stacked_cuda(
-                ids[1:2], x, rec["qk"], rec["kscale"])),
-        }
-        for name, (rows, kernel) in calls.items():
-            x = x8[:rows]
-            ms_graph = graph_ms(lambda: kernel(x), flush)
-            library_graph_ms = graph_ms(lambda: x @ w_bf16, flush)
-            bound_ms, bound_by = qmm_bound(name, rows, k, n, 2, 2)
-            if (k, n) != LLAMA_MATMULS[3]:
-                log(f"[llama qmm] ({k}, {n}) {name} at {rows} rows: "
-                    f"{ms_graph:.4f} ms replayed from a CUDA graph, bf16 x @ "
-                    f"W {library_graph_ms:.4f} ms graph, bound "
-                    f"{bound_ms:.5f} ms ({bound_by})")
-                continue
-            ms = timed_ms(lambda: kernel(x), flush)
-            plain_ms = timed_ms(lambda: qm.w8a8_matmul_plain(
-                x, rec["qk"][1], rec["kscale"][1]), flush, iters=10)
-            library_ms = timed_ms(lambda: x @ w_bf16, flush)
-            log(f"[llama qmm] ({k}, {n}) {name} at {rows} rows: kernel "
-                f"{ms:.4f} ms ({ms_graph:.4f} ms replayed from a CUDA "
-                f"graph), plain {plain_ms:.4f} ms, bf16 x @ W (same shape, "
-                f"not the same function) {library_ms:.4f} ms "
-                f"({library_graph_ms:.4f} ms graph), bound {bound_ms:.5f} ms "
-                f"({bound_by})")
-            out[name] = {"max_abs_err": 0.0, "ms": ms, "graph_ms": ms_graph,
-                         "plain_ms": plain_ms, "library_ms": library_ms,
-                         "library_graph_ms": library_graph_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by}
+        ms = timed_ms(lambda: kernel(x), flush)
+        plain_ms = timed_ms(lambda: qm.w8a8_matmul_plain(
+            x, rec["qk"][1], rec["kscale"][1]), flush, iters=10)
+        library_ms = timed_ms(lambda: x @ w_bf16, flush)
+        log(f"[{tag} qmm] ({k}, {n}) {name} at {rows} rows: kernel "
+            f"{ms:.4f} ms ({ms_graph:.4f} ms replayed from a CUDA "
+            f"graph), plain {plain_ms:.4f} ms, bf16 x @ W (same shape, "
+            f"not the same function) {library_ms:.4f} ms "
+            f"({library_graph_ms:.4f} ms graph), bound {bound_ms:.5f} ms "
+            f"({bound_by})")
+        out[name] = {"max_abs_err": 0.0, "ms": ms, "graph_ms": ms_graph,
+                     "plain_ms": plain_ms, "library_ms": library_ms,
+                     "library_graph_ms": library_graph_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by}
     return out
 
 
@@ -3628,17 +3705,18 @@ def check_llama_kernels(faults):
     return out
 
 
-def weight_read_bytes(params) -> int:
+def weight_read_bytes(params, head: str = "lm_head") -> int:
     """Bytes a decode step must read of the weights: every stacked block
-    leaf (int8 codes plus f32 scales for a record) and the LM head; the
-    embedding gives one row a token and the norms are small."""
+    leaf (int8 codes plus f32 scales for a record) and the LM head
+    (``params[head]``; OPT's is tied to its embedding); the embedding
+    gives one row a token and the norms are small."""
     from deepspeed_tpu_torch.ops import quantization as quant
 
     total = 0
     for leaf in quant.tree_leaves(params["blocks"]):
         for t in (leaf.values() if isinstance(leaf, dict) else (leaf,)):
             total += t.numel() * t.element_size()
-    head = params["lm_head"]
+    head = params[head]
     return total + head.numel() * head.element_size()
 
 
@@ -4757,6 +4835,891 @@ def offload_phase(card, faults, resident_step_s):
     return launches
 
 
+
+# ------------------------------------------------------------- phase 17
+#: OPT-13B's attention: 40 query heads of head dim 128, each its own KV
+#: head (GQA rep 1)
+OPT_H, OPT_D = 40, 128
+#: OPT-13B's (K, N) block matmuls: qkv (5120, 15360), o (5120, 5120), fc
+#: (5120, 20480) and proj (20480, 5120), whose K is 160 k-groups of 128
+#: (16 blocks of 10)
+OPT_MATMULS = ((5120, 15360), (5120, 5120), (5120, 20480), (20480, 5120))
+#: Mixtral-8x7B's bf16 lane runs this many of its 32 layers: 32 layers of
+#: bf16 weights (93 GB) outgrow one 80 GB card; its w8a8 records (~47 GB)
+#: hold all 32, and these are their first 16 layers' weights
+MIXTRAL_BF16_LAYERS = 16
+#: the capacity factor the card serves Mixtral at: ``num_experts`` routes
+#: without drops (HF Mixtral's dropless MoE), so a prompt gated as one
+#: group (``generate``) and in prefill windows with their pads (``serve``)
+#: is the same function and the served tokens can be held to
+#: ``generate``'s; at the JAX default (2.0) a short last window's routed
+#: pads raise the second-choice offsets of its real tokens and drop some
+#: of them (PERF.md §6), and that server is read beside it
+MIXTRAL_SERVE_CAPACITY = 8.0
+
+
+def opt_attention_cases():
+    """Phase 17 (a)'s decode-attention cases at OPT-13B's geometry (40
+    heads, D = 128, rep 1), as :func:`llama_attention_cases`: the timed
+    ones are the main path's shapes (B2 in ``generate``'s 4 rows over a
+    256-key cache, B3 in the 8-slot decode, B4 in prefill_batch 4 x T = 16
+    and the 8-slot verify window), then block size 16, rows at base 0 and
+    the f32 template."""
+    import torch
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [
+        ("B2 opt main", "contiguous", 4, 1, bf16, 8, 32, 160, True),
+        ("B3 opt main", "paged", 8, 1, bf16, 32, 32, "ragged", True),
+        ("B4 opt main T=16", "paged", 4, 16, bf16, 32, 32, "chunks", True),
+        ("B4 opt verify T=5", "paged", 8, 5, bf16, 32, 32, "ragged",
+         "verify"),
+        ("B3 opt bs=16", "paged", 8, 1, bf16, 64, 16, "ragged", False),
+        ("B4 opt base 0 T=16", "paged", 4, 16, bf16, 32, 32, 0, False),
+        ("B2 opt fp32", "contiguous", 8, 1, f32, 32, 32, "ragged", False),
+        ("B3 opt fp32", "paged", 8, 1, f32, 32, 32, "ragged", False),
+    ]
+
+
+def check_moe_on_card():
+    """The MoE's plain-PyTorch pieces on the card as on the host: top-2
+    gating (masks, capacity drops, combine weights) of a drop-heavy input
+    equal to the CPU's bit for bit, and ``dequantize_k``'s one-pass
+    expansion of a layer of Mixtral-8x7B's experts (8 x 4096 x 14336
+    codes) equal to the two-step f32 expansion."""
+    import torch
+
+    from deepspeed_tpu_torch.moe import sharded_moe as sm
+    from deepspeed_tpu_torch.ops import quantization as quant
+
+    g = torch.Generator().manual_seed(17)
+    logits = torch.randn((4, 128, 8), generator=g)
+    logits[:, :, 3] += 1.0                 # expert 3 overflows its capacity
+    want = sm.top2gating(logits, 1.0, 4)
+    got = sm.top2gating(logits.cuda(), 1.0, 4)
+    for name, a, b in zip(("l_aux", "combine", "dispatch", "exp_counts"),
+                          got, want):
+        # the masks and counts bit for bit; the weights (softmax) within
+        # an f32 rounding
+        if name in ("dispatch", "exp_counts") and not torch.equal(a.cpu(), b):
+            raise AssertionError(f"top2gating {name} on the card differs "
+                                 "from the CPU's")
+        torch.testing.assert_close(a.cpu().float(), b.float(), atol=1e-6,
+                                   rtol=1e-6,
+                                   msg=lambda m: f"top2gating {name}: {m}")
+    kept = int(want[3].sum())
+    gc = torch.Generator(device="cuda").manual_seed(18)
+    w = torch.randn((8, 4096, 14336), generator=gc, device="cuda") * 0.02
+    rec = quant.quantize_k_grouped(w.to(torch.bfloat16), 128)
+    del w
+    two_step = (rec["qk"].float().reshape(8, 32, 128, 14336) * rec["kscale"]
+                ).reshape(8, 4096, 14336).to(torch.bfloat16)
+    if not torch.equal(quant.dequantize_k(rec, torch.bfloat16), two_step):
+        raise AssertionError("dequantize_k on the card differs from the "
+                             "two-step f32 expansion")
+    del rec, two_step
+    log(f"[mixtral kernels] top2gating on the card equals the CPU's (masks "
+        f"and counts bit for bit, weights within 1e-6; {kept} of "
+        f"{2 * 4 * 128} choices kept at capacity 32); "
+        "dequantize_k of 8 x 4096 x 14336 codes equals the two-step f32 "
+        "expansion bit for bit")
+
+
+def check_new_shapes():
+    """Phase 17 (a): the decode kernels at OPT-13B's geometry (float and
+    kv8), B5/B6 at OPT-13B's four (K, N) shapes, B5/B6 timed at
+    Mixtral-8x7B's q/o shape, and the MoE's pieces on the card.  Returns
+    ({kernel: measurements} at OPT-13B's shapes, the same at Mixtral's
+    (its attention is Llama-3-8B's, held and timed in phase 14 (a)))."""
+    import torch
+
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    geometry = (OPT_H, OPT_H, OPT_D)
+    opt = check_llama_attention(flush, kv8=False,
+                                cases=opt_attention_cases(),
+                                geometry=geometry, tag="opt")
+    opt.update(check_llama_attention(flush, kv8=True,
+                                     cases=opt_attention_cases(),
+                                     geometry=geometry, tag="opt"))
+    opt.update(check_w8a8_shapes(flush, OPT_MATMULS, OPT_MATMULS[3], "opt",
+                                 1700))
+    log("[mixtral kernels] Mixtral-8x7B's attention (32 query heads over 8 "
+        "KV heads, D = 128) and its w8a8 attention shapes (4096, 4096) and "
+        "(4096, 1024) are Llama-3-8B's, held in phase 14 (a): not repeated; "
+        "B5/B6 held and timed again at (4096, 4096) for the kernels line")
+    mixtral = check_w8a8_shapes(flush, ((4096, 4096),), (4096, 4096),
+                                "mixtral", 1710)
+    del flush
+    check_moe_on_card()
+    return opt, mixtral
+
+
+def marker(tag):
+    """A function logging the seconds since its previous call (or since
+    this one), to split a phase's time."""
+    last = [time.perf_counter()]
+
+    def mark(label):
+        now = time.perf_counter()
+        log(f"[{tag} time] {label}: {now - last[0]:.1f} s")
+        last[0] = now
+    return mark
+
+
+def wall(fn):
+    """(fn(), host seconds to the card's finish)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def free_card():
+    """Drop unreachable tensors and return the allocator's cached blocks."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def family_server(model, params, quantize=None, **kw):
+    """Phase 4's server shape (8 slots x 1024, 32-token blocks, 128-token
+    prefill windows, greedy) over ``model``."""
+    import deepspeed_tpu_torch as dt
+
+    kw = {"slots": 8, "max_seq_len": 1024, "block_size": 32,
+          "prefill_chunk": 128, "sampling": False, **kw}
+    return dt.init_serving(model, config={"dtype": "bf16"}, params=params,
+                           quantize=quantize, **kw)
+
+
+def served(tag, srv, reqs, vocab):
+    """``srv.serve(reqs)`` timed: (results, stats, seconds), each result
+    checked for its shape and ids."""
+    res, t = wall(lambda: srv.serve(reqs))
+    for r in reqs:
+        out = res[r.uid]
+        if out.shape != (r.prompt.size + r.max_new_tokens,) or \
+                not ((out >= 0) & (out < vocab)).all():
+            raise AssertionError(f"{tag} serve {r.uid}: shape {out.shape} / "
+                                 "bad ids")
+    return res, srv.stats(), t
+
+
+#: phase 17's served requests held to ``generate``: the 4 prompts of 128
+#: (one batch-4 ``generate``) and the first 6 of phase 4's traffic (3 with
+#: the shared 256-token prefix, 3 without), each alone: a batch-1 Mixtral
+#: ``generate`` of 64 tokens takes ~3.7 s on the card
+CHECKED_TRAFFIC = 6
+
+
+def generate_refs(engine, reqs, prompts, gen):
+    """``generate`` of the requests phase 17 holds a server to: the
+    ``gen{i}`` ones from the batch-4 ``gen``, the first
+    :data:`CHECKED_TRAFFIC` of ``reqs`` each alone.  Returns {uid:
+    tokens}."""
+    ref = {f"gen{i}": gen[i] for i in range(len(prompts))}
+    for r in reqs[:CHECKED_TRAFFIC]:
+        ref[r.uid] = engine.generate(r.prompt[None],
+                                     max_new_tokens=r.max_new_tokens)[0]
+    return ref
+
+
+def gate_agreement(tag, res, ref, limit=0.95):
+    """The agreement of each request of ``ref`` with its served tokens,
+    gated at ``limit``."""
+    agree = {uid: agreement(res[uid], want) for uid, want in ref.items()}
+    if min(agree.values()) < limit:
+        raise AssertionError(f"{tag} agreement {agree}")
+    return agree
+
+
+def b5_route_check(tag, weng, prompts):
+    """w8a8 ``generate`` under ``DS_INDEXED_DECODE=0`` (B5, each layer's
+    record sliced) equal to the indexed run (B6) token for token."""
+    import os
+
+    wgen = weng.generate(prompts, max_new_tokens=8)
+    old = os.environ.get("DS_INDEXED_DECODE")
+    os.environ["DS_INDEXED_DECODE"] = "0"
+    try:
+        c0 = kernel_counts()
+        wgen0 = weng.generate(prompts, max_new_tokens=8)
+        c5 = counts_since(c0)
+    finally:
+        if old is None:
+            del os.environ["DS_INDEXED_DECODE"]
+        else:
+            os.environ["DS_INDEXED_DECODE"] = old
+    log(f"[{tag} w8a8 generate] DS_INDEXED_DECODE=0 launches {c5}; tokens "
+        f"equal to the indexed run's: {bool((wgen0 == wgen).all())}")
+    if not c5.get("w8a8_matmul_cuda") or not (wgen0 == wgen).all():
+        raise AssertionError(f"{tag}: B5's per-layer decode differs from "
+                             "B6's indexed one, or never ran")
+
+
+def depth_engine(build, cfg, params, depth, config):
+    """An inference engine over the first ``depth`` layers of ``params``
+    (views of its stacked blocks, records passing through)."""
+    import dataclasses
+
+    import deepspeed_tpu_torch as dt
+
+    blocks = {k: ({kk: vv[:depth] for kk, vv in v.items()}
+                  if isinstance(v, dict) else v[:depth])
+              for k, v in params["blocks"].items()}
+    model = build(dataclasses.replace(cfg, num_layers=depth))
+    return dt.init_inference(model, config=config,
+                             params={**params, "blocks": blocks})
+
+
+def logit_rmse(got, want) -> float:
+    """Largest per-prompt RMSE of teacher-forced logits [steps, B, V]."""
+    return (got - want).pow(2).mean(dim=(0, 2)).sqrt().max().item()
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """The experts every MoE call dispatched each token to, in call order
+    (a layer's call after another): a list of [G, S, E] bool tensors,
+    ``top2gating``'s dispatch mask reduced over the capacity slots."""
+    from deepspeed_tpu_torch.moe import layer as ml
+
+    routes, gating = [], ml.top2gating
+
+    def recording(logits, *args, **kw):
+        out = gating(logits, *args, **kw)
+        routes.append(out[2].any(dim=-1))
+        return out
+    ml.top2gating = recording
+    try:
+        yield routes
+    finally:
+        ml.top2gating = gating
+
+
+def routed_teacher_forcing(engine, prompts, tokens, kv8, layers):
+    """:func:`teacher_forced_logits` of a Mixtral engine with the routes
+    behind them: (logits [steps, B, V], the experts of each step's own
+    position at every layer [steps, layers, B, E] (the prompt's last token,
+    then each fed token), the prompt's other positions' [layers, B, P - 1,
+    E])."""
+    import torch
+
+    with recorded_routes() as calls:
+        logits = teacher_forced_logits(engine, prompts, tokens, kv8)
+    if len(calls) != layers * logits.shape[0]:
+        raise AssertionError(f"{len(calls)} MoE calls for {logits.shape[0]}"
+                             f" steps of {layers} layers")
+    prefill, steps = calls[:layers], calls[layers:]
+    own = [torch.stack([c[:, -1] for c in prefill])] + [
+        torch.stack([c[:, 0] for c in steps[i:i + layers]])
+        for i in range(0, len(steps), layers)]
+    return logits, torch.stack(own), torch.stack([c[:, :-1]
+                                                  for c in prefill])
+
+
+def routed_rmse(got, want) -> dict:
+    """A quantized lane's teacher-forced logits against the bf16 lane's,
+    each as :func:`routed_teacher_forcing` returns them: ``whole`` the
+    RMSE (max over the prompts), ``alike`` the RMSE over the positions
+    whose experts equal the bf16 lane's at every layer (max over the
+    prompts), ``flips`` the share of compared positions routed otherwise
+    at some layer, ``prompt_flips`` the same over the prompts' other
+    positions."""
+    (lg, rg, pg), (lw, rw, pw) = got, want
+    alike = (rg == rw).all(dim=-1).all(dim=1)                   # [steps, B]
+    sq = (lg - lw).pow(2).mean(dim=2)                           # [steps, B]
+    n = alike.sum(dim=0)
+    per_prompt = ((sq * alike).sum(dim=0) / n.clamp(min=1)).sqrt()
+    return {"whole": sq.mean(dim=0).sqrt().max().item(),
+            "alike": per_prompt[n > 0].max().item() if n.any() else math.inf,
+            "flips": 1.0 - alike.float().mean().item(),
+            "prompt_flips": 1.0 - (pg == pw).all(dim=-1).all(dim=0).float()
+            .mean().item()}
+
+
+def launched(fn):
+    """(fn(), the kernels' launch counts of that call alone): every count
+    set to 0 just before it and read just after."""
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+
+    da.reset_launch_counts()
+    qm.reset_launch_counts()
+    out = fn()
+    return out, kernel_counts()
+
+
+def add_counts(*counts) -> dict:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def nonzero(counts) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def moe_split(label, cfg, params, layers, flush):
+    """Device ms of the MoE FFN in a decode iteration of 8 slots, by part:
+    each part replayed from a CUDA graph on layer 0's weights at the decode
+    step's shapes (8 groups of one token: capacity 4, 32 bucket rows a
+    floor of ``utils.rows``), times ``layers``.  Parts: gate (the
+    f64 router logits), dispatch (top-2 gating, the capacity masks and the
+    dispatch einsum), dequant (the three expert records expanded; 0 for
+    bf16 weights), expert GEMMs (the three batched products and SiLU) and
+    combine."""
+    import torch
+
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.moe import layer as ml
+    from deepspeed_tpu_torch.moe import sharded_moe as sm
+    from deepspeed_tpu_torch.ops import quantization as quant
+    from deepspeed_tpu_torch.utils.rows import fixed_rows
+
+    mcfg = cfg.moe_cfg()
+    blocks = params["blocks"]
+    gate_w = gpt2._index(blocks["gate_w"], 0)
+    experts = {k: gpt2._index(blocks[f"experts_{k}"], 0)
+               for k in ("w1", "w3", "w2")}
+    g = torch.Generator(device="cuda").manual_seed(19)
+    y = torch.randn((8, 1, cfg.hidden_size), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    cap, minc = mcfg.eval_capacity_factor, mcfg.min_capacity
+    logits = ml.gate_logits(y, gate_w)
+    _, combine, dispatch, _ = sm.top2gating(logits, cap, minc)
+    x_in = sm.dispatch_tokens(y, dispatch)
+    e, grp, c, d = x_in.shape
+    w = {k: ml._dense(v, torch.bfloat16) for k, v in experts.items()}
+    rows = x_in.reshape(e, grp * c, d)
+
+    def experts_fn():
+        return fixed_rows(lambda r: ml._expert_mlp(mcfg, w, r), rows,
+                          "decode", unit=c)
+    out = experts_fn().reshape(e, grp, c, d)
+    parts = {
+        "gate": lambda: ml.gate_logits(y, gate_w),
+        "dispatch": lambda: sm.dispatch_tokens(
+            y, sm.top2gating(logits, cap, minc)[2]),
+        "dequant": lambda: [ml._dense(v, torch.bfloat16)
+                            for v in experts.values()],
+        "expert GEMMs": experts_fn,
+        "combine": lambda: sm.combine_tokens(out, combine),
+    }
+    quantized = quant.is_record(experts["w1"])
+    ms = {name: (graph_ms(fn, flush, iters=20) * layers
+                 if name != "dequant" or quantized else 0.0)
+          for name, fn in parts.items()}
+    del w, out, x_in
+    log(f"[{label} moe split] device ms a decode iteration (8 slots, "
+        f"{layers} layers, each part replayed from a CUDA graph on layer 0):"
+        " " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) +
+        f"; sum {sum(ms.values()):.3f}")
+    return ms
+
+
+def mixtral_serving_phase(card):
+    """Phase 17 (b): Mixtral-8x7B (32 layers, 4096 wide, GQA 32/8 at head
+    dim 128, 8 experts of 14336, top-2, vocab 32000) on the card, random
+    weights drawn on the card from seed 0, served at
+    :data:`MIXTRAL_SERVE_CAPACITY`.  First the w8a8 engine at all 32
+    layers, each layer drawn and quantized in turn by ``init_inference``
+    (the bf16 model never exists): ``serve`` of phase 4's traffic under
+    ``w8a8+kv8`` (B6, kv8 B3, kv8 B4), w8a8 ``generate`` of the 4 prompts
+    (16 new tokens) against a ``quantize="w8a8"`` server's tokens (the
+    same arithmetic, >= 0.95 each), B5 under ``DS_INDEXED_DECODE=0``, a
+    profiled window, the MoE split, and the teacher-forced logits of the
+    quantized lanes at 2 and 16 layers on that ``generate``'s tokens.
+    Then bf16 at :data:`MIXTRAL_BF16_LAYERS` layers (the same weights'
+    first layers): ``generate``, ``serve`` against
+    ``generate`` (>= 0.95 each request), the server at the JAX default
+    capacity read beside it, a profiled window, the MoE split, the logit
+    RMSE of w8a8 / kv8 / w8a8+kv8 against bf16 with each position's
+    experts beside the bf16 lane's (at 2 layers the positions routed alike
+    at every layer <= 0.15, at least half of them routed alike; the whole
+    RMSE, the flips, and 16 layers read), fp32 at full width and 2 layers
+    (drop-free): greedy ``generate`` and ``serve`` equal to full-forward
+    recompute, and fp32 at the default capacity: the card's server equal
+    to the CPU's (:func:`mixtral_capacity_check`).  Returns the kernels'
+    launch counts of the main path: the two serves and bf16 ``generate``,
+    each counted alone (:func:`launched`)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.inference.serving import Request
+    from deepspeed_tpu_torch.models import mixtral
+
+    cfg = dataclasses.replace(mixtral.MixtralConfig.mixtral_8x7b(),
+                              eval_capacity_factor=MIXTRAL_SERVE_CAPACITY)
+    vocab, layers = cfg.vocab_size, cfg.num_layers
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    w8a8_cfg = {"dtype": "bf16", "quant": {"enabled": True, "type": "w8a8"}}
+    model = mixtral.build(cfg)
+    mark = marker("mixtral")
+    weng, t_init = wall(lambda: dt.init_inference(model, config=w8a8_cfg))
+    w8_bytes = weight_read_bytes(weng.params)
+    w1 = weng.params["blocks"]["experts_w1"]
+    log(f"[mixtral] {model.name}: {cfg.num_params() / 1e9:.3f} B parameters "
+        f"drawn and quantized on the card layer by layer in {t_init:.2f} s "
+        f"(experts_w1 {tuple(w1['qk'].shape)} int8, the router "
+        f"{tuple(weng.params['blocks']['gate_w'].shape)} bf16); a decode "
+        f"step reads {w8_bytes / 1e9:.3f} GB of weights: bound "
+        f"{1e3 * w8_bytes / HBM_BYTES_PER_S:.3f} ms at 3.35 TB/s; "
+        f"memory allocated {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+        f"GiB; {card}")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, vocab, (4, 128))
+    reqs = traffic(rng, vocab) + [
+        Request(uid=f"gen{i}", prompt=prompts[i], max_new_tokens=64)
+        for i in range(4)]
+    window = reqs[-4:] + reqs[:4]
+    # the w8a8 lane's other runs take fewer new tokens: each decode
+    # iteration dequantizes every expert of 32 layers (PERF.md §5)
+    short = [Request(uid=r.uid, prompt=r.prompt, max_new_tokens=16)
+             for r in reqs[-4:]]
+    short_window = [Request(uid=r.uid, prompt=r.prompt, max_new_tokens=24)
+                    for r in window]
+
+    srv8 = family_server(model, weng.params, "w8a8+kv8")
+    (res8, st8, t8), c8 = launched(
+        lambda: served("mixtral w8a8+kv8", srv8, reqs, vocab))
+    del srv8
+    log(f"[mixtral serve w8a8+kv8] {len(reqs)} requests, "
+        f"{st8['generated_tokens']} generated tokens in {t8:.3f} s: "
+        f"{st8['generated_tokens'] / t8:.1f} generated tok/s; TTFT p50 "
+        f"{st8['ttft_p50_s']:.4f} s p95 {st8['ttft_p95_s']:.4f} s; "
+        f"kv_pool_bytes {st8['kv_pool_bytes']}; prefix_hit_tokens "
+        f"{st8['prefix_hit_tokens']}; launches {nonzero(c8)}; {card}")
+    if not c8.get("w8a8_matmul_stacked_cuda") or \
+            not c8.get("paged_decode_attention_kv8_cuda") or \
+            not c8.get("paged_verify_attention_kv8_cuda"):
+        raise AssertionError(f"mixtral w8a8+kv8 serve launches {c8}")
+    mark("w8a8 draw and w8a8+kv8 serve")
+    # like for like: w8a8 generate and a w8a8 server on a float pool
+    wgen, t_wgen = wall(lambda: weng.generate(prompts, max_new_tokens=16))
+    srvw = family_server(model, weng.params, "w8a8")
+    resw, _, _ = served("mixtral w8a8", srvw, short, vocab)
+    del srvw
+    agree_w = gate_agreement("mixtral w8a8 serve vs w8a8 generate", resw,
+                             {f"gen{i}": wgen[i] for i in range(4)})
+    agree_kv8 = [agreement(res8[r.uid][:r.prompt.size + 16], resw[r.uid])
+                 for r in short]
+    log(f"[mixtral w8a8] generate 4 x (128 + 16) in {t_wgen:.3f} s "
+        f"({4 * 16 / t_wgen:.1f} tok/s); the w8a8 server (float pool) "
+        f"against it {list(agree_w.values())}; the w8a8+kv8 server against "
+        f"the w8a8 one {agree_kv8} (another arithmetic: held by the RMSE)")
+    b5_route_check("mixtral", weng, prompts)
+    prof_q = profile_serving("mixtral w8a8+kv8",
+                             family_server(model, weng.params, "w8a8+kv8"),
+                             short_window, [("kv8 B3", "q8_split_kernel"),
+                                            ("B6", "w8a8_split_kernel")],
+                             warm=8, steps=4)
+    mark("w8a8 pair, B5 and profile")
+    split_q = moe_split("mixtral w8a8", cfg, weng.params, layers, flush)
+    # teacher-forced logits of the quantized lanes on w8a8 generate's tokens
+    tf = {}
+    for depth in (2, MIXTRAL_BF16_LAYERS):
+        eng = depth_engine(mixtral.build, cfg, weng.params, depth, w8a8_cfg)
+        for lane, kv8 in (("w8a8", False), ("w8a8+kv8", True)):
+            tf[lane, depth] = routed_teacher_forcing(eng, prompts, wgen,
+                                                     kv8, depth)
+        del eng
+    peak_q = torch.cuda.max_memory_allocated()
+    del weng
+    free_card()
+    mark("w8a8 split and teacher forcing")
+
+    # bf16: the first MIXTRAL_BF16_LAYERS layers of the same draw
+    torch.cuda.reset_peak_memory_stats()
+    cfg16 = dataclasses.replace(cfg, num_layers=MIXTRAL_BF16_LAYERS)
+    model16 = mixtral.build(cfg16)
+    p16, t_init16 = wall(lambda: mixtral.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0),
+        dtype=torch.bfloat16, num_layers=MIXTRAL_BF16_LAYERS))
+    engine = dt.init_inference(model16, config={"dtype": "bf16"}, params=p16)
+    del p16
+    bf16_bytes = weight_read_bytes(engine.params)
+    log(f"[mixtral bf16] {MIXTRAL_BF16_LAYERS} of {layers} layers drawn on "
+        f"the card in {t_init16:.2f} s; a decode step reads "
+        f"{bf16_bytes / 1e9:.3f} GB of weights: bound "
+        f"{1e3 * bf16_bytes / HBM_BYTES_PER_S:.3f} ms at 3.35 TB/s; {card}")
+    (gen, t_gen), cg = launched(lambda: wall(
+        lambda: engine.generate(prompts, max_new_tokens=64)))
+    srv = family_server(model16, engine.params)
+    (res, st, t_srv), cf = launched(
+        lambda: served("mixtral bf16", srv, reqs, vocab))
+    del srv
+    mark("bf16 draw, generate and serve")
+    ref = generate_refs(engine, reqs, prompts, gen)
+    mark("bf16 generate references")
+    agree = gate_agreement("mixtral bf16 serve vs generate", res, ref)
+    log(f"[mixtral serve] {len(reqs)} requests, {st['generated_tokens']} "
+        f"generated tokens in {t_srv:.3f} s: "
+        f"{st['generated_tokens'] / t_srv:.1f} generated tok/s; TTFT p50 "
+        f"{st['ttft_p50_s']:.4f} s p95 {st['ttft_p95_s']:.4f} s; "
+        f"kv_pool_bytes {st['kv_pool_bytes']}; launches {nonzero(cf)} "
+        f"(generate {nonzero(cg)}); agreement "
+        f"with generate (each of the {len(agree)} checked requests): min "
+        f"{min(agree.values()):.4f}, "
+        f"{sum(a == 1.0 for a in agree.values())} exact; "
+        f"{card}")
+    default = dataclasses.replace(
+        cfg16, eval_capacity_factor=mixtral.MixtralConfig.eval_capacity_factor)
+    srv_d = family_server(mixtral.build(default), engine.params)
+    res_d, _, _ = served("mixtral default capacity", srv_d, reqs, vocab)
+    del srv_d
+    agree_d = [agreement(res_d[r.uid], res[r.uid]) for r in reqs]
+    log(f"[mixtral serve] at the JAX default capacity factor "
+        f"({default.eval_capacity_factor}): agreement with the drop-free "
+        f"server min {min(agree_d):.4f}, mean {float(np.mean(agree_d)):.4f},"
+        f" {sum(a == 1.0 for a in agree_d)} of {len(reqs)} exact (read, no "
+        "limit: routed pads drop choices)")
+    prof_f = profile_serving("mixtral bf16", family_server(model16,
+                                                           engine.params),
+                             window, [("B3", "verify_split_kernel")])
+    split_f = moe_split("mixtral bf16", cfg16, engine.params,
+                        MIXTRAL_BF16_LAYERS, flush)
+    rmse = {}
+    for depth in (2, MIXTRAL_BF16_LAYERS):
+        eng = engine if depth == MIXTRAL_BF16_LAYERS else depth_engine(
+            mixtral.build, cfg, engine.params, depth, {"dtype": "bf16"})
+        want = routed_teacher_forcing(eng, prompts, wgen, False, depth)
+        got = {"w8a8": tf["w8a8", depth], "w8a8+kv8": tf["w8a8+kv8", depth],
+               "kv8": routed_teacher_forcing(eng, prompts, wgen, True,
+                                             depth)}
+        # the JAX contract's bound holds the positions routed as the bf16
+        # lane routes them at every layer: a position whose experts differ
+        # takes other experts' outputs, and its share is read beside it
+        limit = W8A8_MAX_LOGIT_RMSE if depth == 2 else None
+        for lane, lane_out in got.items():
+            r = rmse[lane, depth] = routed_rmse(lane_out, want)
+            if limit is not None and not (r["alike"] <= limit
+                                          and r["flips"] <= 0.5):
+                raise AssertionError(f"mixtral {lane} at {depth} layers: "
+                                     f"{r} (limit {limit} on the positions "
+                                     "routed alike, at most half flipped)")
+        log(f"[mixtral rmse] {depth} layers: teacher-forced logit RMSE "
+            f"against the bf16 lane (max over the 4 prompts; "
+            f"{want[0].shape[0]} steps; logit RMS "
+            f"{want[0].pow(2).mean().sqrt().item():.4f}): " + "; ".join(
+                f"{k} whole {r['whole']:.4f}, routed alike {r['alike']:.4f},"
+                f" {r['flips']:.4f} of the compared positions and "
+                f"{r['prompt_flips']:.4f} of the prompts' others routed "
+                "otherwise at some layer"
+                for k, r in ((k, rmse[k, depth]) for k in got)) +
+            (f" (limit {limit:.4f} on the positions routed alike)"
+             if limit is not None else
+             f" (read, no limit; the bf16 lane stops at "
+             f"{MIXTRAL_BF16_LAYERS} layers)"))
+        del eng, want, got
+    del tf
+    peak_f = torch.cuda.max_memory_allocated()
+    log(f"[mixtral table] w8a8+kv8 ({layers} layers): serve "
+        f"{st8['generated_tokens'] / t8:.1f} tok/s, TTFT p50 "
+        f"{st8['ttft_p50_s']:.4f} s p95 {st8['ttft_p95_s']:.4f} s, captured "
+        f"iteration wall {prof_q['wall_ms']:.3f} ms, device busy "
+        f"{prof_q['busy_ms']:.3f} ms, {prof_q['kernels']:.1f} kernels, "
+        f"weight-read bound {1e3 * w8_bytes / HBM_BYTES_PER_S:.3f} ms, MoE "
+        f"{sum(split_q.values()):.3f} ms ("
+        + ", ".join(f"{k} {v:.3f}" for k, v in split_q.items()) +
+        f"), peak {peak_q / 2 ** 30:.2f} GiB; bf16 "
+        f"({MIXTRAL_BF16_LAYERS} layers): serve "
+        f"{st['generated_tokens'] / t_srv:.1f} tok/s, TTFT p50 "
+        f"{st['ttft_p50_s']:.4f} s p95 {st['ttft_p95_s']:.4f} s, generate "
+        f"{4 * 64 / t_gen:.1f} tok/s, captured iteration wall "
+        f"{prof_f['wall_ms']:.3f} ms, device busy {prof_f['busy_ms']:.3f} "
+        f"ms, {prof_f['kernels']:.1f} kernels, weight-read bound "
+        f"{1e3 * bf16_bytes / HBM_BYTES_PER_S:.3f} ms, MoE "
+        f"{sum(split_f.values()):.3f} ms ("
+        + ", ".join(f"{k} {v:.3f}" for k, v in split_f.items()) +
+        f"), peak {peak_f / 2 ** 30:.2f} GiB; {card}")
+    del engine, flush
+    free_card()
+    mark("bf16 default capacity, profile, split, teacher forcing")
+    family_fp32_check("mixtral", mixtral, dataclasses.replace(
+        cfg, num_layers=2, use_flash=False), vocab)
+    mark("fp32 check")
+    mixtral_capacity_check(vocab)
+    mark("fp32 default-capacity check against the CPU")
+    return add_counts(c8, cf, cg)
+
+
+def family_fp32_check(tag, family, cfg32, vocab):
+    """fp32 at full width and ``cfg32``'s depth: greedy ``generate`` (B2
+    and the sliced B4 prefill on the card's f32 template) and ``serve``
+    (B3, 16-token B4 windows) equal greedy decoding by full-forward
+    recompute (einsum attention), token for token."""
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.inference.serving import Request
+
+    model32 = family.build(cfg32)
+    p32 = family.init_params(cfg32, torch.Generator(device="cuda")
+                             .manual_seed(7))
+    eng32 = dt.init_inference(model32, config={"dtype": "fp32"}, params=p32)
+    del p32
+    p = np.random.default_rng(1).integers(0, vocab, (2, 40))
+    got = eng32.generate(p, max_new_tokens=16)
+    buf = torch.as_tensor(p, device="cuda")
+    for _ in range(16):
+        nxt = eng32.forward(buf.cpu().numpy())[:, -1].argmax(-1)
+        buf = torch.cat([buf, nxt[:, None]], dim=1)
+    want = buf.cpu().numpy()
+    if not (got == want).all():
+        raise AssertionError(f"{tag} fp32 generate != recompute:\n{got}\n"
+                             f"{want}")
+    srv32 = dt.init_serving(model32, config={"dtype": "fp32"},
+                            params=eng32.params, slots=2, max_seq_len=128,
+                            block_size=32, prefill_chunk=16, sampling=False)
+    res32 = srv32.serve([Request(uid=i, prompt=p[i], max_new_tokens=16)
+                         for i in range(2)])
+    for i in range(2):
+        if not (res32[i] == want[i]).all():
+            raise AssertionError(f"{tag} fp32 serve row {i} != recompute")
+    log(f"[{tag} fp32 check] {cfg32.num_layers} layers at full width: "
+        "generate and serve equal full-forward greedy decoding")
+    del eng32, srv32
+    free_card()
+
+
+def mixtral_capacity_check(vocab):
+    """fp32 Mixtral-8x7B at full width and 2 layers, gated at the JAX
+    default ``eval_capacity_factor`` (2.0), so the 16-token prefill windows
+    drop choices past their experts' capacity: greedy ``serve`` on the card
+    (B3, the B4 windows) equal token for token to the same server on the
+    CPU (the plain versions; ``tests/test_torch_mixtral.py`` holds that
+    server to the JAX one), with the dropped choices counted on both."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.inference.serving import Request
+    from deepspeed_tpu_torch.models import mixtral
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(mixtral.MixtralConfig.mixtral_8x7b(),
+                              num_layers=2, use_flash=False)
+    model = mixtral.build(cfg)
+    params = mixtral.init_params(cfg, torch.Generator(device="cuda")
+                                 .manual_seed(7))
+    on_cpu = {k: ({kk: vv.cpu() for kk, vv in v.items()}
+                  if isinstance(v, dict) else v.cpu())
+              for k, v in params.items()}
+    p = np.random.default_rng(2).integers(0, vocab, (2, 36))
+    reqs = [Request(uid=i, prompt=p[i], max_new_tokens=12) for i in range(2)]
+    out, drops, secs = {}, {}, {}
+    for where, tree in (("cuda", params), ("cpu", on_cpu)):
+        srv = dt.init_serving(model, config={"dtype": "fp32"}, params=tree,
+                              slots=2, max_seq_len=128, block_size=32,
+                              prefill_chunk=16, sampling=False, device=where)
+        t0 = time.perf_counter()
+        with recorded_routes() as routes:
+            out[where] = srv.serve(reqs)
+        secs[where] = time.perf_counter() - t0
+        # the requests' groups (a prefill call's first rows; its other
+        # rows are the batch's empty ones): 2 choices a token, the window's
+        # pads included
+        drops[where] = sum(2 * len(reqs) * r.shape[1]
+                           - int(r[:len(reqs)].sum()) for r in routes)
+        del srv
+    del params, on_cpu
+    free_card()
+    same = all((out["cuda"][i] == out["cpu"][i]).all() for i in range(2))
+    log(f"[mixtral capacity check] fp32, 2 layers at full width, "
+        f"eval_capacity_factor {cfg.eval_capacity_factor}: the card's serve "
+        f"equals the CPU's token for token: {same}; choices dropped at "
+        f"capacity {drops} (card / CPU); {secs['cuda']:.1f} s on the card, "
+        f"{secs['cpu']:.1f} s on the CPU")
+    if not same or drops["cuda"] != drops["cpu"] or not drops["cuda"]:
+        raise AssertionError(f"mixtral at capacity factor "
+                             f"{cfg.eval_capacity_factor}: card {out['cuda']}"
+                             f" / CPU {out['cpu']}, drops {drops}")
+
+
+def opt_serving_phase(card):
+    """Phase 17 (c): OPT-13B (40 layers, 5120 wide, 40 heads of head dim
+    128, FFN 20480, vocab 50272) at full width and depth on the card,
+    random bf16 weights drawn on the card from seed 0 by
+    ``init_inference``.  ``generate``, ``serve`` of phase 4's traffic
+    against ``generate`` (>= 0.95 each request), a profiled window; the
+    w8a8 engine quantized on the card, ``serve`` under ``w8a8+kv8`` (B6
+    with proj at 160 k-groups, kv8 B3, kv8 B4), w8a8 ``generate`` against a
+    ``quantize="w8a8"`` server (>= 0.95), B5 under ``DS_INDEXED_DECODE=0``,
+    a profiled window; the logit RMSE of the quantized lanes (<= 0.15 at 2
+    layers, read at 40); fp32 at full width and 2 layers equal to
+    recompute.  Returns the kernels' launch counts of the main path: the
+    two serves and bf16 ``generate``, each counted alone
+    (:func:`launched`)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.inference.serving import Request
+    from deepspeed_tpu_torch.models import opt
+
+    cfg = opt.OPTConfig.opt_13b()
+    vocab, layers = cfg.vocab_size, cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    model = opt.build(cfg)
+    mark = marker("opt")
+    engine, t_init = wall(lambda: dt.init_inference(
+        model, config={"dtype": "bf16"}))
+    bf16_bytes = weight_read_bytes(engine.params, head="embed_tokens")
+    log(f"[opt] {model.name}: {cfg.num_params() / 1e9:.3f} B parameters "
+        f"drawn on the card in bf16 in {t_init:.2f} s; a decode step reads "
+        f"{bf16_bytes / 1e9:.3f} GB of weights (blocks + the tied head): "
+        f"bound {1e3 * bf16_bytes / HBM_BYTES_PER_S:.3f} ms at 3.35 TB/s; "
+        f"{card}")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, vocab, (4, 128))
+    reqs = traffic(rng, vocab) + [
+        Request(uid=f"gen{i}", prompt=prompts[i], max_new_tokens=64)
+        for i in range(4)]
+    window = reqs[-4:] + reqs[:4]
+    gen_reqs = reqs[-4:]
+    (gen, t_gen), cg = launched(lambda: wall(
+        lambda: engine.generate(prompts, max_new_tokens=64)))
+    srv = family_server(model, engine.params)
+    (res, st, t_srv), cf = launched(
+        lambda: served("opt bf16", srv, reqs, vocab))
+    del srv
+    mark("bf16 draw, generate and serve")
+    ref = generate_refs(engine, reqs, prompts, gen)
+    mark("bf16 generate references")
+    agree = gate_agreement("opt bf16 serve vs generate", res, ref)
+    log(f"[opt serve] {len(reqs)} requests, {st['generated_tokens']} "
+        f"generated tokens in {t_srv:.3f} s: "
+        f"{st['generated_tokens'] / t_srv:.1f} generated tok/s; TTFT p50 "
+        f"{st['ttft_p50_s']:.4f} s p95 {st['ttft_p95_s']:.4f} s; "
+        f"kv_pool_bytes {st['kv_pool_bytes']}; launches {nonzero(cf)} "
+        f"(generate {nonzero(cg)}); agreement "
+        f"with generate (each of the {len(agree)} checked requests): min "
+        f"{min(agree.values()):.4f}, "
+        f"{sum(a == 1.0 for a in agree.values())} exact; "
+        f"{card}")
+    prof_f = profile_serving("opt bf16", family_server(model, engine.params),
+                             window, [("B3", "verify_split_kernel")])
+
+    mark("bf16 profile")
+    w8a8_cfg = {"dtype": "bf16", "quant": {"enabled": True, "type": "w8a8"}}
+    weng, t_q = wall(lambda: dt.init_inference(model, config=w8a8_cfg,
+                                               params=engine.params))
+    w8_bytes = weight_read_bytes(weng.params, head="embed_tokens")
+    proj = weng.params["blocks"]["proj_w"]
+    log(f"[opt quant] w8a8 engine built in {t_q:.2f} s (blocks quantized on "
+        f"the card, layer by layer); proj_w {tuple(proj['qk'].shape)} in "
+        f"{proj['kscale'].shape[1]} k-groups; a decode step reads "
+        f"{w8_bytes / 1e9:.3f} GB of weights: bound "
+        f"{1e3 * w8_bytes / HBM_BYTES_PER_S:.3f} ms at 3.35 TB/s; {card}")
+    srv8 = family_server(model, weng.params, "w8a8+kv8")
+    (res8, st8, t8), c8 = launched(
+        lambda: served("opt w8a8+kv8", srv8, reqs, vocab))
+    del srv8
+    agree8 = [agreement(res8[r.uid], res[r.uid]) for r in reqs]
+    log(f"[opt serve w8a8+kv8] {st8['generated_tokens']} generated tokens "
+        f"in {t8:.3f} s: {st8['generated_tokens'] / t8:.1f} generated tok/s;"
+        f" TTFT p50 {st8['ttft_p50_s']:.4f} s p95 {st8['ttft_p95_s']:.4f} s;"
+        f" kv_pool_bytes {st8['kv_pool_bytes']}; launches {nonzero(c8)}; "
+        f"agreement "
+        f"with the bf16 server: min {min(agree8):.4f}, mean "
+        f"{float(np.mean(agree8)):.4f}; {card}")
+    if not c8.get("w8a8_matmul_stacked_cuda") or \
+            not c8.get("paged_decode_attention_kv8_cuda") or \
+            not c8.get("paged_verify_attention_kv8_cuda"):
+        raise AssertionError(f"opt w8a8+kv8 serve launches {c8}")
+    wgen = weng.generate(prompts, max_new_tokens=64)
+    srvw = family_server(model, weng.params, "w8a8")
+    resw, _, _ = served("opt w8a8", srvw, gen_reqs, vocab)
+    del srvw
+    agree_w = gate_agreement("opt w8a8 serve vs w8a8 generate", resw,
+                             {f"gen{i}": wgen[i] for i in range(4)})
+    log(f"[opt w8a8] the w8a8 server (float pool) against w8a8 generate "
+        f"{list(agree_w.values())}")
+    b5_route_check("opt", weng, prompts)
+    prof_q = profile_serving("opt w8a8+kv8",
+                             family_server(model, weng.params, "w8a8+kv8"),
+                             window, [("kv8 B3", "q8_split_kernel"),
+                                      ("B6", "w8a8_split_kernel")])
+    mark("w8a8 quantization, serves, B5 and profile")
+    rmse = {}
+    for depth in (2, layers):
+        lanes = (engine, weng) if depth == layers else tuple(
+            depth_engine(opt.build, cfg, e.params, depth, conf)
+            for e, conf in ((engine, {"dtype": "bf16"}), (weng, w8a8_cfg)))
+        want = teacher_forced_logits(lanes[0], prompts, gen, kv8=False)
+        limit = W8A8_MAX_LOGIT_RMSE if depth == 2 else None
+        for lane, eng, kv8 in (("w8a8", lanes[1], False),
+                               ("kv8", lanes[0], True),
+                               ("w8a8+kv8", lanes[1], True)):
+            rmse[lane, depth] = logit_rmse(
+                teacher_forced_logits(eng, prompts, gen, kv8), want)
+            if limit is not None and not rmse[lane, depth] <= limit:
+                raise AssertionError(f"opt {lane} at {depth} layers: logit "
+                                     f"RMSE {rmse[lane, depth]} > {limit}")
+        log(f"[opt rmse] {depth} layers: teacher-forced logit RMSE against "
+            f"the bf16 lane (max over the 4 prompts, {want.shape[0]} steps;"
+            f" logit RMS {want.pow(2).mean().sqrt().item():.4f}): " +
+            ", ".join(f"{k} {rmse[k, depth]:.4f}" for k in
+                      ("w8a8", "kv8", "w8a8+kv8")) +
+            (f" (limit {limit:.4f})" if limit is not None else
+             " (read, no limit)"))
+        del lanes, want
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[opt table] bf16: generate {4 * 64 / t_gen:.1f} tok/s, serve "
+        f"{st['generated_tokens'] / t_srv:.1f} tok/s, TTFT p50 "
+        f"{st['ttft_p50_s']:.4f} s p95 {st['ttft_p95_s']:.4f} s, captured "
+        f"iteration wall {prof_f['wall_ms']:.3f} ms, device busy "
+        f"{prof_f['busy_ms']:.3f} ms, {prof_f['kernels']:.1f} kernels, "
+        f"weight-read bound {1e3 * bf16_bytes / HBM_BYTES_PER_S:.3f} ms; "
+        f"w8a8+kv8: serve {st8['generated_tokens'] / t8:.1f} tok/s, TTFT p50"
+        f" {st8['ttft_p50_s']:.4f} s p95 {st8['ttft_p95_s']:.4f} s, captured"
+        f" iteration wall {prof_q['wall_ms']:.3f} ms, device busy "
+        f"{prof_q['busy_ms']:.3f} ms, {prof_q['kernels']:.1f} kernels, "
+        f"weight-read bound {1e3 * w8_bytes / HBM_BYTES_PER_S:.3f} ms; "
+        f"kv_pool_bytes {st['kv_pool_bytes']} (bf16) / "
+        f"{st8['kv_pool_bytes']} (kv8); max_memory_allocated {peak} "
+        f"({peak / 2 ** 30:.2f} GiB); {card}")
+    del engine, weng
+    free_card()
+    mark("teacher forcing")
+    family_fp32_check("opt", opt, dataclasses.replace(
+        cfg, num_layers=2, use_flash=False), vocab)
+    mark("fp32 check")
+    return add_counts(c8, cf, cg)
+
+
+def family_phase(card):
+    """Phase 17: (a) the kernels at the new shapes, (b) Mixtral-8x7B and
+    (c) OPT-13B served on the card.  Returns (OPT-13B's and Mixtral's
+    measurements from (a), launches of (b)'s main path, launches of
+    (c)'s)."""
+    free_card()
+    t0 = time.perf_counter()
+    opt_measured, mixtral_measured = check_new_shapes()
+    t1 = time.perf_counter()
+    mixtral_launches = mixtral_serving_phase(card)
+    t2 = time.perf_counter()
+    opt_launches = opt_serving_phase(card)
+    log(f"[17] phase 17 (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+        f"{time.perf_counter() - t2:.1f} s; main-path launches (b) "
+        f"{nonzero(mixtral_launches)}, (c) {nonzero(opt_launches)}")
+    return opt_measured, mixtral_measured, mixtral_launches, opt_launches
+
+
 def build_all():
     """Phase 1's builds: one nvcc per CUDA source and one g++ per host
     source, and one per planted fault of phases 14, 15 and 16
@@ -4828,6 +5791,8 @@ def main() -> int:
     llama_measured, llama_launches = llama_phase(card, faults)
     train_measured, train_launches, resident_step_s = \
         llama_train_full_phase(card, faults)
+    opt_measured, mixtral_measured, mixtral_launches, opt_launches = \
+        family_phase(card)
     offload_launches = offload_phase(card, faults, resident_step_s)
 
     # one line per kernel; a flash kernel replaces three TPU regimes (v1,
@@ -4915,6 +5880,35 @@ def main() -> int:
                     "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
                     "bound_by", "library_ms", "library_graph_ms",
                     "verify") if key in m}})
+    # phase 17: the decode wrappers and B6 on Mixtral-8x7B's path
+    # (attention timed at Llama-3-8B's shapes, which are Mixtral's, in
+    # phase 14 (a); B6 at its (4096, 4096) in phase 17 (a)) and on
+    # OPT-13B's (rep 1 at D = 128; B6 at proj's 160 k-groups), each
+    # launched by its main path, (b) or (c): the serves and bf16
+    # ``generate``.  B5 runs there only under DS_INDEXED_DECODE=0, a
+    # check of its own (held and timed in (a), not listed here)
+    for tag, measured17, launched17 in (
+            ("mixtral-8x7b", {**llama_measured, **mixtral_measured},
+             mixtral_launches),
+            ("opt-13b", opt_measured, opt_launches)):
+        for module, source in sources.items():
+            for fn in module.KERNELS:
+                if fn.__name__ not in measured17 or \
+                        fn.__name__ == "w8a8_matmul_cuda":
+                    continue
+                if launched17[fn.__name__] == 0:
+                    raise AssertionError(f"phase 17 ({tag}) never launched "
+                                         f"{fn.__name__}")
+                m = measured17[fn.__name__]
+                kernels.append({
+                    "name": f"{fn.__name__}[{tag}]", "route": "cuda",
+                    "kernel": designs[fn.__name__], "source": source,
+                    "replaces": replaces[fn.__name__],
+                    "launches": launched17[fn.__name__],
+                    **{key: m[key] for key in (
+                        "max_abs_err", "ms", "graph_ms", "plain_ms",
+                        "bound_ms", "bound_by", "library_ms",
+                        "library_graph_ms", "verify") if key in m}})
     # phase 15: the flash kernels at head dim 128 and GQA 32 / 8, timed at
     # phase 15 (b)'s shape and launched by its training run
     for fn in fa.KERNELS:

@@ -73,22 +73,30 @@ def init_inference(model=None, config=None, params=None, device=None,
     """Inference engine entry (reference ``__init__.py:233``).
 
     ``model``: a model from ``deepspeed_tpu_torch.models``
-    (``gpt2.build``, ``llama.build`` or ``get_model("llama-3-8b")``); the
-    JAX package's other kinds of model, a HuggingFace model or a path to
-    its checkpoint, are not ported (ROADMAP Queue A item 7).
+    (``gpt2.build``, ``llama.build``, ``mixtral.build``, ``opt.build`` or
+    ``get_model`` by the JAX package's names, e.g. ``"llama-3-8b"``,
+    ``"mixtral-8x7b"``, ``"opt-13b"``); the JAX package's other families,
+    a HuggingFace model or a path to its checkpoint, are not ported
+    (ROADMAP Queue A item 7; OPT's HuggingFace weights load through
+    ``opt.from_hf_state_dict`` into ``params``).
     ``config``: a dict or :class:`~deepspeed_tpu_torch.inference.config.
-    DeepSpeedInferenceConfig` (or its keys as keyword arguments).
+    DeepSpeedInferenceConfig` (or its keys as keyword arguments);
+    ``moe.ep_size`` > 1 (expert parallelism) is refused (Queue A item 8).
     ``params``: parameters as a nested dict of tensors (e.g.
     ``gpt2.params_from_jax``); without it the engine draws random ones from
-    seed 0 (llama: on the engine's device in the serving dtype; GPT-2: in
-    f32 from ``torch.Generator().manual_seed(0)``).  ``device``: ``None`` = CUDA
+    seed 0 (llama, mixtral and opt: on the engine's device in the serving
+    dtype, layer by layer, and with ``quant`` enabled mixtral and opt
+    quantize each layer as it is drawn, so Mixtral-8x7B's w8a8 records fit
+    one card without its bf16 weights; GPT-2: in f32 from
+    ``torch.Generator().manual_seed(0)``).  ``device``: ``None`` = CUDA
     (raises when no GPU is present), or ``"cpu"``."""
     from .inference.config import DeepSpeedInferenceConfig
     from .inference.engine import InferenceEngine
 
     if model is None:
         raise ValueError("init_inference needs a model (models.gpt2.build, "
-                         "models.llama.build or models.get_model)")
+                         "models.llama.build, models.mixtral.build, "
+                         "models.opt.build or models.get_model)")
     if getattr(model, "decode_hooks", None) is None:
         _unsupported("init_inference", f"model={type(model).__name__}", 7,
                      "other model families (HuggingFace models and "
@@ -144,7 +152,13 @@ def init_serving(model=None, config=None, params=None, *, slots=8,
                  peak_flops=None, device=None, **kwargs):
     """Continuous-batching serving entry: an ``init_inference`` engine
     wrapped in the block-paged chunked-prefill scheduler
-    (``inference/serving.py``).  The signature is the JAX package's
+    (``inference/serving.py``), for every family of ``init_inference``
+    (GPT-2, llama, mixtral and opt each declare paged serving, the verify
+    window, the int8 pool and sampling in their ``decode_hooks``, so every
+    lane below, ``logit_masks`` included, serves them; mixtral gates each
+    prefill window, decode token and verify window as one capacity group,
+    as the JAX server does).  The
+    signature is the JAX package's
     (``deepspeed_tpu/__init__.py:226``) plus ``device``.  On CUDA the
     decode step is one captured CUDA graph.  ``sampling=True`` (the JAX
     default) serves per-request ``temperature`` / ``top_k`` / ``top_p`` /

@@ -25,6 +25,7 @@ f32.
 
 from __future__ import annotations
 
+import inspect
 import math
 from typing import Optional
 
@@ -74,6 +75,10 @@ def _check_supported(config: DeepSpeedInferenceConfig) -> None:
     if config.zero_inference.enabled:
         raise NotImplementedError(
             "zero_inference: layer streaming is not ported yet")
+    if int(config.moe.ep_size) > 1:
+        raise NotImplementedError(
+            f"moe.ep_size={config.moe.ep_size}: expert parallelism comes "
+            "with the port's multi-GPU slice (ROADMAP.md Queue A item 8)")
     if int(config.sequence_parallel) > 1:
         raise NotImplementedError(
             f"sequence_parallel={config.sequence_parallel}: sp prefill comes "
@@ -134,29 +139,43 @@ def _quantize_blocks(model, params, qcfg, device):
     node = params
     for k in bkey[:-1]:
         node = node[k]
-    if w8a8:
-        node[bkey[-1]] = quant.quantize_pytree_k_grouped(
-            node[bkey[-1]], k_group=max(128, int(qcfg.group_size)),
-            min_ndim=3, shard_multiple=qcfg.shard_multiple or 1,
-            device=device)
-    else:
-        node[bkey[-1]] = quant.quantize_pytree(
-            node[bkey[-1]], num_bits=qcfg.num_bits,
-            group_size=qcfg.group_size, min_ndim=3, device=device)
+    node[bkey[-1]] = _blocks_quantizer(qcfg, device)(node[bkey[-1]])
     return params
 
 
-def _default_params(model, device, dtype):
+def _blocks_quantizer(qcfg, device, min_size: int = 4096):
+    """The quantization of a stacked-blocks subtree by ``qcfg``'s type
+    (records on ``device``, one layer at a time when it is given)."""
+    if qcfg.type == "w8a8":
+        return lambda tree: quant.quantize_pytree_k_grouped(
+            tree, k_group=max(128, int(qcfg.group_size)), min_size=min_size,
+            min_ndim=3, shard_multiple=qcfg.shard_multiple or 1,
+            device=device)
+    return lambda tree: quant.quantize_pytree(
+        tree, num_bits=qcfg.num_bits, group_size=qcfg.group_size,
+        min_size=min_size, min_ndim=3, device=device)
+
+
+def _default_params(model, device, dtype, qcfg=None):
     """Random weights when the caller gives none, from seed 0 as the JAX
     engine's ``init_fn(PRNGKey(0))``: a model whose ``init_on_device`` is
-    set (llama) draws on ``device`` in the serving dtype, one layer at a
-    time (Llama-3-8B in f32 on the host would be 32 GB and minutes of
-    drawing); GPT-2 keeps its f32 draw on the host, so its default weights
-    are the ones they always were."""
-    if getattr(model, "init_on_device", False):
-        return model.init_fn(torch.Generator(device=device).manual_seed(0),
-                             dtype=dtype)
-    return model.init_fn(torch.Generator().manual_seed(0))
+    set (llama, mixtral, opt) draws on ``device`` in the serving dtype,
+    one layer at a time (Llama-3-8B in f32 on the host would be 32 GB and
+    minutes of drawing); GPT-2 keeps its f32 draw on the host, so its
+    default weights are the ones they always were.  With ``qcfg`` (quant
+    enabled) a model whose ``init_fn`` takes a ``layer_fn`` (mixtral, opt)
+    quantizes each layer as it is drawn: the records of quantizing the
+    whole drawn stack (a leaf's selection by size scales to one layer of
+    the stack), without the whole stack ever in the serving dtype."""
+    if not getattr(model, "init_on_device", False):
+        return model.init_fn(torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=device).manual_seed(0)
+    if qcfg is None or "layer_fn" not in inspect.signature(
+            model.init_fn).parameters:
+        return model.init_fn(gen, dtype=dtype)
+    layers = model.model_config.num_layers
+    return model.init_fn(gen, dtype=dtype, layer_fn=_blocks_quantizer(
+        qcfg, None, min_size=-(-4096 // layers)))
 
 
 class InferenceEngine:
@@ -166,15 +185,18 @@ class InferenceEngine:
         if getattr(model, "decode_hooks", None) is None or \
                 not hasattr(model, "init_fn"):
             raise TypeError("init_inference expects a deepspeed_tpu_torch "
-                            "model (models.gpt2.build, models.llama.build "
-                            "or models.get_model)")
+                            "model (models.gpt2.build, models.llama.build, "
+                            "models.mixtral.build, models.opt.build or "
+                            "models.get_model)")
         _check_supported(config)
         self.module = model
         self._config = config
         self.device = resolve_device(device)
         self.dtype = config.torch_dtype
         if params is None:
-            params = _default_params(model, self.device, self.dtype)
+            params = _default_params(
+                model, self.device, self.dtype,
+                config.quant if config.quant.enabled else None)
         if config.quant.enabled:
             from ..ops import quantized_matmul as qmm
 

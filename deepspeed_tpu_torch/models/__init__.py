@@ -3,7 +3,7 @@ package's names (``deepspeed_tpu/models/__init__.py``)."""
 
 import dataclasses
 
-from . import gpt2, llama
+from . import gpt2, llama, mixtral, opt
 
 
 def _with(cfg, overrides):
@@ -19,15 +19,27 @@ _NAMED = {
                                              kw)),
     "llama370b": lambda kw: llama.build(_with(llama.LlamaConfig.llama3_70b(),
                                               kw)),
+    "mixtral": lambda kw: mixtral.build(**kw),
+    "mixtral8x7b": lambda kw: mixtral.build(
+        _with(mixtral.MixtralConfig.mixtral_8x7b(), kw)),
+    "opt": lambda kw: opt.build(**kw),
+    "opt125m": lambda kw: opt.build(_with(opt.OPTConfig.opt_125m(), kw)),
+    "opt350m": lambda kw: opt.build(_with(opt.OPTConfig.opt_350m(), kw)),
+    # 1p3b/2p7b spelling (like gptneo1p3b): "opt-1.3b" would normalize to
+    # the same key as "opt-13b"
+    "opt1p3b": lambda kw: opt.build(_with(opt.OPTConfig.opt_1_3b(), kw)),
+    "opt2p7b": lambda kw: opt.build(_with(opt.OPTConfig.opt_2_7b(), kw)),
+    "opt6p7b": lambda kw: opt.build(_with(opt.OPTConfig.opt_6_7b(), kw)),
+    "opt13b": lambda kw: opt.build(_with(opt.OPTConfig.opt_13b(), kw)),
+    "opt30b": lambda kw: opt.build(_with(opt.OPTConfig.opt_30b(), kw)),
+    "opt66b": lambda kw: opt.build(_with(opt.OPTConfig.opt_66b(), kw)),
 }
 
 #: the JAX package's other names: families this port does not have yet
-_LATER = ("mixtral", "mixtral8x7b", "bert", "bertbase", "bertlarge", "vae",
-          "sdvae", "unet", "sdunet", "clip", "clipvitb32", "bloom",
-          "bloom560m", "bloom7b1", "gptneo", "gptneo1p3b", "gptneo2p7b",
-          "gptj", "gptj6b", "gptneox", "gptneox20b", "pythia160m", "opt",
-          "opt125m", "opt350m", "opt1p3b", "opt2p7b", "opt6p7b", "opt13b",
-          "opt30b", "opt66b")
+_LATER = ("bert", "bertbase", "bertlarge", "vae", "sdvae", "unet", "sdunet",
+          "clip", "clipvitb32", "bloom", "bloom560m", "bloom7b1", "gptneo",
+          "gptneo1p3b", "gptneo2p7b", "gptj", "gptj6b", "gptneox",
+          "gptneox20b", "pythia160m")
 
 
 def get_model(name: str, **kwargs):

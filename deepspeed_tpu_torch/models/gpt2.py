@@ -36,7 +36,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -46,6 +46,7 @@ from ..ops import quantization as quant
 from ..ops.decode_attention import decode_attention, paged_decode_attention
 from ..ops.flash_attention import flash_attention
 from ..ops.paged_kv import paged_cache_update
+from ..utils.rows import fixed_row_mm
 
 Params = Dict[str, Any]
 
@@ -149,6 +150,36 @@ def init_params(cfg: GPT2Config, generator: torch.Generator) -> Params:
         "lnf_scale": ones(d),
         "lnf_bias": zeros(d),
     }
+
+
+def draw_layers(shapes, num_layers: int, normal: Callable, ones: Callable,
+                layer_fn: Optional[Callable] = None) -> Params:
+    """Stacked ``[L, ...]`` blocks drawn one layer at a time: each layer's
+    leaves (``(name, shape, std or None)`` of ``shapes``, as one-layer
+    stacks ``[1, ...]``) pass through ``layer_fn`` when given (int8 records
+    come back) and are copied into stacks allocated at the first layer;
+    only one layer's draw is alive at a time."""
+    blocks = None
+    for i in range(num_layers):
+        layer = {name: ones((1,) + shape) if std is None
+                 else normal((1,) + shape, std)
+                 for name, shape, std in shapes}
+        if layer_fn is not None:
+            layer = layer_fn(layer)
+        if blocks is None:
+            blocks = {name: ({k: v.new_empty((num_layers,) + v.shape[1:])
+                              for k, v in leaf.items()}
+                             if isinstance(leaf, dict) else
+                             leaf.new_empty((num_layers,) + leaf.shape[1:]))
+                      for name, leaf in layer.items()}
+        for name, leaf in layer.items():
+            if isinstance(leaf, dict):
+                for k, v in leaf.items():
+                    blocks[name][k][i] = v[0]
+            else:
+                blocks[name][i] = leaf[0]
+        del layer
+    return blocks
 
 
 def params_from_jax(tree) -> Params:
@@ -445,7 +476,7 @@ def _stack_len(leaf) -> int:
 
 def decode_over_layers(body, x, blocks: Params, cache_k, cache_v,
                        num_layers: int, probe: str = "qkv_w",
-                       stepwise: bool = False):
+                       stepwise: bool = False, rows: Optional[str] = None):
     """Run ``body(x, get, mm, ck, cv) -> x`` over all layers
     (``gpt2.py:442``), each layer's cache leaves (or int8 pool records)
     written in place: a loop over pre-sliced layers (:func:`layer_accessors`)
@@ -455,7 +486,10 @@ def decode_over_layers(body, x, blocks: Params, cache_k, cache_v,
     of one ``arange(L)`` on the device.  ``stepwise`` runs every matmul one
     window position at a time (:func:`_stepwise`: the speculative verify's
     all-position window), and the indexed gate then counts one position's
-    rows.  Raises when the stack does not hold ``num_layers`` layers, as
+    rows.  ``rows`` (``"prefill"`` or ``"decode"``) runs every matmul (each
+    position's, stepwise) on the row counts of ``utils.rows.fixed_rows``
+    (llama and OPT: a row's bits then do not depend on its call's other
+    rows).  Raises when the stack does not hold ``num_layers`` layers, as
     ``lax.scan`` would."""
     n_stack = _stack_len(next(iter(blocks.values())))
     if n_stack != num_layers:
@@ -475,7 +509,16 @@ def decode_over_layers(body, x, blocks: Params, cache_k, cache_v,
 
             get = layer.__getitem__
         else:
+            if rows == "prefill":
+                # a window's row blocks share one expansion of each
+                # K-grouped record (w8a8 above 8 rows is dequantize +
+                # matmul), bit for bit the per-block one
+                layer = {k: quant.dequantize_k(v, x.dtype)
+                         if quant.is_k_quantized(v) else v
+                         for k, v in layer.items()}
             get, mm = layer_accessors(layer)
+        if rows is not None:
+            mm = fixed_row_mm(mm, rows)
         if stepwise:
             mm = _stepwise(mm)
         x = body(x, get, mm, _index(cache_k, i), _index(cache_v, i))

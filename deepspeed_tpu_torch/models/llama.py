@@ -20,7 +20,8 @@ dim 128.  RoPE applies before the cache write, so the pool's int8 records
 bf16 arithmetic the same whatever shares its call (the JAX package needs
 neither on the TPU): a prefill window's attention runs the verify kernel
 sixteen positions at a time (:func:`_cached_attention`), and its matmuls
-take at least :data:`PREFILL_MIN_ROWS` rows.
+run on fixed row counts (``utils/rows.py``: 256-row blocks in prefill, at
+least 8 rows a decode step).
 
 ``forward`` and ``loss_from_batch`` are the training path: attention by
 ``cfg.use_flash`` as in GPT-2 (``None``: the flash kernels on CUDA, at head
@@ -44,20 +45,9 @@ from . import gpt2
 from ..ops.decode_attention import VERIFY_T_MAX, sliced_window_attention
 from ..ops.flash_attention import flash_attention
 from ..ops.paged_kv import paged_cache_update
+from ..utils.rows import fixed_row_mm
 
 Params = Dict[str, Any]
-
-#: a multi-position call's matmuls (prefill windows) take at least this
-#: many rows (zero rows padded, dropped after): a GEMM library picks its
-#: kernel, and so a row's summation order, by the row count, and on the
-#: H100 Llama-3-8B's w2 (14336, 4096) summed a 128-row window otherwise
-#: than 256, 384, 512 or 1024 rows (a single-position step's 1-8 rows all
-#: sum alike), which flipped near-tie bf16 tokens of ``generate`` at batch
-#: 1 (128 prompt rows) against batch 4 and the server.  A window this small
-#: is bound by reading the weights, which a padded call reads once all the
-#: same.
-PREFILL_MIN_ROWS = 256
-
 
 @dataclasses.dataclass
 class LlamaConfig:
@@ -269,21 +259,6 @@ def _attention(cfg: LlamaConfig, q, k, v):
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
 
-def _min_rows(mm):
-    """``mm`` with a multi-position operand ``y [B, T, D]`` (T > 1) of fewer
-    than :data:`PREFILL_MIN_ROWS` rows padded to that many."""
-    def padded(y, name, dtype):
-        rows = y.shape[0] * y.shape[1]
-        if y.shape[1] == 1 or rows >= PREFILL_MIN_ROWS:
-            return mm(y, name, dtype)
-        flat = y.reshape(rows, y.shape[-1])
-        flat = torch.cat([flat, flat.new_zeros(
-            (PREFILL_MIN_ROWS - rows, flat.shape[-1]))])
-        out = mm(flat, name, dtype)[:rows]
-        return out.reshape(tuple(y.shape[:-1]) + (out.shape[-1],))
-    return padded
-
-
 def _swiglu(mm, y, dtype):
     """``w2(silu(w1 y) * w3 y)``."""
     return mm(F.silu(mm(y, "w1", None)) * mm(y, "w3", None), "w2", dtype)
@@ -405,13 +380,15 @@ def _cached_attention(q, k, v, ck, cv, pos, block_tables=None,
 
 
 def _block_cached_body(cfg: LlamaConfig, x, get, mm, ck, cv, pos,
-                       block_tables=None, chunk_valid=None):
+                       mlp=None, block_tables=None, chunk_valid=None):
     """One block with KV-cache read/write (``:244``), weights through
     ``get(name)`` / ``mm(y, name, dtype)`` (``gpt2.decode_over_layers``).
     ck/cv: one layer's
     cache or pool slice (or int8 record), written in place; ``pos`` as
     :func:`_rope_cached` takes it; paged layout with ``block_tables``
-    (``gpt2._cached_attention``)."""
+    (``gpt2._cached_attention``).  ``mlp(get, y)`` replaces the dense
+    SwiGLU (mixtral's MoE FFN), returning the residual's addend in x's
+    dtype."""
     b, t, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     y = rms_norm(x, get("attn_norm"), cfg.rms_eps)
@@ -425,24 +402,33 @@ def _block_cached_body(cfg: LlamaConfig, x, get, mm, ck, cv, pos,
     attn = attn.transpose(1, 2).reshape(b, t, h * hd)
     x = x + mm(attn, "o_w", x.dtype)
     y = rms_norm(x, get("mlp_norm"), cfg.rms_eps)
+    if mlp is not None:
+        return x + mlp(get, y)
     return x + _swiglu(mm, y, x.dtype)
 
 
 def forward_cached(cfg: LlamaConfig, params: Params, input_ids, cache, pos,
-                   lengths=None, block_tables=None, all_positions=False):
+                   lengths=None, block_tables=None, mlp_fn=None,
+                   all_positions=False):
     """Incremental forward (``:288``): logits for the last input position
     (every position with ``all_positions``, the speculative verify head,
     each matmul then one window position at a time as in
-    ``gpt2.forward_cached``) and the cache, written in place.  A prefill
-    window's matmuls take at least :data:`PREFILL_MIN_ROWS` rows, so a
-    row's bits do not depend on how many rows share the window.  The
+    ``gpt2.forward_cached``) and the cache, written in place.  The matmuls
+    and the head run on fixed row counts (``utils.rows.fixed_rows``: a
+    prefill window in 256-row blocks, a decode step or a verify position
+    on at least 8 rows), so a row's bits do not depend on how many rows
+    share its call.  The
     position modes are GPT-2's: ``lengths`` with T == 1 decodes row ``b`` at
     ``lengths[b]`` (RoPE offset, cache write, attention prefix); with
     ``block_tables`` and an int32 [B] ``pos`` each row's window starts at
     ``pos[b]`` (chunked prefill) and ``lengths`` counts its real tokens;
     otherwise ``pos`` is one int shared by every row.  ``cache`` is ``{"k", "v"}`` of ``[L, B, HKV, S, hd]`` or
     the paged ``[L, NB, HKV, bs, hd]`` pool, each leaf possibly an int8
-    record."""
+    record.  ``mlp_fn(get, y)`` replaces each block's SwiGLU (mixtral
+    delegates here with its MoE FFN, which gates a whole window, a
+    stepwise verify's included, as one group); the layers still run
+    through ``gpt2.decode_over_layers``, so w8a8 attention projections
+    keep the indexed stacked-kernel route."""
     params = gpt2._dequant_resident(params)
     t = input_ids.shape[1]
     per_row = lengths is not None and t == 1
@@ -458,18 +444,20 @@ def forward_cached(cfg: LlamaConfig, params: Params, input_ids, cache, pos,
     x = params["embed"][input_ids].to(params["embed"].dtype)
     stepwise = all_positions and t > 1
     blocks = params["blocks"]
-    # a stepwise verify multiplies one position at a time: no window rows
-    rows = (lambda mm: mm) if stepwise else _min_rows
+    # a stepwise verify multiplies one position at a time, a decode step's
+    # rows
     x = gpt2.decode_over_layers(
         lambda x, get, mm, ck, cv: _block_cached_body(
-            cfg, x, get, rows(mm), ck, cv, step_pos,
+            cfg, x, get, mm, ck, cv, step_pos, mlp=mlp_fn,
             block_tables=block_tables, chunk_valid=chunk_valid),
         x, blocks, cache["k"], cache["v"], cfg.num_layers,
-        probe="q_w", stepwise=stepwise)
+        probe="q_w", stepwise=stepwise,
+        rows="decode" if t == 1 or stepwise else "prefill")
     if not all_positions:
         x = gpt2._gather_last(x, lengths if not per_row else None)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    head = (lambda y, name, dtype: y @ params["lm_head"].to(dtype))
+    head = fixed_row_mm(
+        lambda y, name, dtype: y @ params["lm_head"].to(dtype), "decode")
     if stepwise:
         head = gpt2._stepwise(head)
     return head(x, "lm_head", x.dtype), cache

@@ -256,13 +256,19 @@ def quantize_k_grouped(w: torch.Tensor, k_group: int = 256) -> dict:
 
 
 def dequantize_k(rec: dict, dtype=torch.bfloat16) -> torch.Tensor:
-    """Expand a K-grouped record in f32, cast once (``:270``)."""
+    """Expand a K-grouped record in f32, cast once (``:270``), any number
+    of leading dims (a stack ``[L, ...]``, experts ``[E, ...]`` or both).
+    One elementwise pass: the codes promote to f32 against the f32 scales
+    and each product is rounded to ``dtype`` as it is stored, the bits of
+    ``(qk.float() * scale).to(dtype)`` without its two f32 temporaries (a
+    layer of Mixtral-8x7B's experts is 1.4 G codes)."""
     qk, scale = rec["qk"], rec["kscale"]
     shape = tuple(qk.shape)
     k_group = shape[-2] // scale.shape[-3]
-    g = qk.to(torch.float32).reshape(
-        shape[:-2] + (shape[-2] // k_group, k_group, shape[-1]))
-    return (g * scale).reshape(shape).to(dtype)
+    g = qk.reshape(shape[:-2] + (shape[-2] // k_group, k_group, shape[-1]))
+    out = torch.empty(g.shape, dtype=dtype, device=qk.device)
+    torch.mul(g, scale.to(torch.float32), out=out)
+    return out.reshape(shape)
 
 
 def quantize_pytree_k_grouped(params: PyTree, k_group: int = 256,

@@ -98,14 +98,19 @@ def test_sparse_attention_entry_points_keep_the_jax_signatures(name):
 
 def _method_pairs():
     """(label, JAX callable, port callable) for the serving methods, the
-    request record, ``generate`` and the llama family's builders."""
+    request record, ``generate`` and the llama, mixtral and opt families'
+    builders."""
     from deepspeed_tpu.inference import engine as jeng
     from deepspeed_tpu.inference import serving as jsrv
     from deepspeed_tpu.models import llama as jllama
+    from deepspeed_tpu.models import mixtral as jmix
+    from deepspeed_tpu.models import opt as jopt
     from deepspeed_tpu.runtime import engine as jtrain
     from deepspeed_tpu_torch.inference import engine as teng
     from deepspeed_tpu_torch.inference import serving as tsrv
     from deepspeed_tpu_torch.models import llama as tllama
+    from deepspeed_tpu_torch.models import mixtral as tmix
+    from deepspeed_tpu_torch.models import opt as topt
     from deepspeed_tpu_torch.runtime import engine as ttrain
 
     return [
@@ -118,6 +123,10 @@ def _method_pairs():
          teng.InferenceEngine.generate),
         ("llama.build", jllama.build, tllama.build),
         ("LlamaConfig", jllama.LlamaConfig, tllama.LlamaConfig),
+        ("mixtral.build", jmix.build, tmix.build),
+        ("MixtralConfig", jmix.MixtralConfig, tmix.MixtralConfig),
+        ("opt.build", jopt.build, topt.build),
+        ("OPTConfig", jopt.OPTConfig, topt.OPTConfig),
         ("DeepSpeedEngine.save_checkpoint",
          jtrain.DeepSpeedEngine.save_checkpoint,
          ttrain.DeepSpeedEngine.save_checkpoint),
@@ -129,6 +138,7 @@ def _method_pairs():
 
 METHODS = ["ServingEngine.submit", "ServingEngine.serve", "Request",
            "InferenceEngine.generate", "llama.build", "LlamaConfig",
+           "mixtral.build", "MixtralConfig", "opt.build", "OPTConfig",
            "DeepSpeedEngine.save_checkpoint",
            "DeepSpeedEngine.load_checkpoint"]
 
@@ -200,7 +210,9 @@ def test_unported_serving_keywords_refuse_other_values(model, keyword, value,
 
 
 @pytest.mark.parametrize("name,layers", [("llama-3-8b", 32),
-                                         ("Llama_3.70B", 80), ("gpt2", 12)])
+                                         ("Llama_3.70B", 80), ("gpt2", 12),
+                                         ("mixtral-8x7b", 32),
+                                         ("opt-13b", 40)])
 def test_get_model_keeps_the_jax_names(name, layers):
     from deepspeed_tpu_torch import models
 
@@ -208,7 +220,7 @@ def test_get_model_keeps_the_jax_names(name, layers):
     assert models.get_model(name, num_layers=2).model_config.num_layers == 2
 
 
-@pytest.mark.parametrize("name", ["mixtral-8x7b", "opt-125m", "bert"])
+@pytest.mark.parametrize("name", ["bloom-7b1", "gptj-6b", "bert"])
 def test_get_model_refuses_families_it_does_not_port(name):
     from deepspeed_tpu_torch import models
 

@@ -19,6 +19,7 @@ against the JAX package's (``deepspeed_tpu/models/llama.py``), on the CPU.
 """
 
 import functools
+import math
 
 import numpy as np
 import pytest
@@ -358,23 +359,30 @@ def test_config_refuses_the_multi_gpu_options():
 
 
 def test_prefill_windows_take_at_least_the_minimum_rows():
-    """A multi-position matmul of fewer than ``PREFILL_MIN_ROWS`` rows runs
-    on that many (zero rows after its own, dropped from the result); a
-    single-position step and a wide window run as they are."""
+    """The cached path's matmuls run on fixed row counts: a prefill window
+    of fewer than 256 rows on 256 (zero rows after its own, dropped from
+    the result), a wider one in blocks of 256, a decode step on at least
+    8 rows and never split."""
+    from deepspeed_tpu_torch.utils import rows
+
     seen = []
 
     def mm(y, name, dtype):
         seen.append(tuple(y.shape))
         return y @ torch.ones(y.shape[-1], 3, dtype=y.dtype)
 
-    padded = tllama._min_rows(mm)
-    y = torch.arange(2 * 5 * 4, dtype=torch.float64).reshape(2, 5, 4)
-    out = padded(y, "w", None)
-    assert seen[-1] == (tllama.PREFILL_MIN_ROWS, 4)
-    assert torch.equal(out, mm(y, "w", None))
-    for shape in ((3, 1, 4), (4, 64, 4)):
-        padded(torch.ones(shape, dtype=torch.float64), "w", None)
-        assert seen[-1] == shape
+    prefill, _ = rows.ROWS["prefill"]
+    for mode, shape, calls in (
+            ("prefill", (2, 5, 4), [(prefill, 4)]),
+            ("prefill", (4, 96, 4), [(prefill, 4)] * 2),
+            ("decode", (3, 1, 4), [(8, 4)]),
+            ("decode", (16, 1, 4), [(16, 4)])):
+        y = torch.arange(math.prod(shape), dtype=torch.float64) \
+            .reshape(shape)
+        seen.clear()
+        out = rows.fixed_row_mm(mm, mode)(y, "w", None)
+        assert seen == calls
+        assert torch.equal(out, y @ torch.ones(4, 3, dtype=y.dtype))
 
 
 def test_decode_over_layers_refuses_a_stack_of_another_depth():
