@@ -126,7 +126,9 @@ and after it; phase 13's decode-attention and int8 launches (its checks,
 not its table) are added to those of phases 3-5 and 10; phases 14 (b),
 15 (b) and 16 (b) each set the counts to 0 before their run and read
 them after it, and 17 (b) and 17 (c) before and after each run of their
-main path (the two serves and bf16 ``generate``), summed.
+main path (the two serves and bf16 ``generate``), summed; phase 18 (b)
+and (c) before and after their training runs, phase 19 before and after
+each streamed ``generate``, summed.
 Since the servers capture their decode step in a CUDA graph, a kernel's
 count is its executions: a capture records the launches its graph holds
 and every replay adds them.
@@ -195,7 +197,8 @@ and every replay adds them.
     (B5) equal to the indexed run; the teacher-forced logit RMSE of the
     w8a8, kv8 and w8a8+kv8 lanes within the JAX contract's 0.15 on the
     first 2 layers (the depth that bound is set for), and read without a
-    limit at all 32; profiled captured iterations of both lanes;
+    limit at :data:`LLAMA_SERVE_LAYERS`; profiled captured iterations of
+    both lanes;
     the ``[llama table]`` (tok/s, TTFT, wall / busy ms and kernels an
     iteration, weight-read bounds, ``kv_pool_bytes``, peak memory); and
     fp32 at full width and 2 layers, greedy ``generate`` and ``serve``
@@ -242,7 +245,8 @@ and every replay adds them.
     step, waits for gradients and weight slots, bytes each way), a
     profiled step's idle share, peak device memory and host RSS, after
     asserting the host holds what the depth needs.  (c) phase 15's 4-layer
-    shape offloaded, its step beside phase 15's resident one.  (d)
+    shape offloaded, its step beside phase 15's resident one (at
+    :data:`OFFLOAD_LAYERS` = 4, (b) is that run).  (d)
     ``offload_param: cpu`` at :data:`STREAM_LAYERS` layers, 2 steps, with
     the bytes streamed each way a micro-step.  (e) fp32 at full width, 2
     layers, S = 512: 3 steps each of the stage-0 resident engine, the cpu
@@ -270,8 +274,8 @@ and every replay adds them.
     ``dequantize_k`` over a layer of experts against the two-step
     expansion.  (b) Mixtral-8x7B (:func:`mixtral_serving_phase`, drop-free
     capacity, :data:`MIXTRAL_SERVE_CAPACITY`): ``init_inference`` draws
-    and quantizes all 32 layers on the card layer by layer (w8a8 records,
-    ~47 GB); ``serve`` of phase 4's traffic under ``w8a8+kv8``, a
+    and quantizes :data:`MIXTRAL_W8A8_LAYERS` layers on the card layer by
+    layer (w8a8 records; all 32, ~47 GB, fit); ``serve`` of phase 4's traffic under ``w8a8+kv8``, a
     ``quantize="w8a8"`` server against w8a8 ``generate`` (>= 0.95 each),
     B5 under ``DS_INDEXED_DECODE=0``, a profiled window and the MoE's
     device ms an iteration by part; then bf16 at
@@ -281,13 +285,14 @@ and every replay adds them.
     the teacher-forced logit RMSE of w8a8, kv8 and w8a8+kv8 with each
     position's experts recorded beside the bf16 lane's (at 2 layers the
     positions routed alike at every layer <= 0.15 and at most half the
-    positions flipped; the whole RMSE, the flips and 16 layers read: a
+    positions flipped; the whole RMSE, the flips and the bf16 depth read: a
     flipped position takes other experts' outputs), fp32 at full width
     and 2 layers: greedy ``generate`` and ``serve`` equal to full-forward
     recompute, and fp32 at the JAX default capacity (2.0), whose prefill
     windows drop choices: the card's ``serve`` equal to the CPU's token
     for token (:func:`mixtral_capacity_check`).  (c)
-    OPT-13B at full width and depth (:func:`opt_serving_phase`): bf16
+    OPT-13B at full width and :data:`OPT_SERVE_LAYERS` layers
+    (:func:`opt_serving_phase`): bf16
     ``generate`` and ``serve`` against it (>= 0.95 each request), the w8a8
     engine quantized on the card, ``serve`` under ``w8a8+kv8``, a
     ``quantize="w8a8"`` server against w8a8 ``generate``, B5, profiled
@@ -296,6 +301,47 @@ and every replay adds them.
     ``[mixtral-8x7b]`` and ``[opt-13b]`` entries of the kernels line (B2,
     B3, B4, their kv8 forms and B6; B5 runs there only in the
     ``DS_INDEXED_DECODE=0`` check and is not listed).
+
+ 18. Mixtral-8x7B training (``models/mixtral.py`` through ``initialize``
+    -> ``train_batch``; full width: D 4096, F 14336, 8 experts, 32 / 8
+    heads, vocab 32000; random weights drawn on the card from the config
+    seed), run after phase 16.  (a) The flash forward, dq and dkv kernels
+    at its training shape (B = 1, S = 4096, GQA 32 / 8, D = 128) against
+    their plain versions at phase 2b's bars, then timed
+    (:func:`check_mixtral_flash`); fp32 at 2 layers and S = 512, one
+    forward and backward through the flash kernels and through einsum:
+    the loss within 1e-5 and the global gradient norm within 1e-4
+    (relative), each leaf's largest relative error printed.  (b)
+    :data:`MIXTRAL_TRAIN_LAYERS` layers resident (ZeRO stage 2, AdamW,
+    WarmupLR, clipping 1.0, bf16 over f32 masters, remat, capacity 1.25),
+    micro 1 x S = 4096 x GAS 2, :data:`MIXTRAL_TRAIN_STEPS` steps on one
+    batch: finite falling losses, the flash launches (the forward twice a
+    layer and micro-step); step ms, tokens/s, MFU (``flops_per_token``:
+    the JAX formula 6 x params / E x (k + 1)), peak memory, the share of
+    the top-2 choices capacity dropped, a profiled step's idle share and
+    its busy time split into attention, router, dispatch, expert
+    ``bmm``s, combine and the rest.  (c) :data:`MIXTRAL_OFFLOAD_LAYERS`
+    layers with ``offload_optimizer: cpu`` (phase 16's
+    :func:`offload_train`), :data:`MIXTRAL_OFFLOAD_STEPS` steps: finite
+    falling losses, the step split into device and host time, the host
+    peak.  (b)'s and (c)'s launches give the ``[mixtral-8x7b-train]`` and
+    ``[mixtral-8x7b-offload]`` entries of the kernels line.
+ 19. ZeRO-Inference of OPT-30B (``inference/zero_inference.py``; 48
+    layers, D 7168, 56 heads; blocks 59.2 GB in bf16).  First B2 and B4 at
+    its 56-head shapes and B5 at its four (K, N) shapes (proj: 224
+    k-groups) against their plain versions (B5 bit for bit), timed, and a
+    pinned 1 GiB host-to-card copy's rate.  (a) bf16: the resident
+    ``init_inference`` engine's ``generate`` (16 x 128-token prompts, 16
+    new tokens), freed, then the streamed engine (``zero_inference``,
+    ``pin_layers`` 0, ``prefetch`` 1) on the same seed's weights, drawn on
+    the card a layer at a time and moved to the host: the tokens must be
+    equal; prefill seconds, the median decode step, tok/s against the
+    ``batch x link_GB_s / streamed_GB`` model, the device peak (at most 2
+    layers + the caches + the residents + 1 GiB) and the launches.  (b)
+    The same with w8a8 records at 8 rows: the streamed engine (B5 on each
+    streamed layer) equal to the resident w8a8 engine (B6) token for
+    token.  The streamed generates' launches give the
+    ``[opt-30b-zero-inference]`` entries of the kernels line (B2, B4, B5).
 
 The last two lines of output are the ``{"kernels": [...]}`` JSON object
 and the ``{"ok": true, "device": ...}`` JSON object.
@@ -1226,13 +1272,18 @@ def check_w8a8_exact(label, x8, rec, out_dtype=None):
 
     qks, kss = rec["qk"], rec["kscale"]
     n_layers = qks.shape[0]
+    wants = {}
     for i in (-1, 0, n_layers - 1, n_layers):
         l = min(max(i, 0), n_layers - 1)
-        want = qm.w8a8_matmul_plain(x8, qks[l], kss[l], out_dtype)
-        if not torch.equal(qm.w8a8_matmul_split_plain(x8, qks[l], kss[l],
-                                                      out_dtype), want):
-            raise AssertionError(f"{label}: the split model differs from "
-                                 "the plain version")
+        if l not in wants:
+            # the plain version and the split model once a layer: -1 and 0,
+            # L-1 and L read the same one
+            wants[l] = qm.w8a8_matmul_plain(x8, qks[l], kss[l], out_dtype)
+            if not torch.equal(qm.w8a8_matmul_split_plain(
+                    x8, qks[l], kss[l], out_dtype), wants[l]):
+                raise AssertionError(f"{label}: the split model differs "
+                                     "from the plain version")
+        want = wants[l]
         idx = torch.tensor([i], dtype=torch.int32, device="cuda")
         got = qm.w8a8_matmul_stacked_cuda(idx, x8, qks, kss, out_dtype)
         torch.cuda.synchronize()
@@ -3530,7 +3581,7 @@ def check_llama_w8a8(flush, timed: bool = True):
 
 
 def check_w8a8_shapes(flush, shapes, main, tag, seed0, timed=True,
-                      untimed=()):
+                      untimed=(), b5_rows=4):
     """B5 and B6 at each (K, N) of ``shapes`` on a 2-layer stack, bit for
     bit against the plain version (:func:`check_w8a8_exact`: rows 8/4/1
     and alone, layer indices -1, 0, L-1, L, the split model, repeat and
@@ -3543,6 +3594,7 @@ def check_w8a8_shapes(flush, shapes, main, tag, seed0, timed=True,
 
     out = {}
     for si, (k, n) in enumerate(shapes):
+        t0 = time.perf_counter()
         rec, x8 = w8a8_inputs(k, n, 128, 2, torch.bfloat16, seed0 + si)
         groups = k // 128
         check_w8a8_exact(f"{tag} ({k}, {n})", x8, rec)
@@ -3550,22 +3602,23 @@ def check_w8a8_shapes(flush, shapes, main, tag, seed0, timed=True,
             f"({qm.w8a8_groups_per_block(groups)} a block): B5 and B6 equal "
             "the plain version and the split model bit for bit at rows "
             "1/4/8 and alone, layer indices -1, 0, L-1, L; repeat and graph "
-            "replay bit-identical")
+            f"replay bit-identical ({time.perf_counter() - t0:.1f} s)")
         if timed and (k, n) not in untimed:
-            m = time_w8a8(flush, rec, x8, tag, full=(k, n) == main)
+            m = time_w8a8(flush, rec, x8, tag, full=(k, n) == main,
+                          b5_rows=b5_rows)
             if (k, n) == main:
                 out.update(m)
         del rec, x8
     return out
 
 
-def time_w8a8(flush, rec, x8, tag, full: bool):
-    """B5 at 4 rows (``generate``'s batch) and B6 at 8 (the 8-slot server)
-    on layer 1 of ``rec`` replayed from a CUDA graph, beside bf16 ``x @ W``
-    (same shape, not the same function) and the bound; with ``full`` also
-    eager, the plain version and ``x @ W`` eager.  Returns {kernel name:
-    measurements} (``max_abs_err`` 0: :func:`check_w8a8_exact` holds these
-    bits)."""
+def time_w8a8(flush, rec, x8, tag, full: bool, b5_rows: int = 4):
+    """B5 at ``b5_rows`` (4: ``generate``'s batch) and B6 at 8 (the 8-slot
+    server) on layer 1 of ``rec`` replayed from a CUDA graph, beside bf16
+    ``x @ W`` (same shape, not the same function) and the bound; with
+    ``full`` also eager, the plain version and ``x @ W`` eager.  Returns
+    {kernel name: measurements} (``max_abs_err`` 0:
+    :func:`check_w8a8_exact` holds these bits)."""
     import torch
 
     from deepspeed_tpu_torch.ops import quantized_matmul as qm
@@ -3576,7 +3629,7 @@ def time_w8a8(flush, rec, x8, tag, full: bool):
     w_bf16 = dequantize_k({"qk": rec["qk"][1], "kscale": rec["kscale"][1]},
                           torch.bfloat16)                 # the yardstick's
     calls = {
-        "w8a8_matmul_cuda": (4, lambda x: qm.w8a8_matmul_cuda(
+        "w8a8_matmul_cuda": (b5_rows, lambda x: qm.w8a8_matmul_cuda(
             x, rec["qk"][1], rec["kscale"][1])),
         "w8a8_matmul_stacked_cuda": (8, lambda x: qm.w8a8_matmul_stacked_cuda(
             ids[1:2], x, rec["qk"], rec["kscale"])),
@@ -3721,8 +3774,9 @@ def weight_read_bytes(params, head: str = "lm_head") -> int:
 
 
 def llama_serving_phase(card):
-    """Phase 14 (b): Llama-3-8B (32 layers, 4096 wide, GQA 32/8 at head dim
-    128, vocab 128256) at full width and depth on the card, random bf16
+    """Phase 14 (b): Llama-3-8B (4096 wide, GQA 32/8 at head dim 128, vocab
+    128256) at full width and :data:`LLAMA_SERVE_LAYERS` of its 32 layers
+    on the card, random bf16
     weights drawn on the card from a seed.  ``generate`` (B2), its batch
     invariance at 1, 4 and 8, ``serve`` of phase 4's traffic over the
     llama vocabulary (B3; at ``sampling=False`` and at ``init_serving``'s
@@ -3753,7 +3807,8 @@ def llama_serving_phase(card):
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    cfg = llama.LlamaConfig.llama3_8b()
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              num_layers=LLAMA_SERVE_LAYERS)
     vocab = cfg.vocab_size
     model = llama.build(cfg)
     torch.cuda.reset_peak_memory_stats()
@@ -4071,7 +4126,8 @@ def llama_flash_cases():
     ]
 
 
-def time_llama_flash(q, k, v, do, o, lse, delta, errs, flush, card):
+def time_llama_flash(q, k, v, do, o, lse, delta, errs, flush, card,
+                     tag="llama flash"):
     """The three D = 128 kernels at phase 15 (b)'s shape: eager and graph
     ms, the plain version's ms (at S = 2048 when the whole call does not fit
     the card, said so in ``plain_at``), SDPA with ``enable_gqa`` forward
@@ -4100,9 +4156,9 @@ def time_llama_flash(q, k, v, do, o, lse, delta, errs, flush, card):
             lib_fwd_graph
     except RuntimeError as e:
         lib_bwd_graph = None
-        log(f"[llama flash] sdpa backward not captured: {str(e)[:120]}")
+        log(f"[{tag}] sdpa backward not captured: {str(e)[:120]}")
     del qr, kr, vr
-    log(f"[llama flash] sdpa (enable_gqa) at S={s}: forward {lib_fwd:.4f} "
+    log(f"[{tag}] sdpa (enable_gqa) at S={s}: forward {lib_fwd:.4f} "
         f"ms eager ({lib_fwd_graph:.4f} ms graph), backward {lib_bwd:.4f} ms "
         f"eager (fwd+bwd less fwd; "
         + (f"{lib_bwd_graph:.4f} ms graph" if lib_bwd_graph is not None
@@ -4153,7 +4209,7 @@ def time_llama_flash(q, k, v, do, o, lse, delta, errs, flush, card):
                      "library_ms": library_ms,
                      "library_graph_ms": library_graph_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by}
-        log(f"[llama flash] {name} at B={b} H={h} Hkv={hkv} S={s} D={d} "
+        log(f"[{tag}] {name} at B={b} H={h} Hkv={hkv} S={s} D={d} "
             f"causal bf16: kernel {ms:.4f} ms ({ms_graph:.4f} ms replayed "
             f"from a CUDA graph), plain {plain_ms:.4f} ms (at S={plain_at}), "
             f"sdpa {'fwd' if 'fwd' in name else 'bwd'} {library_ms:.4f} ms, "
@@ -4364,13 +4420,17 @@ def llama_train_full_phase(card, faults):
 #: cpu``.  The host holds 12 bytes a parameter (the f32 master and two
 #: moments): 32 layers need 89.75 GiB, and the H100 machine's host has
 #: 101.00 GiB in all, 88-91 GiB of it available when phase 16 (b) starts
-#: (PERF.md section 4); 28 layers need 79.99 GiB
-OFFLOAD_LAYERS = 28
+#: (PERF.md section 4), so 28 layers (79.99 GiB) would fit; phase 15's 4
+#: layers (21.48 GiB) keep the whole script, phases 18 and 19 included,
+#: inside its time limit, and (c), phase 15's shape offloaded, is then (b)
+#: itself
+OFFLOAD_LAYERS = 4
 #: phase 16 (d): the depth of the ``offload_param`` run.  The host holds
 #: 18 bytes a streamed parameter (master, moments, the bf16 compute copy
 #: and the f32 gradient accumulator) and 12 a resident one: 32 layers need
-#: 138 GB, 16 layers 75.4 GB (the cut of PERF.md section 4)
-STREAM_LAYERS = 16
+#: 138 GB, 16 layers 75.4 GB, 8 layers 44.0 GB: 8 for the script's time
+#: limit
+STREAM_LAYERS = 8
 #: phase 16 (a)'s host step: 256 M elements
 HOST_STEP_ELEMS = 256 << 20
 #: the host memory phase 16 leaves free beyond what an engine needs (the
@@ -4589,12 +4649,12 @@ def offload_config(zero, dtype="bf16"):
 
 
 def offload_train(card, layers, zero, steps, label, profile=False,
-                  n_batches=3):
-    """Llama-3-8B's width at ``layers`` layers through ``initialize`` ->
-    ``train_batch`` with the ``zero`` block, micro 1 x S = 8192 x GAS 2,
-    ``steps`` steps over ``n_batches`` batches in turn (the loss must fall
-    by the last step: a batch seen again).  Returns (flash launches, median
-    step s, losses)."""
+                  n_batches=3, family=None):
+    """Llama-3-8B's width (or ``family``'s: (name, build, config, S)) at
+    ``layers`` layers through ``initialize`` -> ``train_batch`` with the
+    ``zero`` block, micro 1 x S (8192) x GAS 2, ``steps`` steps over
+    ``n_batches`` batches in turn (the loss must fall by the last step: a
+    batch seen again).  Returns (flash launches, median step s, losses)."""
     import numpy as np
     import torch
 
@@ -4602,13 +4662,15 @@ def offload_train(card, layers, zero, steps, label, profile=False,
     from deepspeed_tpu_torch.models import llama
     from deepspeed_tpu_torch.ops import flash_attention as fa
 
-    cfg = llama_train_config(layers)
+    name, build, cfg, s = family or ("Llama-3-8B", llama.build,
+                                     llama_train_config(layers),
+                                     LLAMA_TRAIN_S)
     stream = "offload_param" in zero
     assert_host_holds(cfg, stream, label)
-    s, gas = LLAMA_TRAIN_S, 2
+    gas = 2
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = llama.build(cfg)
+    model = build(cfg)
     engine, *_ = dt.initialize(model=model, config=offload_config(zero))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -4641,7 +4703,7 @@ def offload_train(card, layers, zero, steps, label, profile=False,
         * tokens / steady / BF16_FLOPS_PER_S
     peak = torch.cuda.max_memory_allocated()
     h = host_reading()
-    log(f"[{label}] Llama-3-8B width, {layers} layers ({cfg.num_params() / 1e9:.3f}"
+    log(f"[{label}] {name} width, {layers} layers ({cfg.num_params() / 1e9:.3f}"
         f" B parameters), bf16, micro 1 x gas {gas} x {s}, zero {zero}: init "
         f"{init_s:.1f} s; losses {[round(x, 4) for x in losses]}; grad_norm "
         f"{grad_norm:.4f}; step {1e3 * steady:.1f} ms (median of steps 2-"
@@ -4813,11 +4875,14 @@ def offload_phase(card, faults, resident_step_s):
     host_kernels_phase(card, faults)
     t1 = time.perf_counter()
     cpu = {"stage": 2, "offload_optimizer": {"device": "cpu"}}
-    launches, _, _ = offload_train(card, OFFLOAD_LAYERS, cpu, 4,
-                                   "16b offload", profile=True)
+    launches, step_b, _ = offload_train(card, OFFLOAD_LAYERS, cpu, 4,
+                                        "16b offload", profile=True)
     t2 = time.perf_counter()
-    _, step_c, _ = offload_train(card, LLAMA_TRAIN_LAYERS, cpu, 4,
-                                 "16c offload")
+    if OFFLOAD_LAYERS != LLAMA_TRAIN_LAYERS:
+        _, step_c, _ = offload_train(card, LLAMA_TRAIN_LAYERS, cpu, 4,
+                                     "16c offload")
+    else:
+        step_c = step_b                 # (b) ran phase 15's shape
     log(f"[16c] {LLAMA_TRAIN_LAYERS} layers: offloaded step "
         f"{1e3 * step_c:.1f} ms against phase 15's resident "
         f"{1e3 * resident_step_s:.1f} ms in this run ({card})")
@@ -4844,10 +4909,16 @@ OPT_H, OPT_D = 40, 128
 #: (5120, 20480) and proj (20480, 5120), whose K is 160 k-groups of 128
 #: (16 blocks of 10)
 OPT_MATMULS = ((5120, 15360), (5120, 5120), (5120, 20480), (20480, 5120))
-#: Mixtral-8x7B's bf16 lane runs this many of its 32 layers: 32 layers of
-#: bf16 weights (93 GB) outgrow one 80 GB card; its w8a8 records (~47 GB)
-#: hold all 32, and these are their first 16 layers' weights
-MIXTRAL_BF16_LAYERS = 16
+#: The depths phase 14 (b) and 17 serve at, below the models' own
+#: (Llama-3-8B 32, Mixtral 32, OPT-13B 40) for the script's time limit:
+#: with phases 18 and 19 it ran 1361 s at the models' depths and 912 s at
+#: these on H100 machines (PERF.md section 4).  Mixtral's bf16 lane is the
+#: w8a8 draw's first layers: 32 bf16 layers (93 GB) outgrow one 80 GB
+#: card, its w8a8 records (~47 GB) hold all 32
+LLAMA_SERVE_LAYERS = 8
+MIXTRAL_W8A8_LAYERS = 16
+MIXTRAL_BF16_LAYERS = 8
+OPT_SERVE_LAYERS = 10
 #: the capacity factor the card serves Mixtral at: ``num_experts`` routes
 #: without drops (HF Mixtral's dropless MoE), so a prompt gated as one
 #: group (``generate``) and in prefill windows with their pads (``serve``)
@@ -5223,17 +5294,18 @@ def moe_split(label, cfg, params, layers, flush):
 
 
 def mixtral_serving_phase(card):
-    """Phase 17 (b): Mixtral-8x7B (32 layers, 4096 wide, GQA 32/8 at head
-    dim 128, 8 experts of 14336, top-2, vocab 32000) on the card, random
-    weights drawn on the card from seed 0, served at
-    :data:`MIXTRAL_SERVE_CAPACITY`.  First the w8a8 engine at all 32
-    layers, each layer drawn and quantized in turn by ``init_inference``
+    """Phase 17 (b): Mixtral-8x7B (4096 wide, GQA 32/8 at head dim 128, 8
+    experts of 14336, top-2, vocab 32000) on the card, random weights
+    drawn on the card from seed 0, served at
+    :data:`MIXTRAL_SERVE_CAPACITY`.  First the w8a8 engine at
+    :data:`MIXTRAL_W8A8_LAYERS` of its 32 layers, each layer drawn and quantized in turn by ``init_inference``
     (the bf16 model never exists): ``serve`` of phase 4's traffic under
     ``w8a8+kv8`` (B6, kv8 B3, kv8 B4), w8a8 ``generate`` of the 4 prompts
     (16 new tokens) against a ``quantize="w8a8"`` server's tokens (the
     same arithmetic, >= 0.95 each), B5 under ``DS_INDEXED_DECODE=0``, a
     profiled window, the MoE split, and the teacher-forced logits of the
-    quantized lanes at 2 and 16 layers on that ``generate``'s tokens.
+    quantized lanes at 2 and :data:`MIXTRAL_BF16_LAYERS` layers on that
+    ``generate``'s tokens.
     Then bf16 at :data:`MIXTRAL_BF16_LAYERS` layers (the same weights'
     first layers): ``generate``, ``serve`` against
     ``generate`` (>= 0.95 each request), the server at the JAX default
@@ -5241,7 +5313,8 @@ def mixtral_serving_phase(card):
     RMSE of w8a8 / kv8 / w8a8+kv8 against bf16 with each position's
     experts beside the bf16 lane's (at 2 layers the positions routed alike
     at every layer <= 0.15, at least half of them routed alike; the whole
-    RMSE, the flips, and 16 layers read), fp32 at full width and 2 layers
+    RMSE, the flips, and the bf16 depth read), fp32 at full width and 2
+    layers
     (drop-free): greedy ``generate`` and ``serve`` equal to full-forward
     recompute, and fp32 at the default capacity: the card's server equal
     to the CPU's (:func:`mixtral_capacity_check`).  Returns the kernels'
@@ -5257,7 +5330,8 @@ def mixtral_serving_phase(card):
     from deepspeed_tpu_torch.models import mixtral
 
     cfg = dataclasses.replace(mixtral.MixtralConfig.mixtral_8x7b(),
-                              eval_capacity_factor=MIXTRAL_SERVE_CAPACITY)
+                              eval_capacity_factor=MIXTRAL_SERVE_CAPACITY,
+                              num_layers=MIXTRAL_W8A8_LAYERS)
     vocab, layers = cfg.vocab_size, cfg.num_layers
     flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
     torch.cuda.reset_peak_memory_stats()
@@ -5549,17 +5623,17 @@ def mixtral_capacity_check(vocab):
 
 
 def opt_serving_phase(card):
-    """Phase 17 (c): OPT-13B (40 layers, 5120 wide, 40 heads of head dim
-    128, FFN 20480, vocab 50272) at full width and depth on the card,
-    random bf16 weights drawn on the card from seed 0 by
-    ``init_inference``.  ``generate``, ``serve`` of phase 4's traffic
+    """Phase 17 (c): OPT-13B (5120 wide, 40 heads of head dim 128, FFN
+    20480, vocab 50272) at full width and :data:`OPT_SERVE_LAYERS` of its
+    40 layers on the card, random bf16 weights drawn on the card from seed
+    0 by ``init_inference``.  ``generate``, ``serve`` of phase 4's traffic
     against ``generate`` (>= 0.95 each request), a profiled window; the
     w8a8 engine quantized on the card, ``serve`` under ``w8a8+kv8`` (B6
     with proj at 160 k-groups, kv8 B3, kv8 B4), w8a8 ``generate`` against a
     ``quantize="w8a8"`` server (>= 0.95), B5 under ``DS_INDEXED_DECODE=0``,
     a profiled window; the logit RMSE of the quantized lanes (<= 0.15 at 2
-    layers, read at 40); fp32 at full width and 2 layers equal to
-    recompute.  Returns the kernels' launch counts of the main path: the
+    layers, read at the served depth); fp32 at full width and 2 layers
+    equal to recompute.  Returns the kernels' launch counts of the main path: the
     two serves and bf16 ``generate``, each counted alone
     (:func:`launched`)."""
     import dataclasses
@@ -5571,7 +5645,8 @@ def opt_serving_phase(card):
     from deepspeed_tpu_torch.inference.serving import Request
     from deepspeed_tpu_torch.models import opt
 
-    cfg = opt.OPTConfig.opt_13b()
+    cfg = dataclasses.replace(opt.OPTConfig.opt_13b(),
+                              num_layers=OPT_SERVE_LAYERS)
     vocab, layers = cfg.vocab_size, cfg.num_layers
     torch.cuda.reset_peak_memory_stats()
     model = opt.build(cfg)
@@ -5720,6 +5795,589 @@ def family_phase(card):
     return opt_measured, mixtral_measured, mixtral_launches, opt_launches
 
 
+# ------------------------------------------------------------- phase 18
+#: Mixtral-8x7B training (phase 18): the sequence, the resident depth and
+#: the offloaded depth.  A layer holds 1.451 B parameters (1.409 B in the
+#: experts); the embedding and the head 0.262 B.  Resident, 16 bytes a
+#: parameter (f32 master, gradient and two moments) plus the bf16 copy:
+#: 2 layers ~57 GB, 3 layers ~83 GB do not fit the 80 GB card.  Offloaded,
+#: the host holds 12 bytes a parameter: 4 layers 67.8 GiB of the 88-91 GiB
+#: phase 16 found free, 5 layers would need 84.0 GiB
+MIXTRAL_TRAIN_S = 4096
+MIXTRAL_TRAIN_LAYERS = 2
+MIXTRAL_OFFLOAD_LAYERS = 4
+MIXTRAL_TRAIN_STEPS = 5
+MIXTRAL_OFFLOAD_STEPS = 3
+
+
+def mixtral_train_config(layers: int, **kw):
+    import dataclasses
+
+    from deepspeed_tpu_torch.models import mixtral
+
+    return dataclasses.replace(mixtral.MixtralConfig.mixtral_8x7b(),
+                               num_layers=layers, **kw)
+
+
+def mixtral_mfu_note(model) -> str:
+    return (f"MFU counts MixtralModel.flops_per_token, the JAX formula "
+            f"6 x params / E x (k + 1) = "
+            f"{model.flops_per_token / 1e9:.3f} GFLOP a token, plus 6 x "
+            f"layers x hidden x S for the causal attention")
+
+
+def check_mixtral_flash(card):
+    """Phase 18's flash kernels at Mixtral-8x7B's training shape (B=1, 32
+    query heads over 8 KV heads, S = 4096, D = 128, causal, bf16): against
+    their plain versions (a KV-head pair at a time) at phase 2b's bars,
+    the backward also against its tiling's models with a repeat and a
+    graph replay bit-identical, then timed (:func:`time_llama_flash`).
+    Returns {kernel name: measurements}."""
+    import torch
+
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    s = MIXTRAL_TRAIN_S
+    q, k, v, do = flash_case(1, LLAMA_H, LLAMA_HKV, s, s, torch.bfloat16,
+                             1800, d=LLAMA_D)
+    (o, lse, delta), errs = check_flash_case(
+        f"mixtral train S={s}", q, k, v, do, True, plain=plain_by_heads)
+    out = time_llama_flash(q, k, v, do, o, lse, delta, errs, flush, card,
+                           tag="mixtral flash")
+    del q, k, v, do, o, lse, delta, flush
+    free_card()
+    return out
+
+
+def mixtral_fp32_train_check():
+    """Phase 18 (a): Mixtral-8x7B's width at 2 layers, fp32, B = 1, S =
+    512, one forward and backward of ``loss_from_batch`` through the flash
+    kernels and through einsum attention (``use_flash=False``) on the same
+    weights and batch: the loss within 1e-5 relative and the global
+    gradient norm within 1e-4 relative; each leaf's largest relative
+    error printed."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.models import mixtral
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    cfg = mixtral_train_config(2)
+    params = mixtral.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(18))
+    leaves = [(k, t) for k, v in params.items()
+              for k, t in (v.items() if isinstance(v, dict) else [(k, v)])]
+    for _, t in leaves:
+        t.requires_grad_()
+    ids = np.random.default_rng(18).integers(0, cfg.vocab_size, (1, 513))
+    batch = {"input_ids": torch.as_tensor(ids, device="cuda")}
+
+    def loss_and_grads(use_flash):
+        c = dataclasses.replace(cfg, use_flash=use_flash)
+        loss = mixtral.loss_from_batch(c, params, batch)
+        loss.backward()
+        grads = []
+        for _, t in leaves:
+            grads.append(t.grad)
+            t.grad = None
+        return loss.item(), grads
+
+    before = fa.flash_attention_fwd_cuda.launches
+    loss_k, grads_k = loss_and_grads(None)          # None = kernel on CUDA
+    if fa.flash_attention_fwd_cuda.launches == before:
+        raise AssertionError("the mixtral fp32 check did not run the flash "
+                             "kernel")
+    loss_e, grads_e = loss_and_grads(False)
+    norm_k = torch.sqrt(sum((g.double() ** 2).sum() for g in grads_k)).item()
+    norm_e = torch.sqrt(sum((g.double() ** 2).sum() for g in grads_e)).item()
+    rel = {name: ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)
+                  ).item()
+           for (name, _), a, b in zip(leaves, grads_k, grads_e)}
+    del params, leaves, grads_k, grads_e
+    free_card()
+    loss_rel = abs(loss_k - loss_e) / abs(loss_e)
+    norm_rel = abs(norm_k - norm_e) / norm_e
+    log(f"[18a] Mixtral-8x7B width, 2 layers, fp32, S=512: loss {loss_k:.7f}"
+        f" (flash) vs {loss_e:.7f} (einsum), relative {loss_rel:.3e} (limit "
+        f"1e-5); global grad norm {norm_k:.6f} vs {norm_e:.6f}, relative "
+        f"{norm_rel:.3e} (limit 1e-4); each leaf's largest error over its "
+        f"largest magnitude: " + ", ".join(f"{k} {v:.2e}"
+                                            for k, v in rel.items()))
+    if not loss_rel <= 1e-5 or not norm_rel <= 1e-4:
+        raise AssertionError(f"mixtral fp32 flash vs einsum: loss {loss_k} "
+                             f"vs {loss_e}, grad norm {norm_k} vs {norm_e}")
+
+
+def recorded_top2():
+    """Wrap ``moe.layer.top2gating`` to record (tokens, kept choices) of
+    each call; returns (the records, a function restoring the original)."""
+    from deepspeed_tpu_torch.moe import layer as ml
+
+    real, calls = ml.top2gating, []
+
+    def record(logits, *args):
+        out = real(logits, *args)
+        calls.append((logits.shape[0] * logits.shape[1], out[3].sum()))
+        return out
+    ml.top2gating = record
+
+    def restore():
+        ml.top2gating = real
+    return calls, restore
+
+
+def moe_train_parts(cfg, params, flush, layers: int, gas: int) -> dict:
+    """Device ms a train step of the MoE FFN's parts at phase 18 (b)'s
+    shape (one micro-batch of S tokens, layer 0's weights in bf16), each
+    timed alone with CUDA events: its forward, and its forward and
+    backward (the gradient of every input, as the step takes it), the
+    backward the difference; a step runs each forward twice (remat) and
+    each backward once a layer and micro-step.  Parts: router (the f64
+    router logits and top-2 gating), dispatch einsum, expert ``bmm``s
+    (with SiLU), combine einsum (f32)."""
+    import torch
+
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.moe import layer as ml
+    from deepspeed_tpu_torch.moe import sharded_moe as sm
+
+    mcfg = cfg.moe_cfg()
+    blocks = params["blocks"]
+    bf16 = torch.bfloat16
+
+    def leaf(name):
+        return gpt2._index(blocks[name], 0).detach().to(bf16) \
+            .requires_grad_()
+    gate_w = leaf("gate_w")
+    w = {k: leaf(f"experts_{k}") for k in ("w1", "w3", "w2")}
+    g = torch.Generator(device="cuda").manual_seed(21)
+    y = torch.randn((1, MIXTRAL_TRAIN_S, cfg.hidden_size), generator=g,
+                    device="cuda").to(bf16).requires_grad_()
+    cap, minc = mcfg.capacity_factor, mcfg.min_capacity
+    with torch.no_grad():
+        logits = ml.gate_logits(y, gate_w)
+        _, combine, dispatch, _ = sm.top2gating(logits, cap, minc)
+        x_in = sm.dispatch_tokens(y, dispatch)
+    e, grp, c, d = x_in.shape
+    rows = x_in.reshape(e, grp * c, d).requires_grad_()
+    with torch.no_grad():
+        expert_out = ml._expert_mlp(mcfg, w, rows).reshape(e, grp, c, d)
+    expert_out.requires_grad_()
+    comb = combine.detach().requires_grad_()
+
+    def router():
+        lg = ml.gate_logits(y, gate_w)
+        l_aux, cw, _, _ = sm.top2gating(lg, cap, minc)
+        return cw.sum() + l_aux
+
+    parts = {
+        "router": (router, (y, gate_w)),
+        "dispatch einsum": (lambda: sm.dispatch_tokens(y, dispatch),
+                            (y,)),
+        "expert bmms": (lambda: ml._expert_mlp(mcfg, w, rows),
+                        (rows, *w.values())),
+        "combine einsum": (lambda: sm.combine_tokens(expert_out, comb),
+                           (expert_out, comb)),
+    }
+    def fwd_bwd(fn, inputs):
+        out = fn()
+        return torch.autograd.grad(out, inputs, torch.ones_like(out))
+
+    out = {}
+    for name, (fn, inputs) in parts.items():
+        fwd = timed_ms(fn, flush, iters=5)
+        both = timed_ms(lambda: fwd_bwd(fn, inputs), flush, iters=5)
+        bwd = max(both - fwd, 0.0)
+        out[name] = (2 * fwd + bwd) * layers * gas
+        log(f"[18b moe part] {name}: forward {fwd:.3f} ms, backward "
+            f"{bwd:.3f} ms (forward and backward {both:.3f} less the "
+            f"forward) a layer and micro-step: {out[name]:.1f} ms a step "
+            f"(the forward twice: remat)")
+    del gate_w, w, y, rows, expert_out, comb, x_in, combine, dispatch
+    free_card()
+    return out
+
+
+def profile_busy(engine, batch) -> dict:
+    """One train step under ``torch.profiler``: wall ms, device busy ms,
+    the flash kernels' device ms, and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.train_batch({"input_ids": batch})
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    flash = sum(e.self_device_time_total for e in kernels
+                if any(k in e.key for k in ("fwd_kernel", "dq_kernel",
+                                            "dkv_kernel"))) / 1e3
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"[18b profile]   {e.self_device_time_total / 1e3:8.2f} ms "
+            f"x{e.count:<5}: {e.key[:80]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "flash_ms": flash}
+
+
+def mixtral_train_phase(card):
+    """Phase 18 (b): Mixtral-8x7B's width at :data:`MIXTRAL_TRAIN_LAYERS`
+    layers trained through ``initialize(model=mixtral.build(cfg))`` ->
+    ``train_batch`` (ZeRO stage 2, AdamW, WarmupLR, clipping 1.0, bf16
+    over f32 masters, remat, capacity 1.25, random weights drawn on the
+    card from the config seed), micro 1 x S = 4096 x GAS 2,
+    :data:`MIXTRAL_TRAIN_STEPS` steps on one fixed batch.  Returns the
+    flash kernels' launches of the run."""
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import mixtral
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    cfg = mixtral_train_config(MIXTRAL_TRAIN_LAYERS)
+    s, gas, steps = MIXTRAL_TRAIN_S, 2, MIXTRAL_TRAIN_STEPS
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = mixtral.build(cfg)
+    conf = train_config(1, gas)
+    conf["zero_optimization"] = {"stage": 2}
+    engine, *_ = dt.initialize(model=model, config=conf)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = np.random.default_rng(18).integers(0, cfg.vocab_size,
+                                               (gas, s + 1))
+    fa.reset_launch_counts()
+    losses, step_s = [], []
+    calls, restore = recorded_top2()
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = engine.train_batch({"input_ids": batch})
+        losses.append(metrics["loss"])               # waits for the step
+        step_s.append(time.perf_counter() - t0)
+        if step == 0:
+            restore()
+    counts = flash_counts()
+    grad_norm = metrics["grad_norm"]
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    tokens = gas * s
+    kept = sum(float(k) for _, k in calls)
+    dropped = 1 - kept / sum(2 * n for n, _ in calls)
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    attn_per_token = 6 * cfg.num_layers * cfg.hidden_size * s
+    mfu = (model.flops_per_token + attn_per_token) * tokens / steady / \
+        BF16_FLOPS_PER_S
+    log(f"[18b] Mixtral-8x7B width, {cfg.num_layers} layers "
+        f"({cfg.num_params() / 1e9:.3f} B parameters), ZeRO stage 2, bf16 "
+        f"over f32 masters, micro 1 x gas {gas} x {s} tokens, remat, "
+        f"capacity {cfg.capacity_factor}: init {init_s:.1f} s; losses "
+        f"{[round(x, 4) for x in losses]}; grad_norm {grad_norm:.4f}; step "
+        f"{1e3 * steady:.1f} ms (median of steps 2-{steps}; first "
+        f"{1e3 * step_s[0]:.1f} ms), {tokens / steady:.0f} tokens/s, MFU "
+        f"{100 * mfu:.2f}% of 989 TFLOP/s ({mixtral_mfu_note(model)}); "
+        f"peak memory {peak_gib:.2f} GiB; capacity dropped {100 * dropped:.2f}"
+        f"% of the top-2 choices ({len(calls)} gatings of step 1); launches "
+        f"{counts}; {card}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not math.isfinite(grad_norm):
+        raise AssertionError(f"non-finite mixtral training: losses {losses}, "
+                             f"grad_norm {grad_norm}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"mixtral loss did not fall: {losses}")
+    want = {"flash_attention_fwd_cuda": 2 * cfg.num_layers * gas * steps,
+            "flash_attention_bwd_dq_cuda": cfg.num_layers * gas * steps,
+            "flash_attention_bwd_dkv_cuda": cfg.num_layers * gas * steps}
+    if counts != want:
+        raise AssertionError(f"mixtral flash launches {counts}, expected "
+                             f"{want} (remat: the forward twice a layer)")
+    prof = profile_busy(engine, batch)
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    parts = moe_train_parts(cfg, engine.params, flush, cfg.num_layers, gas)
+    del flush
+    rest = prof["busy_ms"] - prof["flash_ms"] - sum(parts.values())
+    log(f"[18b split] a profiled step: wall {prof['wall_ms']:.1f} ms, device"
+        f" busy {prof['busy_ms']:.1f} ms, idle share "
+        f"{1 - prof['busy_ms'] / prof['wall_ms']:.4f}; busy = attention "
+        f"(flash fwd/dq/dkv, profiled) {prof['flash_ms']:.1f} + "
+        + " + ".join(f"{k} {v:.1f}" for k, v in parts.items())
+        + f" (each timed alone at the step's shapes) + the rest {rest:.1f} "
+        f"(embedding, norms, attention projections, the head and its loss, "
+        f"the optimizer); {card}")
+    engine.close()
+    del engine, model
+    free_card()
+    return counts
+
+
+def mixtral_offload_phase(card):
+    """Phase 18 (c): Mixtral-8x7B's width at
+    :data:`MIXTRAL_OFFLOAD_LAYERS` layers with ``zero_optimization: {stage:
+    2, offload_optimizer: {device: cpu}}`` (phase 18 (b)'s config
+    otherwise), :data:`MIXTRAL_OFFLOAD_STEPS` steps on one batch: finite
+    falling losses; the step split into device and host time and the host
+    peak (:func:`offload_train`).  Returns the flash launches."""
+    from deepspeed_tpu_torch.models import mixtral
+
+    cfg = mixtral_train_config(MIXTRAL_OFFLOAD_LAYERS)
+    model = mixtral.build(cfg)
+    log(f"[18c] {mixtral_mfu_note(model)}")
+    counts, _, _ = offload_train(
+        card, MIXTRAL_OFFLOAD_LAYERS,
+        {"stage": 2, "offload_optimizer": {"device": "cpu"}},
+        MIXTRAL_OFFLOAD_STEPS, "18c offload", n_batches=1,
+        family=("Mixtral-8x7B", mixtral.build, cfg, MIXTRAL_TRAIN_S))
+    return counts
+
+
+def mixtral_train_full_phase(card):
+    """Phase 18: Mixtral-8x7B training.  (a) the flash kernels at its
+    training shape, and the fp32 2-layer check; (b) resident bf16
+    training; (c) offloaded.  Returns (flash measurements, launches of
+    (b), launches of (c))."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    release()
+    t0 = time.perf_counter()
+    measured = check_mixtral_flash(card)
+    mixtral_fp32_train_check()
+    t1 = time.perf_counter()
+    launches = mixtral_train_phase(card)
+    t2 = time.perf_counter()
+    offload_launches = mixtral_offload_phase(card)
+    log(f"[18] phase 18 (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+        f"{time.perf_counter() - t2:.1f} s")
+    return measured, launches, offload_launches
+
+
+# ------------------------------------------------------------- phase 19
+#: OPT-30B (``opt_30b()``): 48 layers, 7168 wide, 56 heads of head dim 128
+#: (each its own KV head), FFN 28672, vocab 50272; its blocks hold 29.6 B
+#: parameters: 59.2 GB in bf16, ~29.7 GB as w8a8 records
+OPT30_H = 56
+#: its (K, N) block matmuls: qkv (7168, 21504), o (7168, 7168), fc (7168,
+#: 28672) and proj (28672, 7168), whose K is 224 k-groups of 128
+OPT30_MATMULS = ((7168, 21504), (7168, 7168), (7168, 28672), (28672, 7168))
+#: phase 19's traffic: (a) bf16 at 16 rows, (b) w8a8 at 8 (the rows B5
+#: takes), each 128-token prompts and 16 new tokens
+ZI_BF16_ROWS, ZI_W8A8_ROWS, ZI_PROMPT, ZI_NEW = 16, 8, 128, 16
+
+
+def opt30_attention_cases():
+    """Phase 19's decode-attention cases at OPT-30B's geometry (56 heads,
+    D = 128, rep 1): B2 at the streamed decode's shape (16 rows over the
+    256-key cache, one shared position), B4 at its prefill windows (16
+    rows x T = 16 on the contiguous cache read as one 256-key block a
+    row), and the f32 template."""
+    import torch
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [
+        ("B2 opt-30b main", "contiguous", 16, 1, bf16, 8, 32, 140, True),
+        ("B4 opt-30b prefill T=16", "paged", 16, 16, bf16, 1, 256, "chunks",
+         True),
+        ("B2 opt-30b fp32", "contiguous", 8, 1, f32, 8, 32, "ragged", False),
+    ]
+
+
+def link_gb_s(nbytes: int = 1 << 30) -> float:
+    """The host-to-card rate of a pinned ``nbytes`` copy (median of 5, CUDA
+    events), GB/s."""
+    import statistics
+
+    import torch
+
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    times = []
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dev.copy_(host, non_blocking=True)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    del host, dev
+    release()
+    return nbytes / (statistics.median(times[1:]) * 1e6)
+
+
+def assert_host_bytes(need: int, label: str, wait_s: float = 180.0):
+    """Fail unless the host has ``need`` bytes plus :data:`HOST_MARGIN`
+    available (polled, as :func:`assert_host_holds`)."""
+    t0 = time.perf_counter()
+    while True:
+        h = host_reading()
+        if h["mem_available"] >= need + HOST_MARGIN:
+            break
+        if time.perf_counter() - t0 > wait_s:
+            log_host(label)
+            raise AssertionError(f"{label}: the host has "
+                                 f"{gib(h['mem_available'])} available, the "
+                                 f"streamed blocks need {gib(need)}")
+        time.sleep(2.0)
+    log_host(label)
+
+
+def block_bytes(cfg, quantized: bool) -> int:
+    """Bytes of OPT's stacked blocks: bf16, or the w8a8 records (int8
+    matrices, an f32 scale per 128-row k-group and column) with the bf16
+    biases and norms."""
+    d, f, layers = cfg.hidden_size, cfg.ffn_size, cfg.num_layers
+    mats = ((d, 3 * d), (d, d), (d, f), (f, d))
+    small = 3 * d + d + f + d + 4 * d
+    if not quantized:
+        return 2 * layers * (sum(k * n for k, n in mats) + small)
+    return layers * (sum(k * n + 4 * (k // 128) * n for k, n in mats)
+                     + 2 * small)
+
+
+def streamed_lane(label, model, config, prompts, ref, link, card):
+    """Build the streamed engine of ``config`` (its blocks drawn on the
+    card a layer at a time from seed 0 and moved to the host), run
+    ``generate`` on ``prompts`` and hold its tokens to ``ref`` (the
+    resident engine's).  Returns the kernels' launches of the generate."""
+    import torch
+
+    import deepspeed_tpu_torch as dt
+
+    cfg = model.model_config
+    quant = config.get("quant", {}).get("enabled", False)
+    assert_host_bytes(block_bytes(cfg, quant), label)
+    # the peak counts what the streamed engine and its generate hold, not
+    # the bytes earlier phases left allocated
+    base = torch.cuda.memory_allocated()
+    engine, t_init = wall(lambda: dt.init_inference(model, config=config))
+    gen = engine._streamed
+    resident = sum(t.numel() * t.element_size()
+                   for t in tensor_leaves(engine.params))
+    log(f"[{label}] streamed engine built in {t_init:.1f} s: "
+        f"{gen.streamed_bytes / 1e9:.3f} GB of blocks on the host "
+        f"(page-locked), {resident / 1e9:.3f} GB resident on the card; "
+        f"host RSS {gib(host_reading()['rss'])}")
+    torch.cuda.reset_peak_memory_stats()
+    (out, t_gen), counts = launched(lambda: wall(lambda: engine.generate(
+        prompts, max_new_tokens=ZI_NEW)))
+    peak = torch.cuda.max_memory_allocated() - base
+    b = prompts.shape[0]
+    timings = gen.last_timings
+    steps = sorted(timings["decode_step_s"])
+    step = steps[len(steps) // 2]
+    model_tok_s = b * link / (gen.streamed_bytes / 1e9)
+    layer = gen.streamed_bytes / cfg.num_layers
+    caches = 2 * cfg.num_layers * b * cfg.num_heads * \
+        (-(-(ZI_PROMPT + ZI_NEW) // 128) * 128) * cfg.head_dim * 2
+    log(f"[{label}] generate {b} x {ZI_PROMPT} + {ZI_NEW} in {t_gen:.2f} s: "
+        f"prefill {timings['prefill_s']:.3f} s, decode step median "
+        f"{1e3 * step:.1f} ms ({len(steps)} steps), {b / step:.2f} tok/s "
+        f"decoding against the model batch x link / streamed = {b} x "
+        f"{link:.2f} GB/s / {gen.streamed_bytes / 1e9:.3f} GB = "
+        f"{model_tok_s:.2f} tok/s ({100 * (b / step) / model_tok_s:.1f}% of "
+        f"it); the link at {gen.streamed_bytes / 1e9 / step:.2f} GB/s a "
+        f"decode step; device peak {gib(peak)} against 2 layers "
+        f"{gib(2 * layer)} + caches {gib(caches)} + residents "
+        f"{gib(resident)}; launches {nonzero(counts)}; {card}")
+    same = (out == ref).all()
+    if not same:
+        diff = int((out != ref).any(axis=1).sum())
+        raise AssertionError(f"{label}: streamed tokens differ from the "
+                             f"resident engine's on {diff} of {b} rows")
+    if not quant and peak > 2 * layer + caches + resident + (1 << 30):
+        raise AssertionError(f"{label}: device peak {gib(peak)} above 2 "
+                             "layers + caches + residents + 1 GiB")
+    gen.close()
+    del engine, gen
+    release()
+    return counts, {"tok_s": b / step, "model_tok_s": model_tok_s,
+                    "prefill_s": timings["prefill_s"], "step_s": step}
+
+
+def tensor_leaves(tree):
+    from deepspeed_tpu_torch.ops import quantization as quant
+
+    return [t for leaf in quant.tree_leaves(tree)
+            for t in (leaf.values() if isinstance(leaf, dict) else [leaf])]
+
+
+def zero_inference_phase(card):
+    """Phase 19: OPT-30B ZeRO-Inference (``inference/zero_inference.py``).
+    (a) bf16: the resident engine's ``generate`` (B = 16, 128-token
+    prompts, 16 new tokens) on seed 0's weights, then, freed, the streamed
+    engine (``pin_layers`` 0, ``prefetch`` 1) on the same seed's weights:
+    the tokens must be equal; prefill s, decode step, tok/s against the
+    link model, device peak, launches.  (b) w8a8 records at 8 rows: the
+    resident w8a8 engine (B6) against the streamed one (B5), token for
+    token; B2, B4 and B5 held at OPT-30B's shapes and timed first.  Returns
+    ({kernel: measurements}, launches of the streamed generates)."""
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import opt
+
+    release()
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    geometry = (OPT30_H, OPT30_H, OPT_D)
+    measured = check_llama_attention(flush, kv8=False,
+                                     cases=opt30_attention_cases(),
+                                     geometry=geometry, tag="opt-30b")
+    measured.update(check_w8a8_shapes(flush, OPT30_MATMULS,
+                                      OPT30_MATMULS[3], "opt-30b", 1900,
+                                      b5_rows=ZI_W8A8_ROWS))
+    del flush
+    free_card()
+    link = link_gb_s()
+    log(f"[19] a pinned 1 GiB host-to-card copy: {link:.2f} GB/s; {card}")
+    cfg = opt.OPTConfig.opt_30b()
+    model = opt.build(cfg)
+    rng = np.random.default_rng(19)
+    prompts = rng.integers(0, cfg.vocab_size, (ZI_BF16_ROWS, ZI_PROMPT))
+    mark = marker("19")
+    launches, rates = [], {}
+    for lane, rows, config in (
+            ("19a bf16", ZI_BF16_ROWS, {"dtype": "bf16"}),
+            ("19b w8a8", ZI_W8A8_ROWS,
+             {"dtype": "bf16", "quant": {"enabled": True, "type": "w8a8"}})):
+        ids = prompts[:rows]
+        engine, t_init = wall(lambda: dt.init_inference(model, config=config))
+        (ref, t_ref), counts = launched(lambda: wall(
+            lambda: engine.generate(ids, max_new_tokens=ZI_NEW)))
+        log(f"[{lane}] resident engine: {cfg.num_params() / 1e9:.3f} B "
+            f"parameters drawn on the card in {t_init:.1f} s; generate "
+            f"{rows} x {ZI_PROMPT} + {ZI_NEW} in {t_ref:.2f} s; peak "
+            f"{gib(torch.cuda.max_memory_allocated())}; launches "
+            f"{nonzero(counts)}")
+        del engine
+        release()
+        mark(f"{lane} resident")
+        zi = dict(config, zero_inference={"enabled": True, "pin_layers": 0,
+                                          "prefetch": 1})
+        counts, rates[lane] = streamed_lane(lane, model, zi, ids, ref, link,
+                                            card)
+        launches.append(counts)
+        mark(f"{lane} streamed")
+    total = add_counts(*launches)
+    for name in ("decode_attention_cuda", "paged_verify_attention_cuda",
+                 "w8a8_matmul_cuda"):
+        if not total[name]:
+            raise AssertionError(f"phase 19's streamed generates never "
+                                 f"launched {name}: {nonzero(total)}")
+    log(f"[19 table] OPT-30B streamed ({card}): link {link:.2f} GB/s; "
+        + "; ".join(f"{k}: {v['tok_s']:.2f} tok/s decoding against the "
+                    f"model's {v['model_tok_s']:.2f}, prefill "
+                    f"{v['prefill_s']:.3f} s, decode step "
+                    f"{1e3 * v['step_s']:.1f} ms" for k, v in rates.items()))
+    return measured, total
+
+
 def build_all():
     """Phase 1's builds: one nvcc per CUDA source and one g++ per host
     source, and one per planted fault of phases 14, 15 and 16
@@ -5794,6 +6452,9 @@ def main() -> int:
     opt_measured, mixtral_measured, mixtral_launches, opt_launches = \
         family_phase(card)
     offload_launches = offload_phase(card, faults, resident_step_s)
+    mixtral_flash, mixtral_launches18, mixtral_offload_launches = \
+        mixtral_train_full_phase(card)
+    zi_measured, zi_launches = zero_inference_phase(card)
 
     # one line per kernel; a flash kernel replaces three TPU regimes (v1,
     # v2, v3: PERF.md) and names the v1 site, whose lse format it keeps
@@ -5933,6 +6594,40 @@ def main() -> int:
             **{key: m[key] for key in (
                 "max_abs_err", "ms", "graph_ms", "plain_ms", "plain_at",
                 "bound_ms", "bound_by", "library_ms", "library_graph_ms")}})
+    # phase 18: the flash kernels at Mixtral-8x7B's training shape (S =
+    # 4096, GQA 32 / 8, D = 128), launched by (b)'s resident run and (c)'s
+    # offloaded one
+    for tag, launched18 in (("mixtral-8x7b-train", mixtral_launches18),
+                            ("mixtral-8x7b-offload",
+                             mixtral_offload_launches)):
+        for fn in fa.KERNELS:
+            m = mixtral_flash[fn.__name__]
+            kernels.append({
+                "name": f"{fn.__name__}[{tag}]", "route": "cuda",
+                "kernel": designs[fn.__name__], "source": sources[fa],
+                "replaces": replaces[fn.__name__],
+                "launches": launched18[fn.__name__],
+                **{key: m[key] for key in (
+                    "max_abs_err", "ms", "graph_ms", "plain_ms", "plain_at",
+                    "bound_ms", "bound_by", "library_ms",
+                    "library_graph_ms")}})
+    # phase 19: B2 (decode) and B4 (prefill windows) at OPT-30B's 56 heads
+    # and B5 at its proj (28672, 7168), 224 k-groups, launched by the
+    # streamed generates (bf16 and w8a8)
+    for module, source in sources.items():
+        for fn in module.KERNELS:
+            if fn.__name__ not in zi_measured or \
+                    fn.__name__ == "w8a8_matmul_stacked_cuda":
+                continue
+            m = zi_measured[fn.__name__]
+            kernels.append({
+                "name": f"{fn.__name__}[opt-30b-zero-inference]",
+                "route": "cuda", "kernel": designs[fn.__name__],
+                "source": source, "replaces": replaces[fn.__name__],
+                "launches": zi_launches[fn.__name__],
+                **{key: m[key] for key in (
+                    "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "library_graph_ms")}})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -22,9 +22,11 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     ``__init__.py:30``).  Returns ``(engine, optimizer,
     training_dataloader, lr_scheduler)``.
 
-    ``model``: a model from ``deepspeed_tpu_torch.models`` (``gpt2.build``
-    or ``llama.build``; on CUDA their attention runs the flash kernels at
-    head dim 64 and 128).
+    ``model``: a model from ``deepspeed_tpu_torch.models`` with a
+    ``loss_fn`` (``gpt2.build``, ``llama.build``, ``mixtral.build`` or
+    ``opt.build``; on CUDA their attention runs the flash kernels at head
+    dim 64 and 128; Mixtral's top-2 MoE trains at ``capacity_factor``
+    with its router's aux loss).
     ``config``: a dict or JSON path with the JAX package's keys.
     ``model_parameters``: initial parameters as a nested dict of tensors or
     arrays (e.g. ``gpt2.params_from_jax``); without it the engine draws
@@ -82,6 +84,10 @@ def init_inference(model=None, config=None, params=None, device=None,
     ``config``: a dict or :class:`~deepspeed_tpu_torch.inference.config.
     DeepSpeedInferenceConfig` (or its keys as keyword arguments);
     ``moe.ep_size`` > 1 (expert parallelism) is refused (Queue A item 8).
+    ``zero_inference.enabled`` keeps the stacked blocks in host memory
+    (int8 records under ``quant``) and streams them through the card one
+    layer at a time in ``generate`` (``inference/zero_inference.py``), for
+    a model with ``stream_hooks`` (OPT); others raise ``ValueError``.
     ``params``: parameters as a nested dict of tensors (e.g.
     ``gpt2.params_from_jax``); without it the engine draws random ones from
     seed 0 (llama, mixtral and opt: on the engine's device in the serving

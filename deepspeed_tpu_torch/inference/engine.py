@@ -21,12 +21,19 @@ time (``engine.py:128-273``):
 Records arriving in ``params`` pass through when their kind matches the
 configured type.  Records are never cast: int8 stays int8 and scales stay
 f32.
+
+``zero_inference.enabled`` (ZeRO-Inference, ``engine.py:303-345``) keeps
+the stacked blocks in host memory and ``generate`` streams them through
+the card one layer at a time (``inference/zero_inference.py``); the
+blocks are cast (and quantized) on the card a layer at a time and moved
+to the host, so the card never holds them all.  ``forward`` then raises.
 """
 
 from __future__ import annotations
 
 import inspect
 import math
+import time
 from typing import Optional
 
 import numpy as np
@@ -68,13 +75,14 @@ def _check_supported(config: DeepSpeedInferenceConfig) -> None:
     that brings it (``ROADMAP.md``)."""
     tp = config.tensor_parallel.tp_size if config.tensor_parallel.enabled \
         else 1
+    if config.zero_inference.enabled and int(tp) > 1:
+        raise ValueError(
+            "zero_inference streams layers through ONE device's HBM; "
+            "combine with tp later or drop tensor_parallel")
     if int(tp) > 1:
         raise NotImplementedError(
             f"tensor_parallel.tp_size={tp}: multi-GPU serving is a later "
-            "slice of the PyTorch port (multi-GPU)")
-    if config.zero_inference.enabled:
-        raise NotImplementedError(
-            "zero_inference: layer streaming is not ported yet")
+            "slice of the PyTorch port (ROADMAP.md Queue A item 8)")
     if int(config.moe.ep_size) > 1:
         raise NotImplementedError(
             f"moe.ep_size={config.moe.ep_size}: expert parallelism comes "
@@ -126,13 +134,7 @@ def _quantize_blocks(model, params, qcfg, device):
         raise NotImplementedError(
             f"quant: {model.name} is not quant-aware; whole-tree "
             "quantization comes with the port's other model families")
-    kinds = {"w8a8" if quant.is_k_quantized(leaf) else "weight"
-             for leaf in quant.tree_leaves(params) if quant.is_record(leaf)}
-    if kinds:
-        if kinds != {qcfg.type}:
-            raise ValueError(
-                f"pre-quantized params carry {sorted(kinds)} records but "
-                f"quant.type is {qcfg.type!r}")
+    if _check_prequantized(params, qcfg):
         log_dist("quant: params arrived pre-quantized — skipping host-side "
                  "quantization", ranks=[0])
         return params
@@ -154,6 +156,18 @@ def _blocks_quantizer(qcfg, device, min_size: int = 4096):
     return lambda tree: quant.quantize_pytree(
         tree, num_bits=qcfg.num_bits, group_size=qcfg.group_size,
         min_size=min_size, min_ndim=3, device=device)
+
+
+def _check_prequantized(tree, qcfg) -> bool:
+    """True when ``tree`` already carries int8 records, which must be of
+    the configured kind (``engine.py:199-212``)."""
+    kinds = {"w8a8" if quant.is_k_quantized(leaf) else "weight"
+             for leaf in quant.tree_leaves(tree) if quant.is_record(leaf)}
+    if kinds and kinds != {qcfg.type}:
+        raise ValueError(
+            f"pre-quantized params carry {sorted(kinds)} records but "
+            f"quant.type is {qcfg.type!r}")
+    return bool(kinds)
 
 
 def _default_params(model, device, dtype, qcfg=None):
@@ -193,6 +207,14 @@ class InferenceEngine:
         self._config = config
         self.device = resolve_device(device)
         self.dtype = config.torch_dtype
+        self._streamed = None
+        if config.zero_inference.enabled:
+            self.params = self._init_zero_inference(params)
+            log_dist(f"InferenceEngine: device={self.device}, "
+                     f"dtype={config.dtype}, zero_inference"
+                     + (f", quant={config.quant.type}" if config.quant.enabled
+                        else ""), ranks=[0])
+            return
         if params is None:
             params = _default_params(
                 model, self.device, self.dtype,
@@ -213,10 +235,107 @@ class InferenceEngine:
                     else ""),
                  ranks=[0])
 
+    def _init_zero_inference(self, params):
+        """ZeRO-Inference (``engine.py:303``): the stacked blocks go to host
+        memory, one layer at a time — drawn (seed 0, the resident engine's
+        draws) or taken from ``params``, cast to the serving dtype and,
+        with ``quant``, quantized on the card (records of a pre-quantized
+        tree pass through), then copied to the host — and the
+        :class:`~.zero_inference.StreamedGenerator` streams them in
+        ``generate``.  Returns the resident parameters (the rest), on the
+        card."""
+        from ..models.gpt2 import stack_layers
+        from .zero_inference import (HostStaging, StreamedGenerator, _map,
+                                     check_layers)
+
+        model, config = self.module, self._config
+        if getattr(model, "stream_hooks", None) is None:
+            raise ValueError(
+                f"zero_inference needs a model with stream_hooks + "
+                f"decode_hooks; {model.name} has neither — serve it "
+                "resident or add the per-layer hooks")
+        bkey = (getattr(model, "pipeline_hooks", None) or {}).get(
+            "blocks_key")
+        if bkey is None:
+            raise ValueError(
+                f"zero_inference needs pipeline_hooks.blocks_key on "
+                f"{model.name} to locate the stacked blocks")
+        path = (bkey,) if isinstance(bkey, str) else tuple(bkey)
+        num_layers = model.model_config.num_layers
+        qcfg = config.quant if config.quant.enabled else None
+        quantize = None
+        if qcfg is not None:
+            from ..ops import quantized_matmul as qmm
+
+            if qcfg.type not in ("w8a8", "weight"):
+                raise ValueError(f"quant.type {qcfg.type!r}: expected "
+                                 "'weight' or 'w8a8'")
+            qmm.configure(kernel_ok=True)
+            # a one-layer stack's leaves are 1/L of the stacked ones: the
+            # same leaves qualify as in the whole-stack quantization
+            quantize = _blocks_quantizer(qcfg, None,
+                                         min_size=-(-4096 // num_layers))
+
+        # a layer leaves the card through page-locked buffers (on the CPU
+        # the layer is on the host already)
+        staging = HostStaging() if self.device.type == "cuda" else None
+
+        def to_host(layer):
+            """A one-layer stack cast (and quantized) on the device, on the
+            host (views the caller copies before the next layer)."""
+            layer = _to_device(layer, self.device, self.dtype)
+            if quantize is not None and \
+                    not _check_prequantized(layer, qcfg):
+                layer = quantize(layer)
+            return staging(layer) if staging is not None else layer
+
+        t0 = time.perf_counter()
+        drawn = params is None
+        if drawn:
+            # the resident engine's draws (``_default_params``), each layer
+            # leaving the card as soon as it is drawn
+            gen = torch.Generator(device=self.device).manual_seed(0)
+            params = model.init_fn(gen, dtype=self.dtype, layer_fn=to_host)
+        params = dict(params)
+        node = params
+        for k in path[:-1]:
+            node[k] = dict(node[k])
+            node = node[k]
+        blocks = node.pop(path[-1])
+        if not drawn:
+            check_layers(blocks, num_layers)
+            blocks = stack_layers(
+                (to_host(_map(lambda a, i=i: a[i:i + 1], blocks))
+                 for i in range(num_layers)), num_layers)
+        if staging is not None:
+            staging.close()
+        log_dist(f"zero-inference: {num_layers} layers "
+                 f"{'drawn' if drawn else 'cast'}"
+                 f"{' and quantized' if quantize is not None else ''} on "
+                 f"{self.device} and moved to the host in "
+                 f"{time.perf_counter() - t0:.1f} s", ranks=[0])
+        self._streamed = StreamedGenerator(
+            resident_params=None, host_blocks=blocks, num_layers=num_layers,
+            stream_hooks=model.stream_hooks,
+            init_cache=model.decode_hooks["init_cache"],
+            cache_dtype=self.dtype, device=self.device,
+            pin_layers=config.zero_inference.pin_layers,
+            prefetch=config.zero_inference.prefetch,
+            sync_every=config.zero_inference.sync_every,
+            picker_factory=_make_token_picker)
+        resident = _to_device(params, self.device, self.dtype)
+        self._streamed.resident = resident
+        return resident
+
     # ------------------------------------------------------------------ forward
     @torch.no_grad()
     def forward(self, batch):
         """Logits for a batch (``{"input_ids": [B, S]}`` or the ids)."""
+        if self._streamed is not None:
+            raise NotImplementedError(
+                "zero_inference serves via generate(); whole-batch logits "
+                "would stream every layer for one forward — run a resident "
+                "engine (or generate with max_new_tokens=1) instead")
         ids = batch["input_ids"] if isinstance(batch, dict) else batch
         ids = torch.as_tensor(np.asarray(ids), dtype=torch.int64,
                               device=self.device)
@@ -245,6 +364,12 @@ class InferenceEngine:
             raise ValueError(
                 f"prompt ({prompt_len}) + max_new_tokens ({max_new_tokens}) "
                 f"= {total} exceeds the model context length {max_ctx}")
+        if self._streamed is not None:
+            return self._streamed.generate(
+                input_ids, max_new_tokens=max_new_tokens,
+                eos_token_id=eos_token_id, do_sample=do_sample,
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                seed=seed)
         pick = _make_token_picker((do_sample, float(temperature), int(top_k),
                                    float(top_p)) if do_sample else None)
         rng = sampling_ops.PRNGKey(_auto_seed(self, seed), self.device)

@@ -152,34 +152,51 @@ def init_params(cfg: GPT2Config, generator: torch.Generator) -> Params:
     }
 
 
+def stack_layers(layers, num_layers: int) -> Params:
+    """One-layer stacks (each leaf ``[1, ...]``, int8 records as dicts of
+    them) -> ``[L, ...]`` stacks on the first layer's device, allocated at
+    the first layer and filled layer by layer, each layer released before
+    the next is made."""
+    def alloc(v):
+        if isinstance(v, dict):
+            return {k: alloc(x) for k, x in v.items()}
+        return v.new_empty((num_layers,) + tuple(v.shape[1:]))
+
+    def fill(dst, src, i):
+        if isinstance(dst, dict):
+            for k in dst:
+                fill(dst[k], src[k], i)
+        else:
+            dst[i] = src[0]
+
+    blocks = None
+    for i, layer in enumerate(layers):
+        if blocks is None:
+            blocks = alloc(layer)
+        fill(blocks, layer, i)
+        del layer
+    return blocks
+
+
 def draw_layers(shapes, num_layers: int, normal: Callable, ones: Callable,
                 layer_fn: Optional[Callable] = None) -> Params:
     """Stacked ``[L, ...]`` blocks drawn one layer at a time: each layer's
     leaves (``(name, shape, std or None)`` of ``shapes``, as one-layer
     stacks ``[1, ...]``) pass through ``layer_fn`` when given (int8 records
-    come back) and are copied into stacks allocated at the first layer;
-    only one layer's draw is alive at a time."""
-    blocks = None
-    for i in range(num_layers):
-        layer = {name: ones((1,) + shape) if std is None
-                 else normal((1,) + shape, std)
-                 for name, shape, std in shapes}
-        if layer_fn is not None:
-            layer = layer_fn(layer)
-        if blocks is None:
-            blocks = {name: ({k: v.new_empty((num_layers,) + v.shape[1:])
-                              for k, v in leaf.items()}
-                             if isinstance(leaf, dict) else
-                             leaf.new_empty((num_layers,) + leaf.shape[1:]))
-                      for name, leaf in layer.items()}
-        for name, leaf in layer.items():
-            if isinstance(leaf, dict):
-                for k, v in leaf.items():
-                    blocks[name][k][i] = v[0]
-            else:
-                blocks[name][i] = leaf[0]
-        del layer
-    return blocks
+    come back, or the layer moves to the host) and are copied into stacks
+    allocated at the first layer (:func:`stack_layers`); only one layer's
+    draw is alive at a time."""
+    def drawn():
+        for _ in range(num_layers):
+            layer = {name: ones((1,) + shape) if std is None
+                     else normal((1,) + shape, std)
+                     for name, shape, std in shapes}
+            if layer_fn is not None:
+                layer = layer_fn(layer)
+            yield layer
+            del layer
+
+    return stack_layers(drawn(), num_layers)
 
 
 def params_from_jax(tree) -> Params:
@@ -507,22 +524,40 @@ def decode_over_layers(body, x, blocks: Params, cache_k, cache_v,
             def mm(y, name, dtype, l_idx=layer_ids[i:i + 1]):
                 return _qmm_indexed(y, blocks[name], l_idx, dtype)
 
-            get = layer.__getitem__
+            get, mm = layer.__getitem__, _row_rule(mm, rows, stepwise)
         else:
-            if rows == "prefill":
-                # a window's row blocks share one expansion of each
-                # K-grouped record (w8a8 above 8 rows is dequantize +
-                # matmul), bit for bit the per-block one
-                layer = {k: quant.dequantize_k(v, x.dtype)
-                         if quant.is_k_quantized(v) else v
-                         for k, v in layer.items()}
-            get, mm = layer_accessors(layer)
-        if rows is not None:
-            mm = fixed_row_mm(mm, rows)
-        if stepwise:
-            mm = _stepwise(mm)
+            get, mm = cached_layer_accessors(layer, x.dtype, rows, stepwise)
         x = body(x, get, mm, _index(cache_k, i), _index(cache_v, i))
     return x
+
+
+def _row_rule(mm, rows: Optional[str], stepwise: bool):
+    """``mm`` on the row counts of ``utils.rows`` (``rows``), one window
+    position at a time when ``stepwise``."""
+    if rows is not None:
+        mm = fixed_row_mm(mm, rows)
+    if stepwise:
+        mm = _stepwise(mm)
+    return mm
+
+
+def cached_layer_accessors(layer: Params, dtype, rows: Optional[str] = None,
+                           stepwise: bool = False):
+    """``(get, mm)`` of one pre-sliced layer on the cached path, as
+    :func:`decode_over_layers` builds them for a layer it does not index
+    in the stacked kernel; a streamed layer (``inference/
+    zero_inference.py``) takes them too, so it computes the resident
+    layer's bits.  A K-grouped record of a ``"prefill"`` window is
+    expanded once for all its row blocks (w8a8 above 8 rows is dequantize
+    + matmul, bit for bit the per-block one); a 2-D record of a decode
+    step of at most ``W8A8_MAX_ROWS`` rows runs the w8a8 kernel (B5), the
+    bits of the stacked one (B6)."""
+    if rows == "prefill":
+        layer = {k: quant.dequantize_k(v, dtype)
+                 if quant.is_k_quantized(v) else v
+                 for k, v in layer.items()}
+    get, mm = layer_accessors(layer)
+    return get, _row_rule(mm, rows, stepwise)
 
 
 def forward_cached(cfg: GPT2Config, params: Params, input_ids, cache, pos,

@@ -1,6 +1,7 @@
 """Mixtral (sparse-MoE Llama) — the PyTorch port of
-``deepspeed_tpu/models/mixtral.py``: generation, paged serving, and the
-forward and loss with the router's aux loss.
+``deepspeed_tpu/models/mixtral.py``: generation, paged serving, and
+training (the forward and loss with the router's aux loss, through
+``initialize`` -> ``train_batch``).
 
 Llama attention blocks (``models/llama.py``) with the FFN replaced by a
 top-2-gated MoE (``deepspeed_tpu_torch.moe``): expert weights stacked
@@ -179,7 +180,10 @@ def forward_with_aux(cfg: MixtralConfig, params: Params, input_ids,
                      train: bool = True):
     """``(logits [B, S, V], mean aux loss over the layers)``
     (``mixtral.py:115``); ``cfg.remat`` recomputes each block in the
-    backward pass."""
+    backward pass, and the recomputed block routes as the first pass did
+    (argmax ties take the first index; top-2 gating draws no noise).
+    Attention is llama's (``L._attention``: the flash kernels on CUDA,
+    the KV heads unrepeated)."""
     params = gpt2._dequant_resident(params)
     s = input_ids.shape[1]
     x = params["embed"][input_ids].to(params["embed"].dtype)
@@ -204,9 +208,11 @@ def forward_with_aux(cfg: MixtralConfig, params: Params, input_ids,
 def loss_from_batch(cfg: MixtralConfig, params: Params, batch, rng=None,
                     train: bool = True):
     """Mean next-token cross entropy over the labels that are not -100
-    plus ``router_aux_loss_coef`` times the aux loss (``mixtral.py:136``).
-    ``train=True`` gates at ``capacity_factor``; training the model
-    through ``initialize`` is a later slice."""
+    plus ``router_aux_loss_coef`` times the aux loss (``mixtral.py:136``):
+    the training engine's ``loss_fn``.  ``train=True`` gates at
+    ``capacity_factor`` (1.25: a token past its expert's capacity drops
+    from it), ``False`` at ``eval_capacity_factor``.  ``rng`` is unused,
+    as in the JAX function: top-2 gating draws no noise."""
     del rng
     if isinstance(batch, (tuple, list)):
         input_ids, labels = batch
@@ -247,7 +253,10 @@ def forward_cached(cfg: MixtralConfig, params: Params, input_ids, cache, pos,
 class MixtralModel(nn.Module):
     """The ``nn.Module`` face of the functional model (``mixtral.py:193``):
     the config, the random initializer, ``loss_fn`` and
-    ``flops_per_token``, and the ``decode_hooks`` the engines read."""
+    ``flops_per_token``, and the ``decode_hooks`` the engines read.
+    ``flops_per_token`` is the JAX package's ``6 * params / E * (k + 1)``:
+    a token's share of the experts' parameters (k of E), plus one
+    expert's worth for the attention and the rest."""
 
     #: the engines may store ``blocks`` (the experts included) as int8
     #: records, dequantized per layer at the point of use

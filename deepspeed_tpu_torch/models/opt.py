@@ -175,8 +175,8 @@ def init_params(cfg: OPTConfig, generator: torch.Generator,
     scales), drawn from ``generator`` on its device in float32 and stored
     in ``dtype``: the embeddings (and projections) first, then layer after
     layer (``gpt2.draw_layers``; ``layer_fn`` quantizes each layer as it
-    is drawn).  The draws differ from JAX's; to run the same weights in both
-    packages use :func:`params_from_jax`."""
+    is drawn, or moves it to the host for ZeRO-Inference).  The draws differ from JAX's; to run the same
+    weights in both packages use :func:`params_from_jax`."""
     dev = generator.device
     if device is not None and torch.device(device) != dev:
         raise ValueError(f"init_params draws on the generator's device "
@@ -384,6 +384,27 @@ def forward_cached(cfg: OPTConfig, params: Params, input_ids, cache, pos,
     return head(x, "embed_tokens", x.dtype), cache
 
 
+def _stream_block(cfg: OPTConfig, layer: Params, x, ck, cv, pos):
+    """One streamed layer (``stream_hooks["block"]``, ``opt.py:553``):
+    ``_block_cached_body`` over a pre-sliced layer and its own cache
+    (written in place), with the resident cached path's row rule
+    (``gpt2.cached_layer_accessors``: 256-row prefill blocks, a decode
+    step padded to >= 8 rows), so a streamed token's bits are the
+    resident ones."""
+    rows = "decode" if x.shape[1] == 1 else "prefill"
+    get, mm = gpt2.cached_layer_accessors(layer, x.dtype, rows)
+    return _block_cached_body(cfg, x, get, mm, ck, cv, int(pos))
+
+
+def _stream_head(cfg: OPTConfig, params: Params, x_last):
+    """``stream_hooks["head"]``: the last positions' logits ``[B, V]``,
+    on the decode row count as :func:`forward_cached`'s head."""
+    params = gpt2._dequant_resident(params)
+    head = fixed_row_mm(lambda y, name, dtype: _head(cfg, params, y),
+                        "decode")
+    return head(x_last, "embed_tokens", x_last.dtype)
+
+
 def _ce_from_logits(logits, targets):
     """``lse - picked logit`` mean cross entropy over the targets that are
     not -100 (``opt.py:378``)."""
@@ -476,9 +497,11 @@ def from_hf_state_dict(cfg: OPTConfig, sd: Dict[str, Any]) -> Params:
 class OPTModel(nn.Module):
     """The ``nn.Module`` face of the functional model (``opt.py:501``):
     the config, the random initializer, ``loss_fn`` and
-    ``flops_per_token``, and the ``decode_hooks`` the engines read.  The
-    JAX package's ``pipeline_hooks`` and ``stream_hooks`` serve
-    zero-inference layer streaming, which the port does not have yet."""
+    ``flops_per_token``, and the hooks the engines read: ``decode_hooks``
+    (generation and serving), ``stream_hooks`` (``embed``, ``block``,
+    ``head``: ZeRO-Inference's per-layer streamed ``generate``,
+    ``inference/zero_inference.py``) and ``pipeline_hooks`` (where the
+    stacked blocks live, and the per-block training pieces)."""
 
     quant_aware = True
     blocks_key = ("blocks",)
@@ -505,6 +528,21 @@ class OPTModel(nn.Module):
             # int8 KV pool records flow through ops/paged_kv untouched
             "supports_kv_quant": True,
             "supports_sampling": True,
+        }
+        self.pipeline_hooks = {
+            "blocks_key": ("blocks",),
+            "embed_fn": lambda params, ids: _embed(cfg, params, ids),
+            "block_fn": lambda layer, x, rng=None: _block(cfg, x, layer),
+            "head_loss_fn": lambda params, x, tgt: _ce_from_logits(
+                _head(cfg, params, x), tgt),
+            "dropout": cfg.dropout,
+        }
+        self.stream_hooks = {
+            "embed": lambda params, ids, pos: _embed(
+                cfg, gpt2._dequant_resident(params), ids, pos0=pos),
+            "block": lambda layer, x, ck, cv, pos: _stream_block(
+                cfg, layer, x, ck, cv, pos),
+            "head": lambda params, x_last: _stream_head(cfg, params, x_last),
         }
 
     def init_fn(self, generator: torch.Generator, dtype=torch.float32,

@@ -124,10 +124,14 @@ def moe_apply(cfg: MoEConfig, params: PyTree, x, rng=None, train: bool = True,
     """The MoE FFN (``layer.py:104``).  ``x``: ``[..., S, D]``, leading
     dims taken as groups (a 2-D input is one group).  Returns ``(y,
     aux_loss)``.  ``train`` picks ``capacity_factor`` (else
-    ``eval_capacity_factor``) and, in the JAX package, noisy gating, which
-    this port refuses with the rest of training (:func:`top1gating`).
-    ``rows`` (port-only): ``"prefill"`` or ``"decode"``, the expert
-    products on fixed row counts (module docstring); None = one call."""
+    ``eval_capacity_factor``) and, for top-1 gating, the config's noisy
+    gate policy with the key ``rng`` (``"RSample"``: Gumbel noise on the
+    selection, :func:`top1gating`); evaluation gates on the clean logits.
+    Every operation is differentiable as the JAX one is: the gradient
+    reaches the router through ``combine`` and the aux loss.  ``rows``
+    (port-only, serving): ``"prefill"`` or ``"decode"``, the expert
+    products on fixed row counts (module docstring); None = one call, as
+    training runs them."""
     orig_shape = x.shape
     d = orig_shape[-1]
     if x.ndim > 3:
@@ -143,7 +147,7 @@ def moe_apply(cfg: MoEConfig, params: PyTree, x, rng=None, train: bool = True,
         l_aux, combine, dispatch, _ = top1gating(
             logits, cap, cfg.min_capacity,
             noisy_gate_policy=cfg.noisy_gate_policy if train else None,
-            rng=rng, drop_tokens=cfg.drop_tokens)
+            rng=rng if train else None, drop_tokens=cfg.drop_tokens)
     elif cfg.k == 2:
         l_aux, combine, dispatch, _ = top2gating(logits, cap,
                                                  cfg.min_capacity)

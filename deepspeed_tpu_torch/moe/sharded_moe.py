@@ -11,7 +11,10 @@ second choice dropped keeps weight 1 on its first.
 
 Every shape here follows from the input's shape alone and nothing reads a
 value back to the host (one-hot by comparison with an ``arange``, no
-``.item()``), so the functions run inside a captured CUDA graph.
+``.item()``), so the functions run inside a captured CUDA graph.  Under
+autograd the router's gradient flows as in the JAX functions: through the
+softmax gates that ``combine`` carries and through ``l_aux``'s mean gate
+``me``; the one-hots, argmaxes, positions and capacity masks carry none.
 Expert parallelism (the JAX package's ``ep`` mesh axis, whose sharding
 constraints make XLA insert the all-to-alls) comes with the port's
 multi-GPU slice; on one device dispatch and combine are the einsums alone.
@@ -22,11 +25,10 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
-#: what the training-only gating options wait for
-_TRAINING_ITEM = ("Mixtral training (noisy gating and the aux loss through "
-                  "initialize -> train_batch, ROADMAP.md Queue A item 7)")
+from ..ops import sampling
 
 
 def _capacity(num_tokens: int, num_experts: int, capacity_factor: float,
@@ -56,6 +58,17 @@ def _aux_loss(gates, mask1, e: int):
     return (me * ce).sum(dim=-1).mean() * e
 
 
+def _gumbel_noise(rng, logits):
+    """``jax.random.gumbel(rng, logits.shape)`` on logits' device: ``rng``
+    a JAX-layout key (a uint32 pair, as a JAX array, numpy array or
+    tensor), the draw the port's threefry (``ops/sampling.py``), whose bits
+    are JAX's for the same key."""
+    key = rng if isinstance(rng, torch.Tensor) else \
+        torch.from_numpy(np.asarray(rng).astype(np.int64))
+    key = key.to(device=logits.device, dtype=torch.int64)
+    return sampling.gumbel(key, tuple(logits.shape)).to(logits.dtype)
+
+
 def top1gating(logits, capacity_factor: float = 1.0, min_capacity: int = 4,
                noisy_gate_policy: Optional[str] = None, rng=None,
                drop_tokens: bool = True, used_token_mask=None
@@ -64,21 +77,26 @@ def top1gating(logits, capacity_factor: float = 1.0, min_capacity: int = 4,
     """Top-1 (Switch) gating (``sharded_moe.py:44``).  ``logits``:
     ``[G, S, E]`` float.  Returns ``(l_aux, combine [G, S, E, C],
     dispatch [G, S, E, C] bool, exp_counts [E])``.  ``used_token_mask``
-    ``[G, S]`` keeps padding tokens from routing.  Noisy gating and
-    ``drop_tokens=False`` are training options, refused here."""
-    if noisy_gate_policy is not None:
-        raise NotImplementedError(
-            f"noisy_gate_policy={noisy_gate_policy!r}: comes with "
-            f"{_TRAINING_ITEM}")
+    ``[G, S]`` keeps padding tokens from routing.
+    ``noisy_gate_policy="RSample"`` with a key ``rng`` selects each
+    token's expert by the argmax of ``logits`` plus Gumbel noise drawn
+    from ``rng`` (the gates stay the softmax of the clean logits);
+    without a key, or under another policy, the selection is the clean
+    argmax, as in the JAX function.  ``drop_tokens=False`` raises, as JAX
+    does: its capacity would be the largest expert count, a shape that
+    depends on the data."""
     if not drop_tokens:
         raise NotImplementedError(
-            f"drop_tokens=False (capacity raised to the largest expert "
-            f"count): comes with {_TRAINING_ITEM}")
-    del rng
+            "drop_tokens=False needs dynamic capacity, which cannot compile "
+            "under jit; raise capacity_factor instead")
     g, s, e = logits.shape
     capacity = _capacity(s, e, capacity_factor, min_capacity)
+    if noisy_gate_policy == "RSample" and rng is not None:
+        logits_for_sel = logits + _gumbel_noise(rng, logits)
+    else:
+        logits_for_sel = logits
     gates = torch.softmax(logits, dim=-1)                       # [G, S, E]
-    index1 = torch.argmax(logits, dim=-1)                       # [G, S]
+    index1 = torch.argmax(logits_for_sel, dim=-1)               # [G, S]
     mask1 = _one_hot(index1, e, gates.dtype)
     if used_token_mask is not None:
         mask1 = mask1 * used_token_mask[..., None].to(mask1.dtype)

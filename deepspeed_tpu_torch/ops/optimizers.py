@@ -17,8 +17,12 @@ that arithmetic exactly, which is not ``torch.optim.AdamW``'s:
 
 The update runs in place over the engine's list of float32 master tensors
 with ``torch._foreach_*`` ops (the XLA-fused update of the JAX package; no
-hand-written kernel there either).  Optimizers other than Adam/AdamW come
-with a later slice.
+hand-written kernel there either), :data:`STEP_CHUNK` elements at a time:
+its two float32 temporaries then stay at 1 GiB each rather than two
+copies of the model (Mixtral-8x7B's 3.2 B parameters at 2 layers would
+need 25 GB more).  The arithmetic is elementwise, so the chunks give the
+bits of one whole pass.  Optimizers other than Adam/AdamW come with a
+later slice.
 """
 
 from __future__ import annotations
@@ -30,6 +34,36 @@ import numpy as np
 import torch
 
 ScalarOrSchedule = Union[float, Callable[[int], float]]
+
+#: elements of one pass of :meth:`FusedAdam.step`; a contiguous tensor
+#: larger than this is stepped as views of at most this many elements
+STEP_CHUNK = 1 << 28
+
+
+def _chunks(lists: Sequence[Sequence[torch.Tensor]], budget: int):
+    """Parallel lists of same-shaped tensors (params, grads, moments) as
+    groups of parallel lists of views, each group at most ``budget``
+    elements (a tensor that is not contiguous in every list stays whole)."""
+    group: List[List[torch.Tensor]] = [[] for _ in lists]
+    size = 0
+    for ts in zip(*lists):
+        n = ts[0].numel()
+        if n > budget and all(t.is_contiguous() for t in ts):
+            flat = [t.view(-1) for t in ts]
+            pieces = [tuple(f[i:i + budget] for f in flat)
+                      for i in range(0, n, budget)]
+        else:
+            pieces = [ts]
+        for piece in pieces:
+            m = piece[0].numel()
+            if size and size + m > budget:
+                yield group
+                group, size = [[] for _ in lists], 0
+            for out, t in zip(group, piece):
+                out.append(t)
+            size += m
+    if size or group[0]:
+        yield group
 
 
 def _bias_correction(beta: float, count: int) -> float:
@@ -81,22 +115,29 @@ class FusedAdam:
         """Apply one update to ``params`` in place and advance ``state``;
         returns the lr used.  Plain-Adam weight decay is added to ``grads``
         in place."""
-        b1, b2, wd = self.b1, self.b2, self.weight_decay
         lr = self.lr_at(state.count)
+        state.count += 1
+        for group in _chunks((params, grads, state.mu, state.nu),
+                             STEP_CHUNK):
+            self._update(*group, state.count, lr)
+        return lr
+
+    def _update(self, params, grads, mu, nu, count: int, lr: float) -> None:
+        """One pass of the update over parallel lists of tensors."""
+        b1, b2, wd = self.b1, self.b2, self.weight_decay
         if wd and not self.adam_w_mode:
             torch._foreach_add_(grads, params, alpha=wd)
-        torch._foreach_mul_(state.mu, b1)
-        torch._foreach_add_(state.mu, grads, alpha=1.0 - b1)
-        torch._foreach_mul_(state.nu, b2)
-        torch._foreach_addcmul_(state.nu, grads, grads, value=1.0 - b2)
-        state.count += 1
-        c1 = _bias_correction(b1, state.count)
-        c2 = _bias_correction(b2, state.count)
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
+        c1 = _bias_correction(b1, count)
+        c2 = _bias_correction(b2, count)
         # update = (mu / c1) / (sqrt(nu / c2) + eps)
-        denom = torch._foreach_div(state.nu, c2)
+        denom = torch._foreach_div(nu, c2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        update = torch._foreach_div(state.mu, c1)
+        update = torch._foreach_div(mu, c1)
         torch._foreach_div_(update, denom)
         del denom
         if not self.bias_correction:
@@ -105,7 +146,6 @@ class FusedAdam:
         if wd and self.adam_w_mode:
             torch._foreach_add_(update, params, alpha=wd)
         torch._foreach_add_(params, update, alpha=-lr)
-        return lr
 
 
 @torch.no_grad()

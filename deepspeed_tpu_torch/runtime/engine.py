@@ -135,7 +135,9 @@ class DeepSpeedEngine:
                  device=None):
         if model is None or not hasattr(model, "loss_fn"):
             raise TypeError("initialize needs a deepspeed_tpu_torch model "
-                            "(models.gpt2.build or models.llama.build)")
+                            "with a loss_fn (models.gpt2.build, "
+                            "models.llama.build, models.mixtral.build or "
+                            "models.opt.build)")
         if mpu is not None:
             raise NotImplementedError(
                 "mpu: model parallelism comes with the PyTorch port's "

@@ -176,8 +176,13 @@ def test_engine_refuses_what_is_not_ported(tiny):
     with pytest.raises(ValueError, match="context length"):
         eng.generate(np.zeros((1, 120), np.int64), max_new_tokens=10)
     for cfgd in ({"tensor_parallel": {"tp_size": 2}},
-                 {"sequence_parallel": 2}, {"dtype": "int8"},
-                 {"zero_inference": {"enabled": True}}):
+                 {"sequence_parallel": 2}, {"dtype": "int8"}):
         with pytest.raises(NotImplementedError):
             deepspeed_tpu_torch.init_inference(model, config=cfgd,
                                                device="cpu")
+    # ZeRO-Inference is ported; GPT-2 has no stream_hooks, and the JAX
+    # engine refuses it with a ValueError too
+    with pytest.raises(ValueError, match="stream_hooks"):
+        deepspeed_tpu_torch.init_inference(
+            model, config={"zero_inference": {"enabled": True}},
+            device="cpu")

@@ -8,8 +8,8 @@ package's (``deepspeed_tpu/moe``), on the CPU at fp32.
  - ``moe_apply`` within 1e-5 for top-1 and top-2, SwiGLU and GELU experts,
    and K-grouped int8 (w8a8) expert records dequantized at the point of
    use; the port's fixed row blocks change nothing;
- - ``dequantize_k`` on records with two leading dims, and the refused
-   training options.
+ - ``dequantize_k`` on records with two leading dims, RSample gating
+   running and ``drop_tokens=False`` refused.
 """
 
 import numpy as np
@@ -181,10 +181,14 @@ def test_dequantize_k_takes_two_leading_dims():
 
 
 def test_training_options_are_refused():
+    """RSample noisy gating runs (held against JAX in
+    ``tests/test_torch_mixtral_train.py``); ``drop_tokens=False`` raises
+    with JAX's reason, as the JAX function does."""
     logits = torch.zeros(1, 4, 4)
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        tmoe.top1gating(logits, noisy_gate_policy="RSample")
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    _, combine, dispatch, _ = tmoe.top1gating(
+        logits, noisy_gate_policy="RSample", rng=np.array([0, 5], np.uint32))
+    assert combine.shape == dispatch.shape == (1, 4, 4, 4)
+    with pytest.raises(NotImplementedError, match="dynamic capacity"):
         tmoe.top1gating(logits, drop_tokens=False)
     cfg = tlayer.MoEConfig(hidden_size=8, ffn_hidden_size=8, num_experts=2,
                            k=3)
