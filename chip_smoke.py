@@ -123,7 +123,8 @@ before phase 3 and read after phase 5, the flash kernels' before phase 7
 and after it, the int8 kernels' before phase 10 and after its five runs,
 the gated flash kernels' (``layout_launches``) before phase 11's main path
 and after it; phase 13's decode-attention and int8 launches (its checks,
-not its table) are added to those of phases 3-5 and 10; phases 14 (b),
+not its table) are added to those of phases 3-5 and 10, and phase 20
+(a)'s (its serves) to those of phases 3-5; phases 14 (b) (with 20 (b)),
 15 (b) and 16 (b) each set the counts to 0 before their run and read
 them after it, and 17 (b) and 17 (c) before and after each run of their
 main path (the two serves and bf16 ``generate``), summed; phase 18 (b)
@@ -190,7 +191,8 @@ and every replay adds them.
     vocabulary, each request agreeing with ``generate`` on >= 0.95 of its
     positions, captured equal to eager, and an ``init_serving``-default
     ``sampling=True`` server's greedy tokens equal to ``sampling=False``'s;
-    a chunk-16 server (B4) agreeing >= 0.95; the w8a8 engine quantized on
+    a chunk-16 server (B4) agreeing >= 0.95; phase 20 (b) (below); the
+    w8a8 engine quantized on
     the card (seconds printed), its ``w8a8+kv8`` server (B6 with w2 at 112
     groups, kv8 B3, and kv8 B4 on its 128-token prefill windows, sixteen
     positions at a time); w8a8 ``generate`` under ``DS_INDEXED_DECODE=0``
@@ -342,6 +344,37 @@ and every replay adds them.
     streamed layer) equal to the resident w8a8 engine (B6) token for
     token.  The streamed generates' launches give the
     ``[opt-30b-zero-inference]`` entries of the kernels line (B2, B4, B5).
+ 20. The serving API and its telemetry (:func:`serving_api_phase`), run
+    after phase 13 on phase 4's GPT-2 125M bf16 engine and traffic (8
+    slots x 1024, chunk 128, ``sampling=False``).  (a) The telemetry's
+    cost: the traffic served six times, alternating ``trace_capacity=0``
+    with the default ring (registry and SLO tracker on in both), each
+    median tok/s and their ratio; it fails past 5% or when the tokens
+    differ.  ``dump_trace`` checked by ``validate_chrome_trace``, every
+    request with its admits, a prefill window over its slot and its span
+    (TTFT > 0), events counted by name.  ``serve(profile_dir=,
+    profile_iters=4)``: the exported ``torch.profiler`` trace must name
+    B3 (``verify_split_kernel``); its device ms an iteration.
+    ``flops_report(peak_flops=989e12)``: MFU over the ring-on server's
+    serves, busy fractions, ``serving_model_flops_total`` equal to each
+    program's FLOPs times its calls.  A bucketed server
+    (``default_buckets(1024)``) against a chunked one, prefix caching off
+    in both: TTFT p50 / p95, tok/s, prefill calls by width, programs within
+    ``compile_budget``, each request against ``generate`` at >= 0.95.
+    Cancel one queued and one active request: both end ``cancelled``,
+    ``blocks_in_use`` back to the trie's blocks, survivors against phase
+    4's run at >= 0.95 (exact share printed); ``drain()`` after 10
+    iterations hands back every live request with its tokens,
+    resubmitted through ``_submit_item`` they finish at the same bar.
+    SLO classes with infinite and zero targets: attainment 1.0 / 0.0,
+    burn 0 / 10, admission in ``SLO_PRIORITY`` order.  A server rebuilt
+    from ``resolved_config()`` serves 4 requests with the same tokens;
+    a ``debug_checks`` serve audits every iteration.  (b) Inside phase 14
+    (b) on its Llama-3-8B engine (:func:`llama_serving_api_phase`): a
+    bucketed and a chunk-16 server on phase 4's traffic against
+    ``generate`` (TTFT, tok/s, prefill calls by width), and the
+    telemetry's cost over three alternations.  The launches of (a)'s
+    serves are added to those of phases 3-5; (b)'s are in phase 14 (b)'s.
 
 The last two lines of output are the ``{"kernels": [...]}`` JSON object
 and the ``{"ok": true, "device": ...}`` JSON object.
@@ -1697,6 +1730,25 @@ def agreement(a, b) -> float:
     return float((a == b).mean())
 
 
+def exact_stats(srv, reqs=None) -> dict:
+    """``srv.stats()`` with its TTFT / TPOT p50 and p95 computed exactly
+    from the server's per-request records (of ``reqs``, or of every request
+    it finished, up to its last 256) in place of the registry's fixed-bucket
+    histograms, whose buckets are 2-2.5x wide: the yardstick of the
+    latencies PERF.md compares across PRs."""
+    import numpy as np
+
+    st = srv.stats()
+    uids = None if reqs is None else {r.uid for r in reqs}
+    recs = [rec for rec in srv._latencies if uids is None or rec["uid"] in uids]
+    for key in ("ttft", "tpot"):
+        vals = [rec[f"{key}_s"] for rec in recs]
+        for q in (50, 95):
+            st[f"{key}_p{q}_s"] = float(np.percentile(vals, q)) \
+                if vals else None
+    return st
+
+
 def first_divergence(a, b) -> int:
     """Index of the first differing token, -1 when equal."""
     import numpy as np
@@ -1775,7 +1827,7 @@ def main_path():
     res = srv.serve(reqs)
     torch.cuda.synchronize()
     dt_srv = time.perf_counter() - t0
-    st = srv.stats()
+    st = exact_stats(srv)
     c4 = {k: v - c3[k] for k, v in counts().items()}
     n_gen = st["generated_tokens"]
     for r in reqs:
@@ -1972,13 +2024,13 @@ def profile_serving(label, srv, reqs, watches, warm: int = 24,
         for _ in range(warm):
             srv.step()
         torch.cuda.synchronize()
-        tok0 = srv.counters["generated_tokens"]
+        tok0 = srv.stats()["generated_tokens"]
         t0 = time.perf_counter()
         for _ in range(steps):
             srv.step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-        tokens = srv.counters["generated_tokens"] - tok0
+        tokens = srv.stats()["generated_tokens"] - tok0
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -2088,7 +2140,7 @@ def quant_phase(engine, prompts, gen, float_lane):
                           max_seq_len=1024, block_size=32, prefill_chunk=128,
                           sampling=False)
     qres, t_srv = timed(lambda: srv.serve(reqs))
-    st = srv.stats()
+    st = exact_stats(srv)
     c2 = {k: v - c0[k] - c1[k] for k, v in int8_counts().items()}
     n_gen = st["generated_tokens"]
     for r in reqs:
@@ -2266,7 +2318,7 @@ def timed_serve(srv, reqs, eager: bool):
     t0 = time.perf_counter()
     res = srv._serve_eager(reqs) if eager else srv.serve(reqs)
     torch.cuda.synchronize()
-    st = srv.stats()
+    st = exact_stats(srv)
     return res, st["generated_tokens"] / (time.perf_counter() - t0), \
         st["ttft_p50_s"]
 
@@ -3396,6 +3448,337 @@ def check_sparse_kernels():
     return measured["layout"], counts
 
 
+# ------------------------------------------------------------- phase 20
+#: phase 20's gross-fault guard on the telemetry's cost: the trace ring on
+#: may cost at most this share of the median tok/s with it off (the JAX
+#: package's contract is 2%, measured on a TPU; PERF.md records the port's)
+TELEMETRY_MAX_COST = 0.05
+
+
+def timed_run(srv, reqs, **kw):
+    """One timed ``serve``: (results, generated tok/s, wall s)."""
+    import torch
+
+    before = srv.stats()["generated_tokens"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = srv.serve(reqs, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, (srv.stats()["generated_tokens"] - before) / wall, wall
+
+
+def telemetry_cost(label, server, reqs, rounds, card):
+    """Serve ``reqs`` ``2 x rounds`` times alternating a server with the
+    trace ring off (``trace_capacity=0``) and one with the default ring
+    (the SLO tracker and registry on in both), each warmed by one serve
+    first.  Fails when the ring costs more than TELEMETRY_MAX_COST of the
+    median tok/s, or when the tokens differ.  Returns (the ring-on server,
+    the walls of its serves, the ratio)."""
+    import numpy as np
+
+    servers = {0: server(trace_capacity=0), 16384: server()}
+    base, walls = {}, []
+    for cap, srv in servers.items():
+        base[cap], _, wall = timed_run(srv, reqs)
+        if cap:
+            walls.append(wall)
+    rates = {0: [], 16384: []}
+    for _ in range(rounds):
+        for cap, srv in servers.items():
+            res, rate, wall = timed_run(srv, reqs)
+            rates[cap].append(rate)
+            if cap:
+                walls.append(wall)
+            if not same_tokens(res, base[0], reqs):
+                raise AssertionError(f"{label}: tokens with trace_capacity="
+                                     f"{cap} differ from the ring-off run")
+    med = {cap: float(np.median(v)) for cap, v in rates.items()}
+    ratio = med[16384] / med[0]
+    log(f"[20 {label} telemetry] tok/s ring off {rates[0]} (median "
+        f"{med[0]:.1f}), ring on {rates[16384]} (median {med[16384]:.1f}); "
+        f"on / off {ratio:.4f} (cost {100 * (1 - ratio):.2f}%; guard "
+        f"{100 * TELEMETRY_MAX_COST:.0f}%, JAX contract 2%); tokens equal; "
+        f"{card}")
+    if ratio < 1 - TELEMETRY_MAX_COST:
+        raise AssertionError(f"{label}: the trace ring costs "
+                             f"{100 * (1 - ratio):.2f}% of tok/s")
+    return servers[16384], walls, ratio
+
+
+def compare_servers(label, servers, reqs, ref, card):
+    """Each ``(name, server)`` warmed on 2 requests, then timed serving
+    ``reqs``: TTFT p50 / p95, tok/s, prefill calls by width, the programs
+    against the budget, and each request's agreement with ``ref`` (>=
+    0.95).  Returns {name: results}."""
+    out = {}
+    for name, srv in servers:
+        srv.serve([type(r)(uid=f"w{r.uid}", prompt=r.prompt[:40],
+                           max_new_tokens=8) for r in reqs[:2]])
+        res, rate, _ = timed_run(srv, reqs)
+        st = exact_stats(srv, reqs)
+        p50, p95 = st["ttft_p50_s"], st["ttft_p95_s"]
+        agree = [agreement(res[r.uid], ref[r.uid]) for r in reqs]
+        log(f"[20 {label} {name}] TTFT p50 {p50:.4f} s p95 {p95:.4f} s; "
+            f"{rate:.1f} generated tok/s; prefill_calls by width "
+            f"{dict(sorted(srv._prefill_calls_by_width.items()))}; "
+            f"compile_count {st['compile_count']} of budget "
+            f"{st['compile_budget']} {srv.compiled_programs}; agreement "
+            f"with generate: min {min(agree):.4f}, "
+            f"{sum(a == 1.0 for a in agree)} of {len(reqs)} exact; {card}")
+        if min(agree) < 0.95:
+            raise AssertionError(f"{label} {name}: agreement {agree}")
+        if st["compile_count"] > st["compile_budget"]:
+            raise AssertionError(f"{label} {name}: {st['compile_count']} "
+                                 "programs past the budget")
+        out[name] = res
+    return out
+
+
+def serving_api_phase(engine, gen, float_lane, card):
+    """Phase 20 (a): the serving API and its telemetry on GPT-2 125M bf16
+    (phase 4's engine and traffic, 8 slots x 1024): the telemetry's cost,
+    ``dump_trace``, ``serve(profile_dir=)``, ``flops_report``, bucketed
+    against chunked prefill, cancel and drain, SLO classes, the
+    ``resolved_config()`` round trip and ``debug_checks``.  Returns the
+    kernels' launches of its serves (its ``generate`` references run
+    before the count starts)."""
+    import json
+    import os
+    import shutil
+
+    import numpy as np
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.inference.serving import SLO_PRIORITY, \
+        default_buckets
+    from deepspeed_tpu_torch.telemetry import validate_chrome_trace
+
+    t_start = time.perf_counter()
+    model = engine.module
+    reqs, plain = float_lane["reqs"], float_lane["res"]
+    # the batch-1 generate references of (5), made before the launches
+    # of the phase's serves are counted
+    ref = {r.uid: engine.generate(r.prompt[None], max_new_tokens=64)[0]
+           for r in reqs[:-4]}
+    ref.update({f"gen{i}": gen[i] for i in range(4)})
+    start = kernel_counts()
+
+    def server(**kw):
+        kw = {"slots": 8, "max_seq_len": 1024, "block_size": 32,
+              "prefill_chunk": 128, "sampling": False, **kw}
+        return dt.init_serving(model, config={"dtype": "bf16"},
+                               params=engine.params, **kw)
+
+    # (1) the telemetry's cost
+    srv, walls, _ = telemetry_cost("gpt2", server, reqs, 3, card)
+
+    # (2) dump_trace
+    out_dir = os.path.join("build", "serving_api")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    doc = json.load(open(srv.dump_trace(os.path.join(out_dir,
+                                                     "trace.json"))))
+    summary = validate_chrome_trace(doc)
+    events = doc["traceEvents"]
+    names = {}
+    for e in events:
+        if e["ph"] != "M":
+            key = "req *" if e["name"].startswith("req ") else e["name"]
+            names[key] = names.get(key, 0) + 1
+    serves = 4                        # the warm serve and three timed ones
+    for r in reqs:
+        admits = [e for e in events if e["name"] == "admit" and
+                  e["args"]["uid"] == r.uid]
+        spans = [e for e in events if e["name"] == f"req {r.uid}"]
+        prefills = [e for e in events if e["name"] == "prefill" and
+                    any(a["args"]["slot"] in e["args"]["slots"] and
+                        e["ts"] >= a["ts"] for a in admits)]
+        if len(admits) < serves or len(spans) != serves or not prefills or \
+                min(e["args"]["ttft_s"] for e in spans) <= 0:
+            raise AssertionError(f"dump_trace: {r.uid} has {len(admits)} "
+                                 f"admits, {len(prefills)} prefills, "
+                                 f"{len(spans)} request spans")
+    log(f"[20 gpt2 dump_trace] {summary['events']} events valid, "
+        f"{summary['request_spans']} request spans, dropped "
+        f"{srv.stats()['trace_events_dropped']}; by name "
+        f"{dict(sorted(names.items()))}")
+
+    # (3) flops_report over this server's serves so far
+    rep = srv.flops_report(peak_flops=BF16_FLOPS_PER_S,
+                           window_s=sum(walls))
+    total = sum(p["flops_per_call"] * rep["program_calls"][f]
+                for f, p in rep["programs"].items())
+    if not math.isclose(rep["model_flops_total"], total, rel_tol=1e-12):
+        raise AssertionError(f"flops total {rep['model_flops_total']} != "
+                             f"{total}")
+    snap = srv.metrics.snapshot()
+    flops_cell = snap["serving_model_flops_total"]["series"][0]["value"]
+    if not math.isclose(flops_cell, total, rel_tol=1e-12):
+        raise AssertionError(f"serving_model_flops_total {flops_cell}")
+    log(f"[20 gpt2 flops] programs " + "; ".join(
+        f"{f}: {p['flops_per_call']:.4g} a call ({p['source']}, analytic "
+        f"{p['flops_analytic']:.4g}) x {rep['program_calls'][f]}"
+        for f, p in rep["programs"].items()) +
+        f"; model FLOPs {rep['model_flops_total']:.4g} in the server's "
+        f"{len(walls)} serves ({sum(walls):.3f} s): MFU "
+        f"{100 * rep['mfu']:.4f}% of {BF16_FLOPS_PER_S:.3g} FLOP/s (dense "
+        f"bf16 peak; {card}); busy fractions of the timeline "
+        f"{ {k: round(v, 4) for k, v in rep['busy_fractions'].items()} }")
+
+    # (4) serve(profile_dir=, profile_iters=4) on the warmed server
+    prof_dir = os.path.join(out_dir, "profile")
+    srv.serve(reqs, profile_dir=prof_dir, profile_iters=4)
+    files = [f for f in os.listdir(prof_dir) if f.endswith(".json")]
+    if len(files) != 1:
+        raise AssertionError(f"profile_dir holds {files}")
+    trace = json.load(open(os.path.join(prof_dir, files[0])))["traceEvents"]
+    kernels = [e for e in trace if e.get("cat") == "kernel"]
+    b3 = [e for e in kernels if "verify_split_kernel" in e["name"]]
+    if not b3:
+        raise AssertionError("the profiler trace names no "
+                             "verify_split_kernel")
+    b3_ms = sum(e["dur"] for e in b3) / 1e3 / 4
+    busy_ms = sum(e["dur"] for e in kernels) / 1e3 / 4
+    log(f"[20 gpt2 profile] serve(profile_dir=, profile_iters=4): "
+        f"{len(kernels)} device kernels in the window; B3 "
+        f"verify_split_kernel x{len(b3)}, {b3_ms:.4f} ms a iteration of "
+        f"{busy_ms:.4f} ms device time; {card}")
+
+    # (5) bucketed against chunked prefill, prefix caching off in both
+    compare_servers("gpt2", [
+        ("bucketed", server(prompt_buckets=default_buckets(1024),
+                            prefix_caching=False)),
+        ("chunked", server(prefix_caching=False))], reqs, ref, card)
+
+    # (6) cancel one queued and one active request; drain and resubmit
+    csrv = server()
+    handles = [csrv.submit(r) for r in reqs]
+    csrv.step()
+    queued, active = handles[-1], handles[0]
+    if queued.status != "queued" or not queued.cancel():
+        raise AssertionError(f"cancel queued: {queued.status}")
+    for _ in range(3):
+        csrv.step()
+    if active.status != "active" or not active.cancel():
+        raise AssertionError(f"cancel active: {active.status}")
+    streamed = len(active.tokens())
+    while csrv.step():
+        pass
+    trie = {e.block for e in csrv._prefix.entries()}
+    st = csrv.stats()
+    survivors = [h for h in handles if h not in (queued, active)]
+    agree = [agreement(h.result(timeout=0), plain[h.uid])
+             for h in survivors]
+    log(f"[20 gpt2 cancel] statuses {queued.status} / {active.status} "
+        f"(the active one streamed {streamed} tokens first); cancelled "
+        f"{st['cancelled']}; blocks_in_use {st['blocks_in_use']} = the "
+        f"trie's {len(trie)}; survivors against the undisturbed run: min "
+        f"{min(agree):.4f}, exact {sum(a == 1.0 for a in agree)} of "
+        f"{len(agree)}")
+    if (queued.status, active.status) != ("cancelled", "cancelled") or \
+            st["cancelled"] != 2 or st["blocks_in_use"] != len(trie) or \
+            min(agree) < 0.95:
+        raise AssertionError("cancel: a check failed (line above)")
+    dsrv = server()
+    handles = [dsrv.submit(r) for r in reqs]
+    for _ in range(10):
+        dsrv.step()
+    live = [h for h in handles if not h.done]
+    items = dsrv.drain()
+    if sorted(i.req.uid for i in items) != sorted(h.uid for h in live):
+        raise AssertionError("drain did not return every live request")
+    if any(i.prior != i.handle.tokens() for i in items):
+        raise AssertionError("drained items lost their prior tokens")
+    with_prior = sum(bool(i.prior) for i in items)
+    for item in items:
+        dsrv._submit_item(item)
+    while dsrv.step():
+        pass
+    agree = [agreement(h.result(timeout=0), plain[h.uid]) for h in handles]
+    log(f"[20 gpt2 drain] after 10 iterations: {len(items)} live "
+        f"requests handed back ({with_prior} with prior tokens), "
+        f"{len(handles) - len(items)} finished before; resubmitted, all "
+        f"finish: against the undisturbed run min {min(agree):.4f}, exact "
+        f"{sum(a == 1.0 for a in agree)} of {len(agree)}")
+    if min(agree) < 0.95 or not all(h.status == "finished"
+                                    for h in handles):
+        raise AssertionError(f"drain: agreement {agree}")
+
+    # (7) SLO classes: infinite and zero targets
+    ssrv = server(slo_targets={
+        "realtime": {"ttft_s": 1e9, "tpot_s": 1e9, "objective": 0.99},
+        "batch": {"ttft_s": 0.0, "tpot_s": 0.0, "objective": 0.9}})
+    log_ = ssrv._admission_log = []
+    cls = {r.uid: ("realtime", "batch")[i % 2] for i, r in enumerate(reqs)}
+    for r in reqs:
+        ssrv.submit(r, slo_class=cls[r.uid])
+    while ssrv.step():
+        pass
+    ssrv._admission_log = None
+    rep = ssrv.slo_report()
+    first = []
+    for uid, _ in log_:
+        if uid not in first:
+            first.append(uid)
+    order = sorted(first, key=lambda u: -SLO_PRIORITY[cls[u]])
+    rt, bt = rep["realtime"], rep["batch"]
+    log(f"[20 gpt2 slo] realtime: {rt['requests']} requests, attainment "
+        f"{rt['ttft_attainment']} / {rt['tpot_attainment']}, burn "
+        f"{rt['ttft_burn_rate']} / {rt['tpot_burn_rate']}, TTFT p50 "
+        f"{rt['ttft_p50_s']:.4f} s; batch: attainment "
+        f"{bt['ttft_attainment']} / {bt['tpot_attainment']}, burn "
+        f"{bt['ttft_burn_rate']:.4f} / {bt['tpot_burn_rate']:.4f}, TTFT p50 "
+        f"{bt['ttft_p50_s']:.4f} s; admission order by class "
+        f"{[cls[u][0] for u in first]}")
+    if (rt["ttft_attainment"], rt["tpot_attainment"],
+            bt["ttft_attainment"], bt["tpot_attainment"]) != \
+            (1.0, 1.0, 0.0, 0.0) or rt["ttft_burn_rate"] != 0.0 or \
+            not math.isclose(bt["ttft_burn_rate"], 10.0) or first != order:
+        raise AssertionError("slo: a check failed (line above)")
+
+    # (8) resolved_config() round trip, (9) debug_checks
+    four = reqs[-4:]
+    src = server(trace_capacity=4096, prefill_batch=2, peak_flops=1e15,
+                 slo_targets={"interactive": {"ttft_s": 0.3}})
+    cfg = src.resolved_config()
+    got = src.serve(four)
+    again = dt.init_serving(model, config={"dtype": "bf16"},
+                            params=engine.params, **cfg)
+    if again.resolved_config() != cfg or \
+            not same_tokens(again.serve(four), got, four):
+        raise AssertionError("resolved_config(): the rebuilt engine differs")
+    dbg = server(debug_checks=True)
+    dbg.serve(four)
+    st = dbg.stats()
+    log(f"[20 gpt2 config] rebuilt from resolved_config() ({len(cfg)} "
+        f"keys): same config, same tokens; debug_checks serve: "
+        f"{st['invariant_checks_run']} audits in {st['iterations']} "
+        f"iterations, {st['compile_count']} programs of budget "
+        f"{st['compile_budget']}, retraces {st['retraces_observed']}")
+    if st["invariant_checks_run"] != st["iterations"] or \
+            st["retraces_observed"]:
+        raise AssertionError("debug_checks: a check failed (line above)")
+    counts = counts_since(start)
+    log(f"[20 gpt2] phase 20 (a) in {time.perf_counter() - t_start:.1f} s; "
+        f"launches {counts}")
+    return counts
+
+
+def llama_serving_api_phase(server, reqs, ref, card):
+    """Phase 20 (b), inside phase 14 (b): Llama-3-8B's bucketed and chunk-16
+    servers on phase 4's traffic against ``generate`` (``ref``), and the
+    telemetry's cost over three alternations."""
+    from deepspeed_tpu_torch.inference.serving import default_buckets
+
+    t0 = time.perf_counter()
+    compare_servers("llama", [
+        ("bucketed", server(prompt_buckets=default_buckets(1024))),
+        ("chunk-16", server(prefill_chunk=16))], reqs, ref, card)
+    telemetry_cost("llama", server, reqs, 3, card)
+    log(f"[20 llama] phase 20 (b) in {time.perf_counter() - t0:.1f} s")
+
+
 # ------------------------------------------------------------- phase 14
 #: Llama-3-8B's attention geometry: 32 query heads over 8 KV heads (GQA rep
 #: 4) of head dim 128
@@ -3861,7 +4244,7 @@ def llama_serving_phase(card):
         for i in range(4)]
     srv = server(engine.params)
     res, t_srv = timed(lambda: srv.serve(reqs))
-    st = srv.stats()
+    st = exact_stats(srv)
     n_gen = st["generated_tokens"]
     for r in reqs:
         out = res[r.uid]
@@ -3923,6 +4306,8 @@ def llama_serving_phase(card):
     if min(agree16) < 0.95:
         raise AssertionError(f"llama chunk=16 agreement {agree16}")
     del srv16
+    llama_serving_api_phase(lambda **kw: server(engine.params, **kw), reqs,
+                            ref, card)
     window = reqs[-4:] + reqs[:4]
     prof_f = profile_serving("llama float", server(engine.params), window,
                              [("B3", "verify_split_kernel")])
@@ -3942,7 +4327,7 @@ def llama_serving_phase(card):
     c0 = kernel_counts()
     res8, t8 = timed(lambda: srv8.serve(reqs))
     c8 = counts_since(c0)
-    st8 = srv8.stats()
+    st8 = exact_stats(srv8)
     agree8 = [agreement(res8[r.uid], res[r.uid]) for r in reqs]
     log(f"[llama serve w8a8+kv8] {st8['generated_tokens']} generated tokens "
         f"in {t8:.3f} s: {st8['generated_tokens'] / t8:.1f} generated tok/s;"
@@ -5079,7 +5464,7 @@ def served(tag, srv, reqs, vocab):
                 not ((out >= 0) & (out < vocab)).all():
             raise AssertionError(f"{tag} serve {r.uid}: shape {out.shape} / "
                                  "bad ids")
-    return res, srv.stats(), t
+    return res, exact_stats(srv), t
 
 
 #: phase 17's served requests held to ``generate``: the 4 prompts of 128
@@ -6443,6 +6828,8 @@ def main() -> int:
     greedy12 = capture_phase(engine, weng, float_lane)
     for name, n in spec_phase(engine, weng, float_lane, greedy12,
                               card).items():
+        launches[name] += n
+    for name, n in serving_api_phase(engine, gen, float_lane, card).items():
         launches[name] += n
     del engine, weng, float_lane, greedy12
     sparse_measured, sparse_launches = check_sparse_kernels()

@@ -124,7 +124,6 @@ def _unsupported(entry: str, option: str, item: int, later: str):
 #: init_serving's keywords that the port takes only at the JAX default:
 #: (name, default, ROADMAP Queue A item, the work that brings it).
 _SERVING_LATER = (
-    ("prompt_buckets", None, 4, "serving API remainder (bucketed prefill)"),
     ("engine_mode", "replicas", 8, "multi-GPU slice (dp_tp)"),
     ("sp", 1, 8, "multi-GPU slice (sequence-parallel prefill)"),
     ("resident_window_blocks", 0, 9, "fleet layers (KV tiers)"),
@@ -135,12 +134,6 @@ _SERVING_LATER = (
     ("nvme_high_watermark", 0.9, 9, "fleet layers (NVMe KV tier)"),
     ("nvme_path", None, 9, "fleet layers (NVMe KV tier)"),
     ("shard_kv", None, 8, "multi-GPU slice (head-sharded KV pool)"),
-    ("debug_checks", False, 5, "telemetry and tooling slice (the paged-state "
-     "audit, scale-lockstep included)"),
-    ("trace_capacity", 16384, 5, "telemetry and tooling slice (the event "
-     "trace)"),
-    ("slo_targets", None, 5, "telemetry and tooling slice (SLO report)"),
-    ("peak_flops", None, 5, "telemetry and tooling slice (flops report)"),
 )
 
 
@@ -157,8 +150,8 @@ def init_serving(model=None, config=None, params=None, *, slots=8,
                  debug_checks=False, trace_capacity=16384, slo_targets=None,
                  peak_flops=None, device=None, **kwargs):
     """Continuous-batching serving entry: an ``init_inference`` engine
-    wrapped in the block-paged chunked-prefill scheduler
-    (``inference/serving.py``), for every family of ``init_inference``
+    wrapped in the block-paged scheduler (``inference/serving.py``), for
+    every family of ``init_inference``
     (GPT-2, llama, mixtral and opt each declare paged serving, the verify
     window, the int8 pool and sampling in their ``decode_hooks``, so every
     lane below, ``logit_masks`` included, serves them; mixtral gates each
@@ -178,34 +171,38 @@ def init_serving(model=None, config=None, params=None, *, slots=8,
     captured window on the paged verify kernel, by ``spec_verifier``
     (``"rejection"``, or ``"greedy"`` on a ``sampling=False`` engine).
     ``logit_masks=True`` threads each request's ``mask_builder`` mask
-    through every token rule.  ``quantize``: ``None``,
+    through every token rule.  ``prompt_buckets`` (or
+    ``chunked_prefill=False``, with ``default_buckets``) prefills each
+    prompt whole in its ladder rung's window, without prefix reuse.
+    ``debug_checks=True`` audits the paged state every iteration and
+    raises when a logical program is built past ``compile_budget``;
+    ``trace_capacity`` sizes the event ring behind ``dump_trace`` (0 =
+    off); ``slo_targets`` overrides the per-class targets behind
+    ``slo_report``; ``peak_flops`` is ``flops_report``'s MFU
+    denominator.  ``quantize``: ``None``,
     ``"kv8"`` (int8 KV pool),
     ``"w8a8"`` or ``"w8a8+kv8"``; a ``w8a8`` value builds the engine with
     K-grouped int8 blocks, merging ``{"quant": {"enabled": True, "type":
     "w8a8"}}`` into the config as ``deepspeed_tpu/__init__.py:384-411``
     does.  Every other keyword the port does not implement yet is taken at
-    its JAX default only (``chunked_prefill`` also at ``True``, which is
-    what the port runs); any other value raises ``NotImplementedError``
-    naming its ROADMAP Queue A item.  Remaining keyword arguments are
+    its JAX default only (``shard_kv`` also at ``False`` and ``topology``
+    at 1, the one-card layout the port runs); any other value raises
+    ``NotImplementedError`` naming its ROADMAP Queue A item.  Remaining keyword arguments are
     inference-config keys."""
     from .inference.serving import ServingEngine, _parse_quantize
 
-    given = dict(prompt_buckets=prompt_buckets,
-                 engine_mode=engine_mode, sp=sp,
+    given = dict(engine_mode=engine_mode, sp=sp,
                  resident_window_blocks=resident_window_blocks,
                  host_blocks=host_blocks, swap_batch=swap_batch, role=role,
                  nvme_blocks=nvme_blocks,
                  nvme_high_watermark=nvme_high_watermark, nvme_path=nvme_path,
-                 shard_kv=shard_kv, debug_checks=debug_checks,
-                 trace_capacity=trace_capacity, slo_targets=slo_targets,
-                 peak_flops=peak_flops)
+                 # False is the one-card layout the port runs (the pool is
+                 # never head-sharded): resolved_config() gives it
+                 shard_kv=None if shard_kv is False else shard_kv)
     for name, default, item, later in _SERVING_LATER:
         value = given[name]
         if value is not default and value != default:
             _unsupported("init_serving", f"{name}={value!r}", item, later)
-    if chunked_prefill is False:
-        _unsupported("init_serving", "chunked_prefill=False", 4,
-                     "serving API remainder (bucketed prefill)")
     if topology is not None:
         tp = int(topology) if not isinstance(topology, dict) else \
             int(topology.get("tp", topology.get("tp_size", 1)))
@@ -217,14 +214,19 @@ def init_serving(model=None, config=None, params=None, *, slots=8,
         config = _with_w8a8(config, kwargs)
     engine = init_inference(model, config, params, device=device, **kwargs)
     return ServingEngine(engine, slots=slots, max_seq_len=max_seq_len,
+                         prompt_buckets=prompt_buckets,
                          prefill_batch=prefill_batch, block_size=block_size,
-                         num_blocks=num_blocks, prefill_chunk=prefill_chunk,
+                         num_blocks=num_blocks,
+                         chunked_prefill=chunked_prefill,
+                         prefill_chunk=prefill_chunk,
                          prefix_caching=prefix_caching,
                          decode_steps=decode_steps, spec_tokens=spec_tokens,
                          quantize=quantize, draft=draft, ngram_max=ngram_max,
                          ngram_min=ngram_min, sampling=sampling,
                          spec_verifier=spec_verifier,
-                         logit_masks=logit_masks)
+                         logit_masks=logit_masks, debug_checks=debug_checks,
+                         trace_capacity=trace_capacity,
+                         slo_targets=slo_targets, peak_flops=peak_flops)
 
 
 def _with_w8a8(config, kwargs):

@@ -208,6 +208,13 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self.dtype = config.torch_dtype
         self._streamed = None
+        # telemetry registry (telemetry/): profile_model_time observes
+        # per-forward time into it (inference/engine.py:286-291)
+        from ..telemetry import MetricsRegistry
+
+        self.metrics = MetricsRegistry()
+        self._profiling = False
+        self._model_times: list = []
         if config.zero_inference.enabled:
             self.params = self._init_zero_inference(params)
             log_dist(f"InferenceEngine: device={self.device}, "
@@ -339,9 +346,50 @@ class InferenceEngine:
         ids = batch["input_ids"] if isinstance(batch, dict) else batch
         ids = torch.as_tensor(np.asarray(ids), dtype=torch.int64,
                               device=self.device)
-        return self.module(self.params, ids)
+        if not self._profiling:
+            return self.module(self.params, ids)
+        if self._cuda_events and self.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.module(self.params, ids)
+            end.record()
+            end.synchronize()
+            dt = start.elapsed_time(end) / 1e3
+        else:
+            t0 = time.perf_counter()
+            out = self.module(self.params, ids)
+            dt = time.perf_counter() - t0
+        self._model_times.append(dt)
+        self._forward_hist.observe(dt)
+        return out
 
     __call__ = forward
+
+    def profile_model_time(self, use_cuda_events: bool = True):
+        """Enable per-forward time capture (``engine.py:523``); retrieve
+        with :meth:`model_times`.  On the card the forward is timed with
+        CUDA events (its device time; ``use_cuda_events=False`` times the
+        host's wall clock to the end of the launches instead), on the CPU
+        with the wall clock.  Idempotent.  Every sample also lands in the
+        registry's ``inference_forward_seconds`` histogram
+        (``self.metrics``), which survives the :meth:`model_times`
+        drain."""
+        if self._profiling:
+            return
+        self._profiling = True
+        self._cuda_events = bool(use_cuda_events)
+        self._model_times = []
+        self._forward_hist = self.metrics.histogram(
+            "inference_forward_seconds",
+            help="profiled forward-pass wall clock (profile_model_time)")
+
+    def model_times(self):
+        """The profiled forward times in seconds since the last call (the
+        list drains)."""
+        times = list(self._model_times)
+        self._model_times = []
+        return times
 
     # ----------------------------------------------------------------- generate
     @torch.no_grad()

@@ -119,6 +119,11 @@ class BlockAllocator:
     def refcount(self, block: int) -> int:
         return self._ref[block]
 
+    def snapshot(self):
+        """(refcounts copy, free-list copy) for the invariant checker
+        (``analysis/invariants.py``) — read-only view of allocator state."""
+        return list(self._ref), list(self._free)
+
     def alloc(self) -> Optional[int]:
         """A fresh block with refcount 1, or ``None`` when the pool is dry
         (the caller then evicts from the prefix cache / preempts)."""
@@ -172,6 +177,11 @@ class PrefixCache:
 
     def __len__(self) -> int:
         return len(self._entries)
+
+    def entries(self):
+        """The live trie entries (insertion/LRU order) — read-only view for
+        the invariant checker (``analysis/invariants.py``)."""
+        return list(self._entries.values())
 
     def probe(self, tokens: Sequence[int], max_tokens: int) -> int:
         """Number of leading full blocks of ``tokens[:max_tokens]`` present

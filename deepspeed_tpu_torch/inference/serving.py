@@ -1,6 +1,8 @@
 """Continuous-batching serving over a block-paged KV cache with prefix reuse
-and chunked prefill — the PyTorch port of
-``deepspeed_tpu/inference/serving.py`` in its chunked-prefill mode.
+and chunked or bucketed prefill — the PyTorch port of
+``deepspeed_tpu/inference/serving.py`` on one GPU (the host and NVMe KV
+tiers, resident windows, disaggregated roles and the multi-GPU modes come
+with their slices).
 
  - **Block-paged KV pool**: one ``[L, num_blocks, HKV, block_size, hd]``
    cache plus per-slot ``int32`` block tables mapping each sequence's
@@ -22,7 +24,12 @@ and chunked prefill — the PyTorch port of
  - **Chunked prefill**: prompts advance through the cache in fixed windows
    of ``prefill_chunk`` tokens, ``prefill_batch`` sequences per call,
    interleaved with decode steps.  Windows of up to 16 tokens run the paged
-   verify kernel; wider ones the gather-based plain path.
+   verify kernel; wider ones the gather-based plain path.  **Bucketed
+   prefill** (``chunked_prefill=False``, chosen when ``prompt_buckets`` is
+   passed): a whole prompt in one window of its ladder rung
+   (:func:`default_buckets`), grouped by rung, ``prefill_batch`` rows a
+   call; no prefix reuse and no speculative decoding, as in the JAX
+   package.
  - **Quantized serving** (``quantize=``): ``"kv8"`` stores the pool as int8
    records (codes plus a per-token bf16 scale table, ``ops/paged_kv.py``)
    read by the kv8 variants of the paged kernels; ``"w8a8"`` requires an
@@ -70,12 +77,33 @@ and chunked prefill — the PyTorch port of
    — prefill's first token, the decode step and verify — before
    temperature, top-k and top-p.
 
-Scheduling is iteration-level: every :meth:`ServingEngine.step` admits
-waiting requests into free slots (gated on block availability — the queue
-head blocks admission, no starvation), advances every prefilling slot by one
-chunk, then runs one decode step (or one fused window of K) over all slots
-with per-sequence positions (or one speculative round).  Greedy outputs
-are token-identical to sequential ``generate``.
+Scheduling is iteration-level: every :meth:`ServingEngine.step` applies
+deferred cancels, admits waiting requests into free slots in priority
+order (gated on block availability — the queue head blocks admission, no
+starvation), advances every prefilling slot by one chunk, then runs one
+decode step (or one fused window of K) over all slots with per-sequence
+positions (or one speculative round), and under ``debug_checks`` audits
+the paged state (``analysis/invariants.py``).  Greedy outputs are
+token-identical to sequential ``generate``.
+
+**Control surface**: ``submit(request, priority=, slo_class=)`` returns a
+:class:`RequestHandle` (streaming, ``result()``, ``cancel()``);
+``cancel(uid)`` drops a queued request at once and releases an active slot
+at the next iteration boundary (tokens already streamed stand);
+``drain()`` preempts every active slot and hands back the whole queue,
+generated tokens folded in, for re-submission; ``resolved_config()``
+round-trips through ``init_serving``.
+
+**Telemetry** (``telemetry/``, always on): every counter ``stats()``
+reports and the TTFT/TPOT distributions live in a
+:class:`~deepspeed_tpu_torch.telemetry.MetricsRegistry` (``metrics``); a
+bounded ring of scheduler events (``trace_capacity``, 0 = off) exports as
+Chrome trace JSON (``dump_trace``; ``telemetry/trace.py`` says which spans
+end at a device sync); ``slo_report()`` and ``flops_report()`` are the
+per-class attainment and FLOPs/MFU views; ``serve(profile_dir=)`` opens a
+``torch.profiler`` window over its first ``profile_iters`` iterations.
+The recompile sentry (``analysis/sentry.py``) counts each logical
+program's builds against ``compile_budget``.
 """
 
 from __future__ import annotations
@@ -86,20 +114,44 @@ import math
 import threading
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .. import _unsupported
+from ..analysis.invariants import audit_serving_engine
+from ..analysis.sentry import RecompileSentry, backend_compiles
 from ..ops import decode_attention, quantized_matmul
 from ..ops import sampling as sampling_ops
-from ..ops.paged_kv import blocks_for, is_quantized_pool, quantize_pool
+from ..ops.paged_kv import (blocks_for, is_quantized_pool, pool_payload,
+                            quantize_pool)
 from ..ops.quantization import tree_leaves
+from ..telemetry import MetricsRegistry, ProfilerWindow, TraceTimeline
+from ..telemetry.slo import SLOTracker
 from ..utils.logging import log_dist
 from ..utils.lru import LRUCache
 from .paged import BlockAllocator, PrefixCache
 from .spec import NGramProposer, greedy_accept, rejection_accept
+
+
+def default_buckets(max_seq_len: int, lo: int = 32) -> Tuple[int, ...]:
+    """Power-of-two prompt-bucket ladder ``[lo, .., max_seq_len]``
+    (``serving.py:324``): ``lo`` above ``max_seq_len`` clamps to a single
+    ``(max_seq_len,)`` bucket, a non-power-of-two ``max_seq_len`` gets
+    exactly one tail entry, and ``lo < 1`` raises instead of looping
+    forever."""
+    if max_seq_len < 1:
+        raise ValueError(f"max_seq_len must be >= 1, got {max_seq_len}")
+    if lo < 1:
+        raise ValueError(f"bucket floor lo must be >= 1, got {lo}")
+    b = min(lo, max_seq_len)
+    buckets = []
+    while b < max_seq_len:
+        buckets.append(b)
+        b *= 2
+    if not buckets or buckets[-1] != max_seq_len:
+        buckets.append(max_seq_len)
+    return tuple(buckets)
 
 
 @dataclasses.dataclass
@@ -150,28 +202,42 @@ class Request:
         return self.temperature > 0
 
 
-class RequestHandle:
-    """Live view of one submitted request: per-token streaming and
-    completion.  The engine appends committed tokens as the scheduler emits
-    them; the caller reads ``tokens()``, a streaming cursor
-    (``next_token``), or the final padded ``[prompt + completion]`` array
-    (``result()``).  A preemption keeps the handle: already-streamed tokens
-    stand (greedy resume recomputes the identical sequence).  Transitions
-    run under one condition variable, so the handle may be read from
-    another thread than the scheduler's."""
+#: ``slo_class`` -> default admission priority (``submit``): an SLO class
+#: is a coarse priority band with a stable name — an explicit nonzero
+#: ``priority=`` always wins over the class default (``serving.py:400``)
+SLO_PRIORITY = {"realtime": 2, "interactive": 1, "standard": 0, "batch": -1,
+                "giant_context": 0}
 
-    def __init__(self, request: Request):
+
+class RequestHandle:
+    """Live view of one submitted request: per-token streaming, completion
+    and cancellation.  The engine appends committed tokens as the
+    scheduler emits them; the caller reads ``tokens()``, a streaming cursor
+    (``next_token``), or the final padded ``[prompt + completion]`` array
+    (``result()``, ``None`` if the request was cancelled).  A preemption
+    keeps the handle: already-streamed tokens stand (greedy resume
+    recomputes the identical sequence), and so does a drain handed back to
+    ``_submit_item``.  Transitions run under one condition variable, so the
+    handle may be read from another thread than the scheduler's."""
+
+    def __init__(self, request: Request, *, priority: int = 0,
+                 slo_class: Optional[str] = None, canceller=None):
         self.request = request
         self.uid = request.uid
-        self.status = "queued"          # -> "active" -> "finished"
+        self.priority = int(priority)
+        self.slo_class = slo_class
+        # "queued" -> "active" -> "finished" | "cancelled"
+        self.status = "queued"
         self._tokens: List[int] = []
         self._result: Optional[np.ndarray] = None
         self._cond = threading.Condition()
         self._cursor = 0
+        self._canceller = canceller
 
     def _on_active(self) -> None:
         with self._cond:
-            self.status = "active"
+            if self.status == "queued":
+                self.status = "active"
             self._cond.notify_all()
 
     def _on_tokens(self, toks) -> None:
@@ -185,18 +251,34 @@ class RequestHandle:
             self.status = "finished"
             self._cond.notify_all()
 
+    def _on_cancel(self) -> None:
+        with self._cond:
+            self.status = "cancelled"
+            self._cond.notify_all()
+
+    def set_canceller(self, canceller) -> None:
+        """Rebind the cancel route (a drain handoff), under the handle's
+        condition: the stream may be read concurrently."""
+        with self._cond:
+            self._canceller = canceller
+
     @property
     def done(self) -> bool:
-        return self.status == "finished"
+        return self.status in ("finished", "cancelled")
 
     def tokens(self) -> List[int]:
         """Every token committed so far (a copy)."""
         with self._cond:
             return list(self._tokens)
 
+    def cancel(self) -> bool:
+        """Cancel through the engine that owns the request now; ``False``
+        if it already finished (``serving.py:511``)."""
+        return bool(self._canceller and self._canceller(self.uid))
+
     def next_token(self, timeout: Optional[float] = None) -> Optional[int]:
         """Streaming cursor: the next committed token, or ``None`` once the
-        request is finished.  ``timeout=0`` polls (``None`` then also means
+        request is finished or cancelled.  ``timeout=0`` polls (``None`` then also means
         "nothing new yet"); a positive ``timeout`` that expires with the
         request still live raises ``TimeoutError``; ``None`` blocks."""
         with self._cond:
@@ -213,9 +295,10 @@ class RequestHandle:
                 f"request {self.uid!r} streamed nothing new within "
                 f"{timeout}s (status {self.status})")
 
-    def result(self, timeout: Optional[float] = None) -> np.ndarray:
+    def result(self, timeout: Optional[float] = None) -> Optional[np.ndarray]:
         """Block until completion; the padded ``[prompt + completion]``
-        array.  Raises ``TimeoutError`` if ``timeout`` expires first."""
+        array, or ``None`` if cancelled.  Raises ``TimeoutError`` if
+        ``timeout`` expires first."""
         with self._cond:
             if not self._cond.wait_for(lambda: self.done, timeout):
                 raise TimeoutError(
@@ -226,10 +309,12 @@ class RequestHandle:
 
 @dataclasses.dataclass
 class _PendingItem:
-    """One queued request plus its resume/streaming context."""
+    """One queued request plus its resume/streaming context — what the
+    pending queue holds and what ``drain()`` hands back."""
     req: Request
     prior: List[int]               # tokens generated before a preemption
     priority: int = 0
+    slo_class: Optional[str] = None
     eos: Optional[int] = None
     handle: Optional[RequestHandle] = None
     _order: tuple = (0, 0)         # (-priority, seq) — queue sort key
@@ -262,11 +347,24 @@ class _PendingQueue:
     def popleft(self) -> _PendingItem:
         return self._items.pop(0)
 
+    def remove(self, uid) -> Optional[_PendingItem]:
+        for i, item in enumerate(self._items):
+            if item.req.uid == uid:
+                return self._items.pop(i)
+        return None
+
+    def drain(self) -> List[_PendingItem]:
+        items, self._items = self._items, []
+        return items
+
     def __len__(self) -> int:
         return len(self._items)
 
     def __bool__(self) -> bool:
         return bool(self._items)
+
+    def __iter__(self):
+        return iter(self._items)
 
     def __getitem__(self, i) -> _PendingItem:
         return self._items[i]
@@ -282,6 +380,8 @@ class _SlotState:
     base: int = 0                  # tokens already in the paged cache
     phase: str = "prefill"         # "prefill" -> "decode"
     eos: Optional[int] = None
+    priority: int = 0
+    slo_class: Optional[str] = None
     handle: Optional[RequestHandle] = None
 
     @property
@@ -419,10 +519,6 @@ def _nbytes(pool) -> int:
     return sum(t.numel() * t.element_size() for t in tree_leaves(pool))
 
 
-def _percentile(samples, q: float) -> Optional[float]:
-    return float(np.percentile(np.asarray(samples), q)) if samples else None
-
-
 class ServingEngine:
     """Iteration-level (continuous-batching) scheduler over an
     :class:`~deepspeed_tpu_torch.inference.engine.InferenceEngine`'s
@@ -434,16 +530,21 @@ class ServingEngine:
     slots:          max concurrently-active sequences.
     max_seq_len:    per-sequence budget (prompt + completion), at most the
                     model context length.
+    prompt_buckets: ascending prompt-length ladder (bucketed mode).
     block_size:     tokens per KV block (also the prefix-reuse granularity).
     num_blocks:     physical pool size incl. the scratch block.  Default
                     ``1 + slots * ceil(max_seq_len/block_size)`` (no
                     oversubscription); smaller pools rely on prefix eviction
                     and preemption.
-    prefill_chunk:  chunk window length (at least 2: a width-1 window would
-                    read as a decode step).
-    prefill_batch:  sequences per prefill call; short groups pad with
-                    scratch-routed rows.
-    prefix_caching: enable the block trie.
+    chunked_prefill: ``True`` = fixed-window chunked prefill; ``False`` =
+                    the bucket ladder (no prefix reuse, no speculative
+                    decoding).  ``None`` = bucketed iff ``prompt_buckets``
+                    is passed.
+    prefill_chunk:  chunk window length (chunked mode; at least 2: a
+                    width-1 window would read as a decode step).
+    prefill_batch:  sequences per prefill call (both modes); short groups
+                    pad with scratch-routed rows.
+    prefix_caching: enable the block trie (chunked mode only).
     decode_steps:   K >= 1 decode steps per captured window (module
                     docstring); K = 1 is one step an iteration.
     sampling:       thread the per-request sampling operands through the
@@ -452,11 +553,12 @@ class ServingEngine:
     quantize:       ``None``, ``"kv8"``, ``"w8a8"`` or ``"w8a8+kv8"``
                     (module docstring).
     spec_tokens:    speculative draft length K (0 = off; K + 1 <= the
-                    verify kernel's ``VERIFY_T_MAX`` window).  Each decode
-                    iteration becomes one round: propose K tokens a slot,
-                    score the ``[pending, d_1..d_K]`` window in one captured
-                    verify step, commit the accepted prefix plus one
-                    target token.  ``decode_steps`` is inert then.
+                    verify kernel's ``VERIFY_T_MAX`` window; chunked mode
+                    only).  Each decode iteration becomes one round:
+                    propose K tokens a slot, score the ``[pending,
+                    d_1..d_K]`` window in one captured verify step, commit
+                    the accepted prefix plus one target token.
+                    ``decode_steps`` is inert then.
     draft:          a draft model (``models.gpt2.build`` or
                     ``models.llama.build``, wrapped with this engine's
                     config on its device) or an ``InferenceEngine``
@@ -471,13 +573,27 @@ class ServingEngine:
                     token rule, rebuilt each iteration from each request's
                     ``mask_builder`` (``inference/constrain.py``); needs
                     ``sampling=True``.
+    debug_checks:   enforce the contracts (``analysis/``): the recompile
+                    sentry raises on a build past ``compile_budget``, and
+                    the paged-state audit runs after every scheduler
+                    iteration.  Off: the sentry still counts
+                    (``stats()['retraces_observed']``).
+    trace_capacity: the trace timeline's ring size (``dump_trace``); 0
+                    disables event recording (the registry behind
+                    ``stats()`` stays on).
+    slo_targets:    per-``slo_class`` latency targets and objectives,
+                    merged over ``telemetry/slo.py``'s
+                    ``DEFAULT_SLO_TARGETS``.
+    peak_flops:     the MFU denominator of :meth:`flops_report`.
     """
 
     def __init__(self, engine, *, slots: int = 8,
                  max_seq_len: Optional[int] = None,
+                 prompt_buckets: Optional[Sequence[int]] = None,
                  prefill_batch: int = 4,
                  block_size: int = 32,
                  num_blocks: Optional[int] = None,
+                 chunked_prefill: Optional[bool] = None,
                  prefill_chunk: int = 128,
                  prefix_caching: bool = True,
                  decode_steps: int = 1,
@@ -488,7 +604,11 @@ class ServingEngine:
                  ngram_min: int = 1,
                  sampling: bool = True,
                  spec_verifier: str = "rejection",
-                 logit_masks: bool = False):
+                 logit_masks: bool = False,
+                 debug_checks: bool = False,
+                 trace_capacity: int = 16384,
+                 slo_targets: Optional[Dict[str, Dict[str, float]]] = None,
+                 peak_flops: Optional[float] = None):
         # the JAX constructor's checks, in its order (serving.py:822-866)
         self.spec_tokens = int(spec_tokens)
         if self.spec_tokens < 0:
@@ -559,9 +679,24 @@ class ServingEngine:
         self.block_size = int(block_size)
         self._cache_len = blocks_for(self.max_seq_len, block_size) * block_size
         self._nbper = self._cache_len // block_size      # block-table width
-        # floor of 2: forward_cached reads T == 1 as per-row decode, so a
-        # width-1 prefill window would be misread (serving.py:895-900)
-        self.prefill_chunk = max(2, min(int(prefill_chunk), self._cache_len))
+        # chunked unless the caller passed a ladder (serving.py:891-908)
+        self.chunked_prefill = (prompt_buckets is None) \
+            if chunked_prefill is None else bool(chunked_prefill)
+        if self.chunked_prefill:
+            self.prompt_buckets: Tuple[int, ...] = ()
+            # floor of 2: forward_cached reads T == 1 as per-row decode,
+            # so a width-1 prefill window would be misread
+            self.prefill_chunk = max(2, min(int(prefill_chunk),
+                                            self._cache_len))
+        else:
+            buckets = tuple(sorted(prompt_buckets)) if prompt_buckets \
+                else default_buckets(self.max_seq_len)
+            if any(b > self.max_seq_len for b in buckets):
+                raise ValueError(
+                    f"prompt bucket(s) {buckets} exceed max_seq_len "
+                    f"{self.max_seq_len}")
+            self.prompt_buckets = buckets
+            self.prefill_chunk = 0
         self.prefill_batch = int(prefill_batch)
         if self.prefill_batch < 1:
             raise ValueError(
@@ -573,24 +708,21 @@ class ServingEngine:
                 f"num_blocks {num_blocks} cannot hold one full sequence "
                 f"({self._nbper} blocks + 1 scratch)")
         self._alloc = BlockAllocator(num_blocks)
-        self._prefix = PrefixCache(self.block_size) if prefix_caching else None
+        self._prefix = PrefixCache(self.block_size) \
+            if (prefix_caching and self.chunked_prefill) else None
         self._cache = self._init_pool(hooks, num_blocks, engine.dtype)
         self._kv_dtype = "int8" if self.kv_quant \
             else str(engine.dtype).replace("torch.", "")
+        self._pool_shape = tuple(pool_payload(
+            next(iter(self._cache.values()))).shape)
+        #: blocks whose int8 scale rows are live (kv8): allocated and
+        #: retired in lockstep with the blocks (the audit's scale-lockstep)
+        self._kv_scale_live: set = set()
         # host-side block tables; entry 0 = scratch doubles as "unset"
         self._tables = np.zeros((self.slots, self._nbper), np.int32)
         self._held: List[List[int]] = [[] for _ in range(self.slots)]
         self._tokens = np.zeros(self.slots, np.int64)
         self._lengths = np.zeros(self.slots, np.int32)
-        self._pending = _PendingQueue()
-        self._active: Dict[int, _SlotState] = {}
-        self._live_uids: set = set()
-        self._admit_seq = 0
-        self._blocked_gate = None          # (head id, resume len, version)
-        self._admission_log: Optional[list] = None
-        self._trace_times: Dict[Any, Dict[str, float]] = {}
-        self._ttft: deque = deque(maxlen=4096)   # recent finished requests
-        self._tpot: deque = deque(maxlen=4096)
         # per-slot sampling knobs, set at admission; idle rows keep the
         # greedy defaults (serving.py:1220-1223)
         self._temps = np.zeros(self.slots, np.float32)
@@ -608,11 +740,37 @@ class ServingEngine:
         self._masks = np.ones((self.slots, self._vocab), bool) \
             if self.logit_masks else None
 
+        # ----- the recompile sentry over the logical programs
+        # (analysis/sentry.py): 2 chunked (1 prefill + 1 decode; the
+        # n-gram verify replaces decode), 3 with a draft model, the ladder
+        # + the cache-width preemption fallback + decode bucketed
+        self.debug_checks = bool(debug_checks)
+        if self.spec_tokens:
+            self.compile_budget = 3 if draft is not None else 2
+        elif self.chunked_prefill:
+            self.compile_budget = 2
+        else:
+            self.compile_budget = len(self.prompt_buckets) + 2
+        self.sentry = RecompileSentry(name="serving",
+                                      strict=self.debug_checks,
+                                      total_budget=self.compile_budget)
+        #: one entry per logical program built (the compile probe)
+        self.compiled_programs: List[Any] = []
+        #: CUDA graphs captured (a decode, verify or draft step's build on
+        #: CUDA; re-captures after an LRU drop included)
+        self.captured_graphs = 0
+
         # ----- speculative decoding (serving.py:1292-1358)
         self._draft = None                 # draft InferenceEngine
         self._dcache = None                # draft paged pool (shares tables)
         self._proposer = None              # host-side n-gram proposer
+        self.ngram_max = int(ngram_max)    # kept for resolved_config()
+        self.ngram_min = int(ngram_min)
         if self.spec_tokens:
+            if not self.chunked_prefill:
+                raise ValueError(
+                    "speculative decoding requires chunked-prefill mode — "
+                    "drop prompt_buckets / pass chunked_prefill=True")
             if draft is not None:
                 self._draft = self._wrap_draft(draft, num_blocks)
             else:
@@ -623,17 +781,115 @@ class ServingEngine:
         #: captured graphs by step and shape (serving.py:1236-1241)
         self._graphs = LRUCache(capacity=4)
         self._eager_only = False
-        self.counters = dict.fromkeys(
-            ("iterations", "decode_steps", "prefill_calls", "admitted",
-             "preempted", "finished", "prompt_tokens", "prefix_hit_tokens",
-             "generated_tokens", "fused_iterations", "host_fence_waits",
-             "captured_graphs", "sampled_requests", "spec_rounds",
-             "drafted_tokens", "accepted_tokens", "spec_draft_rejected"), 0)
+
+        # ----- telemetry (telemetry/): every counter stats() reports is a
+        # cell of this registry (serving.py:1407-1546; the host-tier, NVMe,
+        # handoff, window and sp families come with their features)
+        m = self.metrics = MetricsRegistry()
+        self._c_iterations = m.counter(
+            "serving_iterations_total", "scheduler iterations run")
+        self._c_decode_steps = m.counter(
+            "serving_decode_steps_total", "single-token decode steps")
+        self._c_fused_iterations = m.counter(
+            "serving_fused_iterations_total",
+            "device-side decode iterations executed inside fused "
+            "multi-step windows (0 when decode_steps == 1)")
+        self._c_host_fence_waits = m.counter(
+            "serving_host_fence_waits_total",
+            "host blocks on the device fence — one per fused decode "
+            "window, the ONLY sync of the fused decode path")
+        self._c_prefill_calls = m.counter(
+            "serving_prefill_calls_total", "prefill program invocations")
+        self._c_admitted = m.counter(
+            "serving_requests_admitted_total", "requests admitted to slots")
+        self._c_preempted = m.counter(
+            "serving_requests_preempted_total",
+            "sequences preempted under block pressure")
+        self._c_prompt_tokens = m.counter(
+            "serving_prompt_tokens_total", "prompt tokens admitted")
+        self._c_prefix_hit_tokens = m.counter(
+            "serving_prefix_hit_tokens_total",
+            "prompt tokens served from the prefix cache")
+        self._c_spec_rounds = m.counter(
+            "serving_spec_rounds_total", "speculative draft-verify rounds")
+        self._c_drafted = m.counter(
+            "serving_spec_drafted_tokens_total", "draft tokens proposed")
+        self._c_accepted = m.counter(
+            "serving_spec_accepted_tokens_total", "draft tokens accepted")
+        self._c_spec_rejected = m.counter(
+            "serving_spec_draft_rejected_total",
+            "draft tokens the verifier rejected (rejection sampler or "
+            "greedy mismatch)")
+        self._c_sampled = {
+            mode: m.counter("serving_sampled_requests_total",
+                            "submitted requests by sampling mode",
+                            mode=mode)
+            for mode in ("greedy", "sampled", "constrained")}
+        self._h_accept_ratio = m.histogram(
+            "serving_spec_accept_ratio",
+            buckets=(0.0, 0.25, 0.5, 0.75, 1.0),
+            help="per-round fraction of drafted tokens accepted")
+        self._c_finished = m.counter(
+            "serving_requests_finished_total", "requests run to completion")
+        self._c_cancelled = m.counter(
+            "serving_requests_cancelled_total",
+            "requests cancelled before completion (queued or active)")
+        self._c_gen_tokens = m.counter(
+            "serving_generated_tokens_total",
+            "tokens committed across all requests (prefill first tokens, "
+            "decode steps, accepted speculative drafts)")
+        self._g_queue_depth = m.gauge(
+            "serving_queue_depth", "requests waiting for a slot")
+        self._c_invariant_checks = m.counter(
+            "serving_invariant_checks_total",
+            "paged-state audits run (analysis/invariants.py)")
+        self._c_resume_recompute = m.counter(
+            "serving_resume_recompute_tokens_total",
+            "prompt tokens re-prefilled when admitting a preemption resume "
+            "(near zero with the host tier: demoted state promotes back)")
+        self._h_ttft = m.histogram(
+            "serving_ttft_seconds", help="per-request time to first token")
+        self._h_tpot = m.histogram(
+            "serving_tpot_seconds",
+            help="per-request time per output token (decode cadence)")
+        self._g_blocks_in_use = m.gauge(
+            "serving_blocks_in_use", "physical KV blocks referenced")
+        self._g_free_blocks = m.gauge(
+            "serving_free_blocks", "physical KV blocks on the free list")
+        # SLO attainment accounting: every finished request lands in its
+        # class's histograms and counters on THIS registry
+        self._slo = SLOTracker(m, slo_targets)
+        self.peak_flops = peak_flops
+        self._flops_profiler = None        # built lazily by flops_report()
+        #: prefill calls by window width (bucketed mode bills each rung)
+        self._prefill_calls_by_width: Dict[int, int] = {}
+        #: noted flow ids (uid -> Chrome flow id): admission emits the
+        #: matching flow-finish (note_flow)
+        self._flow_ids: Dict[Any, int] = {}
+        self.timeline = TraceTimeline(capacity=trace_capacity)
+        if self.timeline.enabled:
+            # one span lane per SLOT: a request's span lands on the slot
+            # that finished it — the lane count never grows with traffic
+            for s in range(self.slots):
+                self.timeline.thread(f"slot {s}")
+        self.sentry.on_trace = self._emit_trace_event
+        self._latencies = deque(maxlen=256)  # recent finished requests
+        self._trace_times: Dict[Any, Dict[str, Any]] = {}
+        self._admit_seq = 0
+        self._blocked_gate = None          # (head id, resume len, version)
+        self._pending = _PendingQueue()
+        self._active: Dict[int, _SlotState] = {}
+        self._live_uids: set = set()       # pending + active uids
+        self._cancel_flags: set = set()    # active-slot cancels, applied at
+        self._admission_log: Optional[list] = None  # the next boundary
+        self._step_log: Optional[list] = None
         log_dist(
             f"ServingEngine: slots={self.slots}, cache_len={self._cache_len}, "
-            f"block_size={self.block_size}, num_blocks={num_blocks}, chunked "
-            f"prefill (chunk={self.prefill_chunk}, prefix_cache="
-            f"{self._prefix is not None}), prefill_batch={self.prefill_batch}"
+            f"block_size={self.block_size}, num_blocks={num_blocks}, "
+            + (f"chunked prefill (chunk={self.prefill_chunk}, prefix_cache="
+               f"{self._prefix is not None})" if self.chunked_prefill
+               else f"bucketed prefill {self.prompt_buckets}")
+            + f", prefill_batch={self.prefill_batch}"
             f", quantize={self.quantize}, sampling={self.sampling}"
             + (f", fused decode K={self._K}" if self._K > 1
                and not self.spec_tokens else "")
@@ -642,6 +898,11 @@ class ServingEngine:
                   else "n-gram") + ")" if self.spec_tokens else "")
             + (", logit_masks" if self.logit_masks else ""),
             ranks=[0])
+
+    def close(self) -> None:
+        """Release host-side tier resources (``serving.py:1634``).
+        Idempotent; a no-op until the port has an NVMe tier: the device pool
+        and captured graphs are garbage-collected as usual."""
 
     def _init_pool(self, hooks, num_blocks: int, dtype):
         """A paged pool from a model's ``init_cache`` hook on this
@@ -681,18 +942,121 @@ class ServingEngine:
         self._dcache = self._init_pool(dhooks, num_blocks, draft.dtype)
         return draft
 
+    # -------------------------------------------------------------- telemetry
+    # counter attributes are read-only views over the registry cells
     @property
-    def prefix_hit_tokens(self) -> int:
-        return self.counters["prefix_hit_tokens"]
+    def iterations(self) -> int:
+        return int(self._c_iterations.value)
+
+    @property
+    def decode_steps(self) -> int:
+        return int(self._c_decode_steps.value)
+
+    @property
+    def prefill_calls(self) -> int:
+        return int(self._c_prefill_calls.value)
+
+    @property
+    def admitted(self) -> int:
+        return int(self._c_admitted.value)
 
     @property
     def preempted(self) -> int:
-        return self.counters["preempted"]
+        return int(self._c_preempted.value)
+
+    @property
+    def prompt_tokens(self) -> int:
+        return int(self._c_prompt_tokens.value)
+
+    @property
+    def prefix_hit_tokens(self) -> int:
+        return int(self._c_prefix_hit_tokens.value)
+
+    @property
+    def spec_rounds(self) -> int:
+        return int(self._c_spec_rounds.value)
+
+    @property
+    def drafted_tokens(self) -> int:
+        return int(self._c_drafted.value)
+
+    @property
+    def accepted_tokens(self) -> int:
+        return int(self._c_accepted.value)
+
+    @property
+    def invariant_checks_run(self) -> int:
+        return int(self._c_invariant_checks.value)
+
+    @property
+    def compile_count(self) -> int:
+        return len(self.compiled_programs)
+
+    def _emit_trace_event(self, entry) -> None:
+        """Sentry build callback: every build of a logical program lands on
+        the timeline — ``retrace`` past its budget (contract drift),
+        ``program_build`` otherwise."""
+        over = entry.budget is not None and entry.traces > entry.budget
+        self.timeline.instant("retrace" if over else "program_build",
+                              entry=entry.name, traces=entry.traces)
+
+    def _note_build(self, entry: str, program: tuple) -> None:
+        """One build of a logical program (``analysis/sentry.py``): the
+        sentry counts it (and raises past the budget under
+        ``debug_checks``); its first build enters ``compiled_programs``,
+        as the JAX package lists each program it builds once."""
+        if entry not in self.sentry.report():
+            self.compiled_programs.append(program)
+        self.sentry.record(entry, program)
+
+    def dump_trace(self, path: str) -> str:
+        """Write the per-request trace timeline as Chrome ``trace_event``
+        JSON (open at https://ui.perfetto.dev); returns ``path``.  The
+        ring holds the most recent ``trace_capacity`` events —
+        ``stats()['trace_events_dropped']`` says how much history fell
+        off."""
+        return self.timeline.dump(
+            path, process_name=f"serving:{self.engine.module.name}")
+
+    def note_flow(self, uid, flow_id: int) -> None:
+        """Register a Chrome flow id for a routed request: admission emits
+        the matching flow-finish (``f``) event.  The caller owns flow-id
+        uniqueness across every ring that will be merged."""
+        self._flow_ids[uid] = int(flow_id)
+
+    def slo_report(self) -> Dict[str, Dict[str, Any]]:
+        """Per-``slo_class`` attainment report (``telemetry/slo.py``):
+        requests, TTFT/TPOT attainment against the configured targets,
+        percentiles, and error-budget burn rates."""
+        return self._slo.report()
+
+    def flops_report(self, peak_flops: Optional[float] = None,
+                     window_s: Optional[float] = None) -> Dict[str, Any]:
+        """FLOPs/MFU snapshot (``telemetry/flops.py``): per-program FLOPs
+        (``FlopCounterMode`` on meta tensors, analytic fallback),
+        cumulative ``serving_model_flops_total``, the MFU gauge against
+        ``peak_flops`` (defaults to the constructor's), and the
+        prefill/decode/swap/idle busy fractions from the timeline.  It
+        builds no program and captures no graph."""
+        if self._flops_profiler is None:
+            from ..telemetry.flops import ServingFlopsProfiler
+
+            self._flops_profiler = ServingFlopsProfiler(
+                self, peak_flops=self.peak_flops)
+        return self._flops_profiler.report(peak_flops=peak_flops,
+                                           window_s=window_s)
 
     # ------------------------------------------------------------- blocks
+    def _decref(self, b: int) -> None:
+        """Release one reference; when the block frees, retire its scale-
+        ledger entry in the same step (kv8)."""
+        self._alloc.decref(b)
+        if self._alloc.refcount(b) == 0:
+            self._kv_scale_live.discard(b)
+
     def _release_slot(self, slot: int) -> None:
         for b in self._held[slot]:
-            self._alloc.decref(b)
+            self._decref(b)
         self._held[slot] = []
         self._tables[slot] = 0
         self._tokens[slot] = 0
@@ -712,11 +1076,14 @@ class ServingEngine:
         re-queue it at the FRONT with generated tokens folded into the
         prompt (greedy => recompute is token-exact)."""
         st = self._active.pop(slot)
+        nblocks = len(self._held[slot])
         self._release_slot(slot)
         self._pending.push_front(_PendingItem(
-            req=st.req, prior=st.prior + st.out, eos=st.eos,
-            handle=st.handle))
-        self.counters["preempted"] += 1
+            req=st.req, prior=st.prior + st.out, priority=st.priority,
+            slo_class=st.slo_class, eos=st.eos, handle=st.handle))
+        self._c_preempted.inc()
+        self.timeline.instant("preempt", uid=str(st.req.uid), slot=slot,
+                              blocks_freed=nblocks)
 
     def _alloc_block(self, requester: int) -> Optional[int]:
         """One fresh block, reclaiming in order: free list -> LRU prefix-
@@ -725,9 +1092,15 @@ class ServingEngine:
         while True:
             b = self._alloc.alloc()
             if b is not None:
+                if self.kv_quant:
+                    self._kv_scale_live.add(b)
                 return b
-            if self._prefix is not None and self._prefix.evict_one(self._alloc):
-                continue
+            if self._prefix is not None:
+                evicted = self._prefix.evict_one(self._alloc)
+                if evicted:
+                    self._kv_scale_live.discard(evicted)
+                    self.timeline.instant("evict_block", block=int(evicted))
+                    continue
             victim = max(self._active, key=lambda s: self._active[s].admit_seq)
             if victim == requester and len(self._active) == 1:
                 # cannot happen when num_blocks >= nbper + 1 (ctor check)
@@ -752,11 +1125,30 @@ class ServingEngine:
         return slot in self._active
 
     # --------------------------------------------------------------- schedule
+    def _bucket_for(self, prompt_len: int) -> int:
+        for b in self.prompt_buckets:
+            if prompt_len <= b:
+                return b
+        raise ValueError(
+            f"prompt length {prompt_len} exceeds the largest bucket "
+            f"{self.prompt_buckets[-1]}")
+
+    def _prefill_width(self, prompt_len: int) -> int:
+        """Prefill window for a prompt in bucketed mode: its ladder rung —
+        or the full cache width for a preemption resume whose prompt (with
+        generated tokens folded in) outgrew the ladder, instead of failing
+        mid-trace (``serving.py:2981``).  Floor of 2 for the same T == 1
+        reason as ``prefill_chunk``."""
+        for b in self.prompt_buckets:
+            if prompt_len <= b:
+                return max(2, b)
+        return self._cache_len
+
     def _admit(self) -> None:
-        """Head-of-queue-gated admission into free slots, gated on block
-        availability (free + prefix-evictable) so an admitted sequence can
-        always prefill its prompt; the queue head blocks admission when it
-        does not fit — no starvation."""
+        """Head-of-queue-gated admission into free slots (priority order),
+        gated on block availability (free + prefix-evictable) so an
+        admitted sequence can always prefill its prompt; the queue head
+        blocks admission when it does not fit — no starvation."""
         pending, active = self._pending, self._active
         free = [s for s in range(self.slots) if s not in active]
         reserved = 0                       # blocks promised to this call's
@@ -793,22 +1185,25 @@ class ServingEngine:
             need = total_need - len(hits)
             if need > _avail():
                 for b in hits:
-                    self._alloc.decref(b)
+                    self._decref(b)
                 self._blocked_gate = (id(req), len(prior),
                                       self._alloc.version)
                 break
             reserved += max(need, 0)
             pending.popleft()
             slot = free.pop(0)
-            # a preemption resume keeps its original admission time
+            # a preemption resume keeps its original admission time, so its
+            # TTFT/TPOT and its timeline span cover the whole wait
             self._trace_times.setdefault(
-                req.uid, {"admit": time.perf_counter(), "first": None})
+                req.uid, {"admit": time.perf_counter(), "first": None,
+                          "admit_us": self.timeline.now_us()})
             self._tables[slot, :len(hits)] = hits
             self._held[slot] = list(hits)
             st = _SlotState(req=req, admit_seq=self._admit_seq,
                             prompt_eff=prompt_eff, prior=list(prior),
                             base=len(hits) * self.block_size,
-                            eos=item.eos, handle=item.handle)
+                            eos=item.eos, priority=item.priority,
+                            slo_class=item.slo_class, handle=item.handle)
             self._admit_seq += 1
             active[slot] = st
             if self.sampling:
@@ -822,9 +1217,21 @@ class ServingEngine:
                 st.handle._on_active()
             if self._admission_log is not None:
                 self._admission_log.append((req.uid, slot))
-            self.counters["admitted"] += 1
-            self.counters["prompt_tokens"] += plen
-            self.counters["prefix_hit_tokens"] += st.base
+            self._c_admitted.inc()
+            self._c_prompt_tokens.inc(plen)
+            self._c_prefix_hit_tokens.inc(st.base)
+            if prior:
+                # tokens a preemption resume re-prefills
+                self._c_resume_recompute.inc(plen - st.base)
+            # prefix_hit_tokens == 0 is the cache-miss record
+            self.timeline.instant("admit", uid=str(req.uid), slot=slot,
+                                  prompt_tokens=plen,
+                                  prefix_hit_tokens=st.base,
+                                  resumed=bool(prior))
+            fid = self._flow_ids.pop(req.uid, None)
+            if fid is not None:
+                self.timeline.flow_end("route", fid, uid=str(req.uid),
+                                       slot=slot)
 
     # --------------------------------------------------- incremental serving
     def _validate_request(self, r: Request) -> None:
@@ -846,47 +1253,140 @@ class ServingEngine:
                 "engine was built without the constrained-decoding lane "
                 "— pass logit_masks=True (the [slots, vocab] mask "
                 "operand is only threaded through the programs then)")
+        if not self.chunked_prefill:
+            self._bucket_for(len(r.prompt))  # raises if no bucket fits
+
+    def _session_boundary_reset(self) -> None:
+        """First submit into an idle engine: object ids from the previous
+        trace are stale."""
+        if not self._pending and not self._active:
+            self._blocked_gate = None
 
     def submit(self, request: Request, *, priority: int = 0,
                slo_class: Optional[str] = None,
                eos_token_id: Optional[int] = None) -> RequestHandle:
-        """Enqueue one request and return its :class:`RequestHandle`.
-        Admission happens on subsequent :meth:`step` calls; higher
-        ``priority`` admits first, FIFO within a priority.  ``slo_class``
-        (the JAX signature, ``serving.py:3170``) is taken at its default
-        ``None`` only: SLO classes come with the port's serving API
-        remainder."""
-        if slo_class is not None:
-            _unsupported("ServingEngine.submit", f"slo_class={slo_class!r}",
-                         4, "serving API remainder (SLO classes)")
+        """Enqueue one request and return its :class:`RequestHandle`
+        (streaming, ``result()``, ``cancel()``).  Admission happens on
+        subsequent :meth:`step` calls; higher ``priority`` admits first,
+        FIFO within a priority; ``slo_class`` maps to a default priority
+        through :data:`SLO_PRIORITY` when ``priority`` is 0 and names the
+        class ``slo_report()`` accounts the request under."""
         self._validate_request(request)
         if request.uid in self._live_uids:
             raise ValueError(
                 f"request uid {request.uid!r} is already in flight")
-        if not self._pending and not self._active:
-            self._blocked_gate = None      # object ids of an old trace
-        handle = RequestHandle(request)
+        self._session_boundary_reset()
+        if priority == 0 and slo_class is not None:
+            priority = SLO_PRIORITY.get(str(slo_class), 0)
+        handle = RequestHandle(request, priority=priority,
+                               slo_class=slo_class, canceller=self.cancel)
         self._pending.push(_PendingItem(
-            req=request, prior=[], priority=priority, eos=eos_token_id,
-            handle=handle))
-        # constrained requests count too (serving.py:3199)
-        self.counters["sampled_requests"] += int(
-            request.sampled or request.mask_builder is not None)
+            req=request, prior=[], priority=priority, slo_class=slo_class,
+            eos=eos_token_id, handle=handle))
+        self._c_sampled["constrained" if request.mask_builder is not None
+                        else "sampled" if request.sampled
+                        else "greedy"].inc()
         self._live_uids.add(request.uid)
+        self._g_queue_depth.set(len(self._pending))
+        self.timeline.instant("submit", uid=str(request.uid),
+                              priority=int(priority),
+                              slo=str(slo_class) if slo_class else "")
         return handle
+
+    def _submit_item(self, item: _PendingItem, canceller=None) -> None:
+        """Enqueue a fully-formed pending item — a request :meth:`drain`
+        handed back — keeping its handle, prior tokens, priority and eos,
+        so streaming continues on the same handle (``serving.py:3209``).
+        ``canceller`` is the cancel route to rebind (default: this
+        engine's)."""
+        self._validate_request(item.req)
+        if item.req.uid in self._live_uids:
+            raise ValueError(
+                f"request uid {item.req.uid!r} is already in flight")
+        self._session_boundary_reset()
+        if item.handle is not None:
+            item.handle.set_canceller(canceller or self.cancel)
+        self._pending.push(item)
+        self._live_uids.add(item.req.uid)
+        self._g_queue_depth.set(len(self._pending))
+        self.timeline.instant("submit", uid=str(item.req.uid),
+                              priority=int(item.priority),
+                              resumed=bool(item.prior))
+
+    def _cancel_pending(self, uid) -> bool:
+        item = self._pending.remove(uid)
+        if item is None:
+            return False
+        self._live_uids.discard(uid)
+        self._blocked_gate = None          # the head may have been this item
+        self._trace_times.pop(uid, None)
+        fid = self._flow_ids.pop(uid, None)
+        if fid is not None:
+            # never admitted: close the noted flow here
+            self.timeline.flow_end("route", fid, uid=str(uid),
+                                   cancelled=True)
+        self._c_cancelled.inc()
+        self._g_queue_depth.set(len(self._pending))
+        self.timeline.instant("cancelled", uid=str(uid), queued=True)
+        if item.handle is not None:
+            item.handle._on_cancel()
+        return True
+
+    def cancel(self, uid) -> bool:
+        """Cancel a live request (``serving.py:3259``).  Queued: dropped
+        immediately.  Active: the slot and its blocks release at the NEXT
+        scheduler-iteration boundary — the only point the paged-state
+        invariants are guaranteed to hold — with a ``cancelled`` timeline
+        event; tokens already streamed stand.  ``False`` when the uid is
+        unknown or already finished."""
+        if self._cancel_pending(uid):
+            return True
+        if any(st.req.uid == uid for st in self._active.values()):
+            self._cancel_flags.add(uid)
+            return True
+        return False
+
+    def _process_cancellations(self) -> None:
+        """Apply deferred active-slot cancels at the iteration boundary:
+        pop the slot, decref its blocks (prefix-shared blocks survive in
+        the trie), and emit the ``cancelled`` event."""
+        if not self._cancel_flags:
+            return
+        flags, self._cancel_flags = self._cancel_flags, set()
+        for uid in flags:
+            slot = next((s for s, st in self._active.items()
+                         if st.req.uid == uid), None)
+            if slot is None:
+                # finished before the boundary, or preempted back to the
+                # queue — the pending path handles the latter
+                self._cancel_pending(uid)
+                continue
+            st = self._active.pop(slot)
+            nblocks = len(self._held[slot])
+            self._release_slot(slot)
+            self._live_uids.discard(uid)
+            self._trace_times.pop(uid, None)
+            self._c_cancelled.inc()
+            self.timeline.instant("cancelled", uid=str(uid), slot=slot,
+                                  blocks_freed=nblocks)
+            if st.handle is not None:
+                st.handle._on_cancel()
 
     @torch.no_grad()
     def step(self) -> bool:
-        """ONE scheduler iteration: admit, advance prefills by one chunk,
-        run one decode step (a draft-verify round in speculative mode).
-        Constrained slots' masks are rebuilt before each of the two
-        dispatches: a slot that finishes prefill decodes in the same
-        iteration, and its first token gates the second.  Returns whether
-        work remains."""
+        """ONE scheduler iteration: apply cancellations, admit, advance
+        prefills by one window, run one decode step (a draft-verify round
+        in speculative mode), audit under ``debug_checks``.  Constrained
+        slots' masks are rebuilt before each of the two dispatches: a slot
+        that finishes prefill decodes in the same iteration, and its first
+        token gates the second.  Returns whether work remains."""
+        self._process_cancellations()
         if not self._pending and not self._active:
+            self._g_queue_depth.set(0)
             return False
         params = self.engine.params
-        self.counters["iterations"] += 1
+        self._c_iterations.inc()
+        admitted0, preempted0 = self.admitted, self.preempted
         self._admit()
         self._refresh_masks()
         self._run_prefill(params)
@@ -897,7 +1397,47 @@ class ServingEngine:
             self._run_fused_decode()
         else:
             self._run_plain_decode()
+        self._g_queue_depth.set(len(self._pending))
+        if self._step_log is not None:
+            self._step_log.append({
+                "iteration": self.iterations,
+                "admitted": self.admitted - admitted0,
+                "evicted": self.preempted - preempted0,
+                "blocks_in_use": self._alloc.blocks_in_use,
+            })
+        if self.debug_checks:
+            # the scheduler's host state is only guaranteed consistent at
+            # iteration boundaries (the audit drops its own event on the
+            # timeline)
+            audit_serving_engine(self, self._active)
+            self._c_invariant_checks.inc()
         return bool(self._pending or self._active)
+
+    def drain(self) -> List[_PendingItem]:
+        """Quiesce this engine for a handoff (``serving.py:3368``):
+        preempt every active slot (its generated tokens fold into the
+        resume prompt) and hand back the whole pending queue, each item
+        ready for :meth:`_submit_item` here or on another engine.  After a
+        drain the pool holds only prefix-cache blocks."""
+        self._process_cancellations()
+        for slot in sorted(self._active,
+                           key=lambda s: -self._active[s].admit_seq):
+            self._preempt(slot)
+        items = self._pending.drain()
+        self._blocked_gate = None
+        for item in items:
+            # the latency span can only finish on the engine that admits
+            # the resume; a still-noted flow id closes now
+            self._trace_times.pop(item.req.uid, None)
+            fid = self._flow_ids.pop(item.req.uid, None)
+            if fid is not None:
+                self.timeline.flow_end("route", fid,
+                                       uid=str(item.req.uid),
+                                       handoff=True)
+            self._live_uids.discard(item.req.uid)
+        self._g_queue_depth.set(0)
+        self.timeline.instant("drain", handoff=len(items))
+        return items
 
     def serve(self, requests: Sequence[Request],
               eos_token_id: Optional[int] = None,
@@ -908,19 +1448,21 @@ class ServingEngine:
               profile_iters: Optional[int] = None) -> Dict[Any, np.ndarray]:
         """Run a request trace to completion; returns ``uid -> [prompt +
         completion]`` int32 arrays, padded to ``prompt + max_new_tokens``
-        with eos back-fill (HF semantics, same as ``generate``).
+        with eos back-fill (HF semantics, same as ``generate``).  A thin
+        wrapper over ``submit`` and ``step``.
+
         ``admission_log``, when given, collects ``(uid, slot)`` in admission
-        order.  The JAX signature's ``step_log``, ``debug_checks``,
-        ``profile_dir`` and ``profile_iters`` (``serving.py:3616-3622``) are
-        taken at their default ``None`` only: they come with the port's
-        telemetry and tooling slice."""
-        for name, value in (("step_log", step_log),
-                            ("debug_checks", debug_checks),
-                            ("profile_dir", profile_dir),
-                            ("profile_iters", profile_iters)):
-            if value is not None:
-                _unsupported("ServingEngine.serve", f"{name}={value!r}", 5,
-                             "telemetry and tooling slice")
+        order; ``step_log`` one dict per iteration (admitted / evicted /
+        blocks_in_use).  ``debug_checks`` overrides the engine's flag from
+        here on (per-iteration audits, a strict sentry).  ``profile_dir``
+        opens a ``torch.profiler`` window (``telemetry/trace.py``
+        :class:`ProfilerWindow`, CUDA activity on the card) over this
+        call's first ``profile_iters`` scheduler iterations (``None`` = the
+        whole call) and exports it as a Chrome trace into ``profile_dir``;
+        the window's start and stop are timeline events."""
+        if debug_checks is not None:
+            self.debug_checks = bool(debug_checks)
+            self.sentry.strict = self.debug_checks
         requests = list(requests)
         if not requests:
             return {}
@@ -928,19 +1470,36 @@ class ServingEngine:
             raise RuntimeError(
                 "serve() on a busy engine — requests are already in "
                 "flight; drive submit()/step() instead")
+        for r in requests:
+            self._validate_request(r)
         uids = [r.uid for r in requests]
         if len(set(uids)) != len(uids):
             raise ValueError("duplicate request uids")
-        for r in requests:
-            self._validate_request(r)
         handles = [self.submit(r, eos_token_id=eos_token_id)
                    for r in requests]
         self._admission_log = admission_log
+        self._step_log = step_log
+        window = None
+        if profile_dir is not None:
+            window = ProfilerWindow(profile_dir,
+                                    cuda=self.device.type == "cuda")
+            if window.start():
+                self.timeline.instant("profiler_start",
+                                      profile_dir=str(profile_dir))
+        iter0 = self.iterations
         try:
             while self.step():
-                pass
+                if window is not None and window.active and \
+                        profile_iters is not None and \
+                        self.iterations - iter0 >= profile_iters:
+                    window.stop()
+                    self.timeline.instant("profiler_stop")
         finally:
             self._admission_log = None
+            self._step_log = None
+            if window is not None and window.active:
+                window.stop()
+                self.timeline.instant("profiler_stop")
         return {h.uid: h.result(timeout=0) for h in handles}
 
     # ----------------------------------------------------------------- decode
@@ -948,7 +1507,7 @@ class ServingEngine:
         """Commit one generated token: stream it, stamp the first-token
         time, and finish the request on eos or budget."""
         st.out.append(tok)
-        self.counters["generated_tokens"] += 1
+        self._c_gen_tokens.inc()
         if st.handle is not None:
             st.handle._on_tokens((tok,))
         tm = self._trace_times.get(st.req.uid)
@@ -962,8 +1521,8 @@ class ServingEngine:
 
     def _finish_slot(self, slot: int) -> None:
         """Complete a request: build the padded ``[prompt + completion]``
-        result (eos back-fill), record latencies, release the slot, resolve
-        the handle."""
+        result (eos back-fill), record its latencies, SLO class and span,
+        release the slot, resolve the handle."""
         st = self._active.pop(slot)
         req = st.req
         gen = np.asarray(st.prior + st.out, np.int32)
@@ -975,10 +1534,23 @@ class ServingEngine:
         tm = self._trace_times.pop(req.uid, None)
         if tm is not None and tm["first"] is not None:
             done = time.perf_counter()
-            self._ttft.append(tm["first"] - tm["admit"])
-            self._tpot.append((done - tm["first"]) / (gen.size - 1)
-                              if gen.size > 1 else 0.0)
-        self.counters["finished"] += 1
+            ttft = tm["first"] - tm["admit"]
+            tpot = ((done - tm["first"]) / (gen.size - 1)) \
+                if gen.size > 1 else 0.0
+            self._c_finished.inc()
+            self._h_ttft.observe(ttft)
+            self._h_tpot.observe(tpot)
+            # unclassified traffic lands in "standard"
+            self._slo.observe(st.slo_class, ttft, tpot)
+            self._latencies.append({"uid": req.uid,
+                                    "new_tokens": int(gen.size),
+                                    "ttft_s": ttft, "tpot_s": tpot})
+            # the request's span on the finishing slot's lane: admission
+            # (original — a preemption resume keeps it) to completion
+            self.timeline.complete(
+                f"req {req.uid}", tm["admit_us"], tid=slot + 1,
+                uid=str(req.uid), new_tokens=int(gen.size),
+                eos=bool(eos_hit), ttft_s=ttft)
         self._release_slot(slot)
         self._live_uids.discard(req.uid)
         if st.handle is not None:
@@ -1239,23 +1811,29 @@ class ServingEngine:
         finally:
             for fn, n in zip(wrappers, before):
                 fn.launches = n
-        self.counters["captured_graphs"] += 1
+        self.captured_graphs += 1
         return _CapturedStep(graph, held)
 
-    def _run_step(self, key, body) -> None:
+    def _run_step(self, key, body, program: tuple) -> None:
         """Run one device step ``body``: eagerly on the CPU; on CUDA
         eagerly at the first dispatch of its ``key`` (step and shape), then
         from the captured graph (captured at the second dispatch, replayed
-        from then on)."""
+        from then on).  ``program`` is the step's logical program
+        (``compiled_programs``): built at the capture on CUDA, at the first
+        call on the CPU (``analysis/sentry.py``)."""
+        rec = self._graphs.get(key)
         if self.device.type != "cuda" or self._eager_only:
+            if rec is None and not self._eager_only:
+                self._note_build(program[0], program)
+                self._graphs.put(key, _WARMED)
             body()
             return
-        rec = self._graphs.get(key)
         if rec is None:
             body()
             self._graphs.put(key, _WARMED)
             return
         if rec is _WARMED:
+            self._note_build(program[0], program)
             rec = self._capture(body)
             self._graphs.put(key, rec)
         rec.replay()
@@ -1301,7 +1879,9 @@ class ServingEngine:
         o["eos"][:] = eos_ids
         self._upload()
         self._run_step(("decode", self.slots, self._nbper, self._K,
-                        self.sampling, self.logit_masks), self._decode_body)
+                        self.sampling, self.logit_masks), self._decode_body,
+                       ("decode", self.slots) if self._K == 1
+                       else ("decode", self.slots, self._K))
         return self._dev_out.cpu().numpy().copy()
 
     def _run_plain_decode(self) -> None:
@@ -1321,8 +1901,9 @@ class ServingEngine:
         bt[dec] = self._tables[dec]
         actv = np.zeros(self.slots, np.int32)
         actv[dec] = 1
-        nxt = self._dispatch_decode(bt, actv, actv, -1)
-        self.counters["decode_steps"] += 1
+        with self.timeline.span("decode", slots=len(dec)):
+            nxt = self._dispatch_decode(bt, actv, actv, -1)
+        self._c_decode_steps.inc()
         for slot in dec:
             self._lengths[slot] += 1       # the fed token is now cached
             self._emit(slot, active[slot], int(nxt[slot, 0]))
@@ -1374,8 +1955,9 @@ class ServingEngine:
             return
         bt = np.zeros_like(self._tables)
         bt[dec] = self._tables[dec]
-        out = self._dispatch_decode(bt, actv, budgets, eos_ids)
-        self.counters["host_fence_waits"] += 1
+        with self.timeline.span("decode", slots=len(dec), fused=K):
+            out = self._dispatch_decode(bt, actv, budgets, eos_ids)
+        self._c_host_fence_waits.inc()
         trips = 0
         for slot in dec:
             st = active[slot]
@@ -1392,8 +1974,8 @@ class ServingEngine:
             trips = max(trips, emitted)
         # decode_steps counts the deepest slot's emitted steps, as the JAX
         # while loop's trip count does
-        self.counters["decode_steps"] += trips
-        self.counters["fused_iterations"] += trips
+        self._c_decode_steps.inc(trips)
+        self._c_fused_iterations.inc(trips)
 
     def _refresh_masks(self) -> None:
         """Rebuild every constrained slot's ``[vocab]`` mask row from its
@@ -1451,25 +2033,34 @@ class ServingEngine:
         o["valid"][dec] = k + 1
         o["ids"][:] = 0
         o["ids"][dec, 0] = self._tokens[dec]
-        if self._draft is None:
-            for slot in dec:
-                st = active[slot]
-                o["ids"][slot, 1:] = self._proposer.propose(
-                    np.concatenate([st.prompt_eff,
-                                    np.asarray(st.out, np.int32)]))
-        self._upload()
-        if self._draft is not None:
-            self._run_step(("draft", self.slots, self._nbper, k,
-                            self.sampling), self._draft_body)
-        self._run_step(("verify", self.slots, self._nbper, k + 1,
-                        self.sampling, self.logit_masks), self._verify_body)
-        out = self._spec_out.cpu().numpy()
+        # spec_propose ends without a device sync (the rollout's launches
+        # only); spec_verify ends at the round's read-back
+        with self.timeline.span(
+                "spec_propose", slots=len(dec),
+                mode="draft" if self._draft is not None else "ngram"):
+            if self._draft is None:
+                for slot in dec:
+                    st = active[slot]
+                    o["ids"][slot, 1:] = self._proposer.propose(
+                        np.concatenate([st.prompt_eff,
+                                        np.asarray(st.out, np.int32)]))
+            self._upload()
+            if self._draft is not None:
+                self._run_step(("draft", self.slots, self._nbper, k,
+                                self.sampling), self._draft_body,
+                               ("draft", self.slots, k))
+        with self.timeline.span("spec_verify", slots=len(dec), window=k + 1):
+            self._run_step(("verify", self.slots, self._nbper, k + 1,
+                            self.sampling, self.logit_masks),
+                           self._verify_body, ("verify", self.slots, k + 1))
+            out = self._spec_out.cpu().numpy()
         scored, accept, plain, resid, ids = out
-        self.counters["spec_rounds"] += 1
+        self._c_spec_rounds.inc()
         # a draft model caps acceptance at K-1: the K-th draft's KV was
         # never written to the draft pool, so accepting it would leave a
         # hole at the draft's next feed position
         max_accept = k - 1 if self._draft is not None else k
+        accept_lens = []
         for slot in dec:
             st = active[slot]
             cap = max_accept
@@ -1496,46 +2087,81 @@ class ServingEngine:
             raw = 0
             while raw < eligible and verdicts[raw]:
                 raw += 1
-            self.counters["drafted_tokens"] += eligible
-            self.counters["accepted_tokens"] += raw
-            self.counters["spec_draft_rejected"] += eligible - raw
+            self._c_drafted.inc(eligible)
+            self._c_accepted.inc(raw)
+            self._c_spec_rejected.inc(eligible - raw)
+            if eligible:
+                self._h_accept_ratio.observe(raw / eligible)
+            accept_lens.append(accepted)
             for tok in emitted:            # the last finishes iff finished
                 self._emit(slot, st, tok)
             if not finished:
                 # commit = pending + accepted drafts; the last emitted
                 # token is the new pending feed
                 self._lengths[slot] += accepted + 1
+        self.timeline.instant("spec_accept", accept_lens=accept_lens,
+                              drafted=k * len(dec))
 
     def _run_prefill(self, params) -> None:
-        """Advance prefilling slots by one ``prefill_chunk`` window each,
-        ``prefill_batch`` rows per call (pad rows write to scratch)."""
+        """Advance prefilling slots: one ``prefill_chunk`` window per slot
+        per iteration (chunked mode), or the whole prompt in its bucket's
+        window (bucketed mode, grouped by bucket, ``serving.py:4021-4069``).
+        Both run ``prefill_batch`` rows per call; pad rows write to
+        scratch."""
         active = self._active
         pre = [s for s, st in sorted(active.items(),
                                      key=lambda kv: kv[1].admit_seq)
                if st.phase == "prefill"]
-        ready = []
-        for slot in pre:
-            if slot not in active:
-                continue                   # preempted by an earlier alloc
-            st = active[slot]
-            v = min(self.prefill_chunk, st.plen_eff - st.base)
-            if self._ensure_blocks(slot, st.base + v):
-                ready.append(slot)
-        for i in range(0, len(ready), self.prefill_batch):
-            group = [s for s in ready[i:i + self.prefill_batch]
-                     if s in active]
+        if not pre:
+            return
+        groups = []
+        if self.chunked_prefill:
+            ready = []
+            for slot in pre:
+                if slot not in active:
+                    continue               # preempted by an earlier alloc
+                st = active[slot]
+                v = min(self.prefill_chunk, st.plen_eff - st.base)
+                if self._ensure_blocks(slot, st.base + v):
+                    ready.append(slot)
+            for i in range(0, len(ready), self.prefill_batch):
+                group = [s for s in ready[i:i + self.prefill_batch]
+                         if s in active]
+                if group:
+                    groups.append((self.prefill_chunk, group))
+        else:
+            by_bucket: Dict[int, list] = {}
+            for slot in pre:
+                if slot not in active:
+                    continue
+                st = active[slot]
+                if self._ensure_blocks(slot, st.plen_eff):
+                    by_bucket.setdefault(self._prefill_width(st.plen_eff),
+                                         []).append(slot)
+            for bucket in sorted(by_bucket):
+                grp = by_bucket[bucket]
+                for i in range(0, len(grp), self.prefill_batch):
+                    group = [s for s in grp[i:i + self.prefill_batch]
+                             if s in active]
+                    if group:
+                        groups.append((bucket, group))
+        for width, group in groups:
+            group = [s for s in group if s in active]
             if group:
-                self._run_prefill_group(group, params)
+                self._run_prefill_group(width, group, params)
 
-    def _run_prefill_group(self, group, params) -> None:
-        """One prefill call: each row advances its slot by ``min(chunk,
+    def _run_prefill_group(self, width, group, params) -> None:
+        """One prefill call: each row advances its slot by ``min(width,
         remaining prompt)`` tokens from its own base; rows whose window
         reaches the last prompt token yield the slot's first generated
         token (logits gathered per row at ``valid - 1``).  With a draft
         model the draft's pool takes the same window through the same
-        tables (the JAX server's fused prefill, ``serving.py:2070-2086``)."""
+        tables (the JAX server's fused prefill, ``serving.py:2070-2086``).
+        A width's first call builds its logical program."""
         active = self._active
-        j, width = self.prefill_batch, self.prefill_chunk
+        j = self.prefill_batch
+        if width not in self._prefill_calls_by_width:
+            self._note_build(f"prefill[w{width}]", ("prefill", width, j))
         ids = np.zeros((j, width), np.int64)
         bt = np.zeros((j, self._nbper), np.int32)
         base = np.zeros(j, np.int32)
@@ -1548,17 +2174,22 @@ class ServingEngine:
             base[row] = st.base
             valid[row] = v
         samp = self._samp_rows(group, j)
-        d_ids, d_base = self._to_device(ids), self._to_device(base)
-        kw = dict(lengths=self._to_device(valid),
-                  block_tables=self._to_device(bt))
-        logits, self._cache = self._fwd(params, d_ids, self._cache, d_base,
-                                        **kw)
-        if self._draft is not None:
-            dfwd = self._draft.module.decode_hooks["forward_cached"]
-            _, self._dcache = dfwd(self._draft.params, d_ids, self._dcache,
-                                   d_base, **kw)
-        first = self._next_tokens(logits, samp).cpu().numpy()
-        self.counters["prefill_calls"] += 1
+        # the span ends at the first tokens' read-back (a device sync)
+        with self.timeline.span("prefill", width=width, rows=len(group),
+                                slots=list(map(int, group))):
+            d_ids, d_base = self._to_device(ids), self._to_device(base)
+            kw = dict(lengths=self._to_device(valid),
+                      block_tables=self._to_device(bt))
+            logits, self._cache = self._fwd(params, d_ids, self._cache,
+                                            d_base, **kw)
+            if self._draft is not None:
+                dfwd = self._draft.module.decode_hooks["forward_cached"]
+                _, self._dcache = dfwd(self._draft.params, d_ids,
+                                       self._dcache, d_base, **kw)
+            first = self._next_tokens(logits, samp).cpu().numpy()
+        self._c_prefill_calls.inc()
+        self._prefill_calls_by_width[width] = \
+            self._prefill_calls_by_width.get(width, 0) + 1
         for row, slot in enumerate(group):
             st = active[slot]
             st.base += int(valid[row])
@@ -1589,75 +2220,157 @@ class ServingEngine:
             self._emit(slot, st, int(first[row]))
 
     # ------------------------------------------------------------------ stats
-    def stats(self) -> Dict[str, Any]:
-        """Serving-loop counters: admissions, preemptions (``evicted``),
-        decode steps (the deepest slot's steps of each fused window),
-        fused iterations and host fences (``decode_steps > 1``), captured
-        graphs (decode; verify and draft in speculative mode), sampled and
-        constrained requests and prefill calls, prefix-cache hit rate,
-        block occupancy, TTFT/TPOT percentiles over recent finished
-        requests, the KV pool's footprint (``kv_pool_bytes``: codes plus
-        the scale table under ``kv8``; the draft's ``draft_pool_bytes``)
-        and quantization, the speculative counters (rounds, drafts
-        eligible for a verdict, accepted and rejected ones, their ratio),
-        and the launches of each
-        decode-attention and int8-matmul kernel (process-wide executions:
-        a replayed graph adds the launches it holds)."""
-        c = self.counters
-        pool_bytes = _nbytes(self._cache)
-        scale_bytes = sum(leaf["ps"].numel() * leaf["ps"].element_size()
-                          for leaf in self._cache.values()
-                          if is_quantized_pool(leaf))
-        st = {
-            "iterations": c["iterations"],
-            "decode_steps": c["decode_steps"],
-            "fused_iterations": c["fused_iterations"],
-            "host_fence_waits": c["host_fence_waits"],
-            "captured_graphs": c["captured_graphs"],
+    def resolved_config(self) -> Dict[str, Any]:
+        """The engine's resolved serving knobs as a round-trippable,
+        JSON-able ``init_serving`` kwargs dict (``serving.py:4181-4234``):
+        ``init_serving(model, **srv.resolved_config())`` rebuilds an engine
+        that behaves the same (auto knobs — ``chunked_prefill``,
+        ``num_blocks``, SLO targets — come back resolved).  The keys of
+        features the port does not have yet (``engine_mode``, ``sp``, the
+        KV tiers, ``role``, the NVMe keys, ``shard_kv``, ``topology``)
+        carry the one value the port runs: their defaults (``shard_kv``
+        False and ``topology`` 1, the one-card layout).
+
+        Not captured: the wrapped ``init_inference`` engine itself (model,
+        params, dtype, quant group sizes) and a ``draft`` model object — a
+        draft-model speculative engine round-trips to the n-gram proposer
+        at the same ``spec_tokens``."""
+        return {
+            "slots": self.slots,
+            "max_seq_len": self.max_seq_len,
+            "block_size": self.block_size,
+            "num_blocks": int(self._alloc.num_blocks),
+            "chunked_prefill": bool(self.chunked_prefill),
+            "prefill_chunk": int(self.prefill_chunk),
+            "decode_steps": self._K,
+            "engine_mode": "replicas",
+            "sp": 1,
+            "resident_window_blocks": 0,
+            "prompt_buckets": list(self.prompt_buckets) or None,
+            "prefill_batch": self.prefill_batch,
+            "prefix_caching": self._prefix is not None,
+            "spec_tokens": self.spec_tokens,
+            "ngram_max": self.ngram_max,
+            "ngram_min": self.ngram_min,
             "sampling": self.sampling,
-            "sampled_requests": c["sampled_requests"],
-            "prefill_calls": c["prefill_calls"],
-            "admitted": c["admitted"],
-            "evicted": c["preempted"],
-            "finished": c["finished"],
-            "generated_tokens": c["generated_tokens"],
-            "prompt_tokens": c["prompt_tokens"],
-            "prefix_hit_tokens": c["prefix_hit_tokens"],
-            "prefix_cache_hit_rate": (c["prefix_hit_tokens"] / c["prompt_tokens"]
-                                      if c["prompt_tokens"] else 0.0),
-            "prefix_cache_entries": len(self._prefix) if self._prefix else 0,
+            "spec_verifier": self.spec_verifier,
+            "logit_masks": self.logit_masks,
+            "quantize": self.quantize,
+            "host_blocks": 0,
+            "swap_batch": 8,
+            "role": "both",
+            "nvme_blocks": 0,
+            "nvme_high_watermark": 0.9,
+            "nvme_path": None,
+            "shard_kv": False,
+            "topology": 1,
+            "debug_checks": self.debug_checks,
+            "trace_capacity": int(self.timeline.capacity),
+            "slo_targets": {cls: dict(t)
+                            for cls, t in self._slo.targets.items()},
+            "peak_flops": self.peak_flops,
+        }
+
+    def _kv_footprint(self) -> Dict[str, Any]:
+        """KV memory accounting: pool shape and bytes (codes plus the scale
+        table under ``kv8``), and the draft pool's bytes."""
+        out = {
+            "quantize": self.quantize,
+            "kv_dtype": self._kv_dtype,
+            "weight_quant": self.weight_quant,
+            "kv_scale_bytes": sum(
+                leaf["ps"].numel() * leaf["ps"].element_size()
+                for leaf in self._cache.values() if is_quantized_pool(leaf)),
+            "kv_pool_shape": list(self._pool_shape),
+            "kv_pool_bytes": _nbytes(self._cache),
+        }
+        if self._dcache is not None:
+            out["draft_pool_bytes"] = _nbytes(self._dcache)
+        return out
+
+    def _latency_stats(self) -> Dict[str, Any]:
+        """TTFT/TPOT percentiles over every finished request, from the
+        registry's streaming histograms (``None`` before the first)."""
+        out: Dict[str, Any] = {
+            "requests_finished": int(self._c_finished.value)}
+        for key, hist in (("ttft", self._h_ttft), ("tpot", self._h_tpot)):
+            for q in (50, 95):
+                out[f"{key}_p{q}_s"] = hist.quantile(q / 100.0)
+        return out
+
+    def stats(self) -> Dict[str, Any]:
+        """Serving-loop observability, every counter a view over
+        ``self.metrics`` (``serving.py:4287``): the compile probe and
+        sentry, admissions, preemptions (``evicted``), cancels, decode
+        steps (the deepest slot's steps of each fused window), fused
+        iterations and host fences, prefill calls, sampled and constrained
+        requests, the prefix-cache hit rate, block occupancy, TTFT/TPOT
+        percentiles, the KV footprint, the speculative counters, the
+        timeline ring's health and the resolved config.  The port's own
+        keys: ``captured_graphs`` (CUDA graphs captured) and the launches
+        of each decode-attention and int8-matmul kernel (process-wide executions: a replayed graph
+        adds the launches it holds).  The JAX keys of features the port
+        does not have yet (the tp, dp, sp, resident-window, host-tier,
+        disaggregation and NVMe keys) are left out."""
+        self._g_blocks_in_use.set(self._alloc.blocks_in_use)
+        self._g_free_blocks.set(self._alloc.free_blocks)
+        st = {
+            "mode": "chunked" if self.chunked_prefill else "bucketed",
+            "compile_count": self.compile_count,
+            "compile_budget": self.compile_budget,
+            "debug_checks": self.debug_checks,
+            "invariant_checks_run": self.invariant_checks_run,
+            "retraces_observed": self.sentry.retraces_observed,
+            "backend_compiles": backend_compiles(),
+            "captured_graphs": self.captured_graphs,
+            "iterations": self.iterations,
+            "decode_steps": self.decode_steps,
+            "fused_iterations": int(self._c_fused_iterations.value),
+            "host_fence_waits": int(self._c_host_fence_waits.value),
+            "prefill_calls": self.prefill_calls,
+            "admitted": self.admitted,
+            "evicted": self.preempted,
+            "cancelled": int(self._c_cancelled.value),
+            "queue_depth": len(self._pending),
+            "generated_tokens": int(self._c_gen_tokens.value),
+            "prompt_tokens": self.prompt_tokens,
+            "prefix_hit_tokens": self.prefix_hit_tokens,
+            "prefix_cache_hit_rate": (
+                self.prefix_hit_tokens / self.prompt_tokens
+                if self.prompt_tokens else 0.0),
+            "prefix_cache_entries": len(self._prefix)
+            if self._prefix is not None else 0,
             "prefix_cache_evictions": self._prefix.evictions
             if self._prefix is not None else 0,
             "blocks_in_use": self._alloc.blocks_in_use,
             "free_blocks": self._alloc.free_blocks,
             "num_blocks": self._alloc.num_blocks,
             "block_size": self.block_size,
-            "queue_depth": len(self._pending),
-            "ttft_p50_s": _percentile(self._ttft, 50),
-            "ttft_p95_s": _percentile(self._ttft, 95),
-            "tpot_p50_s": _percentile(self._tpot, 50),
-            "tpot_p95_s": _percentile(self._tpot, 95),
-            "quantize": self.quantize,
-            "kv_dtype": self._kv_dtype,
-            "weight_quant": self.weight_quant,
-            "kv_scale_bytes": scale_bytes,
-            "kv_pool_bytes": pool_bytes,
             "speculative": (
                 None if not self.spec_tokens else
                 f"draft:{self._draft.module.name}" if self._draft
                 else "ngram"),
             "spec_tokens": self.spec_tokens,
-            "spec_rounds": c["spec_rounds"],
-            "drafted_tokens": c["drafted_tokens"],
-            "accepted_tokens": c["accepted_tokens"],
-            "acceptance_rate": (c["accepted_tokens"] / c["drafted_tokens"]
-                                if c["drafted_tokens"] else 0.0),
-            "spec_draft_rejected": c["spec_draft_rejected"],
+            "spec_rounds": self.spec_rounds,
+            "drafted_tokens": self.drafted_tokens,
+            "accepted_tokens": self.accepted_tokens,
+            "acceptance_rate": (self.accepted_tokens / self.drafted_tokens
+                                if self.drafted_tokens else 0.0),
+            "sampling": self.sampling,
             "spec_verifier": self.spec_verifier,
             "logit_masks": self.logit_masks,
+            "sampled_requests": int(
+                self._c_sampled["sampled"].value
+                + self._c_sampled["constrained"].value),
+            "spec_draft_rejected": int(self._c_spec_rejected.value),
+            "resume_recompute_tokens": int(self._c_resume_recompute.value),
+            "trace_capacity": self.timeline.capacity,
+            "trace_events": len(self.timeline),
+            "trace_events_dropped": self.timeline.dropped,
+            "config": self.resolved_config(),
         }
-        if self._dcache is not None:
-            st["draft_pool_bytes"] = _nbytes(self._dcache)
+        st.update(self._kv_footprint())
+        st.update(self._latency_stats())
         for fn in decode_attention.KERNELS + quantized_matmul.KERNELS:
             st[f"{fn.__name__}_launches"] = fn.launches
         return st

@@ -28,12 +28,12 @@ PORTED = {"model", "config", "params", "slots", "max_seq_len",
           "prefill_batch", "block_size", "num_blocks", "prefill_chunk",
           "prefix_caching", "decode_steps", "sampling", "quantize",
           "spec_tokens", "draft", "ngram_max", "ngram_min", "spec_verifier",
-          "logit_masks", "kwargs"}
+          "logit_masks", "prompt_buckets", "chunked_prefill",
+          "debug_checks", "trace_capacity", "slo_targets", "peak_flops",
+          "kwargs"}
 
 # (keyword, a value other than the JAX default, its ROADMAP Queue A item)
 UNPORTED = [
-    ("prompt_buckets", [16, 32], 4),
-    ("chunked_prefill", False, 4),
     ("engine_mode", "dp_tp", 8),
     ("sp", 2, 8),
     ("resident_window_blocks", 4, 9),
@@ -45,10 +45,6 @@ UNPORTED = [
     ("nvme_path", "kv.spill", 9),
     ("shard_kv", True, 8),
     ("topology", 2, 8),
-    ("debug_checks", True, 5),
-    ("trace_capacity", 0, 5),
-    ("slo_targets", {"realtime": {"ttft_s": 1.0}}, 5),
-    ("peak_flops", 1e12, 5),
 ]
 
 
@@ -156,37 +152,55 @@ def test_methods_keep_the_jax_signatures(name):
         assert got[p.name].default == p.default, p.name
 
 
-# (method, keyword, a value other than the JAX default, its Queue A item)
-UNPORTED_METHOD_KEYWORDS = [
-    ("submit", "slo_class", "realtime", 4),
-    ("serve", "step_log", [], 5),
-    ("serve", "debug_checks", True, 5),
-    ("serve", "profile_dir", "prof", 5),
-    ("serve", "profile_iters", 4, 5),
+# (method, keyword, a value other than the JAX default): the serving
+# methods' keywords, each ported; every one takes a value other than its
+# default and the call still serves what ``generate`` decodes
+METHOD_KEYWORDS = [
+    ("submit", "slo_class", "realtime"),
+    ("serve", "step_log", []),
+    ("serve", "debug_checks", True),
+    ("serve", "profile_dir", "prof"),
+    ("serve", "profile_iters", 4),
 ]
 
 
-@pytest.mark.parametrize("method,keyword,value,item",
-                         UNPORTED_METHOD_KEYWORDS,
-                         ids=[k for _, k, _, _ in UNPORTED_METHOD_KEYWORDS])
+@pytest.mark.parametrize("method,keyword,value", METHOD_KEYWORDS,
+                         ids=[k for _, k, _ in METHOD_KEYWORDS])
 def test_unported_method_keywords_refuse_other_values(engine, method, keyword,
-                                                      value, item):
-    """The serving methods' keywords the port does not implement yet raise
-    ``NotImplementedError`` naming their Queue A item for any value but
-    the JAX default; at the default the call serves as before."""
+                                                      value, tmp_path):
+    """The serving methods' keywords take values other than the JAX
+    default (the name is kept from when they were refused): the call
+    serves ``generate``'s tokens, and each keyword does its job — the
+    class's priority, the step log, the audits, the profiler trace."""
     srv = deepspeed_tpu_torch.init_serving(
         engine.module, params=engine.params, config={"dtype": "fp32"},
         device="cpu", slots=2, max_seq_len=64, block_size=8, sampling=False)
     req = Request(uid=0, prompt=np.arange(5), max_new_tokens=2)
-    fn = getattr(srv, method)
-    with pytest.raises(NotImplementedError,
-                       match=rf"{keyword}=.*Queue A item {item}\)"):
-        fn(req, **{keyword: value}) if method == "submit" else \
-            fn([req], **{keyword: value})
-    out = srv.serve([req], **{keyword: None}) if method == "serve" else \
-        srv.serve([req])
     want = engine.generate(np.arange(5)[None], max_new_tokens=2)[0]
-    np.testing.assert_array_equal(out[0], want)
+    if keyword == "profile_dir":
+        value = str(tmp_path / value)
+    if method == "submit":
+        handle = srv.submit(req, **{keyword: value})
+        while srv.step():
+            pass
+        out = handle.result(timeout=0)
+        assert handle.priority == 2 and handle.slo_class == "realtime"
+        assert srv.slo_report()["realtime"]["requests"] == 1
+    else:
+        kw = {keyword: value}
+        if keyword == "profile_iters":
+            kw["profile_dir"] = str(tmp_path / "p")
+        out = srv.serve([req], **kw)[0]
+        st = srv.stats()
+        if keyword == "step_log":
+            assert len(value) == st["iterations"] > 0
+        if keyword == "debug_checks":
+            assert st["invariant_checks_run"] == st["iterations"]
+        if "profile_dir" in kw:
+            import os
+
+            assert os.listdir(kw["profile_dir"])
+    np.testing.assert_array_equal(out, want)
 
 
 def test_every_unported_serving_keyword_is_listed():
@@ -268,6 +282,13 @@ SERVERS = [
      {"spec_tokens": 2, "draft": "draft", "sampling": False}),
     ("logit_masks", {"logit_masks": True}),
     ("logit_masks spec_tokens=3", {"logit_masks": True, "spec_tokens": 3}),
+    # the keywords that were refused until the serving API slice
+    ("prompt_buckets", {"prompt_buckets": [16, 32, 64]}),
+    ("chunked_prefill=False", {"chunked_prefill": False}),
+    ("debug_checks", {"debug_checks": True}),
+    ("trace_capacity=0", {"trace_capacity": 0}),
+    ("slo_targets", {"slo_targets": {"realtime": {"ttft_s": 1.0}}}),
+    ("peak_flops", {"peak_flops": 1e12}),
 ]
 
 
@@ -313,3 +334,11 @@ def test_ported_serving_keywords_build_working_servers(engine, greedy_trace,
     assert (st["fused_iterations"] > 0) == (kw.get("decode_steps", 1) > 1)
     assert (st["spec_rounds"] > 0) == bool(kw.get("spec_tokens"))
     assert st["logit_masks"] is kw.get("logit_masks", False)
+    assert st["mode"] == ("bucketed" if "prompt_buckets" in kw or
+                          kw.get("chunked_prefill") is False else "chunked")
+    assert st["invariant_checks_run"] == (
+        st["iterations"] if kw.get("debug_checks") else 0)
+    assert st["trace_capacity"] == kw.get("trace_capacity", 16384)
+    assert srv.resolved_config()["peak_flops"] == kw.get("peak_flops")
+    if "slo_targets" in kw:
+        assert srv.slo_report()["realtime"]["ttft_target_s"] == 1.0

@@ -170,8 +170,7 @@ def test_submit_step_and_streaming_handles(engines):
 
 def test_init_serving_refuses_unported_options(engines):
     model = tgpt2.build(tgpt2.GPT2Config.tiny())
-    for kw, word in (({"debug_checks": True}, "audit"),
-                     ({"host_blocks": 8}, "tier"),
+    for kw, word in (({"host_blocks": 8}, "tier"),
                      ({"resident_window_blocks": 4}, "tier"),
                      ({"sp": 2}, "multi-GPU"),
                      ({"engine_mode": "dp_tp"}, "multi-GPU"),
