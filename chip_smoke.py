@@ -149,7 +149,11 @@ and every replay adds them.
     gate (< 0.05).  Then both lanes, eager and captured, and the sampled
     float lane captured: wall time, device busy time, idle share, kernels
     and host launch calls an iteration of a profiled decode window, and
-    ``serve`` tok/s and TTFT p50 of phase 4's traffic.
+    ``serve`` tok/s and TTFT p50 of phase 4's traffic.  Last, the captures
+    under garbage collection (:func:`gc_capture_check`): a spec server's
+    captures start no collection under a collector that runs at every
+    allocation, a bare ``torch.cuda.graph`` does, and a graph dropped
+    inside a capture invalidates it.
  13. speculative and constrained decoding on phase 3's weights (and phase
     10's w8a8 records) with phase 4's traffic, K = 4 (the verify kernel at
     T = 5 on every round): an n-gram server and one with a
@@ -347,8 +351,8 @@ and every replay adds them.
  20. The serving API and its telemetry (:func:`serving_api_phase`), run
     after phase 13 on phase 4's GPT-2 125M bf16 engine and traffic (8
     slots x 1024, chunk 128, ``sampling=False``).  (a) The telemetry's
-    cost: the traffic served six times, alternating ``trace_capacity=0``
-    with the default ring (registry and SLO tracker on in both), each
+    cost: the traffic served TELEMETRY_ROUNDS (8) times each, alternating
+    ``trace_capacity=0`` with the default ring (registry and SLO tracker on in both), each
     median tok/s and their ratio; it fails past 5% or when the tokens
     differ.  ``dump_trace`` checked by ``validate_chrome_trace``, every
     request with its admits, a prefill window over its slot and its span
@@ -373,8 +377,28 @@ and every replay adds them.
     (b) on its Llama-3-8B engine (:func:`llama_serving_api_phase`): a
     bucketed and a chunk-16 server on phase 4's traffic against
     ``generate`` (TTFT, tok/s, prefill calls by width), and the
-    telemetry's cost over three alternations.  The launches of (a)'s
+    telemetry's cost over 8 alternations.  The launches of (a)'s
     serves are added to those of phases 3-5; (b)'s are in phase 14 (b)'s.
+ 21. fp16 and GPT-2's training options (:func:`fp16_phase`), run last.
+    (a) The flash forward, dq and dkv kernels in float16 (the wgmma
+    kernels instantiated for ``__half``) against their plain versions at
+    the bf16 cases' bars, the backward against its tiling's models, a
+    second call and a graph replay bit-identical: one tile, ragged S,
+    non-causal, Sq != Sk, GQA, GPT-2's training shape and D = 128 GQA 32 /
+    8 at S = 4096 and 8192; the two training shapes timed against fp16
+    SDPA; the planted fault (:data:`FP16_FAULTS`, built in phase 1) must
+    fail the first case.  (b) GPT-2 125M at phase 7's shape in fp16 with
+    dynamic loss scaling, remat ``dots`` and the fused CE head: finite
+    falling losses, the loss-scale / skip trace, the flash launches (the
+    forward twice), step ms, tokens/s, MFU, peak.  (c) The same model in
+    bf16 under no remat and each policy (full, dots, dots_flash, dots with
+    ``cpu_checkpointing``): flash forwards a step, equal trajectories,
+    peak and step ms; offload must lower the peak.  (d) ``dropout=0.1``:
+    einsum attention (no flash launch), finite losses, the keep mask drawn
+    on the card equal to the CPU's.  (e) Llama-3-8B's width at 2 layers in
+    fp16, 2 steps: the D = 128 fp16 kernels on a training path.  (a)'s
+    times with (b)'s and (e)'s launches give the ``[fp16-gpt2]`` and
+    ``[fp16-d128]`` entries of the kernels line.
 
 The last two lines of output are the ``{"kernels": [...]}`` JSON object
 and the ``{"ok": true, "device": ...}`` JSON object.
@@ -466,8 +490,11 @@ def host_ms(fn, iters: int = 200) -> float:
 
 def capture(fn):
     """``fn`` captured once in a CUDA graph, after three warm-up calls on a
-    side stream: (the graph, the output tensor its replays write)."""
+    side stream: (the graph, the output tensor its replays write).  The
+    capture pauses garbage collection, as the serving engine's does."""
     import torch
+
+    from deepspeed_tpu_torch.utils.cuda_graphs import graph_capture
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -476,7 +503,7 @@ def capture(fn):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with graph_capture(graph):
         out = fn()
     torch.cuda.synchronize()
     return graph, out
@@ -866,7 +893,9 @@ def row_reading(got, want) -> float:
 
 def flash_compare(label, got, want, dtype, fp32_tol):
     """(max abs error, row reading or None); raises past the tolerance:
-    bf16 o, dq, dk and dv against FLASH_BF16_REL and, element by element,
+    16-bit o, dq, dk and dv (bf16, and fp16 at the same bars: its 10-bit
+    mantissa rounds P and dS more finely) against FLASH_BF16_REL and,
+    element by element,
     FLASH_BF16_RTOL and FLASH_BF16_ROW; the rest at atol = rtol =
     ``fp32_tol``."""
     import torch
@@ -875,7 +904,7 @@ def flash_compare(label, got, want, dtype, fp32_tol):
     if not torch.isfinite(got).all():
         raise AssertionError(f"{label}: non-finite kernel output")
     err = (got - want).abs().max().item()
-    if dtype != torch.bfloat16 or want.ndim < 4:
+    if dtype not in (torch.bfloat16, torch.float16) or want.ndim < 4:
         torch.testing.assert_close(got, want, atol=fp32_tol, rtol=fp32_tol,
                                    msg=lambda m: f"{label}: {m}")
         return err, None
@@ -2323,6 +2352,98 @@ def timed_serve(srv, reqs, eager: bool):
         st["ttft_p50_s"]
 
 
+#: a child's program: capture a graph, then drop the last reference to it
+#: inside a second capture (its destructor's ``cudaGraphExecDestroy`` is
+#: illegal there and only warns); prints how the second capture ended
+GRAPH_DROPPED_IN_CAPTURE = """
+import torch
+x = torch.zeros(1024, device="cuda")
+x.add_(1)
+held = [torch.cuda.CUDAGraph()]
+with torch.cuda.graph(held[0]):
+    x.add_(1)
+try:
+    with torch.cuda.graph(torch.cuda.CUDAGraph()):
+        x.mul_(2)
+        held.clear()
+except Exception as e:
+    print("invalidated" if "capture" in str(e) else repr(e))
+else:
+    print("captured")
+"""
+
+
+def gc_capture_check(engine, float_lane):
+    """The serving engine captures its steps with automatic garbage
+    collection paused (``utils/cuda_graphs.py``): a collection inside a
+    capture can free a dropped server's graphs there, and destroying a
+    graph is illegal while a stream is captured, so the capture ends in
+    ``cudaErrorStreamCaptureInvalidated``.  Serves 4 of phase 4's requests
+    with ``spec_tokens`` (its verify step captured) with the collector
+    set to collect its youngest generation at every allocation, and counts
+    through ``gc.callbacks`` the collections that start while the stream is
+    captured: none may.  The same serve with the guard taken out (bare
+    ``torch.cuda.graph``) must count some, or the check could not see the
+    fault; no garbage holds a graph then, so those captures succeed.  A
+    child process shows the fault itself on this card: a capture inside
+    which the last reference to another graph is dropped must fail."""
+    import gc
+    import subprocess
+
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.inference import serving
+    from deepspeed_tpu_torch.inference.serving import Request
+
+    reqs = [Request(uid=r.uid, prompt=r.prompt, max_new_tokens=16)
+            for r in float_lane["reqs"][:4]]
+    inside = [0]
+
+    def watch(phase, info):
+        if phase == "start" and torch.cuda.is_current_stream_capturing():
+            inside[0] += 1
+
+    guarded, thresholds, seen = serving.graph_capture, gc.get_threshold(), {}
+    gc.callbacks.append(watch)
+    try:
+        for label, ctx in (("guarded", guarded), ("bare", torch.cuda.graph)):
+            serving.graph_capture = ctx
+            srv = dt.init_serving(engine.module, config={"dtype": "bf16"},
+                                  params=engine.params, slots=8,
+                                  max_seq_len=1024, block_size=32,
+                                  prefill_chunk=128, sampling=False,
+                                  spec_tokens=SPEC_K)
+            gc.collect()
+            inside[0] = 0
+            gc.set_threshold(1, 10 ** 6, 10 ** 6)
+            try:
+                res = srv.serve(reqs)
+            finally:
+                gc.set_threshold(*thresholds)
+            seen[label] = (inside[0], srv.stats()["captured_graphs"],
+                           sum(len(v) for v in res.values()))
+            del srv, res
+            gc.collect()
+    finally:
+        serving.graph_capture = guarded
+        gc.callbacks.remove(watch)
+    child = subprocess.run([sys.executable, "-c", GRAPH_DROPPED_IN_CAPTURE],
+                           capture_output=True, text=True, timeout=120)
+    dropped = (child.stdout.strip().splitlines() or ["no output"])[-1]
+    log(f"[gc capture] collections started inside a capture, captured "
+        f"graphs, tokens: guarded {seen['guarded']}, bare torch.cuda.graph "
+        f"{seen['bare']}; a graph dropped inside a capture: {dropped}")
+    if dropped != "invalidated":
+        raise AssertionError(f"gc capture: a graph dropped inside a capture "
+                             f"gave {dropped!r}: {child.stderr[-2000:]}")
+    if seen["guarded"][0] or not seen["guarded"][1]:
+        raise AssertionError(f"gc capture: guarded {seen['guarded']}")
+    if not seen["bare"][0]:
+        raise AssertionError("gc capture: no collection inside a bare "
+                             "capture; the check cannot see the fault")
+
+
 def capture_phase(engine, weng, float_lane):
     """Phase 12: the captured decode step (one CUDA graph a decode shape),
     fused ``decode_steps=4`` and on-device sampling on phase 3's GPT-2
@@ -3453,6 +3574,10 @@ def check_sparse_kernels():
 #: may cost at most this share of the median tok/s with it off (the JAX
 #: package's contract is 2%, measured on a TPU; PERF.md records the port's)
 TELEMETRY_MAX_COST = 0.05
+#: alternations of the guard: a serve's tok/s varies by several percent
+#: from one serve to the next on the H100's shared host, and the median of
+#: 3 a side crossed the 5% guard on one full run in about ten
+TELEMETRY_ROUNDS = 8
 
 
 def timed_run(srv, reqs, **kw):
@@ -3571,7 +3696,8 @@ def serving_api_phase(engine, gen, float_lane, card):
                                params=engine.params, **kw)
 
     # (1) the telemetry's cost
-    srv, walls, _ = telemetry_cost("gpt2", server, reqs, 3, card)
+    srv, walls, _ = telemetry_cost("gpt2", server, reqs, TELEMETRY_ROUNDS,
+                                   card)
 
     # (2) dump_trace
     out_dir = os.path.join("build", "serving_api")
@@ -3586,7 +3712,7 @@ def serving_api_phase(engine, gen, float_lane, card):
         if e["ph"] != "M":
             key = "req *" if e["name"].startswith("req ") else e["name"]
             names[key] = names.get(key, 0) + 1
-    serves = 4                        # the warm serve and three timed ones
+    serves = 1 + TELEMETRY_ROUNDS     # the warm serve and the timed ones
     for r in reqs:
         admits = [e for e in events if e["name"] == "admit" and
                   e["args"]["uid"] == r.uid]
@@ -3768,14 +3894,14 @@ def serving_api_phase(engine, gen, float_lane, card):
 def llama_serving_api_phase(server, reqs, ref, card):
     """Phase 20 (b), inside phase 14 (b): Llama-3-8B's bucketed and chunk-16
     servers on phase 4's traffic against ``generate`` (``ref``), and the
-    telemetry's cost over three alternations."""
+    telemetry's cost over TELEMETRY_ROUNDS alternations."""
     from deepspeed_tpu_torch.inference.serving import default_buckets
 
     t0 = time.perf_counter()
     compare_servers("llama", [
         ("bucketed", server(prompt_buckets=default_buckets(1024))),
         ("chunk-16", server(prefill_chunk=16))], reqs, ref, card)
-    telemetry_cost("llama", server, reqs, 3, card)
+    telemetry_cost("llama", server, reqs, TELEMETRY_ROUNDS, card)
     log(f"[20 llama] phase 20 (b) in {time.perf_counter() - t0:.1f} s")
 
 
@@ -3806,8 +3932,9 @@ LLAMA_FAULTS = (
 
 
 def fault_builders():
-    """One ``CUDAOpBuilder`` per :data:`LLAMA_FAULTS` and
-    :data:`FLASH128_FAULTS` entry and one ``HostOpBuilder`` (g++) per
+    """One ``CUDAOpBuilder`` per :data:`LLAMA_FAULTS`,
+    :data:`FLASH128_FAULTS` and :data:`FP16_FAULTS` entry and one
+    ``HostOpBuilder`` (g++) per
     :data:`CPU_ADAM_FAULTS` entry, over a patched copy of its source
     written under ``build/`` (the text must occur once)."""
     from deepspeed_tpu_torch.ops import op_builder
@@ -3816,7 +3943,8 @@ def fault_builders():
     root = op_builder.BUILD_DIR / "faults"
     root.mkdir(parents=True, exist_ok=True)
     for i, (label, lib, src, old, new) in enumerate(
-            LLAMA_FAULTS + FLASH128_FAULTS + CPU_ADAM_FAULTS):
+            LLAMA_FAULTS + FLASH128_FAULTS + CPU_ADAM_FAULTS +
+            FP16_FAULTS):
         text = (op_builder.CSRC / src).read_text()
         if text.count(old) != 1:
             raise AssertionError(f"planted fault {label!r}: its text occurs "
@@ -4476,9 +4604,9 @@ FLASH128_FAULTS = (
     ("D = 128 forward skips the second 64-column span of the head dim",
      "flash_attention", "flash_attention.cu",
      "for (int kk = 0; kk < Head<D>::KSTEPS; ++kk)\n"
-     "    wgmma_m64n128k16_ss(",
+     "    wgmma_m64n128k16_ss<E>(",
      "for (int kk = 0; kk < (D == 128 ? 4 : Head<D>::KSTEPS); ++kk)\n"
-     "    wgmma_m64n128k16_ss("),
+     "    wgmma_m64n128k16_ss<E>("),
     ("D = 128 dkv sums only the first query head of each KV group",
      "flash_attention", "flash_attention.cu",
      "int first = 0, ntiles = rep * nqt;",
@@ -4595,7 +4723,7 @@ def time_llama_flash(q, k, v, do, o, lse, delta, errs, flush, card,
                      "library_graph_ms": library_graph_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by}
         log(f"[{tag}] {name} at B={b} H={h} Hkv={hkv} S={s} D={d} "
-            f"causal bf16: kernel {ms:.4f} ms ({ms_graph:.4f} ms replayed "
+            f"causal {str(q.dtype)[6:]}: kernel {ms:.4f} ms ({ms_graph:.4f} ms replayed "
             f"from a CUDA graph), plain {plain_ms:.4f} ms (at S={plain_at}), "
             f"sdpa {'fwd' if 'fwd' in name else 'bwd'} {library_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}) ({card})")
@@ -4792,7 +4920,8 @@ def llama_train_full_phase(card, faults):
     launches of (b), its median step in seconds)."""
     t0 = time.perf_counter()
     measured = check_llama_flash(card)
-    check_planted_faults(faults, {"flash_attention": check_llama_flash}, 15)
+    check_planted_faults(only_faults(faults, FLASH128_FAULTS),
+                         {"flash_attention": check_llama_flash}, 15)
     t1 = time.perf_counter()
     launches, steady = llama_train_phase(card)
     log(f"[llama train] phase 15 (a) in {t1 - t0:.1f} s, (b) in "
@@ -6763,6 +6892,378 @@ def zero_inference_phase(card):
     return measured, total
 
 
+# ------------------------------------------------------------- phase 21
+#: planted fault of the fp16 flash kernels, built in phase 1 with the
+#: others; it must fail the first case of :func:`check_fp16_flash`
+FP16_FAULTS = (
+    ("fp16 pack swaps the two values of a pair", "flash_attention",
+     "flash_attention.cu",
+     "return __floats2half2_rn(lo, hi);",
+     "return __floats2half2_rn(hi, lo);"),
+)
+#: phase 21 (b)/(c)'s GPT-2 125M shape: phase 7's micro 8 x GAS 2 x 1024
+FP16_MICRO, FP16_GAS, FP16_STEPS, REMAT_STEPS = 8, 2, 10, 3
+
+
+def only_faults(faults, table):
+    """The built faults of ``table`` (their labels), for the phase that
+    checks them."""
+    labels = {entry[0] for entry in table}
+    return [f for f in faults if f[0] in labels]
+
+
+def fp16_flash_cases():
+    """Phase 21 (a)'s cases: (label, B, H, Hkv, Sq, Sk, D, causal, timed
+    tag).  One tile first (the planted fault fails there), then ragged S,
+    non-causal, Sq != Sk, GQA, GPT-2's training shape (timed, tag "gpt2")
+    and Llama-3-8B's and Mixtral-8x7B's D = 128 GQA 32 / 8 shapes (S = 8192
+    timed, tag "d128")."""
+    return [
+        ("fp16 one tile S=64", 1, 1, 1, 64, 64, 64, False, None),
+        ("fp16 one tile S=128 causal", 1, 1, 1, 128, 128, 64, True, None),
+        ("fp16 S=130 (a tile and a ragged one)", 2, 12, 12, 130, 130, 64,
+         True, None),
+        ("fp16 non-causal Sq=384 Sk=640", 2, 12, 12, 384, 640, 64, False,
+         None),
+        ("fp16 causal Sq=640 Sk=384", 2, 12, 12, 640, 384, 64, True, None),
+        ("fp16 GQA rep 3 S=200", 2, 12, 4, 200, 200, 64, True, None),
+        ("fp16 train S=1024", 8, 12, 12, 1024, 1024, 64, True, "gpt2"),
+        ("fp16 D=128 one tile S=128 causal", 1, 32, 8, 128, 128, 128, True,
+         None),
+        ("fp16 D=128 non-causal Sq=640 Sk=384", 1, 32, 8, 640, 384, 128,
+         False, None),
+        ("fp16 D=128 S=4096 (Mixtral-8x7B)", 1, 32, 8, 4096, 4096, 128, True,
+         None),
+        ("fp16 D=128 S=8192 (Llama-3-8B)", 1, 32, 8, 8192, 8192, 128, True,
+         "d128"),
+    ]
+
+
+def check_fp16_flash(card=None):
+    """Phase 21 (a): the flash forward, dq and dkv kernels in float16
+    (``wgmma_*_kernel<__half, ...>``) against their plain versions at the
+    bf16 cases' bars, the backward also against its tiling's models, with
+    a second call and a CUDA-graph replay bit-identical
+    (:func:`check_flash_case`); given ``card``, the two tagged shapes timed
+    against fp16 SDPA (:func:`time_llama_flash`), else those skipped.
+    Returns {tag: {kernel name: measurements}}."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    out = {}
+    for seed, (label, b, h, hkv, sq, sk, d, causal, tag) in \
+            enumerate(fp16_flash_cases()):
+        if tag is not None and card is None:
+            continue
+        q, k, v, do = flash_case(b, h, hkv, sq, sk, torch.float16,
+                                 2100 + seed, d=d)
+        (o, lse, delta), errs = check_flash_case(
+            label, q, k, v, do, causal,
+            plain=plain_by_heads if d == 128 else None)
+        if tag is not None:
+            out[tag] = time_llama_flash(q, k, v, do, o, lse, delta, errs,
+                                        flush, card, tag=f"21a {tag}")
+        del q, k, v, do, o, lse, delta
+        torch.cuda.empty_cache()
+    del flush
+    return out
+
+
+def check_mm_f32():
+    """The fused CE head's ``torch.mm(..., out_dtype=torch.float32)`` on
+    bf16 and fp16 operands (``gpt2._mm_f32``) against a float64 product:
+    f32 out, within 1e-5 of the exact sum of the rounded operands."""
+    import torch
+
+    from deepspeed_tpu_torch.models import gpt2
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    for dtype in (torch.bfloat16, torch.float16):
+        a = torch.randn(256, 768, generator=g, device="cuda").to(dtype)
+        b = torch.randn(768, 512, generator=g, device="cuda").to(dtype)
+        got = gpt2._mm_f32(a, b)
+        want = a.double() @ b.double()
+        err = ((got.double() - want).abs().max() /
+               want.abs().max()).item()
+        if got.dtype != torch.float32 or err > 1e-5:
+            raise AssertionError(f"mm out_dtype f32 on {dtype}: "
+                                 f"{got.dtype}, relative error {err:.2e}")
+        log(f"[21] torch.mm(out_dtype=float32) on {dtype}: relative error "
+            f"{err:.2e} against float64")
+
+
+def fp16_train_config(micro, gas, dtype="fp16", remat=None, offload=False):
+    """Phase 7's config in fp16 with dynamic loss scaling (or bf16), and
+    the ``activation_checkpointing`` block of ``remat``."""
+    config = train_config(micro, gas, "bf16" if dtype == "bf16" else "fp16")
+    if dtype == "fp16":
+        config["fp16"] = {"enabled": True, "loss_scale": 0,
+                          "initial_scale_power": 16}
+    if remat is not None:
+        config["activation_checkpointing"] = {
+            "policy": remat, "cpu_checkpointing": offload}
+    return config
+
+
+def gpt2_train_run(cfg, config, params, batches, steps, warm=1):
+    """``steps`` ``train_batch`` steps of GPT-2 on ``batches`` (cycled):
+    (losses, median step s past ``warm``, peak GiB past the first step,
+    the flash launches past the first step, the per-step metrics).  The
+    engine holds reference cycles, so the previous one is collected first:
+    its memory would count in this one's peak."""
+    import gc
+
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine, *_ = dt.initialize(model=gpt2.build(cfg), config=config,
+                               model_parameters=params)
+    losses, step_s, trace = [], [], []
+    for step in range(steps):
+        if step == warm:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = engine.train_batch(
+            {"input_ids": batches[step % len(batches)]})
+        losses.append(metrics["loss"])               # waits for the step
+        step_s.append(time.perf_counter() - t0)
+        trace.append({key: metrics[key] for key in
+                      ("overflow", "loss_scale", "skipped") if key in metrics})
+    counts = flash_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = sorted(step_s[warm:])[len(step_s[warm:]) // 2]
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, steady, peak, counts, trace
+
+
+def fp16_train_phase(card):
+    """Phase 21 (b): GPT-2 125M through ``initialize`` -> ``train_batch``
+    at phase 7's shape in fp16 with dynamic loss scaling, remat "dots" and
+    the fused CE head: finite, falling losses, the loss-scale and skip
+    trace, the fp16 flash launches (the forward twice a layer and
+    micro-step under remat).  Returns (launches, median step s)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.models import gpt2
+
+    check_mm_f32()
+    cfg = dataclasses.replace(gpt2.GPT2Config.gpt2_125m(), fused_ce=True)
+    params = gpt2.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(1234))
+    rng = np.random.default_rng(3)
+    batches = [rng.integers(0, cfg.vocab_size, (FP16_MICRO * FP16_GAS, 1025))
+               for _ in range(4)]
+    losses, steady, peak, counts, trace = gpt2_train_run(
+        cfg, fp16_train_config(FP16_MICRO, FP16_GAS, remat="dots"), params,
+        batches, FP16_STEPS, warm=2)
+    tokens = FP16_MICRO * FP16_GAS * 1024
+    attn_per_token = 6 * cfg.num_layers * cfg.hidden_size * 1024
+    mfu = (6.0 * cfg.num_params() + attn_per_token) * tokens / steady / \
+        BF16_FLOPS_PER_S
+    log(f"[21b] GPT-2 125M fp16 (dynamic loss scale from 2^16), remat "
+        f"dots, fused CE, micro {FP16_MICRO} x gas {FP16_GAS} x 1024: "
+        f"losses {[round(x, 4) for x in losses]}; step {1e3 * steady:.1f} "
+        f"ms (median of steps 3-{FP16_STEPS}), {tokens / steady:.0f} "
+        f"tokens/s, MFU {100 * mfu:.2f}% of 989 TFLOP/s ({card}); peak "
+        f"{peak:.2f} GiB; launches (steps 3-{FP16_STEPS}) {counts}")
+    log("[21b] loss scale / overflow / skipped by step: " + ", ".join(
+        f"{t['loss_scale']:.0f}/{int(t['overflow'])}/{t['skipped']}"
+        for t in trace))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite fp16 training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"fp16 loss did not fall: {losses}")
+    if trace[-1]["skipped"] >= FP16_STEPS // 2:
+        raise AssertionError(f"fp16: {trace[-1]['skipped']} of "
+                             f"{FP16_STEPS} steps skipped")
+    runs = cfg.num_layers * FP16_GAS * (FP16_STEPS - 2)
+    want = {"flash_attention_fwd_cuda": 2 * runs,
+            "flash_attention_bwd_dq_cuda": runs,
+            "flash_attention_bwd_dkv_cuda": runs}
+    if counts != want:
+        raise AssertionError(f"fp16 flash launches {counts}, expected {want} "
+                             "(remat dots: the forward twice a layer)")
+    return counts, steady
+
+
+def remat_phase(card):
+    """Phase 21 (c): phase 7's GPT-2 125M in bf16 with the fused head and
+    no remat, then each policy (full, dots, dots_flash, dots with
+    ``cpu_checkpointing``), :data:`REMAT_STEPS` steps from the same
+    weights: the flash forward launches a step (twice the no-remat count
+    under full and dots, once under dots_flash), the trajectories equal
+    to the no-remat one (the recompute gives the same bits), peak memory
+    and step ms; offload must lower the peak, by about the bytes it
+    moved."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.runtime import remat
+
+    cfg = dataclasses.replace(gpt2.GPT2Config.gpt2_125m(), fused_ce=True)
+    params = gpt2.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(1234))
+    rng = np.random.default_rng(3)
+    batches = [rng.integers(0, cfg.vocab_size, (FP16_MICRO * FP16_GAS, 1025))
+               for _ in range(2)]
+    per_step = cfg.num_layers * FP16_GAS
+    rows, runs = {}, {}
+    for label, policy, offload in (("none", None, False),
+                                   ("full", "full", False),
+                                   ("dots", "dots", False),
+                                   ("dots_flash", "dots_flash", False),
+                                   ("dots+offload", "dots", True)):
+        remat.OFFLOAD_STATS.update(bytes=0, tensors=0)
+        losses, steady, peak, counts, _ = gpt2_train_run(
+            cfg, fp16_train_config(FP16_MICRO, FP16_GAS, "bf16", policy,
+                                   offload), params, batches, REMAT_STEPS)
+        fwd = counts["flash_attention_fwd_cuda"] / (REMAT_STEPS - 1)
+        moved = remat.OFFLOAD_STATS["bytes"] / (REMAT_STEPS * FP16_GAS)
+        rows[label] = (losses, steady, peak, fwd, moved)
+        runs[label] = counts
+        log(f"[21c] remat {label}: step {1e3 * steady:.1f} ms, peak "
+            f"{peak:.2f} GiB, flash forwards a step {fwd:.0f} (bwd "
+            f"{counts['flash_attention_bwd_dq_cuda'] / (REMAT_STEPS - 1):.0f})"
+            + (f", {moved / 2 ** 30:.3f} GiB a micro-step to the host"
+               if offload else "") + f", losses {losses} ({card})")
+    base = rows["none"][0]
+    for label, (losses, _, _, fwd, _) in rows.items():
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, base))
+        want = per_step * (1 if label in ("none", "dots_flash") else 2)
+        if fwd != want:
+            raise AssertionError(f"remat {label}: {fwd} flash forwards a "
+                                 f"step, expected {want}")
+        if rel > 1e-3:
+            raise AssertionError(f"remat {label}: losses {losses} against "
+                                 f"no remat {base} (rel {rel:.2e})")
+    drop = rows["dots"][2] - rows["dots+offload"][2]
+    moved = rows["dots+offload"][4] / 2 ** 30
+    log(f"[21c] offload lowered the peak by {drop:.3f} GiB; it moved "
+        f"{moved:.3f} GiB a micro-step ({card})")
+    if drop < 0.25 * moved:
+        raise AssertionError(f"cpu_checkpointing lowered the peak by "
+                             f"{drop:.3f} GiB only ({moved:.3f} GiB moved)")
+    return runs
+
+
+def dropout_phase(card):
+    """Phase 21 (d): GPT-2 125M with ``dropout=0.1`` (einsum attention: no
+    flash launch), micro 1 x GAS 2 x 1024, 2 fp32-master bf16 steps with
+    finite losses; the keep mask of (seed, step 0, micro 0, layer 0) drawn
+    on the card equals the one drawn on the CPU bit for bit."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops import sampling
+
+    cfg = dataclasses.replace(gpt2.GPT2Config.gpt2_125m(), dropout=0.1)
+    params = gpt2.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(1234))
+    ids = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 1025))
+    config = train_config(1, 2)
+    config["seed"] = 7
+    losses, steady, peak, counts, _ = gpt2_train_run(
+        cfg, config, params, [ids], 2, warm=0)
+    if any(counts.values()):
+        raise AssertionError(f"dropout ran the flash kernels: {counts}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"dropout training: losses {losses}")
+    key = sampling.fold_in(sampling.fold_in(sampling.fold_in(
+        sampling.PRNGKey(7 + 1), 0), 0), 0)
+    shape = (1, cfg.num_heads, 1024, 1024)
+    t0 = time.perf_counter()
+    on_card = gpt2.dropout_keep(key.cuda(), shape, cfg.dropout).cpu()
+    card_s = time.perf_counter() - t0
+    on_host = gpt2.dropout_keep(key, shape, cfg.dropout)
+    if not torch.equal(on_card, on_host):
+        raise AssertionError("the dropout mask drawn on the card differs "
+                             "from the CPU's")
+    log(f"[21d] dropout 0.1: losses {losses}, step {1e3 * steady:.1f} ms, "
+        f"peak {peak:.2f} GiB; the layer-0 keep mask {shape} equal on the "
+        f"card and the CPU ({on_card.float().mean().item():.4f} kept; "
+        f"{1e3 * card_s:.1f} ms on the card) ({card})")
+
+
+def fp16_llama_run(card):
+    """Phase 21 (e): Llama-3-8B's width at 2 layers in fp16 (dynamic loss
+    scaling, full remat), micro 1 x S = 4096, 2 steps: the D = 128 fp16
+    kernels on a training path, finite losses.  Returns their launches."""
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    cfg = llama_train_config(2)
+    s, steps = 4096, 2
+    engine, *_ = dt.initialize(model=llama.build(cfg),
+                               config=fp16_train_config(1, 1))
+    ids = np.random.default_rng(21).integers(0, cfg.vocab_size, (1, s + 1))
+    fa.reset_launch_counts()
+    losses, trace = [], []
+    for _ in range(steps):
+        _, metrics = engine.train_batch({"input_ids": ids})
+        losses.append(metrics["loss"])
+        trace.append((metrics["loss_scale"], int(metrics["overflow"])))
+    counts = flash_counts()
+    log(f"[21e] Llama-3-8B width, 2 layers, fp16, S={s}: losses {losses}, "
+        f"loss scale / overflow {trace}; launches {counts} ({card})")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"fp16 llama losses {losses}")
+    want = {"flash_attention_fwd_cuda": 2 * cfg.num_layers * steps,
+            "flash_attention_bwd_dq_cuda": cfg.num_layers * steps,
+            "flash_attention_bwd_dkv_cuda": cfg.num_layers * steps}
+    if counts != want:
+        raise AssertionError(f"fp16 llama launches {counts}, expected {want}")
+    del engine
+    torch.cuda.empty_cache()
+    return counts
+
+
+def fp16_phase(card, faults):
+    """Phase 21: (a) the fp16 flash kernels and their planted fault, (b)
+    GPT-2 125M in fp16, (c) the remat policies, (d) dropout, (e) the D =
+    128 fp16 kernels on Llama's training path.  Returns (measurements by
+    tag, launches of (b), launches of (e))."""
+    t0 = time.perf_counter()
+    measured = check_fp16_flash(card)
+    check_planted_faults(only_faults(faults, FP16_FAULTS),
+                         {"flash_attention": check_fp16_flash}, 21)
+    t1 = time.perf_counter()
+    launches, _ = fp16_train_phase(card)
+    t2 = time.perf_counter()
+    remat_phase(card)
+    t3 = time.perf_counter()
+    dropout_phase(card)
+    t4 = time.perf_counter()
+    llama_launches = fp16_llama_run(card)
+    log(f"[21] phase 21 (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+        f"{t3 - t2:.1f} s, (d) {t4 - t3:.1f} s, (e) "
+        f"{time.perf_counter() - t4:.1f} s")
+    return measured, launches, llama_launches
+
+
 def build_all():
     """Phase 1's builds: one nvcc per CUDA source and one g++ per host
     source, and one per planted fault of phases 14, 15 and 16
@@ -6826,6 +7327,7 @@ def main() -> int:
     quant_launches, weng = quant_phase(engine, prompts, gen, float_lane)
     launches.update(quant_launches)
     greedy12 = capture_phase(engine, weng, float_lane)
+    gc_capture_check(engine, float_lane)
     for name, n in spec_phase(engine, weng, float_lane, greedy12,
                               card).items():
         launches[name] += n
@@ -6842,6 +7344,8 @@ def main() -> int:
     mixtral_flash, mixtral_launches18, mixtral_offload_launches = \
         mixtral_train_full_phase(card)
     zi_measured, zi_launches = zero_inference_phase(card)
+    fp16_measured, fp16_launches, fp16_llama_launches = fp16_phase(card,
+                                                                   faults)
 
     # one line per kernel; a flash kernel replaces three TPU regimes (v1,
     # v2, v3: PERF.md) and names the v1 site, whose lse format it keeps
@@ -7015,6 +7519,22 @@ def main() -> int:
                 **{key: m[key] for key in (
                     "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
                     "bound_by", "library_ms", "library_graph_ms")}})
+    # phase 21: the flash kernels in fp16 (wgmma_*_kernel<__half, ...>),
+    # at GPT-2's training shape, launched by (b)'s fp16 run, and at
+    # Llama-3-8B's D = 128 shape, launched by (e)'s fp16 llama steps
+    for tag, launched21 in (("gpt2", fp16_launches),
+                            ("d128", fp16_llama_launches)):
+        for fn in fa.KERNELS:
+            m = fp16_measured[tag][fn.__name__]
+            kernels.append({
+                "name": f"{fn.__name__}[fp16-{tag}]", "route": "cuda",
+                "kernel": designs[fn.__name__] + "<__half>",
+                "source": sources[fa], "replaces": replaces[fn.__name__],
+                "launches": launched21[fn.__name__],
+                **{key: m[key] for key in (
+                    "max_abs_err", "ms", "graph_ms", "plain_ms", "plain_at",
+                    "bound_ms", "bound_by", "library_ms",
+                    "library_graph_ms")}})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -128,6 +128,7 @@ from ..ops.paged_kv import (blocks_for, is_quantized_pool, pool_payload,
 from ..ops.quantization import tree_leaves
 from ..telemetry import MetricsRegistry, ProfilerWindow, TraceTimeline
 from ..telemetry.slo import SLOTracker
+from ..utils.cuda_graphs import graph_capture
 from ..utils.logging import log_dist
 from ..utils.lru import LRUCache
 from .paged import BlockAllocator, PrefixCache
@@ -1791,14 +1792,17 @@ class ServingEngine:
     def _capture(self, body) -> "_CapturedStep":
         """Capture ``body`` as a CUDA graph, under
         ``set_sync_debug_mode("error")`` so that a synchronisation in the
-        step raises.  The kernel wrappers count their launches on the host
-        while the body is captured; those counts are taken back (a capture
-        executes nothing) and kept, and each replay adds them."""
+        step raises, and with automatic garbage collection paused, so that
+        no collection frees another graph inside the capture
+        (``utils/cuda_graphs.py``).  The kernel wrappers count their
+        launches on the host while the body is captured; those counts are
+        taken back (a capture executes nothing) and kept, and each replay
+        adds them."""
         wrappers = _kernel_wrappers()
         before = [fn.launches for fn in wrappers]
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph):
+            with graph_capture(graph):
                 mode = torch.cuda.get_sync_debug_mode()
                 torch.cuda.set_sync_debug_mode("error")
                 try:

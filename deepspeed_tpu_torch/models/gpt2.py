@@ -13,9 +13,15 @@ Attention in ``_block`` follows the JAX dispatch (``gpt2.py:311-342``):
 ``use_flash=None`` takes the flash-attention kernel when the activations
 are on CUDA and einsum attention otherwise; ``use_flash=True`` takes
 ``ops.flash_attention`` everywhere (its plain version on the CPU);
-``use_flash=False`` takes einsum.  Activation checkpointing (``remat``),
-the fused CE head (``fused_ce``) and dropout are not ported: setting them
-raises.
+``use_flash=False`` takes einsum; attention dropout (``dropout > 0`` in
+training) takes einsum whatever ``use_flash`` says, as in JAX, with the
+keep mask ``uniform(key, probs.shape) < 1 - p`` drawn from the port's
+threefry (``ops/sampling.py``), JAX's ``bernoulli`` bit for bit, each
+layer's key ``fold_in(rng, layer)``.  ``remat`` recomputes each block in
+the backward under ``remat_policy`` (``runtime/remat.py``: full, dots,
+dots_flash; ``remat_offload`` keeps the saved outputs in page-locked host
+memory), and ``fused_ce`` takes the chunked head that computes its
+gradients in the forward (:class:`_FusedCE`).
 
 The JAX ``forward_cached`` returns a new cache; this one writes the cache
 tensors in place and returns the same dict.
@@ -38,6 +44,7 @@ import math
 import os
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -46,12 +53,16 @@ from ..ops import quantization as quant
 from ..ops.decode_attention import decode_attention, paged_decode_attention
 from ..ops.flash_attention import flash_attention
 from ..ops.paged_kv import paged_cache_update
+from ..ops.sampling import fold_in, uniform
+from ..runtime.remat import check_policy, checkpoint_block
 from ..utils.rows import fixed_row_mm
 
 Params = Dict[str, Any]
 
 @dataclasses.dataclass
 class GPT2Config:
+    """Every field of the JAX ``GPT2Config`` (``gpt2.py:38-102``), in its
+    order, so a JAX config carries over."""
     vocab_size: int = 50257
     max_seq_len: int = 1024
     num_layers: int = 12
@@ -60,30 +71,60 @@ class GPT2Config:
     mlp_ratio: int = 4
     dropout: float = 0.0
     remat: bool = False
+    #: what a remat block saves: "full" (nothing), "dots" (the projection
+    #: outputs) or "dots_flash" (and the flash forward's o and lse)
+    remat_policy: str = "dots"
+    #: keep the saved outputs in page-locked host memory
+    #: (``activation_checkpointing.cpu_checkpointing``)
+    remat_offload: bool = False
+    #: the head is always tied to ``wte``, as in JAX
+    tie_embeddings: bool = True
     #: None = the flash-attention kernel on CUDA, einsum elsewhere; True =
     #: ``ops.flash_attention`` on any device; False = einsum
     use_flash: Optional[bool] = None
     #: the JAX kernel's block sizes; tiling hints the CUDA kernel ignores
     flash_block_q: int = 1024
     flash_block_k: int = 1024
+    #: sequence-parallel attention when the mesh has sp > 1
+    sp_impl: str = "auto"
+    #: the chunked fused CE head (:class:`_FusedCE`), ``ce_chunks`` row
+    #: chunks (stepped down until they divide the rows)
     fused_ce: Optional[bool] = None
+    ce_chunks: int = 4
+    act_quant_bits: Optional[int] = None
+    act_quant_type: str = "symmetric"
+    random_ltd_keep: Optional[int] = None
+    random_ltd_layer_start: int = 1
+    random_ltd_layer_num: Optional[int] = None
+    sparse_embedding_grad: bool = False
+    #: either value: the port's layer loop computes what JAX's scan and
+    #: its unrolled loop both compute
+    scan_layers: bool = True
+    scan_group_size: int = 1
 
     def __post_init__(self):
-        """Refuse the training options this port does not have yet, naming
-        the slice that brings each (``ROADMAP.md``).  ``dataclasses.replace``
+        """Refuse the values this port does not have yet, naming the queue
+        item that brings each (``ROADMAP.md``).  ``dataclasses.replace``
         runs this too."""
-        if self.remat:
-            raise NotImplementedError(
-                "GPT2Config.remat: activation checkpointing is not ported yet "
-                "— it comes with the PyTorch port's remat slice")
-        if self.fused_ce:
-            raise NotImplementedError(
-                "GPT2Config.fused_ce: the fused CE head is not ported yet — "
-                "it comes with the PyTorch port's remat slice")
-        if self.dropout > 0:
-            raise NotImplementedError(
-                f"GPT2Config.dropout={self.dropout}: dropout is not ported yet "
-                "— it comes with the PyTorch port's dropout slice")
+        check_policy(self.remat_policy)
+        for name, default in (("act_quant_bits", None),
+                              ("act_quant_type", "symmetric"),
+                              ("random_ltd_keep", None),
+                              ("random_ltd_layer_start", 1),
+                              ("random_ltd_layer_num", None)):
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"GPT2Config.{name}={getattr(self, name)!r}: compression "
+                    "and random-LTD are not ported yet (ROADMAP.md Queue A "
+                    "10)")
+        for name, bad in (("sparse_embedding_grad", self.sparse_embedding_grad),
+                          ("scan_group_size", self.scan_group_size > 1),
+                          ("sp_impl", self.sp_impl != "auto")):
+            if bad:
+                raise NotImplementedError(
+                    f"GPT2Config.{name}={getattr(self, name)!r}: sparse "
+                    "gradients, ZeRO-3 layer groups and sequence parallelism "
+                    "come with the multi-GPU slice (ROADMAP.md Queue A 8)")
 
     @property
     def head_dim(self) -> int:
@@ -211,8 +252,6 @@ def params_from_jax(tree) -> Params:
     as ``torch.bfloat16``."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v) for k, v in tree.items()}
-    import numpy as np
-
     a = np.array(tree, copy=True)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
@@ -324,9 +363,20 @@ def _mlp_residual(get, mm, x):
     return x + mm(hid, "proj_w", x.dtype) + get("proj_b").to(x.dtype)
 
 
-def _block(cfg: GPT2Config, x, layer):
+def dropout_keep(rng, shape, dropout: float):
+    """The attention-dropout keep mask of one layer: ``jax.random.
+    bernoulli(rng, 1 - dropout, shape)``, i.e. ``uniform(rng, shape) < 1 -
+    dropout`` in float32, bit for bit (``rng`` an int64 ``[2]`` key on the
+    mask's device)."""
+    keep_p = float(np.float32(1.0 - dropout))
+    return uniform(rng, shape) < keep_p
+
+
+def _block(cfg: GPT2Config, x, layer, rng=None, dropout: float = 0.0):
     """One transformer block (``gpt2.py:285``): flash attention or einsum
-    attention by ``cfg.use_flash`` (module docstring)."""
+    attention by ``cfg.use_flash``; with ``dropout > 0`` einsum, the
+    probabilities dropped by the keep mask of ``rng`` (module
+    docstring)."""
     b, s, d = x.shape
     get, mm = layer_accessors(layer)
     y = _layer_norm(x, get("ln1_scale"), get("ln1_bias"))
@@ -334,7 +384,7 @@ def _block(cfg: GPT2Config, x, layer):
     use_flash = cfg.use_flash
     if use_flash is None:
         use_flash = x.is_cuda
-    if use_flash:
+    if use_flash and dropout == 0.0:
         attn = flash_attention(q, k, v, causal=True,
                                block_q=cfg.flash_block_q,
                                block_k=cfg.flash_block_k)
@@ -344,6 +394,9 @@ def _block(cfg: GPT2Config, x, layer):
             math.sqrt(cfg.head_dim)
         scores = torch.where(mask, scores.float(), -1e9)
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        if dropout > 0.0 and rng is not None:
+            probs = probs * dropout_keep(rng, probs.shape, dropout) / \
+                (1.0 - dropout)
         attn = torch.einsum("bhqk,bhkd->bhqd", probs, v)
     attn = attn.transpose(1, 2).reshape(b, s, d)
     x = x + mm(attn, "o_w", x.dtype) + get("o_b").to(x.dtype)
@@ -359,12 +412,28 @@ def _embed(cfg: GPT2Config, params: Params, input_ids):
         params["wte"].dtype)
 
 
-def _trunk(cfg: GPT2Config, params: Params, input_ids):
+def _trunk(cfg: GPT2Config, params: Params, input_ids, rng=None,
+           train: bool = True):
     """Embeddings + all blocks: pre-final-LN activations [B, S, D]
-    (``gpt2.py:591``), in the dtype of ``params["wte"]``."""
+    (``gpt2.py:591``), in the dtype of ``params["wte"]``.  Layer ``i``
+    drops attention probabilities with the key ``fold_in(rng, i)`` when
+    training with ``dropout > 0``; with ``cfg.remat`` and autograd on,
+    each block is recomputed in the backward under ``cfg.remat_policy``."""
     x = _embed(cfg, params, input_ids)
+    dropout = cfg.dropout if train else 0.0
+    remat = cfg.remat and torch.is_grad_enabled()
+    if rng is not None and dropout > 0.0:
+        rng = torch.as_tensor(rng, dtype=torch.int64).to(x.device)
     for i in range(cfg.num_layers):
-        x = _block(cfg, x, _layer(params["blocks"], i))
+        layer = _layer(params["blocks"], i)
+        r = fold_in(rng, i) if (rng is not None and dropout > 0.0) else None
+        if remat:
+            x = checkpoint_block(
+                lambda x, layer, r: _block(cfg, x, layer, r, dropout),
+                x, layer, r, policy=cfg.remat_policy,
+                offload=cfg.remat_offload)
+        else:
+            x = _block(cfg, x, layer, r, dropout)
     return x
 
 
@@ -381,7 +450,8 @@ def _head_loss(cfg: GPT2Config, params: Params, x, targets):
     ``lse - label_logit`` over the targets that are not ``-100``
     (``gpt2.py:699``).  The JAX package checkpoints this head to keep the
     [T, V] logits out of its saved activations; here autograd keeps them,
-    which an 80 GB card holds at GPT-2 size."""
+    which an 80 GB card holds at GPT-2 size (``fused_ce`` keeps at most a
+    chunk of them: :func:`_head_loss_fused`)."""
     del cfg
     x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
     logits = x @ params["wte"].T.to(x.dtype)
@@ -393,14 +463,84 @@ def _head_loss(cfg: GPT2Config, params: Params, x, targets):
     return nll.sum() / valid.sum().clamp(min=1)
 
 
+def _mm_f32(a, b):
+    """``a @ b`` with a float32 result (JAX's ``preferred_element_type=
+    jnp.float32``): 16-bit CUDA operands stay on the tensor cores with an
+    f32 accumulator and output (``torch.mm(..., out_dtype=)``); float32
+    operands, and the CPU, multiply in float32."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+class _FusedCE(torch.autograd.Function):
+    """The chunked CE over a tied head (``_fused_ce`` / ``_fused_ce_fwd`` /
+    ``_fused_ce_bwd``, ``gpt2.py:715-797``): the forward computes the loss
+    AND the unscaled float32 cotangents of the input and the weight chunk
+    by chunk (``dlogits = softmax - onehot``, over the valid targets' count),
+    so three [N, D] x [D, V] products run instead of four and at most
+    [N / n_chunks, V] logits are live.  The backward multiplies them by the
+    upstream cotangent (under fp16 the loss scale) and only then casts
+    them to the parameters' dtypes, so unscaled fp16 gradients never flush
+    to subnormals.  The products are plain matmuls, as JAX leaves them to
+    XLA."""
+
+    @staticmethod
+    def forward(ctx, w, x2d, targets, n_chunks: int):
+        n, d = x2d.shape
+        c = n // n_chunks
+        denom = (targets >= 0).sum().clamp(min=1).float()
+        loss = torch.zeros((), dtype=torch.float32, device=x2d.device)
+        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+        dxs = []
+        for i in range(n_chunks):
+            xc, tc = x2d[i * c:(i + 1) * c], targets[i * c:(i + 1) * c]
+            logits = _mm_f32(xc, w)                          # [c, V]
+            valid = tc >= 0
+            safe = torch.where(valid, tc, 0)
+            lse = torch.logsumexp(logits, dim=-1)
+            picked = logits.gather(1, safe[:, None])[:, 0]
+            loss += torch.where(valid, lse - picked, 0.0).sum() / denom
+            g = torch.exp(logits - lse[:, None])
+            g[torch.arange(c, device=g.device), safe] -= 1.0
+            g = torch.where(valid[:, None], g, 0.0) / denom
+            gc = g.to(w.dtype)
+            dxs.append(_mm_f32(gc, w.T))                     # [c, D]
+            dw += _mm_f32(xc.T, gc)                          # [D, V]
+        ctx.save_for_backward(dw, torch.cat(dxs))
+        ctx.dtypes = (w.dtype, x2d.dtype)
+        return loss
+
+    @staticmethod
+    def backward(ctx, ct):
+        dw, dx = ctx.saved_tensors
+        ct = ct.float()
+        return ((ct * dw).to(ctx.dtypes[0]), (ct * dx).to(ctx.dtypes[1]),
+                None, None)
+
+
+def _head_loss_fused(cfg: GPT2Config, params: Params, x, targets):
+    """LN + the tied head's CE through :class:`_FusedCE`
+    (``_head_loss_fused``, ``gpt2.py:797``): ``ce_chunks`` chunks, stepped
+    down until they divide the B * S rows."""
+    x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
+    b, s, d = x.shape
+    n = b * s
+    n_chunks = cfg.ce_chunks
+    while n % n_chunks:
+        n_chunks -= 1
+    return _FusedCE.apply(params["wte"].T.to(x.dtype), x.reshape(n, d),
+                          targets.reshape(n), n_chunks)
+
+
 def loss_from_batch(cfg: GPT2Config, params: Params, batch, rng=None,
                     train: bool = True):
     """Next-token cross entropy (``gpt2.py:650``).  ``batch``:
     ``{"input_ids": [B, S]}`` (the targets are the ids shifted by one, so
     the model sees S - 1 positions), ``{"input_ids", "labels"}`` or an
-    ``(input_ids, labels)`` pair; labels of -100 are ignored.  ``rng`` and
-    ``train`` select dropout in the JAX package, which this port refuses."""
-    del rng, train
+    ``(input_ids, labels)`` pair; labels of -100 are ignored.  ``rng`` (a
+    JAX-layout key) and ``train`` select attention dropout; ``fused_ce``
+    takes the fused head."""
     if isinstance(batch, (tuple, list)):
         input_ids, labels = batch
     else:
@@ -409,7 +549,9 @@ def loss_from_batch(cfg: GPT2Config, params: Params, batch, rng=None,
     if labels is None:
         labels = input_ids[:, 1:]
         input_ids = input_ids[:, :-1]
-    x = _trunk(cfg, params, input_ids)
+    x = _trunk(cfg, params, input_ids, rng, train)
+    if cfg.fused_ce:
+        return _head_loss_fused(cfg, params, x, labels)
     return _head_loss(cfg, params, x, labels)
 
 
@@ -680,7 +822,8 @@ class GPT2Model(nn.Module):
         self.pipeline_hooks = {
             "blocks_key": ("blocks",),
             "embed_fn": lambda params, ids: _embed(cfg, params, ids),
-            "block_fn": lambda layer, x, rng=None: _block(cfg, x, layer),
+            "block_fn": lambda layer, x, rng=None: _block(
+                cfg, x, layer, rng, cfg.dropout if rng is not None else 0.0),
             "head_loss_fn": lambda params, x, tgt: _head_loss(cfg, params, x,
                                                               tgt),
             "dropout": cfg.dropout,

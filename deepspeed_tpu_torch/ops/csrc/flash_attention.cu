@@ -136,6 +136,20 @@
 // (161 KB with Q), dq's 3 stages of 16 KB K and V (161 KB with Q and dO),
 // dkv's 3 stages of 16 KB Q and dO (163 KB with K and V).
 //
+// fp16 (the JAX engine's fp16.enabled runs the same Pallas kernels in
+// float16).  The three wgmma kernels take their element type E as a
+// template parameter (Elt): fp16 is wgmma .f32.f16.f16, TMA maps of
+// CU_TENSOR_MAP_DATA_TYPE_FLOAT16 and __floats2half2_rn packs, at D = 64
+// and 128, with the bf16 tiles, rings and registers unchanged (2 bytes an
+// element either way).  The rounding points are the TPU kernels': the
+// scores are f32 products scaled in f32 (v1's `s * sm_scale`), P is
+// rounded to E before P V, dS to E before dS K and dS^T Q, lse and delta
+// stay f32.  fp16 tops out at 65504: under a loss scale of 2^16 dP and dS
+// can pass it, and then the pack gives inf exactly where the TPU kernel's
+// astype does, so the engine's overflow check skips the step; nothing is
+// clamped and dS is never kept in f32 past that point.  Bound: the bf16
+// rows' bytes and operations (989 TFLOP/s dense fp16 = bf16).
+//
 // Forward and backward, f32 (fwd_kernel, dq_kernel, dkv_kernel): 64x64
 // tiles in shared memory and a plain f32 loop for the products (the tensor
 // cores would round f32 to tf32 and miss fp32's 1e-5); at D = 128 only K
@@ -144,6 +158,7 @@
 // rep query heads from the diagonal on; dk/dv are written once at the end.
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -307,7 +322,7 @@ __device__ __forceinline__ uint32_t pair_bits(uint32_t kbits, int shift, int pai
 }
 
 // ------------------------------------------------------- f32 tile kernels
-// (bf16 takes the wgmma kernels below)
+// (bf16 and fp16 take the wgmma kernels below)
 template <typename T, int D>
 constexpr size_t fwd_smem() {
   using L = F32Tiles<D>;
@@ -621,7 +636,7 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   }
 }
 
-// ----------------------------------------------------- forward, bf16, wgmma
+// ------------------------------------------------ forward, bf16 / fp16, wgmma
 namespace hopper {
 
 constexpr int BM = 128;                    // query rows a block: 2 warpgroups x 64
@@ -776,74 +791,112 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+// The element type E of a wgmma kernel, bf16 or fp16 (__half): the two
+// differ only in the wgmma instruction's input type (.bf16 / .f16), the
+// TMA element type and the round-to-nearest pack of two f32 into a 32-bit
+// pair.  fp16's pack rounds a value past 65504 to inf, as the TPU kernels'
+// astype does; nothing is clamped, so an overflowing dS or dq reaches the
+// loss scaler as inf.
+template <typename E> struct Elt;
+template <> struct Elt<bf16> {
+  using E2 = __nv_bfloat162;
+  static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static __device__ __forceinline__ E2 pack2(float lo, float hi) {
+    return __floats2bfloat162_rn(lo, hi);
+  }
+  static __device__ __forceinline__ float2 unpack2(E2 x) { return __bfloat1622float2(x); }
+};
+template <> struct Elt<__half> {
+  using E2 = __half2;
+  static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static __device__ __forceinline__ E2 pack2(float lo, float hi) {
+    return __floats2half2_rn(lo, hi);
+  }
+  static __device__ __forceinline__ float2 unpack2(E2 x) { return __half22float2(x); }
+};
+template <typename E>
+constexpr bool kIsF16 = std::is_same<E, __half>::value;
+
+// Two f32 as one 32-bit register of the E pair (a wgmma A operand).
+template <typename E>
+__device__ __forceinline__ uint32_t pack16(float lo, float hi) {
+  const typename Elt<E>::E2 v = Elt<E>::pack2(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+#define WGMMA_M64N128K16_SS(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, " \
+      "%8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, " \
+      "%24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, " \
+      "%40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, " \
+      "%56, %57, %58, %59, %60, %61, %62, %63}, " \
+      "%64, %65, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "l"(da), "l"(db), "r"(accumulate))
 // D[64 x 128] (f32, 64 registers a thread) (+)= A[64 x 16] * B[16 x 128],
 // A and B K-major in shared memory (descriptors da, db)
+template <typename E>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da, uint64_t db,
                                                  int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
+  if constexpr (kIsF16<E>) WGMMA_M64N128K16_SS("f16");
+  else WGMMA_M64N128K16_SS("bf16");
 }
-
+#define WGMMA_M64N64K16_SS(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, " \
+      "%8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, " \
+      "%24, %25, %26, %27, %28, %29, %30, %31}, " \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "l"(da), "l"(db), "r"(accumulate))
 // D[64 x 64] (f32, 32 registers a thread) (+)= A[64 x 16] * B[16 x 64], A
 // and B K-major in shared memory (descriptors da, db)
+template <typename E>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db,
                                                 int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
+  if constexpr (kIsF16<E>) WGMMA_M64N64K16_SS("f16");
+  else WGMMA_M64N64K16_SS("bf16");
 }
-
-// D[64 x 64] (f32) += A[64 x 16] * B[16 x 64], A in registers (four bf16x2 a
+#define WGMMA_M64N64K16_RS(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, " \
+      "%8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, " \
+      "%24, %25, %26, %27, %28, %29, %30, %31}, " \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+// D[64 x 64] (f32) += A[64 x 16] * B[16 x 64], A in registers (four E pairs a
 // thread, the accumulator's fragment layout), B MN-major in shared memory
+template <typename E>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
                                                  uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (kIsF16<E>) WGMMA_M64N64K16_RS("f16");
+  else WGMMA_M64N64K16_RS("bf16");
 }
 
 
@@ -851,12 +904,12 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
 // ks: D / 16 k-steps of 16, 32 bytes apart in the swizzled 128-byte rows of
 // a span, the spans of both 128-row tiles TILE apart (committed by the
 // caller).
-template <int D>
+template <typename E, int D>
 __device__ __forceinline__ void issue_scores(float (&sc)[64], uint32_t qa, uint32_t ks) {
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < Head<D>::KSTEPS; ++kk)
-    wgmma_m64n128k16_ss(sc, desc_sw128(qa + TILE * (kk / 4) + 32 * (kk % 4), 16, 1024),
+    wgmma_m64n128k16_ss<E>(sc, desc_sw128(qa + TILE * (kk / 4) + 32 * (kk % 4), 16, 1024),
                         desc_sw128(ks + TILE * (kk / 4) + 32 * (kk % 4), 16, 1024), kk);
 }
 
@@ -942,21 +995,21 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m_r)[2], f
 // An accumulator of KS k-steps' width (P, dS) as the register A operand:
 // k-step kk (columns 16kk..16kk+15) is the accumulator's column chunks 2kk
 // and 2kk+1.
-template <int KS>
+template <typename E, int KS>
 __device__ __forceinline__ void pack_p(uint32_t (&pa)[KS][4], const float (&sc)[8 * KS]) {
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
-    pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
-    pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-    pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-    pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    pa[kk][0] = pack16<E>(sc[8 * kk + 0], sc[8 * kk + 1]);
+    pa[kk][1] = pack16<E>(sc[8 * kk + 2], sc[8 * kk + 3]);
+    pa[kk][2] = pack16<E>(sc[8 * kk + 4], sc[8 * kk + 5]);
+    pa[kk][3] = pack16<E>(sc[8 * kk + 6], sc[8 * kk + 7]);
   }
 }
 
 // O = alpha O + P V, issued (committed by the caller): V's [128 keys][D]
 // tile at vs read MN-major, span h into acc[h]; a k-step is 16 key rows,
 // two 1024-byte groups of 8 rows.
-template <int SPANS>
+template <typename E, int SPANS>
 __device__ __forceinline__ void rescale_and_issue_pv(float (&acc)[SPANS][32],
                                                      const uint32_t (&pa)[8][4],
                                                      const float (&alpha)[2], uint32_t vs) {
@@ -969,17 +1022,19 @@ __device__ __forceinline__ void rescale_and_issue_pv(float (&acc)[SPANS][32],
   for (int h = 0; h < SPANS; ++h)
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk)
-      wgmma_m64n64k16_rs(acc[h], pa[kk], desc_sw128(vs + TILE * h + 2048 * kk, 1024, 1024));
+      wgmma_m64n64k16_rs<E>(acc[h], pa[kk], desc_sw128(vs + TILE * h + 2048 * kk, 1024, 1024));
 }
 
-// 128 rows of a [BH, S, 64] bf16 array from row0 of head bh set to zero
+// 128 rows of a [BH, S, 64] E array from row0 of head bh set to zero
 // (rows >= S left alone), by all the block's threads: the output of a
 // gated kernel's query tile that sees no key tile.
-__device__ void zero_rows(bf16* x, int bh, int row0, int S) {
-  const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
+template <typename E>
+__device__ void zero_rows(E* x, int bh, int row0, int S) {
+  using E2 = typename Elt<E>::E2;
+  const E2 zero = Elt<E>::pack2(0.f, 0.f);
   for (int i = threadIdx.x; i < BM * 32; i += blockDim.x) {
     const int row = row0 + i / 32;
-    if (row < S) reinterpret_cast<__nv_bfloat162*>(x)[((size_t)bh * S + row) * 32 + i % 32] = zero;
+    if (row < S) reinterpret_cast<E2*>(x)[((size_t)bh * S + row) * 32 + i % 32] = zero;
   }
 }
 
@@ -987,19 +1042,20 @@ __device__ void zero_rows(bf16* x, int bh, int row0, int S) {
 // holds row 16*w + lane/4 + 8*((i >> 1) & 1), column 8*(i >> 2) + 2*(lane%4)
 // + (i & 1) of its warpgroup's 64-row tile.  GATED: the ring walks the
 // live key tiles of the query tile's map row (stage = list position).
-template <bool GATED, int D>
+// E: bf16 or fp16 (Elt), the same kernel.
+template <typename E, bool GATED, int D>
 __global__ void __launch_bounds__(Head<D>::THREADS, 1)
 wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                 const __grid_constant__ CUtensorMap tv, E* __restrict__ o,
                  float* __restrict__ lse, int Sq, int Sk, int rep, int causal, float scale2,
                  const Gate gate) {
   static_assert(!GATED || D == 64, "the layout gate runs at head dim 64");
   constexpr int SPANS = Head<D>::SPANS, NST = Head<D>::FWD_STAGES;
-  constexpr uint32_t T = TILE * SPANS;              // one [128][D] bf16 tile
+  constexpr uint32_t T = TILE * SPANS;              // one [128][D] E tile
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   const uint32_t sbase = smem_u32(smem);            // 1024-aligned: the swizzle's period
-  const uint32_t q_s = sbase;                       // [128][D] bf16
+  const uint32_t q_s = sbase;                       // [128][D] E
   const uint32_t bars = sbase + T * (1 + 2 * NST);
   const uint32_t full0 = bars, empty0 = bars + 8 * NST, qbar = bars + 16 * NST;
 
@@ -1022,7 +1078,7 @@ wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   if constexpr (GATED) {
     ntiles = gate_row(gate, map_row, first);
     if (ntiles == 0) {                              // no key: o = 0, lse = -inf
-      zero_rows(o, bh, q0, Sq);
+      zero_rows<E>(o, bh, q0, Sq);
       for (int r = tid; r < BM && q0 + r < Sq; r += THREADS)
         lse[(size_t)bh * Sq + q0 + r] = neg_inf();
       return;
@@ -1101,7 +1157,7 @@ wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
 
   mbar_wait<GATED>(qbar, 0);
   mbar_wait<GATED>(full0, 0);
-  issue_scores<D>(sc, qa, sbase + T);
+  issue_scores<E, D>(sc, qa, sbase + T);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(sc);
@@ -1122,12 +1178,12 @@ wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     wgmma_wait<0>();                                      // P_{t-1} V_{t-1}
     fence_regs(acc);
     if (t > 0) release(empty0 + 8 * ((t - 1) % NST), lane);
-    pack_p(pa, sc);
+    pack_p<E>(pa, sc);
     const int s1 = (t + 1) % NST;
     mbar_wait(full0 + 8 * s1, ((t + 1) / NST) & 1);
-    issue_scores<D>(sc, qa, sbase + T * (1 + 2 * s1));   // S_{t+1}
+    issue_scores<E, D>(sc, qa, sbase + T * (1 + 2 * s1));   // S_{t+1}
     wgmma_commit();
-    rescale_and_issue_pv(acc, pa, alpha, sbase + T * (2 + 2 * (t % NST)));
+    rescale_and_issue_pv<E>(acc, pa, alpha, sbase + T * (2 + 2 * (t % NST)));
     wgmma_commit();
     wgmma_wait<1>();                                      // S_{t+1}
     fence_regs(sc);
@@ -1141,8 +1197,8 @@ wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
                         pm);
     wgmma_wait<0>();
     fence_regs(acc);
-    pack_p(pa, sc);
-    rescale_and_issue_pv(acc, pa, alpha, sbase + T * (2 + 2 * (t % NST)));
+    pack_p<E>(pa, sc);
+    rescale_and_issue_pv<E>(acc, pa, alpha, sbase + T * (2 + 2 * (t % NST)));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -1153,18 +1209,18 @@ wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     const int row = row0 + 8 * r;
     if (row >= Sq) continue;
     const float lr = l_r[r] == 0.f ? 1.f : l_r[r];
-    __nv_bfloat162* orow = reinterpret_cast<__nv_bfloat162*>(o + ((size_t)bh * Sq + row) * D);
+    auto* orow = reinterpret_cast<typename Elt<E>::E2*>(o + ((size_t)bh * Sq + row) * D);
 #pragma unroll
     for (int h = 0; h < SPANS; ++h)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        orow[32 * h + 4 * j + quad] = __floats2bfloat162_rn(acc[h][4 * j + 2 * r] / lr,
-                                                            acc[h][4 * j + 2 * r + 1] / lr);
+        orow[32 * h + 4 * j + quad] = Elt<E>::pack2(acc[h][4 * j + 2 * r] / lr,
+                                                    acc[h][4 * j + 2 * r + 1] / lr);
     if (quad == 0) lse[(size_t)bh * Sq + row] = m_r[r] * LN2 + logf(lr);
   }
 }
 
-// ---------------------------------------------------- backward, bf16, wgmma
+// ----------------------------------------------- backward, bf16 / fp16, wgmma
 constexpr int KT = 64;                     // keys a dq tile, queries a dkv tile
 constexpr uint32_t HALF = 64 * 64 * 2;     // one [64][64] bf16 tile, 8 KB
 // dq: Q and dO, the ring of K and V tiles, 2 * STAGES + 1 mbarriers
@@ -1195,26 +1251,26 @@ __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); 
 // bytes apart in the swizzled 128-byte rows of a span, the spans of a and
 // of b a_span and b_span bytes apart (committed by the caller, after a
 // wgmma_fence).
-template <int D>
+template <typename E, int D>
 __device__ __forceinline__ void issue_nt(float (&d)[32], uint32_t a, uint32_t a_span, uint32_t b,
                                          uint32_t b_span) {
 #pragma unroll
   for (int kk = 0; kk < Head<D>::KSTEPS; ++kk)
-    wgmma_m64n64k16_ss(d, desc_sw128(a + a_span * (kk / 4) + 32 * (kk % 4), 16, 1024),
+    wgmma_m64n64k16_ss<E>(d, desc_sw128(a + a_span * (kk / 4) + 32 * (kk % 4), 16, 1024),
                        desc_sw128(b + b_span * (kk / 4) + 32 * (kk % 4), 16, 1024), kk);
 }
 
 // d[h] += A B_h, A the 64 x 64 register operand pa and B_h span h of the
 // [64][D] tile at b (spans b_span bytes apart) read MN-major: a k-step is
 // 16 rows of b, two 1024-byte groups of 8.
-template <int SPANS>
+template <typename E, int SPANS>
 __device__ __forceinline__ void issue_rs(float (&d)[SPANS][32], const uint32_t (&pa)[4][4],
                                          uint32_t b, uint32_t b_span) {
 #pragma unroll
   for (int h = 0; h < SPANS; ++h)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_m64n64k16_rs(d[h], pa[kk], desc_sw128(b + b_span * h + 2048 * kk, 1024, 1024));
+      wgmma_m64n64k16_rs<E>(d[h], pa[kk], desc_sw128(b + b_span * h + 2048 * kk, 1024, 1024));
 }
 
 // dq's step on the fragments of the 64-key tile at k0 (rows: the thread's
@@ -1290,17 +1346,19 @@ __device__ __forceinline__ void ds_cols(float (&s)[32], float (&dp)[32], const f
   for (int i = 0; i < 32; ++i) col(i, l2[i >> 2], dl[i >> 2]);
 }
 
-// 16 bf16 at p (16-byte aligned) summed against 16 at q, in f32.
-__device__ __forceinline__ float dot16(const bf16* p, const bf16* q) {
+// 16 E at p (16-byte aligned) summed against 16 at q, in f32.
+template <typename E>
+__device__ __forceinline__ float dot16(const E* p, const E* q) {
+  using E2 = typename Elt<E>::E2;
   float acc = 0.f;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const uint4 a = reinterpret_cast<const uint4*>(p)[h], b = reinterpret_cast<const uint4*>(q)[h];
-    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
-    const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+    const E2* a2 = reinterpret_cast<const E2*>(&a);
+    const E2* b2 = reinterpret_cast<const E2*>(&b);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float2 x = __bfloat1622float2(a2[e]), y = __bfloat1622float2(b2[e]);
+      const float2 x = Elt<E>::unpack2(a2[e]), y = Elt<E>::unpack2(b2[e]);
       acc = fmaf(x.x, y.x, acc);
       acc = fmaf(x.y, y.y, acc);
     }
@@ -1311,8 +1369,8 @@ __device__ __forceinline__ float dot16(const bf16* p, const bf16* q) {
 // lse (exp2 domain) and delta of the thread's two rows row0, row0 + 8 of
 // head bh; with o given, delta = rowsum(dO O) in f32, the row's quad
 // reading 16 values a span each, and written out for the dkv call.
-template <int D>
-__device__ __forceinline__ void dq_row_stats(const bf16* o, const bf16* dout, const float* lse,
+template <typename E, int D>
+__device__ __forceinline__ void dq_row_stats(const E* o, const E* dout, const float* lse,
                                              float* delta, int bh, int Sq, int row0, int quad,
                                              float (&lse2)[2], float (&dl)[2]) {
 #pragma unroll
@@ -1341,12 +1399,12 @@ __device__ __forceinline__ void dq_row_stats(const bf16* o, const bf16* dout, co
 // dS_t K_t issued, and S_{t+1}, dP_{t+1} awaited.  The last tile is peeled
 // off so that no wgmma or wait in the loop is conditional.  GATED: the
 // ring walks the live 64-key tiles of the query tile's map row.
-template <bool GATED, int D>
+template <typename E, bool GATED, int D>
 __global__ void __launch_bounds__(Head<D>::THREADS, 1)
 wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                 const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
-                const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                const float* __restrict__ lse, float* __restrict__ delta, bf16* __restrict__ dq,
+                const E* __restrict__ o, const E* __restrict__ dout,
+                const float* __restrict__ lse, float* __restrict__ delta, E* __restrict__ dq,
                 int Sq, int Sk, int rep, int causal, float sm_scale, const Gate gate) {
   static_assert(!GATED || D == 64, "the layout gate runs at head dim 64");
   constexpr int SPANS = Head<D>::SPANS;
@@ -1354,7 +1412,7 @@ wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   const uint32_t sbase = smem_u32(smem);
-  const uint32_t q_s = sbase, do_s = sbase + T;     // [128][D] bf16 each
+  const uint32_t q_s = sbase, do_s = sbase + T;     // [128][D] E each
   const uint32_t ring = sbase + 2 * T;               // stage s: K, V [64][D]
   const uint32_t bars = ring + STAGES * 2 * KV;
   const uint32_t full0 = bars, empty0 = bars + 8 * STAGES, qbar = bars + 16 * STAGES;
@@ -1379,10 +1437,10 @@ wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       if (tid < CONSUMERS) {
         const int lane = tid % 32;
         float lse2[2], dl[2];
-        dq_row_stats<D>(o, dout, lse, delta, bh, Sq, q0 + (tid / 32) * 16 + lane / 4, lane % 4,
+        dq_row_stats<E, D>(o, dout, lse, delta, bh, Sq, q0 + (tid / 32) * 16 + lane / 4, lane % 4,
                         lse2, dl);
       }
-      zero_rows(dq, bh, q0, Sq);
+      zero_rows<E>(dq, bh, q0, Sq);
       return;
     }
   }
@@ -1449,7 +1507,7 @@ wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   };
 
   float lse2[2], dl[2];
-  dq_row_stats<D>(o, dout, lse, delta, bh, Sq, row0, quad, lse2, dl);
+  dq_row_stats<E, D>(o, dout, lse, delta, bh, Sq, row0, quad, lse2, dl);
   const float scale2 = sm_scale * LOG2E;
 
   float acc[SPANS][32], s[32], dp[32];                    // dQ span h in acc[h]
@@ -1464,8 +1522,8 @@ wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   mbar_wait<GATED>(qbar, 0);
   mbar_wait<GATED>(full0, 0);
   wgmma_fence();
-  issue_nt<D>(s, qa, TILE, ring, HALF);
-  issue_nt<D>(dp, doa, TILE, ring + KV, HALF);
+  issue_nt<E, D>(s, qa, TILE, ring, HALF);
+  issue_nt<E, D>(dp, doa, TILE, ring + KV, HALF);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(s);
@@ -1479,14 +1537,14 @@ wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     wgmma_wait<0>();                                      // dS_{t-1} K_{t-1}
     fence_regs(acc);
     if (t > 0) release(empty0 + 8 * ((t - 1) % STAGES), lane);
-    pack_p(pa, s);
+    pack_p<E>(pa, s);
     const int s1 = (t + 1) % STAGES;
     mbar_wait(full0 + 8 * s1, ((t + 1) / STAGES) & 1);
     wgmma_fence();
-    issue_nt<D>(s, qa, TILE, ring + 2 * KV * s1, HALF);          // S_{t+1}
-    issue_nt<D>(dp, doa, TILE, ring + 2 * KV * s1 + KV, HALF);   // dP_{t+1}
+    issue_nt<E, D>(s, qa, TILE, ring + 2 * KV * s1, HALF);          // S_{t+1}
+    issue_nt<E, D>(dp, doa, TILE, ring + 2 * KV * s1 + KV, HALF);   // dP_{t+1}
     wgmma_commit();
-    issue_rs(acc, pa, ring + 2 * KV * (t % STAGES), HALF);       // dQ += dS_t K_t
+    issue_rs<E>(acc, pa, ring + 2 * KV * (t % STAGES), HALF);       // dQ += dS_t K_t
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs(s);
@@ -1501,9 +1559,9 @@ wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     ds_rows<GATED>(s, dp, lse2, dl, k0, row0, quad, edge, Sk, causal, scale2, flags, pm);
     wgmma_wait<0>();
     fence_regs(acc);
-    pack_p(pa, s);
+    pack_p<E>(pa, s);
     wgmma_fence();
-    issue_rs(acc, pa, ring + 2 * KV * (t % STAGES), HALF);
+    issue_rs<E>(acc, pa, ring + 2 * KV * (t % STAGES), HALF);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -1513,13 +1571,13 @@ wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= Sq) continue;
-    __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(dq + ((size_t)bh * Sq + row) * D);
+    auto* out = reinterpret_cast<typename Elt<E>::E2*>(dq + ((size_t)bh * Sq + row) * D);
 #pragma unroll
     for (int h = 0; h < SPANS; ++h)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        out[32 * h + 4 * j + quad] = __floats2bfloat162_rn(acc[h][4 * j + 2 * r] * sm_scale,
-                                                           acc[h][4 * j + 2 * r + 1] * sm_scale);
+        out[32 * h + 4 * j + quad] = Elt<E>::pack2(acc[h][4 * j + 2 * r] * sm_scale,
+                                                   acc[h][4 * j + 2 * r + 1] * sm_scale);
   }
 }
 
@@ -1546,12 +1604,12 @@ wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 // and the lse and delta pairs are read a column pair at a time
 // (ds_cols<true>).
 constexpr int DKV_THREADS = CONSUMERS + 128;
-template <bool GATED, int D>
+template <typename E, bool GATED, int D>
 __global__ void __launch_bounds__(DKV_THREADS, 1)
 wgmma_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                  const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                  const float* __restrict__ lse, const float* __restrict__ delta,
-                 bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk, int rep,
+                 E* __restrict__ dk, E* __restrict__ dv, int Sq, int Sk, int rep,
                  int causal, float sm_scale, const Gate gate) {
   static_assert(!GATED || D == 64, "the layout gate runs at head dim 64");
   constexpr int SPANS = Head<D>::SPANS;
@@ -1572,13 +1630,14 @@ wgmma_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   if constexpr (GATED) ntiles = gate_row(gate, map_row, first);
   const int tid = threadIdx.x;
   if (ntiles == 0) {                       // no query sees these keys
-    const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
+    using E2 = typename Elt<E>::E2;
+    const E2 zero = Elt<E>::pack2(0.f, 0.f);
     for (int i = tid; i < BM * (D / 2); i += DKV_THREADS) {
       const int key = k0 + i / (D / 2);
       if (key >= Sk) continue;
       const size_t off = ((size_t)kvh * Sk + key) * (D / 2) + i % (D / 2);
-      reinterpret_cast<__nv_bfloat162*>(dk)[off] = zero;
-      reinterpret_cast<__nv_bfloat162*>(dv)[off] = zero;
+      reinterpret_cast<E2*>(dk)[off] = zero;
+      reinterpret_cast<E2*>(dv)[off] = zero;
     }
     return;
   }
@@ -1588,7 +1647,7 @@ wgmma_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   const uint32_t sbase = smem_u32(smem);
-  const uint32_t k_s = sbase, v_s = sbase + T;      // [128][D] bf16 each
+  const uint32_t k_s = sbase, v_s = sbase + T;      // [128][D] E each
   const uint32_t ring = sbase + 2 * T;               // stage s: Q, dO [64][D]
   float* side0 = reinterpret_cast<float*>(smem + 2 * T + STAGES * 2 * QT);
   const uint32_t bars = ring + STAGES * (2 * QT + SIDE);
@@ -1691,19 +1750,19 @@ wgmma_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       const uint32_t qn = ring + 2 * QT * st;
       mbar_wait(full0 + 8 * st, (n / STAGES) & 1);
       wgmma_fence();
-      issue_nt<D>(s, ka, TILE, qn, HALF);                 // S^T_n = K Q_n^T
-      issue_nt<D>(dp, va, TILE, qn + QT, HALF);           // dP^T_n = V dO_n^T
+      issue_nt<E, D>(s, ka, TILE, qn, HALF);                 // S^T_n = K Q_n^T
+      issue_nt<E, D>(dp, va, TILE, qn + QT, HALF);           // dP^T_n = V dO_n^T
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
       fence_regs(dp);
       ds_cols<true>(s, dp, side + lrow, side + LROWS * KT, q0, key0, quad,
                     causal && q0 < wg_last, scale2);
-      pack_p(pp, s);
-      pack_p(pd, dp);
+      pack_p<E>(pp, s);
+      pack_p<E>(pd, dp);
       wgmma_fence();
-      issue_rs(dva, pp, qn + QT, HALF);                   // dV += P^T_n dO_n
-      issue_rs(dka, pd, qn, HALF);                        // dK += dS^T_n Q_n
+      issue_rs<E>(dva, pp, qn + QT, HALF);                   // dV += P^T_n dO_n
+      issue_rs<E>(dka, pd, qn, HALF);                        // dK += dS^T_n Q_n
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dka);
@@ -1714,8 +1773,8 @@ wgmma_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     mbar_wait<GATED>(kvbar, 0);
     mbar_wait<GATED>(full0, 0);
     wgmma_fence();
-    issue_nt<D>(s, ka, TILE, ring, HALF);                   // S^T_0 = K Q_0^T
-    issue_nt<D>(dp, va, TILE, ring + QT, HALF);             // dP^T_0 = V dO_0^T
+    issue_nt<E, D>(s, ka, TILE, ring, HALF);                   // S^T_0 = K Q_0^T
+    issue_nt<E, D>(dp, va, TILE, ring + QT, HALF);             // dP^T_0 = V dO_0^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -1729,17 +1788,17 @@ wgmma_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       fence_regs(dka);
       fence_regs(dva);
       if (n > 0) release(empty0 + 8 * ((n - 1) % STAGES), lane);
-      pack_p(pp, s);
-      pack_p(pd, dp);
+      pack_p<E>(pp, s);
+      pack_p<E>(pd, dp);
       const int s1 = (n + 1) % STAGES;
       mbar_wait(full0 + 8 * s1, ((n + 1) / STAGES) & 1);
       const uint32_t qn = ring + 2 * QT * (n % STAGES);
       wgmma_fence();
-      issue_nt<D>(s, ka, TILE, ring + 2 * QT * s1, HALF);        // S^T_{n+1}
-      issue_nt<D>(dp, va, TILE, ring + 2 * QT * s1 + QT, HALF);  // dP^T_{n+1}
+      issue_nt<E, D>(s, ka, TILE, ring + 2 * QT * s1, HALF);        // S^T_{n+1}
+      issue_nt<E, D>(dp, va, TILE, ring + 2 * QT * s1 + QT, HALF);  // dP^T_{n+1}
       wgmma_commit();
-      issue_rs(dva, pp, qn + QT, HALF);                      // dV += P^T_n dO_n
-      issue_rs(dka, pd, qn, HALF);                           // dK += dS^T_n Q_n
+      issue_rs<E>(dva, pp, qn + QT, HALF);                      // dV += P^T_n dO_n
+      issue_rs<E>(dka, pd, qn, HALF);                           // dK += dS^T_n Q_n
       wgmma_commit();
       wgmma_wait<1>();
       fence_regs(s);
@@ -1754,12 +1813,12 @@ wgmma_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       wgmma_wait<0>();
       fence_regs(dka);
       fence_regs(dva);
-      pack_p(pp, s);
-      pack_p(pd, dp);
+      pack_p<E>(pp, s);
+      pack_p<E>(pd, dp);
       const uint32_t qn = ring + 2 * QT * (n % STAGES);
       wgmma_fence();
-      issue_rs(dva, pp, qn + QT, HALF);
-      issue_rs(dka, pd, qn, HALF);
+      issue_rs<E>(dva, pp, qn + QT, HALF);
+      issue_rs<E>(dka, pd, qn, HALF);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dka);
@@ -1772,16 +1831,16 @@ wgmma_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     const int key = key0 + 8 * r;
     if (key >= Sk) continue;
     const size_t off = ((size_t)kvh * Sk + key) * D;
-    __nv_bfloat162* dko = reinterpret_cast<__nv_bfloat162*>(dk + off);
-    __nv_bfloat162* dvo = reinterpret_cast<__nv_bfloat162*>(dv + off);
+    auto* dko = reinterpret_cast<typename Elt<E>::E2*>(dk + off);
+    auto* dvo = reinterpret_cast<typename Elt<E>::E2*>(dv + off);
 #pragma unroll
     for (int h = 0; h < SPANS; ++h)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        dko[32 * h + 4 * j + quad] = __floats2bfloat162_rn(dka[h][4 * j + 2 * r] * sm_scale,
-                                                           dka[h][4 * j + 2 * r + 1] * sm_scale);
-        dvo[32 * h + 4 * j + quad] = __floats2bfloat162_rn(dva[h][4 * j + 2 * r],
-                                                           dva[h][4 * j + 2 * r + 1]);
+        dko[32 * h + 4 * j + quad] = Elt<E>::pack2(dka[h][4 * j + 2 * r] * sm_scale,
+                                                   dka[h][4 * j + 2 * r + 1] * sm_scale);
+        dvo[32 * h + 4 * j + quad] = Elt<E>::pack2(dva[h][4 * j + 2 * r],
+                                                   dva[h][4 * j + 2 * r + 1]);
       }
   }
 }
@@ -1810,91 +1869,94 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The 3-D map (D, S, BH) of a [BH, S, D] bf16 array, in boxes of 64
+// The 3-D map (D, S, BH) of a [BH, S, D] E array, in boxes of 64
 // columns (one span, Head) by `rows` rows of one head, swizzled for wgmma.
+template <typename E>
 bool encode_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int S, int BH, int rows,
                 int D) {
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
   const cuuint32_t estr[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+  return enc(map, Elt<E>::TMA, 3, const_cast<void*>(ptr), dims, strides,
              box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool GATED, int D>
+template <typename E, bool GATED, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int Sq,
                int Sk, int rep, int causal, float sm_scale, const Gate& gate, void* stream) {
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap mq, mk, mv;
-  if (!encode_map(enc, &mq, q, Sq, BH, BM, D) || !encode_map(enc, &mk, k, Sk, BH / rep, BN, D) ||
-      !encode_map(enc, &mv, v, Sk, BH / rep, BN, D))
+  if (!encode_map<E>(enc, &mq, q, Sq, BH, BM, D) ||
+      !encode_map<E>(enc, &mk, k, Sk, BH / rep, BN, D) ||
+      !encode_map<E>(enc, &mv, v, Sk, BH / rep, BN, D))
     return (int)cudaErrorInvalidValue;
   // GATED: the stage descriptors after the barriers; blocks (batch, map row)
   const size_t smem = wgmma_fwd_smem<D>() + (GATED ? STAGES * sizeof(StageTile) : 0);
   const int nt = (Sq + BM - 1) / BM;
   const dim3 grid = GATED ? dim3(BH / gate.heads, gate.heads * nt) : dim3(BH, nt);
   const cudaError_t e = cudaFuncSetAttribute(
-      wgmma_fwd_kernel<GATED, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      wgmma_fwd_kernel<E, GATED, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  wgmma_fwd_kernel<GATED, D><<<grid, Head<D>::THREADS, smem, (cudaStream_t)stream>>>(
-      mq, mk, mv, (bf16*)o, (float*)lse, Sq, Sk, rep, causal, sm_scale * LOG2E, gate);
+  wgmma_fwd_kernel<E, GATED, D><<<grid, Head<D>::THREADS, smem, (cudaStream_t)stream>>>(
+      mq, mk, mv, (E*)o, (float*)lse, Sq, Sk, rep, causal, sm_scale * LOG2E, gate);
   return (int)cudaGetLastError();
 }
 
 // Tensor maps of q and dO in boxes of q_rows rows, of k and v in boxes of
 // kv_rows rows; false when one does not encode.
+template <typename E>
 bool encode_bwd_maps(EncodeTiledFn enc, CUtensorMap (&m)[4], const void* q, const void* dout,
                      const void* k, const void* v, int BH, int Sq, int Sk, int rep, int q_rows,
                      int kv_rows, int D) {
-  return encode_map(enc, &m[0], q, Sq, BH, q_rows, D) &&
-         encode_map(enc, &m[1], dout, Sq, BH, q_rows, D) &&
-         encode_map(enc, &m[2], k, Sk, BH / rep, kv_rows, D) &&
-         encode_map(enc, &m[3], v, Sk, BH / rep, kv_rows, D);
+  return encode_map<E>(enc, &m[0], q, Sq, BH, q_rows, D) &&
+         encode_map<E>(enc, &m[1], dout, Sq, BH, q_rows, D) &&
+         encode_map<E>(enc, &m[2], k, Sk, BH / rep, kv_rows, D) &&
+         encode_map<E>(enc, &m[3], v, Sk, BH / rep, kv_rows, D);
 }
 
-template <bool GATED, int D>
+template <typename E, bool GATED, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
               const void* lse, void* delta, void* dq, int BH, int Sq, int Sk, int rep,
               int causal, float sm_scale, const Gate& gate, void* stream) {
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap m[4];
-  if (!encode_bwd_maps(enc, m, q, dout, k, v, BH, Sq, Sk, rep, BM, KT, D))
+  if (!encode_bwd_maps<E>(enc, m, q, dout, k, v, BH, Sq, Sk, rep, BM, KT, D))
     return (int)cudaErrorInvalidValue;
   // GATED: the stage descriptors after the barriers; blocks (batch, map row)
   const size_t smem = dq_smem<D>() + (GATED ? 8 + STAGES * sizeof(StageTile) : 0);
   const int nt = (Sq + BM - 1) / BM;
   const dim3 grid = GATED ? dim3(BH / gate.heads, gate.heads * nt) : dim3(BH, nt);
   const cudaError_t e = cudaFuncSetAttribute(
-      wgmma_dq_kernel<GATED, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      wgmma_dq_kernel<E, GATED, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  wgmma_dq_kernel<GATED, D><<<grid, Head<D>::THREADS, smem, (cudaStream_t)stream>>>(
-      m[0], m[1], m[2], m[3], (const bf16*)o, (const bf16*)dout, (const float*)lse,
-      (float*)delta, (bf16*)dq, Sq, Sk, rep, causal, sm_scale, gate);
+  wgmma_dq_kernel<E, GATED, D><<<grid, Head<D>::THREADS, smem, (cudaStream_t)stream>>>(
+      m[0], m[1], m[2], m[3], (const E*)o, (const E*)dout, (const float*)lse,
+      (float*)delta, (E*)dq, Sq, Sk, rep, causal, sm_scale, gate);
   return (int)cudaGetLastError();
 }
 
-template <bool GATED, int D>
+template <typename E, bool GATED, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, void* dk, void* dv, int BHKV, int Sq, int Sk, int rep,
                int causal, float sm_scale, const Gate& gate, void* stream) {
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap m[4];
-  if (!encode_bwd_maps(enc, m, q, dout, k, v, BHKV * rep, Sq, Sk, rep, KT, BM, D))
+  if (!encode_bwd_maps<E>(enc, m, q, dout, k, v, BHKV * rep, Sq, Sk, rep, KT, BM, D))
     return (int)cudaErrorInvalidValue;
   constexpr size_t DKV_SMEM = dkv_smem<GATED, D>();
   const int nt = (Sk + BM - 1) / BM;   // GATED: blocks (batch, map row)
   const dim3 grid = GATED ? dim3(BHKV / gate.heads, gate.heads * nt) : dim3(BHKV, nt);
   const cudaError_t e = cudaFuncSetAttribute(
-      wgmma_dkv_kernel<GATED, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DKV_SMEM);
+      wgmma_dkv_kernel<E, GATED, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DKV_SMEM);
   if (e != cudaSuccess) return (int)e;
-  wgmma_dkv_kernel<GATED, D><<<grid, DKV_THREADS, DKV_SMEM, (cudaStream_t)stream>>>(
-      m[0], m[1], m[2], m[3], (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, Sq,
+  wgmma_dkv_kernel<E, GATED, D><<<grid, DKV_THREADS, DKV_SMEM, (cudaStream_t)stream>>>(
+      m[0], m[1], m[2], m[3], (const float*)lse, (const float*)delta, (E*)dk, (E*)dv, Sq,
       Sk, rep, causal, sm_scale, gate);
   return (int)cudaGetLastError();
 }
@@ -1954,8 +2016,13 @@ int fwd_d(const void* q, const void* k, const void* v, void* o, void* lse, int B
   switch (dtype) {
     case 0: return launch_fwd<float, D, GATED>(q, k, v, o, lse, BH, Sq, Sk, rep, causal,
                                                sm_scale, gate, stream);
-    case 2: return hopper::launch_fwd<GATED, D>(q, k, v, o, lse, BH, Sq, Sk, rep, causal,
-                                                sm_scale, gate, stream);
+    case 1:  // fp16: ungated only (no path runs the fp16 layout gate)
+      if constexpr (!GATED)
+        return hopper::launch_fwd<__half, false, D>(q, k, v, o, lse, BH, Sq, Sk, rep, causal,
+                                                    sm_scale, gate, stream);
+      return (int)cudaErrorInvalidValue;
+    case 2: return hopper::launch_fwd<bf16, GATED, D>(q, k, v, o, lse, BH, Sq, Sk, rep, causal,
+                                                      sm_scale, gate, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1981,8 +2048,13 @@ int bwd_dq_d(const void* q, const void* k, const void* v, const void* o, const v
   switch (dtype) {
     case 0: return launch_dq<float, D, GATED>(q, k, v, o, dout, lse, delta, dq, BH, Sq, Sk, rep,
                                               causal, sm_scale, gate, stream);
-    case 2: return hopper::launch_dq<GATED, D>(q, k, v, o, dout, lse, delta, dq, BH, Sq, Sk, rep,
-                                               causal, sm_scale, gate, stream);
+    case 1:
+      if constexpr (!GATED)
+        return hopper::launch_dq<__half, false, D>(q, k, v, o, dout, lse, delta, dq, BH, Sq, Sk,
+                                                   rep, causal, sm_scale, gate, stream);
+      return (int)cudaErrorInvalidValue;
+    case 2: return hopper::launch_dq<bf16, GATED, D>(q, k, v, o, dout, lse, delta, dq, BH, Sq, Sk,
+                                                     rep, causal, sm_scale, gate, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -2009,8 +2081,13 @@ int bwd_dkv_d(const void* q, const void* k, const void* v, const void* dout, con
   switch (dtype) {
     case 0: return launch_dkv<float, D, GATED>(q, k, v, dout, lse, delta, dk, dv, BHKV, Sq, Sk,
                                                rep, causal, sm_scale, gate, stream);
-    case 2: return hopper::launch_dkv<GATED, D>(q, k, v, dout, lse, delta, dk, dv, BHKV, Sq, Sk,
-                                                rep, causal, sm_scale, gate, stream);
+    case 1:
+      if constexpr (!GATED)
+        return hopper::launch_dkv<__half, false, D>(q, k, v, dout, lse, delta, dk, dv, BHKV, Sq,
+                                                    Sk, rep, causal, sm_scale, gate, stream);
+      return (int)cudaErrorInvalidValue;
+    case 2: return hopper::launch_dkv<bf16, GATED, D>(q, k, v, dout, lse, delta, dk, dv, BHKV, Sq,
+                                                      Sk, rep, causal, sm_scale, gate, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -2038,10 +2115,10 @@ Gate make_gate(const void* offsets, const void* entries, const void* masks, cons
 
 }  // namespace
 
-// dtype: 0 float32, 2 bfloat16 (float16 comes with the port's fp16 slice).
-// D: 64 (GPT-2) or 128 (Llama), the _layout entry points 64 only.  Each
-// entry point picks its kernel by dtype: bf16 the
-// wgmma + TMA kernel, float32 the plain-f32 tile kernel.  Unsupported
+// dtype: 0 float32, 1 float16, 2 bfloat16.  D: 64 (GPT-2) or 128 (Llama),
+// the _layout entry points 64 only (and not float16).  Each entry point
+// picks its kernel by dtype: bf16 and fp16 the wgmma + TMA kernel
+// instantiated for the type, float32 the plain-f32 tile kernel.  Unsupported
 // (dtype, D) pairs return cudaErrorInvalidValue; the Python wrappers check
 // them first.  There is no fallback: a tensor map that does not encode or a
 // launch that fails returns its error.  The _layout entry points take the

@@ -32,9 +32,10 @@ Three kinds of function:
    its kernel and adds one to its ``launches`` count, or raises; it takes
    its plain version only for tensors that lie on the CPU.  Each entry
    point picks its kernel by dtype (:func:`bwd_route` names the backward's
-   choice): bf16 runs the Hopper kernels (wgmma products, TMA loads,
-   register-resident score and gradient tiles), float32 plain-f32 tile
-   kernels (the tensor cores would round f32 to tf32).  The forward kernels and the
+   choice): bf16 and fp16 run the Hopper kernels (wgmma products, TMA
+   loads, register-resident score and gradient tiles; one template, the
+   element type its parameter), float32 plain-f32 tile kernels (the
+   tensor cores would round f32 to tf32).  The forward kernels and the
    dq/dkv pair compute what the JAX package's seven
    ``pallas_call`` sites compute (v1, v2 and v3 differ only in how they fit
    the TPU's VMEM).  The three wrappers are also the ring-attention
@@ -42,8 +43,9 @@ Three kinds of function:
    ``_bwd_dq_call`` and ``_bwd_dkv_call``): a forward that returns the lse,
    and dq and dkv calls that take a given lse and delta.
  - ``flash_attention``, the JAX entry point's signature over
-   ``_FlashAttention`` (a ``torch.autograd.Function`` whose backward runs
-   the dq and dkv wrappers).
+   ``_FlashAttention`` (a ``torch.autograd.Function`` whose forward is the
+   registered op :data:`flash_fwd_op` and whose backward runs the dq and
+   dkv wrappers).
 """
 
 from __future__ import annotations
@@ -62,8 +64,9 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 #: gated (``layout=``) kernels take 64 only
 _HEAD_DIMS = (64, 128)
 _LAYOUT_HEAD_DIMS = (64,)
-#: dtype codes of the library (float16 comes with the port's fp16 slice)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 2}
+#: dtype codes of the library; the gated kernels take float32 and bfloat16
+_DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+_LAYOUT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -74,7 +77,8 @@ def _scale(sm_scale, d) -> float:
 
 
 def _compute_dtype(x):
-    """float32 for float32/bfloat16 inputs; float64 stays float64."""
+    """float32 for float32/bfloat16/float16 inputs; float64 stays
+    float64."""
     return torch.promote_types(x.dtype, torch.float32)
 
 
@@ -508,15 +512,15 @@ def bwd_route(dtype) -> str:
     """The backward kernels inputs of ``dtype`` run, by the rule of the
     library's entry points: ``"wgmma"`` (``wgmma_dq_kernel`` and
     ``wgmma_dkv_kernel``: wgmma products, TMA loads, register-resident
-    tiles) for bfloat16, ``"tile"`` (``dq_kernel`` and ``dkv_kernel``, plain
-    f32 products) for float32, whose tensor-core products would round to
-    tf32; raises for any other dtype."""
-    if dtype == torch.bfloat16:
+    tiles) for bfloat16 and float16, ``"tile"`` (``dq_kernel`` and
+    ``dkv_kernel``, plain f32 products) for float32, whose tensor-core
+    products would round to tf32; raises for any other dtype."""
+    if dtype in (torch.bfloat16, torch.float16):
         return "wgmma"
     if dtype == torch.float32:
         return "tile"
     raise ValueError(f"flash attention backward: dtype {dtype} not supported "
-                     "(float32, bfloat16; float16 comes with the fp16 slice)")
+                     "(float32, bfloat16, float16)")
 
 
 def check_head_dim(name: str, d: int, gated: bool = False) -> None:
@@ -546,7 +550,11 @@ def _check_cuda(name, q, k, v, *rest, gated=False):
                          "KV heads")
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: dtype {q.dtype} not supported (float32, "
-                         "bfloat16; float16 comes with the fp16 slice)")
+                         "bfloat16, float16)")
+    if gated and q.dtype not in _LAYOUT_DTYPES:
+        raise ValueError(f"{name}: the layout gate runs in float32 and "
+                         f"bfloat16, not {q.dtype} (no model path runs a "
+                         "float16 layout)")
     check_head_dim(name, d, gated)
     if sq < 1 or sk < 1:
         raise ValueError(f"{name}: empty sequence (Sq={sq}, Sk={sk})")
@@ -594,7 +602,8 @@ def flash_attention_fwd_cuda(q, k, v, causal: bool = True,
     """Forward: ``(o, lse)``, o ``[B, H, Sq, D]`` and the natural-log lse
     ``[B, H, Sq]`` float32.  Replaces ``_fwd`` (v1), ``_fwd_v2`` and
     ``_fwd_v3``.  On CUDA the dtype picks the kernel, by an explicit rule
-    in the library's entry point: bfloat16 runs the wgmma + TMA kernel,
+    in the library's entry point: bfloat16 and float16 run the wgmma + TMA
+    kernel,
     float32 the plain-f32 tile kernel, whose products stay exact enough for
     the fp32 path; a failure to build or launch either raises.  With a
     ``layout`` (v1's block-sparse gate, ``_fwd_kernel`` :63-68) the same
@@ -790,14 +799,34 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 # Autograd op and public entry
 # ---------------------------------------------------------------------------
+# The forward kernel as a registered operator (``torch.library``) under an
+# autograd.Function: below autograd a dispatch mode sees the forward as
+# one op, ``deepspeed_tpu_torch.flash_attention_fwd``, with o and lse its
+# outputs, so selective activation checkpointing (``runtime/remat.py``,
+# policy "dots_flash") can save them, as the JAX kernel's
+# ``checkpoint_name(o, "flash_out")`` / ``("flash_lse")`` let its remat
+# policy save them (``flash_attention.py`` :938-959); a ctypes launch
+# called from the Function directly would be invisible to the mode.  The
+# op has no autograd of its own (the Function is its only caller), which
+# keeps its host cost at a dispatcher call (~15 us a call) where
+# ``torch.library.custom_op``'s autograd wrapper cost ~60 us more.
+_LIB = torch.library.Library("deepspeed_tpu_torch", "DEF")
+_LIB.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
+            "float sm_scale) -> (Tensor, Tensor)")
+_LIB.impl("flash_attention_fwd", flash_attention_fwd_cuda,
+          "CompositeExplicitAutograd")
+#: the registered forward (``(o, lse)`` of :func:`flash_attention_fwd_cuda`)
+flash_fwd_op = torch.ops.deepspeed_tpu_torch.flash_attention_fwd.default
+
+
 class _FlashAttention(torch.autograd.Function):
-    """The JAX ``_flash_attention_bh`` custom_vjp: the forward kernel saves
-    o and lse; the backward runs dq (which computes delta from o) and then
+    """The JAX ``_flash_attention_bh`` custom_vjp: the forward op saves o
+    and lse; the backward runs dq (which computes delta from o) and then
     dkv."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
-        o, lse = flash_attention_fwd_cuda(q, k, v, causal, sm_scale)
+        o, lse = flash_fwd_op(q, k, v, causal, sm_scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         return o
@@ -854,4 +883,5 @@ def flash_attention(q, k, v, causal: bool = True,
     plain path does not tile, so both are accepted and ignored."""
     del block_q, block_k
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                 v.contiguous(), causal, sm_scale)
+                                 v.contiguous(), bool(causal),
+                                 _scale(sm_scale, q.shape[-1]))

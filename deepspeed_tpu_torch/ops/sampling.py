@@ -136,6 +136,22 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([a, b], dim=-1)
 
 
+def fold_in_words(key: Sequence[int], data: int):
+    """:func:`fold_in` of one key held as two Python ints (the same bits,
+    the same masking mod 2**32): for keys the host derives every step,
+    where a few hundred tiny tensor operations would cost ~1 ms."""
+    k1, k2 = int(key[0]) & _M32, int(key[1]) & _M32
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x0, x1 = ks[0], (int(data) + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _M32) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
 def random_bits(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """32-bit random words of ``shape`` per key (``keys [..., 2]``) ->
     ``int64 [*keys.shape[:-1], *shape]``: each element hashes its

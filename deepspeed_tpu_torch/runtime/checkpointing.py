@@ -8,8 +8,9 @@ Layout, the JAX package's::
       latest                          # the newest tag
       <tag>/                          # default tag: global_step{N}
         ds_meta.json                  # counters, lr schedule, client_state
-        state/model_states.pt         # torch.save: the float32 params and
-                                      # the resident optimizer's state
+        state/model_states.pt         # torch.save: the float32 params, the
+                                      # resident optimizer's state and the
+                                      # fp16 loss scaler
         offload_optimizer.p0.npz      # np.savez of the host optimizer's
                                       # state_dict (offload)
         offload_blocks.npz            # the same for the streamed blocks
@@ -17,7 +18,10 @@ Layout, the JAX package's::
 ``state/`` holds the port's own file where the JAX package writes an orbax
 tree (orbax is not installed with the port).  Under offload the float32
 masters are the host optimizer's, saved once in its ``.npz``, and
-``model_states.pt`` holds no params.  One rank writes everything
+``model_states.pt`` holds no params.  The loss scaler is saved under
+``"scaler"`` with JAX's ``LossScaleState`` field names (``cur_scale``,
+``cur_hysteresis``, ``good_steps``, ``skipped``; ``checkpointing.py:17,
+:204``), so an fp16 run resumes at its scale.  One rank writes everything
 (``process_index`` 0 of the JAX names); tag validation across processes
 comes with more ranks (``ROADMAP.md`` Queue A 8).
 """
@@ -31,7 +35,9 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..ops.optimizers import state_buffers
 from ..utils.logging import log_dist, logger
+from .fp16.loss_scaler import FIELDS as SCALER_FIELDS
 
 #: the one process's index in the JAX file names
 _PROCESS = 0
@@ -61,9 +67,11 @@ class CheckpointManager:
         ckpt_dir = os.path.join(save_dir, str(tag))
         os.makedirs(os.path.join(ckpt_dir, "state"), exist_ok=True)
 
+        scaler = {name: getattr(engine._scaler, name).detach().cpu()
+                  for name in SCALER_FIELDS}
         if engine.offload_enabled:
             state = {"step": engine.global_steps, "params": None,
-                     "opt_state": None}
+                     "opt_state": None, "scaler": scaler}
             np.savez(os.path.join(ckpt_dir,
                                   f"offload_optimizer.p{_PROCESS}.npz"),
                      **engine._offload_opt.state_dict())
@@ -74,9 +82,10 @@ class CheckpointManager:
             opt = engine._opt_state
             state = {"step": engine.global_steps,
                      "params": [t.detach().cpu() for t in engine._leaves],
-                     "opt_state": {"count": opt.count,
-                                   "mu": [t.cpu() for t in opt.mu],
-                                   "nu": [t.cpu() for t in opt.nu]}}
+                     "opt_state": {"count": opt.count, **{
+                         name: [t.cpu() for t in getattr(opt, name)]
+                         for name in state_buffers(opt)}},
+                     "scaler": scaler}
         torch.save(state, os.path.join(ckpt_dir, "state", "model_states.pt"))
         meta = {
             "tag": str(tag),
@@ -120,6 +129,7 @@ class CheckpointManager:
             with open(meta_path) as f:
                 meta = json.load(f)
         full = load_optimizer_states and not load_module_only
+        state = torch.load(os.path.join(ckpt_dir, "state", "model_states.pt"))
 
         if engine.offload_enabled:
             path = os.path.join(ckpt_dir, f"offload_optimizer.p{_PROCESS}.npz")
@@ -142,18 +152,20 @@ class CheckpointManager:
                     engine._block_opt.master[:] = sd["master"]
                 engine._param_store.refresh_compute()
         else:
-            state = torch.load(os.path.join(ckpt_dir, "state",
-                                            "model_states.pt"))
             with torch.no_grad():
                 for leaf, saved in zip(engine._leaves, state["params"]):
                     leaf.copy_(saved)
             if full:
                 opt = engine._opt_state
                 opt.count = int(state["opt_state"]["count"])
-                for dst, src in zip(opt.mu + opt.nu,
-                                    state["opt_state"]["mu"] +
-                                    state["opt_state"]["nu"]):
-                    dst.copy_(src)
+                for name in state_buffers(opt):
+                    for dst, src in zip(getattr(opt, name),
+                                        state["opt_state"][name]):
+                        dst.copy_(src)
+        if full and state.get("scaler") is not None:
+            with torch.no_grad():
+                for name in SCALER_FIELDS:
+                    getattr(engine._scaler, name).copy_(state["scaler"][name])
 
         engine.global_steps = int(meta.get("global_steps", 0))
         engine.global_samples = int(meta.get("global_samples", 0))

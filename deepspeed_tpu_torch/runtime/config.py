@@ -28,6 +28,46 @@ class DeepSpeedConfigError(Exception):
 
 
 @dataclasses.dataclass(init=False)
+class Fp16Config(DeepSpeedConfigModel):
+    """The ``fp16`` block (``config.py:34``): ``loss_scale`` 0 is dynamic
+    scaling from ``2 ** initial_scale_power``, any other value a static
+    scale."""
+    enabled: bool = False
+    auto_cast: bool = False
+    loss_scale: float = 0.0
+    initial_scale_power: int = 16
+    loss_scale_window: int = 1000
+    hysteresis: int = 2
+    min_loss_scale: float = 1.0
+    fp16_master_weights_and_grads: bool = False
+
+
+@dataclasses.dataclass(init=False)
+class Bf16Config(DeepSpeedConfigModel):
+    enabled: bool = False
+
+
+@dataclasses.dataclass(init=False)
+class ActivationCheckpointingConfig(DeepSpeedConfigModel):
+    """The ``activation_checkpointing`` block (``config.py:49``; reference
+    checkpointing.py:749).  Any set key switches the model's remat on
+    (``runtime/remat.py``); ``policy`` ("full" | "dots" | "dots_flash")
+    picks what is saved; ``cpu_checkpointing`` keeps the saved outputs in
+    page-locked host memory.  ``partition_activations``,
+    ``contiguous_memory_optimization``, ``number_checkpoints``,
+    ``synchronize_checkpoint_boundary`` and ``profile`` are the
+    reference's allocator and stream knobs: accepted, as in JAX."""
+    enabled: bool = False
+    policy: Optional[str] = None
+    partition_activations: bool = False
+    contiguous_memory_optimization: bool = False
+    cpu_checkpointing: bool = False
+    number_checkpoints: Optional[int] = None
+    synchronize_checkpoint_boundary: bool = False
+    profile: bool = False
+
+
+@dataclasses.dataclass(init=False)
 class OptimizerConfigBlock(DeepSpeedConfigModel):
     type: Optional[str] = None
     params: Dict[str, Any] = Field(default_factory=dict)
@@ -76,15 +116,11 @@ def _unported(key: str, slice_name: str):
 
 def _refuse_unported(pd: dict, zero: DeepSpeedZeroConfig) -> None:
     """Raise for every enabled feature this port does not have yet."""
-    if pd.get(C.FP16, {}).get(C.FP16_ENABLED, False):
-        _unported("fp16", "fp16 (dynamic loss scaling)")
     # ZeRO stages 0-3 and the offload tiers run at world size 1 (one GPU),
     # as the JAX package runs them on a one-device mesh; more ranks wait
     for axis, n in (pd.get(C.MESH) or {}).items():
         if int(n) > 1:
             _unported(f"mesh.{axis}={n}", MULTI_GPU)
-    if pd.get(C.ACTIVATION_CHECKPOINTING):
-        _unported("activation_checkpointing", "remat")
     if pd.get(C.CURRICULUM_LEARNING_LEGACY, {}).get("enabled", False):
         _unported("curriculum_learning", "data-efficiency")
     de = pd.get(C.DATA_EFFICIENCY, {})
@@ -119,10 +155,10 @@ def _refuse_unported(pd: dict, zero: DeepSpeedZeroConfig) -> None:
         if name not in C.PORTED_OPTIMIZERS and not (
                 offloaded and name in C.OFFLOAD_OPTIMIZERS):
             raise NotImplementedError(
-                f"optimizer {opt!r}: the PyTorch port runs Adam and AdamW "
-                f"({C.PORTED_OPTIMIZERS}) so far, and Adagrad with "
-                "zero_optimization.offload_optimizer (the host C++ step); "
-                "the others come with the optimizer slice (ROADMAP.md)")
+                f"optimizer {opt!r}: the PyTorch port runs "
+                f"{C.PORTED_OPTIMIZERS} on the device, and "
+                f"{C.OFFLOAD_OPTIMIZERS} with "
+                "zero_optimization.offload_optimizer (the host C++ step)")
 
 
 class DeepSpeedConfig:
@@ -162,16 +198,25 @@ class DeepSpeedConfig:
         self.zero_config = DeepSpeedZeroConfig(
             **pd.get(C.ZERO_OPTIMIZATION, {}))
 
-        self.fp16_enabled = bool(pd.get(C.FP16, {}).get(
-            C.FP16_ENABLED, C.FP16_ENABLED_DEFAULT))
-        bf16 = pd.get(C.BFLOAT16, pd.get(C.BFLOAT16_OLD, {}))
-        self.bfloat16_enabled = bool(bf16.get(C.BFLOAT16_ENABLED,
-                                              C.BFLOAT16_ENABLED_DEFAULT))
+        self.fp16_config = Fp16Config(**pd.get(C.FP16, {}))
+        self.fp16_enabled = bool(self.fp16_config.enabled)
+        self.bf16_config = Bf16Config(
+            **pd.get(C.BFLOAT16, pd.get(C.BFLOAT16_OLD, {})))
+        self.bfloat16_enabled = bool(self.bf16_config.enabled)
         if self.fp16_enabled and self.bfloat16_enabled:
             raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")
         self.precision_dtype = ("float16" if self.fp16_enabled else
                                 "bfloat16" if self.bfloat16_enabled
                                 else "float32")
+        self.loss_scale = self.fp16_config.loss_scale
+        self.dynamic_loss_scale_args = {
+            "init_scale": 2**self.fp16_config.initial_scale_power,
+            "scale_window": self.fp16_config.loss_scale_window,
+            "min_scale": self.fp16_config.min_loss_scale,
+            "delayed_shift": self.fp16_config.hysteresis,
+        }
+        self.activation_checkpointing_config = ActivationCheckpointingConfig(
+            **pd.get(C.ACTIVATION_CHECKPOINTING, {}))
 
         self.gradient_clipping = pd.get(C.GRADIENT_CLIPPING,
                                         C.GRADIENT_CLIPPING_DEFAULT)

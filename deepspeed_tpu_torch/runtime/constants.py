@@ -19,8 +19,9 @@ OPTIMIZER = "optimizer"
 TYPE = "type"
 SCHEDULER = "scheduler"
 
-#: the optimizers this port runs so far (ops/optimizers.py)
-PORTED_OPTIMIZERS = ["adam", "adamw", "fusedadam"]
+#: the optimizers this port runs on the device (ops/optimizers.py)
+PORTED_OPTIMIZERS = ["adam", "adamw", "fusedadam", "lamb", "fusedlamb",
+                     "sgd", "adagrad", "lion"]
 #: and with zero_optimization.offload_optimizer (ops/cpu_adam.py)
 OFFLOAD_OPTIMIZERS = ["adam", "adamw", "fusedadam", "adagrad"]
 ONEBIT_OPTIMIZERS = ["onebitadam", "onebitlamb", "zerooneadam"]
@@ -57,11 +58,12 @@ WALL_CLOCK_BREAKDOWN_DEFAULT = False
 DATALOADER_DROP_LAST = "dataloader_drop_last"
 DATALOADER_DROP_LAST_DEFAULT = False
 
+ACTIVATION_CHECKPOINTING = "activation_checkpointing"
+ZERO_OPTIMIZATION = "zero_optimization"
+
 #############################################
 # Features refused until their slice lands
 #############################################
-ACTIVATION_CHECKPOINTING = "activation_checkpointing"
-ZERO_OPTIMIZATION = "zero_optimization"
 CURRICULUM_LEARNING_LEGACY = "curriculum_learning"
 DATA_EFFICIENCY = "data_efficiency"
 COMPRESSION_TRAINING = "compression_training"

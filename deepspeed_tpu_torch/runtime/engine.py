@@ -40,14 +40,30 @@ steps.  ZeRO-Infinity parameter streaming (``offload_param``,
 again for its backward; the host clip covers the resident and streamed
 gradients together.
 
+fp16 (``"fp16": {"enabled": true}``, ``engine.py:821-1000``): the
+weights are cast to float16 inside the differentiated function, the loss
+is multiplied by the loss scale, the float32 gradients by ``1 / (gas x
+scale)``; ``overflow`` (any inf or NaN gradient) is computed before the
+clip, an overflowing step applies no update and does not advance the LR
+schedule, and the scaler (``runtime/fp16/loss_scaler.py``, four device
+tensors) advances either way.  The scaler and the flag stay on the
+device; the one read of a step is the flag that decides whether the
+optimizer runs (``lax.cond`` in JAX; its offload path reads it too).
+Metrics add ``overflow``, ``loss_scale`` and ``skipped``.
+
+Attention dropout: each micro-step's loss gets the key ``fold_in(fold_in(
+PRNGKey(seed + 1), step), micro)`` (``engine.py:353, :927, :934``), a
+JAX-layout threefry key (``ops/sampling.py``); the model folds in the
+layer.  ``activation_checkpointing`` switches the model's remat on
+(``runtime/remat.py``).
+
 Checkpoints (``save_checkpoint`` / ``load_checkpoint``,
 ``runtime/checkpointing.py``) keep the JAX layout.
 
-Unported features (fp16 and its loss scaler, more than one rank,
-activation checkpointing configs, curriculum, random-LTD, compression,
-sparse gradients, 1-bit optimizers, the flops profiler, monitors, the
-pipeline engine) raise ``NotImplementedError``, from the config
-(``runtime/config.py``), the model config or here.
+Unported features (more than one rank, curriculum, random-LTD,
+compression, sparse gradients, 1-bit optimizers, the flops profiler,
+monitors, the pipeline engine) raise ``NotImplementedError``, from the
+config (``runtime/config.py``), the model config or here.
 """
 
 from __future__ import annotations
@@ -60,8 +76,9 @@ import torch
 
 from ..accelerator import resolve_device
 from ..ops import cpu_adam
-from ..ops.optimizers import (FusedAdam, clip_by_global_norm, get_optimizer,
+from ..ops.optimizers import (Optimizer, clip_by_global_norm, get_optimizer,
                               global_norm)
+from ..ops.sampling import fold_in_words
 from ..utils.logging import log_dist
 from ..utils.timer import (BACKWARD_GLOBAL_TIMER, FORWARD_GLOBAL_TIMER,
                            STEP_GLOBAL_TIMER, TRAIN_BATCH_TIMER,
@@ -69,9 +86,12 @@ from ..utils.timer import (BACKWARD_GLOBAL_TIMER, FORWARD_GLOBAL_TIMER,
 from .checkpointing import CheckpointManager
 from .config import DeepSpeedConfig
 from .dataloader import DeepSpeedDataLoader, RepeatingLoader
+from .fp16.loss_scaler import LossScaleState, has_overflow, update_scale
 from .lr_schedules import LRScheduler, get_lr_schedule
+from .remat import apply_config_to_model
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
+           "float32": torch.float32}
 
 
 def _flatten(tree, prefix=()) -> List[Tuple[tuple, Any]]:
@@ -152,10 +172,20 @@ class DeepSpeedEngine:
         self.global_steps = 0
         self.global_samples = 0
         self.micro_steps = 0
-        self.skipped_steps = 0       # no overflow skips without fp16
+        self.skipped_steps = 0
         self._cached_metrics: Dict[str, Any] = {}
 
         self.compute_dtype = _DTYPES[self._config.precision_dtype]
+        self.fp16_enabled = self._config.fp16_enabled
+        self.dynamic_loss_scale = self.fp16_enabled and \
+            self._config.loss_scale == 0
+        self._scaler = self._scaler_init()
+        seed = self._config.seed or 42
+        # PRNGKey(seed + 1) as its two uint32 words (ops/sampling.py)
+        self._dropout_rng = (0, (seed + 1) & 0xFFFFFFFF)
+        # activation_checkpointing -> the model's remat knobs (engine.py:242)
+        apply_config_to_model(self._config.activation_checkpointing_config,
+                              model, log=lambda m: log_dist(m, ranks=[0]))
 
         # ZeRO at world size 1 and its offload tiers (engine.py:190-232)
         zc = self._config.zero_config
@@ -200,7 +230,6 @@ class DeepSpeedEngine:
         # gpt2.params_from_jax), copied, or the model's init from the config
         # seed, drawn on the engine's device (llama: a leaf at a time) and
         # kept without a copy
-        seed = self._config.seed or 42
         drawn = model_parameters is None
         if drawn:
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -266,10 +295,32 @@ class DeepSpeedEngine:
         return self.zero_stage
 
     def get_lr(self) -> List[float]:
-        """The learning rate of the next update."""
+        """The learning rate of the next update (the schedule at the
+        updates applied: overflow-skipped steps do not count)."""
         if self.offload_enabled:
             return [self._host_lr()]
-        return [self.optimizer.lr_at(self.global_steps)]
+        return [self.optimizer.lr_at(self._opt_state.count)]
+
+    def loss_scale(self) -> float:
+        """The fp16 loss scale of the next step (1.0 without fp16)."""
+        if not self.fp16_enabled:
+            return 1.0
+        return float(self._scaler.cur_scale)
+
+    @property
+    def skipped_steps(self) -> int:
+        """Overflow-skipped steps so far: the scaler's count, read from the
+        last step's metrics when someone asks (``engine.py:1529``)."""
+        m = self._cached_metrics
+        if "skipped" in m:
+            return int(m["skipped"])
+        return self._skipped_steps_base
+
+    @skipped_steps.setter
+    def skipped_steps(self, v: int) -> None:
+        self._skipped_steps_base = int(v)
+        # a checkpoint's value takes effect over the last step's metrics
+        self._cached_metrics = {}
 
     def get_global_grad_norm(self) -> Optional[float]:
         gn = self._cached_metrics.get("grad_norm")
@@ -290,17 +341,56 @@ class DeepSpeedEngine:
 
     def _configure_optimizer(self) -> None:
         if self.client_optimizer is not None:
-            if not isinstance(self.client_optimizer, FusedAdam):
+            if not isinstance(self.client_optimizer, Optimizer):
                 raise NotImplementedError(
                     f"client optimizer {type(self.client_optimizer).__name__}"
-                    ": the PyTorch port takes an ops.optimizers.FusedAdam "
-                    "(Adam/AdamW) so far")
+                    ": the PyTorch port takes an ops.optimizers.Optimizer "
+                    "(FusedAdam, FusedLamb, SGD, Adagrad, Lion)")
             self.optimizer = self.client_optimizer
         else:
             self.optimizer = get_optimizer(
                 self._config.optimizer_name or "adam",
                 self._config.optimizer_params or {},
                 lr_schedule=self.lr_schedule)
+
+    # -------------------------------------------------------------- fp16
+    def _scaler_init(self) -> LossScaleState:
+        """The scaler (``engine.py:497``): a static ``loss_scale``, or the
+        dynamic one from ``2 ** initial_scale_power``; a full-precision run
+        keeps one too, unused, as JAX's state does."""
+        args = self._config.dynamic_loss_scale_args
+        if self.fp16_enabled and not self.dynamic_loss_scale:
+            return LossScaleState.create(self._config.loss_scale,
+                                         device=self.device)
+        return LossScaleState.create(args["init_scale"],
+                                     args["delayed_shift"],
+                                     device=self.device)
+
+    def _next_scaler(self, scaler: LossScaleState,
+                     overflow) -> LossScaleState:
+        args = self._config.dynamic_loss_scale_args
+        return update_scale(scaler, overflow,
+                            scale_window=args["scale_window"],
+                            min_scale=args["min_scale"],
+                            delayed_shift=args["delayed_shift"],
+                            dynamic=self.dynamic_loss_scale)
+
+    def _grad_scale(self, gas: int):
+        """What the summed gradients are multiplied by: ``1 / gas`` (None
+        at gas 1), under fp16 the device scalar ``1 / (gas x scale)``."""
+        if self.fp16_enabled:
+            return 1.0 / (gas * self._scaler.cur_scale)
+        return 1.0 / gas if gas > 1 else None
+
+    def _advance_scaler(self, metrics, overflow,
+                        scaler) -> Dict[str, Any]:
+        """Take the step's scaler and add fp16's three metrics
+        (``make_metrics``)."""
+        self._scaler = scaler
+        if self.fp16_enabled:
+            metrics.update(overflow=overflow, loss_scale=scaler.cur_scale,
+                           skipped=scaler.skipped)
+        return metrics
 
     # ------------------------------------------------------- ZeRO-Offload
     def _init_offload(self, flat: List[Tuple[tuple, Any]]) -> None:
@@ -403,7 +493,8 @@ class DeepSpeedEngine:
 
     def _streamed_loss(self, micro):
         """The loss over streamed blocks (``engine.py:677``): embeddings
-        and head from the resident leaves, each block through the store."""
+        and head from the resident leaves, each block through the store
+        (no dropout: refused under ``offload_param``, as in JAX)."""
         hooks = self.module.pipeline_hooks
         batch = self._to_device(micro)
         if isinstance(batch, (tuple, list)):
@@ -425,13 +516,17 @@ class DeepSpeedEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _offload_update(self, mean_loss, grad_scale: Optional[float],
-                        t_start: float):
+    def _offload_update(self, mean_loss, grad_scale, t_start: float):
         """The offload step after the micro-steps (``offload_finish``
         ``engine.py:973`` and ``_host_apply`` ``:1455``): scale the
-        accumulated gradients by ``grad_scale`` (1 / gas), take the global
-        norm and clip on the device, step the host masters and send the
-        updated weights back."""
+        accumulated gradients by ``grad_scale`` (:meth:`_grad_scale`), take
+        the global norm and clip on the device, then under fp16 the
+        overflow check (after the clip, as JAX's offload path orders it:
+        a non-finite norm makes the clipped gradients NaN) and the scaler;
+        step the host masters and send the updated weights back unless the
+        step overflowed.  Under ``offload_param`` the streamed blocks'
+        gradients are checked on the host too, and an overflow there redoes
+        the scaler's step as an overflow (``engine.py:1468-1489``)."""
         grads = self._dev_grad
         if grad_scale is not None:
             grads.mul_(grad_scale)
@@ -444,29 +539,40 @@ class DeepSpeedEngine:
             # together (engine.py:1480-1506)
             store.join()
             if grad_scale is not None:
-                cpu_adam.scale_(store.grad_flat, grad_scale)
-            total = float(np.sqrt(float(norm) ** 2 + store.sq_grad_norm()))
-            if clip:
-                c = min(1.0, clip / (total + 1e-6))
-                grads.mul_(c)
-                cpu_adam.scale_(store.grad_flat, c)
-            grad_norm = total
+                cpu_adam.scale_(store.grad_flat, float(grad_scale))
+            grad_norm = float(np.sqrt(float(norm) ** 2 +
+                                      store.sq_grad_norm()))
         else:
             if clip:
                 grads.mul_(torch.clamp(clip / (norm + 1e-6), max=1.0))
             grad_norm = norm
+        scaler, overflow = self._scaler, False
+        if self.fp16_enabled:
+            flag = torch.logical_not(torch.isfinite(grads).all())
+            scaler = self._next_scaler(self._scaler, flag)
+            overflow = bool(flag)
+            if store is not None and not overflow and \
+                    not np.isfinite(store.grad_flat).all():
+                overflow, flag = True, torch.ones_like(flag)
+                scaler = self._next_scaler(self._scaler, flag)
+        if store is not None and clip and not overflow:
+            c = min(1.0, clip / (grad_norm + 1e-6))
+            grads.mul_(c)
+            cpu_adam.scale_(store.grad_flat, c)
         self._sync()
         t_dev = time.perf_counter()
         if store is not None:
             from .zero.offload import HostRing
 
-            self._block_opt.step_stream(
-                HostRing(store.grad_flat, store.compute_flat), lr)
+            if not overflow:
+                self._block_opt.step_stream(
+                    HostRing(store.grad_flat, store.compute_flat), lr)
             store.grad_flat.zero_()
         t_blk = time.perf_counter()
-        self._offload_opt.step_stream(self._ring, lr)
-        if self.device.type == "cuda":
-            self._ring.finish()
+        if not overflow:
+            self._offload_opt.step_stream(self._ring, lr)
+            if self.device.type == "cuda":
+                self._ring.finish()
         grads.zero_()
         self._sync()
         t_end = time.perf_counter()
@@ -481,7 +587,9 @@ class DeepSpeedEngine:
             self.offload_timings.update(stream_bytes_in=store.bytes_in,
                                         stream_bytes_out=store.bytes_out)
             store.bytes_in = store.bytes_out = 0
-        return {"loss": mean_loss, "grad_norm": grad_norm, "lr": lr}
+        return self._advance_scaler(
+            {"loss": mean_loss, "grad_norm": grad_norm, "lr": lr},
+            overflow, scaler)
 
     # ------------------------------------------------------------------- state
     @property
@@ -512,7 +620,7 @@ class DeepSpeedEngine:
                 node = node[k]
             node[((key,) if isinstance(key, str) else key)[-1]] = {}
         return {"step": self.global_steps, "params": params,
-                "opt_state": self._opt_state}
+                "opt_state": self._opt_state, "scaler": self._scaler}
 
     # ---------------------------------------------------------------- batching
     def _to_device(self, batch):
@@ -544,7 +652,18 @@ class DeepSpeedEngine:
         return [_map(lambda x, i=i: x[i], batch) for i in range(gas)]
 
     # ------------------------------------------------------------------- train
-    def _micro_loss(self, micro):
+    def _micro_rng(self, index: int, step: Optional[int] = None):
+        """The dropout key of micro-step ``index``: ``fold_in(fold_in(
+        PRNGKey(seed + 1), step), index)`` (``engine.py:927-948``); the
+        micro-step shims fold in the micro-step count alone, as JAX's
+        ``micro_grads`` does (``step=None``).  An int64 ``[2]`` CPU tensor,
+        derived on the host in Python ints."""
+        key = self._dropout_rng
+        if step is not None:
+            key = fold_in_words(key, step)
+        return torch.tensor(fold_in_words(key, index), dtype=torch.int64)
+
+    def _micro_loss(self, micro, rng=None):
         """Loss of one micro-batch with the masters cast to the compute
         dtype inside the autograd graph (under offload: the compute copy,
         or the streamed blocks)."""
@@ -552,28 +671,48 @@ class DeepSpeedEngine:
             return self._streamed_loss(micro)
         if self.offload_enabled:
             return self.module.loss_fn(self._params, self._to_device(micro),
-                                       None, True)
+                                       rng, True)
         params = self._params
         if self.compute_dtype != torch.float32:
             params = _unflatten(self._paths, [
                 p.to(self.compute_dtype) if p.is_floating_point() else p
                 for p in self._leaves])
-        return self.module.loss_fn(params, self._to_device(micro), None, True)
+        return self.module.loss_fn(params, self._to_device(micro), rng, True)
+
+    def _scaled_backward(self, loss) -> None:
+        """``loss.backward()``, under fp16 of ``loss x scale`` in float32
+        (``micro_loss``: ``loss.astype(f32) * scale``)."""
+        if self.fp16_enabled:
+            loss = loss.float() * self._scaler.cur_scale
+        loss.backward()
 
     def _grads(self) -> List[torch.Tensor]:
         return [p.grad if p.grad is not None else torch.zeros_like(p)
                 for p in self._leaves]
 
     def _apply_update(self, grads: List[torch.Tensor], mean_loss):
-        """grads: float32, averaged over the global batch."""
+        """grads: float32, averaged over the global batch and unscaled
+        (``apply_update``, ``engine.py:866``): the norm, under fp16 the
+        overflow flag and the scaler's step, then (unless the step
+        overflowed) the clip and the optimizer."""
         grad_norm = global_norm(grads)
-        if self._config.gradient_clipping:
-            clip_by_global_norm(grads, self._config.gradient_clipping,
-                                grad_norm)
-        lr = self.optimizer.step(self._leaves, grads, self._opt_state)
+        scaler, overflow = self._scaler, False
+        if self.fp16_enabled:
+            flag = has_overflow(grads)
+            scaler = self._next_scaler(self._scaler, flag)
+            overflow = bool(flag)
+        if overflow:
+            lr = self.optimizer.lr_at(self._opt_state.count)
+        else:
+            if self._config.gradient_clipping:
+                clip_by_global_norm(grads, self._config.gradient_clipping,
+                                    grad_norm)
+            lr = self.optimizer.step(self._leaves, grads, self._opt_state)
         for p in self._leaves:
             p.grad = None
-        return {"loss": mean_loss, "grad_norm": grad_norm, "lr": lr}
+        return self._advance_scaler(
+            {"loss": mean_loss, "grad_norm": grad_norm, "lr": lr},
+            overflow, scaler)
 
     def train_batch(self, batch=None, data_iter=None):
         """One global step: every micro-batch's forward and backward, then
@@ -591,18 +730,20 @@ class DeepSpeedEngine:
         self.timers(TRAIN_BATCH_TIMER).start()
         t_start = time.perf_counter()
         loss_sum = None
-        for micro in micros:
-            loss = self._micro_loss(micro)
-            loss.backward()
+        for i, micro in enumerate(micros):
+            loss = self._micro_loss(micro,
+                                    self._micro_rng(i, self.global_steps))
+            self._scaled_backward(loss)
             loss = loss.detach().float()
             loss_sum = loss if loss_sum is None else loss_sum + loss
+        grad_scale = self._grad_scale(gas)
         if self.offload_enabled:
-            metrics = self._offload_update(
-                loss_sum / gas, 1.0 / gas if gas > 1 else None, t_start)
+            metrics = self._offload_update(loss_sum / gas, grad_scale,
+                                           t_start)
         else:
             grads = self._grads()
-            if gas > 1:
-                torch._foreach_mul_(grads, 1.0 / gas)
+            if grad_scale is not None:
+                torch._foreach_mul_(grads, grad_scale)
             metrics = self._apply_update(grads, loss_sum / gas)
         self.global_steps += 1
         self.global_samples += self.train_batch_size()
@@ -654,7 +795,7 @@ class DeepSpeedEngine:
         ``backward``."""
         if self.wall_clock_breakdown_enabled:
             self.timers(FORWARD_GLOBAL_TIMER).start()
-        loss = self._micro_loss(batch)
+        loss = self._micro_loss(batch, self._micro_rng(self.micro_steps))
         if self.wall_clock_breakdown_enabled:
             self.timers(FORWARD_GLOBAL_TIMER).stop()
         return loss
@@ -662,10 +803,15 @@ class DeepSpeedEngine:
     __call__ = forward
 
     def backward(self, loss, allreduce_gradients: bool = True):
-        """Accumulate ``loss / gradient_accumulation_steps``'s gradients."""
+        """Accumulate ``loss / gradient_accumulation_steps``'s gradients
+        (under fp16 ``loss x scale``'s, divided by ``gas x scale`` at the
+        step)."""
         if self.wall_clock_breakdown_enabled:
             self.timers(BACKWARD_GLOBAL_TIMER).start()
-        (loss.float() / self.gradient_accumulation_steps()).backward()
+        if self.fp16_enabled:
+            self._scaled_backward(loss)
+        else:
+            (loss.float() / self.gradient_accumulation_steps()).backward()
         self._accum_losses.append(loss.detach().float())
         self.micro_steps += 1
         if self.wall_clock_breakdown_enabled:
@@ -684,11 +830,17 @@ class DeepSpeedEngine:
         if self.wall_clock_breakdown_enabled:
             self.timers(STEP_GLOBAL_TIMER).start()
         mean_loss = torch.stack(self._accum_losses).mean()
+        # the shim's backward divided by gas already, except under fp16
+        grad_scale = self._grad_scale(self.gradient_accumulation_steps()) \
+            if self.fp16_enabled else None
         if self.offload_enabled:
-            metrics = self._offload_update(mean_loss, None,
+            metrics = self._offload_update(mean_loss, grad_scale,
                                            time.perf_counter())
         else:
-            metrics = self._apply_update(self._grads(), mean_loss)
+            grads = self._grads()
+            if grad_scale is not None:
+                torch._foreach_mul_(grads, grad_scale)
+            metrics = self._apply_update(grads, mean_loss)
         self._accum_losses = []
         self.global_steps += 1
         self.global_samples += self.train_batch_size()

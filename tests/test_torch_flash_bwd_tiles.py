@@ -154,9 +154,11 @@ def test_tiled_models_equal_the_plain_backward_in_float64(causal):
 
 
 def test_bwd_route_picks_wgmma_for_bf16_and_tiles_for_f32():
+    # float16 takes the wgmma kernels too (instantiated for __half)
     assert tfa.bwd_route(torch.bfloat16) == "wgmma"
+    assert tfa.bwd_route(torch.float16) == "wgmma"
     assert tfa.bwd_route(torch.float32) == "tile"
-    for dtype in (torch.float16, torch.float64, torch.int8):
+    for dtype in (torch.float64, torch.int8):
         with pytest.raises(ValueError, match="not supported"):
             tfa.bwd_route(dtype)
 

@@ -342,3 +342,47 @@ def test_ported_serving_keywords_build_working_servers(engine, greedy_trace,
     assert srv.resolved_config()["peak_flops"] == kw.get("peak_flops")
     if "slo_targets" in kw:
         assert srv.slo_report()["realtime"]["ttft_target_s"] == 1.0
+
+
+# -------------------------------------------------------------- GPT2Config
+#: (field, a non-default value not ported yet, its ROADMAP Queue A item)
+GPT2_UNPORTED = [
+    ("act_quant_bits", 8, 10), ("act_quant_type", "asymmetric", 10),
+    ("random_ltd_keep", 16, 10), ("random_ltd_layer_start", 0, 10),
+    ("random_ltd_layer_num", 1, 10), ("sparse_embedding_grad", True, 8),
+    ("scan_group_size", 2, 8), ("sp_impl", "ring", 8),
+]
+
+
+def test_gpt2_config_has_every_jax_field_in_order():
+    """The port's ``GPT2Config`` names every field of the JAX one, in its
+    order and with its default, so a JAX config carries over (positional
+    construction included)."""
+    import dataclasses
+
+    from deepspeed_tpu.models import gpt2 as jgpt2
+
+    want = [(f.name, f.default) for f in dataclasses.fields(jgpt2.GPT2Config)]
+    got = [(f.name, f.default) for f in dataclasses.fields(tgpt2.GPT2Config)]
+    assert got == want
+    jcfg = jgpt2.GPT2Config(remat=True, remat_policy="dots_flash",
+                            remat_offload=True, fused_ce=True, ce_chunks=3,
+                            dropout=0.1, scan_layers=False)
+    tcfg = tgpt2.GPT2Config(**dataclasses.asdict(jcfg))
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+
+
+@pytest.mark.parametrize("field,value,item", GPT2_UNPORTED,
+                         ids=[u[0] for u in GPT2_UNPORTED])
+def test_gpt2_config_refuses_unported_values(field, value, item):
+    with pytest.raises(NotImplementedError,
+                       match=rf"Queue A {item}\)"):
+        tgpt2.GPT2Config(**{field: value})
+
+
+def test_gpt2_config_checks_its_remat_policy():
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        tgpt2.GPT2Config(remat=True, remat_policy="everything")
+    for policy in ("full", "dots", "dots_flash"):
+        assert tgpt2.GPT2Config(remat=True,
+                                remat_policy=policy).remat_policy == policy
