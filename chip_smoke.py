@@ -332,8 +332,9 @@ and every replay adds them.
     falling losses, the step split into device and host time, the host
     peak.  (b)'s and (c)'s launches give the ``[mixtral-8x7b-train]`` and
     ``[mixtral-8x7b-offload]`` entries of the kernels line.
- 19. ZeRO-Inference of OPT-30B (``inference/zero_inference.py``; 48
-    layers, D 7168, 56 heads; blocks 59.2 GB in bf16).  First B2 and B4 at
+ 19. ZeRO-Inference of OPT-30B (``inference/zero_inference.py``; D
+    7168, 56 heads, :data:`ZI_LAYERS` of its 48 layers streamed: blocks
+    29.6 GB in bf16 of its 59.2).  First B2 and B4 at
     its 56-head shapes and B5 at its four (K, N) shapes (proj: 224
     k-groups) against their plain versions (B5 bit for bit), timed, and a
     pinned 1 GiB host-to-card copy's rate.  (a) bf16: the resident
@@ -399,6 +400,33 @@ and every replay adds them.
     fp16, 2 steps: the D = 128 fp16 kernels on a training path.  (a)'s
     times with (b)'s and (e)'s launches give the ``[fp16-gpt2]`` and
     ``[fp16-d128]`` entries of the kernels line.
+ 22. The decoder families and HuggingFace ingestion
+    (:func:`decoder_families_phase`), run after 21.  (e) B5 and B6 at
+    every new (K, N) of BLOOM-7b1, GPT-NeoX-20B, GPT-J-6B and GPT-Neo-2.7B
+    (32, 48, 80, 128 and 192 k-groups) bit for bit against their plain
+    versions (rows 1/4/8 and alone, layer indices, repeat and graph
+    replay), B7 at the same shapes against its plain version and tiling
+    model, each replayed from a CUDA graph beside bf16 ``x @ W`` and its
+    bound, at each model's widest K also eager with the plain version.
+    (a) BLOOM-7b1 at all 30 layers (random bf16 weights drawn on the
+    card): ``generate``, ``serve`` of phase 4's traffic (>= 0.95 against
+    ``generate`` each request; captured equal to eager), a profiled
+    window against the 4.22 ms weight-read bound, one layer's
+    ``paged_gather`` and ALiBi attention replayed from a CUDA graph, a
+    w8a8 server against w8a8 ``generate`` (>= 0.95 each request), the
+    ``w8a8+kv8`` server (B6), the quantized lanes' logit
+    RMSE (<= 0.15 at 2 layers), weight-only records under ``DS_QMM=1``
+    (B7), fp32 at 2 layers (``serve`` and ``generate`` equal recompute).
+    (b)-(d) GPT-NeoX-20B (44 layers), GPT-J-6B (28) and GPT-Neo-2.7B (32):
+    bf16 ``generate``, then the w8a8 engine drawn from the same seed, its
+    ``generate`` launching B6 (GPT-Neo: B5) on every block matmul of every
+    decode step; fp32 at 2 layers equal to recompute.  (f) From files it
+    writes: HF directories of a tiny BLOOM, GPT-NeoX, GPT-J and GPT-Neo
+    (``.bin``; BLOOM's also ``.safetensors``) through
+    ``init_inference(path)``, two-shard Megatron checkpoints of qkv
+    versions 0, 1.0 and 2.0, a ZeRO-2 directory.  The launches give the
+    ``[bloom-7b1]``, ``[gpt-neox-20b]``, ``[gpt-j-6b]`` and
+    ``[gpt-neo-2.7b]`` entries of the kernels line.
 
 The last two lines of output are the ``{"kernels": [...]}`` JSON object
 and the ``{"ok": true, "device": ...}`` JSON object.
@@ -4942,9 +4970,9 @@ OFFLOAD_LAYERS = 4
 #: phase 16 (d): the depth of the ``offload_param`` run.  The host holds
 #: 18 bytes a streamed parameter (master, moments, the bf16 compute copy
 #: and the f32 gradient accumulator) and 12 a resident one: 32 layers need
-#: 138 GB, 16 layers 75.4 GB, 8 layers 44.0 GB: 8 for the script's time
-#: limit
-STREAM_LAYERS = 8
+#: 138 GB, 16 layers 75.4 GB, 8 layers 44.0 GB: 2 for the script's time
+#: limit (phase 16 (e) compares a 2-layer streamed engine too)
+STREAM_LAYERS = 2
 #: phase 16 (a)'s host step: 256 M elements
 HOST_STEP_ELEMS = 256 << 20
 #: the host memory phase 16 leaves free beyond what an engine needs (the
@@ -5298,8 +5326,9 @@ def offload_fp32_checks(card):
               "offload_param": {"device": "cpu"}}
     runs, masters, times = {}, {}, {}
     try:
-        for name, zero in (("resident", {"stage": 0}), ("cpu", cpu),
-                           ("nvme", nvme), ("stream", stream)):
+        # nvme before cpu: its files are gone when the checkpoint is saved
+        for name, zero in (("resident", {"stage": 0}), ("nvme", nvme),
+                           ("cpu", cpu), ("stream", stream)):
             t0 = time.perf_counter()
             eng = fp32_engine(cfg, params, zero)
             if name == "stream":
@@ -5324,8 +5353,18 @@ def offload_fp32_checks(card):
                                          if path[0] == "blocks"])
                 for p in eng._leaves:
                     p.grad = None
-            runs[name] = [eng.train_batch(b)[1]["loss"] for b in batches]
-            times[name] = time.perf_counter() - t0
+            if name == "cpu":
+                # the resume's source: 2 steps, a save, the third step
+                runs[name] = [eng.train_batch(b)[1]["loss"]
+                              for b in batches[:2]]
+                t1 = time.perf_counter()
+                eng.save_checkpoint(tmp + "/ck")
+                t_save = time.perf_counter() - t1
+                runs[name].append(eng.train_batch(batches[2])[1]["loss"])
+                times[name] = time.perf_counter() - t0 - t_save
+            else:
+                runs[name] = [eng.train_batch(b)[1]["loss"] for b in batches]
+                times[name] = time.perf_counter() - t0
             if name in ("cpu", "nvme"):
                 masters[name] = eng._offload_opt.master.copy()
             eng.close()
@@ -5345,19 +5384,9 @@ def offload_fp32_checks(card):
         if not np.allclose(runs["stream"], runs["cpu"], rtol=0, atol=8e-3):
             raise AssertionError(f"streamed losses {runs['stream']} against "
                                  f"resident offload {runs['cpu']}")
+        # a checkpoint resume: the cpu engine's third step again
+        want, want_master = runs["cpu"][2], masters["cpu"]
         del masters
-        # a checkpoint resume
-        t0 = time.perf_counter()
-        a = fp32_engine(cfg, params, cpu)
-        for b in batches[:2]:
-            a.train_batch(b)
-        a.save_checkpoint(tmp + "/ck")
-        t_save = time.perf_counter() - t0
-        want = a.train_batch(batches[2])[1]["loss"]
-        want_master = a._offload_opt.master.copy()
-        a.close()
-        del a
-        release()
         b = fp32_engine(cfg, params, cpu)
         t1 = time.perf_counter()
         b.load_checkpoint(tmp + "/ck")
@@ -5366,8 +5395,8 @@ def offload_fp32_checks(card):
         same = got == want and np.array_equal(b._offload_opt.master,
                                               want_master)
         log(f"[16e] checkpoint resume (cpu offload): loss {got} vs {want}, "
-            f"masters {'equal' if same else 'differ'} (save path "
-            f"{t_save:.1f} s with 2 steps, load {t_load:.1f} s)")
+            f"masters {'equal' if same else 'differ'} (save {t_save:.1f} s, "
+            f"load {t_load:.1f} s)")
         b.close()
         del b, want_master
         if not same:
@@ -5428,11 +5457,14 @@ OPT_MATMULS = ((5120, 15360), (5120, 5120), (5120, 20480), (20480, 5120))
 #: with phases 18 and 19 it ran 1361 s at the models' depths and 912 s at
 #: these on H100 machines (PERF.md section 4).  Mixtral's bf16 lane is the
 #: w8a8 draw's first layers: 32 bf16 layers (93 GB) outgrow one 80 GB
-#: card, its w8a8 records (~47 GB) hold all 32
+#: card, its w8a8 records (~47 GB) hold all 32.  Phase 22 took Mixtral's
+#: w8a8 and bf16 lanes to 8 and 4 layers and OPT to 8 (they were 16, 8 and
+#: 10); llama stays at 8: at 4, phase 20 (b)'s trace-ring guard read a
+#: host cost of 6.27% (the iteration is half as long)
 LLAMA_SERVE_LAYERS = 8
-MIXTRAL_W8A8_LAYERS = 16
-MIXTRAL_BF16_LAYERS = 8
-OPT_SERVE_LAYERS = 10
+MIXTRAL_W8A8_LAYERS = 8
+MIXTRAL_BF16_LAYERS = 4
+OPT_SERVE_LAYERS = 8
 #: the capacity factor the card serves Mixtral at: ``num_experts`` routes
 #: without drops (HF Mixtral's dropless MoE), so a prompt gated as one
 #: group (``generate``) and in prefill windows with their pads (``serve``)
@@ -5613,6 +5645,27 @@ def generate_refs(engine, reqs, prompts, gen):
         ref[r.uid] = engine.generate(r.prompt[None],
                                      max_new_tokens=r.max_new_tokens)[0]
     return ref
+
+
+def all_generate_refs(engine, reqs, prompts, gen):
+    """``generate`` of every request of ``reqs``: the ``gen{i}`` ones from
+    the batch-4 ``gen``, the others batched by prompt length and new
+    tokens (the row rule makes a row's tokens independent of the rows
+    beside it).  Returns ({uid: tokens}, the number of ``generate``
+    calls)."""
+    import numpy as np
+
+    ref = {f"gen{i}": gen[i] for i in range(len(prompts))}
+    groups = {}
+    for r in reqs:
+        if r.uid not in ref:
+            groups.setdefault((r.prompt.size, r.max_new_tokens),
+                              []).append(r)
+    for (_, new), group in groups.items():
+        out = engine.generate(np.stack([r.prompt for r in group]),
+                              max_new_tokens=new)
+        ref.update({r.uid: out[i] for i, r in enumerate(group)})
+    return ref, len(groups)
 
 
 def gate_agreement(tag, res, ref, limit=0.95):
@@ -6040,11 +6093,11 @@ def mixtral_serving_phase(card):
     return add_counts(c8, cf, cg)
 
 
-def family_fp32_check(tag, family, cfg32, vocab):
+def family_fp32_check(tag, family, cfg32, vocab, serve: bool = True):
     """fp32 at full width and ``cfg32``'s depth: greedy ``generate`` (B2
-    and the sliced B4 prefill on the card's f32 template) and ``serve``
-    (B3, 16-token B4 windows) equal greedy decoding by full-forward
-    recompute (einsum attention), token for token."""
+    and the sliced B4 prefill on the card's f32 template) and, with
+    ``serve``, ``serve`` (B3, 16-token B4 windows) equal greedy decoding by
+    full-forward recompute (einsum attention), token for token."""
     import numpy as np
     import torch
 
@@ -6066,6 +6119,12 @@ def family_fp32_check(tag, family, cfg32, vocab):
     if not (got == want).all():
         raise AssertionError(f"{tag} fp32 generate != recompute:\n{got}\n"
                              f"{want}")
+    if not serve:
+        log(f"[{tag} fp32 check] {cfg32.num_layers} layers at full width: "
+            "generate equals full-forward greedy decoding")
+        del eng32
+        free_card()
+        return
     srv32 = dt.init_serving(model32, config={"dtype": "fp32"},
                             params=eng32.params, slots=2, max_seq_len=128,
                             block_size=32, prefill_chunk=16, sampling=False)
@@ -6316,10 +6375,11 @@ def family_phase(card):
 #: parameter (f32 master, gradient and two moments) plus the bf16 copy:
 #: 2 layers ~57 GB, 3 layers ~83 GB do not fit the 80 GB card.  Offloaded,
 #: the host holds 12 bytes a parameter: 4 layers 67.8 GiB of the 88-91 GiB
-#: phase 16 found free, 5 layers would need 84.0 GiB
+#: phase 16 found free, 5 layers would need 84.0 GiB; 3 since phase 22
+#: came, for the script's time limit (the C++ Adam is ~3 s a layer a step)
 MIXTRAL_TRAIN_S = 4096
 MIXTRAL_TRAIN_LAYERS = 2
-MIXTRAL_OFFLOAD_LAYERS = 4
+MIXTRAL_OFFLOAD_LAYERS = 3
 MIXTRAL_TRAIN_STEPS = 5
 MIXTRAL_OFFLOAD_STEPS = 3
 
@@ -6682,6 +6742,10 @@ OPT30_MATMULS = ((7168, 21504), (7168, 7168), (7168, 28672), (28672, 7168))
 #: phase 19's traffic: (a) bf16 at 16 rows, (b) w8a8 at 8 (the rows B5
 #: takes), each 128-token prompts and 16 new tokens
 ZI_BF16_ROWS, ZI_W8A8_ROWS, ZI_PROMPT, ZI_NEW = 16, 8, 128, 16
+#: the streamed depth: 16 of OPT-30B's 48 layers for the script's time
+#: limit (a streamed step is the link's: a third of the layers, a third
+#: of the step)
+ZI_LAYERS = 16
 
 
 def opt30_attention_cases():
@@ -6831,6 +6895,8 @@ def zero_inference_phase(card):
     resident w8a8 engine (B6) against the streamed one (B5), token for
     token; B2, B4 and B5 held at OPT-30B's shapes and timed first.  Returns
     ({kernel: measurements}, launches of the streamed generates)."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -6850,7 +6916,7 @@ def zero_inference_phase(card):
     free_card()
     link = link_gb_s()
     log(f"[19] a pinned 1 GiB host-to-card copy: {link:.2f} GB/s; {card}")
-    cfg = opt.OPTConfig.opt_30b()
+    cfg = dataclasses.replace(opt.OPTConfig.opt_30b(), num_layers=ZI_LAYERS)
     model = opt.build(cfg)
     rng = np.random.default_rng(19)
     prompts = rng.integers(0, cfg.vocab_size, (ZI_BF16_ROWS, ZI_PROMPT))
@@ -7264,6 +7330,721 @@ def fp16_phase(card, faults):
     return measured, launches, llama_launches
 
 
+# ------------------------------------------------------------- phase 22
+#: phase 22's models and the (K, N) of their block matmuls (weights
+#: ``[in, out]``), the shape each is timed at in full first (its widest K).
+#: GPT-J-6B's shapes are all BLOOM-7b1's
+P22_MATMULS = {
+    "bloom-7b1": ((16384, 4096), (4096, 12288), (4096, 4096), (4096, 16384)),
+    "gpt-neox-20b": ((24576, 6144), (6144, 18432), (6144, 6144),
+                     (6144, 24576)),
+    "gpt-j-6b": ((16384, 4096), (4096, 4096), (4096, 16384)),
+    "gpt-neo-2.7b": ((10240, 2560), (2560, 2560), (2560, 10240)),
+}
+#: GPT-NeoX-20B's depth on the card (all of its 44 layers: 41 GB in bf16)
+NEOX_LAYERS = 44
+#: tokens each phase-22 ``generate`` of (b)-(d) adds to 4 x 128-token
+#: prompts
+P22_NEW = 32
+
+
+def check_p22_kernels(flush):
+    """Phase 22 (e): B5 and B6 at every new (K, N) of :data:`P22_MATMULS`,
+    bit for bit against their plain versions (:func:`check_w8a8_shapes`,
+    each shape once), timed as PERF.md §6 times them at each model's
+    widest K; B7 at every new shape (:func:`check_p22_qmm`).  Returns
+    ({model tag: {kernel: measurements}}, B7's measurements at BLOOM-7b1's
+    proj)."""
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+
+    out, seen = {}, {}                  # shape -> the tag that checked it
+    for i, (tag, shapes) in enumerate(P22_MATMULS.items()):
+        if shapes[0] in seen:           # GPT-J-6B: all BLOOM-7b1's
+            out[tag] = out[seen[shapes[0]]]
+        else:
+            out[tag] = check_w8a8_shapes(
+                flush, tuple(s for s in shapes if s not in seen), shapes[0],
+                tag, 2200 + 10 * i)
+        for s in shapes:
+            seen.setdefault(s, tag)
+        log(f"[22e] {tag}: k-groups " + ", ".join(
+            f"({k}, {n}) {k // 128} ({qm.w8a8_groups_per_block(k // 128)} a "
+            "block)" for k, n in shapes))
+    return out, check_p22_qmm(flush, sorted(seen))
+
+
+def check_p22_qmm(flush, shapes):
+    """B7 (``qmm_split_kernel``) at each (K, N) of ``shapes``, bf16
+    activations at 8 rows, through :func:`check_qmm_exact` (BF16_TOL
+    against the plain version and the split model; rows invariant across
+    call sizes, block-order merge, repeat and graph replay bit for bit),
+    each replayed from a CUDA graph at 8 rows beside bf16 ``x @ W``; at
+    BLOOM-7b1's proj (16384, 4096) also eager, the plain version and ``x @
+    W`` eager.  Returns that shape's measurements."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+    from deepspeed_tpu_torch.ops.quantization import dequantize
+
+    main = P22_MATMULS["bloom-7b1"][0]
+    out = {}
+    for si, (k, n) in enumerate(shapes):
+        rec, x = qmm_inputs(k, n, 128, 8, torch.bfloat16, 2300 + si)
+        err = check_qmm_exact(f"B7 22e ({k}, {n})", x, rec)
+        w = dequantize(rec, torch.bfloat16)
+
+        def b7():
+            return qm.quantized_matmul_cuda(x, rec["q"], rec["scale"])
+
+        ms_graph = graph_ms(b7, flush)
+        lib_graph = graph_ms(lambda: x @ w, flush)
+        bound_ms, bound_by = qmm_bound("quantized_matmul_cuda", 8, k, n, 2, 2)
+        extra = ""
+        if (k, n) == main:
+            ms = timed_ms(b7, flush)
+            plain_ms = timed_ms(lambda: qm.quantized_matmul_plain(
+                x, rec["q"], rec["scale"]), flush, iters=10)
+            lib_ms = timed_ms(lambda: x @ w, flush)
+            out = {"max_abs_err": err, "ms": ms, "graph_ms": ms_graph,
+                   "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "library_graph_ms": lib_graph, "bound_ms": bound_ms,
+                   "bound_by": bound_by}
+            extra = (f"; eager {ms:.4f} ms, plain {plain_ms:.4f} ms, bf16 "
+                     f"x @ W eager {lib_ms:.4f} ms")
+        log(f"[22e qmm] B7 ({k}, {n}) at 8 rows: max_abs_err {err:.3e}; "
+            f"{ms_graph:.4f} ms replayed from a CUDA graph, bf16 x @ W (same "
+            f"shape, not the same function) {lib_graph:.4f} ms graph, bound "
+            f"{bound_ms:.5f} ms ({bound_by}){extra}")
+        del rec, x, w
+    return out
+
+
+def alibi_attention_ms(cfg, flush, slots=8, max_seq_len=1024,
+                       block_size=32):
+    """One BLOOM layer's decode attention on phase 22 (a)'s served shape
+    (``slots`` rows, ``max_seq_len``-key tables of ``block_size``-token
+    blocks, bf16), each part replayed from a CUDA graph: the two
+    ``paged_gather`` calls alone, and the whole ``_alibi_cached_attention``
+    (the pool write, both gathers, the ALiBi einsums and the softmax).
+    Returns (gather ms, attention ms, bytes the gathers move) a layer."""
+    import torch
+
+    from deepspeed_tpu_torch.models import bloom
+    from deepspeed_tpu_torch.ops.paged_kv import paged_gather
+
+    nbper = max_seq_len // block_size
+    nb = 1 + slots * nbper
+    h, hd = cfg.num_heads, cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    pk, pv = rand(nb, h, block_size, hd), rand(nb, h, block_size, hd)
+    q, k, v = rand(slots, h, 1, hd), rand(slots, h, 1, hd), \
+        rand(slots, h, 1, hd)
+    bt = torch.arange(1, nb, dtype=torch.int32,
+                      device="cuda").reshape(slots, nbper)
+    pos = torch.arange(500, 500 + 40 * slots, 40, dtype=torch.int32,
+                       device="cuda")
+    bloom._slopes(h, q.device)
+    gather = graph_ms(lambda: (paged_gather(pk, bt), paged_gather(pv, bt)),
+                      flush)
+    attn = graph_ms(lambda: bloom._alibi_cached_attention(
+        cfg, q, k, v, pk, pv, pos, bt), flush)
+    nbytes = 2 * 2 * slots * h * max_seq_len * hd * 2   # k, v: read + write
+    return gather, attn, nbytes
+
+
+def bloom_serving_phase(card, flush):
+    """Phase 22 (a): BLOOM-7b1 (4096 wide, 32 heads of head dim 128, vocab
+    250880) at all 30 layers on the card, random bf16 weights drawn on the
+    card from seed 0 by ``init_inference``.  ``generate``, ``serve`` of
+    phase 4's traffic (16 requests, half sharing a 256-token prefix, and
+    ``generate``'s 4 prompts; 64 new tokens each) against ``generate``
+    (>= 0.95 each request), the captured serve against the eager one
+    (equal), a profiled window and the ALiBi attention's device ms; the
+    w8a8 engine quantized on the card, a w8a8 server on a float pool
+    against w8a8 ``generate`` (>= 0.95 each request), ``serve`` under
+    ``w8a8+kv8`` (B6); the logit RMSE of the quantized lanes (<= 0.15
+    at 2 layers); weight-only records under ``DS_QMM=1`` (B7);
+    fp32 at full width and 2 layers, ``serve`` and ``generate`` equal to
+    recompute.  Returns the launch counts of the main path (the two serves
+    and bf16 ``generate``, each counted alone) and of the ``DS_QMM=1``
+    generate."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.inference.serving import Request
+    from deepspeed_tpu_torch.models import bloom
+
+    cfg = bloom.BloomConfig.bloom_7b1()
+    vocab, layers = cfg.vocab_size, cfg.num_layers
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    model = bloom.build(cfg)
+    mark = marker("22a")
+    engine, t_init = wall(lambda: dt.init_inference(
+        model, config={"dtype": "bf16"}))
+    bf16_bytes = weight_read_bytes(engine.params, head="word_embeddings")
+    log(f"[22a] {model.name}: {cfg.num_params() / 1e9:.3f} B parameters "
+        f"drawn on the card in bf16 in {t_init:.2f} s; a decode step reads "
+        f"{bf16_bytes / 1e9:.3f} GB of weights (blocks + the tied head): "
+        f"bound {1e3 * bf16_bytes / HBM_BYTES_PER_S:.3f} ms at 3.35 TB/s; "
+        f"{card}")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, vocab, (4, 128))
+    reqs = traffic(rng, vocab) + [
+        Request(uid=f"gen{i}", prompt=prompts[i], max_new_tokens=64)
+        for i in range(4)]
+    window = reqs[-4:] + reqs[:4]
+    (gen, t_gen), cg = launched(lambda: wall(
+        lambda: engine.generate(prompts, max_new_tokens=64)))
+    srv = family_server(model, engine.params)
+    (res, st, t_srv), cf = launched(
+        lambda: served("bloom bf16", srv, reqs, vocab))
+    del srv
+    eager = family_server(model, engine.params)._serve_eager(reqs)
+    if not same_tokens(res, eager, reqs):
+        raise AssertionError("bloom: the captured serve differs from the "
+                             "eager one")
+    mark("bf16 draw, generate, serve and the eager serve")
+    # every request, the 8 prefix-cache hits among them
+    (ref, n_calls), t_ref = wall(
+        lambda: all_generate_refs(engine, reqs, prompts, gen))
+    agree = gate_agreement("bloom bf16 serve vs generate", res, ref)
+    log(f"[22a refs] generate of all {len(ref)} requests in {n_calls + 1} "
+        f"calls ({n_calls} after the batch-4 one, {t_ref:.1f} s)")
+    log(f"[22a serve] {len(reqs)} requests, {st['generated_tokens']} "
+        f"generated tokens in {t_srv:.3f} s: "
+        f"{st['generated_tokens'] / t_srv:.1f} generated tok/s; TTFT p50 "
+        f"{st['ttft_p50_s']:.4f} s p95 {st['ttft_p95_s']:.4f} s; "
+        f"prefix_hit_tokens {st['prefix_hit_tokens']}; kv_pool_bytes "
+        f"{st['kv_pool_bytes']}; launches {nonzero(cf)} (generate "
+        f"{nonzero(cg)}); captured serve equal to the eager serve; "
+        f"agreement with generate (each of the {len(agree)} checked "
+        f"requests): min {min(agree.values()):.4f}, "
+        f"{sum(a == 1.0 for a in agree.values())} exact; {card}")
+    prof_f = profile_serving("bloom bf16", family_server(model,
+                                                         engine.params),
+                             window, [])
+    gather_ms, attn_ms, gather_bytes = alibi_attention_ms(cfg, flush)
+    log(f"[22a alibi] one layer's decode attention at 8 slots x 1024 keys, "
+        f"replayed from a CUDA graph: paged_gather of k and v "
+        f"{gather_ms:.4f} ms (moves {gather_bytes / 2 ** 20:.0f} MiB: bound "
+        f"{1e3 * gather_bytes / HBM_BYTES_PER_S:.4f} ms), the whole "
+        f"_alibi_cached_attention {attn_ms:.4f} ms; x {layers} layers: "
+        f"gather {layers * gather_ms:.3f} ms, attention "
+        f"{layers * attn_ms:.3f} ms an iteration = "
+        f"{layers * attn_ms / prof_f['busy_ms']:.1%} of the captured "
+        f"iteration's {prof_f['busy_ms']:.3f} ms device busy; {card}")
+    mark("bf16 generate references, profile and attention timing")
+
+    w8a8_cfg = {"dtype": "bf16", "quant": {"enabled": True, "type": "w8a8"}}
+    weng, t_q = wall(lambda: dt.init_inference(model, config=w8a8_cfg,
+                                               params=engine.params))
+    w8_bytes = weight_read_bytes(weng.params, head="word_embeddings")
+    srv8 = family_server(model, weng.params, "w8a8+kv8")
+    (res8, st8, t8), c8 = launched(
+        lambda: served("bloom w8a8+kv8", srv8, reqs, vocab))
+    del srv8
+    # like for like: w8a8 generate and a w8a8 server on a float pool
+    wgen = weng.generate(prompts, max_new_tokens=16)
+    short = [Request(uid=r.uid, prompt=r.prompt, max_new_tokens=16)
+             for r in reqs[-4:]]
+    srvw = family_server(model, weng.params, "w8a8")
+    resw, _, _ = served("bloom w8a8", srvw, short, vocab)
+    del srvw
+    agree_w = gate_agreement("bloom w8a8 serve vs w8a8 generate", resw,
+                             {f"gen{i}": wgen[i] for i in range(4)})
+    agree8 = [agreement(res8[r.uid], res[r.uid]) for r in reqs]
+    log(f"[22a w8a8] the w8a8 server (float pool) against w8a8 generate "
+        f"(4 x (128 + 16)): {list(agree_w.values())}")
+    log(f"[22a serve w8a8+kv8] w8a8 engine built in {t_q:.2f} s (blocks "
+        f"quantized on the card, layer by layer); a decode step reads "
+        f"{w8_bytes / 1e9:.3f} GB of weights: bound "
+        f"{1e3 * w8_bytes / HBM_BYTES_PER_S:.3f} ms; "
+        f"{st8['generated_tokens']} generated tokens in {t8:.3f} s: "
+        f"{st8['generated_tokens'] / t8:.1f} generated tok/s; TTFT p50 "
+        f"{st8['ttft_p50_s']:.4f} s p95 {st8['ttft_p95_s']:.4f} s; "
+        f"kv_pool_bytes {st8['kv_pool_bytes']}; launches {nonzero(c8)}; "
+        f"agreement with the bf16 server: min {min(agree8):.4f}, mean "
+        f"{float(np.mean(agree8)):.4f}; {card}")
+    if not c8.get("w8a8_matmul_stacked_cuda"):
+        raise AssertionError(f"bloom w8a8+kv8 serve launches {c8}")
+    mark("w8a8 quantization and serve")
+    rmse = {}
+    lanes = tuple(depth_engine(bloom.build, cfg, e.params, 2, conf)
+                  for e, conf in ((engine, {"dtype": "bf16"}),
+                                  (weng, w8a8_cfg)))
+    want = teacher_forced_logits(lanes[0], prompts, gen, kv8=False)
+    for lane, eng, kv8 in (("w8a8", lanes[1], False),
+                           ("kv8", lanes[0], True),
+                           ("w8a8+kv8", lanes[1], True)):
+        rmse[lane] = logit_rmse(
+            teacher_forced_logits(eng, prompts, gen, kv8), want)
+        if not rmse[lane] <= W8A8_MAX_LOGIT_RMSE:
+            raise AssertionError(f"bloom {lane} at 2 layers: logit RMSE "
+                                 f"{rmse[lane]} > {W8A8_MAX_LOGIT_RMSE}")
+    log(f"[22a rmse] 2 layers: teacher-forced logit RMSE against the bf16 "
+        f"lane (max over the 4 prompts, {want.shape[0]} steps; logit RMS "
+        f"{want.pow(2).mean().sqrt().item():.4f}): " +
+        ", ".join(f"{k} {rmse[k]:.4f}" for k in ("w8a8", "kv8", "w8a8+kv8"))
+        + f" (limit {W8A8_MAX_LOGIT_RMSE:.4f})")
+    del lanes, want
+    del weng
+    free_card()
+    mark("teacher forcing")
+    with qmm_switch("1"):
+        weng7 = dt.init_inference(model, config={
+            "dtype": "bf16", "quant": {"enabled": True, "type": "weight"}},
+            params=engine.params)
+        (gen7, t7), c7 = launched(lambda: wall(
+            lambda: weng7.generate(prompts, max_new_tokens=16)))
+    del weng7
+    if not c7.get("quantized_matmul_cuda"):
+        raise AssertionError(f"bloom DS_QMM=1 generate launches {c7}")
+    log(f"[22a b7] weight-only records (groups of 128 along N) under "
+        f"DS_QMM=1: generate of 4 x 16 tokens in {t7:.3f} s, launches "
+        f"{nonzero(c7)}; agreement with bf16 generate's first 16 tokens "
+        f"{agreement(gen7, gen[:, :144]):.4f}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[22a table] bf16: generate {4 * 64 / t_gen:.1f} tok/s, serve "
+        f"{st['generated_tokens'] / t_srv:.1f} tok/s, TTFT p50 "
+        f"{st['ttft_p50_s']:.4f} s p95 {st['ttft_p95_s']:.4f} s, captured "
+        f"iteration wall {prof_f['wall_ms']:.3f} ms, device busy "
+        f"{prof_f['busy_ms']:.3f} ms, {prof_f['kernels']:.1f} kernels, "
+        f"weight-read bound {1e3 * bf16_bytes / HBM_BYTES_PER_S:.3f} ms, "
+        f"gather + ALiBi attention {layers * attn_ms:.3f} ms an iteration "
+        f"(replayed alone); w8a8+kv8: serve {st8['generated_tokens'] / t8:.1f}"
+        f" tok/s, TTFT p50 {st8['ttft_p50_s']:.4f} s p95 "
+        f"{st8['ttft_p95_s']:.4f} s, weight-read bound "
+        f"{1e3 * w8_bytes / HBM_BYTES_PER_S:.3f} ms; max_memory_allocated "
+        f"{peak} ({peak / 2 ** 30:.2f} GiB); {card}")
+    del engine
+    free_card()
+    family_fp32_check("bloom", bloom, dataclasses.replace(cfg, num_layers=2),
+                      vocab)
+    mark("B7 and the fp32 check")
+    return add_counts(c8, cf, cg), c7
+
+
+def family_generate_phase(tag, family, cfg, head, kernel, card):
+    """Phase 22 (b)-(d): ``cfg`` at full width on the card, random weights
+    drawn on the card from seed 0: bf16 ``generate`` of 4 x 128-token
+    prompts and :data:`P22_NEW` new tokens; then, the bf16 engine freed,
+    the w8a8 engine drawn from the same seed and quantized layer by layer,
+    whose ``generate`` runs ``kernel`` on every block matmul of every
+    decode step (B6 through the stacked records; GPT-Neo's B5 on each
+    layer's slice); fp32 at full width and 2 layers equal to recompute.
+    Returns the launch counts of the two generates."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.ops import quantization as quant
+
+    vocab, layers = cfg.vocab_size, cfg.num_layers
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    model = family.build(cfg)
+    mark = marker(tag)
+    engine, t_init = wall(lambda: dt.init_inference(
+        model, config={"dtype": "bf16"}))
+    nbytes = weight_read_bytes(engine.params, head=head)
+    prompts = np.random.default_rng(1).integers(0, vocab, (4, 128))
+    (gen, t_gen), cg = launched(lambda: wall(
+        lambda: engine.generate(prompts, max_new_tokens=P22_NEW)))
+    if gen.shape != (4, 128 + P22_NEW) or not ((gen >= 0) &
+                                               (gen < vocab)).all():
+        raise AssertionError(f"{tag} generate: shape {gen.shape} / bad ids")
+    log(f"[22 {tag}] {model.name}: {cfg.num_params() / 1e9:.3f} B "
+        f"parameters drawn on the card in bf16 in {t_init:.2f} s; generate "
+        f"4 x {P22_NEW} tokens in {t_gen:.3f} s ({4 * P22_NEW / t_gen:.1f} "
+        f"tok/s; a decode step reads {nbytes / 1e9:.3f} GB: bound "
+        f"{1e3 * nbytes / HBM_BYTES_PER_S:.3f} ms); peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; {card}")
+    del engine
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    weng, t_q = wall(lambda: dt.init_inference(model, config={
+        "dtype": "bf16", "quant": {"enabled": True, "type": "w8a8"}}))
+    w8_bytes = weight_read_bytes(weng.params, head=head)
+    (wgen, t_w), c8 = launched(lambda: wall(
+        lambda: weng.generate(prompts, max_new_tokens=P22_NEW)))
+    records = {k: v for k, v in weng.params["blocks"].items()
+               if quant.is_k_quantized(v)}
+    want = len(records) * layers * (P22_NEW - 1)
+    if c8.get(kernel) != want:
+        raise AssertionError(f"{tag} w8a8 generate: {kernel} launched "
+                             f"{c8.get(kernel)} times, not {want}")
+    log(f"[22 {tag} w8a8] drawn and quantized layer by layer in {t_q:.2f} "
+        f"s; records " + ", ".join(
+            f"{k} {tuple(v['qk'].shape[1:])} {v['kscale'].shape[1]} groups"
+            for k, v in records.items()) +
+        f"; generate in {t_w:.3f} s ({4 * P22_NEW / t_w:.1f} tok/s; bound "
+        f"{1e3 * w8_bytes / HBM_BYTES_PER_S:.3f} ms a step); launches "
+        f"{nonzero(c8)} = {len(records)} matmuls x {layers} layers x "
+        f"{P22_NEW - 1} decode steps; agreement with bf16 generate "
+        f"{agreement(wgen, gen):.4f}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; {card}")
+    del weng
+    free_card()
+    mark("bf16 and w8a8 generate")
+    family_fp32_check(tag, family, dataclasses.replace(cfg, num_layers=2),
+                      vocab, serve=False)
+    mark("fp32 check")
+    return add_counts(cg, c8)
+
+
+#: phase 22 (f)'s tiny HuggingFace configs, as ``config.json`` carries
+#: them
+P22_HF = {
+    "bloom": {"architectures": ["BloomForCausalLM"], "model_type": "bloom",
+              "vocab_size": 512, "hidden_size": 64, "n_layer": 2,
+              "n_head": 4},
+    "gpt_neox": {"architectures": ["GPTNeoXForCausalLM"],
+                 "model_type": "gpt_neox", "vocab_size": 512,
+                 "hidden_size": 64, "num_hidden_layers": 2,
+                 "num_attention_heads": 4, "intermediate_size": 256,
+                 "rotary_pct": 0.25, "rotary_emb_base": 10000,
+                 "max_position_embeddings": 128,
+                 "use_parallel_residual": True},
+    "gptj": {"architectures": ["GPTJForCausalLM"], "model_type": "gptj",
+             "vocab_size": 512, "n_embd": 64, "n_layer": 2, "n_head": 4,
+             "n_positions": 128, "rotary_dim": 8, "n_inner": None},
+    "gpt_neo": {"architectures": ["GPTNeoForCausalLM"],
+                "model_type": "gpt_neo", "vocab_size": 512,
+                "hidden_size": 64, "num_layers": 2, "num_heads": 4,
+                "max_position_embeddings": 128, "window_size": 8,
+                "attention_types": [[["global", "local"], 1]],
+                "intermediate_size": None},
+}
+
+
+def hf_state_dict(arch, c, seed):
+    """A HuggingFace-named state dict of ``arch`` for the config dict
+    ``c``: seeded normal(0, 0.05) float32 tensors, norm scales around 1."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    d = c.get("hidden_size", c.get("n_embd"))
+    v, f = c["vocab_size"], 4 * c.get("hidden_size", c.get("n_embd"))
+    layers = c.get("n_layer", c.get("num_hidden_layers",
+                                    c.get("num_layers")))
+    sd = {}
+
+    def t(*shape, base=0.0):
+        return base + 0.05 * torch.randn(shape, generator=g)
+
+    def ln(name):
+        sd[name + ".weight"], sd[name + ".bias"] = t(d, base=1.0), t(d)
+
+    def lin(name, out, inp, bias=True):
+        sd[name + ".weight"] = t(out, inp)
+        if bias:
+            sd[name + ".bias"] = t(out)
+
+    if arch == "bloom":
+        sd["word_embeddings.weight"] = t(v, d)
+        ln("word_embeddings_layernorm")
+        for i in range(layers):
+            p = f"h.{i}."
+            ln(p + "input_layernorm")
+            lin(p + "self_attention.query_key_value", 3 * d, d)
+            lin(p + "self_attention.dense", d, d)
+            ln(p + "post_attention_layernorm")
+            lin(p + "mlp.dense_h_to_4h", f, d)
+            lin(p + "mlp.dense_4h_to_h", d, f)
+        ln("ln_f")
+    elif arch == "gpt_neox":
+        sd["gpt_neox.embed_in.weight"] = t(v, d)
+        for i in range(layers):
+            p = f"gpt_neox.layers.{i}."
+            ln(p + "input_layernorm")
+            lin(p + "attention.query_key_value", 3 * d, d)
+            lin(p + "attention.dense", d, d)
+            ln(p + "post_attention_layernorm")
+            lin(p + "mlp.dense_h_to_4h", f, d)
+            lin(p + "mlp.dense_4h_to_h", d, f)
+        ln("gpt_neox.final_layer_norm")
+        sd["embed_out.weight"] = t(v, d)
+    elif arch == "gptj":
+        sd["transformer.wte.weight"] = t(v, d)
+        for i in range(layers):
+            p = f"transformer.h.{i}."
+            ln(p + "ln_1")
+            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                lin(p + "attn." + proj, d, d, bias=False)
+            lin(p + "mlp.fc_in", f, d)
+            lin(p + "mlp.fc_out", d, f)
+        ln("transformer.ln_f")
+        lin("lm_head", v, d)
+    else:
+        sd["transformer.wte.weight"] = t(v, d)
+        sd["transformer.wpe.weight"] = t(c["max_position_embeddings"], d)
+        for i in range(layers):
+            p = f"transformer.h.{i}."
+            ln(p + "ln_1")
+            for proj in ("q_proj", "k_proj", "v_proj"):
+                lin(p + "attn.attention." + proj, d, d, bias=False)
+            lin(p + "attn.attention.out_proj", d, d)
+            ln(p + "ln_2")
+            lin(p + "mlp.c_fc", f, d)
+            lin(p + "mlp.c_proj", d, f)
+        ln("transformer.ln_f")
+    return sd
+
+
+def megatron_checkpoint(seed, version, h=4, d=256, layers=2, vocab=512,
+                        s=128):
+    """A Megatron GPT state dict (qkv rows in ``version``'s layout) and its
+    two tensor-parallel shards, as Megatron splits them."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    hn = d // h
+
+    def t(*shape):
+        return 0.05 * torch.randn(shape, generator=g)
+
+    def layout(a):
+        x = a.reshape((3, h, hn) + tuple(a.shape[1:]))
+        rest = tuple(range(3, x.ndim))
+        if version == 1.0:
+            x = x.permute((1, 2, 0) + rest)
+        elif version == 2.0:
+            x = x.permute((1, 0, 2) + rest)
+        return x.reshape(a.shape).contiguous()
+
+    sd = {"word_embeddings.weight": t(vocab, d),
+          "position_embeddings.weight": t(s, d),
+          "final_layernorm.weight": 1 + t(d), "final_layernorm.bias": t(d)}
+    for i in range(layers):
+        p = f"layers.{i}."
+        for ln in ("input_layernorm", "post_attention_layernorm"):
+            sd[p + ln + ".weight"], sd[p + ln + ".bias"] = 1 + t(d), t(d)
+        sd[p + "attention.query_key_value.weight"] = layout(t(3 * d, d))
+        sd[p + "attention.query_key_value.bias"] = layout(t(3 * d))
+        sd[p + "attention.dense.weight"] = t(d, d)
+        sd[p + "attention.dense.bias"] = t(d)
+        sd[p + "mlp.dense_h_to_4h.weight"] = t(4 * d, d)
+        sd[p + "mlp.dense_h_to_4h.bias"] = t(4 * d)
+        sd[p + "mlp.dense_4h_to_h.weight"] = t(d, 4 * d)
+        sd[p + "mlp.dense_4h_to_h.bias"] = t(d)
+    shards = [{}, {}]
+    for name, v in sd.items():
+        if "query_key_value" in name and version == 0:
+            parts = [z.chunk(2, 0) for z in v.chunk(3, 0)]
+            pieces = [torch.cat([p[r] for p in parts]) for r in range(2)]
+        elif "query_key_value" in name or "word_embeddings" in name or \
+                "h_to_4h" in name:
+            pieces = v.chunk(2, 0)
+        elif name.endswith(("dense.weight", "4h_to_h.weight")):
+            pieces = v.chunk(2, 1)
+        else:
+            pieces = (v, v)
+        for r in range(2):
+            shards[r][name] = pieces[r].clone()
+    return sd, shards
+
+
+def write_zero2(path, sd, dp=2):
+    """The reference's ZeRO-2 directory of a module state dict: fp16
+    module weights and one flat fp32 partition a data-parallel rank (2 x dp
+    alignment padding)."""
+    from collections import OrderedDict
+
+    import torch
+
+    os.makedirs(path)
+    torch.save({"module": OrderedDict((k, v.half()) for k, v in sd.items()),
+                "param_shapes": [OrderedDict((k, v.shape)
+                                             for k, v in sd.items())],
+                "buffer_names": [], "ds_version": "0.8.2",
+                "global_steps": 7},
+               os.path.join(path, "mp_rank_00_model_states.pt"))
+    flat = torch.cat([v.reshape(-1) for v in sd.values()])
+    flat = torch.cat([flat, flat.new_zeros(-flat.numel() % (2 * dp))])
+    for r, part in enumerate(flat.chunk(dp)):
+        torch.save({"optimizer_state_dict": {
+            "zero_stage": 2,
+            "single_partition_of_fp32_groups": [part.clone()]}},
+            os.path.join(path, f"zero_pp_rank_{r}_mp_rank_00_optim_states.pt"))
+
+
+def ingestion_phase(card):
+    """Phase 22 (f), on the card, from files written here from seeded
+    random tensors: for a tiny BLOOM, GPT-NeoX, GPT-J and GPT-Neo an
+    HF-format directory (``config.json`` + ``pytorch_model.bin``; BLOOM's
+    also as ``model.safetensors`` by the port's writer) through
+    ``init_inference(path)``, tokens equal to the same weights given as
+    ``params``; a two-shard Megatron checkpoint of each qkv version through
+    ``get_sd_loader``, GPT-2 tokens equal to the unsharded checkpoint's; a
+    ZeRO-2 directory through ``load_ds_checkpoint_into``, equal to its
+    source tensors."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.checkpoint import load_ds_checkpoint_into
+    from deepspeed_tpu_torch.models import gpt2, megatron_gpt
+    from deepspeed_tpu_torch.module_inject import replace_module
+    from deepspeed_tpu_torch.module_inject.replace_policy import _gpt2_convert
+    from deepspeed_tpu_torch.runtime.state_dict_factory import (
+        get_sd_loader, write_safetensors)
+
+    fp32 = {"dtype": "fp32"}
+    prompts = np.random.default_rng(3).integers(0, 512, (2, 12))
+
+    def tokens(model, params=None):
+        return dt.init_inference(model, config=fp32, params=params).generate(
+            prompts, max_new_tokens=8)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (arch, c) in enumerate(P22_HF.items()):
+            sd = hf_state_dict(arch, c, 40 + i)
+            want = tokens(*replace_module(config=c, state_dict=sd))
+            dirs = {"bin": os.path.join(tmp, arch)}
+            if arch == "bloom":
+                dirs["safetensors"] = os.path.join(tmp, arch + "_st")
+            for fmt, path in dirs.items():
+                os.makedirs(path)
+                with open(os.path.join(path, "config.json"), "w") as f:
+                    json.dump(c, f)
+                if fmt == "bin":
+                    torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+                else:
+                    write_safetensors(sd, os.path.join(path,
+                                                       "model.safetensors"))
+                got = tokens(path)
+                if not (got == want).all():
+                    raise AssertionError(f"{arch} from {fmt}: init_inference"
+                                         f"(path) decodes {got}, the params "
+                                         f"{want}")
+        log(f"[22f] HF directories (config.json + pytorch_model.bin; BLOOM's "
+            f"also model.safetensors) of bloom, gpt_neox, gptj, gpt_neo -> "
+            f"init_inference(path) on {card.split(',')[0]}: tokens equal to "
+            "the same weights given as params")
+        for version in (0, 1.0, 2.0):
+            sd, shards = megatron_checkpoint(50, version)
+            files = []
+            for r, shard in enumerate(shards):
+                files.append(os.path.join(tmp, f"meg{version}_{r}.pt"))
+                torch.save({"model": {"language_model": {
+                    "transformer": shard}}, "checkpoint_version": version},
+                    files[-1])
+            cfg = megatron_gpt.config_from_state_dicts(shards, num_heads=4)
+            model, params = get_sd_loader(files, version=version)(cfg)
+            whole = megatron_gpt.from_megatron_state_dicts(
+                cfg, [sd], ckpt_version=version)
+            got, want = tokens(model, params), tokens(gpt2.build(cfg), whole)
+            if not (got == want).all():
+                raise AssertionError(f"Megatron version {version}: the tp-2 "
+                                     "merge decodes otherwise than the "
+                                     "unsharded checkpoint")
+        log("[22f] two-shard Megatron checkpoints of qkv versions 0, 1.0, "
+            "2.0 -> get_sd_loader -> GPT-2 tokens equal to the unsharded "
+            "checkpoint's")
+        sd = _gpt2_hf_sd(60)
+        write_zero2(os.path.join(tmp, "zero2"), sd)
+        cfg = gpt2.GPT2Config(vocab_size=512, max_seq_len=128, num_layers=2,
+                              num_heads=4, hidden_size=256)
+        params, _, client = load_ds_checkpoint_into(
+            os.path.join(tmp, "zero2"), cfg=cfg)
+        want = _gpt2_convert(cfg, sd)
+        for key, leaf in want["blocks"].items():
+            if not torch.equal(params["blocks"][key], leaf):
+                raise AssertionError(f"ZeRO-2 {key} differs from its source")
+        if not torch.equal(params["wte"], want["wte"]) or \
+                client.get("global_steps") != 7:
+            raise AssertionError("ZeRO-2 wte / client state")
+        got = tokens(gpt2.build(cfg), params)
+        log(f"[22f] ZeRO-2 directory (fp16 module, 2 fp32 partitions) -> "
+            f"load_ds_checkpoint_into: every tensor equal to its fp32 "
+            f"source, global_steps {client['global_steps']}; generate "
+            f"{got.shape} on the card; (f) in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+
+def _gpt2_hf_sd(seed, v=512, s=128, layers=2, d=256):
+    """A HuggingFace GPT-2 state dict (Conv1D weights ``[in, out]``)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+
+    def t(*shape):
+        return 0.05 * torch.randn(shape, generator=g)
+
+    sd = {"wte.weight": t(v, d), "wpe.weight": t(s, d)}
+    for i in range(layers):
+        p = f"h.{i}."
+        for name, shape in (("ln_1.weight", (d,)), ("ln_1.bias", (d,)),
+                            ("attn.c_attn.weight", (d, 3 * d)),
+                            ("attn.c_attn.bias", (3 * d,)),
+                            ("attn.c_proj.weight", (d, d)),
+                            ("attn.c_proj.bias", (d,)),
+                            ("ln_2.weight", (d,)), ("ln_2.bias", (d,)),
+                            ("mlp.c_fc.weight", (d, 4 * d)),
+                            ("mlp.c_fc.bias", (4 * d,)),
+                            ("mlp.c_proj.weight", (4 * d, d)),
+                            ("mlp.c_proj.bias", (d,))):
+            sd[p + name] = t(*shape)
+    sd["ln_f.weight"], sd["ln_f.bias"] = 1 + t(d), t(d)
+    return sd
+
+
+def decoder_families_phase(card):
+    """Phase 22: (e) the int8 kernels at the new shapes, (a) BLOOM-7b1
+    served, (b) GPT-NeoX-20B, (c) GPT-J-6B, (d) GPT-Neo-2.7B generating,
+    (f) ingestion.  Returns ((e)'s measurements by model, B7's, and the
+    main-path launch counts by model tag, B7's under ``"bloom-7b1 b7"``)."""
+    import dataclasses
+
+    import torch
+
+    from deepspeed_tpu_torch.models import gptj, gptneo, gptneox
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    free_card()
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    t = [time.perf_counter()]
+    measured, b7 = check_p22_kernels(flush)
+    t.append(time.perf_counter())
+    launches = {}
+    launches["bloom-7b1"], launches["bloom-7b1 b7"] = bloom_serving_phase(
+        card, flush)
+    del flush
+    t.append(time.perf_counter())
+    for tag, family, cfg, head, kernel in (
+            ("gpt-neox-20b", gptneox, dataclasses.replace(
+                gptneox.GPTNeoXConfig.neox_20b(), num_layers=NEOX_LAYERS),
+             "embed_out", "w8a8_matmul_stacked_cuda"),
+            ("gpt-j-6b", gptj, gptj.GPTJConfig.gptj_6b(), "lm_head_w",
+             "w8a8_matmul_stacked_cuda"),
+            ("gpt-neo-2.7b", gptneo, gptneo.GPTNeoConfig.neo_2p7b(), "wte",
+             "w8a8_matmul_cuda")):
+        launches[tag] = family_generate_phase(tag, family, cfg, head, kernel,
+                                              card)
+        t.append(time.perf_counter())
+    ingestion_phase(card)
+    t.append(time.perf_counter())
+    log("[22] phase 22 " + ", ".join(
+        f"({p}) {b - a:.1f} s" for p, a, b in zip("eabcdf", t, t[1:])) +
+        "; main-path launches " + "; ".join(
+            f"{k} {nonzero(v)}" for k, v in launches.items()))
+    return measured, b7, launches
+
+
 def build_all():
     """Phase 1's builds: one nvcc per CUDA source and one g++ per host
     source, and one per planted fault of phases 14, 15 and 16
@@ -7346,6 +8127,7 @@ def main() -> int:
     zi_measured, zi_launches = zero_inference_phase(card)
     fp16_measured, fp16_launches, fp16_llama_launches = fp16_phase(card,
                                                                    faults)
+    p22_measured, p22_b7, p22_launches = decoder_families_phase(card)
 
     # one line per kernel; a flash kernel replaces three TPU regimes (v1,
     # v2, v3: PERF.md) and names the v1 site, whose lse format it keeps
@@ -7535,6 +8317,28 @@ def main() -> int:
                     "max_abs_err", "ms", "graph_ms", "plain_ms", "plain_at",
                     "bound_ms", "bound_by", "library_ms",
                     "library_graph_ms")}})
+    # phase 22: B6 on BLOOM-7b1's path (the w8a8+kv8 serve), GPT-NeoX-20B's
+    # and GPT-J-6B's (w8a8 generate), B5 on GPT-Neo-2.7B's (w8a8 generate,
+    # each layer's records), B7 on BLOOM-7b1's (the DS_QMM=1 generate);
+    # each held and timed at the model's widest K in (e)
+    qm_rows = (
+        ("bloom-7b1", "w8a8_matmul_stacked_cuda", "bloom-7b1"),
+        ("gpt-neox-20b", "w8a8_matmul_stacked_cuda", "gpt-neox-20b"),
+        ("gpt-j-6b", "w8a8_matmul_stacked_cuda", "gpt-j-6b"),
+        ("gpt-neo-2.7b", "w8a8_matmul_cuda", "gpt-neo-2.7b"),
+        ("bloom-7b1", "quantized_matmul_cuda", "bloom-7b1 b7"))
+    for tag, name, lane in qm_rows:
+        m = p22_b7 if name == "quantized_matmul_cuda" else \
+            p22_measured[tag][name]
+        if p22_launches[lane][name] == 0:
+            raise AssertionError(f"phase 22 ({tag}) never launched {name}")
+        kernels.append({
+            "name": f"{name}[{tag}]", "route": "cuda",
+            "kernel": designs[name], "source": sources[qm],
+            "replaces": replaces[name], "launches": p22_launches[lane][name],
+            **{key: m[key] for key in (
+                "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "library_graph_ms")}})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

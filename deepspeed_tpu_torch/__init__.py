@@ -14,6 +14,19 @@ from __future__ import annotations
 __version__ = "0.1.0"
 
 
+
+def __getattr__(name):
+    """``module_inject`` and ``replace_module`` (exported as the JAX
+    package exports them), imported at first use so that importing the
+    package stays light."""
+    if name in ("module_inject", "replace_module"):
+        import importlib
+
+        mod = importlib.import_module(".module_inject", __name__)
+        return mod if name == "module_inject" else mod.replace_module
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, mpu=None,
                dist_init_required=None, collate_fn=None, config=None,
@@ -74,13 +87,17 @@ def init_inference(model=None, config=None, params=None, device=None,
                    **kwargs):
     """Inference engine entry (reference ``__init__.py:233``).
 
-    ``model``: a model from ``deepspeed_tpu_torch.models``
-    (``gpt2.build``, ``llama.build``, ``mixtral.build``, ``opt.build`` or
-    ``get_model`` by the JAX package's names, e.g. ``"llama-3-8b"``,
-    ``"mixtral-8x7b"``, ``"opt-13b"``); the JAX package's other families,
-    a HuggingFace model or a path to its checkpoint, are not ported
-    (ROADMAP Queue A item 7; OPT's HuggingFace weights load through
-    ``opt.from_hf_state_dict`` into ``params``).
+    ``model``: a model from ``deepspeed_tpu_torch.models`` (the
+    ``build`` of gpt2, llama, mixtral, opt, bloom, gptneox, gptj or
+    gptneo, or ``get_model`` by the JAX package's names, e.g.
+    ``"llama-3-8b"``, ``"bloom-7b1"``, ``"gpt-neox-20b"``); an in-memory
+    HuggingFace model, converted by its architecture's injection policy
+    (``module_inject.replace_module``); or the path of a HuggingFace
+    checkpoint directory (``config.json`` read with ``json``, the weights
+    from ``.bin`` or ``.safetensors`` files: ``runtime.state_dict_factory.
+    load_hf_weights``), whose converted weights are served unless
+    ``params`` is given.  The encoder and diffusion families (bert,
+    distilbert, clip, vae, unet) are not ported (ROADMAP Queue A item 7).
     ``config``: a dict or :class:`~deepspeed_tpu_torch.inference.config.
     DeepSpeedInferenceConfig` (or its keys as keyword arguments);
     ``moe.ep_size`` > 1 (expert parallelism) is refused (Queue A item 8).
@@ -100,14 +117,15 @@ def init_inference(model=None, config=None, params=None, device=None,
     from .inference.engine import InferenceEngine
 
     if model is None:
-        raise ValueError("init_inference needs a model (models.gpt2.build, "
-                         "models.llama.build, models.mixtral.build, "
-                         "models.opt.build or models.get_model)")
+        raise ValueError("init_inference needs a model (models.<family>."
+                         "build or models.get_model), a HuggingFace model "
+                         "or a checkpoint directory")
     if getattr(model, "decode_hooks", None) is None:
-        _unsupported("init_inference", f"model={type(model).__name__}", 7,
-                     "other model families (HuggingFace models and "
-                     "checkpoint paths go through module_inject and "
-                     "state_dict_factory)")
+        from .runtime.state_dict_factory import load_hf_weights
+
+        model, converted = load_hf_weights(model)
+        if params is None:
+            params = converted
     if isinstance(config, dict):
         config = DeepSpeedInferenceConfig(**config)
     elif config is None:

@@ -199,9 +199,9 @@ class InferenceEngine:
         if getattr(model, "decode_hooks", None) is None or \
                 not hasattr(model, "init_fn"):
             raise TypeError("init_inference expects a deepspeed_tpu_torch "
-                            "model (models.gpt2.build, models.llama.build, "
-                            "models.mixtral.build, models.opt.build or "
-                            "models.get_model)")
+                            "model (models.<family>.build or "
+                            "models.get_model), a HuggingFace model or a "
+                            "checkpoint directory")
         _check_supported(config)
         self.module = model
         self._config = config

@@ -3,7 +3,8 @@ package's names (``deepspeed_tpu/models/__init__.py``)."""
 
 import dataclasses
 
-from . import gpt2, llama, mixtral, opt
+from . import (bloom, gpt2, gptj, gptneo, gptneox, llama, megatron_gpt,
+               mixtral, opt)
 
 
 def _with(cfg, overrides):
@@ -22,6 +23,29 @@ _NAMED = {
     "mixtral": lambda kw: mixtral.build(**kw),
     "mixtral8x7b": lambda kw: mixtral.build(
         _with(mixtral.MixtralConfig.mixtral_8x7b(), kw)),
+    "bloom": lambda kw: bloom.build(**kw),
+    "bloom560m": lambda kw: bloom.build(_with(bloom.BloomConfig.bloom_560m(),
+                                              kw)),
+    "bloom7b1": lambda kw: bloom.build(_with(bloom.BloomConfig.bloom_7b1(),
+                                             kw)),
+    "gptneo": lambda kw: gptneo.build(**kw),
+    "gptneo1p3b": lambda kw: gptneo.build(
+        _with(gptneo.GPTNeoConfig.neo_1p3b(), kw)),
+    "gptneo2p7b": lambda kw: gptneo.build(
+        _with(gptneo.GPTNeoConfig.neo_2p7b(), kw)),
+    # "gpt-neo-1.3b" / "gpt-neo-2.7b" as written (no GPT-Neo 13b or 27b
+    # exists to collide with, unlike "opt-1.3b" and "opt-13b")
+    "gptneo13b": lambda kw: gptneo.build(
+        _with(gptneo.GPTNeoConfig.neo_1p3b(), kw)),
+    "gptneo27b": lambda kw: gptneo.build(
+        _with(gptneo.GPTNeoConfig.neo_2p7b(), kw)),
+    "gptj": lambda kw: gptj.build(**kw),
+    "gptj6b": lambda kw: gptj.build(_with(gptj.GPTJConfig.gptj_6b(), kw)),
+    "gptneox": lambda kw: gptneox.build(**kw),
+    "gptneox20b": lambda kw: gptneox.build(
+        _with(gptneox.GPTNeoXConfig.neox_20b(), kw)),
+    "pythia160m": lambda kw: gptneox.build(
+        _with(gptneox.GPTNeoXConfig.pythia_160m(), kw)),
     "opt": lambda kw: opt.build(**kw),
     "opt125m": lambda kw: opt.build(_with(opt.OPTConfig.opt_125m(), kw)),
     "opt350m": lambda kw: opt.build(_with(opt.OPTConfig.opt_350m(), kw)),
@@ -37,9 +61,7 @@ _NAMED = {
 
 #: the JAX package's other names: families this port does not have yet
 _LATER = ("bert", "bertbase", "bertlarge", "vae", "sdvae", "unet", "sdunet",
-          "clip", "clipvitb32", "bloom", "bloom560m", "bloom7b1", "gptneo",
-          "gptneo1p3b", "gptneo2p7b", "gptj", "gptj6b", "gptneox",
-          "gptneox20b", "pythia160m")
+          "clip", "clipvitb32")
 
 
 def get_model(name: str, **kwargs):
@@ -49,9 +71,9 @@ def get_model(name: str, **kwargs):
     key = name.lower().replace("-", "").replace("_", "").replace(".", "")
     if key in _LATER:
         raise NotImplementedError(
-            f"model {name!r}: this family is not ported yet — it comes with "
-            "the PyTorch port's other model families (ROADMAP.md Queue A "
-            "item 7)")
+            f"model {name!r}: this family is not ported yet — the encoder "
+            "and diffusion families (bert, clip, vae, unet) come with the "
+            "next slice of ROADMAP.md Queue A item 7")
     if key not in _NAMED:
         raise ValueError(
             f"unknown model {name!r}; known: {sorted(_NAMED)} "

@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from . import gpt2
+from . import common, gpt2
 from . import llama
 from ..ops.flash_attention import flash_attention
 from ..utils.rows import fixed_row_mm
@@ -177,21 +177,8 @@ def init_params(cfg: OPTConfig, generator: torch.Generator,
     layer (``gpt2.draw_layers``; ``layer_fn`` quantizes each layer as it
     is drawn, or moves it to the host for ZeRO-Inference).  The draws differ from JAX's; to run the same
     weights in both packages use :func:`params_from_jax`."""
-    dev = generator.device
-    if device is not None and torch.device(device) != dev:
-        raise ValueError(f"init_params draws on the generator's device "
-                         f"{dev}, not {device}")
+    normal, ones = common.drawers(generator, dtype, device)
     d, e = cfg.hidden_size, cfg.embed_dim
-
-    def normal(shape, s=0.02):
-        if s == 0.0:
-            return torch.zeros(shape, dtype=dtype, device=dev)
-        return (torch.randn(shape, generator=generator, device=dev) * s
-                ).to(dtype)
-
-    def ones(shape):
-        return torch.ones(shape, dtype=dtype, device=dev)
-
     params = {"embed_tokens": normal((cfg.vocab_size, e)),
               "embed_positions": normal((cfg.max_seq_len + _POS_OFFSET, d))}
     if cfg.has_proj:
@@ -201,7 +188,7 @@ def init_params(cfg: OPTConfig, generator: torch.Generator,
                                         normal, ones, layer_fn)
     if cfg.do_layer_norm_before:
         params["lnf_scale"] = ones((d,))
-        params["lnf_bias"] = torch.zeros((d,), dtype=dtype, device=dev)
+        params["lnf_bias"] = normal((d,), 0.0)
     return params
 
 
@@ -405,31 +392,13 @@ def _stream_head(cfg: OPTConfig, params: Params, x_last):
     return head(x_last, "embed_tokens", x_last.dtype)
 
 
-def _ce_from_logits(logits, targets):
-    """``lse - picked logit`` mean cross entropy over the targets that are
-    not -100 (``opt.py:378``)."""
-    valid = targets >= 0
-    safe = torch.where(valid, targets, 0)
-    lse = torch.logsumexp(logits.float(), dim=-1)
-    picked = logits.gather(-1, safe[..., None])[..., 0].float()
-    return torch.where(valid, lse - picked, 0.0).sum() / \
-        valid.sum().clamp(min=1)
-
-
 def loss_from_batch(cfg: OPTConfig, params: Params, batch, rng=None,
                     train: bool = True):
     """Next-token cross entropy (``opt.py:390``); ``batch`` as
     ``gpt2.loss_from_batch`` takes it.  Dropout is not ported."""
     del rng, train
-    if isinstance(batch, (tuple, list)):
-        input_ids, labels = batch
-    else:
-        input_ids = batch["input_ids"]
-        labels = batch.get("labels")
-    if labels is None:
-        labels = input_ids[:, 1:]
-        input_ids = input_ids[:, :-1]
-    return _ce_from_logits(forward(cfg, params, input_ids), labels)
+    input_ids, labels = common.split_batch(batch)
+    return common.ce_from_logits(forward(cfg, params, input_ids), labels)
 
 
 # --------------------------------------------------------------------- HF I/O
@@ -439,16 +408,7 @@ def from_hf_state_dict(cfg: OPTConfig, sd: Dict[str, Any]) -> Params:
     without the ``model.decoder.`` / ``decoder.`` prefix), q/k/v fused
     into ``qkv_w``/``qkv_b``, HF's ``[out, in]`` Linear weights transposed
     to ``[in, out]``; float32 CPU tensors."""
-    def get(name):
-        for prefix in ("model.decoder.", "decoder.", ""):
-            key = prefix + name
-            if key in sd:
-                t = sd[key]
-                return np.asarray(t.detach().cpu().float().numpy()
-                                  if hasattr(t, "detach") else t,
-                                  dtype=np.float32)
-        raise KeyError(f"missing OPT weight {name!r}; have "
-                       f"{sorted(sd)[:8]}...")
+    get = common.hf_getter(sd, ("model.decoder.", "decoder.", ""), "OPT")
 
     def stack(fmt, transpose=False, fuse_qkv=False):
         rows = []
@@ -459,11 +419,11 @@ def from_hf_state_dict(cfg: OPTConfig, sd: Dict[str, Any]) -> Params:
             else:
                 w = get(fmt.format(i=i))
             rows.append(w.T if transpose else w)
-        return torch.from_numpy(np.ascontiguousarray(np.stack(rows)))
+        return common.hf_tensor(np.stack(rows))
 
     def one(name, transpose=False):
         w = get(name)
-        return torch.from_numpy(np.ascontiguousarray(w.T if transpose else w))
+        return common.hf_tensor(w.T if transpose else w)
 
     params = {
         "embed_tokens": one("embed_tokens.weight"),
@@ -533,7 +493,7 @@ class OPTModel(nn.Module):
             "blocks_key": ("blocks",),
             "embed_fn": lambda params, ids: _embed(cfg, params, ids),
             "block_fn": lambda layer, x, rng=None: _block(cfg, x, layer),
-            "head_loss_fn": lambda params, x, tgt: _ce_from_logits(
+            "head_loss_fn": lambda params, x, tgt: common.ce_from_logits(
                 _head(cfg, params, x), tgt),
             "dropout": cfg.dropout,
         }

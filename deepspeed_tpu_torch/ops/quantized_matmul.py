@@ -181,20 +181,23 @@ def w8a8_matmul_split_plain(x2d, qk, kscale3, out_dtype=None, order=None):
     if order is None:
         order = range(tiles * groups - 1, -1, -1)
     xf = x2d.to(torch.float32)
+    # each group's codes and ax/127 are the same for every tile: made once
+    codes, dq = [], []
+    for g in range(groups):
+        xt = xf[:, g * k_group:(g + 1) * k_group]
+        ax = xt.abs().amax(dim=1, keepdim=True)
+        ax = torch.where(ax == 0, torch.ones_like(ax), ax)
+        codes.append(torch.clamp(torch.round(xt * quant.ieee_div(127.0, ax)),
+                                 -127, 127).to(torch.float64))
+        dq.append(quant.ieee_div(ax, 127.0))
+    qk64 = qk.to(torch.float64)
     part = torch.empty((groups, b, n_dim), dtype=torch.float32,
                        device=x2d.device)
     for i in order:
         tile, g = divmod(int(i), groups)
         cols = slice(tile * W8A8_TILE_N, (tile + 1) * W8A8_TILE_N)
-        xt = xf[:, g * k_group:(g + 1) * k_group]
-        ax = xt.abs().amax(dim=1, keepdim=True)
-        ax = torch.where(ax == 0, torch.ones_like(ax), ax)
-        xq = torch.clamp(torch.round(xt * quant.ieee_div(127.0, ax)),
-                         -127, 127)
-        dot = xq.to(torch.float64) @ \
-            qk[g * k_group:(g + 1) * k_group, cols].to(torch.float64)
-        part[g, :, cols] = dot.to(torch.float32) * \
-            quant.ieee_div(ax, 127.0) * kscale3[g, :, cols]
+        dot = codes[g] @ qk64[g * k_group:(g + 1) * k_group, cols]
+        part[g, :, cols] = dot.to(torch.float32) * dq[g] * kscale3[g, :, cols]
     acc = torch.zeros((b, n_dim), dtype=torch.float32, device=x2d.device)
     for g in range(groups):
         acc = acc + part[g]

@@ -101,8 +101,20 @@ def _method_pairs():
     from deepspeed_tpu.models import llama as jllama
     from deepspeed_tpu.models import mixtral as jmix
     from deepspeed_tpu.models import opt as jopt
+    from deepspeed_tpu.models import bloom as jbloom
+    from deepspeed_tpu.models import gptj as jgptj
+    from deepspeed_tpu.models import gptneo as jgptneo
+    from deepspeed_tpu.models import gptneox as jgptneox
+    from deepspeed_tpu.module_inject import replace_policy as jpol
     from deepspeed_tpu.runtime import engine as jtrain
+    from deepspeed_tpu.runtime import state_dict_factory as jsdf
     from deepspeed_tpu_torch.inference import engine as teng
+    from deepspeed_tpu_torch.models import bloom as tbloom
+    from deepspeed_tpu_torch.models import gptj as tgptj
+    from deepspeed_tpu_torch.models import gptneo as tgptneo
+    from deepspeed_tpu_torch.models import gptneox as tgptneox
+    from deepspeed_tpu_torch.module_inject import replace_policy as tpol
+    from deepspeed_tpu_torch.runtime import state_dict_factory as tsdf
     from deepspeed_tpu_torch.inference import serving as tsrv
     from deepspeed_tpu_torch.models import llama as tllama
     from deepspeed_tpu_torch.models import mixtral as tmix
@@ -123,6 +135,17 @@ def _method_pairs():
         ("MixtralConfig", jmix.MixtralConfig, tmix.MixtralConfig),
         ("opt.build", jopt.build, topt.build),
         ("OPTConfig", jopt.OPTConfig, topt.OPTConfig),
+        ("replace_module", jpol.replace_module, tpol.replace_module),
+        ("policy_for", jpol.policy_for, tpol.policy_for),
+        ("load_hf_weights", jsdf.load_hf_weights, tsdf.load_hf_weights),
+        ("bloom.build", jbloom.build, tbloom.build),
+        ("BloomConfig", jbloom.BloomConfig, tbloom.BloomConfig),
+        ("gptneox.build", jgptneox.build, tgptneox.build),
+        ("GPTNeoXConfig", jgptneox.GPTNeoXConfig, tgptneox.GPTNeoXConfig),
+        ("gptj.build", jgptj.build, tgptj.build),
+        ("GPTJConfig", jgptj.GPTJConfig, tgptj.GPTJConfig),
+        ("gptneo.build", jgptneo.build, tgptneo.build),
+        ("GPTNeoConfig", jgptneo.GPTNeoConfig, tgptneo.GPTNeoConfig),
         ("DeepSpeedEngine.save_checkpoint",
          jtrain.DeepSpeedEngine.save_checkpoint,
          ttrain.DeepSpeedEngine.save_checkpoint),
@@ -135,6 +158,9 @@ def _method_pairs():
 METHODS = ["ServingEngine.submit", "ServingEngine.serve", "Request",
            "InferenceEngine.generate", "llama.build", "LlamaConfig",
            "mixtral.build", "MixtralConfig", "opt.build", "OPTConfig",
+           "replace_module", "policy_for", "load_hf_weights", "bloom.build",
+           "BloomConfig", "gptneox.build", "GPTNeoXConfig", "gptj.build",
+           "GPTJConfig", "gptneo.build", "GPTNeoConfig",
            "DeepSpeedEngine.save_checkpoint",
            "DeepSpeedEngine.load_checkpoint"]
 
@@ -226,7 +252,11 @@ def test_unported_serving_keywords_refuse_other_values(model, keyword, value,
 @pytest.mark.parametrize("name,layers", [("llama-3-8b", 32),
                                          ("Llama_3.70B", 80), ("gpt2", 12),
                                          ("mixtral-8x7b", 32),
-                                         ("opt-13b", 40)])
+                                         ("opt-13b", 40), ("bloom-7b1", 30),
+                                         ("gptj-6b", 28),
+                                         ("gpt-neox-20b", 44),
+                                         ("gpt-neo-2.7b", 32),
+                                         ("pythia-160m", 12)])
 def test_get_model_keeps_the_jax_names(name, layers):
     from deepspeed_tpu_torch import models
 
@@ -234,18 +264,29 @@ def test_get_model_keeps_the_jax_names(name, layers):
     assert models.get_model(name, num_layers=2).model_config.num_layers == 2
 
 
-@pytest.mark.parametrize("name", ["bloom-7b1", "gptj-6b", "bert"])
+@pytest.mark.parametrize("name", ["bert-base", "clip-vit-b32", "sd-vae"])
 def test_get_model_refuses_families_it_does_not_port(name):
+    """Only the encoder and diffusion families stay refused (the decoder
+    families of Queue A item 7 are ported)."""
     from deepspeed_tpu_torch import models
 
-    with pytest.raises(NotImplementedError, match=r"Queue A item 7\)"):
+    with pytest.raises(NotImplementedError, match=r"Queue A item 7"):
         models.get_model(name)
 
 
-def test_init_inference_refuses_models_it_does_not_port():
-    for model in ("gpt2", torch.nn.Linear(4, 4)):
-        with pytest.raises(NotImplementedError, match=r"Queue A item 7\)"):
-            deepspeed_tpu_torch.init_inference(model, device="cpu")
+def test_init_inference_refuses_models_it_does_not_port(tmp_path):
+    """A model that is neither the port's nor a HuggingFace one, a path
+    without ``config.json``, and an HF architecture whose family is not
+    ported (BERT) are refused."""
+    with pytest.raises(ValueError, match="not a HuggingFace model"):
+        deepspeed_tpu_torch.init_inference(torch.nn.Linear(4, 4),
+                                           device="cpu")
+    with pytest.raises(FileNotFoundError, match="config.json"):
+        deepspeed_tpu_torch.init_inference(str(tmp_path / "gpt2"),
+                                           device="cpu")
+    (tmp_path / "config.json").write_text('{"model_type": "bert"}')
+    with pytest.raises(NotImplementedError, match=r"Queue A item 7"):
+        deepspeed_tpu_torch.init_inference(str(tmp_path), device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -215,12 +215,23 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         "import deepspeed_tpu_torch.runtime.checkpointing\n"
         "import deepspeed_tpu_torch.runtime.zero.offload\n"
         "import deepspeed_tpu_torch.runtime.zero.param_stream\n"
+        "import deepspeed_tpu_torch.module_inject\n"
+        "import deepspeed_tpu_torch.runtime.state_dict_factory\n"
+        "import deepspeed_tpu_torch.checkpoint.ds_native\n"
+        "import deepspeed_tpu_torch.models.megatron_gpt\n"
+        "import deepspeed_tpu_torch.models.bloom\n"
+        "import deepspeed_tpu_torch.models.gptneox\n"
+        "import deepspeed_tpu_torch.models.gptj\n"
+        "import deepspeed_tpu_torch.models.gptneo\n"
         "from deepspeed_tpu_torch.models import get_model\n"
         "get_model('llama-3-8b')\n"
+        "for name in ('bloom-7b1', 'gpt-neox-20b', 'gpt-j-6b', 'gpt-neo-2.7b'):\n"
+        "    get_model(name)\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
-        "n.startswith(('jax.', 'deepspeed_tpu.')) or n == 'deepspeed_tpu')\n"
+        "n.startswith(('jax.', 'deepspeed_tpu.')) or n == 'deepspeed_tpu'"
+        " or n.split('.')[0] in ('transformers', 'safetensors'))\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith(p.__name__)]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
