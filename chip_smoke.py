@@ -427,6 +427,31 @@ and every replay adds them.
     versions 0, 1.0 and 2.0, a ZeRO-2 directory.  The launches give the
     ``[bloom-7b1]``, ``[gpt-neox-20b]``, ``[gpt-j-6b]`` and
     ``[gpt-neo-2.7b]`` entries of the kernels line.
+ 23. The encoder and diffusion families (:func:`encoder_diffusion_phase`),
+    run last; no TPU kernel lies on their path, so they launch none of the
+    port's CUDA kernels and add no entry to the kernels line.  (a) BERT,
+    CLIP, the VAE and the UNet at small widths in fp32 (TF32 off):
+    ``forward`` and the loss on the card equal the CPU's within 1e-4, and
+    one ``train_batch`` step's loss and grad norm too (the VAE's latent
+    drawn from the same micro-step key on both).  (b)-(e) each family at
+    its published width through ``initialize`` -> ``train_batch`` in bf16
+    (Adam, 5 steps on one fixed batch, losses finite and falling): (b) SD
+    UNet (859.5 M, micro 2, 64 x 64 bf16 latents, a bf16 ``[2, 77, 768]``
+    context), then ``init_inference(..., bf16).forward`` of the trained
+    weights against the fp32 forward (relative RMSE <=
+    ``P23_BF16_REL_RMSE``); (c) SD VAE (83.7 M, 256 x 256, micro 4), then
+    encode + decode at 512 x 512 bf16 against fp32; (d) BERT-large (335.2
+    M, 8 x 512, 15% of positions labelled), its bf16 MLM argmax equal to
+    fp32's on >= 0.95 of the positions, then BERT-base written as
+    ``config.json`` + ``model.safetensors`` by the port's writer in HF
+    names and served by ``init_inference(directory)``: bf16 logits equal,
+    bit for bit, to the directly built model's; (e) CLIP ViT-B/32 (151.3
+    M, 32 image-text pairs, 224 x 224, 77 tokens), then its HF directory
+    the same way.  Each prints step ms (median past the first),
+    samples/s, peak GiB, TFLOP a step (``FlopCounterMode``) and TFLOP/s;
+    one UNet and one BERT step run under ``torch.profiler`` and print
+    their device time by kernel family (conv, GEMM, softmax, group / layer
+    norm, optimizer, elementwise).
 
 The last two lines of output are the ``{"kernels": [...]}`` JSON object
 and the ``{"ok": true, "device": ...}`` JSON object.
@@ -8045,6 +8070,584 @@ def decoder_families_phase(card):
     return measured, b7, launches
 
 
+# ------------------------------------------------------------- phase 23
+#: phase 23's timed training steps a family, each on one fixed batch
+P23_STEPS = 5
+#: the relative RMSE of a bf16 forward against an fp32 forward of the same
+#: weights that phase 23 accepts for the UNet and the VAE: bf16 rounds each
+#: op's output to 2^-9, ~40 convolutions and norms deep; a wrong cast or
+#: layout gives O(1) (the tiny VAE at 512 x 512 reads 3.3e-2 on the CPU)
+P23_BF16_REL_RMSE = 0.1
+#: the share of positions where BERT-large's bf16 MLM argmax must equal
+#: its fp32 argmax
+P23_ARGMAX_AGREE = 0.95
+#: phase 23 (a)'s bar, card against CPU in fp32 (TF32 off)
+P23_FP32_TOL = 1e-4
+#: phase 23's device-time families, by kernel-name fragments, the first
+#: match winning (cuDNN's convolutions name "fprop" / "dgrad" / "wgrad"
+#: and may name "gemm" too)
+P23_FAMILIES = (
+    ("conv", ("conv", "fprop", "dgrad", "wgrad", "winograd")),
+    ("gemm", ("gemm", "nvjet", "cutlass", "cublas", "xmma")),
+    ("softmax", ("softmax",)),
+    ("group norm", ("groupnorm", "group_norm", "rowwisemoments",
+                    "computefusedparams")),
+    ("layer norm", ("layer_norm", "layernorm")),
+    ("optimizer", ("multi_tensor", "foreach")),
+)
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """fp32 products as fp32 on the card: TF32 off in cuBLAS and cuDNN
+    within, the previous settings back after."""
+    import torch
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def tree_to(tree, device, dtype=None):
+    """Every tensor of a dict / list / tuple tree on ``device`` (floats in
+    ``dtype`` when given)."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to(v, device, dtype) for v in tree)
+    return tree.to(device=device, dtype=dtype if dtype is not None and
+                   tree.is_floating_point() else None)
+
+
+def p23_batch(name, cfg, b, seed, device, dtype=None, size=None):
+    """A seeded batch of ``name``'s training keys, made on ``device``:
+    BERT ``[b, S]`` ids, all positions attended, 15% labelled; CLIP ``b``
+    text rows each with its eos at a random position and ``b`` images;
+    the VAE ``b`` images of ``size`` (default the config's
+    ``sample_size``); the UNet ``b`` latents of the config's size, their
+    noise, timesteps in [0, 1000) and a ``[b, 77, ctx]`` context.  Floats
+    in ``dtype`` (default float32)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    dtype = dtype or torch.float32
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=device).to(dtype)
+
+    def ints(hi, *shape):
+        return torch.randint(0, hi, shape, generator=g, device=device)
+
+    if name == "bert":
+        s = size or cfg.max_seq_len
+        ids = ints(cfg.vocab_size, b, s)
+        labelled = torch.rand((b, s), generator=g, device=device) < 0.15
+        return {"input_ids": ids,
+                "attention_mask": torch.ones_like(ids),
+                "labels": torch.where(labelled, ids, -100)}
+    if name == "clip":
+        eos = cfg.eos_token_id
+        ids = ints(eos if eos is not None else cfg.vocab_size - 1, b,
+                   cfg.text_seq_len)
+        ids[torch.arange(b, device=device),
+            ints(cfg.text_seq_len, b)] = eos if eos is not None else \
+            cfg.vocab_size - 1
+        return {"input_ids": ids,
+                "pixel_values": normal(b, 3, cfg.image_size,
+                                       cfg.image_size)}
+    if name == "vae":
+        s = size or cfg.sample_size
+        return {"pixel_values": 0.5 * normal(b, 3, s, s)}
+    lat = normal(b, cfg.in_channels, cfg.sample_size, cfg.sample_size)
+    return {"noisy_latents": lat, "noise": normal(*lat.shape),
+            "timesteps": ints(1000, b),
+            "encoder_hidden_states": normal(b, 77,
+                                            cfg.cross_attention_dim)}
+
+
+def infer_batch(name, batch):
+    """The inference batch of a training batch (``apply``'s keys)."""
+    if name == "unet":
+        return {"sample": batch["noisy_latents"],
+                "timesteps": batch["timesteps"],
+                "encoder_hidden_states": batch["encoder_hidden_states"]}
+    return {k: v for k, v in batch.items() if k != "labels"}
+
+
+def p23_tiny(name):
+    """Phase 23 (a)'s small config of ``name`` (CLIP with its eos id in
+    the tiny vocabulary) and the family's module."""
+    from deepspeed_tpu_torch.models import bert, clip, unet, vae
+
+    if name == "bert":
+        return bert, bert.BertConfig.tiny()
+    if name == "clip":
+        cfg = clip.CLIPConfig.tiny()
+        cfg.eos_token_id = cfg.vocab_size - 1
+        return clip, cfg
+    if name == "vae":
+        return vae, vae.VAEConfig.tiny()
+    return unet, unet.UNetConfig.tiny()
+
+
+def max_err(got, want) -> float:
+    if isinstance(got, (tuple, list)):
+        return max(max_err(g, w) for g, w in zip(got, want))
+    return float((got.float().cpu() - want.float()).abs().max())
+
+
+def p23_fp32_checks(card):
+    """Phase 23 (a): each family at a small width in fp32 (TF32 off), the
+    same seeded params and inputs on the card and on the CPU through the
+    port's plain PyTorch: ``forward`` and the loss within P23_FP32_TOL,
+    then one ``train_batch`` step of a card engine and a CPU engine from
+    the same weights, loss and grad norm within P23_FP32_TOL relative (the
+    VAE's latent drawn from the same micro-step key on both)."""
+    import torch
+
+    import deepspeed_tpu_torch as dt
+
+    conf = {"train_batch_size": 4, "seed": 3,
+            "optimizer": {"type": "Adam", "params": {"lr": 1e-3}}}
+    for i, name in enumerate(("bert", "clip", "vae", "unet")):
+        family, cfg = p23_tiny(name)
+        model = family.build(cfg)
+        params = family.init_params(cfg, torch.Generator().manual_seed(i))
+        batch = p23_batch(name, cfg, 4, 10 + i, "cpu",
+                          size=16 if name == "bert" else None)
+        with no_tf32(), torch.no_grad():
+            want = (model.apply_fn(params, infer_batch(name, batch)),
+                    model.loss_fn(params, batch, None, False))
+            dp, db = tree_to(params, "cuda"), tree_to(batch, "cuda")
+            got = (model.apply_fn(dp, infer_batch(name, db)),
+                   model.loss_fn(dp, db, None, False))
+        err = max_err(got, want)
+        if not err <= P23_FP32_TOL:
+            raise AssertionError(f"23 (a) {name}: fp32 forward / loss on "
+                                 f"the card {err:.3e} from the CPU's")
+        steps = []
+        for device in ("cpu", None):
+            with no_tf32():
+                engine, *_ = dt.initialize(model=model, config=conf,
+                                           model_parameters=params,
+                                           device=device)
+                _, m = engine.train_batch(batch)
+                steps.append((m["loss"], m["grad_norm"]))
+            del engine
+        (lc, gc_), (lg, gg) = steps
+        if not (abs(lg - lc) <= P23_FP32_TOL * abs(lc) and
+                abs(gg - gc_) <= P23_FP32_TOL * abs(gc_)):
+            raise AssertionError(f"23 (a) {name}: a train_batch step on the "
+                                 f"card (loss {lg}, grad norm {gg}) against "
+                                 f"the CPU's ({lc}, {gc_})")
+        log(f"[23a] {name} ({type(cfg).__name__} small) fp32 on "
+            f"{card.split(',')[0]}: forward + loss max |card - cpu| "
+            f"{err:.3e}; one train_batch step loss {lg:.6f} / cpu {lc:.6f},"
+            f" grad norm {gg:.6f} / cpu {gc_:.6f}")
+        free_card()
+
+
+def kernel_split(prof) -> dict:
+    """Device ms of a profiled window by P23_FAMILIES (the rest
+    "elementwise / other"), with the busy total and the top kernels."""
+    from torch.autograd import DeviceType
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    split = {}
+    for e in kernels:
+        key = e.key.lower().replace("::", "")
+        fam = next((f for f, frags in P23_FAMILIES
+                    if any(x in key for x in frags)), "elementwise / other")
+        split[fam] = split.get(fam, 0.0) + e.self_device_time_total / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return {"busy_ms": sum(split.values()), "split": split,
+            "top": [(e.key[:70], e.self_device_time_total / 1e3, e.count)
+                    for e in top]}
+
+
+def profile_step(tag, engine, batch, card):
+    """One ``train_batch`` under ``torch.profiler``: wall and busy ms and
+    the device time by kernel family (printed)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.train_batch(batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    k = kernel_split(prof)
+    if k["busy_ms"] <= 0.0:
+        raise AssertionError(f"23 {tag}: the profiler saw no device time")
+    log(f"[23 profile] {tag} one bf16 step on {card.split(',')[0]}: wall "
+        f"{wall_ms:.1f} ms, device busy {k['busy_ms']:.1f} ms ("
+        + ", ".join(f"{f} {ms:.1f} ({100 * ms / k['busy_ms']:.1f}%)"
+                    for f, ms in sorted(k["split"].items(),
+                                        key=lambda kv: -kv[1])) + ")")
+    for key, ms, n in k["top"]:
+        log(f"[23 profile]   {ms:8.2f} ms x{n:<5}: {key}")
+    return k
+
+
+def p23_train(tag, model, batch, micro, lr, card, profile=False):
+    """``P23_STEPS`` bf16 ``train_batch`` steps of ``model`` through
+    ``initialize`` on one fixed batch (Adam): the losses, finite and
+    falling (last < first), step ms (median past the first), samples/s,
+    peak GiB, and achieved TFLOP/s from one more step's count under
+    ``FlopCounterMode`` (products and convolutions, forward and
+    backward).  Returns the engine and the numbers."""
+    import statistics
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    import deepspeed_tpu_torch as dt
+
+    free_card()
+    t0 = time.perf_counter()
+    engine, *_ = dt.initialize(model=model, config={
+        "train_batch_size": micro, "bf16": {"enabled": True}, "seed": 5,
+        "optimizer": {"type": "Adam", "params": {"lr": lr}},
+        "gradient_clipping": 1.0, "steps_per_print": 100})
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for _ in range(P23_STEPS):
+        t0 = time.perf_counter()
+        _, m = engine.train_batch(batch)
+        losses.append(m["loss"])                     # waits for the step
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"23 {tag}: bf16 losses {losses} are not "
+                             "finite and falling")
+    with FlopCounterMode(display=False) as counter:
+        engine.train_batch(batch)
+    flops = counter.get_total_flops()
+    step = statistics.median(step_s[1:])
+    out = {"losses": losses, "step_ms": 1e3 * step,
+           "samples_s": micro / step, "peak_gib": peak,
+           "tflops": flops / step / 1e12, "flops": flops,
+           "init_s": init_s, "first_ms": 1e3 * step_s[0]}
+    log(f"[23 {tag}] bf16 train_batch x {P23_STEPS} on {card}: losses "
+        + " ".join(f"{x:.4f}" for x in losses)
+        + f"; step {out['step_ms']:.1f} ms (first {out['first_ms']:.1f}), "
+        f"{out['samples_s']:.1f} samples/s, peak {peak:.2f} GiB, "
+        f"{flops / 1e12:.3f} TFLOP a step (FlopCounterMode) = "
+        f"{out['tflops']:.1f} TFLOP/s ({100 * out['tflops'] * 1e12 / BF16_FLOPS_PER_S:.1f}% of "
+        f"989), engine built in {init_s:.1f} s")
+    if profile:
+        out["profile"] = profile_step(tag, engine, batch, card)
+    return engine, out
+
+
+def rel_rmse(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float(((got - want) ** 2).mean().sqrt() /
+                 (want ** 2).mean().sqrt())
+
+
+def bf16_against_fp32(tag, model, params, batch, card):
+    """``init_inference(model, dtype bf16).forward(batch)`` against the
+    fp32 engine's forward of the same weights on the same values (the
+    batch's floats upcast, TF32 off): the relative RMSE, and each
+    forward's ms.  Returns (bf16 output, fp32 output, rel RMSE)."""
+    import torch
+
+    import deepspeed_tpu_torch as dt
+
+    out, ms = {}, {}
+    for dtype in ("bf16", "fp32"):
+        engine = dt.init_inference(model, config={"dtype": dtype},
+                                   params=params)
+        b = batch if dtype == "bf16" else tree_to(batch, "cuda",
+                                                  torch.float32)
+        with no_tf32() if dtype == "fp32" else contextlib.nullcontext():
+            engine.forward(b)
+            (o, s) = wall(lambda: engine.forward(b))
+        out[dtype], ms[dtype] = o, 1e3 * s
+        del engine
+        free_card()
+    rel = rel_rmse(out["bf16"], out["fp32"])
+    log(f"[23 {tag}] init_inference(...).forward on {card.split(',')[0]}: "
+        f"bf16 {ms['bf16']:.1f} ms, fp32 {ms['fp32']:.1f} ms (TF32 off), "
+        f"output {tuple(out['bf16'].shape)} relative RMSE {rel:.3e}")
+    return out["bf16"], out["fp32"], rel
+
+
+def bert_hf_state_dict(p):
+    """A BERT parameter tree in HuggingFace ``BertForMaskedLM`` names
+    (Linear weights ``[out, in]``, q / k / v apart; the decoder tied to the
+    word embeddings), CPU float32."""
+    b = p["blocks"]
+    d = b["qkv_w"].shape[1]
+    sd = {"bert.embeddings.word_embeddings.weight": p["word_embeddings"],
+          "bert.embeddings.position_embeddings.weight":
+              p["position_embeddings"],
+          "bert.embeddings.token_type_embeddings.weight":
+              p["token_type_embeddings"],
+          "bert.embeddings.LayerNorm.weight": p["emb_ln_scale"],
+          "bert.embeddings.LayerNorm.bias": p["emb_ln_bias"],
+          "cls.predictions.transform.dense.weight": p["mlm_dense_w"].T,
+          "cls.predictions.transform.dense.bias": p["mlm_dense_b"],
+          "cls.predictions.transform.LayerNorm.weight": p["mlm_ln_scale"],
+          "cls.predictions.transform.LayerNorm.bias": p["mlm_ln_bias"],
+          "cls.predictions.bias": p["mlm_bias"],
+          "cls.predictions.decoder.weight": p["word_embeddings"]}
+    for i in range(b["qkv_w"].shape[0]):
+        pre = f"bert.encoder.layer.{i}."
+        for j, name in enumerate(("query", "key", "value")):
+            sd[pre + f"attention.self.{name}.weight"] = \
+                b["qkv_w"][i][:, j * d:(j + 1) * d].T
+            sd[pre + f"attention.self.{name}.bias"] = \
+                b["qkv_b"][i][j * d:(j + 1) * d]
+        for hf, ours in (("attention.output.dense", "attn_out"),
+                         ("intermediate.dense", "inter"),
+                         ("output.dense", "out")):
+            sd[pre + hf + ".weight"] = b[ours + "_w"][i].T
+            sd[pre + hf + ".bias"] = b[ours + "_b"][i]
+        for hf, ours in (("attention.output.LayerNorm", "attn_ln"),
+                         ("output.LayerNorm", "out_ln")):
+            sd[pre + hf + ".weight"] = b[ours + "_scale"][i]
+            sd[pre + hf + ".bias"] = b[ours + "_bias"][i]
+    return {k: v.float().cpu().contiguous() for k, v in sd.items()}
+
+
+def clip_hf_state_dict(p, cfg):
+    """A CLIP parameter tree in HuggingFace ``CLIPModel`` names (the patch
+    weight as the ``[D, 3, p, p]`` convolution), CPU float32."""
+    sd = {}
+    for tower, pre in (("text", "text_model.encoder."),
+                       ("vision", "vision_model.encoder.")):
+        b = p[tower]["blocks"]
+        d = b["qkv_w"].shape[1]
+        for i in range(b["qkv_w"].shape[0]):
+            lp = f"{pre}layers.{i}."
+            for j, name in enumerate("qkv"):
+                sd[lp + f"self_attn.{name}_proj.weight"] = \
+                    b["qkv_w"][i][:, j * d:(j + 1) * d].T
+                sd[lp + f"self_attn.{name}_proj.bias"] = \
+                    b["qkv_b"][i][j * d:(j + 1) * d]
+            for hf, w, bias in (("self_attn.out_proj", "o_w", "o_b"),
+                                ("mlp.fc1", "fc_w", "fc_b"),
+                                ("mlp.fc2", "proj_w", "proj_b")):
+                sd[lp + hf + ".weight"] = b[w][i].T
+                sd[lp + hf + ".bias"] = b[bias][i]
+            for n in (1, 2):
+                sd[lp + f"layer_norm{n}.weight"] = b[f"ln{n}_scale"][i]
+                sd[lp + f"layer_norm{n}.bias"] = b[f"ln{n}_bias"][i]
+    t, v = p["text"], p["vision"]
+    dv, ps = v["patch_w"].shape[1], cfg.patch_size
+    sd.update({
+        "text_model.embeddings.token_embedding.weight": t["tok_emb"],
+        "text_model.embeddings.position_embedding.weight": t["pos_emb"],
+        "text_model.final_layer_norm.weight": t["lnf_scale"],
+        "text_model.final_layer_norm.bias": t["lnf_bias"],
+        "vision_model.embeddings.patch_embedding.weight":
+            v["patch_w"].T.reshape(dv, 3, ps, ps),
+        "vision_model.embeddings.class_embedding": v["class_emb"],
+        "vision_model.embeddings.position_embedding.weight": v["pos_emb"],
+        "vision_model.pre_layrnorm.weight": v["pre_ln_scale"],
+        "vision_model.pre_layrnorm.bias": v["pre_ln_bias"],
+        "vision_model.post_layernorm.weight": v["post_ln_scale"],
+        "vision_model.post_layernorm.bias": v["post_ln_bias"],
+        "text_projection.weight": p["text_projection"].T,
+        "visual_projection.weight": p["visual_projection"].T,
+        "logit_scale": p["logit_scale"]})
+    return {k: x.float().cpu().contiguous() for k, x in sd.items()}
+
+
+def hf_config(name, cfg) -> dict:
+    """The ``config.json`` of ``cfg`` with HuggingFace's keys."""
+    if name == "bert":
+        return {"architectures": ["BertForMaskedLM"], "model_type": "bert",
+                "vocab_size": cfg.vocab_size,
+                "hidden_size": cfg.hidden_size,
+                "num_hidden_layers": cfg.num_layers,
+                "num_attention_heads": cfg.num_heads,
+                "intermediate_size": cfg.intermediate_size,
+                "max_position_embeddings": cfg.max_seq_len,
+                "type_vocab_size": cfg.type_vocab_size,
+                "layer_norm_eps": cfg.layer_norm_eps, "hidden_act": "gelu",
+                "position_embedding_type": "absolute"}
+    return {"architectures": ["CLIPModel"], "model_type": "clip",
+            "projection_dim": cfg.projection_dim,
+            "logit_scale_init_value": cfg.logit_scale_init,
+            "text_config": {"vocab_size": cfg.vocab_size,
+                            "hidden_size": cfg.text_width,
+                            "intermediate_size": cfg.text_ffn,
+                            "num_hidden_layers": cfg.text_layers,
+                            "num_attention_heads": cfg.text_heads,
+                            "max_position_embeddings": cfg.text_seq_len,
+                            "eos_token_id": cfg.eos_token_id},
+            "vision_config": {"hidden_size": cfg.vision_width,
+                              "intermediate_size": cfg.vision_ffn,
+                              "num_hidden_layers": cfg.vision_layers,
+                              "num_attention_heads": cfg.vision_heads,
+                              "image_size": cfg.image_size,
+                              "patch_size": cfg.patch_size}}
+
+
+def hf_directory_check(name, cfg, card, device=None):
+    """``name``'s weights (seeded, drawn on the device) written as a
+    HuggingFace directory by the port's own writer (``config.json`` +
+    ``model.safetensors``; no ``transformers`` on the card) and served by
+    ``init_inference(directory)``: the config translated back equals
+    ``cfg``, and its bf16 logits equal, bit for bit, those of the model
+    built directly with the same weights.  Returns the seconds."""
+    import tempfile
+
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import bert, clip
+    from deepspeed_tpu_torch.runtime.state_dict_factory import \
+        write_safetensors
+
+    family = bert if name == "bert" else clip
+    dev = torch.device(device or "cuda")
+    t0 = time.perf_counter()
+    params = tree_to(family.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(21)), "cpu")
+    sd = bert_hf_state_dict(params) if name == "bert" else \
+        clip_hf_state_dict(params, cfg)
+    batch = infer_batch(name, p23_batch(name, cfg, 4, 22, dev,
+                                        size=min(128, cfg.max_seq_len)
+                                        if name == "bert" else None))
+    conf = {"dtype": "bf16"}
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump(hf_config(name, cfg), f)
+        write_safetensors(sd, os.path.join(tmp, "model.safetensors"))
+        from_dir = dt.init_inference(tmp, config=conf, device=device)
+    if from_dir.module.model_config != cfg:
+        raise AssertionError(f"23 {name}: the directory's config.json reads "
+                             f"back as {from_dir.module.model_config}")
+    got = from_dir.forward(batch)
+    del from_dir
+    want = dt.init_inference(family.build(cfg), config=conf, params=params,
+                             device=device).forward(batch)
+    for g, w in (zip(got, want) if name == "clip" else [(got, want)]):
+        if not torch.equal(g, w):
+            raise AssertionError(
+                f"23 {name}: init_inference(HF directory) logits differ "
+                f"from the directly built model's by "
+                f"{float((g.float() - w.float()).abs().max()):.3e}")
+    secs = time.perf_counter() - t0
+    log(f"[23 {name}-hf] {type(cfg).__name__} written as config.json + "
+        f"model.safetensors ({sum(t.numel() for t in sd.values()) / 1e6:.1f}"
+        f"M float32) -> init_inference(directory) on {card.split(',')[0]}:"
+        f" bf16 logits {tuple((got[1] if name == 'clip' else got).shape)} "
+        f"equal to the directly built model's bit for bit, {secs:.1f} s")
+    return secs
+
+
+def encoder_diffusion_phase(card):
+    """Phase 23: (a) the four families in fp32 at small widths, card
+    against CPU; (b) SD UNet, (c) SD VAE, (d) BERT-large (then BERT-base's
+    HF directory), (e) CLIP ViT-B/32 (then its HF directory) trained in
+    bf16 through ``initialize`` -> ``train_batch`` at full width, with
+    their bf16 forwards against fp32; one UNet and one BERT step profiled.
+    No TPU kernel lies on this path: it launches none of the port's CUDA
+    kernels.  Returns the numbers by tag."""
+    import torch
+
+    from deepspeed_tpu_torch.models import bert, clip, unet, vae
+
+    t = [time.perf_counter()]
+    p23_fp32_checks(card)
+    t.append(time.perf_counter())
+    # the training runs and bf16 forwards take PyTorch's defaults (cuDNN
+    # may use TF32, cuBLAS does not); fp32 references turn TF32 off
+    torch.backends.cudnn.allow_tf32 = True
+    res = {}
+
+    cfg = unet.UNetConfig.sd_unet()
+    model = unet.build(cfg)
+    batch = p23_batch("unet", cfg, 2, 31, "cuda", torch.bfloat16)
+    engine, res["unet"] = p23_train("sd-unet", model, batch, 2, 5e-6, card,
+                                    profile=True)
+    params = engine.params
+    del engine
+    *_, res["unet"]["rel_rmse"] = bf16_against_fp32(
+        "sd-unet", model, params, infer_batch("unet", batch), card)
+    del params
+    if not res["unet"]["rel_rmse"] <= P23_BF16_REL_RMSE:
+        raise AssertionError(f"23 (b): UNet bf16 against fp32 relative RMSE "
+                             f"{res['unet']['rel_rmse']:.3e}")
+    t.append(time.perf_counter())
+
+    cfg = vae.VAEConfig.sd_vae()
+    model = vae.build(cfg)
+    batch = p23_batch("vae", cfg, 4, 32, "cuda", torch.bfloat16)
+    engine, res["vae"] = p23_train("sd-vae", model, batch, 4, 2e-5, card)
+    params = engine.params
+    del engine
+    big = p23_batch("vae", cfg, 1, 33, "cuda", torch.bfloat16, size=512)
+    *_, res["vae"]["rel_rmse"] = bf16_against_fp32("sd-vae 512", model,
+                                                   params, big, card)
+    del params
+    if not res["vae"]["rel_rmse"] <= P23_BF16_REL_RMSE:
+        raise AssertionError(f"23 (c): VAE bf16 against fp32 relative RMSE "
+                             f"{res['vae']['rel_rmse']:.3e}")
+    t.append(time.perf_counter())
+
+    cfg = bert.BertConfig.bert_large()
+    model = bert.build(cfg)
+    batch = p23_batch("bert", cfg, 8, 34, "cuda")
+    engine, res["bert"] = p23_train("bert-large", model, batch, 8, 1e-4,
+                                    card, profile=True)
+    params = engine.params
+    del engine
+    lb, lf, _ = bf16_against_fp32("bert-large", model, params,
+                                  infer_batch("bert", batch), card)
+    del params
+    agree = float((lb.argmax(-1) == lf.argmax(-1)).float().mean())
+    top2 = lf.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) <= \
+        2.0 ** -7 * top2[..., 0].abs()
+    res["bert"].update(argmax_agree=agree,
+                       near_tie_share=float(near.float().mean()),
+                       argmax_tokens=int(lf.argmax(-1).unique().numel()))
+    log(f"[23 bert-large] bf16 MLM argmax equal to fp32's at {agree:.4f} "
+        f"of {lb.shape[0] * lb.shape[1]} positions (>= {P23_ARGMAX_AGREE}); "
+        f"fp32 top-2 within one bf16 ulp of each other at "
+        f"{res['bert']['near_tie_share']:.4f} of them; "
+        f"{res['bert']['argmax_tokens']} distinct fp32 argmax tokens")
+    del lb, lf, top2, near
+    if not agree >= P23_ARGMAX_AGREE:
+        raise AssertionError(f"23 (d): BERT-large bf16 argmax agreement "
+                             f"{agree:.4f}")
+    res["bert"]["hf_s"] = hf_directory_check("bert",
+                                             bert.BertConfig.bert_base(),
+                                             card)
+    t.append(time.perf_counter())
+
+    cfg = clip.CLIPConfig.vit_b_32()
+    model = clip.build(cfg)
+    batch = p23_batch("clip", cfg, 32, 35, "cuda")
+    engine, res["clip"] = p23_train("clip-vit-b32", model, batch, 32, 2e-5,
+                                    card)
+    del engine
+    res["clip"]["hf_s"] = hf_directory_check("clip", cfg, card)
+    t.append(time.perf_counter())
+    free_card()
+    log("[23] phase 23 " + ", ".join(
+        f"({p}) {b - a:.1f} s" for p, a, b in zip("abcde", t, t[1:])))
+    return res
+
+
 def build_all():
     """Phase 1's builds: one nvcc per CUDA source and one g++ per host
     source, and one per planted fault of phases 14, 15 and 16
@@ -8128,6 +8731,7 @@ def main() -> int:
     fp16_measured, fp16_launches, fp16_llama_launches = fp16_phase(card,
                                                                    faults)
     p22_measured, p22_b7, p22_launches = decoder_families_phase(card)
+    encoder_diffusion_phase(card)
 
     # one line per kernel; a flash kernel replaces three TPU regimes (v1,
     # v2, v3: PERF.md) and names the v1 site, whose lse format it keeps

@@ -37,9 +37,12 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
 
     ``model``: a model from ``deepspeed_tpu_torch.models`` with a
     ``loss_fn`` (``gpt2.build``, ``llama.build``, ``mixtral.build`` or
-    ``opt.build``; on CUDA their attention runs the flash kernels at head
-    dim 64 and 128; Mixtral's top-2 MoE trains at ``capacity_factor``
-    with its router's aux loss).
+    ``opt.build``, on CUDA their attention on the flash kernels at head
+    dim 64 and 128, Mixtral's top-2 MoE at ``capacity_factor`` with its
+    router's aux loss; ``bert.build`` (masked LM), ``clip.build``
+    (contrastive), ``vae.build`` (the latent drawn from each micro-step's
+    key) and ``unet.build`` (denoising), whose batches are dicts of their
+    named leaves, floats kept in the dtype given).
     ``config``: a dict or JSON path with the JAX package's keys.
     ``model_parameters``: initial parameters as a nested dict of tensors or
     arrays (e.g. ``gpt2.params_from_jax``); without it the engine draws
@@ -88,16 +91,20 @@ def init_inference(model=None, config=None, params=None, device=None,
     """Inference engine entry (reference ``__init__.py:233``).
 
     ``model``: a model from ``deepspeed_tpu_torch.models`` (the
-    ``build`` of gpt2, llama, mixtral, opt, bloom, gptneox, gptj or
-    gptneo, or ``get_model`` by the JAX package's names, e.g.
-    ``"llama-3-8b"``, ``"bloom-7b1"``, ``"gpt-neox-20b"``); an in-memory
-    HuggingFace model, converted by its architecture's injection policy
-    (``module_inject.replace_module``); or the path of a HuggingFace
+    ``build`` of gpt2, llama, mixtral, opt, bloom, gptneox, gptj, gptneo,
+    bert, clip, vae or unet, or ``get_model`` by the JAX package's names,
+    e.g. ``"llama-3-8b"``, ``"bloom-7b1"``, ``"bert-large"``,
+    ``"sd-unet"``); an in-memory HuggingFace model, converted by its
+    architecture's injection policy (``module_inject.replace_module``;
+    BERT, DistilBERT and CLIP among them); or the path of a HuggingFace
     checkpoint directory (``config.json`` read with ``json``, the weights
     from ``.bin`` or ``.safetensors`` files: ``runtime.state_dict_factory.
     load_hf_weights``), whose converted weights are served unless
-    ``params`` is given.  The encoder and diffusion families (bert,
-    distilbert, clip, vae, unet) are not ported (ROADMAP Queue A item 7).
+    ``params`` is given.  The encoder and diffusion families have no
+    ``decode_hooks``: the engine's ``forward(batch)`` runs them on a dict
+    batch (``{"input_ids", "pixel_values"}`` for CLIP, ``{"sample",
+    "timesteps", "encoder_hidden_states"}`` for the UNet), and
+    ``generate`` / ``init_serving`` refuse them.
     ``config``: a dict or :class:`~deepspeed_tpu_torch.inference.config.
     DeepSpeedInferenceConfig` (or its keys as keyword arguments);
     ``moe.ep_size`` > 1 (expert parallelism) is refused (Queue A item 8).
@@ -120,7 +127,7 @@ def init_inference(model=None, config=None, params=None, device=None,
         raise ValueError("init_inference needs a model (models.<family>."
                          "build or models.get_model), a HuggingFace model "
                          "or a checkpoint directory")
-    if getattr(model, "decode_hooks", None) is None:
+    if not hasattr(model, "init_fn"):
         from .runtime.state_dict_factory import load_hf_weights
 
         model, converted = load_hf_weights(model)

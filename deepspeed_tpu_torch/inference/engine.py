@@ -3,7 +3,11 @@
 device.
 
 The engine casts the parameters to the config dtype, holds them on its
-device, and runs ``forward`` and ``generate``: a prefill over the prompt,
+device, and runs ``forward`` and ``generate``.  A model with an
+``apply_fn`` and no ``decode_hooks`` (BERT, CLIP, the VAE, the UNet) is
+served by ``forward(batch)`` alone: every leaf of its dict batch on the
+device, the whole batch to ``apply_fn`` (``engine.py:293``).  ``generate``
+decodes a model with ``decode_hooks``: a prefill over the prompt,
 then single-token steps over a static KV cache through the model's
 ``decode_hooks`` (the decode attention is the hand-written CUDA kernel of
 ``ops/decode_attention.py`` on a GPU).  With an ``eos_token_id`` the token
@@ -42,6 +46,7 @@ import torch
 from ..accelerator import resolve_device
 from ..ops import quantization as quant
 from ..ops import sampling as sampling_ops
+from ..runtime.engine import batch_to_device
 from ..utils.logging import log_dist
 from .config import DeepSpeedInferenceConfig
 
@@ -107,6 +112,8 @@ def _to_device(tree, device, dtype):
         return {k: torch.as_tensor(v).to(device) for k, v in tree.items()}
     if isinstance(tree, dict):
         return {k: _to_device(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device, dtype) for v in tree]
     t = torch.as_tensor(tree)
     return t.to(device=device, dtype=dtype if t.is_floating_point() else None)
 
@@ -133,7 +140,8 @@ def _quantize_blocks(model, params, qcfg, device):
     if bkey is None:
         raise NotImplementedError(
             f"quant: {model.name} is not quant-aware; whole-tree "
-            "quantization comes with the port's other model families")
+            "quantization of such a model is not ported yet (ROADMAP.md "
+            "Queue A item 7)")
     if _check_prequantized(params, qcfg):
         log_dist("quant: params arrived pre-quantized — skipping host-side "
                  "quantization", ranks=[0])
@@ -196,8 +204,9 @@ class InferenceEngine:
 
     def __init__(self, model, config: DeepSpeedInferenceConfig, params=None,
                  device=None):
-        if getattr(model, "decode_hooks", None) is None or \
-                not hasattr(model, "init_fn"):
+        if not hasattr(model, "init_fn") or (
+                getattr(model, "decode_hooks", None) is None and
+                getattr(model, "apply_fn", None) is None):
             raise TypeError("init_inference expects a deepspeed_tpu_torch "
                             "model (models.<family>.build or "
                             "models.get_model), a HuggingFace model or a "
@@ -337,28 +346,41 @@ class InferenceEngine:
     # ------------------------------------------------------------------ forward
     @torch.no_grad()
     def forward(self, batch):
-        """Logits for a batch (``{"input_ids": [B, S]}`` or the ids)."""
+        """The model's output for a batch: a decoder's logits for
+        ``{"input_ids": [B, S]}`` or the ids; a model with an ``apply_fn``
+        (bert, clip, vae, unet) gets the whole batch, every leaf on the
+        device (``engine.py:293``: ``apply_fn(params, batch)``)."""
         if self._streamed is not None:
             raise NotImplementedError(
                 "zero_inference serves via generate(); whole-batch logits "
                 "would stream every layer for one forward — run a resident "
                 "engine (or generate with max_new_tokens=1) instead")
-        ids = batch["input_ids"] if isinstance(batch, dict) else batch
-        ids = torch.as_tensor(np.asarray(ids), dtype=torch.int64,
-                              device=self.device)
+        apply_fn = getattr(self.module, "apply_fn", None)
+        if apply_fn is not None:
+            batch = batch_to_device(batch, self.device)
+
+            def run():
+                return apply_fn(self.params, batch)
+        else:
+            ids = batch["input_ids"] if isinstance(batch, dict) else batch
+            ids = torch.as_tensor(np.asarray(ids), dtype=torch.int64,
+                                  device=self.device)
+
+            def run():
+                return self.module(self.params, ids)
         if not self._profiling:
-            return self.module(self.params, ids)
+            return run()
         if self._cuda_events and self.device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = self.module(self.params, ids)
+            out = run()
             end.record()
             end.synchronize()
             dt = start.elapsed_time(end) / 1e3
         else:
             t0 = time.perf_counter()
-            out = self.module(self.params, ids)
+            out = run()
             dt = time.perf_counter() - t0
         self._model_times.append(dt)
         self._forward_hist.observe(dt)
@@ -403,10 +425,15 @@ class InferenceEngine:
         one key ``fold_in(PRNGKey(seed), position)`` a step for the whole
         ``[B, V]`` draw (``seed=None``: a fresh seed per call).  Returns
         int32 ``[B, prompt + max_new_tokens]`` with eos back-fill."""
+        hooks = getattr(self.module, "decode_hooks", None)
+        if hooks is None:
+            raise NotImplementedError(
+                f"generate decodes tokens over a KV cache; "
+                f"{self.module.name} has no decode_hooks (an encoder or "
+                "diffusion model): call forward(batch)")
         input_ids = np.asarray(input_ids)
         b, prompt_len = input_ids.shape
         total = prompt_len + max_new_tokens
-        hooks = self.module.decode_hooks
         max_ctx = hooks.get("max_seq_len")
         if max_ctx is not None and total > max_ctx:
             raise ValueError(

@@ -3,8 +3,8 @@ package's names (``deepspeed_tpu/models/__init__.py``)."""
 
 import dataclasses
 
-from . import (bloom, gpt2, gptj, gptneo, gptneox, llama, megatron_gpt,
-               mixtral, opt)
+from . import (bert, bloom, clip, gpt2, gptj, gptneo, gptneox, llama,
+               megatron_gpt, mixtral, opt, unet, vae)
 
 
 def _with(cfg, overrides):
@@ -23,6 +23,17 @@ _NAMED = {
     "mixtral": lambda kw: mixtral.build(**kw),
     "mixtral8x7b": lambda kw: mixtral.build(
         _with(mixtral.MixtralConfig.mixtral_8x7b(), kw)),
+    "bert": lambda kw: bert.build(**kw),
+    "bertbase": lambda kw: bert.build(_with(bert.BertConfig.bert_base(), kw)),
+    "bertlarge": lambda kw: bert.build(_with(bert.BertConfig.bert_large(),
+                                             kw)),
+    "vae": lambda kw: vae.build(**kw),
+    "sdvae": lambda kw: vae.build(_with(vae.VAEConfig.sd_vae(), kw)),
+    "unet": lambda kw: unet.build(**kw),
+    "sdunet": lambda kw: unet.build(_with(unet.UNetConfig.sd_unet(), kw)),
+    "clip": lambda kw: clip.build(**kw),
+    "clipvitb32": lambda kw: clip.build(_with(clip.CLIPConfig.vit_b_32(),
+                                              kw)),
     "bloom": lambda kw: bloom.build(**kw),
     "bloom560m": lambda kw: bloom.build(_with(bloom.BloomConfig.bloom_560m(),
                                               kw)),
@@ -59,21 +70,12 @@ _NAMED = {
     "opt66b": lambda kw: opt.build(_with(opt.OPTConfig.opt_66b(), kw)),
 }
 
-#: the JAX package's other names: families this port does not have yet
-_LATER = ("bert", "bertbase", "bertlarge", "vae", "sdvae", "unet", "sdunet",
-          "clip", "clipvitb32")
-
 
 def get_model(name: str, **kwargs):
     """A model by name (``models/__init__.py:64``): case, ``-``, ``_`` and
     ``.`` are ignored (``"llama-3-8b"`` is ``llama38b``); keyword arguments
     override the named config's fields."""
     key = name.lower().replace("-", "").replace("_", "").replace(".", "")
-    if key in _LATER:
-        raise NotImplementedError(
-            f"model {name!r}: this family is not ported yet — the encoder "
-            "and diffusion families (bert, clip, vae, unet) come with the "
-            "next slice of ROADMAP.md Queue A item 7")
     if key not in _NAMED:
         raise ValueError(
             f"unknown model {name!r}; known: {sorted(_NAMED)} "

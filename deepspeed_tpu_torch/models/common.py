@@ -1,8 +1,9 @@
-"""What the decoder families share and none of them owns: the random
+"""What the model families share and none of them owns: the random
 drawers, the batch split and cross entropy of ``loss_from_batch``, the
 HuggingFace state-dict readers, the contiguous KV workspace, einsum causal
-attention, the layer loop and the ``nn.Module`` of the contiguous-cache
-families (GPT-NeoX, GPT-J, GPT-Neo)."""
+attention, the layer loop, the ``nn.Module`` of the contiguous-cache
+families (GPT-NeoX, GPT-J, GPT-Neo) and that of the families served by
+``forward(batch)`` alone (BERT, CLIP, the VAE and the UNet)."""
 
 from __future__ import annotations
 
@@ -70,6 +71,13 @@ def ce_from_logits(logits, targets):
     picked = logits.gather(-1, safe[..., None])[..., 0].float()
     return torch.where(valid, lse - picked, 0.0).sum() / \
         valid.sum().clamp(min=1)
+
+
+def linear(x, w, b=None):
+    """``x @ w (+ b)`` with the weights cast to x's dtype (the JAX
+    families' ``x @ p["w"].astype(x.dtype)``)."""
+    y = x @ w.to(x.dtype)
+    return y if b is None else y + b.to(x.dtype)
 
 
 def hf_getter(sd: Dict[str, Any], prefixes, family: str):
@@ -198,3 +206,39 @@ class DecoderModel(nn.Module):
 
     def forward(self, params: Params, input_ids):
         return self._family.forward(self.model_config, params, input_ids)
+
+
+class FunctionalModel(nn.Module):
+    """The ``nn.Module`` face of the encoder and diffusion families (BERT,
+    CLIP, the VAE, the UNet): the config, the random initializer (drawn
+    on the generator's device), ``loss_fn`` and ``apply_fn(params,
+    batch)``, which the inference engine's ``forward`` calls on the whole
+    batch.  They decode nothing: no ``decode_hooks``, so ``generate`` and
+    ``init_serving`` refuse them.  ``family`` is the model's module (its
+    ``init_params``, ``loss_from_batch`` and ``apply``)."""
+
+    quant_aware = False
+    decode_hooks = None
+    init_on_device = True
+
+    def __init__(self, cfg, family, name: str,
+                 flops_per_token: Optional[float] = None):
+        super().__init__()
+        self.model_config = cfg
+        self._family = family
+        self.name = name
+        self.flops_per_token = flops_per_token
+
+    def init_fn(self, generator: torch.Generator,
+                dtype=torch.float32) -> Params:
+        return self._family.init_params(self.model_config, generator, dtype)
+
+    def loss_fn(self, params: Params, batch, rng=None, train: bool = True):
+        return self._family.loss_from_batch(self.model_config, params, batch,
+                                            rng, train)
+
+    def apply_fn(self, params: Params, batch):
+        return self._family.apply(self.model_config, params, batch)
+
+    def forward(self, params: Params, batch):
+        return self.apply_fn(params, batch)

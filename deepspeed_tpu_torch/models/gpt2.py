@@ -249,9 +249,12 @@ def params_from_jax(tree) -> Params:
     ``proj_w [L, 4D, D]``) — both packages compute ``x @ W``.  Arrays are
     copied into CPU tensors of their own dtype, so int8 records keep their
     int8 payloads and f32 scales; bfloat16 arrays (``ml_dtypes``) arrive
-    as ``torch.bfloat16``."""
+    as ``torch.bfloat16``.  Lists (the VAE's and UNet's blocks) stay
+    lists."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [params_from_jax(v) for v in tree]
     a = np.array(tree, copy=True)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)

@@ -15,10 +15,10 @@ dict with HF's attribute names (``architectures``, ``model_type``,
 carries every model-specific key), so nothing here imports
 ``transformers``.
 
-Policies exist for gpt2, opt, llama, mixtral, bloom, gpt_neox, gptj and
-gpt_neo; bert, distilbert and clip are registered and raise
-``NotImplementedError`` (their families come with the next slice of
-ROADMAP.md Queue A item 7).
+Policies exist for gpt2, opt, llama, mixtral, bloom, gpt_neox, gptj,
+gpt_neo, bert, distilbert (a BERT with a one-row zero token-type table)
+and clip.  A ``config.json``'s nested configs (CLIP's ``text_config`` /
+``vision_config``) are read as :class:`HFConfig` too.
 """
 
 from __future__ import annotations
@@ -55,12 +55,14 @@ MODEL_TYPES = {"gpt2": "GPT2LMHeadModel", "opt": "OPTForCausalLM",
 
 
 class HFConfig:
-    """Attribute access over a ``config.json`` dict with HF's names;
+    """Attribute access over a ``config.json`` dict with HF's names (a
+    nested ``*_config`` dict, CLIP's towers, wrapped alike);
     GPT-Neo's ``attention_layers``, when absent, is expanded from
     ``attention_types`` as ``transformers.GPTNeoConfig`` expands it."""
 
     def __init__(self, d: Dict[str, Any]):
-        d = dict(d)
+        d = {k: HFConfig(v) if k.endswith("_config") and isinstance(v, dict)
+             else v for k, v in d.items()}
         if d.get("model_type") == "gpt_neo" and "attention_layers" not in d:
             d["attention_layers"] = [kind for kinds, n in
                                      d["attention_types"]
@@ -241,15 +243,79 @@ def _family(name: str, config: str):
             lambda cfg: module().build(cfg))
 
 
-def _later(family: str):
-    """(translate, convert, build) of a family the port has not yet: each
-    raises, naming the slice that brings it."""
-    def refuse(*_):
+# ----------------------------------------------------------- DistilBERT
+def _distilbert_translate(hf):
+    """DistilBERT is a post-LN BERT without token-type embeddings or
+    pooler (``replace_policy.py:300``): the BERT encoder with a one-row
+    zero token-type table."""
+    from ..models.bert import BertConfig
+    act = getattr(hf, "activation", "gelu")
+    if act not in ("gelu", "gelu_new"):
+        raise NotImplementedError(f"distilbert: activation={act!r}")
+    return BertConfig(vocab_size=hf.vocab_size,
+                      max_seq_len=hf.max_position_embeddings,
+                      type_vocab_size=1, num_layers=hf.n_layers,
+                      num_heads=hf.n_heads, hidden_size=hf.dim,
+                      intermediate_size=hf.hidden_dim, layer_norm_eps=1e-12)
+
+
+def _distilbert_convert(cfg, sd) -> Params:
+    get = hf_getter(sd, ("distilbert.", ""), "DistilBERT")
+    l = cfg.num_layers  # noqa: E741
+    layer = "transformer.layer.{i}."
+
+    def stack(fmt, transpose=False):
+        rows = [get(fmt.format(i=i)) for i in range(l)]
+        return _t(np.stack([r.T if transpose else r for r in rows]))
+
+    def qkv(kind, transpose):
+        rows = []
+        for i in range(l):
+            parts = [get(f"transformer.layer.{i}.attention.{p}_lin.{kind}")
+                     for p in ("q", "k", "v")]
+            rows.append(np.concatenate([w.T for w in parts], axis=1)
+                        if transpose else np.concatenate(parts))
+        return _t(np.stack(rows))
+
+    # the head decodes through the (tied) word embeddings: a projector that
+    # is not tied is refused (a tied one may be absent from the dict)
+    try:
+        proj = get("vocab_projector.weight")
+    except KeyError:
+        proj = None
+    if proj is not None and not np.allclose(
+            proj, get("embeddings.word_embeddings.weight")):
         raise NotImplementedError(
-            f"module_inject: the {family} policy is not ported yet — the "
-            "encoder and diffusion families come with the next slice of "
-            "ROADMAP.md Queue A item 7")
-    return refuse, refuse, refuse
+            "distilbert: untied vocab_projector is unsupported "
+            "(tie_word_embeddings=False)")
+    return {
+        "word_embeddings": _t(get("embeddings.word_embeddings.weight")),
+        "position_embeddings": _t(
+            get("embeddings.position_embeddings.weight")),
+        "token_type_embeddings": _t(np.zeros((1, cfg.hidden_size),
+                                             np.float32)),
+        "emb_ln_scale": _t(get("embeddings.LayerNorm.weight")),
+        "emb_ln_bias": _t(get("embeddings.LayerNorm.bias")),
+        "blocks": {
+            "qkv_w": qkv("weight", True),
+            "qkv_b": qkv("bias", False),
+            "attn_out_w": stack(layer + "attention.out_lin.weight", True),
+            "attn_out_b": stack(layer + "attention.out_lin.bias"),
+            "attn_ln_scale": stack(layer + "sa_layer_norm.weight"),
+            "attn_ln_bias": stack(layer + "sa_layer_norm.bias"),
+            "inter_w": stack(layer + "ffn.lin1.weight", True),
+            "inter_b": stack(layer + "ffn.lin1.bias"),
+            "out_w": stack(layer + "ffn.lin2.weight", True),
+            "out_b": stack(layer + "ffn.lin2.bias"),
+            "out_ln_scale": stack(layer + "output_layer_norm.weight"),
+            "out_ln_bias": stack(layer + "output_layer_norm.bias"),
+        },
+        "mlm_dense_w": _t(get("vocab_transform.weight").T),
+        "mlm_dense_b": _t(get("vocab_transform.bias")),
+        "mlm_ln_scale": _t(get("vocab_layer_norm.weight")),
+        "mlm_ln_bias": _t(get("vocab_layer_norm.bias")),
+        "mlm_bias": _t(get("vocab_projector.bias")),
+    }
 
 
 _POLICIES: Dict[str, HFPolicy] = {}
@@ -259,8 +325,9 @@ def _register(arch, translate, convert, build):
     _POLICIES[arch.lower()] = HFPolicy(arch, translate, convert, build)
 
 
-_register("BertForMaskedLM", *_later("bert"))
-_register("DistilBertForMaskedLM", *_later("distilbert"))
+_register("BertForMaskedLM", *_family("bert", "BertConfig"))
+_register("DistilBertForMaskedLM", _distilbert_translate, _distilbert_convert,
+          _family("bert", "BertConfig")[2])
 _register("GPT2LMHeadModel", _gpt2_translate, _gpt2_convert, _gpt2_build)
 _register("OPTForCausalLM", _opt_translate, _opt_convert, _opt_build)
 _register("LlamaForCausalLM", _llama_translate, _llama_convert, _llama_build)
@@ -270,7 +337,7 @@ _register("BloomForCausalLM", *_family("bloom", "BloomConfig"))
 _register("GPTNeoXForCausalLM", *_family("gptneox", "GPTNeoXConfig"))
 _register("GPTJForCausalLM", *_family("gptj", "GPTJConfig"))
 _register("GPTNeoForCausalLM", *_family("gptneo", "GPTNeoConfig"))
-_register("CLIPModel", *_later("clip"))
+_register("CLIPModel", *_family("clip", "CLIPConfig"))
 
 
 def generic_policies():

@@ -31,7 +31,8 @@ keys, the random bits, :func:`uniform`, :func:`gumbel` and
    1, scales to ``[minval, maxval)`` and clamps at ``minval``;
  - ``gumbel`` (mode ``"low"``, the default) is ``-log(-log(u))`` with
    ``u`` uniform on ``[tiny, 1)``; ``categorical`` is ``argmax(logits +
-   gumbel)``.
+   gumbel)``; ``normal`` is ``sqrt(2) * erf_inv(u)`` with ``u`` uniform on
+   ``[nextafter(-1, 0), 1)`` and XLA's float32 ``erf_inv`` polynomial.
 
 Identical logits therefore give identical draws, up to the last ulp of
 ``log`` (PyTorch's and XLA's may differ there: a draw moves only where
@@ -197,6 +198,44 @@ def gumbel(keys: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
     """``jax.random.gumbel`` (float32, mode ``"low"``) per key:
     ``-log(-log(u))`` for ``u`` uniform on ``[tiny, 1)``."""
     return -torch.log(-torch.log(uniform(keys, shape, _TINY, 1.0)))
+
+
+#: XLA's float32 ``erf_inv`` (M. Giles' polynomial in ``w = -log1p(-x²)``):
+#: the coefficients for ``w < 5`` and for ``w >= 5``, highest degree first
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf_inv``: Giles' polynomial, each Horner step a
+    fused multiply-add (emulated in float64 and rounded once, as
+    :func:`uniform` does), ``±1`` mapped to ``±max``.  ``torch.erfinv`` is
+    another approximation: 1.7e-5 apart in the tails."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()
+    coef = [torch.where(lt, float(np.float32(a)), float(np.float32(b)))
+            .double() for a, b in zip(_ERFINV_LT5, _ERFINV_GE5)]
+    p = coef[0].float()
+    for c in coef[1:]:
+        p = (c + p.double() * w).float()
+    return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max,
+                       p * x)
+
+
+def normal(keys: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
+    """``jax.random.normal`` in float32 per key (``random.py::
+    _normal_real``): ``sqrt(2) * erf_inv(u)`` for ``u`` uniform on
+    ``[nextafter(-1, 0), 1)`` drawn from the same bits as :func:`uniform`
+    (those bit for bit); within an ulp of JAX's where XLA's ``log1p``
+    rounds otherwise than torch's."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(keys, shape, lo, 1.0)
+    return np.float32(np.sqrt(2.0)).item() * _erf_inv(u)
 
 
 def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:

@@ -8,15 +8,18 @@ Layout, the JAX package's::
       latest                          # the newest tag
       <tag>/                          # default tag: global_step{N}
         ds_meta.json                  # counters, lr schedule, client_state
-        state/model_states.pt         # torch.save: the float32 params, the
-                                      # resident optimizer's state and the
+        state/model_states.pt         # torch.save: the float32 params and
+                                      # the resident optimizer's buffers,
+                                      # each a dict by leaf name, and the
                                       # fp16 loss scaler
         offload_optimizer.p0.npz      # np.savez of the host optimizer's
                                       # state_dict (offload)
         offload_blocks.npz            # the same for the streamed blocks
 
 ``state/`` holds the port's own file where the JAX package writes an orbax
-tree (orbax is not installed with the port).  Under offload the float32
+tree (orbax is not installed with the port); its leaves carry orbax's
+names, the path joined by ``.`` with list indices as numbers
+(:func:`leaf_name`: ``down.0.resnets.1.conv1.w``).  Under offload the float32
 masters are the host optimizer's, saved once in its ``.npz``, and
 ``model_states.pt`` holds no params.  The loss scaler is saved under
 ``"scaler"`` with JAX's ``LossScaleState`` field names (``cur_scale``,
@@ -41,6 +44,13 @@ from .fp16.loss_scaler import FIELDS as SCALER_FIELDS
 
 #: the one process's index in the JAX file names
 _PROCESS = 0
+
+
+def leaf_name(path) -> str:
+    """A leaf's name in a checkpoint: its path joined by ``.``, list
+    indices as numbers (orbax's parameter names in the JAX engine's
+    ``state/``, ``params.`` prefix dropped: ``down.0.resnets.1.conv1.w``)."""
+    return ".".join(str(k) for k in path)
 
 
 class CheckpointManager:
@@ -80,10 +90,15 @@ class CheckpointManager:
                          **engine._block_opt.state_dict())
         else:
             opt = engine._opt_state
+            names = [leaf_name(p) for p in engine._paths]
+
+            def named(tensors):
+                return {n: t.detach().cpu() for n, t in zip(names, tensors)}
+
             state = {"step": engine.global_steps,
-                     "params": [t.detach().cpu() for t in engine._leaves],
+                     "params": named(engine._leaves),
                      "opt_state": {"count": opt.count, **{
-                         name: [t.cpu() for t in getattr(opt, name)]
+                         name: named(getattr(opt, name))
                          for name in state_buffers(opt)}},
                      "scaler": scaler}
         torch.save(state, os.path.join(ckpt_dir, "state", "model_states.pt"))
@@ -152,16 +167,22 @@ class CheckpointManager:
                     engine._block_opt.master[:] = sd["master"]
                 engine._param_store.refresh_compute()
         else:
+            names = [leaf_name(p) for p in engine._paths]
+            if set(state["params"]) != set(names):
+                raise ValueError(
+                    f"checkpoint {ckpt_dir} holds other leaves than this "
+                    f"model: missing {sorted(set(names) - set(state['params']))[:4]}"
+                    f", unexpected {sorted(set(state['params']) - set(names))[:4]}")
             with torch.no_grad():
-                for leaf, saved in zip(engine._leaves, state["params"]):
-                    leaf.copy_(saved)
+                for leaf, name in zip(engine._leaves, names):
+                    leaf.copy_(state["params"][name])
             if full:
                 opt = engine._opt_state
                 opt.count = int(state["opt_state"]["count"])
-                for name in state_buffers(opt):
-                    for dst, src in zip(getattr(opt, name),
-                                        state["opt_state"][name]):
-                        dst.copy_(src)
+                for buf in state_buffers(opt):
+                    saved = state["opt_state"][buf]
+                    for dst, name in zip(getattr(opt, buf), names):
+                        dst.copy_(saved[name])
         if full and state.get("scaler") is not None:
             with torch.no_grad():
                 for name in SCALER_FIELDS:

@@ -95,21 +95,39 @@ _DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
 
 
 def _flatten(tree, prefix=()) -> List[Tuple[tuple, Any]]:
-    """(path, leaf) pairs of a nested dict, in insertion order."""
+    """(path, leaf) pairs of a tree of dicts and lists, in insertion
+    order: a dict's entries keyed by their names, a list's by their int
+    indices (the JAX pytree's ``DictKey`` / ``SequenceKey``; the VAE and
+    UNet keep their blocks in lists)."""
     if isinstance(tree, dict):
         return [item for k, v in tree.items()
                 for item in _flatten(v, prefix + (k,))]
+    if isinstance(tree, list):
+        return [item for i, v in enumerate(tree)
+                for item in _flatten(v, prefix + (i,))]
     return [(prefix, tree)]
 
 
+def _lists(node):
+    """Nodes keyed by ints ``0..n-1`` back into lists."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _lists(v) for k, v in node.items()}
+    if node and all(isinstance(k, int) for k in node):
+        return [node[i] for i in range(len(node))]
+    return node
+
+
 def _unflatten(paths, leaves) -> Dict[str, Any]:
-    out: Dict[str, Any] = {}
+    """The tree of :func:`_flatten`'s paths: int path entries make
+    lists."""
+    out: Dict[Any, Any] = {}
     for path, leaf in zip(paths, leaves):
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = leaf
-    return out
+    return _lists(out)
 
 
 def _map(fn, batch):
@@ -119,6 +137,24 @@ def _map(fn, batch):
     if isinstance(batch, (tuple, list)):
         return type(batch)(_map(fn, v) for v in batch)
     return fn(batch)
+
+
+def batch_to_device(batch, device):
+    """Every leaf of a dict / tuple / list batch on ``device``: integers as
+    int64, floats in the caller's dtype (a float64 array as float32, as
+    ``jnp.asarray`` makes it with x64 off).  The JAX engines cast no batch
+    (``engine.py:1181``, ``inference/engine.py:347``), and the
+    convolutional families compute in their input's dtype."""
+    def move(x):
+        t = x if isinstance(x, torch.Tensor) else \
+            torch.as_tensor(np.asarray(x))
+        if not t.is_floating_point():
+            t = t.to(torch.int64)
+        elif t.dtype == torch.float64:
+            t = t.to(torch.float32)
+        return t.to(device)
+
+    return _map(move, batch)
 
 
 def _first_leaf(batch):
@@ -155,9 +191,8 @@ class DeepSpeedEngine:
                  device=None):
         if model is None or not hasattr(model, "loss_fn"):
             raise TypeError("initialize needs a deepspeed_tpu_torch model "
-                            "with a loss_fn (models.gpt2.build, "
-                            "models.llama.build, models.mixtral.build or "
-                            "models.opt.build)")
+                            "with a loss_fn (models.<family>.build or "
+                            "models.get_model)")
         if mpu is not None:
             raise NotImplementedError(
                 "mpu: model parallelism comes with the PyTorch port's "
@@ -624,14 +659,7 @@ class DeepSpeedEngine:
 
     # ---------------------------------------------------------------- batching
     def _to_device(self, batch):
-        def move(x):
-            t = x if isinstance(x, torch.Tensor) else \
-                torch.as_tensor(np.asarray(x))
-            if not t.is_floating_point():
-                t = t.to(torch.int64)
-            return t.to(self.device)
-
-        return _map(move, batch)
+        return batch_to_device(batch, self.device)
 
     def _micro_batches(self, batch) -> List[Any]:
         """A global batch as ``gas`` micro-batches: leaves with leading dim

@@ -7,7 +7,9 @@ item (no keyword falls through ``**kwargs`` into the inference config).
 The keywords the port implements still build servers that decode what
 ``generate`` decodes (``GPT2Config.tiny()``, fp32, ``device="cpu"``)."""
 
+import dataclasses
 import inspect
+import json
 
 import numpy as np
 import pytest
@@ -266,27 +268,57 @@ def test_get_model_keeps_the_jax_names(name, layers):
 
 @pytest.mark.parametrize("name", ["bert-base", "clip-vit-b32", "sd-vae"])
 def test_get_model_refuses_families_it_does_not_port(name):
-    """Only the encoder and diffusion families stay refused (the decoder
-    families of Queue A item 7 are ported)."""
+    """The encoder and diffusion families, the last the JAX zoo had and
+    the port refused, now build by the JAX names, each with the JAX
+    package's named config (every family of Queue A item 7 is ported)."""
+    from deepspeed_tpu.models import get_model as jget_model
     from deepspeed_tpu_torch import models
 
-    with pytest.raises(NotImplementedError, match=r"Queue A item 7"):
-        models.get_model(name)
+    got = models.get_model(name)
+    assert dataclasses.asdict(got.model_config) == \
+        dataclasses.asdict(jget_model(name).model_config)
+    assert got.name == jget_model(name).name
+    assert models.get_model(name, **_smaller(name)).model_config != \
+        got.model_config
+
+
+def _smaller(name):
+    """One field override of each named config."""
+    return {"bert-base": {"num_layers": 2}, "clip-vit-b32":
+            {"text_layers": 2}, "sd-vae": {"base_channels": 32}}[name]
 
 
 def test_init_inference_refuses_models_it_does_not_port(tmp_path):
-    """A model that is neither the port's nor a HuggingFace one, a path
-    without ``config.json``, and an HF architecture whose family is not
-    ported (BERT) are refused."""
+    """A model that is neither the port's nor a HuggingFace one and a path
+    without ``config.json`` are refused; an HF BERT directory
+    (``"model_type": "bert"``, a ``.safetensors`` the port writes in HF
+    names, as ``chip_smoke.py`` phase 23 writes BERT-base), refused while
+    its family was not ported, now loads and runs ``forward``."""
+    import chip_smoke
+    from deepspeed_tpu_torch.models import bert
+    from deepspeed_tpu_torch.runtime.state_dict_factory import \
+        write_safetensors
+
     with pytest.raises(ValueError, match="not a HuggingFace model"):
         deepspeed_tpu_torch.init_inference(torch.nn.Linear(4, 4),
                                            device="cpu")
     with pytest.raises(FileNotFoundError, match="config.json"):
         deepspeed_tpu_torch.init_inference(str(tmp_path / "gpt2"),
                                            device="cpu")
-    (tmp_path / "config.json").write_text('{"model_type": "bert"}')
-    with pytest.raises(NotImplementedError, match=r"Queue A item 7"):
-        deepspeed_tpu_torch.init_inference(str(tmp_path), device="cpu")
+    cfg = bert.BertConfig.tiny(vocab_size=64, max_seq_len=16)
+    params = bert.init_params(cfg, torch.Generator().manual_seed(0))
+    conf = chip_smoke.hf_config("bert", cfg)
+    del conf["architectures"]       # model_type alone names the policy
+    (tmp_path / "config.json").write_text(json.dumps(conf))
+    write_safetensors(chip_smoke.bert_hf_state_dict(params),
+                      str(tmp_path / "model.safetensors"))
+    engine = deepspeed_tpu_torch.init_inference(
+        str(tmp_path), config={"dtype": "fp32"}, device="cpu")
+    assert engine.module.model_config == cfg
+    ids = np.arange(24).reshape(2, 12) % 64
+    want = bert.forward(cfg, params, torch.as_tensor(ids))
+    np.testing.assert_allclose(engine.forward({"input_ids": ids}).numpy(),
+                               want.detach().numpy(), rtol=1e-6, atol=1e-6)
 
 
 @pytest.fixture(scope="module")

@@ -18,7 +18,8 @@ reader and writer, Megatron merges) and ``checkpoint.ds_native``
    to the JAX merge;
  - torch-DeepSpeed ZeRO-2, ZeRO-3, tp 2 and pp 2 x tp 2 directories equal
    to the JAX loader's;
- - the bert, distilbert and clip policies raise, naming Queue A item 7.
+ - the bert, distilbert and clip policies convert a tiny HF state dict
+   given with its ``config.json`` dict into the JAX policy's tree.
 """
 
 import json
@@ -142,12 +143,50 @@ def test_replace_module_matches_jax_and_hf(arch):
     _assert_trees_equal(dict(_leaves(again)), dict(_leaves(params)))
 
 
+#: the encoder architectures: (transformers config class, model class,
+#: kwargs)
+ENCODERS = {
+    "bert": ("BertConfig", "BertForMaskedLM",
+             dict(vocab_size=96, hidden_size=32, num_hidden_layers=2,
+                  num_attention_heads=4, intermediate_size=64,
+                  max_position_embeddings=32)),
+    "distilbert": ("DistilBertConfig", "DistilBertForMaskedLM",
+                   dict(vocab_size=96, dim=32, n_layers=2, n_heads=4,
+                        hidden_dim=64, max_position_embeddings=32)),
+    "clip": ("CLIPConfig", "CLIPModel",
+             dict(text_config=dict(vocab_size=96, hidden_size=32,
+                                   intermediate_size=64, num_hidden_layers=2,
+                                   num_attention_heads=4,
+                                   max_position_embeddings=16),
+                  vision_config=dict(hidden_size=48, intermediate_size=96,
+                                     num_hidden_layers=2,
+                                     num_attention_heads=4, image_size=32,
+                                     patch_size=16),
+                  projection_dim=24)),
+}
+
+
 @pytest.mark.parametrize("arch", ["bert", "distilbert", "clip"])
 def test_later_policies_raise_naming_item_7(arch):
-    pol = tpol.policy_for({"model_type": arch})
+    """The bert, distilbert and clip policies, which raised while their
+    families were not ported, convert a tiny HF state dict given with its
+    ``config.json`` dict (``model_type`` alone names the policy) into the
+    JAX policy's tree, leaf for leaf; the port registers as many policies
+    as the JAX package."""
+    cfg_cls, model_cls, kw = ENCODERS[arch]
+    torch.manual_seed(1)
+    hf = getattr(transformers, model_cls)(getattr(transformers, cfg_cls)(
+        **kw)).eval()
+    cfg = json.loads(hf.config.to_json_string())
+    cfg.pop("architectures", None)
+    pol = tpol.policy_for(cfg)
     assert pol is not None and pol in tpol.generic_policies()
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        tpol.replace_module(config={"model_type": arch}, state_dict={})
+    model, params = tpol.replace_module(config=cfg,
+                                        state_dict=hf.state_dict())
+    _, jparams = deepspeed_tpu.module_inject.replace_module(hf_model=hf)
+    _assert_trees_equal(dict(_leaves(params)),
+                        dict(_leaves(jax.device_get(jparams))))
+    assert model.decode_hooks is None and model.apply_fn is not None
     assert len(tpol.generic_policies()) == len(
         deepspeed_tpu.module_inject.generic_policies())
 

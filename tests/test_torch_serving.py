@@ -225,7 +225,8 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         "import deepspeed_tpu_torch.models.gptneo\n"
         "from deepspeed_tpu_torch.models import get_model\n"
         "get_model('llama-3-8b')\n"
-        "for name in ('bloom-7b1', 'gpt-neox-20b', 'gpt-j-6b', 'gpt-neo-2.7b'):\n"
+        "for name in ('bloom-7b1', 'gpt-neox-20b', 'gpt-j-6b', 'gpt-neo-2.7b',\n"
+        "             'bert-large', 'clip-vit-b32', 'sd-vae', 'sd-unet'):\n"
         "    get_model(name)\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
